@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the hand-written
 kernels, holds each against its plain PyTorch version on the card, then
-drives the port's main path — continuous-batching serving of
-internvl3-2b at full width — and checks what comes out.
+drives the port's main paths — continuous-batching serving and DHP
+training of internvl3-2b at full width — and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -28,6 +28,39 @@ Phases:
                 prefill is read back from the runtime's spans
   6. path     — kernel vs plain version at each shape the serving run
                 launched, with times; these feed the kernels line
+  7. packed   — the packed kernel K1, forward and backward, vs its plain
+                versions (the plain forward and its autograd gradient):
+                bf16 and fp32, with and without span tables, causal,
+                full and sliding, a ring hop (kv tables + kv_offset), at
+                internvl3-2b's heads and S in {1024, 4096}, with times.
+                o within tol * max(1, |plain|) as above; dq/dk/dv within
+                grad tol * max(1, |plain|) (bf16 4e-2: P and dS are
+                rounded to bf16 before their products and delta is
+                formed from the bf16 output; fp32 1e-4). In bf16 each of
+                o, dq, dk, dv is also held as a whole: its largest error
+                within 2e-2 of its largest plain value (most gradient
+                elements are far below 1, so the elementwise limit alone
+                is about as large as a typical gradient)
+  8. train parity — reduced internvl3-2b, fp32: two DHP training steps
+                with the kernels (attn_impl="cuda") vs the same steps
+                through the plain full-matrix attention: losses, the
+                first batch's gradient and the gradient at the
+                parameters the two steps reach within 1e-4 (the
+                parameters are printed: AdamW normalises each gradient
+                element, so one as small as the paths' difference can
+                turn its step around)
+  9. training — full-width internvl3-2b, bf16, through
+                Engine(..., ClusterSpec.auto(mem_budget=4096)).train(
+                steps=3, dataset="openvid", global_batch=8,
+                max_tokens=4096, tokens_per_frame=256, trace=True): per
+                step loss, time, tokens/s, padding efficiency, degrees;
+                peak memory; K1 launches == layers x groups each way; the
+                (bucket, spans) of every group read back from the
+                executor's spans; one more step under torch.profiler for
+                the device busy share and the device time by kernel
+ 10. train path — K1 forward and backward vs plain at each (bucket,
+                spans) shape the training run launched, on that run's own
+                tables, with times and bounds; these feed the kernels line
 """
 import json
 import math
@@ -302,6 +335,376 @@ def phase_serving(dev, card):
     return launches, shapes, eng.cfg.n_layers
 
 
+# ------------------------------------------------------------ kernel K1
+GRAD_TOL = {torch.bfloat16: 4e-2, torch.float32: 1e-4}
+#: bf16 K1 outputs and gradients, as whole tensors: max|err| / max|plain|.
+#: Sound kernels read up to 0.0067 on an H100 (S 1024 and 4096, every
+#: mode, with and without spans); a planted fault that drops one 64-key
+#: tile from dQ, one 32-query tile from dK or from the whole backward,
+#: shifts the span-free query start by a tile, or drops one key tile
+#: from the forward, reads 0.10 or more on the tensor it touches
+REL_TOL_BF16 = 2e-2
+
+
+def _scaled_err(out, ref):
+    """(max|err|, max of |err| / max(1, |ref|), max|err| / max|ref|)."""
+    ref = ref.float()
+    diff = (out.float() - ref).abs()
+    top = diff.max().item()
+    return (top, (diff / ref.abs().clamp_min(1.0)).max().item(),
+            top / max(ref.abs().max().item(), 1e-30))
+
+
+def packed_layout(S, lens, frame=None, text=32):
+    """Segment table of `lens` then tail padding (-1); with `frame`, span
+    ids of `frame`-token bidirectional blocks after every `text` causal
+    tokens (ids unique per buffer)."""
+    seg = np.full(S, -1, np.int32)
+    span = np.full(S, -1, np.int32)
+    off, sid = 0, 0
+    for i, L in enumerate(lens):
+        seg[off:off + L] = i
+        p = text
+        while frame and p < L:
+            f = min(frame, L - p)
+            span[off + p:off + p + f] = sid
+            sid += 1
+            p += f + text
+        off += L
+    return seg, (span if frame else None)
+
+
+def packed_bound(B, Sq, Sk, H, Hkv, D, dtype, pairs, backward, n_tables):
+    """Least time for the same work: q, k, v, o (+ dO, and dq, dk, dv
+    written), the fp32 LSE and the int32 tables (`n_tables` per side:
+    segments, and spans when given) cross HBM once, against 4*D
+    (forward) or 10*D (backward) flops per valid (query, key) pair per
+    head."""
+    elt = torch.finfo(dtype).bits // 8
+    qo = B * Sq * H * D
+    kv = B * Sk * Hkv * D
+    nbytes = elt * (2 * qo + 2 * kv) + 4 * B * H * Sq \
+        + 4 * n_tables * B * (Sq + Sk)
+    if backward:
+        nbytes += elt * (2 * qo + 2 * kv)          # dO read; dq, dk, dv
+    flops = (10.0 if backward else 4.0) * D * pairs * H
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
+                 window=None, off=0, kseg=None, kspan=None, Sk=None,
+                 tag=""):
+    """K1 forward and backward vs plain on one random input with the
+    given tables at internvl3-2b's heads; times kernel, plain and SDPA
+    (boolean mask from the tables, built outside the timing)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention_packed import (
+        _tables, flash_attention_packed, flash_attention_packed_bwd,
+        flash_attention_packed_bwd_ref, flash_attention_packed_ref,
+        pair_mask)
+    Sk = Sk or S
+    q = torch.randn(1, S, H, D, generator=gen, device=dev).to(dtype)
+    do = torch.randn(1, S, H, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(1, Sk, HKV, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(1, Sk, HKV, D, generator=gen, device=dev).to(dtype)
+    t = lambda a: None if a is None else torch.as_tensor(a, device=dev)  # noqa: E731
+    segt = t(seg)
+    kw = dict(mode=mode, window=window, span_ids=t(span),
+              kv_segment_ids=t(kseg), kv_span_ids=t(kspan), kv_offset=off)
+    o, lse = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
+    grads = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
+    ro, rlse = flash_attention_packed_ref(q, k, v, segt, **kw)
+    rgrads = flash_attention_packed_bwd_ref(q, k, v, do, segt, **kw)
+    torch.cuda.synchronize()
+    errs = {"o": _scaled_err(o, ro)}
+    for name, a, r in zip(("dq", "dk", "dv"), grads, rgrads):
+        errs[name] = _scaled_err(a, r)
+    fin = torch.isfinite(rlse)
+    if not torch.equal(fin, torch.isfinite(lse)):
+        raise AssertionError(f"K1 {tag}: rows with keys differ (LSE)")
+    lse_err = (lse[fin] - rlse[fin]).abs().max().item() if fin.any() else 0.
+    for name, (_, scaled, rel) in errs.items():
+        tol = TOL[dtype] if name == "o" else GRAD_TOL[dtype]
+        what = (f"K1 disagrees with its plain version ({tag} S={S} "
+                f"{dtype} {mode} spans={span is not None} kv_offset={off})")
+        if not (math.isfinite(scaled) and scaled <= tol):
+            raise AssertionError(f"{what}: {name} max|err|/max(1,|ref|) "
+                                 f"{scaled} > {tol}")
+        if dtype == torch.bfloat16 and not rel <= REL_TOL_BF16:
+            raise AssertionError(f"{what}: {name} max|err|/max|ref| {rel} "
+                                 f"> {REL_TOL_BF16}")
+    if not lse_err <= 1e-3:
+        raise AssertionError(f"K1 {tag}: LSE off by {lse_err}")
+    tabs = _tables(q, k, segt, kw["span_ids"], kw["kv_segment_ids"],
+                   kw["kv_span_ids"])
+    mask = pair_mask(S, Sk, *tabs, mode=mode, window=window, kv_offset=off)
+    pairs = int(mask.sum())
+    fwd_ms = cuda_ms(lambda: flash_attention_packed(q, k, v, segt, **kw),
+                     iters=10, warmup=2)
+    bwd_ms = cuda_ms(lambda: flash_attention_packed_bwd(
+        q, k, v, o, lse, do, segt, **kw), iters=10, warmup=2)
+    plain_fwd = cuda_ms(lambda: flash_attention_packed_ref(
+        q, k, v, segt, **kw), iters=3, warmup=1)
+    plain_bwd = cuda_ms(lambda: flash_attention_packed_bwd_ref(
+        q, k, v, do, segt, **kw), iters=3, warmup=1)
+    # yardstick: SDPA with the tables' boolean mask, GQA in place
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    am = mask[:, None]
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                             enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=am, enable_gqa=True), iters=10, warmup=2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), iters=10,
+        warmup=2)
+    del lib_out
+    n_tables = 1 if span is None else 2
+    bf, bf_by = packed_bound(1, S, Sk, H, HKV, D, dtype, pairs, False,
+                             n_tables)
+    bb, bb_by = packed_bound(1, S, Sk, H, HKV, D, dtype, pairs, True,
+                             n_tables)
+    row = dict(tag=tag, S=S, Sk=Sk, H=H, Hkv=HKV, D=D,
+               dtype=str(dtype).split(".")[-1], mode=mode, window=window,
+               spans=span is not None, kv_offset=off, pairs=pairs,
+               err={n: e[1] for n, e in errs.items()},
+               rel_err={n: e[2] for n, e in errs.items()},
+               max_abs_err_fwd=errs["o"][0],
+               max_abs_err_bwd=max(errs[n][0] for n in ("dq", "dk", "dv")),
+               lse_err=lse_err, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+               plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
+               library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
+               bound_fwd_ms=bf, bound_fwd_by=bf_by, bound_bwd_ms=bb,
+               bound_bwd_by=bb_by)
+    print(f"  K1 {json.dumps(row)} ({card})")
+    return row
+
+
+def phase_packed(dev, card):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    rows = []
+    for S, lens in ((1024, [400, 300, 250]),
+                    (4096, [1500, 900, 1200, 400])):
+        for frame in (None, 256):
+            seg, span = packed_layout(S, lens, frame)
+            rows.append(check_packed(dev, card, gen, S, bf16, seg, span,
+                                     tag="synthetic"))
+    S, lens = 1024, [400, 300, 250]
+    seg, span = packed_layout(S, lens, 128)
+    rows.append(check_packed(dev, card, gen, S, fp32, seg, span,
+                             tag="synthetic"))
+    rows.append(check_packed(dev, card, gen, S, fp32, seg, None,
+                             tag="synthetic"))
+    for mode, window in (("full", None), ("sliding", 256)):
+        for dt in (bf16, fp32):
+            rows.append(check_packed(dev, card, gen, S, dt, seg, span,
+                                     mode=mode, window=window,
+                                     tag="synthetic"))
+    # a ring hop: the second half of the buffer's queries against the
+    # first half's keys, which bring their own tables (kv padding -2)
+    half = S // 2
+    kseg = seg[:half].copy()
+    kseg[kseg < 0] = -2
+    for dt in (bf16, fp32):
+        rows.append(check_packed(dev, card, gen, half, dt, seg[half:],
+                                 span[half:], off=-half, kseg=kseg,
+                                 kspan=span[:half], Sk=half, tag="hop"))
+    return rows
+
+
+def phase_train_parity(dev):
+    """Reduced internvl3-2b, fp32: the first batch's loss and gradient,
+    two training steps, and the gradient at the parameters they reach,
+    through the kernels vs through the plain attention."""
+    from repro_torch.api import Engine
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd)
+    from repro_torch.data.pipeline import HeterogeneousLoader
+    from repro_torch.training import TrainState
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    run = dict(dataset="openvid", global_batch=8, max_tokens=512,
+               tokens_per_frame=16)
+    out = {}
+    params0 = None
+    for impl in ("cuda", "reference"):
+        eng = Engine("internvl3-2b", reduced=True, seed=0)
+        eng.cfg = eng.cfg.with_(attn_impl=impl)
+        if params0 is None:
+            params0 = eng.state.params
+        eng.state = TrainState(params=tree_map(torch.clone, params0))
+        data = next(HeterogeneousLoader(run["dataset"], 8, eng.cfg.vocab,
+                                        seed=0, max_tokens=512,
+                                        tokens_per_frame=16))
+        n0 = (flash_attention_packed.launches,
+              flash_attention_packed_bwd.launches)
+        loss0, grads0 = eng.executor.run_plan(eng.state.params,
+                                              eng.plan(data), data)
+        n1 = (flash_attention_packed.launches,
+              flash_attention_packed_bwd.launches)
+        groups = len(eng.executor.last_exe_keys)
+        hist = eng.train(steps=2, lookahead=False, **run)
+        data2 = next(eng.loader)
+        loss2, grads2 = eng.executor.run_plan(eng.state.params,
+                                              eng.plan(data2), data2)
+        eng.close()
+        out[impl] = ([float(loss0)] + [m.loss for m in hist]
+                     + [float(loss2)], (grads0, grads2), eng.state.params)
+        want = (eng.cfg.n_layers * groups,) * 2 if impl == "cuda" \
+            else (0, 0)
+        if (n1[0] - n0[0], n1[1] - n0[1]) != want:
+            raise AssertionError(f"{impl}: K1 launches {n1} - {n0}, want "
+                                 f"{want} for {groups} groups")
+    (ls, gs, p), (rls, rgs, rp) = out["cuda"], out["reference"]
+    lerr = max(abs(a - b) for a, b in zip(ls, rls))
+    gerr = [max((a - b).abs().max().item()
+                for a, b in zip(tree_leaves(g), tree_leaves(rg)))
+            for g, rg in zip(gs, rgs)]
+    perr = max((a - b).abs().max().item()
+               for a, b in zip(tree_leaves(p), tree_leaves(rp)))
+    print(f"  losses kernel {ls} plain {rls}: max diff {lerr}; grads max "
+          f"diff {gerr[0]} (first batch), {gerr[1]} (after 2 steps); "
+          f"params after 2 steps max diff {perr}")
+    if not (lerr <= 1e-4 and max(gerr) <= 1e-4):
+        raise AssertionError("training through the kernels differs from "
+                             "the plain path by more than 1e-4")
+    # The parameters are printed, not held to a limit: both paths share
+    # the optimizer, and AdamW divides each moment by its root mean
+    # square, so an element whose gradient is as small as the paths'
+    # difference (1e-7) may step up to 2 lr apart. The gradient at the
+    # parameters the two steps reach is what tells the paths apart.
+
+
+def phase_training(dev, card):
+    """Full-width DHP training; returns (launches fwd, bwd, group tables
+    by (bucket, spans), n_layers)."""
+    from repro_torch.api import ClusterSpec, Engine
+    from repro_torch.core.packing import flatten_group
+    from repro_torch.data.pipeline import HeterogeneousLoader
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd)
+
+    run = dict(dataset="openvid", global_batch=8, max_tokens=4096,
+               tokens_per_frame=256)
+    t0 = time.perf_counter()
+    eng = Engine("internvl3-2b", ClusterSpec.auto(mem_budget=4096), seed=0)
+    params = eng.state.params
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  internvl3-2b as {eng.cfg.family}: {eng.cfg.n_layers} layers "
+          f"d_model {eng.cfg.d_model}, {n_params / 1e9:.3f} B params "
+          f"{eng.cfg.param_dtype}, init {time.perf_counter() - t0:.1f} s")
+    plans = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention_packed.launches = 0
+    flash_attention_packed_bwd.launches = 0
+    hist = eng.train(steps=3, lookahead=True, plan_log=plans, trace=True,
+                     **run)
+    torch.cuda.synchronize()
+    n_fwd = flash_attention_packed.launches
+    n_bwd = flash_attention_packed_bwd.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    tracer = eng.last_tracer
+    if tracer.dropped:
+        raise AssertionError(f"the tracer dropped {tracer.dropped} events")
+    groups = [(e["args"]["bucket"], e["args"]["spans"])
+              for e in tracer.to_json()["traceEvents"]
+              if e.get("name") == "execute"]
+    want = eng.cfg.n_layers * len(groups)
+    if not (n_fwd == n_bwd == want and want > 0):
+        raise AssertionError(f"K1 launches fwd {n_fwd} bwd {n_bwd}, want "
+                             f"{eng.cfg.n_layers} layers x {len(groups)} "
+                             f"groups = {want} each")
+    for m in hist:
+        if not math.isfinite(m.loss):
+            raise AssertionError(f"step {m.step}: loss {m.loss}")
+        tok_s = m.tokens / m.step_time_s
+        print(f"  train step {m.step}: loss={m.loss} "
+              f"step_time_s={m.step_time_s} tokens={m.tokens} "
+              f"tokens_per_s={tok_s} padding_efficiency="
+              f"{m.padding_efficiency} degrees={m.degree_histogram} "
+              f"groups={sum(m.degree_histogram.values())} "
+              f"schedule_ms={m.schedule_ms} plan_overlap_ms="
+              f"{m.plan_overlap_ms} ({card})")
+    if len(hist) != 3:
+        raise AssertionError(f"{len(hist)} training steps, want 3")
+    print(f"  train max_memory_allocated_bytes = {peak} ({card})")
+    print(f"  train group shapes (bucket, spans): {groups}")
+
+    # the tables of every group, rebuilt from the run's plans and batches
+    loader = HeterogeneousLoader(run["dataset"], run["global_batch"],
+                                 eng.cfg.vocab, seed=eng.seed,
+                                 max_tokens=run["max_tokens"],
+                                 tokens_per_frame=run["tokens_per_frame"])
+    tables = {}
+    for plan in plans:
+        data = next(loader)
+        spans_by_id = data.spans_by_id()
+        for mb in plan.micro_batches:
+            for g in mb.groups:
+                seqs = [data.by_id(i) for i in g.seq_ids]
+                bucket = eng.cluster.pool().bucket(sum(map(len, seqs)))
+                b, _ = flatten_group(seqs, bucket, spans=[
+                    spans_by_id.get(i) for i in g.seq_ids])
+                key = (bucket, "modality_ids" in b)
+                tables.setdefault(key, []).append(
+                    (b["segment_ids"][0], b.get("modality_ids",
+                                                [None])[0]))
+    if sorted(tables) != sorted(set(groups)) or \
+            sum(map(len, tables.values())) != len(groups):
+        raise AssertionError(f"rebuilt groups {sorted(tables)} differ from "
+                             f"the run's {sorted(set(groups))}")
+
+    # one more step under the profiler: the device's busy share
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        eng.train(steps=1, lookahead=False, **run)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    busy_ms = sum(ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+    # where the device time goes: the kernels with the most device time
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            t, n = by_name.get(ev.name, (0.0, 0))
+            by_name[ev.name] = (t + ev.time_range.elapsed_us() / 1e3, n + 1)
+    for kname, (t, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:15]:
+        print(f"  train device time {t:.1f} ms over {n} launches: "
+              f"{kname[:110]}")
+    k1_ms = sum(ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and "packed_" in ev.name)
+    print(f"  train profiled step: wall_ms={wall_ms} device_busy_ms="
+          f"{busy_ms} device_busy_share={busy_ms / wall_ms} "
+          f"k1_device_ms={k1_ms} ({card})")
+    eng.close()
+    return n_fwd, n_bwd, tables, eng.cfg.n_layers
+
+
+def phase_train_path(dev, card, tables, n_layers):
+    """K1 forward and backward vs plain at each (bucket, spans) shape of
+    the training run, on the first group's own tables of that shape."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for (bucket, spans), groups in sorted(tables.items()):
+        seg, span = groups[0]
+        row = check_packed(dev, card, gen, bucket, torch.bfloat16, seg,
+                           span, tag="train")
+        row["launches"] = n_layers * len(groups)
+        rows.append(row)
+    return rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -326,26 +729,26 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/6] device: {name}; torch {torch.__version__} cuda "
+    print(f"[1/10] device: {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(card)
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"[2/6] build: {time.perf_counter() - t0:.1f} s for "
+    print(f"[2/10] build: {time.perf_counter() - t0:.1f} s for "
           f"{build.sources()}")
     for src, log in build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    print("[3/6] kernels vs plain versions")
+    print("[3/10] kernels vs plain versions")
     rows = phase_kernels(dev, card)
-    print("[4/6] parity at reduced size (fp32)")
+    print("[4/10] parity at reduced size (fp32)")
     phase_parity(dev)
-    print("[5/6] full-width serving (bf16)")
+    print("[5/10] full-width serving (bf16)")
     launches, shapes, n_layers = phase_serving(dev, card)
-    print("[6/6] kernels vs plain versions at the serving run's shapes")
+    print("[6/10] kernels vs plain versions at the serving run's shapes")
     path = phase_path(dev, card, shapes, n_layers)
 
     # the shape launched most often stands for the kernel; every shape
@@ -373,6 +776,51 @@ def main() -> int:
         "path_shapes": [dict(rows=r["B"], bucket=r["S"],
                              **{k: r[k] for k in keys}) for r in path],
     }]
+
+    print("[7/10] packed kernel K1 vs plain versions")
+    packed_rows = phase_packed(dev, card)
+    print("[8/10] training parity at reduced size (fp32)")
+    phase_train_parity(dev)
+    print("[9/10] full-width DHP training (bf16)")
+    n_fwd, n_bwd, tables, n_layers = phase_training(dev, card)
+    torch.cuda.empty_cache()
+    print("[10/10] K1 vs plain versions at the training run's shapes")
+    train_rows = phase_train_path(dev, card, tables, n_layers)
+
+    # the shape launched most often stands for each K1 kernel; every
+    # shape the training run launched is listed with its own numbers
+    main_k1 = max(train_rows, key=lambda r: (r["launches"], r["S"]))
+    checked = packed_rows + train_rows
+    for which, launches in (("fwd", n_fwd), ("bwd", n_bwd)):
+        kernels.append({
+            "name": "flash_attention_packed" + ("_bwd" if which == "bwd"
+                                                else ""),
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/"
+                      "flash_attention_packed.cu",
+            # the Pallas K1 has no backward; the kernel computes the
+            # gradient of K1's function as _attn_chunked_bwd
+            # (src/repro/models/attention.py:253) writes it
+            "replaces": "src/repro/kernels/flash_attention.py:208",
+            "launches": launches,
+            "max_abs_err": max(r[f"max_abs_err_{which}"] for r in checked
+                               if r["dtype"] == "bfloat16"),
+            "ms": main_k1[f"{which}_ms"],
+            "plain_ms": main_k1[f"plain_{which}_ms"],
+            "bound_ms": main_k1[f"bound_{which}_ms"],
+            "bound_by": main_k1[f"bound_{which}_by"],
+            "library_ms": main_k1[f"library_{which}_ms"],
+            "shape": f"B=1 S={main_k1['S']} H={H} Hkv={HKV} D={D} bf16 "
+                     f"causal spans={main_k1['spans']}",
+            "path_shapes": [dict(
+                bucket=r["S"], spans=r["spans"], launches=r["launches"],
+                pairs=r["pairs"], err=r["err"], rel_err=r["rel_err"],
+                ms=r[f"{which}_ms"],
+                plain_ms=r[f"plain_{which}_ms"],
+                bound_ms=r[f"bound_{which}_ms"],
+                bound_by=r[f"bound_{which}_by"],
+                library_ms=r[f"library_{which}_ms"]) for r in train_rows],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -87,7 +87,8 @@ class ClusterSpec:
     def pool(self) -> GroupPool:
         """The cluster's GroupPool (created once, shared by engines)."""
         if self._pool is None:
-            self._pool = GroupPool(bucket_fn=self.bucketing,
+            self._pool = GroupPool(self.resolved_devices(),
+                                   bucket_fn=self.bucketing,
                                    max_executables=self.max_executables)
         return self._pool
 

@@ -1,16 +1,18 @@
 """Parallelism strategies — the planner half of an Engine.
 
-Every backend implements the same `Strategy` surface (`bind`, `plan`)
-and is registered under a name, so the serving runtime selects its
-prefill planner with `get_strategy("dhp" | "static")`.
+Every backend implements the same `Strategy` surface (`bind`, `plan`,
+async `prepare`/`collect`, `observe`) and is registered under a name, so
+the Engine and the serving runtime select a planner with
+`get_strategy("dhp" | "static")`.
 
 Strategies are constructed *unbound* (no cluster context) and attached
 to a cost model / rank count / memory budget via `bind(...)`. The other
-backends, their options, the async lookahead surface, the measured-cost
-oracle, brute force and replay arrive with the training slice.
+backends of the JAX package (megatron, deepspeed, dhp-faithful,
+bruteforce, the measured-cost oracle, replay) are not ported yet.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import time
 from typing import Dict, List, Optional, Sequence as Seq
 
@@ -22,9 +24,17 @@ from ..obs.trace import get_tracer
 
 class Strategy:
     """One parallelism policy: turns a batch of SeqInfo into an
-    ExecutionPlan. Subclasses implement `_plan`."""
+    ExecutionPlan. Subclasses implement `_plan`.
+
+    The base class provides the async producer-consumer surface
+    (`prepare` plans the NEXT batch on a host thread while the card runs
+    the current one — paper §5 Implementation (2)) and the `observe`
+    hook fed with measured per-group timings after execution."""
 
     name = "strategy"
+    #: engines pass per-group measured timings to observe() only when
+    #: this is True (measuring serialises group execution)
+    wants_measurement = False
 
     def __init__(self):
         self.cm: Optional[CostModel] = None
@@ -32,6 +42,13 @@ class Strategy:
         self.budget: Optional[float] = None
         #: cross-batch plan reuse keyed on the structural histogram
         self.plan_cache = PlanCache()
+        self._executor: Optional[
+            concurrent.futures.ThreadPoolExecutor] = None
+        #: the plan in flight on the planner thread (lookahead)
+        self._pending: Optional[concurrent.futures.Future] = None
+        #: ms collect() actually blocked waiting for the planner thread —
+        #: the NON-hidden share of schedule_ms
+        self.last_wait_ms: float = 0.0
 
     # -- binding ---------------------------------------------------------
     def bind(self, cost_model: CostModel, n_ranks: int,
@@ -83,6 +100,42 @@ class Strategy:
 
     def _plan(self, seqs: List[SeqInfo]) -> ExecutionPlan:
         raise NotImplementedError
+
+    # -- async producer-consumer ----------------------------------------
+    def prepare(self, seqs: Seq[SeqInfo]) -> None:
+        """Start planning the next batch on the planner thread (one
+        thread, so consecutive solves share the scheduler's warm
+        allocator state). One plan is in flight at a time."""
+        if self._pending is not None:
+            raise RuntimeError("prepare() while a plan is in flight; "
+                               "collect() it first")
+        if self._executor is None:
+            self._executor = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1)
+        self._pending = self._executor.submit(self.plan, list(seqs))
+
+    def collect(self) -> ExecutionPlan:
+        """Block until the prepared plan is ready; records
+        `last_wait_ms`, the time this call actually blocked."""
+        if self._pending is None:
+            raise RuntimeError("collect() without a prior prepare()")
+        t0 = time.perf_counter()
+        fut, self._pending = self._pending, None
+        plan = fut.result()
+        self.last_wait_ms = (time.perf_counter() - t0) * 1e3
+        return plan
+
+    # -- feedback --------------------------------------------------------
+    def observe(self, plan: ExecutionPlan, timings: List[dict]) -> None:
+        """Post-execution hook with measured per-group timings
+        ({seq_ids, degree, tokens, seconds, compiled} dicts). Default:
+        ignored."""
+
+    def close(self) -> None:
+        self._pending = None
+        if self._executor is not None:
+            self._executor.shutdown(wait=False)
+            self._executor = None
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,7 @@ full-attention (vision) tokens relative to causal. eta=0 → pure causal,
 eta=1 → pure full attention (2x the causal FLOPs).
 
 eta is not an asserted scalar: multimodal sequences are described
-structurally as tuples of `ModalitySpan`s (a causal
+structurally as `MMSequence`s of `ModalitySpan`s (a causal
 text stream with bidirectional vision/audio blocks embedded in it —
 the mask the paper's Eq. 8 actually costs), and eta is DERIVED from the
 span geometry. With the causal half-mask folded into a1 (causal over
@@ -152,6 +152,25 @@ class SeqInfo:
     @property
     def linear_weight(self) -> float:
         return float(self.length)
+
+
+@dataclasses.dataclass(frozen=True)
+class MMSequence:
+    """A multimodal sequence as its span structure, as the data pipeline
+    draws it. The planner, packer and kernels consume its `SeqInfo`
+    view (`.seq_info`), which carries the spans along and derives
+    length and eta from them."""
+
+    spans: Tuple[ModalitySpan, ...]
+    seq_id: int = -1
+
+    def __post_init__(self):
+        object.__setattr__(self, "spans", validate_spans(self.spans))
+
+    @property
+    def seq_info(self) -> SeqInfo:
+        return SeqInfo(length=0, eta=0.0, seq_id=self.seq_id,
+                       spans=self.spans)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,282 @@
+"""DHP Executor — runs an ExecutionPlan on the card (§5 workflow (4)).
+
+For each planned CP group the executor:
+  1. flattens the group's sequences into ONE packed token buffer
+     (`core/packing.flatten_group`): tokens concatenated, positions
+     reset per segment, a segment table making attention block-diagonal,
+     a span table for the bidirectional vision/audio blocks, padding only
+     at the TAIL to a pooled bucket;
+  2. fetches the group's rank slot (`GroupPool.mesh_for`) and its step
+     function from the pool, keyed ("pgrad", start, degree, bucket[,
+     "mm"]) as the JAX package keys its executables;
+  3. runs forward and backward of the packed buffer; attention is the
+     packed kernel K1 in every layer (`cfg.attn_impl="cuda"`), or the
+     full-matrix reference (`"reference"`);
+  4. adds the group's gradient, weighted by its loss tokens, into an
+     fp32 accumulator on the device.
+The result is the token-weighted mean gradient of the global batch:
+dynamic regrouping changes where sequences run, never the math.
+
+Against the JAX executor: that one sets `cp_axis="cp"`, so its attention
+is always `parallel/ring_attention.ring_attention` and never the Pallas
+K1. At degree 1 the ring is one `_partial_update`, which leaves a
+tail-padding row as the mean of V (all its scores are -1e30) where K1
+gives zeros. Padding rows carry mask 0 and no real row attends them, so
+losses and gradients agree; hidden states agree at real tokens only.
+
+A group of degree > 1 needs ring context parallelism over
+torch.distributed across cards, which a later slice adds; until then the
+executor refuses such a group rather than running it on one rank.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..data.pipeline import RaggedBatch
+from ..models.model import forward
+from ..obs.trace import get_tracer
+from ..training.optimizer import tree_leaves, tree_map
+from .group_pool import GroupPool
+from .packing import MODALITY_CLASSES, flatten_group
+from .scheduler import ExecutionPlan
+
+#: families whose attention layers take block-diagonal segment masks
+PACKABLE_FAMILIES = ("dense",)
+
+
+def _token_nll(logits, labels):
+    """Per-position next-token NLL in fp32 over the whole vocabulary (no
+    masking applied), as the JAX package computes it. At full width a
+    4096-token pack makes 4096 x 151674 fp32 logits (2.5 GB) plus their
+    gradient; the card holds it (peak 53.7 GB a step on an H100)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - gold
+
+
+def _masked_nll(logits, labels, mask):
+    nll = _token_nll(logits, labels) * mask
+    return nll.sum(), mask.sum()
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class DHPExecutor:
+    def __init__(self, cfg: ModelConfig, pool: GroupPool):
+        """`pool` is the cluster's GroupPool: its devices are the ranks,
+        its ladder buckets the packed buffers, its cache keeps one step
+        function per group shape."""
+        if cfg.family not in PACKABLE_FAMILIES:
+            raise NotImplementedError(
+                f"packed execution of family {cfg.family!r} is not ported")
+        self.cfg = cfg
+        self.pool = pool
+        #: padding/build telemetry of the most recent run_plan()
+        #: (+ "modality_loss" sub-dict for span-bearing runs)
+        self.last_run_stats: Dict[str, Any] = {}
+        #: step-pool keys run by the most recent run_plan(), in order
+        self.last_exe_keys: List[Tuple] = []
+
+    # ------------------------------------------------------------------
+    def _build_step(self, with_spans: bool):
+        """(loss, grads[, modality nll table]) of one packed group.
+
+        `with_spans` adds the span-masked attention, the `loss_mask`
+        (labels inside bidirectional spans carry no NLL — they attend
+        their own future) and the per-class [n_classes, 2] (nll_sum,
+        label_count) aux table over every valid label."""
+        cfg = self.cfg
+
+        def step(params, batch):
+            leaves = [t.detach().requires_grad_(True)
+                      for t in tree_leaves(params)]
+            it = iter(leaves)
+            p = tree_map(lambda _: next(it), params)
+            logits, _ = forward(p, cfg, batch)
+            aux = None
+            if not with_spans:
+                s, c = _masked_nll(logits, batch["labels"], batch["mask"])
+            else:
+                nll = _token_nll(logits, batch["labels"])
+                lm = batch["loss_mask"]
+                s, c = (nll * lm).sum(), lm.sum()
+                cls = batch["modality_classes"]
+                with torch.no_grad():
+                    rows = []
+                    for k in range(len(MODALITY_CLASSES)):
+                        mk = batch["mask"] * (cls == k)
+                        rows.append(torch.stack([(nll * mk).sum(),
+                                                 mk.sum()]))
+                    aux = torch.stack(rows).double()
+            loss = s / torch.clamp(c, min=1.0)
+            del logits
+            grads = torch.autograd.grad(loss, leaves)
+            it = iter(grads)
+            g = tree_map(lambda _: next(it), params)
+            return loss.detach(), g, aux
+
+        return lambda: step
+
+    def _group_step(self, start: int, degree: int, bucket: int,
+                    with_spans: bool):
+        """Packed step: ONE [1, bucket] buffer whatever the group holds.
+        Span-bearing groups get a distinct "mm" key; causal groups keep
+        the span-free key (and the span-free kernel)."""
+        if degree > 1:
+            raise NotImplementedError(
+                f"a CP group of degree {degree} needs ring context "
+                f"parallelism across cards over torch.distributed (the "
+                f"ring-CP slice of the port); it is not run on one rank")
+        ranks = self.pool.mesh_for(start, degree)
+        key = ("pgrad", start, degree, bucket) \
+            + (("mm",) if with_spans else ())
+        exe, miss = self.pool.executable_for(
+            key, self._build_step(with_spans))
+        return exe, miss, key, ranks[0]
+
+    def _group_batch(self, seqs, degree: int, spans=None):
+        """(np_batch, real_tokens, bucket) for one group."""
+        total = sum(len(s) for s in seqs)
+        bucket = self.pool.bucket(total)
+        bucket += (-bucket) % degree       # shardable over cp
+        np_batch, cu = flatten_group(seqs, bucket, spans=spans)
+        return np_batch, int(cu[-1]), bucket
+
+    # ------------------------------------------------------------------
+    def run_plan(self, params, plan: ExecutionPlan, data: RaggedBatch, *,
+                 timings: Optional[List[Dict[str, Any]]] = None
+                 ) -> Tuple[torch.Tensor, Any]:
+        """Execute every micro-batch of the plan; returns (mean loss,
+        token-weighted mean gradient, fp32) for the global batch, both on
+        the device.
+
+        With `timings` (a caller-owned list) every group is timed
+        synchronously and a record {seq_ids, degree, tokens, bucket,
+        seconds, compiled, real_tokens, padded_tokens,
+        padding_efficiency} is appended per group.
+
+        `self.last_run_stats` aggregates {real_tokens, padded_tokens,
+        padding_efficiency, exe_misses, groups}; span-bearing runs add
+        "modality_loss": {class name: mean NLL} over every class that had
+        a valid label (classes masked out of the training loss, such as
+        bidirectional vision spans, still report)."""
+        tr = get_tracer()
+        t_run = time.perf_counter()
+        total_tokens = 0.0
+        g_acc = None
+        loss_acc = None
+        aux_acc = None       # [n_classes, 2] (nll_sum, label_count)
+        agg: Dict[str, Any] = {"real_tokens": 0, "padded_tokens": 0,
+                               "exe_misses": 0, "groups": 0}
+        # rank slots come from the plan IR itself, so executor and
+        # GroupDelta diffing agree on which rank slice a group runs on
+        slots = iter(plan.group_slots(self.pool.n_replicas))
+        self.last_exe_keys = []
+        spans_by_id = data.spans_by_id()
+        device = None
+        for mb in plan.micro_batches:
+            n_groups = 0
+            for g in mb.groups:
+                mi, gi, start, _ = next(slots)
+                seqs = [data.by_id(i) for i in g.seq_ids]
+                spans = ([spans_by_id.get(i) for i in g.seq_ids]
+                         if spans_by_id else None)
+                np_batch, real, bucket = self._group_batch(seqs, g.degree,
+                                                           spans=spans)
+                with_spans = "modality_ids" in np_batch
+                step, compiled, key, device = self._group_step(
+                    start, g.degree, bucket, with_spans)
+                self.last_exe_keys.append(key)
+                batch = {k: torch.as_tensor(v, device=device)
+                         for k, v in np_batch.items()}
+                # weight groups by LOSS tokens when a loss mask exists —
+                # bidirectional-span labels carry no NLL, so counting
+                # them would dilute the span-bearing groups' gradients
+                n_tok = float(np_batch.get(
+                    "loss_mask", np_batch["mask"]).sum())
+                agg["real_tokens"] += real
+                agg["padded_tokens"] += bucket
+                agg["exe_misses"] += int(compiled)
+                agg["groups"] += 1
+                n_groups += 1
+                args = {"mb": mi, "group": gi, "degree": g.degree,
+                        "start_rank": start, "bucket": bucket,
+                        "spans": with_spans}
+                if timings is not None:
+                    _sync(device)
+                t0 = time.perf_counter()
+                loss, grads, aux = step(params, batch)
+                w = n_tok
+                total_tokens += w
+                loss_acc = (loss.double() * w if loss_acc is None
+                            else loss_acc + loss.double() * w)
+                if aux is not None:
+                    aux_acc = aux if aux_acc is None else aux_acc + aux
+                if g_acc is None:
+                    g_acc = tree_map(lambda a: a.float() * w, grads)
+                else:
+                    tree_map(lambda acc, a: acc.add_(a.float(), alpha=w),
+                             g_acc, grads)
+                del grads
+                if timings is None:
+                    if tr.enabled:
+                        # host-side enqueue cost only: the device work
+                        # runs asynchronously
+                        tr.complete("dispatch", t0,
+                                    time.perf_counter() - t0, "exec",
+                                    args=args)
+                else:
+                    _sync(device)
+                    dt = time.perf_counter() - t0
+                    timings.append({
+                        "seq_ids": list(g.seq_ids),
+                        "degree": g.degree,
+                        "tokens": g.tokens,
+                        "bucket": bucket,
+                        "seconds": dt,
+                        "compiled": compiled,
+                        "real_tokens": real,
+                        "padded_tokens": bucket,
+                        "padding_efficiency": real / max(bucket, 1),
+                    })
+                    if tr.enabled:
+                        # the measured group time is ONE span on the
+                        # track of every rank the group occupies
+                        for rank in range(start, start + g.degree):
+                            tr.rank_span(
+                                "execute", rank, t0, dt,
+                                args={**args, "tokens": g.tokens,
+                                      "compiled": compiled})
+            t_collect = time.perf_counter()
+            if device is not None:
+                _sync(device)        # the wave barrier
+            if tr.enabled:
+                tr.complete("collect", t_collect,
+                            time.perf_counter() - t_collect, "exec",
+                            args={"groups": n_groups})
+        agg["padding_efficiency"] = (
+            agg["real_tokens"] / max(agg["padded_tokens"], 1))
+        if aux_acc is not None:
+            a = aux_acc.cpu().numpy()
+            agg["modality_loss"] = {
+                name: float(a[k, 0] / a[k, 1])
+                for k, name in enumerate(MODALITY_CLASSES) if a[k, 1] > 0}
+        self.last_run_stats = agg
+        denom = max(total_tokens, 1.0)
+        grads = tree_map(lambda a: a.div_(denom), g_acc)
+        loss = (loss_acc / denom).float()
+        if tr.enabled:
+            tr.complete("run_plan", t_run, time.perf_counter() - t_run,
+                        "exec", args={"groups": agg["groups"],
+                                      "exe_misses": agg["exe_misses"],
+                                      "measured": timings is not None})
+        return loss, grads

@@ -1,8 +1,7 @@
 """Dynamic group management & pooling (§5 Implementation (1)).
 
 The paper pools communication groups because creating them per batch is
-expensive. `GroupPool` keeps the two pieces of that idea the serving
-slice uses:
+expensive. `GroupPool` keeps the pieces of that idea the port runs:
 
   * the padding-bucket ladder (`make_bucket_fn`) that bounds the number
     of distinct shapes a run meets — pow2 (default, fewest shapes,
@@ -11,10 +10,12 @@ slice uses:
     of built step functions, with `PoolStats` hit/miss accounting. In
     eager PyTorch a "build" is cheap (no tracing), but the keys are the
     same bucketed shapes the JAX package compiles for, so the stats read
-    the same way.
-
-The per-(start, degree) process-group cache (`mesh_for` in the JAX
-package) arrives with the training slice.
+    the same way;
+  * `mesh_for(start, degree)` — the devices of the rank slice
+    [start, start+degree) (a rank is one card), cached per slot, and
+    `reconfigure(delta)`, which consumes a plan's GroupDelta. A group of
+    degree > 1 needs ring context parallelism over torch.distributed,
+    which a later slice adds; the executor refuses such groups.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import dataclasses
 import math
 from collections import OrderedDict
 from functools import partial
-from typing import Any, Callable, Hashable, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, Hashable, List, Optional,
+                    Sequence, Tuple, Union)
 
 from ..obs.trace import get_tracer
 
@@ -74,19 +76,28 @@ def make_bucket_fn(kind: Union[str, Callable[[int], int]] = "pow2",
 
 @dataclasses.dataclass
 class PoolStats:
+    mesh_hits: int = 0
+    mesh_misses: int = 0
     exe_hits: int = 0
     exe_misses: int = 0
     exe_evictions: int = 0
+    #: group slots (re)created because a GroupDelta named them as new or
+    #: resized relative to the previous plan (see `reconfigure`).
+    groups_reconfigured: int = 0
 
 
 class GroupPool:
-    """Bucket ladder + cache of built step functions."""
+    """Rank slots, bucket ladder and cache of built step functions."""
 
-    def __init__(self, bucket_fn: Union[str, Callable[[int], int]] = "pow2",
+    def __init__(self, devices: Sequence[Any] = (),
+                 bucket_fn: Union[str, Callable[[int], int]] = "pow2",
                  max_executables: Optional[int] = None):
-        """`bucket_fn`: padding-bucket ladder, a name from BUCKET_LADDERS
-        or a callable n -> bucket. `max_executables`: LRU cap on the
-        cache (None = unbounded)."""
+        """`devices`: one per rank. `bucket_fn`: padding-bucket ladder, a
+        name from BUCKET_LADDERS or a callable n -> bucket.
+        `max_executables`: LRU cap on the cache (None = unbounded)."""
+        self.devices = list(devices)
+        self.n_replicas = len(self.devices)
+        self._meshes: Dict[Tuple[int, int], List[Any]] = {}
         self.bucket_fn = make_bucket_fn(bucket_fn)
         self.max_executables = max_executables
         self._exes: "OrderedDict[Hashable, Any]" = OrderedDict()
@@ -95,6 +106,22 @@ class GroupPool:
     def bucket(self, n: int) -> int:
         """Padding bucket for `n` tokens under the pool's ladder."""
         return self.bucket_fn(n)
+
+    def mesh_for(self, start: int, degree: int) -> List[Any]:
+        """The devices of ranks [start, start+degree): a CP group's
+        ring."""
+        key = (start, degree)
+        if key in self._meshes:
+            self.stats.mesh_hits += 1
+            return self._meshes[key]
+        self.stats.mesh_misses += 1
+        if not (0 <= start and degree >= 1
+                and start + degree <= self.n_replicas):
+            raise ValueError(f"rank slot {key} outside "
+                             f"{self.n_replicas} ranks")
+        mesh = self.devices[start:start + degree]
+        self._meshes[key] = mesh
+        return mesh
 
     def executable_for(self, key: Hashable,
                        build: Callable[[], Any]) -> Tuple[Any, bool]:
@@ -116,6 +143,20 @@ class GroupPool:
             self._exes.popitem(last=False)
             self.stats.exe_evictions += 1
         return exe, True
+
+    def reconfigure(self, delta) -> Dict[str, int]:
+        """Apply a plan's GroupDelta: create the slots the delta names as
+        `created`/`resized` and count `reused` slots as zero-cost pool
+        hits (§5 (1)). Returns {created, resized, reused} counts."""
+        if delta is None:
+            return {"created": 0, "resized": 0, "reused": 0}
+        for start, degree in list(delta.created) + list(delta.resized):
+            if start + degree <= self.n_replicas:
+                self.mesh_for(start, degree)
+        self.stats.groups_reconfigured += delta.n_reconfigured
+        return {"created": len(delta.created),
+                "resized": len(delta.resized),
+                "reused": len(delta.reused)}
 
     def __len__(self) -> int:
         return len(self._exes)

@@ -6,10 +6,13 @@ Global batch --(micro-batch planner)--> micro-batches
  --> ExecutionPlan consumed by the executor.
 
 The scheduler is pure host-side Python (numpy-free hot path) so it can
-run on the host while the device computes.
+run on the host while the device computes — `prepare()` schedules the
+*next* batch on a background thread while the card runs the current
+one (the paper's producer-consumer decoupling, §5 Implementation (2)).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import hashlib
 import json
@@ -74,6 +77,48 @@ class MicroBatchPlan:
 
 
 @dataclasses.dataclass
+class GroupDelta:
+    """What changed in the communication-group layout vs the PREVIOUS
+    plan.
+
+    Groups are named by their (start, degree) rank slot — the same key
+    the GroupPool caches meshes/executables under — so a delta tells the
+    pool exactly which artifacts to reuse and which to (re)create:
+
+      reused   — slot occupied by both plans (zero reconfiguration cost);
+      resized  — start rank kept, CP degree changed (new ring size);
+      created  — slot that did not exist in the previous plan;
+      released — previous slot whose start rank the new plan leaves
+                 entirely (kept pooled, not destroyed).
+    """
+
+    created: List[Tuple[int, int]] = dataclasses.field(
+        default_factory=list)
+    reused: List[Tuple[int, int]] = dataclasses.field(
+        default_factory=list)
+    resized: List[Tuple[int, int]] = dataclasses.field(
+        default_factory=list)
+    released: List[Tuple[int, int]] = dataclasses.field(
+        default_factory=list)
+
+    @property
+    def n_reconfigured(self) -> int:
+        """Slots needing (re)creation — the paper's per-batch group
+        setup cost the pool amortises."""
+        return len(self.created) + len(self.resized)
+
+    def to_json(self) -> dict:
+        return {k: [list(s) for s in getattr(self, k)]
+                for k in ("created", "reused", "resized", "released")}
+
+    @classmethod
+    def from_json(cls, obj: dict) -> "GroupDelta":
+        return cls(**{k: [tuple(int(x) for x in s) for s in obj[k]]
+                      for k in ("created", "reused", "resized",
+                                "released")})
+
+
+@dataclasses.dataclass
 class ExecutionPlan:
     micro_batches: List[MicroBatchPlan]
     total_time_est: float
@@ -96,6 +141,35 @@ class ExecutionPlan:
     # per-sequence modality layout (seq_id -> spans) for span-bearing
     # batches; Strategy.plan attaches it from the input sequences so a
     # saved trace records the structure its costs were derived from.
+    delta: Optional[GroupDelta] = None
+    # group reconfiguration vs the previously executed plan; filled by
+    # diff_plans (the Engine does it before execution).
+
+    @property
+    def degree_histogram(self) -> dict:
+        """{degree: count} across all micro-batches — Table 4 case study."""
+        h: dict = {}
+        for mb in self.micro_batches:
+            for g in mb.groups:
+                h[g.degree] = h.get(g.degree, 0) + 1
+        return dict(sorted(h.items(), reverse=True))
+
+    # -- rank-slot geometry ---------------------------------------------
+    def group_slots(self, n_ranks: int) -> List[Tuple[int, int, int, int]]:
+        """(mb_index, group_index, start_rank, degree) per group, using
+        the SAME cursor rule as the executor (including the defensive
+        wrap for oversubscribed micro-batches) — the single source of
+        truth for which rank slice a group runs on, shared by the
+        executor and diff_plans."""
+        slots = []
+        for mi, mb in enumerate(self.micro_batches):
+            start = 0
+            for gi, g in enumerate(mb.groups):
+                if start + g.degree > n_ranks:
+                    start = 0
+                slots.append((mi, gi, start, g.degree))
+                start += g.degree
+        return slots
 
     # -- structural identity --------------------------------------------
     def _spans_tree(self) -> Optional[list]:
@@ -188,6 +262,7 @@ class ExecutionPlan:
             "stage_ms": dict(self.stage_ms),
             "from_cache": self.from_cache,
             "replan_mode": self.replan_mode,
+            "delta": self.delta.to_json() if self.delta else None,
             "micro_batches": [mb.to_json() for mb in self.micro_batches],
             "seq_spans": (None if not self.seq_spans else {
                 str(sid): [sp.to_json() for sp in spans]
@@ -212,6 +287,8 @@ class ExecutionPlan:
             version=PLAN_IR_VERSION,
             from_cache=bool(obj.get("from_cache", False)),
             replan_mode=str(obj.get("replan_mode", "full")),
+            delta=(GroupDelta.from_json(obj["delta"])
+                   if obj.get("delta") else None),
             seq_spans=(None if not obj.get("seq_spans") else {
                 int(sid): tuple(ModalitySpan.from_json(sp)
                                 for sp in spans)
@@ -224,6 +301,33 @@ class ExecutionPlan:
                 f"reconstructed {plan.structural_hash()} — corrupt or "
                 f"hand-edited plan file")
         return plan
+
+
+def diff_plans(prev: Optional[ExecutionPlan], cur: ExecutionPlan,
+               n_ranks: int) -> GroupDelta:
+    """Group-reconfiguration delta between two consecutive plans.
+
+    Slots are the deduplicated (start, degree) rank slices each plan
+    occupies (via `group_slots`); `prev=None` means cold start — every
+    slot is `created`."""
+    cur_slots = sorted({(s, d) for _, _, s, d
+                        in cur.group_slots(n_ranks)})
+    if prev is None:
+        return GroupDelta(created=list(cur_slots))
+    prev_slots = {(s, d) for _, _, s, d in prev.group_slots(n_ranks)}
+    prev_starts = {s for s, _ in prev_slots}
+    delta = GroupDelta()
+    for slot in cur_slots:
+        if slot in prev_slots:
+            delta.reused.append(slot)
+        elif slot[0] in prev_starts:
+            delta.resized.append(slot)
+        else:
+            delta.created.append(slot)
+    cur_starts = {s for s, _ in cur_slots}
+    delta.released = sorted(slot for slot in prev_slots
+                            if slot[0] not in cur_starts)
+    return delta
 
 
 # -- plan cache --------------------------------------------------------------
@@ -443,6 +547,11 @@ class DHPScheduler:
         self.budget = mem_budget
         self._wave_solvers: Dict[int, IncrementalAllocator] = {}
         self.planner = MicroBatchPlanner(cost_model, n_ranks, mem_budget)
+        # scheduler-level async surface (the Strategy carries its own
+        # lookahead thread); created lazily on first prepare() so the
+        # schedule()-only path allocates no thread pool.
+        self._pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._pending: Optional[concurrent.futures.Future] = None
 
     # -- synchronous API ----------------------------------------------------
     def schedule(self, seqs: Seq[SeqInfo]) -> ExecutionPlan:
@@ -541,6 +650,28 @@ class DHPScheduler:
             stage_ms=stage_ms,
             replan_mode="incremental" if rows_reused else "full",
         )
+
+    # -- asynchronous producer-consumer API ----------------------------------
+    def prepare(self, next_seqs: Seq[SeqInfo]) -> None:
+        """Kick off scheduling of the NEXT batch on the host thread."""
+        if self._pool is None:
+            self._pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1)
+        self._pending = self._pool.submit(self.schedule, list(next_seqs))
+
+    def collect(self) -> ExecutionPlan:
+        """Block until the prepared plan is ready (usually already done)."""
+        if self._pending is None:
+            raise RuntimeError("collect() without a prior prepare()")
+        plan = self._pending.result()
+        self._pending = None
+        return plan
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+
 
 def static_plan(
     seqs: Seq[SeqInfo],

@@ -1,0 +1,76 @@
+"""Heterogeneous multimodal data pipeline (synthetic, deterministic).
+
+`HeterogeneousLoader` yields global batches of variable-length
+multimodal sequences drawn from the paper's dataset distributions
+(core/distributions.py): the DHP planner's input. Its numpy random
+stream is the JAX package's draw for draw, so a seed yields the same
+batches, bit for bit, in both packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+
+from ..core.cost_model import SeqInfo
+from ..core.distributions import sample_batch
+
+
+@dataclasses.dataclass
+class RaggedBatch:
+    infos: List[SeqInfo]
+    tokens: List[np.ndarray]       # per-sequence token ids (int32)
+
+    def by_id(self, seq_id: int) -> np.ndarray:
+        return self.tokens[seq_id]
+
+    def spans_by_id(self) -> Dict[int, tuple]:
+        """seq_id -> ModalitySpan tuple (only span-bearing sequences)."""
+        return {s.seq_id: s.spans for s in self.infos
+                if getattr(s, "spans", None)}
+
+
+class HeterogeneousLoader:
+    """Iterator of ragged global batches from a video-length distribution.
+
+    Resumable: `state()` / `set_state()` snapshot and restore the exact
+    stream position (rng bit-generator state + batch index), so a
+    lookahead planner prefetching batch t+1 sees the same batches a
+    synchronous run does.
+    """
+
+    def __init__(self, dataset: str, gbs: int, vocab: int, *,
+                 seed: int = 0, max_tokens: Optional[int] = None,
+                 tokens_per_frame: int = 256):
+        self.dataset = dataset
+        self.gbs = gbs
+        self.vocab = vocab
+        self.max_tokens = max_tokens
+        self.tokens_per_frame = tokens_per_frame
+        self.rng = np.random.default_rng(seed)
+        self.batch_index = 0
+
+    def __iter__(self) -> Iterator[RaggedBatch]:
+        return self
+
+    def __next__(self) -> RaggedBatch:
+        infos = sample_batch(self.dataset, self.gbs, self.rng,
+                             max_tokens=self.max_tokens,
+                             tokens_per_frame=self.tokens_per_frame)
+        toks = [self.rng.integers(0, self.vocab, size=s.length,
+                                  dtype=np.int32) for s in infos]
+        self.batch_index += 1
+        return RaggedBatch(infos=infos, tokens=toks)
+
+    # -- resumability ----------------------------------------------------
+    def state(self) -> Dict:
+        """JSON-serializable snapshot of the stream position."""
+        return {"batch_index": self.batch_index,
+                "rng_state": self.rng.bit_generator.state}
+
+    def set_state(self, state: Dict) -> None:
+        """Restore a `state()` snapshot; the next `__next__` yields the
+        same batch it would have in the original run."""
+        self.rng.bit_generator.state = state["rng_state"]
+        self.batch_index = int(state["batch_index"])

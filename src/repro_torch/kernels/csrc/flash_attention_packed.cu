@@ -1,0 +1,1169 @@
+// Packed variable-length flash attention (kernel K1) for Hopper (sm_90a),
+// forward and backward, plain C interface.
+//
+// Replaces: src/repro/kernels/flash_attention.py :: flash_attention_packed_flat
+// (Pallas body `_packed_kernel`) together with its model-layout wrapper
+// src/repro/kernels/ops.py :: flash_attention_packed. Same function: all
+// sequences of a group live in one packed buffer; attention is
+// block-diagonal over `segment_ids` (q padding -1, kv padding -2), causal
+// or sliding order is taken in packed coordinates with keys shifted by
+// `kv_offset`, and when mode != full an optional span table ORs in
+// same-block bidirectional pairs. Softmax in fp32.
+//
+// What the port adds to the TPU kernel:
+//   * the log-sum-exp (LSE) of every row, fp32 [B, H, S] (-inf for a row
+//     with no valid key), which the backward needs and the ring-CP merge
+//     of a later slice will need;
+//   * a backward kernel (dq, dk, dv), the flash-attention-2 backward of
+//     src/repro/models/attention.py :: _attn_chunked_bwd (the JAX package
+//     has no Pallas backward: its training path differentiates jnp);
+//   * native GQA: query head h reads KV head h / (H / Hkv) in place;
+//   * a masked pair weighs exactly 0 and a row with no valid key is zeros
+//     (the Pallas kernel's -1e30 trick is not copied).
+//
+// Dead tiles (no valid (q, k) pair) are skipped as `pl.when(live)` skips
+// them: a first pass summarises each 32-row slice of every table (min and
+// max segment id >= 0, min and max span id >= 0), and a tile pair is
+// visited only if its segment ranges overlap and either the positional
+// mask or the span ranges can admit a pair. The test is conservative:
+// a visited tile with no valid pair adds exactly nothing.
+//
+// What bounds it on the H100: at the training path's packed buckets
+// (1k-4k tokens, D = 128) the valid pairs make the work compute-bound
+// (4*D flops per pair forward, 10*D backward, against q/k/v/o read
+// once), so both directions keep scores and probabilities on chip:
+//   * bf16: mma.sync m16n8k16 on the tensor cores with fp32 accumulation
+//     (P and dS rounded to bf16 before their products); wgmma/TMA are
+//     later work. Forward: 4 warps x 16 query rows, 64-key tiles.
+//     Backward: one block per (64-key tile, KV head, batch), each warp
+//     owning 16 keys whose dK/dV accumulate in registers over the KV
+//     head's G query heads and all 32-row query tiles (no atomics on
+//     dK/dV); dQ goes to an fp32 buffer through atomicAdd.
+//   * fp32: the CUDA cores (TF32 tensor cores would break the 1e-4
+//     parity tolerance), same tiling idea with fp32 tiles in shared
+//     memory.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int SUM_T = 32;  // rows per table summary entry
+
+enum Mode { kFull = 0, kCausal = 1, kSliding = 2 };
+
+struct Params {
+  int B, Sq, Sk, H, Hkv, mode, window, kv_offset;
+  const int* segq;   // [B, Sq]
+  const int* segk;   // [B, Sk]
+  const int* spanq;  // [B, Sq] or null
+  const int* spank;  // [B, Sk] or null
+  const int4* sumq;  // [B, nsq] summaries of segq/spanq
+  const int4* sumk;  // [B, nsk]
+  int nsq, nsk;
+};
+
+// ---------------------------------------------------------------------
+// Table summaries: one warp per 32-row slice.
+// ---------------------------------------------------------------------
+__global__ void tile_summary_kernel(const int* __restrict__ seg,
+                                    const int* __restrict__ span, int S,
+                                    int n_tiles, int4* __restrict__ out) {
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int i = tile * SUM_T + threadIdx.x;
+  int s = -1, p = -1;
+  if (i < S) {
+    s = seg[(int64_t)b * S + i];
+    if (span != nullptr) p = span[(int64_t)b * S + i];
+  }
+  int smin = s >= 0 ? s : INT_MAX, smax = s >= 0 ? s : -1;
+  int pmin = p >= 0 ? p : INT_MAX, pmax = p >= 0 ? p : -1;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    smin = min(smin, __shfl_xor_sync(FULL, smin, o));
+    smax = max(smax, __shfl_xor_sync(FULL, smax, o));
+    pmin = min(pmin, __shfl_xor_sync(FULL, pmin, o));
+    pmax = max(pmax, __shfl_xor_sync(FULL, pmax, o));
+  }
+  if (threadIdx.x == 0)
+    out[(int64_t)b * n_tiles + tile] = make_int4(smin, smax, pmin, pmax);
+}
+
+__device__ __forceinline__ int4 range_summary(const int4* sum, int64_t base,
+                                              int r0, int r1) {
+  int4 acc = make_int4(INT_MAX, -1, INT_MAX, -1);
+  for (int t = r0 / SUM_T; t * SUM_T < r1; ++t) {
+    const int4 s = sum[base + t];
+    acc.x = min(acc.x, s.x);
+    acc.y = max(acc.y, s.y);
+    acc.z = min(acc.z, s.z);
+    acc.w = max(acc.w, s.w);
+  }
+  return acc;
+}
+
+// Can query rows [q0, q1) and key rows [k0, k1) of batch b hold a valid
+// pair? Conservative; uniform across a block.
+template <bool SPANS>
+__device__ __forceinline__ bool tile_live(const Params& p, int b, int q0,
+                                          int q1, int k0, int k1) {
+  const int4 sq = range_summary(p.sumq, (int64_t)b * p.nsq, q0, q1);
+  const int4 sk = range_summary(p.sumk, (int64_t)b * p.nsk, k0, k1);
+  if (sq.x > sk.y || sk.x > sq.y) return false;  // no shared segment
+  if (p.mode == kFull) return true;
+  const int kp_lo = p.kv_offset + k0, kp_hi = p.kv_offset + k1 - 1;
+  bool pos = kp_lo <= q1 - 1;
+  if (p.mode == kSliding) pos = pos && kp_hi > q0 - p.window;
+  if (pos) return true;
+  return SPANS && sq.z <= sk.w && sk.z <= sq.w;
+}
+
+// The mask of one (query, key) pair, as _packed_kernel builds it: the
+// positional test OR'd with the span test (mode != full only), the
+// segment test AND'd last.
+template <bool SPANS>
+__device__ __forceinline__ bool pair_ok(int mode, int window, int qpos,
+                                        int kpos, int sq, int sk, int pq,
+                                        int pk) {
+  if (sq < 0 || sq != sk) return false;
+  if (mode == kFull) return true;
+  bool ok = kpos <= qpos;
+  if (mode == kSliding) ok = ok && kpos > qpos - window;
+  if (SPANS) ok = ok || (pq >= 0 && pq == pk);
+  return ok;
+}
+
+// ---------------------------------------------------------------------
+// Shared helpers for the tensor-core paths.
+// ---------------------------------------------------------------------
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+        "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragment (16 x 16, row-major) of a [row][col] bf16 tile with pitch P
+__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* base,
+                                       int P, int row0, int col0, int g,
+                                       int t) {
+  const bf16* p = base + (row0 + g) * P + col0 + t * 2;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * P);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * P + 8);
+}
+
+// B fragment (16 x 8, "col"): tile stored [n][k] with pitch P
+__device__ __forceinline__ void load_b(uint32_t b[2], const bf16* base,
+                                       int P, int n0, int k0, int g,
+                                       int t) {
+  const bf16* p = base + (n0 + g) * P + k0 + t * 2;
+  b[0] = ld32(p);
+  b[1] = ld32(p + 8);
+}
+
+// ---------------------------------------------------------------------
+// Forward, bf16, tensor cores: block = (64 query rows, head, batch).
+// ---------------------------------------------------------------------
+constexpr int F_BQ = 64, F_BK = 64, F_THREADS = 128;
+
+template <int D>
+struct FwdTile {
+  static constexpr int QP = D + 8;      // pitch of Q and K rows
+  static constexpr int VP = F_BK + 8;   // pitch of V^T rows
+  static constexpr size_t smem =
+      sizeof(bf16) * (F_BQ * QP + F_BK * QP + D * VP) +
+      sizeof(int) * 2 * F_BK;
+};
+
+template <int D, bool SPANS>
+__global__ void __launch_bounds__(F_THREADS)
+packed_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, Params p, float scale) {
+  using Tile = FwdTile<D>;
+  constexpr int QP = Tile::QP, VP = Tile::VP;
+  constexpr int CH = D / 8;       // 16-byte chunks per row
+  constexpr int NT = F_BK / 8;    // 8-key column tiles of S
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Ks = Qs + F_BQ * QP;        // [F_BK][QP]
+  bf16* Vt = Ks + F_BK * QP;        // [D][VP]
+  int* segk_s = reinterpret_cast<int*>(Vt + D * VP);
+  int* spank_s = segk_s + F_BK;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * F_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int H = p.H, Hkv = p.Hkv, Sq = p.Sq, Sk = p.Sk;
+  const int hk = h / (H / Hkv);
+  const int q1 = min(q0 + F_BQ, Sq);
+
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
+  const bf16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+  const bf16* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const bf16* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  bf16* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+
+  for (int i = tid; i < F_BQ * CH; i += F_THREADS) {
+    const int rr = i / CH, c = i % CH, qp = q0 + rr;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (qp < Sq)
+      val = *reinterpret_cast<const uint4*>(qb + (int64_t)qp * q_stride +
+                                            c * 8);
+    *reinterpret_cast<uint4*>(Qs + rr * QP + c * 8) = val;
+  }
+  __syncthreads();
+
+  const int r_lo = warp * 16 + g;
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], Qs, QP, warp * 16, kk * 16, g, t);
+
+  const int qpos[2] = {q0 + r_lo, q0 + r_lo + 8};
+  int segq_r[2], spanq_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = qpos[i] < Sq;
+    segq_r[i] = in ? p.segq[(int64_t)b * Sq + qpos[i]] : -1;
+    spanq_r[i] = (SPANS && in) ? p.spanq[(int64_t)b * Sq + qpos[i]] : -1;
+  }
+
+  // Without spans, keys after the tile's last query never count (causal
+  // and sliding), and sliding drops keys a window before its first.
+  int j_lo = 0, j_hi = Sk;
+  if (!SPANS && p.mode != kFull) {
+    j_hi = max(0, min(Sk, q1 - p.kv_offset));
+    if (p.mode == kSliding) j_lo = max(0, q0 - p.window - p.kv_offset + 1);
+  }
+  j_lo = (j_lo / F_BK) * F_BK;
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  for (int j0 = j_lo; j0 < j_hi; j0 += F_BK) {
+    if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + F_BK, Sk))) continue;
+    __syncthreads();  // every warp is done with the previous tile
+    for (int i = tid; i < F_BK * CH; i += F_THREADS) {
+      const int c = i % F_BK, ch = i / F_BK, kp = j0 + c;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+      if (kp < Sk) {
+        kv = *reinterpret_cast<const uint4*>(kb + (int64_t)kp * kv_stride +
+                                             ch * 8);
+        vv = *reinterpret_cast<const uint4*>(vb + (int64_t)kp * kv_stride +
+                                             ch * 8);
+      }
+      *reinterpret_cast<uint4*>(Ks + c * QP + ch * 8) = kv;
+      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) Vt[(ch * 8 + e) * VP + c] = ve[e];
+    }
+    if (tid < F_BK) {
+      const int kp = j0 + tid;
+      segk_s[tid] = kp < Sk ? p.segk[(int64_t)b * Sk + kp] : -2;
+      spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
+    }
+    __syncthreads();
+
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t bfrag[2];
+        load_b(bfrag, Ks, QP, n * 8, kk * 16, g, t);
+        mma_bf16(s[n], qf[kk], bfrag);
+      }
+    }
+
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
+        const bool ok = pair_ok<SPANS>(p.mode, p.window, qpos[i],
+                                       p.kv_offset + j0 + c, segq_r[i],
+                                       segk_s[c], spanq_r[i], spank_s[c]);
+        const float val = ok ? s[n][e] * scale : -INFINITY;
+        s[n][e] = val;
+        mx[i] = fmaxf(mx[i], val);
+      }
+    float corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = m[i] == -INFINITY ? 0.f : __expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pv =
+            s[n][e] == -INFINITY ? 0.f : __expf(s[n][e] - m[e >> 1]);
+        s[n][e] = pv;
+        psum[e >> 1] += pv;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      psum[i] += __shfl_xor_sync(FULL, psum[i], 1);
+      psum[i] += __shfl_xor_sync(FULL, psum[i], 2);
+      l[i] = l[i] * corr[i] + psum[i];
+    }
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      acc[nd][0] *= corr[0];
+      acc[nd][1] *= corr[0];
+      acc[nd][2] *= corr[1];
+      acc[nd][3] *= corr[1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < F_BK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        uint32_t bfrag[2];
+        load_b(bfrag, Vt, VP, nd * 8, kk * 16, g, t);
+        mma_bf16(acc[nd], a, bfrag);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qpos[i] >= Sq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    bf16* orow = ob + (int64_t)qpos[i] * q_stride + t * 2;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(orow + nd * 8) =
+          pack_bf16(acc[nd][2 * i] * inv, acc[nd][2 * i + 1] * inv);
+    if (t == 0)
+      lse[((int64_t)b * H + h) * Sq + qpos[i]] =
+          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
+  }
+}
+
+// ---------------------------------------------------------------------
+// Forward, fp32, CUDA cores: block = (64 query rows, head, batch), two
+// threads per row each holding half of the row's scores and output.
+// ---------------------------------------------------------------------
+constexpr int S_BQ = 64, S_BK = 32, S_THREADS = 128;
+
+template <int D>
+constexpr size_t fwd_f32_smem() {
+  return sizeof(float) * (S_BQ * (D + 1) + S_BK * (D + 1) + S_BK * D +
+                          S_BQ * (S_BK + 1)) +
+         sizeof(int) * 2 * S_BK;
+}
+
+template <int D, bool SPANS>
+__global__ void __launch_bounds__(S_THREADS)
+packed_fwd_f32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, Params p, float scale) {
+  constexpr int QS = D + 1, PS = S_BK + 1;
+  extern __shared__ float smem[];
+  float* Qs = smem;            // [S_BQ][QS]
+  float* Ks = Qs + S_BQ * QS;  // [S_BK][QS]
+  float* Vs = Ks + S_BK * QS;  // [S_BK][D]
+  float* Ps = Vs + S_BK * D;   // [S_BQ][PS]
+  int* segk_s = reinterpret_cast<int*>(Ps + S_BQ * PS);
+  int* spank_s = segk_s + S_BK;
+
+  const int tid = threadIdx.x, r = tid >> 1, half = tid & 1;
+  const int q0 = blockIdx.x * S_BQ, h = blockIdx.y, b = blockIdx.z;
+  const int H = p.H, Hkv = p.Hkv, Sq = p.Sq, Sk = p.Sk;
+  const int hk = h / (H / Hkv);
+  const int q1 = min(q0 + S_BQ, Sq);
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
+  const float* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+  const float* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const float* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  float* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+
+  for (int i = tid; i < S_BQ * D; i += S_THREADS) {
+    const int rr = i / D, d = i % D, qp = q0 + rr;
+    Qs[rr * QS + d] = qp < Sq ? qb[(int64_t)qp * q_stride + d] : 0.f;
+  }
+
+  const int qpos = q0 + r;
+  const bool qin = qpos < Sq;
+  const int segq_r = qin ? p.segq[(int64_t)b * Sq + qpos] : -1;
+  const int spanq_r = (SPANS && qin) ? p.spanq[(int64_t)b * Sq + qpos] : -1;
+
+  int j_lo = 0, j_hi = Sk;
+  if (!SPANS && p.mode != kFull) {
+    j_hi = max(0, min(Sk, q1 - p.kv_offset));
+    if (p.mode == kSliding) j_lo = max(0, q0 - p.window - p.kv_offset + 1);
+  }
+  j_lo = (j_lo / S_BK) * S_BK;
+
+  float m = -INFINITY, l = 0.f;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int j0 = j_lo; j0 < j_hi; j0 += S_BK) {
+    if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + S_BK, Sk))) continue;
+    __syncthreads();
+    for (int i = tid; i < S_BK * D; i += S_THREADS) {
+      const int c = i / D, d = i % D, kp = j0 + c;
+      const bool in = kp < Sk;
+      Ks[c * QS + d] = in ? kb[(int64_t)kp * kv_stride + d] : 0.f;
+      Vs[c * D + d] = in ? vb[(int64_t)kp * kv_stride + d] : 0.f;
+    }
+    if (tid < S_BK) {
+      const int kp = j0 + tid;
+      segk_s[tid] = kp < Sk ? p.segk[(int64_t)b * Sk + kp] : -2;
+      spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
+    }
+    __syncthreads();
+
+    float s[S_BK / 2];
+    float row_max = -INFINITY;
+    const float* qr = Qs + r * QS;
+#pragma unroll
+    for (int jj = 0; jj < S_BK / 2; ++jj) {
+      const int c = half + 2 * jj;
+      const bool ok = pair_ok<SPANS>(p.mode, p.window, qpos,
+                                     p.kv_offset + j0 + c, segq_r,
+                                     segk_s[c], spanq_r, spank_s[c]);
+      float dot = 0.f;
+      if (ok) {
+        const float* kr = Ks + c * QS;
+#pragma unroll 8
+        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
+        dot *= scale;
+        row_max = fmaxf(row_max, dot);
+      }
+      s[jj] = ok ? dot : -INFINITY;
+    }
+    row_max = fmaxf(row_max, __shfl_xor_sync(FULL, row_max, 1));
+    const float m_new = fmaxf(m, row_max);
+    float corr = 1.f, psum = 0.f;
+    float* pr = Ps + r * PS;
+    if (m_new == -INFINITY) {
+#pragma unroll
+      for (int jj = 0; jj < S_BK / 2; ++jj) pr[half + 2 * jj] = 0.f;
+    } else {
+      corr = expf(m - m_new);  // m = -inf gives 0
+#pragma unroll
+      for (int jj = 0; jj < S_BK / 2; ++jj) {
+        const float pv = s[jj] == -INFINITY ? 0.f : expf(s[jj] - m_new);
+        psum += pv;
+        pr[half + 2 * jj] = pv;
+      }
+    }
+    psum += __shfl_xor_sync(FULL, psum, 1);
+    l = l * corr + psum;
+    m = m_new;
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr;
+    for (int c = 0; c < S_BK; ++c) {
+      const float pv = pr[c];
+      const float* vr = Vs + c * D + half;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = fmaf(pv, vr[2 * i], acc[i]);
+    }
+  }
+
+  if (qin) {
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    float* orow = ob + (int64_t)qpos * q_stride + half;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) orow[2 * i] = acc[i] * inv;
+    if (half == 0)
+      lse[((int64_t)b * H + h) * Sq + qpos] =
+          l > 0.f ? m + logf(l) : -INFINITY;
+  }
+}
+
+// ---------------------------------------------------------------------
+// Backward preprocess: delta[b, h, i] = sum_d dO * O (fp32), one warp
+// per (b, i, h) row.
+// ---------------------------------------------------------------------
+template <typename T, int D>
+__global__ void bwd_delta_kernel(const T* __restrict__ o,
+                                 const T* __restrict__ dout,
+                                 float* __restrict__ delta, int B, int Sq,
+                                 int H) {
+  const int row = blockIdx.x * 4 + (threadIdx.x >> 5);  // (b*Sq + i)*H + h
+  const int lane = threadIdx.x & 31;
+  if (row >= B * Sq * H) return;
+  const T* orow = o + (int64_t)row * D;
+  const T* drow = dout + (int64_t)row * D;
+  float acc = 0.f;
+#pragma unroll
+  for (int d = lane; d < D; d += 32) {
+    float a, c;
+    if constexpr (std::is_same<T, bf16>::value) {
+      a = __bfloat162float(orow[d]);
+      c = __bfloat162float(drow[d]);
+    } else {
+      a = orow[d];
+      c = drow[d];
+    }
+    acc = fmaf(a, c, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(FULL, acc, off);
+  if (lane == 0) {
+    const int h = row % H, bi = row / H, i = bi % Sq, b = bi / Sq;
+    delta[((int64_t)b * H + h) * Sq + i] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------
+// Backward, bf16, tensor cores. Block = (64-key tile, KV head, batch),
+// 4 warps of 16 keys each. For each of the KV head's G query heads and
+// each live 32-row query tile, a warp computes S^T = K_w Q^T and
+// dP^T = V_w dO^T (16 x 32), P^T = exp(S^T*scale - lse), dS^T =
+// P^T (dP^T - delta) * scale, and accumulates dV_w += P^T dO and dK_w +=
+// dS^T Q in registers (the accumulators of S^T/dS^T are the A fragments
+// of those products). dS goes to shared memory as [query][key], and the
+// block computes dQ = dS K for the tile, each warp a quarter of D,
+// added to the fp32 dq buffer with atomicAdd.
+// ---------------------------------------------------------------------
+constexpr int B_BK = 64, B_BQ = 32, B_THREADS = 128;
+
+template <int D>
+struct BwdTile {
+  static constexpr int RP = D + 8;       // [row][d] tiles
+  static constexpr int KTP = B_BK + 8;   // K^T [d][key]
+  static constexpr int QTP = B_BQ + 8;   // Q^T, dO^T [d][query]
+  static constexpr int SP = B_BK + 8;    // dS [query][key]
+  static constexpr size_t elems = 2 * B_BK * RP + D * KTP + 2 * B_BQ * RP +
+                                  2 * D * QTP + B_BQ * SP;
+  static constexpr size_t smem = sizeof(bf16) * elems +
+                                 sizeof(float) * 2 * B_BQ +
+                                 sizeof(int) * (2 * B_BK + 2 * B_BQ);
+};
+
+template <int D, bool SPANS>
+__global__ void __launch_bounds__(B_THREADS)
+packed_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, Params p, float scale) {
+  using Tile = BwdTile<D>;
+  constexpr int RP = Tile::RP, KTP = Tile::KTP, QTP = Tile::QTP,
+                SP = Tile::SP;
+  constexpr int CH = D / 8;
+  constexpr int NDW = D / 32;  // 8-wide d tiles of dQ per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [B_BK][RP]
+  bf16* Vs = Ks + B_BK * RP;                      // [B_BK][RP]
+  bf16* Kt = Vs + B_BK * RP;                      // [D][KTP]
+  bf16* Qs = Kt + D * KTP;                        // [B_BQ][RP]
+  bf16* dOs = Qs + B_BQ * RP;                     // [B_BQ][RP]
+  bf16* Qt = dOs + B_BQ * RP;                     // [D][QTP]
+  bf16* dOt = Qt + D * QTP;                       // [D][QTP]
+  bf16* dSs = dOt + D * QTP;                      // [B_BQ][SP]
+  float* lse_s = reinterpret_cast<float*>(dSs + B_BQ * SP);
+  float* delta_s = lse_s + B_BQ;
+  int* segk_s = reinterpret_cast<int*>(delta_s + B_BQ);
+  int* spank_s = segk_s + B_BK;
+  int* segq_s = spank_s + B_BK;
+  int* spanq_s = segq_s + B_BQ;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * B_BK, hk = blockIdx.y, b = blockIdx.z;
+  const int H = p.H, Hkv = p.Hkv, Sq = p.Sq, Sk = p.Sk, G = H / Hkv;
+  const int k1 = min(k0 + B_BK, Sk);
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
+  const bf16* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const bf16* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+
+  for (int i = tid; i < B_BK * CH; i += B_THREADS) {
+    const int c = i % B_BK, ch = i / B_BK, kp = k0 + c;
+    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+    if (kp < Sk) {
+      kv = *reinterpret_cast<const uint4*>(kb + (int64_t)kp * kv_stride +
+                                           ch * 8);
+      vv = *reinterpret_cast<const uint4*>(vb + (int64_t)kp * kv_stride +
+                                           ch * 8);
+    }
+    *reinterpret_cast<uint4*>(Ks + c * RP + ch * 8) = kv;
+    *reinterpret_cast<uint4*>(Vs + c * RP + ch * 8) = vv;
+    const bf16* ke = reinterpret_cast<const bf16*>(&kv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) Kt[(ch * 8 + e) * KTP + c] = ke[e];
+  }
+  if (tid < B_BK) {
+    const int kp = k0 + tid;
+    segk_s[tid] = kp < Sk ? p.segk[(int64_t)b * Sk + kp] : -2;
+    spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
+  }
+  __syncthreads();
+
+  const int kl[2] = {warp * 16 + g, warp * 16 + g + 8};  // local key rows
+  int kpos[2], segk_r[2], spank_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kpos[i] = p.kv_offset + k0 + kl[i];
+    segk_r[i] = segk_s[kl[i]];
+    spank_r[i] = spank_s[kl[i]];
+  }
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
+
+  // Without spans, queries before the tile's first key never see it.
+  int i_lo = 0;
+  if (!SPANS && p.mode != kFull) i_lo = max(0, p.kv_offset + k0);
+  i_lo = (i_lo / B_BQ) * B_BQ;
+
+  for (int hh = 0; hh < G; ++hh) {
+    const int h = hk * G + hh;
+    const bf16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+    const bf16* db = dout + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+    const float* lseb = lse + ((int64_t)b * H + h) * Sq;
+    const float* delb = delta + ((int64_t)b * H + h) * Sq;
+    float* dqb = dq_acc + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+    for (int q0 = i_lo; q0 < Sq; q0 += B_BQ) {
+      const int q1 = min(q0 + B_BQ, Sq);
+      if (!tile_live<SPANS>(p, b, q0, q1, k0, k1)) continue;
+      __syncthreads();  // the previous tile's Q/dO/dS are consumed
+      for (int i = tid; i < B_BQ * CH; i += B_THREADS) {
+        const int c = i % B_BQ, ch = i / B_BQ, qp = q0 + c;
+        uint4 qv = make_uint4(0u, 0u, 0u, 0u), dvv = qv;
+        if (qp < Sq) {
+          qv = *reinterpret_cast<const uint4*>(qb + (int64_t)qp * q_stride +
+                                               ch * 8);
+          dvv = *reinterpret_cast<const uint4*>(db + (int64_t)qp * q_stride +
+                                                ch * 8);
+        }
+        *reinterpret_cast<uint4*>(Qs + c * RP + ch * 8) = qv;
+        *reinterpret_cast<uint4*>(dOs + c * RP + ch * 8) = dvv;
+        const bf16* qe = reinterpret_cast<const bf16*>(&qv);
+        const bf16* de = reinterpret_cast<const bf16*>(&dvv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          Qt[(ch * 8 + e) * QTP + c] = qe[e];
+          dOt[(ch * 8 + e) * QTP + c] = de[e];
+        }
+      }
+      if (tid < B_BQ) {
+        const int qp = q0 + tid;
+        const bool in = qp < Sq;
+        lse_s[tid] = in ? lseb[qp] : 0.f;
+        delta_s[tid] = in ? delb[qp] : 0.f;
+        segq_s[tid] = in ? p.segq[(int64_t)b * Sq + qp] : -1;
+        spanq_s[tid] = (SPANS && in) ? p.spanq[(int64_t)b * Sq + qp] : -1;
+      }
+      __syncthreads();
+
+      float sT[B_BQ / 8][4], dpT[B_BQ / 8][4];
+#pragma unroll
+      for (int n = 0; n < B_BQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+        load_a(ak, Ks, RP, warp * 16, kk * 16, g, t);
+        load_a(av, Vs, RP, warp * 16, kk * 16, g, t);
+#pragma unroll
+        for (int n = 0; n < B_BQ / 8; ++n) {
+          uint32_t bq[2], bd[2];
+          load_b(bq, Qs, RP, n * 8, kk * 16, g, t);
+          load_b(bd, dOs, RP, n * 8, kk * 16, g, t);
+          mma_bf16(sT[n], ak, bq);
+          mma_bf16(dpT[n], av, bd);
+        }
+      }
+
+      // P^T and dS^T in place of S^T and dP^T
+#pragma unroll
+      for (int n = 0; n < B_BQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
+          const bool ok = pair_ok<SPANS>(p.mode, p.window, q0 + c, kpos[i],
+                                         segq_s[c], segk_r[i], spanq_s[c],
+                                         spank_r[i]);
+          const float pv = ok ? __expf(sT[n][e] * scale - lse_s[c]) : 0.f;
+          sT[n][e] = pv;
+          dpT[n][e] = pv * (dpT[n][e] - delta_s[c]) * scale;
+        }
+
+#pragma unroll
+      for (int kk = 0; kk < B_BQ / 16; ++kk) {
+        const uint32_t ap[4] = {
+            pack_bf16(sT[2 * kk][0], sT[2 * kk][1]),
+            pack_bf16(sT[2 * kk][2], sT[2 * kk][3]),
+            pack_bf16(sT[2 * kk + 1][0], sT[2 * kk + 1][1]),
+            pack_bf16(sT[2 * kk + 1][2], sT[2 * kk + 1][3])};
+        const uint32_t as[4] = {
+            pack_bf16(dpT[2 * kk][0], dpT[2 * kk][1]),
+            pack_bf16(dpT[2 * kk][2], dpT[2 * kk][3]),
+            pack_bf16(dpT[2 * kk + 1][0], dpT[2 * kk + 1][1]),
+            pack_bf16(dpT[2 * kk + 1][2], dpT[2 * kk + 1][3])};
+#pragma unroll
+        for (int nd = 0; nd < D / 8; ++nd) {
+          uint32_t bo[2], bq[2];
+          load_b(bo, dOt, QTP, nd * 8, kk * 16, g, t);
+          load_b(bq, Qt, QTP, nd * 8, kk * 16, g, t);
+          mma_bf16(dva[nd], ap, bo);
+          mma_bf16(dka[nd], as, bq);
+        }
+      }
+
+#pragma unroll
+      for (int n = 0; n < B_BQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + t * 2 + (e & 1);
+          dSs[c * SP + kl[e >> 1]] = __float2bfloat16(dpT[n][e]);
+        }
+      __syncthreads();
+
+      // dQ tile [B_BQ x D] = dS [B_BQ x B_BK] K [B_BK x D]; warp w owns
+      // d columns [w*D/4, (w+1)*D/4)
+      float dqa[B_BQ / 16][NDW][4];
+#pragma unroll
+      for (int mi = 0; mi < B_BQ / 16; ++mi)
+#pragma unroll
+        for (int j = 0; j < NDW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dqa[mi][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < B_BK / 16; ++kk) {
+        uint32_t a[B_BQ / 16][4];
+#pragma unroll
+        for (int mi = 0; mi < B_BQ / 16; ++mi)
+          load_a(a[mi], dSs, SP, mi * 16, kk * 16, g, t);
+#pragma unroll
+        for (int j = 0; j < NDW; ++j) {
+          uint32_t bk[2];
+          load_b(bk, Kt, KTP, (warp * NDW + j) * 8, kk * 16, g, t);
+#pragma unroll
+          for (int mi = 0; mi < B_BQ / 16; ++mi) mma_bf16(dqa[mi][j], a[mi], bk);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < B_BQ / 16; ++mi)
+#pragma unroll
+        for (int j = 0; j < NDW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = q0 + mi * 16 + g + (e >> 1) * 8;
+            const int col = (warp * NDW + j) * 8 + t * 2 + (e & 1);
+            if (row < Sq)
+              atomicAdd(dqb + (int64_t)row * q_stride + col, dqa[mi][j][e]);
+          }
+    }
+  }
+
+  bf16* dkb = dk + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  bf16* dvb = dv + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + kl[i];
+    if (key >= Sk) continue;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd) {
+      const int64_t off = (int64_t)key * kv_stride + nd * 8 + t * 2;
+      *reinterpret_cast<uint32_t*>(dkb + off) =
+          pack_bf16(dka[nd][2 * i], dka[nd][2 * i + 1]);
+      *reinterpret_cast<uint32_t*>(dvb + off) =
+          pack_bf16(dva[nd][2 * i], dva[nd][2 * i + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// Backward, fp32, CUDA cores. Block = (32-key tile, KV head, batch);
+// thread = (key, quarter of D: d = part + 4*i). Per live 32-row query
+// tile, each thread forms its key's scores and dP over the tile (a
+// 4-lane shuffle reduction), accumulates dK/dV in registers, and writes
+// dS to shared memory; then thread (query, quarter) sums dQ over the
+// tile's keys and adds it to dq with atomicAdd.
+// ---------------------------------------------------------------------
+constexpr int BS_BK = 32, BS_BQ = 32, BS_THREADS = 128;
+
+template <int D>
+constexpr size_t bwd_f32_smem() {
+  return sizeof(float) * (2 * BS_BK * (D + 1) + 2 * BS_BQ * (D + 1) +
+                          BS_BQ * (BS_BK + 1) + 2 * BS_BQ) +
+         sizeof(int) * (2 * BS_BK + 2 * BS_BQ);
+}
+
+template <int D, bool SPANS>
+__global__ void __launch_bounds__(BS_THREADS)
+packed_bwd_f32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dq, float* __restrict__ dk,
+                      float* __restrict__ dv, Params p, float scale) {
+  constexpr int RS = D + 1, SS = BS_BK + 1, NI = D / 4;
+  extern __shared__ float smem[];
+  float* Ks = smem;                 // [BS_BK][RS]
+  float* Vs = Ks + BS_BK * RS;      // [BS_BK][RS]
+  float* Qs = Vs + BS_BK * RS;      // [BS_BQ][RS]
+  float* dOs = Qs + BS_BQ * RS;     // [BS_BQ][RS]
+  float* dSs = dOs + BS_BQ * RS;    // [BS_BQ][SS], dS[query][key]
+  float* lse_s = dSs + BS_BQ * SS;
+  float* delta_s = lse_s + BS_BQ;
+  int* segk_s = reinterpret_cast<int*>(delta_s + BS_BQ);
+  int* spank_s = segk_s + BS_BK;
+  int* segq_s = spank_s + BS_BK;
+  int* spanq_s = segq_s + BS_BQ;
+
+  const int tid = threadIdx.x, kl = tid >> 2, part = tid & 3;
+  const int k0 = blockIdx.x * BS_BK, hk = blockIdx.y, b = blockIdx.z;
+  const int H = p.H, Hkv = p.Hkv, Sq = p.Sq, Sk = p.Sk, G = H / Hkv;
+  const int k1 = min(k0 + BS_BK, Sk);
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
+  const float* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const float* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+
+  for (int i = tid; i < BS_BK * D; i += BS_THREADS) {
+    const int c = i / D, d = i % D, kp = k0 + c;
+    const bool in = kp < Sk;
+    Ks[c * RS + d] = in ? kb[(int64_t)kp * kv_stride + d] : 0.f;
+    Vs[c * RS + d] = in ? vb[(int64_t)kp * kv_stride + d] : 0.f;
+  }
+  if (tid < BS_BK) {
+    const int kp = k0 + tid;
+    segk_s[tid] = kp < Sk ? p.segk[(int64_t)b * Sk + kp] : -2;
+    spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
+  }
+  __syncthreads();
+  const int kpos = p.kv_offset + k0 + kl;
+  const int segk_r = segk_s[kl], spank_r = spank_s[kl];
+
+  float dka[NI], dva[NI];
+#pragma unroll
+  for (int i = 0; i < NI; ++i) dka[i] = dva[i] = 0.f;
+
+  int i_lo = 0;
+  if (!SPANS && p.mode != kFull) i_lo = max(0, p.kv_offset + k0);
+  i_lo = (i_lo / BS_BQ) * BS_BQ;
+
+  for (int hh = 0; hh < G; ++hh) {
+    const int h = hk * G + hh;
+    const float* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+    const float* db = dout + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+    const float* lseb = lse + ((int64_t)b * H + h) * Sq;
+    const float* delb = delta + ((int64_t)b * H + h) * Sq;
+    float* dqb = dq + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+    for (int q0 = i_lo; q0 < Sq; q0 += BS_BQ) {
+      const int q1 = min(q0 + BS_BQ, Sq);
+      if (!tile_live<SPANS>(p, b, q0, q1, k0, k1)) continue;
+      __syncthreads();
+      for (int i = tid; i < BS_BQ * D; i += BS_THREADS) {
+        const int c = i / D, d = i % D, qp = q0 + c;
+        const bool in = qp < Sq;
+        Qs[c * RS + d] = in ? qb[(int64_t)qp * q_stride + d] : 0.f;
+        dOs[c * RS + d] = in ? db[(int64_t)qp * q_stride + d] : 0.f;
+      }
+      if (tid < BS_BQ) {
+        const int qp = q0 + tid;
+        const bool in = qp < Sq;
+        lse_s[tid] = in ? lseb[qp] : 0.f;
+        delta_s[tid] = in ? delb[qp] : 0.f;
+        segq_s[tid] = in ? p.segq[(int64_t)b * Sq + qp] : -1;
+        spanq_s[tid] = (SPANS && in) ? p.spanq[(int64_t)b * Sq + qp] : -1;
+      }
+      __syncthreads();
+
+      const float* kr = Ks + kl * RS + part;
+      const float* vr = Vs + kl * RS + part;
+      for (int c = 0; c < BS_BQ; ++c) {
+        const float* qr = Qs + c * RS + part;
+        const float* dr = dOs + c * RS + part;
+        float s = 0.f, dp = 0.f;
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          s = fmaf(kr[4 * i], qr[4 * i], s);
+          dp = fmaf(vr[4 * i], dr[4 * i], dp);
+        }
+        s += __shfl_xor_sync(FULL, s, 1);
+        s += __shfl_xor_sync(FULL, s, 2);
+        dp += __shfl_xor_sync(FULL, dp, 1);
+        dp += __shfl_xor_sync(FULL, dp, 2);
+        const bool ok = pair_ok<SPANS>(p.mode, p.window, q0 + c, kpos,
+                                       segq_s[c], segk_r, spanq_s[c],
+                                       spank_r);
+        const float pv = ok ? expf(s * scale - lse_s[c]) : 0.f;
+        const float ds = pv * (dp - delta_s[c]) * scale;
+#pragma unroll
+        for (int i = 0; i < NI; ++i) {
+          dva[i] = fmaf(pv, dr[4 * i], dva[i]);
+          dka[i] = fmaf(ds, qr[4 * i], dka[i]);
+        }
+        if (part == 0) dSs[c * SS + kl] = ds;
+      }
+      __syncthreads();
+
+      const int c = tid >> 2;  // query row of the tile
+      if (q0 + c < Sq) {
+        const float* srow = dSs + c * SS;
+        float* dqr = dqb + (int64_t)(q0 + c) * q_stride + part;
+#pragma unroll 4
+        for (int i = 0; i < NI; ++i) {
+          float a = 0.f;
+          for (int j = 0; j < BS_BK; ++j)
+            a = fmaf(srow[j], Ks[j * RS + part + 4 * i], a);
+          atomicAdd(dqr + 4 * i, a);
+        }
+      }
+    }
+  }
+
+  const int key = k0 + kl;
+  if (key < Sk) {
+    float* dkr = dk + (int64_t)b * Sk * kv_stride + (int64_t)key * kv_stride +
+                 (int64_t)hk * D + part;
+    float* dvr = dv + (int64_t)b * Sk * kv_stride + (int64_t)key * kv_stride +
+                 (int64_t)hk * D + part;
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      dkr[4 * i] = dka[i];
+      dvr[4 * i] = dva[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------
+cudaError_t summarize(const Params& p, int4* sumq, int4* sumk,
+                      cudaStream_t stream) {
+  tile_summary_kernel<<<dim3(p.nsq, p.B), 32, 0, stream>>>(
+      p.segq, p.spanq, p.Sq, p.nsq, sumq);
+  tile_summary_kernel<<<dim3(p.nsk, p.B), 32, 0, stream>>>(
+      p.segk, p.spank, p.Sk, p.nsk, sumk);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool SPANS>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       float* lse, const Params& p, cudaStream_t stream) {
+  const float scale = 1.f / sqrtf((float)D);
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr size_t smem = FwdTile<D>::smem;
+    cudaError_t err = cudaFuncSetAttribute(
+        packed_fwd_tc_kernel<D, SPANS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.Sq + F_BQ - 1) / F_BQ, p.H, p.B);
+    packed_fwd_tc_kernel<D, SPANS><<<grid, F_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, p, scale);
+  } else {
+    constexpr size_t smem = fwd_f32_smem<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        packed_fwd_f32_kernel<D, SPANS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.Sq + S_BQ - 1) / S_BQ, p.H, p.B);
+    packed_fwd_f32_kernel<D, SPANS><<<grid, S_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, p, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool SPANS>
+cudaError_t launch_bwd(const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse,
+                       float* delta, float* dq_acc, void* dk, void* dv,
+                       const Params& p, cudaStream_t stream) {
+  const float scale = 1.f / sqrtf((float)D);
+  const int rows = p.B * p.Sq * p.H;
+  bwd_delta_kernel<T, D><<<(rows + 3) / 4, 128, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, p.B,
+      p.Sq, p.H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr size_t smem = BwdTile<D>::smem;
+    err = cudaFuncSetAttribute(packed_bwd_tc_kernel<D, SPANS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.Sk + B_BK - 1) / B_BK, p.Hkv, p.B);
+    packed_bwd_tc_kernel<D, SPANS><<<grid, B_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+        delta, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), p,
+        scale);
+  } else {
+    constexpr size_t smem = bwd_f32_smem<D>();
+    err = cudaFuncSetAttribute(packed_bwd_f32_kernel<D, SPANS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.Sk + BS_BK - 1) / BS_BK, p.Hkv, p.B);
+    packed_bwd_f32_kernel<D, SPANS><<<grid, BS_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+        delta, dq_acc, static_cast<float*>(dk), static_cast<float*>(dv), p,
+        scale);
+  }
+  return cudaGetLastError();
+}
+
+Params make_params(int B, int Sq, int Sk, int H, int Hkv, int mode,
+                   int window, int kv_offset, const void* segq,
+                   const void* segk, const void* spanq, const void* spank,
+                   void* sumq, void* sumk) {
+  Params p;
+  p.B = B;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.H = H;
+  p.Hkv = Hkv;
+  p.mode = mode;
+  p.window = window;
+  p.kv_offset = kv_offset;
+  p.segq = static_cast<const int*>(segq);
+  p.segk = static_cast<const int*>(segk);
+  p.spanq = static_cast<const int*>(spanq);
+  p.spank = static_cast<const int*>(spank);
+  p.sumq = static_cast<const int4*>(sumq);
+  p.sumk = static_cast<const int4*>(sumk);
+  p.nsq = (Sq + SUM_T - 1) / SUM_T;
+  p.nsk = (Sk + SUM_T - 1) / SUM_T;
+  return p;
+}
+
+bool bad_args(int B, int Sq, int Sk, int H, int Hkv, int D, int mode,
+              int window) {
+  return B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Hkv <= 0 ||
+         H % Hkv != 0 || (D != 64 && D != 128) || mode < 0 || mode > 2 ||
+         (mode == kSliding && window < 1);
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16. mode: 0 full, 1 causal, 2 sliding.
+// Tables are int32 [B, S]; spanq/spank are both null (no span table) or
+// both set. sumq/sumk are int32 scratch of 4 * B * ceil(S/32) entries.
+// o is q's type [B, Sq, H, D]; lse fp32 [B, H, Sq].
+// Returns the cudaError_t of the launches (0 = cudaSuccess).
+int k1_forward(const void* q, const void* k, const void* v, void* o,
+               void* lse, const void* segq, const void* segk,
+               const void* spanq, const void* spank, void* sumq, void* sumk,
+               int B, int Sq, int Sk, int H, int Hkv, int D, int dtype,
+               int mode, int window, int kv_offset, void* stream) {
+  if (bad_args(B, Sq, Sk, H, Hkv, D, mode, window) ||
+      (spanq == nullptr) != (spank == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Params p = make_params(B, Sq, Sk, H, Hkv, mode, window, kv_offset,
+                               segq, segk, spanq, spank, sumq, sumk);
+  cudaError_t err = summarize(p, static_cast<int4*>(sumq),
+                              static_cast<int4*>(sumk), s);
+  if (err != cudaSuccess) return (int)err;
+  float* l = static_cast<float*>(lse);
+  const bool spans = spanq != nullptr;
+#define K1_FWD(T, DD)                                                     \
+  return (int)(spans ? launch_fwd<T, DD, true>(q, k, v, o, l, p, s)       \
+                     : launch_fwd<T, DD, false>(q, k, v, o, l, p, s))
+  if (dtype == 0) {
+    if (D == 64) K1_FWD(float, 64);
+    K1_FWD(float, 128);
+  }
+  if (dtype == 1) {
+    if (D == 64) K1_FWD(bf16, 64);
+    K1_FWD(bf16, 128);
+  }
+#undef K1_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// dq_acc: fp32 [B, Sq, H, D], zeroed by the caller (for fp32 inputs it
+// is dq itself); delta: fp32 scratch [B, H, Sq]; dk/dv in k's type
+// [B, Sk, Hkv, D], written in full.
+int k1_backward(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const void* lse, void* delta, void* dq_acc,
+                void* dk, void* dv, const void* segq, const void* segk,
+                const void* spanq, const void* spank, void* sumq, void* sumk,
+                int B, int Sq, int Sk, int H, int Hkv, int D, int dtype,
+                int mode, int window, int kv_offset, void* stream) {
+  if (bad_args(B, Sq, Sk, H, Hkv, D, mode, window) ||
+      (spanq == nullptr) != (spank == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Params p = make_params(B, Sq, Sk, H, Hkv, mode, window, kv_offset,
+                               segq, segk, spanq, spank, sumq, sumk);
+  cudaError_t err = summarize(p, static_cast<int4*>(sumq),
+                              static_cast<int4*>(sumk), s);
+  if (err != cudaSuccess) return (int)err;
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  float* dqa = static_cast<float*>(dq_acc);
+  const bool spans = spanq != nullptr;
+#define K1_BWD(T, DD)                                                      \
+  return (int)(spans ? launch_bwd<T, DD, true>(q, k, v, o, dout, l, dl,    \
+                                               dqa, dk, dv, p, s)          \
+                     : launch_bwd<T, DD, false>(q, k, v, o, dout, l, dl,   \
+                                                dqa, dk, dv, p, s))
+  if (dtype == 0) {
+    if (D == 64) K1_BWD(float, 64);
+    K1_BWD(float, 128);
+  }
+  if (dtype == 1) {
+    if (D == 64) K1_BWD(bf16, 64);
+    K1_BWD(bf16, 128);
+  }
+#undef K1_BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+const char* k1_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -2,14 +2,17 @@
 
 Implementations (`cfg.attn_impl`):
   * reference — full score matrix, with optional segment and span tables.
-  * cuda      — the hand-written flash-attention kernel
-                (kernels/flash_attention.py; its plain version on CPU).
+  * cuda      — the hand-written kernels: without tables the flash-
+                attention kernel K2 (kernels/flash_attention.py), with
+                segment/span tables the packed kernel K1
+                (kernels/flash_attention_packed.py, forward and backward);
+                their plain versions on CPU tensors.
 
 The serving-only cores `attn_prefill_chunk` (chunked prefill against a
 KV cache, with the mixed modality mask) and `attn_decode` (one token
 against a cache) are plain PyTorch, as they are plain jnp in the JAX
-package. The chunked, banded and ring-CP cores come with the training
-slice.
+package. The chunked and banded cores and ring context parallelism are
+not ported (a later slice adds ring CP over torch.distributed).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention_packed import flash_attention_packed
 from .layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -161,9 +165,13 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
               window: Optional[int] = None, impl: str = "cuda",
               rope_frac: float = 1.0, segment_ids=None, span_ids=None,
               return_kv: bool = False):
-    """Self-attention block on x [B,S,d_model]. `impl="cuda"` runs the
-    flash-attention kernel (no tables); `impl="reference"` the full
-    matrix, which also takes `segment_ids`/`span_ids`."""
+    """Self-attention block on x [B,S,d_model]. `segment_ids` ([B,S],
+    -1 = padding) selects the packed varlen path: x is a packed buffer of
+    concatenated sequences and attention is block-diagonal over segments;
+    pass per-segment `positions` so RoPE matches. `span_ids` ([B,S], -1 =
+    causal) adds the mixed modality mask. `impl="cuda"` runs kernel K1
+    when a table is given and K2 otherwise; `impl="reference"` the full
+    matrix."""
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
     k = (x @ params["wk"]).reshape(B, S, kv_heads, head_dim)
@@ -175,11 +183,14 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
 
     if impl == "cuda":
         if segment_ids is not None or span_ids is not None:
-            raise NotImplementedError(
-                "the packed (segment/span) kernel comes with the training "
-                "slice; use impl='reference'")
-        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                            mode=mode, window=window)
+            seg = (segment_ids if segment_ids is not None
+                   else torch.zeros(B, S, dtype=torch.int32,
+                                    device=x.device))
+            o = flash_attention_packed(q, k, v, seg, span_ids=span_ids,
+                                       mode=mode, window=window)
+        else:
+            o = flash_attention(q.contiguous(), k.contiguous(),
+                                v.contiguous(), mode=mode, window=window)
     elif impl == "reference":
         o = attn_reference(q, k, v, mode=mode, window=window,
                            segment_ids=segment_ids, span_ids=span_ids)

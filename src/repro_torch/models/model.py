@@ -1,6 +1,7 @@
-"""Top-level model API, dense path (the serving slice).
+"""Top-level model API, dense path.
 
   init_params(cfg, seed=, device=)               -> params dict
+  forward(params, cfg, batch)                    -> (logits [B,S,V], aux)
   prefill(params, cfg, batch, cache_len)         -> (last logits, cache)
   prefill_chunk(params, cfg, cache, tokens, pos) -> cache
   init_cache(cfg, batch_size, cache_len, device) -> decode cache
@@ -24,8 +25,8 @@ from .attention import (attention, attn_decode, attn_prefill_chunk,
                         project_qkv_decode)
 from .layers import (_dtype, apply_rope, dense_init, embed, init_embedding,
                      init_rmsnorm, mlp, rms_norm, unembed)
-from .transformer import (_attn_kwargs, _init_dense_layer, _rope_frac,
-                          init_stack, layer, n_stacked)
+from .transformer import (_attn_kwargs, _dense_block, _init_dense_layer,
+                          _rope_frac, init_stack, unstack)
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -76,6 +77,38 @@ def _head(params, cfg: ModelConfig, x) -> torch.Tensor:
 
 
 # ==========================================================================
+# Forward (train)
+# ==========================================================================
+def _table(batch, key, device):
+    t = batch.get(key)
+    return None if t is None else torch.as_tensor(t, device=device)
+
+
+def forward(params, cfg: ModelConfig, batch,
+            mode: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense-family forward -> (logits [B,S,V] in the param dtype, aux
+    loss). `batch` holds `tokens` and optionally `positions` (per-segment
+    positions of a packed buffer), `segment_ids` (the packed
+    block-diagonal table, -1 = tail padding) and `modality_ids` (the
+    mixed-mask table of bidirectional blocks, -1 = causal), as
+    `core/packing.flatten_group` emits them. Differentiable; layers run
+    in a Python loop over the unstacked parameters."""
+    _check_family(cfg)
+    x = _input_embeddings(params, cfg, batch)
+    attn_mode = mode or ("sliding" if cfg.sliding_window else "causal")
+    positions = _table(batch, "positions", x.device)
+    segment_ids = _table(batch, "segment_ids", x.device)
+    span_ids = _table(batch, "modality_ids", x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in unstack(params["layers"]):
+        x, a = _dense_block(p, x, cfg, mode=attn_mode,
+                            window=cfg.sliding_window, positions=positions,
+                            segment_ids=segment_ids, span_ids=span_ids)
+        aux = aux + a
+    return _head(params, cfg, x), aux
+
+
+# ==========================================================================
 # Serving prefill: last-token logits + filled KV cache
 # ==========================================================================
 @torch.no_grad()
@@ -92,10 +125,8 @@ def prefill(params, cfg: ModelConfig, batch,
         positions = torch.as_tensor(positions, device=x.device)
     mode = "sliding" if cfg.sliding_window else "causal"
     kw = _attn_kwargs(cfg, mode, cfg.sliding_window)
-    stack = params["layers"]
     ks, vs = [], []
-    for i in range(n_stacked(stack)):
-        p = layer(stack, i)
+    for p in unstack(params["layers"]):
         g = rms_norm(p["ln1"], x, cfg.norm_eps)
         o, (k, v) = attention(p["attn"], g, positions=positions,
                               return_kv=True, **kw)
@@ -150,9 +181,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any],
     positions = start_pos + torch.arange(C, device=x.device)[None, :]
     T = cache["k"].shape[2]
     n_write = max(0, min(C, T - start_pos))      # drop-mode scatter
-    stack = params["layers"]
-    for i in range(n_stacked(stack)):
-        p = layer(stack, i)
+    for i, p in enumerate(unstack(params["layers"])):
         ck, cv = cache["k"][i], cache["v"][i]      # [B,T,Hkv,D] views
         g = rms_norm(p["ln1"], x, cfg.norm_eps)
         q = (g @ p["attn"]["wq"]).reshape(B, C, cfg.n_heads, hd)
@@ -221,9 +250,8 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
     pos = cache["pos"]
     pos_b = pos.expand(B) if pos.dim() == 0 else pos
     x1 = embed(params["embed"], tokens)
-    stack = params["layers"]
-    for i in range(n_stacked(stack)):
-        x1 = _dense_decode_layer(layer(stack, i), x1, cache["k"][i],
-                                 cache["v"][i], pos_b, cfg)
+    for i, p in enumerate(unstack(params["layers"])):
+        x1 = _dense_decode_layer(p, x1, cache["k"][i], cache["v"][i],
+                                 pos_b, cfg)
     logits = _head(params, cfg, x1)
     return logits, {**cache, "pos": pos + 1}

@@ -160,14 +160,14 @@ def test_engine_serve_one_shot_batch(weights):
     """Engine.serve (fixed batch: prefill + greedy decode) equals the JAX
     Engine.serve on converted weights."""
     from repro.api import Engine as JaxEngine
-    from repro_torch.api import EngineState
+    from repro_torch.training import TrainState
     jp, tp = weights
     prompts = _tokens(6, (2, 12))
     jeng = JaxEngine(JCFG, seed=0)
     jeng.state = jeng.state._replace(params=jp)
     jout, _ = jeng.serve(jnp.asarray(prompts), gen_tokens=5)
     eng = Engine(TCFG, device="cpu")
-    eng.state = EngineState(params=tp)
+    eng.state = TrainState(params=tp)
     out, rep = eng.serve(prompts, gen_tokens=5)
     assert out.tolist() == np.asarray(jout).tolist()
     assert rep["batch"] == 2 and rep["prompt_len"] == 12

@@ -19,12 +19,12 @@ from repro.serving.scheduler import (ContinuousBatchingScheduler as
                                      JaxScheduler)
 from repro.serving.scheduler import ServeRequest as JaxRequest
 from repro.serving.trace import sample_trace
-from repro_torch.api import Engine, EngineState, demo_cost_model, \
-    get_strategy
+from repro_torch.api import Engine, demo_cost_model, get_strategy
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.cost_model import ModalitySpan
 from repro_torch.serving.kv_cache import KVCacheManager
+from repro_torch.training import TrainState
 from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                            ServeRequest)
 
@@ -37,7 +37,7 @@ TCFG = get_config("internvl3-2b").reduced().with_(attn_impl="cuda")
 def engines():
     jeng = JaxEngine(JCFG, strategy="dhp", seed=0)
     eng = Engine(TCFG, device="cpu", seed=0)
-    eng.state = EngineState(params=params_from_numpy(
+    eng.state = TrainState(params=params_from_numpy(
         jax.tree.map(np.asarray, jeng.state.params)))
     return jeng, eng
 
