@@ -1,7 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the hand-written
 kernels, holds each against its plain PyTorch version on the card, then
 drives the port's main paths — continuous-batching serving and DHP
-training of internvl3-2b at full width — and checks what comes out.
+training of internvl3-2b, and DHP training of mamba2-370m, at full
+width — and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -61,6 +62,39 @@ Phases:
  10. train path — K1 forward and backward vs plain at each (bucket,
                 spans) shape the training run launched, on that run's own
                 tables, with times and bounds; these feed the kernels line
+ 11. ssd        — the SSD chunk kernel K3, forward and backward, vs its
+                plain versions (the plain forward and its autograd
+                gradient): mamba2-370m's full-width cell (c=256, N=128,
+                P=64, 32 heads) over a 4096-token row, its reduced cell
+                (c=32, N=16, P=32) and a ragged cell count, fp32 and bf16
+                inputs, with the model's dt (the sum of dt over a
+                256-token chunk is about 200, where exp above the
+                diagonal overflows), against the plain versions run in
+                fp64: every output and gradient finite; y, states, cum
+                within 1e-4 * max(1, |plain|) (fp32 arithmetic whatever
+                the input type); the gradients within 1e-3 * max(1,
+                |plain|) and, as whole tensors, 1e-4 * max|plain|; dC,
+                dB, dx returned in bf16 within 1e-2 both ways (one bf16
+                rounding of nearly the same value)
+ 12. ssm parity — reduced mamba2-370m, fp32: two DHP training steps with
+                K3 (attn_impl="cuda") vs the same steps through its plain
+                version: losses, the first batch's gradient and the
+                gradient at the parameters the two steps reach within 1e-4
+ 13. ssm train  — full-width mamba2-370m, bf16, through
+                Engine("mamba2-370m", ClusterSpec.auto(mem_budget=4096))
+                .train(steps=3, dataset="openvid", global_batch=8,
+                max_tokens=4096, tokens_per_frame=256, trace=True): per
+                step loss, time, tokens/s, padding efficiency, degrees;
+                peak memory; the (n_seqs, bucket) of every group; K3
+                backward launches == layers x groups and forward twice
+                that (each layer is run again in the backward: remat);
+                losses and parameters finite; one more step under
+                torch.profiler for the busy share and the device time by
+                kernel and of the inter-chunk scan
+ 14. ssd path   — K3 forward and backward vs plain at each (n_seqs,
+                bucket) shape the SSM run launched, with times, bounds
+                and the inter-chunk scan's time; these feed the kernels
+                line
 """
 import json
 import math
@@ -616,10 +650,12 @@ def phase_training(dev, card):
               for e in tracer.to_json()["traceEvents"]
               if e.get("name") == "execute"]
     want = eng.cfg.n_layers * len(groups)
-    if not (n_fwd == n_bwd == want and want > 0):
+    runs = 2 if eng.cfg.remat else 1       # remat runs each layer again
+    if not (n_bwd == want and n_fwd == runs * want and want > 0):
         raise AssertionError(f"K1 launches fwd {n_fwd} bwd {n_bwd}, want "
+                             f"{runs} x {want} and {want} for "
                              f"{eng.cfg.n_layers} layers x {len(groups)} "
-                             f"groups = {want} each")
+                             f"groups")
     for m in hist:
         if not math.isfinite(m.loss):
             raise AssertionError(f"step {m.step}: loss {m.loss}")
@@ -661,32 +697,7 @@ def phase_training(dev, card):
                              f"the run's {sorted(set(groups))}")
 
     # one more step under the profiler: the device's busy share
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t1 = time.perf_counter()
-        eng.train(steps=1, lookahead=False, **run)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t1) * 1e3
-    busy_ms = sum(ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA)
-    # where the device time goes: the kernels with the most device time
-    by_name = {}
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            t, n = by_name.get(ev.name, (0.0, 0))
-            by_name[ev.name] = (t + ev.time_range.elapsed_us() / 1e3, n + 1)
-    for kname, (t, n) in sorted(by_name.items(),
-                                key=lambda kv: -kv[1][0])[:15]:
-        print(f"  train device time {t:.1f} ms over {n} launches: "
-              f"{kname[:110]}")
-    k1_ms = sum(ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
-                if ev.device_type == torch.autograd.DeviceType.CUDA
-                and "packed_" in ev.name)
-    print(f"  train profiled step: wall_ms={wall_ms} device_busy_ms="
-          f"{busy_ms} device_busy_share={busy_ms / wall_ms} "
-          f"k1_device_ms={k1_ms} ({card})")
+    profile_step(eng, run, card, "train", "packed_", "k1")
     eng.close()
     return n_fwd, n_bwd, tables, eng.cfg.n_layers
 
@@ -701,6 +712,343 @@ def phase_train_path(dev, card, tables, n_layers):
         row = check_packed(dev, card, gen, bucket, torch.bfloat16, seg,
                            span, tag="train")
         row["launches"] = n_layers * len(groups)
+        rows.append(row)
+    return rows
+
+
+# ------------------------------------------------------------ kernel K3
+#: K3 against its plain version run in fp64 on the same inputs (the
+#: function's exact value): y, states, cum within SSD_TOL * max(1,
+#: |plain|), whatever the input type (bf16 inputs are upcast exactly, all
+#: arithmetic is fp32); the gradients within SSD_GRAD_TOL elementwise and
+#: SSD_TOL as whole tensors (max|err| / max|plain|): at c = 256 each
+#: gradient element sums some 256 products of both signs, and the plain
+#: version itself in fp32 lies up to 2.1e-4 from the fp64 value there;
+#: dC, dB, dx returned in bf16 within SSD_BF16_GRAD_TOL both ways (one
+#: bf16 rounding)
+SSD_TOL = 1e-4
+SSD_GRAD_TOL = 1e-3
+SSD_BF16_GRAD_TOL = 1e-2
+SSD_HEADS, SSD_N, SSD_P, SSD_C = 32, 128, 64, 256   # mamba2-370m
+
+
+def ssd_inputs(dev, gen, Bsz, S, H, N, P, dtype):
+    """C, B, x in `dtype`, fp32 da and dt as the model makes them (dt =
+    softplus(.) + 1e-3, A = -1 at init): the sum of dt over a 256-token
+    chunk is about 200, so exp above the diagonal would overflow."""
+    f = lambda *s: torch.randn(*s, generator=gen, device=dev)  # noqa: E731
+    C, B = f(Bsz, S, N) * 0.3, f(Bsz, S, N) * 0.3
+    x = f(Bsz, S, H, P)
+    dt = torch.nn.functional.softplus(f(Bsz, S, H)) + 1e-3
+    return C.to(dtype), B.to(dtype), x.to(dtype), -dt, dt
+
+
+def ssd_bound(Bsz, S, H, N, P, c, dtype, backward):
+    """Least time for the same work: inputs read once and outputs written
+    once (C and B once for all heads) against the products over the
+    lower triangle of each cell's c x c scores at the fp32 peak (the
+    kernel's arithmetic is fp32 whatever the input type). C and B are
+    shared by the heads, so C B^T is counted once per (sequence, chunk),
+    and so are dC and dB, which the backward forms from the score
+    gradient summed over heads. Forward: C B^T (2N flops a pair), the
+    scores times x (2P a pair and head), the states (2cNP a cell).
+    Backward: C B^T again, dC, dB (6N a pair), dS and dx (4P a pair and
+    head), the states' terms of dx and dB (4cNP a cell)."""
+    elt = torch.finfo(dtype).bits // 8
+    cells = Bsz * (S // c) * H
+    pairs = c * (c + 1) // 2 * Bsz * (S // c)      # per (sequence, chunk)
+    toks = Bsz * S
+    ins = elt * (2 * toks * N + toks * H * P) + 4 * 2 * toks * H
+    y, st, cum = 4 * toks * H * P, 4 * cells * N * P, 4 * toks * H
+    if backward:
+        nbytes = ins + (y + st + cum) + ins
+        flops = 6 * N * pairs + 4 * P * pairs * H + 4 * c * N * P * cells
+    else:
+        nbytes = ins + y + st + cum
+        flops = 2 * N * pairs + 2 * P * pairs * H + 2 * c * N * P * cells
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_ssd(dev, card, gen, Bsz, S, H, N, P, c, dtype, tag, time_it=True):
+    """K3 forward and backward vs plain on one random input; times
+    kernel, plain, and the inter-chunk part of `ssd_chunk_scan`."""
+    from repro_torch.kernels.ssd_chunk import (
+        ssd_chunk, ssd_chunk_bwd, ssd_chunk_bwd_plain, ssd_chunk_plain,
+        ssd_chunk_scan)
+    C, B, x, da, dt = ssd_inputs(dev, gen, Bsz, S, H, N, P, dtype)
+    outs = ssd_chunk(C, B, x, da, dt, chunk=c)
+    douts = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
+    grads = ssd_chunk_bwd(C, B, x, da, dt, *douts, chunk=c)
+    ins64 = [t.double() for t in (C, B, x, da, dt)]
+    refs = ssd_chunk_plain(*ins64, chunk=c)
+    rgrads = ssd_chunk_bwd_plain(*ins64, *douts, chunk=c)
+    torch.cuda.synchronize()
+    errs = {}
+    names = ("y", "states", "cum", "dC", "dB", "dx", "dda", "ddt")
+    for name, a, r in zip(names, list(outs) + list(grads),
+                          list(refs) + list(rgrads)):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"K3 {tag}: {name} is not finite")
+        r = r.double()
+        diff = (a.double() - r).abs()
+        top = diff.max().item()
+        errs[name] = (top, (diff / r.abs().clamp_min(1.0)).max().item(),
+                      top / max(r.abs().max().item(), 1e-30))
+        if name in names[:3]:
+            tol, whole = SSD_TOL, None
+        elif dtype == torch.bfloat16 and name in ("dC", "dB", "dx"):
+            tol = whole = SSD_BF16_GRAD_TOL
+        else:
+            tol, whole = SSD_GRAD_TOL, SSD_TOL
+        _, scaled, rel = errs[name]
+        what = (f"K3 disagrees with its plain version ({tag} Bsz={Bsz} "
+                f"S={S} H={H} N={N} P={P} c={c} {dtype}): {name}")
+        if not (math.isfinite(scaled) and scaled <= tol):
+            raise AssertionError(f"{what} max|err|/max(1,|ref|) {scaled} "
+                                 f"> {tol}")
+        if whole is not None and not rel <= whole:
+            raise AssertionError(f"{what} max|err|/max|ref| {rel} > "
+                                 f"{whole}")
+    del ins64, refs, rgrads
+    row = dict(tag=tag, Bsz=Bsz, S=S, H=H, N=N, P=P, chunk=c,
+               dtype=str(dtype).split(".")[-1],
+               err={n: e[1] for n, e in errs.items()},
+               rel_err={n: e[2] for n, e in errs.items()},
+               max_abs_err_fwd=max(errs[n][0] for n in names[:3]),
+               max_abs_err_bwd=max(errs[n][0] for n in names[3:]))
+    if time_it:
+        row["fwd_ms"] = cuda_ms(lambda: ssd_chunk(C, B, x, da, dt, chunk=c),
+                                iters=10, warmup=2)
+        row["bwd_ms"] = cuda_ms(lambda: ssd_chunk_bwd(
+            C, B, x, da, dt, *douts, chunk=c), iters=10, warmup=2)
+        row["plain_fwd_ms"] = cuda_ms(lambda: ssd_chunk_plain(
+            C, B, x, da, dt, chunk=c), iters=3, warmup=1)
+        row["plain_bwd_ms"] = cuda_ms(lambda: ssd_chunk_bwd_plain(
+            C, B, x, da, dt, *douts, chunk=c), iters=3, warmup=1)
+        # the inter-chunk scan and product around the kernel, forward and
+        # backward: ssd_chunk_scan's time less the kernel's
+        ins = [t.detach().requires_grad_(True) for t in (C, B, x, da, dt)]
+        dy = torch.randn(x.shape, generator=gen, device=dev)
+
+        def scan_fb():
+            y = ssd_chunk_scan(*ins, chunk=c)
+            torch.autograd.grad(y, ins, dy)
+        row["scan_fwd_bwd_ms"] = cuda_ms(scan_fb, iters=5, warmup=1)
+        row["inter_chunk_fwd_bwd_ms"] = (row["scan_fwd_bwd_ms"]
+                                         - row["fwd_ms"] - row["bwd_ms"])
+        for which in ("fwd", "bwd"):
+            b, by = ssd_bound(Bsz, S, H, N, P, c, dtype, which == "bwd")
+            row[f"bound_{which}_ms"], row[f"bound_{which}_by"] = b, by
+    print(f"  K3 {json.dumps(row)} ({card})")
+    return row
+
+
+def phase_ssd(dev, card):
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    rows = []
+    for dt in (bf16, fp32):
+        # mamba2-370m's full-width cell over one 4096-token row
+        rows.append(check_ssd(dev, card, gen, 1, 4096, SSD_HEADS, SSD_N,
+                              SSD_P, SSD_C, dt, "full"))
+        # its reduced cell, and a ragged cell count
+        rows.append(check_ssd(dev, card, gen, 2, 256, 8, 16, 32, 32, dt,
+                              "reduced", time_it=False))
+        rows.append(check_ssd(dev, card, gen, 3, 768, 5, SSD_N, SSD_P,
+                              SSD_C, dt, "ragged", time_it=False))
+    return rows
+
+
+def phase_ssm_parity(dev):
+    """Reduced mamba2-370m, fp32: the first batch's loss and gradient,
+    two training steps, and the gradient at the parameters they reach,
+    through K3 vs through its plain version."""
+    from repro_torch.api import Engine
+    from repro_torch.data.pipeline import HeterogeneousLoader
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
+    from repro_torch.training import TrainState
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    run = dict(dataset="openvid", global_batch=8, max_tokens=512,
+               tokens_per_frame=16)
+    out = {}
+    params0 = None
+    for impl in ("cuda", "reference"):
+        eng = Engine("mamba2-370m", reduced=True, seed=0)
+        eng.cfg = eng.cfg.with_(attn_impl=impl)
+        if params0 is None:
+            params0 = eng.state.params
+        eng.state = TrainState(params=tree_map(torch.clone, params0))
+        data = next(HeterogeneousLoader(run["dataset"], 8, eng.cfg.vocab,
+                                        seed=0, max_tokens=512,
+                                        tokens_per_frame=16))
+        n0 = (ssd_chunk.launches, ssd_chunk_bwd.launches)
+        loss0, grads0 = eng.executor.run_plan(eng.state.params,
+                                              eng.plan(data), data)
+        n1 = (ssd_chunk.launches, ssd_chunk_bwd.launches)
+        groups = len(eng.executor.last_exe_keys)
+        hist = eng.train(steps=2, lookahead=False, **run)
+        data2 = next(eng.loader)
+        loss2, grads2 = eng.executor.run_plan(eng.state.params,
+                                              eng.plan(data2), data2)
+        eng.close()
+        out[impl] = ([float(loss0)] + [m.loss for m in hist]
+                     + [float(loss2)], (grads0, grads2), eng.state.params)
+        want = (eng.cfg.n_layers * groups,) * 2 if impl == "cuda" \
+            else (0, 0)
+        if (n1[0] - n0[0], n1[1] - n0[1]) != want:
+            raise AssertionError(f"{impl}: K3 launches {n1} - {n0}, want "
+                                 f"{want} for {groups} groups")
+    (ls, gs, p), (rls, rgs, rp) = out["cuda"], out["reference"]
+    lerr = max(abs(a - b) for a, b in zip(ls, rls))
+    gerr = [max((a - b).abs().max().item()
+                for a, b in zip(tree_leaves(g), tree_leaves(rg)))
+            for g, rg in zip(gs, rgs)]
+    perr = max((a - b).abs().max().item()
+               for a, b in zip(tree_leaves(p), tree_leaves(rp)))
+    print(f"  losses kernel {ls} plain {rls}: max diff {lerr}; grads max "
+          f"diff {gerr[0]} (first batch), {gerr[1]} (after 2 steps); "
+          f"params after 2 steps max diff {perr}")
+    if not (lerr <= 1e-4 and max(gerr) <= 1e-4):
+        raise AssertionError("SSM training through K3 differs from the "
+                             "plain path by more than 1e-4")
+
+
+def profile_step(eng, run, card, label, kernel_key, kernel_name,
+                 ranges=()):
+    """One more training step under torch.profiler: wall, device busy
+    share, the 15 kernels with the most device time, and the device time
+    of kernels whose name holds `kernel_key` (printed as
+    `<kernel_name>_device_ms`). `ranges` names profiler ranges of the
+    code: each appears on the device's timeline as a span over its
+    kernels, which is reported apart and kept out of the busy time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t1 = time.perf_counter()
+        eng.train(steps=1, lookahead=False, **run)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    dev_evs = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    for name in ranges:
+        spans = [ev.time_range.elapsed_us() / 1e3 for ev in dev_evs
+                 if ev.name == name]
+        print(f"  {label} range {name}: {len(spans)} spans on the device "
+              f"timeline, {sum(spans)} ms from first to last kernel "
+              f"({card})")
+    cuda_evs = [ev for ev in dev_evs if ev.name not in ranges]
+    busy_ms = sum(ev.time_range.elapsed_us() / 1e3 for ev in cuda_evs)
+    by_name = {}
+    for ev in cuda_evs:
+        t, n = by_name.get(ev.name, (0.0, 0))
+        by_name[ev.name] = (t + ev.time_range.elapsed_us() / 1e3, n + 1)
+    for kname, (t, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:15]:
+        print(f"  {label} device time {t:.1f} ms over {n} launches: "
+              f"{kname[:110]}")
+    k_ms = sum(ev.time_range.elapsed_us() / 1e3 for ev in cuda_evs
+               if kernel_key in ev.name)
+    print(f"  {label} profiled step: wall_ms={wall_ms} device_busy_ms="
+          f"{busy_ms} device_busy_share={busy_ms / wall_ms} "
+          f"{kernel_name}_device_ms={k_ms} ({card})")
+    return prof
+
+
+def phase_ssm_training(dev, card):
+    """Full-width mamba2-370m DHP training; returns (launches fwd, bwd,
+    {(n_seqs, bucket): groups}, n_layers, chunk)."""
+    from repro_torch.api import ClusterSpec, Engine
+    from repro_torch.kernels.ssd_chunk import (INTER_CHUNK, ssd_chunk,
+                                               ssd_chunk_bwd)
+    from repro_torch.training.optimizer import tree_leaves
+
+    run = dict(dataset="openvid", global_batch=8, max_tokens=4096,
+               tokens_per_frame=256)
+    t0 = time.perf_counter()
+    eng = Engine("mamba2-370m", ClusterSpec.auto(mem_budget=4096), seed=0)
+    params = eng.state.params
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    s = eng.cfg.ssm
+    print(f"  mamba2-370m: {eng.cfg.n_layers} layers d_model "
+          f"{eng.cfg.d_model} d_state {s.d_state} head_dim {s.head_dim} "
+          f"chunk {s.chunk} vocab {eng.cfg.vocab}, {n_params / 1e6:.1f} M "
+          f"params {eng.cfg.param_dtype}, remat {eng.cfg.remat}, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ssd_chunk.launches = 0
+    ssd_chunk_bwd.launches = 0
+    hist = eng.train(steps=3, lookahead=True, trace=True, **run)
+    torch.cuda.synchronize()
+    n_fwd, n_bwd = ssd_chunk.launches, ssd_chunk_bwd.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    tracer = eng.last_tracer
+    if tracer.dropped:
+        raise AssertionError(f"the tracer dropped {tracer.dropped} events")
+    groups = [(e["args"]["n_seqs"], e["args"]["bucket"])
+              for e in tracer.to_json()["traceEvents"]
+              if e.get("name") == "execute"]
+    want = eng.cfg.n_layers * len(groups)
+    runs = 2 if eng.cfg.remat else 1       # remat runs each layer again
+    if not (n_bwd == want and n_fwd == runs * want and want > 0):
+        raise AssertionError(f"K3 launches fwd {n_fwd} bwd {n_bwd}, want "
+                             f"{runs} x {want} and {want} for "
+                             f"{eng.cfg.n_layers} layers x {len(groups)} "
+                             f"groups")
+    for m in hist:
+        if not math.isfinite(m.loss):
+            raise AssertionError(f"step {m.step}: loss {m.loss}")
+        tok_s = m.tokens / m.step_time_s
+        print(f"  ssm train step {m.step}: loss={m.loss} "
+              f"step_time_s={m.step_time_s} tokens={m.tokens} "
+              f"tokens_per_s={tok_s} padding_efficiency="
+              f"{m.padding_efficiency} degrees={m.degree_histogram} "
+              f"groups={sum(m.degree_histogram.values())} "
+              f"schedule_ms={m.schedule_ms} plan_overlap_ms="
+              f"{m.plan_overlap_ms} ({card})")
+    if len(hist) != 3:
+        raise AssertionError(f"{len(hist)} training steps, want 3")
+    if not all(torch.isfinite(t).all() for t in tree_leaves(
+            eng.state.params)):
+        raise AssertionError("parameters are not finite after 3 steps")
+    print(f"  ssm train max_memory_allocated_bytes = {peak} ({card})")
+    print(f"  ssm train group shapes (n_seqs, bucket): {groups}")
+    print(f"  ssm train K3 launches: forward {n_fwd}, backward {n_bwd}")
+
+    prof = profile_step(eng, run, card, "ssm train", "k3_", "k3",
+                        ranges=(INTER_CHUNK,))
+    inter = [e for e in prof.key_averages() if e.key == INTER_CHUNK]
+    if inter:
+        # kernel time launched inside the forward ranges (the backward of
+        # the inter-chunk part runs outside them; phase 14 times both)
+        ev = inter[0]
+        dev_ms = getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0)) / 1e3
+        print(f"  ssm train {INTER_CHUNK} forward kernels: {ev.count} "
+              f"calls, device_ms={dev_ms} ({card})")
+    eng.close()
+    shapes = {}
+    for g in groups:
+        shapes[g] = shapes.get(g, 0) + 1
+    return n_fwd, n_bwd, shapes, eng.cfg.n_layers, s.chunk
+
+
+def phase_ssd_path(dev, card, shapes, n_layers, chunk):
+    """K3 forward and backward vs plain at each (n_seqs, bucket) shape of
+    the SSM training run (its buffers are padded to a chunk multiple)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = []
+    for (n_seqs, bucket), n_groups in sorted(shapes.items()):
+        S = -(-bucket // chunk) * chunk
+        row = check_ssd(dev, card, gen, n_seqs, S, SSD_HEADS, SSD_N, SSD_P,
+                        chunk, torch.bfloat16, "train")
+        row["launches"] = n_layers * n_groups
+        row["bucket"] = bucket
         rows.append(row)
     return rows
 
@@ -729,26 +1077,26 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/10] device: {name}; torch {torch.__version__} cuda "
+    print(f"[1/14] device: {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(card)
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"[2/10] build: {time.perf_counter() - t0:.1f} s for "
+    print(f"[2/14] build: {time.perf_counter() - t0:.1f} s for "
           f"{build.sources()}")
     for src, log in build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    print("[3/10] kernels vs plain versions")
+    print("[3/14] kernels vs plain versions")
     rows = phase_kernels(dev, card)
-    print("[4/10] parity at reduced size (fp32)")
+    print("[4/14] parity at reduced size (fp32)")
     phase_parity(dev)
-    print("[5/10] full-width serving (bf16)")
+    print("[5/14] full-width serving (bf16)")
     launches, shapes, n_layers = phase_serving(dev, card)
-    print("[6/10] kernels vs plain versions at the serving run's shapes")
+    print("[6/14] kernels vs plain versions at the serving run's shapes")
     path = phase_path(dev, card, shapes, n_layers)
 
     # the shape launched most often stands for the kernel; every shape
@@ -777,14 +1125,14 @@ def main() -> int:
                              **{k: r[k] for k in keys}) for r in path],
     }]
 
-    print("[7/10] packed kernel K1 vs plain versions")
+    print("[7/14] packed kernel K1 vs plain versions")
     packed_rows = phase_packed(dev, card)
-    print("[8/10] training parity at reduced size (fp32)")
+    print("[8/14] training parity at reduced size (fp32)")
     phase_train_parity(dev)
-    print("[9/10] full-width DHP training (bf16)")
+    print("[9/14] full-width DHP training (bf16)")
     n_fwd, n_bwd, tables, n_layers = phase_training(dev, card)
     torch.cuda.empty_cache()
-    print("[10/10] K1 vs plain versions at the training run's shapes")
+    print("[10/14] K1 vs plain versions at the training run's shapes")
     train_rows = phase_train_path(dev, card, tables, n_layers)
 
     # the shape launched most often stands for each K1 kernel; every
@@ -820,6 +1168,50 @@ def main() -> int:
                 bound_ms=r[f"bound_{which}_ms"],
                 bound_by=r[f"bound_{which}_by"],
                 library_ms=r[f"library_{which}_ms"]) for r in train_rows],
+        })
+
+    print("[11/14] SSD chunk kernel K3 vs plain versions")
+    ssd_rows = phase_ssd(dev, card)
+    print("[12/14] SSM training parity at reduced size (fp32)")
+    phase_ssm_parity(dev)
+    print("[13/14] full-width mamba2-370m DHP training (bf16)")
+    torch.cuda.empty_cache()
+    s_fwd, s_bwd, ssm_shapes, ssm_layers, chunk = phase_ssm_training(dev,
+                                                                     card)
+    torch.cuda.empty_cache()
+    print("[14/14] K3 vs plain versions at the SSM training run's shapes")
+    ssd_path = phase_ssd_path(dev, card, ssm_shapes, ssm_layers, chunk)
+
+    # the shape launched most often stands for each K3 kernel; every
+    # shape the SSM run launched is listed with its own numbers
+    main_k3 = max(ssd_path, key=lambda r: (r["launches"], r["Bsz"] * r["S"]))
+    for which, launches in (("fwd", s_fwd), ("bwd", s_bwd)):
+        kernels.append({
+            "name": "ssd_chunk" + ("_bwd" if which == "bwd" else ""),
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            # the Pallas K3 cannot be differentiated; the backward kernel
+            # computes the gradient of the function it computes
+            "replaces": "src/repro/kernels/ssd_chunk.py:62",
+            "launches": launches,
+            "max_abs_err": max(r[f"max_abs_err_{which}"]
+                               for r in ssd_rows + ssd_path
+                               if r["dtype"] == "bfloat16"),
+            "ms": main_k3[f"{which}_ms"],
+            "plain_ms": main_k3[f"plain_{which}_ms"],
+            "bound_ms": main_k3[f"bound_{which}_ms"],
+            "bound_by": main_k3[f"bound_{which}_by"],
+            "library_ms": None,
+            "shape": f"Bsz={main_k3['Bsz']} S={main_k3['S']} "
+                     f"H={SSD_HEADS} N={SSD_N} P={SSD_P} c={chunk} bf16",
+            "path_shapes": [dict(
+                n_seqs=r["Bsz"], bucket=r["bucket"], launches=r["launches"],
+                err=r["err"], ms=r[f"{which}_ms"],
+                plain_ms=r[f"plain_{which}_ms"],
+                bound_ms=r[f"bound_{which}_ms"],
+                bound_by=r[f"bound_{which}_by"],
+                inter_chunk_fwd_bwd_ms=r["inter_chunk_fwd_bwd_ms"])
+                for r in ssd_path],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -149,10 +149,12 @@ class Engine:
     >>> history = eng.train(steps=3, dataset="openvid", global_batch=8)
     >>> rep = eng.serving(slots=4).run(trace)
 
-    `model` is an arch id or a ModelConfig. VLM configs run in
-    token-stream mode (the LM decoder over pre-counted tokens), as in
-    the JAX package. `device=None` places the model on the card and
-    raises when there is none; `device="cpu"` runs on the host.
+    `model` is an arch id or a ModelConfig: internvl3-2b (trains and
+    serves) or mamba2-370m (trains; SSM serving is a later slice). VLM
+    configs run in token-stream mode (the LM decoder over pre-counted
+    tokens), as in the JAX package. `device=None` places the model on
+    the card and raises when there is none; `device="cpu"` runs on the
+    host.
     `state` is a `TrainState`; its optimizer moments are allocated at
     the first training step, so a serving-only engine holds none.
     """

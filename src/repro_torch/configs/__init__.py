@@ -3,11 +3,12 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig, VLMCfg
+from .base import ModelConfig, SSMCfg, VLMCfg
 
 _MODULES = {
     # the paper's own workload; further archs join with their families
     "internvl3-2b": "internvl3_2b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 ALL_ARCHS = list(_MODULES)
@@ -20,4 +21,4 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ModelConfig", "VLMCfg", "get_config", "ALL_ARCHS"]
+__all__ = ["ModelConfig", "SSMCfg", "VLMCfg", "get_config", "ALL_ARCHS"]

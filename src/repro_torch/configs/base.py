@@ -2,14 +2,25 @@
 
 One frozen dataclass describes an architecture; `ModelConfig.reduced()`
 derives the CPU smoke-test variant (2 layers, d_model <= 256). This copy
-carries the dense/VLM fields the serving slice runs; the family-specific
-sub-configs (MoE, SSM, hybrid, encoder-decoder) come with the slices that
-port those families.
+carries the fields of the families the port runs (dense, VLM as dense,
+SSM); the other sub-configs (MoE, hybrid, encoder-decoder) come with the
+slices that port those families.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMCfg:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2           # d_inner = expand * d_model
+    chunk: int = 256          # SSD chunk length
+    conv_width: int = 4
+    dt_min: float = 1e-3
+    dt_max: float = 0.1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,7 +33,7 @@ class VLMCfg:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str               # dense | vlm
+    family: str               # dense | vlm | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -39,11 +50,16 @@ class ModelConfig:
     activation: str = "swiglu"          # swiglu | gelu
     tie_embeddings: bool = False
 
+    ssm: Optional[SSMCfg] = None
     vlm: Optional[VLMCfg] = None
 
     # attention behaviour
     sliding_window: Optional[int] = None    # sub-quadratic variant (decode)
     attn_impl: str = "cuda"                 # reference | cuda
+    # activation checkpoint per layer (the JAX package's default is on);
+    # here on only for a config whose largest group does not fit the card
+    # without it: mamba2-370m (see tests/test_torch_cuda.py)
+    remat: bool = False
     param_dtype: str = "bfloat16"
 
     # ------------------------------------------------------------------
@@ -71,7 +87,11 @@ class ModelConfig:
             vocab=min(self.vocab, 1024),
             param_dtype="float32",
             attn_impl="reference",
+            remat=False,
         )
+        if self.ssm:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=32, chunk=32)
         if self.vlm:
             kw["vlm"] = dataclasses.replace(self.vlm, vision_dim=64)
         return self.with_(**kw)

@@ -1,17 +1,22 @@
 """DHP Executor — runs an ExecutionPlan on the card (§5 workflow (4)).
 
 For each planned CP group the executor:
-  1. flattens the group's sequences into ONE packed token buffer
+  1. lays the group's sequences out in one batch: PACKED (the
+     `PACKABLE_FAMILIES`) flattens them into ONE token buffer
      (`core/packing.flatten_group`): tokens concatenated, positions
      reset per segment, a segment table making attention block-diagonal,
      a span table for the bidirectional vision/audio blocks, padding only
-     at the TAIL to a pooled bucket;
+     at the TAIL to a pooled bucket. PADDED (the SSM family, whose
+     state crosses segment boundaries) gives each sequence its own row,
+     padded to the bucket of the longest (`data/pipeline.padded_batch`);
   2. fetches the group's rank slot (`GroupPool.mesh_for`) and its step
      function from the pool, keyed ("pgrad", start, degree, bucket[,
-     "mm"]) as the JAX package keys its executables;
-  3. runs forward and backward of the packed buffer; attention is the
-     packed kernel K1 in every layer (`cfg.attn_impl="cuda"`), or the
-     full-matrix reference (`"reference"`);
+     "mm"]) when packed and ("grad", start, degree, n_seqs, bucket[,
+     "mm"]) when padded, as the JAX package keys its executables;
+  3. runs forward and backward of the batch; attention is the packed
+     kernel K1 in every layer (`cfg.attn_impl="cuda"`), or the
+     full-matrix reference (`"reference"`); an SSM layer runs the SSD
+     chunk kernel K3, or its plain version;
   4. adds the group's gradient, weighted by its loss tokens, into an
      fp32 accumulator on the device.
 The result is the token-weighted mean gradient of the global batch:
@@ -37,7 +42,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..data.pipeline import RaggedBatch
+from ..data.pipeline import RaggedBatch, padded_batch
 from ..models.model import forward
 from ..obs.trace import get_tracer
 from ..training.optimizer import tree_leaves, tree_map
@@ -45,8 +50,11 @@ from .group_pool import GroupPool
 from .packing import MODALITY_CLASSES, flatten_group
 from .scheduler import ExecutionPlan
 
-#: families whose attention layers take block-diagonal segment masks
+#: families whose attention layers take block-diagonal segment masks;
+#: recurrent state (ssm) crosses segment boundaries
 PACKABLE_FAMILIES = ("dense",)
+#: families the executor runs
+EXECUTABLE_FAMILIES = ("dense", "ssm")
 
 
 def _token_nll(logits, labels):
@@ -73,13 +81,15 @@ def _sync(device) -> None:
 class DHPExecutor:
     def __init__(self, cfg: ModelConfig, pool: GroupPool):
         """`pool` is the cluster's GroupPool: its devices are the ranks,
-        its ladder buckets the packed buffers, its cache keeps one step
-        function per group shape."""
-        if cfg.family not in PACKABLE_FAMILIES:
+        its ladder buckets the batches, its cache keeps one step
+        function per group shape. `PACKABLE_FAMILIES` run packed, the
+        others padded."""
+        if cfg.family not in EXECUTABLE_FAMILIES:
             raise NotImplementedError(
-                f"packed execution of family {cfg.family!r} is not ported")
+                f"execution of family {cfg.family!r} is not ported")
         self.cfg = cfg
         self.pool = pool
+        self.packed = cfg.family in PACKABLE_FAMILIES
         #: padding/build telemetry of the most recent run_plan()
         #: (+ "modality_loss" sub-dict for span-bearing runs)
         self.last_run_stats: Dict[str, Any] = {}
@@ -88,7 +98,7 @@ class DHPExecutor:
 
     # ------------------------------------------------------------------
     def _build_step(self, with_spans: bool):
-        """(loss, grads[, modality nll table]) of one packed group.
+        """(loss, grads[, modality nll table]) of one group's batch.
 
         `with_spans` adds the span-masked attention, the `loss_mask`
         (labels inside bidirectional spans carry no NLL — they attend
@@ -126,30 +136,41 @@ class DHPExecutor:
 
         return lambda: step
 
-    def _group_step(self, start: int, degree: int, bucket: int,
-                    with_spans: bool):
-        """Packed step: ONE [1, bucket] buffer whatever the group holds.
-        Span-bearing groups get a distinct "mm" key; causal groups keep
-        the span-free key (and the span-free kernel)."""
+    def _group_step(self, start: int, degree: int, n_seqs: int,
+                    bucket: int, with_spans: bool):
+        """The group's step function. Packed: ONE [1, bucket] buffer
+        whatever the group holds, keyed without n_seqs; padded: an
+        [n_seqs, bucket] batch. Span-bearing groups get a distinct "mm"
+        key; causal groups keep the span-free key (and the span-free
+        kernel)."""
         if degree > 1:
             raise NotImplementedError(
                 f"a CP group of degree {degree} needs ring context "
                 f"parallelism across cards over torch.distributed (the "
                 f"ring-CP slice of the port); it is not run on one rank")
         ranks = self.pool.mesh_for(start, degree)
-        key = ("pgrad", start, degree, bucket) \
+        key = (("pgrad", start, degree, bucket) if self.packed
+               else ("grad", start, degree, n_seqs, bucket)) \
             + (("mm",) if with_spans else ())
         exe, miss = self.pool.executable_for(
             key, self._build_step(with_spans))
         return exe, miss, key, ranks[0]
 
     def _group_batch(self, seqs, degree: int, spans=None):
-        """(np_batch, real_tokens, bucket) for one group."""
-        total = sum(len(s) for s in seqs)
-        bucket = self.pool.bucket(total)
-        bucket += (-bucket) % degree       # shardable over cp
-        np_batch, cu = flatten_group(seqs, bucket, spans=spans)
-        return np_batch, int(cu[-1]), bucket
+        """(np_batch, real_tokens, padded_tokens, bucket) for one group.
+        Both layouts emit the same per-sequence modality table, so
+        packed and padded execution apply the same mixed mask."""
+        if self.packed:
+            total = sum(len(s) for s in seqs)
+            bucket = self.pool.bucket(total)
+            bucket += (-bucket) % degree       # shardable over cp
+            np_batch, cu = flatten_group(seqs, bucket, spans=spans)
+            return np_batch, int(cu[-1]), bucket, bucket
+        bucket = self.pool.bucket(max(len(s) for s in seqs))
+        bucket += (-bucket) % degree           # shardable over cp
+        np_batch = padded_batch(seqs, bucket, spans=spans)
+        real = sum(min(len(s), bucket) for s in seqs)
+        return np_batch, real, len(seqs) * bucket, bucket
 
     # ------------------------------------------------------------------
     def run_plan(self, params, plan: ExecutionPlan, data: RaggedBatch, *,
@@ -190,11 +211,11 @@ class DHPExecutor:
                 seqs = [data.by_id(i) for i in g.seq_ids]
                 spans = ([spans_by_id.get(i) for i in g.seq_ids]
                          if spans_by_id else None)
-                np_batch, real, bucket = self._group_batch(seqs, g.degree,
-                                                           spans=spans)
+                np_batch, real, padded, bucket = self._group_batch(
+                    seqs, g.degree, spans=spans)
                 with_spans = "modality_ids" in np_batch
                 step, compiled, key, device = self._group_step(
-                    start, g.degree, bucket, with_spans)
+                    start, g.degree, len(seqs), bucket, with_spans)
                 self.last_exe_keys.append(key)
                 batch = {k: torch.as_tensor(v, device=device)
                          for k, v in np_batch.items()}
@@ -204,13 +225,13 @@ class DHPExecutor:
                 n_tok = float(np_batch.get(
                     "loss_mask", np_batch["mask"]).sum())
                 agg["real_tokens"] += real
-                agg["padded_tokens"] += bucket
+                agg["padded_tokens"] += padded
                 agg["exe_misses"] += int(compiled)
                 agg["groups"] += 1
                 n_groups += 1
                 args = {"mb": mi, "group": gi, "degree": g.degree,
-                        "start_rank": start, "bucket": bucket,
-                        "spans": with_spans}
+                        "start_rank": start, "n_seqs": len(seqs),
+                        "bucket": bucket, "spans": with_spans}
                 if timings is not None:
                     _sync(device)
                 t0 = time.perf_counter()
@@ -245,8 +266,8 @@ class DHPExecutor:
                         "seconds": dt,
                         "compiled": compiled,
                         "real_tokens": real,
-                        "padded_tokens": bucket,
-                        "padding_efficiency": real / max(bucket, 1),
+                        "padded_tokens": padded,
+                        "padding_efficiency": real / max(padded, 1),
                     })
                     if tr.enabled:
                         # the measured group time is ONE span on the

@@ -4,17 +4,20 @@
 multimodal sequences drawn from the paper's dataset distributions
 (core/distributions.py): the DHP planner's input. Its numpy random
 stream is the JAX package's draw for draw, so a seed yields the same
-batches, bit for bit, in both packages.
+batches, bit for bit, in both packages. `padded_batch` pads one group's
+sequences to a bucket, one per row (the SSM family's path: its state
+crosses segment boundaries, so its sequences cannot be packed).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence as Seq
 
 import numpy as np
 
 from ..core.cost_model import SeqInfo
 from ..core.distributions import sample_batch
+from ..core.packing import fill_loss_row, fill_modality_row
 
 
 @dataclasses.dataclass
@@ -74,3 +77,45 @@ class HeterogeneousLoader:
         same batch it would have in the original run."""
         self.rng.bit_generator.state = state["rng_state"]
         self.batch_index = int(state["batch_index"])
+
+
+def padded_batch(seqs: Seq[np.ndarray], bucket: int,
+                 pad_id: int = 0,
+                 spans: Optional[Seq] = None) -> Dict[str, np.ndarray]:
+    """Pad ragged sequences to [n, bucket]: tokens/labels/mask/positions
+    + modality_ids / loss_mask / modality_classes when `spans` carries
+    any layout (per-row bidirectional-span table, -1 = causal/pad;
+    `spans` is a per-sequence list of ModalitySpan tuples, entries may
+    be None). The same mixed-mask and loss-mask semantics, and the same
+    emit-only-when-present rule, as the packed path (`flatten_group`);
+    the JAX package's `padded_batch`, array for array."""
+    n = len(seqs)
+    if spans is not None and not any(spans):
+        spans = None
+    tokens = np.full((n, bucket), pad_id, np.int32)
+    mask = np.zeros((n, bucket), np.float32)
+    modality_ids = (np.full((n, bucket), -1, np.int32)
+                    if spans is not None else None)
+    classes = (np.full((n, bucket), -1, np.int32)
+               if spans is not None else None)
+    loss_mask = np.zeros((n, bucket), np.float32) \
+        if spans is not None else None
+    for i, s in enumerate(seqs):
+        L = min(len(s), bucket)
+        tokens[i, :L] = s[:L]
+        mask[i, :L] = 1.0
+        mask[i, L - 1] = 0.0   # last valid token has no next-token label
+        if modality_ids is not None:
+            fill_modality_row(modality_ids[i], spans[i], 0, L, 0)
+            loss_mask[i] = mask[i]
+            fill_loss_row(classes[i], loss_mask[i], spans[i], 0, L)
+    labels = np.roll(tokens, -1, axis=1)
+    labels[:, -1] = pad_id
+    positions = np.tile(np.arange(bucket, dtype=np.int32), (n, 1))
+    batch = {"tokens": tokens, "labels": labels, "mask": mask,
+             "positions": positions}
+    if modality_ids is not None:
+        batch["modality_ids"] = modality_ids
+        batch["loss_mask"] = loss_mask
+        batch["modality_classes"] = classes
+    return batch

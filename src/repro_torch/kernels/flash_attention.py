@@ -11,6 +11,8 @@ more positions back. A row with no valid key is zeros.
 
 On CPU tensors the wrapper runs `flash_attention_ref`; on CUDA tensors
 it launches `csrc/flash_attention.cu` or raises. It never falls back.
+The kernel has no backward, so on the card it refuses inputs that need
+a gradient (training attends through the packed kernel K1).
 bf16 inputs run on the tensor cores (`mma.sync`, fp32 accumulation,
 probabilities rounded to bf16 before the product with V); fp32 inputs
 run in fp32 on the CUDA cores.
@@ -126,6 +128,9 @@ def flash_attention(q, k, v, *, mode: str = "causal",
                                    kv_offset=kv_offset)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("kernel K2 has no backward; attention "
+                                  "that needs a gradient runs K1")
     return _launch(q, k, v, mode, window, kv_offset)
 
 

@@ -1,4 +1,5 @@
-"""Top-level model API, dense path.
+"""Top-level model API: the dense family (training and serving) and the
+SSM family (training).
 
   init_params(cfg, seed=, device=)               -> params dict
   forward(params, cfg, batch)                    -> (logits [B,S,V], aux)
@@ -12,28 +13,36 @@ for a batch at one depth, or [B] for the serving slot cache, where every
 row is its own request at its own depth. Unlike the JAX package, which
 returns new caches, `prefill_chunk` and `decode_step` write K/V into the
 cache they are given (no second copy of a cache in device memory) and
-return it with `pos` advanced.
+return it with `pos` advanced. The serving functions take the dense
+family only; the SSM family's state cache and decode step come with the
+SSM serving slice.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .attention import (attention, attn_decode, attn_prefill_chunk,
                         project_qkv_decode)
 from .layers import (_dtype, apply_rope, dense_init, embed, init_embedding,
                      init_rmsnorm, mlp, rms_norm, unembed)
-from .transformer import (_attn_kwargs, _dense_block, _init_dense_layer,
+from .transformer import (_BLOCK, _LAYER_INIT, _attn_kwargs,
                           _rope_frac, init_stack, unstack)
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _check_family(cfg: ModelConfig, *, serving: bool = False) -> None:
+    if cfg.family not in _BLOCK:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only; Engine "
-            f"runs VLM configs as dense)")
+            f"family {cfg.family!r} is not ported yet (ported: "
+            f"{sorted(_BLOCK)}; Engine runs VLM configs as dense)")
+    if serving and cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} trains but does not serve yet: its "
+            f"state cache and decode step come with the SSM serving "
+            f"slice of the port")
 
 
 # ==========================================================================
@@ -55,7 +64,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, cfg.vocab, dt, device)
     params["layers"] = init_stack(gen, cfg, cfg.n_layers,
-                                  _init_dense_layer, device)
+                                  _LAYER_INIT[cfg.family], device)
     return params
 
 
@@ -86,24 +95,31 @@ def _table(batch, key, device):
 
 def forward(params, cfg: ModelConfig, batch,
             mode: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dense-family forward -> (logits [B,S,V] in the param dtype, aux
-    loss). `batch` holds `tokens` and optionally `positions` (per-segment
-    positions of a packed buffer), `segment_ids` (the packed
-    block-diagonal table, -1 = tail padding) and `modality_ids` (the
-    mixed-mask table of bidirectional blocks, -1 = causal), as
-    `core/packing.flatten_group` emits them. Differentiable; layers run
-    in a Python loop over the unstacked parameters."""
+    """Forward -> (logits [B,S,V] in the param dtype, aux loss). `batch`
+    holds `tokens` and optionally `positions` (per-segment positions of a
+    packed buffer), `segment_ids` (the packed block-diagonal table, -1 =
+    tail padding) and `modality_ids` (the mixed-mask table of
+    bidirectional blocks, -1 = causal), as `core/packing.flatten_group`
+    emits them; the SSM family ignores the tables (one sequence per
+    row). Differentiable; layers run in a Python loop over the unstacked
+    parameters. With `cfg.remat` each layer keeps only its input for the
+    backward and is run again there (`torch.utils.checkpoint`), as the
+    JAX package wraps each layer in `jax.checkpoint`."""
     _check_family(cfg)
     x = _input_embeddings(params, cfg, batch)
     attn_mode = mode or ("sliding" if cfg.sliding_window else "causal")
-    positions = _table(batch, "positions", x.device)
-    segment_ids = _table(batch, "segment_ids", x.device)
-    span_ids = _table(batch, "modality_ids", x.device)
+    kw = dict(mode=attn_mode, window=cfg.sliding_window,
+              positions=_table(batch, "positions", x.device),
+              segment_ids=_table(batch, "segment_ids", x.device),
+              span_ids=_table(batch, "modality_ids", x.device))
+    block = _BLOCK[cfg.family]
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in unstack(params["layers"]):
-        x, a = _dense_block(p, x, cfg, mode=attn_mode,
-                            window=cfg.sliding_window, positions=positions,
-                            segment_ids=segment_ids, span_ids=span_ids)
+        if remat:
+            x, a = checkpoint(block, p, x, cfg, use_reentrant=False, **kw)
+        else:
+            x, a = block(p, x, cfg, **kw)
         aux = aux + a
     return _head(params, cfg, x), aux
 
@@ -117,7 +133,7 @@ def prefill(params, cfg: ModelConfig, batch,
     """Returns (last_logits [B,1,V], cache). Sliding-window archs keep a
     ring buffer holding the final `window` positions (slot p % W);
     full-attention caches are padded to `cache_len` capacity."""
-    _check_family(cfg)
+    _check_family(cfg, serving=True)
     x = _input_embeddings(params, cfg, batch)
     B, S, _ = x.shape
     positions = batch.get("positions")
@@ -170,7 +186,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any],
     mixed modality mask (see attn_prefill_chunk). Needs a non-sliding
     cache. Writes into `cache` and returns it with pos = start_pos + C.
     """
-    _check_family(cfg)
+    _check_family(cfg, serving=True)
     if cfg.sliding_window is not None:
         raise ValueError("chunked prefill needs a non-rotating cache")
     start_pos = int(start_pos)
@@ -208,7 +224,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
                device="cuda") -> Dict[str, Any]:
     """cache_len = context capacity; sliding-window archs allocate only
     min(window, cache_len) slots (ring buffer)."""
-    _check_family(cfg)
+    _check_family(cfg, serving=True)
     dt = dtype or _dtype(cfg.param_dtype)
     T = min(cfg.sliding_window or cache_len, cache_len)
     shape = (cfg.n_layers, batch, T, cfg.kv_heads, cfg.resolved_head_dim)
@@ -243,7 +259,7 @@ def _dense_decode_layer(p, x1, ck, cv, pos, cfg: ModelConfig):
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
                 tokens) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens: [B] -> (logits [B,V], cache with pos + 1)."""
-    _check_family(cfg)
+    _check_family(cfg, serving=True)
     tokens = torch.as_tensor(tokens,
                              device=params["embed"].device).long()
     B = tokens.shape[0]

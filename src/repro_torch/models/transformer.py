@@ -1,8 +1,12 @@
-"""Transformer assembly: the dense layer and stacked layer parameters.
+"""Transformer assembly: per-family layers and stacked layer parameters.
 
 Layer parameters are STACKED along a leading [L] axis, as in the JAX
 package (whose `lax.scan` consumes them); here a Python loop walks the
 layers and `unstack(stack)` gives each layer's leaves as views.
+
+Families:
+  dense — [attn + MLP] x L   (internvl3-2b's LM, run as dense)
+  ssm   — [mamba2 SSD] x L   (mamba2-370m)
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import torch
 from ..configs.base import ModelConfig
 from .attention import attention, init_attention
 from .layers import _dtype, init_mlp, init_rmsnorm, mlp, rms_norm
+from .ssm import init_ssm, ssm_forward
 
 
 def _init_dense_layer(gen, cfg: ModelConfig, device, stack: tuple = ()):
@@ -24,6 +29,18 @@ def _init_dense_layer(gen, cfg: ModelConfig, device, stack: tuple = ()):
         "ln2": init_rmsnorm(cfg.d_model, dt, device, stack),
         "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt,
                         device, stack),
+    }
+
+
+def _init_ssm_layer(gen, cfg: ModelConfig, device, stack: tuple = ()):
+    dt = _dtype(cfg.param_dtype)
+    s = cfg.ssm
+    return {
+        "ln1": init_rmsnorm(cfg.d_model, dt, device, stack),
+        "ssm": init_ssm(gen, cfg.d_model, d_state=s.d_state,
+                        head_dim=s.head_dim, expand=s.expand,
+                        conv_width=s.conv_width, dtype=dt, device=device,
+                        stack=stack),
     }
 
 
@@ -72,3 +89,19 @@ def _dense_block(p, x, cfg: ModelConfig, mode="causal", window=None,
     h = rms_norm(p["ln2"], x, cfg.norm_eps)
     x = x + mlp(p["mlp"], h, cfg.activation)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ssm_block(p, x, cfg: ModelConfig, **_):
+    """One Mamba-2 layer (pre-norm SSD mixer) -> (x, aux loss 0). The
+    segment and span tables are ignored: SSM sequences run padded, one
+    per row."""
+    s = cfg.ssm
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    x = x + ssm_forward(p["ssm"], h, d_state=s.d_state,
+                        head_dim=s.head_dim, expand=s.expand,
+                        chunk=s.chunk, impl=cfg.attn_impl)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+_LAYER_INIT = {"dense": _init_dense_layer, "ssm": _init_ssm_layer}
+_BLOCK = {"dense": _dense_block, "ssm": _ssm_block}

@@ -145,3 +145,251 @@ def test_packed_kernel_forward_and_backward_match_plain(card, dtype, D):
         assert (lse[fin] - rlse[fin]).abs().max().item() <= 1e-3
     assert flash_attention_packed.launches == n_fwd + len(K1_CASES)
     assert flash_attention_packed_bwd.launches == n_bwd + len(K1_CASES)
+
+
+# ----------------------------------------------------- SSD chunk (K3)
+#: K3 against its plain version run in fp64 on the same inputs (the
+#: exact value of the function): y, states and cum within K3_TOL x max(1,
+#: |plain|). The gradients within K3_GRAD_TOL elementwise and, as whole
+#: tensors, max|err| <= K3_TOL x max|plain|: at c = 256 each gradient
+#: element sums some 256 products of both signs, and the plain version
+#: itself in fp32 lies up to 2.1e-4 (dda), 1.5e-4 (dB) from the fp64
+#: value there. bf16 C, B, x are upcast exactly and all arithmetic is
+#: fp32; dC, dB and dx come back in bf16, one rounding (up to 2^-8 of
+#: the value) from fp32
+K3_TOL = 1e-4
+K3_GRAD_TOL = 1e-3
+K3_BF16_GRAD_TOL = 1e-2
+K3_CASES = [  # Bsz, S, H, N, P, chunk
+    (2, 128, 3, 16, 32, 32),       # mamba2-370m reduced: N=16, P=32
+    (1, 512, 4, 128, 64, 256),     # its full width: N=128, P=64, c=256
+    (3, 192, 5, 16, 32, 64),       # ragged cell counts
+    (1, 96, 2, 16, 32, 96),
+]
+
+
+def _k3_inputs(card, dtype, Bsz, S, H, N, P, seed=2):
+    """C, B, x in `dtype` and fp32 da, dt as the model makes them: dt =
+    softplus(.) + 1e-3 and A = -1 (A_log = 0 at init), so the sum of dt
+    over a 256-token chunk is about 200 and exp above the diagonal
+    would overflow."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(card)
+    C, B = f(Bsz, S, N) * 0.3, f(Bsz, S, N) * 0.3
+    x = f(Bsz, S, H, P)
+    dt = torch.nn.functional.softplus(f(Bsz, S, H)) + 1e-3
+    return C.to(dtype), B.to(dtype), x.to(dtype), -dt, dt
+
+
+def _k3_close(name, a, r, tol, whole=None):
+    r = r.double()
+    diff = (a.double() - r).abs()
+    assert torch.isfinite(a).all(), name
+    err = (diff / r.abs().clamp_min(1.0)).max().item()
+    assert err <= tol, (name, err)
+    if whole is not None:
+        rel = diff.max().item() / max(r.abs().max().item(), 1e-30)
+        assert rel <= whole, (name, rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K3_CASES)
+def test_ssd_chunk_kernel_matches_plain(card, dtype, case):
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk, ssd_chunk_bwd,
+                                               ssd_chunk_bwd_plain,
+                                               ssd_chunk_plain)
+    Bsz, S, H, N, P, c = case
+    C, B, x, da, dt = _k3_inputs(card, dtype, Bsz, S, H, N, P)
+    n_fwd, n_bwd = ssd_chunk.launches, ssd_chunk_bwd.launches
+    outs = ssd_chunk(C, B, x, da, dt, chunk=c)
+    ins64 = [t.double() for t in (C, B, x, da, dt)]
+    refs = ssd_chunk_plain(*ins64, chunk=c)
+    rng = np.random.default_rng(3)
+    grads_in = [torch.from_numpy(rng.standard_normal(tuple(o.shape))
+                                 .astype(np.float32)).to(card)
+                for o in outs]
+    grads = ssd_chunk_bwd(C, B, x, da, dt, *grads_in, chunk=c)
+    rgrads = ssd_chunk_bwd_plain(*ins64, *grads_in, chunk=c)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("y", "states", "cum"), outs, refs):
+        _k3_close(name, a, r, K3_TOL)
+    for name, a, r in zip(("dC", "dB", "dx", "dda", "ddt"), grads, rgrads):
+        if dtype == torch.bfloat16 and name in ("dC", "dB", "dx"):
+            _k3_close(name, a, r, K3_BF16_GRAD_TOL, whole=K3_BF16_GRAD_TOL)
+        else:
+            _k3_close(name, a, r, K3_GRAD_TOL, whole=K3_TOL)
+    assert ssd_chunk.launches == n_fwd + 1
+    assert ssd_chunk_bwd.launches == n_bwd + 1
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_gradient_is_finite_at_full_chunk(card):
+    """c=256 with the model's dt: exp above the diagonal would be inf;
+    the kernel's gradient through autograd is finite and agrees with the
+    plain version's (in fp64)."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_plain
+    C, B, x, da, dt = _k3_inputs(card, torch.float32, 2, 512, 4, 128, 64,
+                                 seed=5)
+    assert dt.reshape(2, 2, 256, 4).sum(2).min().item() > 150
+    grads = {}
+    for name, fn, dt_ in (("kernel", ssd_chunk, torch.float32),
+                          ("plain", ssd_chunk_plain, torch.float64)):
+        ins = [t.to(dt_).requires_grad_(True) for t in (C, B, x, da, dt)]
+        y, st, cum = fn(*ins, chunk=256)
+        loss = y.square().mean() + st.square().mean() + cum.mean()
+        grads[name] = torch.autograd.grad(loss, ins)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dC", "dB", "dx", "dda", "ddt"),
+                          grads["kernel"], grads["plain"]):
+        _k3_close(name, a, r, K3_GRAD_TOL, whole=K3_TOL)
+
+
+#: planted faults of K3, each one skipped (row tile, key tile) pair of
+#: every cell: name -> (the outputs it must show in, the loop header it
+#: edits in csrc/ssd_chunk.cu, the skip inserted at the top of its body).
+#: The pair is next to the diagonal: with the model's dt the decay
+#: across a whole 32-token tile is some exp(-25), so a pair farther off
+#: adds nothing an fp32 sum can hold, and dropping it changes nothing
+K3_FAULTS = {
+    "fwd_drops_key_tile": (("y",), (
+        "    for (int j0 = 0; j0 <= i0; j0 += T) {\n"
+        "      load_tile(s_B, Bg + j0 * ld_cb, ld_cb, T, N);\n"
+        "      load_tile(s_X, Xg + j0 * ld_x, ld_x, T, P);\n"
+        "      __syncthreads();\n"
+        "      float cb[T / TY][T / TX];\n"),
+        "      if (i0 == 4 * T && j0 == 3 * T) continue;\n"),
+    "bwd_pass_a_drops_key_tile": (("dC", "dda"), (
+        "    for (int j0 = 0; j0 <= i0; j0 += T) {\n"
+        "      load_tile(s_B, Bg + j0 * ld_cb, ld_cb, T, N);\n"
+        "      load_tile(s_X, Xg + j0 * ld_x, ld_x, T, P);\n"
+        "      __syncthreads();\n"
+        "      float cb[T / TY][T / TX], ds"),
+        "      if (i0 == 4 * T && j0 == 3 * T) continue;\n"),
+    "bwd_pass_b_drops_row_tile": (("dB", "dx", "ddt"), (
+        "    for (int i0 = j0; i0 < c; i0 += T) {\n"),
+        "      if (j0 == T && i0 == 2 * T) continue;\n"),
+}
+K3_NAMES = ("y", "states", "cum", "dC", "dB", "dx", "dda", "ddt")
+#: launches K3 forward and backward from the package on PYTHONPATH
+_K3_RUN = """
+import sys, torch
+import repro_torch
+assert repro_torch.__file__.startswith(sys.argv[3]), repro_torch.__file__
+from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
+ins, douts, c = torch.load(sys.argv[1])
+ins, douts = [t.cuda() for t in ins], [t.cuda() for t in douts]
+outs = ssd_chunk(*ins, chunk=c)
+grads = ssd_chunk_bwd(*ins, *douts, chunk=c)
+assert ssd_chunk.launches == ssd_chunk_bwd.launches == 1
+torch.save([t.cpu() for t in (*outs, *grads)], sys.argv[2])
+"""
+
+
+def _whole_errs(got, ref):
+    """max|err| / max|plain| of each output and gradient."""
+    return {n: ((a.double().cpu() - r.double().cpu()).abs().max()
+                / r.double().abs().max()).item()
+            for n, a, r in zip(K3_NAMES, got, ref)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", sorted(K3_FAULTS))
+def test_ssd_chunk_limit_catches_planted_fault(card, tmp_path, fault):
+    """K3's whole-tensor limit (K3_TOL) lies between the sound kernel and
+    one with a planted fault, at mamba2-370m's full width (fp32, one
+    1024-token row, 32 heads). The fault is built from an edited copy
+    of the package in a temporary directory; the checkout is not
+    touched. Prints both readings."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk, ssd_chunk_bwd,
+                                               ssd_chunk_bwd_plain,
+                                               ssd_chunk_plain)
+    must_show, anchor, skip = K3_FAULTS[fault]
+    pkg = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    copy = tmp_path / "src" / "repro_torch"
+    shutil.copytree(pkg, copy,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cu = copy / "kernels" / "csrc" / "ssd_chunk.cu"
+    text = cu.read_text()
+    assert text.count(anchor) == 1, fault
+    head, rest = anchor.split("\n", 1)
+    cu.write_text(text.replace(anchor, head + "\n" + skip + rest))
+
+    c = 256
+    ins = _k3_inputs(card, torch.float32, 1, 1024, 32, 128, 64, seed=7)
+    rng = np.random.default_rng(8)
+    outs = ssd_chunk(*ins, chunk=c)
+    douts = [torch.from_numpy(rng.standard_normal(tuple(o.shape))
+                              .astype(np.float32)).to(card) for o in outs]
+    sound = list(outs) + list(ssd_chunk_bwd(*ins, *douts, chunk=c))
+    ins64 = [t.double() for t in ins]
+    ref = list(ssd_chunk_plain(*ins64, chunk=c)) + \
+        list(ssd_chunk_bwd_plain(*ins64, *douts, chunk=c))
+    torch.save([[t.cpu() for t in ins], [t.cpu() for t in douts], c],
+               tmp_path / "in.pt")
+    env = dict(os.environ, PYTHONPATH=str(tmp_path / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _K3_RUN, str(tmp_path / "in.pt"),
+         str(tmp_path / "out.pt"), str(copy)],
+        cwd=tmp_path, env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    faulty = torch.load(tmp_path / "out.pt")
+    readings = {"sound": _whole_errs(sound, ref),
+                "fault": _whole_errs(faulty, ref)}
+    print(f"K3 planted fault {fault}: {readings}")
+    assert all(e <= K3_TOL for e in readings["sound"].values()), readings
+    for name in must_show:
+        assert readings["fault"][name] > K3_TOL, (name, readings)
+
+
+#: the device memory a training run may hold without per-layer remat
+#: (of the H100's 80 GB: the rest is the allocator's and the context's)
+REMAT_LIMIT_BYTES = 70e9
+
+
+@pytest.mark.cuda
+def test_mamba2_full_width_training_needs_remat(card):
+    """`remat` is on for mamba2-370m alone: the openvid run of
+    `chip_smoke.py` (global batch 8, sequences up to 4096 tokens, padded
+    one per row) does not fit the card without it, and fits with it.
+    internvl3-2b's packed run fits without it (`chip_smoke.py` phase 9
+    reads its peak). Prints both peaks."""
+    import gc
+
+    from repro_torch.api import ClusterSpec, Engine
+    from repro_torch.configs import get_config
+
+    cfg = get_config("mamba2-370m")
+    assert cfg.remat and not get_config("internvl3-2b").remat
+    run = dict(steps=3, dataset="openvid", global_batch=8,
+               max_tokens=4096, tokens_per_frame=256)
+    peaks = {}
+    for remat in (False, True):
+        eng = Engine(cfg.with_(remat=remat),
+                     ClusterSpec.auto(mem_budget=4096), seed=0)
+        torch.cuda.reset_peak_memory_stats(card)
+        oom = None
+        try:
+            eng.train(**run)
+        except torch.OutOfMemoryError as e:
+            oom = str(e).split("\n")[0]
+        finally:
+            eng.close()
+        peaks[remat] = (torch.cuda.max_memory_allocated(card), oom)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"mamba2-370m peak bytes, out-of-memory: without remat "
+          f"{peaks[False]}, with remat {peaks[True]}")
+    peak, oom = peaks[True]
+    assert oom is None and peak < REMAT_LIMIT_BYTES, peaks
+    peak, oom = peaks[False]
+    assert oom is not None or peak > REMAT_LIMIT_BYTES, peaks
