@@ -1,8 +1,8 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the hand-written
 kernels, holds each against its plain PyTorch version on the card, then
 drives the port's main paths — continuous-batching serving and DHP
-training of internvl3-2b, and DHP training of mamba2-370m, at full
-width — and checks what comes out.
+training of internvl3-2b, and DHP training of mamba2-370m and of
+recurrentgemma-2b, at full width — and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -95,6 +95,35 @@ Phases:
                 bucket) shape the SSM run launched, with times, bounds
                 and the inter-chunk scan's time; these feed the kernels
                 line
+ 15. rglru      — the RG-LRU scan kernel K4, forward and backward, vs its
+                plain versions (sequential loops over time, run in fp64):
+                one 4096-token row at recurrentgemma-2b's width (2560)
+                and a ragged shape, fp32 and bf16, a in (0.3, 0.999) as
+                the gates make it; h, da, db within 1e-5 * max(1,
+                |plain|) in fp32, 2e-2 in bf16; with times and bounds
+ 16. packed 256 — K1 in bf16 at recurrentgemma-2b's heads (10 query heads
+                over one KV head, D = 256), sliding at window 2048 over a
+                4096-token row with and without 256-token frames, and a
+                span longer than its window; phase 7's limits
+ 17. hybrid parity — reduced recurrentgemma-2b, fp32: two DHP training
+                steps with K4 and K1 vs the same steps through their
+                plain versions, limits as phase 8
+ 18. hybrid train — full-width recurrentgemma-2b, bf16, through
+                Engine("recurrentgemma-2b", ClusterSpec.auto(
+                mem_budget=4096)).train(steps=3, dataset="openvid",
+                global_batch=8, max_tokens=4096, tokens_per_frame=256,
+                trace=True), padded (the recurrence crosses segment
+                boundaries): per step loss, time, tokens/s, padding
+                efficiency; peak memory; the (n_seqs, bucket, spans) of
+                every group; K4 and K1 launches equal to the count from
+                the run's own groups (remat: each unit's layers run
+                forward twice, the tail's once); losses and parameters
+                finite; one more step under torch.profiler for the busy
+                share and the device time by kernel
+ 19. hybrid path — K4 (fp32) and K1 (bf16, D = 256) forward and backward
+                vs plain at every shape the hybrid run launched, K1 on
+                the run's own span tables, with times and bounds; these
+                feed the kernels line
 """
 import json
 import math
@@ -429,20 +458,23 @@ def packed_bound(B, Sq, Sk, H, Hkv, D, dtype, pairs, backward, n_tables):
 
 def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
                  window=None, off=0, kseg=None, kspan=None, Sk=None,
-                 tag=""):
+                 tag="", heads=(H, HKV, D)):
     """K1 forward and backward vs plain on one random input with the
-    given tables at internvl3-2b's heads; times kernel, plain and SDPA
-    (boolean mask from the tables, built outside the timing)."""
+    given tables ([S], one row, or [B, S]) at `heads` = (query heads, KV
+    heads, head_dim), internvl3-2b's by default; times kernel, plain and
+    SDPA (boolean mask from the tables, built outside the timing)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention_packed import (
         _tables, flash_attention_packed, flash_attention_packed_bwd,
         flash_attention_packed_bwd_ref, flash_attention_packed_ref,
         pair_mask)
+    H, HKV, D = heads
     Sk = Sk or S
-    q = torch.randn(1, S, H, D, generator=gen, device=dev).to(dtype)
-    do = torch.randn(1, S, H, D, generator=gen, device=dev).to(dtype)
-    k = torch.randn(1, Sk, HKV, D, generator=gen, device=dev).to(dtype)
-    v = torch.randn(1, Sk, HKV, D, generator=gen, device=dev).to(dtype)
+    B = 1 if np.ndim(seg) == 1 else len(seg)
+    q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+    do = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Sk, HKV, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Sk, HKV, D, generator=gen, device=dev).to(dtype)
     t = lambda a: None if a is None else torch.as_tensor(a, device=dev)  # noqa: E731
     segt = t(seg)
     kw = dict(mode=mode, window=window, span_ids=t(span),
@@ -497,11 +529,11 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
         warmup=2)
     del lib_out
     n_tables = 1 if span is None else 2
-    bf, bf_by = packed_bound(1, S, Sk, H, HKV, D, dtype, pairs, False,
+    bf, bf_by = packed_bound(B, S, Sk, H, HKV, D, dtype, pairs, False,
                              n_tables)
-    bb, bb_by = packed_bound(1, S, Sk, H, HKV, D, dtype, pairs, True,
+    bb, bb_by = packed_bound(B, S, Sk, H, HKV, D, dtype, pairs, True,
                              n_tables)
-    row = dict(tag=tag, S=S, Sk=Sk, H=H, Hkv=HKV, D=D,
+    row = dict(tag=tag, B=B, S=S, Sk=Sk, H=H, Hkv=HKV, D=D,
                dtype=str(dtype).split(".")[-1], mode=mode, window=window,
                spans=span is not None, kv_offset=off, pairs=pairs,
                err={n: e[1] for n, e in errs.items()},
@@ -697,7 +729,7 @@ def phase_training(dev, card):
                              f"the run's {sorted(set(groups))}")
 
     # one more step under the profiler: the device's busy share
-    profile_step(eng, run, card, "train", "packed_", "k1")
+    profile_step(eng, run, card, "train", {"k1": "packed_"})
     eng.close()
     return n_fwd, n_bwd, tables, eng.cfg.n_layers
 
@@ -916,14 +948,14 @@ def phase_ssm_parity(dev):
                              "plain path by more than 1e-4")
 
 
-def profile_step(eng, run, card, label, kernel_key, kernel_name,
-                 ranges=()):
+def profile_step(eng, run, card, label, kernel_keys, ranges=()):
     """One more training step under torch.profiler: wall, device busy
-    share, the 15 kernels with the most device time, and the device time
-    of kernels whose name holds `kernel_key` (printed as
-    `<kernel_name>_device_ms`). `ranges` names profiler ranges of the
-    code: each appears on the device's timeline as a span over its
-    kernels, which is reported apart and kept out of the busy time."""
+    share, the 15 kernels with the most device time, and for each name
+    -> key of `kernel_keys` the device time of kernels whose name holds
+    the key (printed as `<name>_device_ms`). `ranges` names profiler
+    ranges of the code: each appears on the device's timeline as a span
+    over its kernels, which is reported apart and kept out of the busy
+    time."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -950,11 +982,13 @@ def profile_step(eng, run, card, label, kernel_key, kernel_name,
                                 key=lambda kv: -kv[1][0])[:15]:
         print(f"  {label} device time {t:.1f} ms over {n} launches: "
               f"{kname[:110]}")
-    k_ms = sum(ev.time_range.elapsed_us() / 1e3 for ev in cuda_evs
-               if kernel_key in ev.name)
+    k_ms = {name: sum(ev.time_range.elapsed_us() / 1e3 for ev in cuda_evs
+                      if key in ev.name)
+            for name, key in kernel_keys.items()}
+    k_ms = " ".join(f"{name}_device_ms={t}" for name, t in k_ms.items())
     print(f"  {label} profiled step: wall_ms={wall_ms} device_busy_ms="
-          f"{busy_ms} device_busy_share={busy_ms / wall_ms} "
-          f"{kernel_name}_device_ms={k_ms} ({card})")
+          f"{busy_ms} device_busy_share={busy_ms / wall_ms} {k_ms} "
+          f"({card})")
     return prof
 
 
@@ -1020,7 +1054,7 @@ def phase_ssm_training(dev, card):
     print(f"  ssm train group shapes (n_seqs, bucket): {groups}")
     print(f"  ssm train K3 launches: forward {n_fwd}, backward {n_bwd}")
 
-    prof = profile_step(eng, run, card, "ssm train", "k3_", "k3",
+    prof = profile_step(eng, run, card, "ssm train", {"k3": "k3_"},
                         ranges=(INTER_CHUNK,))
     inter = [e for e in prof.key_averages() if e.key == INTER_CHUNK]
     if inter:
@@ -1053,6 +1087,349 @@ def phase_ssd_path(dev, card, shapes, n_layers, chunk):
     return rows
 
 
+# ------------------------------------------------------------ kernel K4
+#: K4 against its plain version run in fp64 on the same inputs: fp32 h,
+#: da, db within RG_TOL[fp32] * max(1, |plain|) (the state is carried in
+#: fp32; the chunked scan composes the same products in another order),
+#: bf16 within RG_TOL[bf16] (one bf16 rounding of the output, and da is
+#: formed from the saved bf16 h)
+RG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+RG_WIDTH = 2560                      # recurrentgemma-2b's lru_width
+
+
+def rglru_bound(B, S, W, dtype, backward):
+    """Least time for the same work: a and b read and h written once
+    (backward: a, dh, h read, da and db written), against 2 flops an
+    element forward (3 backward) at the fp32 peak."""
+    elt = torch.finfo(dtype).bits // 8
+    n = B * S * W
+    nbytes = elt * n * (5 if backward else 3)
+    flops = (3 if backward else 2) * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_rglru(dev, card, gen, B, S, W, dtype, tag, time_it=True):
+    """K4 forward and backward vs plain (fp64) on one random input: a as
+    the model's gates make it, in (0.3, 0.999); times kernel and plain
+    (the plain loops in the input type)."""
+    from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
+                                                rglru_scan_bwd_plain,
+                                                rglru_scan_plain)
+    a = (0.3 + 0.699 * torch.rand(B, S, W, generator=gen,
+                                  device=dev)).to(dtype)
+    b = torch.randn(B, S, W, generator=gen, device=dev).to(dtype)
+    dh = torch.randn(B, S, W, generator=gen, device=dev).to(dtype)
+    h = rglru_scan(a, b)
+    da, db = rglru_scan_bwd(a, h, dh)
+    rh = rglru_scan_plain(a.double(), b.double())
+    rda, rdb = rglru_scan_bwd_plain(a.double(), rh, dh.double())
+    torch.cuda.synchronize()
+    errs = {}
+    for name, x, r in (("h", h, rh), ("da", da, rda), ("db", db, rdb)):
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"K4 {tag}: {name} is not finite")
+        diff = (x.double() - r).abs()
+        errs[name] = (diff.max().item(),
+                      (diff / r.abs().clamp_min(1.0)).max().item())
+        if not errs[name][1] <= RG_TOL[dtype]:
+            raise AssertionError(
+                f"K4 disagrees with its plain version ({tag} B={B} S={S} "
+                f"W={W} {dtype}): {name} max|err|/max(1,|ref|) "
+                f"{errs[name][1]} > {RG_TOL[dtype]}")
+    del rh, rda, rdb
+    row = dict(tag=tag, B=B, S=S, W=W, dtype=str(dtype).split(".")[-1],
+               err={n: e[1] for n, e in errs.items()},
+               max_abs_err_fwd=errs["h"][0],
+               max_abs_err_bwd=max(errs["da"][0], errs["db"][0]))
+    if time_it:
+        row["fwd_ms"] = cuda_ms(lambda: rglru_scan(a, b), iters=20)
+        row["bwd_ms"] = cuda_ms(lambda: rglru_scan_bwd(a, h, dh), iters=20)
+        row["plain_fwd_ms"] = cuda_ms(lambda: rglru_scan_plain(a, b),
+                                      iters=2, warmup=1)
+        row["plain_bwd_ms"] = cuda_ms(lambda: rglru_scan_bwd_plain(a, h, dh),
+                                      iters=2, warmup=1)
+        for which in ("fwd", "bwd"):
+            bnd, by = rglru_bound(B, S, W, dtype, which == "bwd")
+            row[f"bound_{which}_ms"], row[f"bound_{which}_by"] = bnd, by
+    print(f"  K4 {json.dumps(row)} ({card})")
+    return row
+
+
+def phase_rglru(dev, card):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        # one 4096-token row at recurrentgemma-2b's width; a ragged shape
+        rows.append(check_rglru(dev, card, gen, 1, 4096, RG_WIDTH, dt,
+                                "full"))
+        rows.append(check_rglru(dev, card, gen, 3, 100, 300, dt, "ragged",
+                                time_it=False))
+    return rows
+
+
+# ------------------------------------------------- K1 at head_dim 256
+RG_HEADS = (10, 1, 256)              # recurrentgemma-2b: MQA, D = 256
+RG_WINDOW = 2048
+
+
+def hybrid_tables(n_rows, S, frame, text=32):
+    """The padded hybrid batch's tables: one segment per row (no segment
+    table is emitted; attention takes segment 0 everywhere) and span ids
+    of `frame`-token bidirectional blocks after every `text` causal
+    tokens."""
+    _, span = packed_layout(S, [S], frame, text)
+    return (np.zeros((n_rows, S), np.int32),
+            np.repeat(span[None], n_rows, axis=0))
+
+
+def phase_packed_wide(dev, card):
+    """K1 in bf16 at recurrentgemma-2b's heads, sliding at its window,
+    against the plain versions with phase 7's limits."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf16 = torch.bfloat16
+    rows = []
+    seg, span = hybrid_tables(1, 4096, 256)
+    rows.append(check_packed(dev, card, gen, 4096, bf16, seg, span,
+                             mode="sliding", window=RG_WINDOW,
+                             tag="synthetic", heads=RG_HEADS))
+    rows.append(check_packed(dev, card, gen, 4096, bf16, seg, None,
+                             mode="sliding", window=RG_WINDOW,
+                             tag="synthetic", heads=RG_HEADS))
+    # a span longer than the window
+    seg, span = hybrid_tables(2, 1024, 300, text=100)
+    rows.append(check_packed(dev, card, gen, 1024, bf16, seg, span,
+                             mode="sliding", window=128, tag="long span",
+                             heads=RG_HEADS))
+    return rows
+
+
+# ------------------------------------------------ the hybrid family
+def hybrid_launches(cfg):
+    """Kernel launches of one group of the hybrid family: {kernel:
+    (forward, backward)} for K4 (the recurrent layers) and K1 (the
+    attention layers); remat runs each unit's layers forward twice, the
+    tail's once."""
+    from repro_torch.models.transformer import hybrid_layout
+    n_units, tail = hybrid_layout(cfg)
+    runs = 2 if cfg.remat else 1
+    out = {}
+    for kind, kernel in (("rec", "k4"), ("attn", "k1")):
+        per_unit = cfg.hybrid.pattern.count(kind)
+        n_tail = tail.count(kind)
+        out[kernel] = (runs * n_units * per_unit + n_tail,
+                       n_units * per_unit + n_tail)
+    return out
+
+
+def _k4_k1_counts():
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd)
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+    return {"k4": (rglru_scan.launches, rglru_scan_bwd.launches),
+            "k1": (flash_attention_packed.launches,
+                   flash_attention_packed_bwd.launches)}
+
+
+def _zero_k4_k1_counts():
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd)
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+    for fn in (rglru_scan, rglru_scan_bwd, flash_attention_packed,
+               flash_attention_packed_bwd):
+        fn.launches = 0
+
+
+def phase_hybrid_parity(dev):
+    """Reduced recurrentgemma-2b, fp32: the first batch's loss and
+    gradient and two training steps through K4 and K1 vs through their
+    plain versions, then the next batch's loss and gradient through both
+    at the parameters the kernel path reached. (Phases 8 and 12 take
+    each path's gradient at its own parameters. Here AdamW's first step,
+    lr x g / (|g| + 1e-8), sets elements whose gradient lies within the
+    paths' 1e-7 difference of 0 up to 2 lr apart, and the gradient at
+    parameters that far apart differs by about 1e-4: a difference of
+    the parameters, not of the kernels, so both paths take the same
+    parameters there.)"""
+    from repro_torch.api import Engine
+    from repro_torch.data.pipeline import HeterogeneousLoader
+    from repro_torch.training import TrainState
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+
+    run = dict(dataset="openvid", global_batch=8, max_tokens=512,
+               tokens_per_frame=16)
+    out = {}
+    params0 = None
+    for impl in ("cuda", "reference"):
+        eng = Engine("recurrentgemma-2b", reduced=True, seed=0)
+        eng.cfg = eng.cfg.with_(attn_impl=impl)
+        if params0 is None:
+            params0 = eng.state.params
+        eng.state = TrainState(params=tree_map(torch.clone, params0))
+        data = next(HeterogeneousLoader(run["dataset"], 8, eng.cfg.vocab,
+                                        seed=0, max_tokens=512,
+                                        tokens_per_frame=16))
+        _zero_k4_k1_counts()
+        loss0, grads0 = eng.executor.run_plan(eng.state.params,
+                                              eng.plan(data), data)
+        n = _k4_k1_counts()
+        groups = len(eng.executor.last_exe_keys)
+        hist = eng.train(steps=2, lookahead=False, **run)
+        out[impl] = ([float(loss0)] + [m.loss for m in hist], [grads0],
+                     eng.state.params, eng)
+        want = {k: ((f * groups, b * groups) if impl == "cuda" else (0, 0))
+                for k, (f, b) in hybrid_launches(eng.cfg).items()}
+        if n != want:
+            raise AssertionError(f"{impl}: K4/K1 launches {n}, want {want} "
+                                 f"for {groups} groups")
+    for impl in ("cuda", "reference"):
+        eng = out[impl][3]
+        data2 = next(eng.loader)
+        loss2, grads2 = eng.executor.run_plan(out["cuda"][2],
+                                              eng.plan(data2), data2)
+        eng.close()
+        out[impl][0].append(float(loss2))
+        out[impl][1].append(grads2)
+    (ls, gs, p, _), (rls, rgs, rp, _) = out["cuda"], out["reference"]
+    lerr = max(abs(a - b) for a, b in zip(ls, rls))
+    gerr = [max((a - b).abs().max().item()
+                for a, b in zip(tree_leaves(g), tree_leaves(rg)))
+            for g, rg in zip(gs, rgs)]
+    perr = max((a - b).abs().max().item()
+               for a, b in zip(tree_leaves(p), tree_leaves(rp)))
+    print(f"  losses kernel {ls} plain {rls}: max diff {lerr}; grads max "
+          f"diff {gerr[0]} (first batch), {gerr[1]} (next batch at the "
+          f"kernel path's parameters after 2 steps); params after 2 steps "
+          f"max diff {perr}")
+    if not (lerr <= 1e-4 and max(gerr) <= 1e-4):
+        raise AssertionError("hybrid training through K4 and K1 differs "
+                             "from the plain path by more than 1e-4")
+
+
+def phase_hybrid_training(dev, card):
+    """Full-width recurrentgemma-2b DHP training; returns ({kernel:
+    (launches fwd, bwd)}, the K4 shapes {(n_seqs, bucket): groups}, the
+    K1 group tables by (n_seqs, bucket, spans), launches per group)."""
+    import gc
+
+    from repro_torch.api import ClusterSpec, Engine
+    from repro_torch.data.pipeline import HeterogeneousLoader
+    from repro_torch.training.optimizer import tree_leaves
+
+    run = dict(dataset="openvid", global_batch=8, max_tokens=4096,
+               tokens_per_frame=256)
+    t0 = time.perf_counter()
+    eng = Engine("recurrentgemma-2b", ClusterSpec.auto(mem_budget=4096),
+                 seed=0)
+    params = eng.state.params
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    c, h = eng.cfg, eng.cfg.hybrid
+    print(f"  recurrentgemma-2b: {c.n_layers} layers {h.pattern} d_model "
+          f"{c.d_model} lru_width {h.lru_width} heads {c.n_heads}/"
+          f"{c.kv_heads}x{c.resolved_head_dim} window {h.window} d_ff "
+          f"{c.d_ff} vocab {c.vocab}, {n_params} params "
+          f"{c.param_dtype}, remat {c.remat}, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    plans = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_k4_k1_counts()
+    hist = eng.train(steps=3, lookahead=True, plan_log=plans, trace=True,
+                     **run)
+    torch.cuda.synchronize()
+    counts = _k4_k1_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    tracer = eng.last_tracer
+    if tracer.dropped:
+        raise AssertionError(f"the tracer dropped {tracer.dropped} events")
+    groups = [(e["args"]["n_seqs"], e["args"]["bucket"], e["args"]["spans"])
+              for e in tracer.to_json()["traceEvents"]
+              if e.get("name") == "execute"]
+    per_group = hybrid_launches(eng.cfg)
+    want = {k: (f * len(groups), b * len(groups))
+            for k, (f, b) in per_group.items()}
+    if counts != want or not groups:
+        raise AssertionError(f"K4/K1 launches {counts}, want {want} for "
+                             f"{len(groups)} groups of {per_group}")
+    for m in hist:
+        if not math.isfinite(m.loss):
+            raise AssertionError(f"step {m.step}: loss {m.loss}")
+        tok_s = m.tokens / m.step_time_s
+        print(f"  hybrid train step {m.step}: loss={m.loss} "
+              f"step_time_s={m.step_time_s} tokens={m.tokens} "
+              f"tokens_per_s={tok_s} padding_efficiency="
+              f"{m.padding_efficiency} degrees={m.degree_histogram} "
+              f"groups={sum(m.degree_histogram.values())} "
+              f"schedule_ms={m.schedule_ms} plan_overlap_ms="
+              f"{m.plan_overlap_ms} ({card})")
+    if len(hist) != 3:
+        raise AssertionError(f"{len(hist)} training steps, want 3")
+    if not all(torch.isfinite(t).all() for t in tree_leaves(
+            eng.state.params)):
+        raise AssertionError("parameters are not finite after 3 steps")
+    print(f"  hybrid train max_memory_allocated_bytes = {peak} ({card})")
+    print(f"  hybrid train group shapes (n_seqs, bucket, spans): {groups}")
+    print(f"  hybrid train launches {counts} = {len(groups)} groups x "
+          f"{per_group} (forward, backward)")
+
+    # the tables of every group, rebuilt from the run's plans and batches
+    loader = HeterogeneousLoader(run["dataset"], run["global_batch"],
+                                 eng.cfg.vocab, seed=eng.seed,
+                                 max_tokens=run["max_tokens"],
+                                 tokens_per_frame=run["tokens_per_frame"])
+    tables = {}
+    for plan in plans:
+        data = next(loader)
+        spans_by_id = data.spans_by_id()
+        for mb in plan.micro_batches:
+            for g in mb.groups:
+                b, _, _, bucket = eng.executor._group_batch(
+                    [data.by_id(i) for i in g.seq_ids], g.degree,
+                    spans=[spans_by_id.get(i) for i in g.seq_ids])
+                key = (len(g.seq_ids), bucket, "modality_ids" in b)
+                tables.setdefault(key, []).append(b.get("modality_ids"))
+    if sorted(tables) != sorted(set(groups)) or \
+            sum(map(len, tables.values())) != len(groups):
+        raise AssertionError(f"rebuilt groups {sorted(tables)} differ from "
+                             f"the run's {sorted(set(groups))}")
+
+    profile_step(eng, run, card, "hybrid train",
+                 {"k4": "k4_", "k1": "packed_"})
+    eng.close()
+    del eng, params
+    gc.collect()
+    return counts, tables, per_group
+
+
+def phase_hybrid_path(dev, card, tables, per_group):
+    """K4 (fp32, as the gates make a and b) and K1 (bf16, D = 256,
+    sliding 2048) forward and backward vs plain at every shape of the
+    hybrid run, K1 on the first group's own span table of that shape."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    k4_rows, k1_rows = [], []
+    shapes = {}
+    for (n_seqs, bucket, _), groups in tables.items():
+        shapes[(n_seqs, bucket)] = shapes.get((n_seqs, bucket), 0) + \
+            len(groups)
+    for (n_seqs, bucket), n_groups in sorted(shapes.items()):
+        row = check_rglru(dev, card, gen, n_seqs, bucket, RG_WIDTH,
+                          torch.float32, "train")
+        row["launches"] = tuple(n * n_groups for n in per_group["k4"])
+        k4_rows.append(row)
+    for (n_seqs, bucket, spans), groups in sorted(tables.items()):
+        span = groups[0]
+        seg = np.zeros((n_seqs, bucket), np.int32)
+        row = check_packed(dev, card, gen, bucket, torch.bfloat16, seg,
+                           span, mode="sliding", window=RG_WINDOW,
+                           tag="train", heads=RG_HEADS)
+        row["launches"] = tuple(n * len(groups) for n in per_group["k1"])
+        k1_rows.append(row)
+        torch.cuda.empty_cache()
+    return k4_rows, k1_rows
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1077,26 +1454,26 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/14] device: {name}; torch {torch.__version__} cuda "
+    print(f"[1/19] device: {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(card)
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"[2/14] build: {time.perf_counter() - t0:.1f} s for "
+    print(f"[2/19] build: {time.perf_counter() - t0:.1f} s for "
           f"{build.sources()}")
     for src, log in build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    print("[3/14] kernels vs plain versions")
+    print("[3/19] kernels vs plain versions")
     rows = phase_kernels(dev, card)
-    print("[4/14] parity at reduced size (fp32)")
+    print("[4/19] parity at reduced size (fp32)")
     phase_parity(dev)
-    print("[5/14] full-width serving (bf16)")
+    print("[5/19] full-width serving (bf16)")
     launches, shapes, n_layers = phase_serving(dev, card)
-    print("[6/14] kernels vs plain versions at the serving run's shapes")
+    print("[6/19] kernels vs plain versions at the serving run's shapes")
     path = phase_path(dev, card, shapes, n_layers)
 
     # the shape launched most often stands for the kernel; every shape
@@ -1125,14 +1502,14 @@ def main() -> int:
                              **{k: r[k] for k in keys}) for r in path],
     }]
 
-    print("[7/14] packed kernel K1 vs plain versions")
+    print("[7/19] packed kernel K1 vs plain versions")
     packed_rows = phase_packed(dev, card)
-    print("[8/14] training parity at reduced size (fp32)")
+    print("[8/19] training parity at reduced size (fp32)")
     phase_train_parity(dev)
-    print("[9/14] full-width DHP training (bf16)")
+    print("[9/19] full-width DHP training (bf16)")
     n_fwd, n_bwd, tables, n_layers = phase_training(dev, card)
     torch.cuda.empty_cache()
-    print("[10/14] K1 vs plain versions at the training run's shapes")
+    print("[10/19] K1 vs plain versions at the training run's shapes")
     train_rows = phase_train_path(dev, card, tables, n_layers)
 
     # the shape launched most often stands for each K1 kernel; every
@@ -1170,16 +1547,16 @@ def main() -> int:
                 library_ms=r[f"library_{which}_ms"]) for r in train_rows],
         })
 
-    print("[11/14] SSD chunk kernel K3 vs plain versions")
+    print("[11/19] SSD chunk kernel K3 vs plain versions")
     ssd_rows = phase_ssd(dev, card)
-    print("[12/14] SSM training parity at reduced size (fp32)")
+    print("[12/19] SSM training parity at reduced size (fp32)")
     phase_ssm_parity(dev)
-    print("[13/14] full-width mamba2-370m DHP training (bf16)")
+    print("[13/19] full-width mamba2-370m DHP training (bf16)")
     torch.cuda.empty_cache()
     s_fwd, s_bwd, ssm_shapes, ssm_layers, chunk = phase_ssm_training(dev,
                                                                      card)
     torch.cuda.empty_cache()
-    print("[14/14] K3 vs plain versions at the SSM training run's shapes")
+    print("[14/19] K3 vs plain versions at the SSM training run's shapes")
     ssd_path = phase_ssd_path(dev, card, ssm_shapes, ssm_layers, chunk)
 
     # the shape launched most often stands for each K3 kernel; every
@@ -1212,6 +1589,77 @@ def main() -> int:
                 bound_by=r[f"bound_{which}_by"],
                 inter_chunk_fwd_bwd_ms=r["inter_chunk_fwd_bwd_ms"])
                 for r in ssd_path],
+        })
+    print("[15/19] RG-LRU scan kernel K4 vs plain versions")
+    rg_rows = phase_rglru(dev, card)
+    print("[16/19] K1 at head_dim 256 vs plain versions")
+    wide_rows = phase_packed_wide(dev, card)
+    print("[17/19] hybrid training parity at reduced size (fp32)")
+    phase_hybrid_parity(dev)
+    print("[18/19] full-width recurrentgemma-2b DHP training (bf16)")
+    torch.cuda.empty_cache()
+    counts, hy_tables, per_group = phase_hybrid_training(dev, card)
+    torch.cuda.empty_cache()
+    print("[19/19] K4 and K1 vs plain versions at the hybrid run's shapes")
+    k4_path, k1_path = phase_hybrid_path(dev, card, hy_tables, per_group)
+
+    # the shape launched most often stands for each kernel; every shape
+    # the hybrid run launched is listed with its own numbers
+    main_k4 = max(k4_path, key=lambda r: (r["launches"], r["B"] * r["S"]))
+    for i, which in enumerate(("fwd", "bwd")):
+        kernels.append({
+            "name": "rglru_scan" + ("_bwd" if which == "bwd" else ""),
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+            # the Pallas K4 cannot be differentiated; the backward kernel
+            # computes the gradient of the function it computes
+            "replaces": "src/repro/kernels/rglru_scan.py:52",
+            "launches": counts["k4"][i],
+            "max_abs_err": max(r[f"max_abs_err_{which}"]
+                               for r in rg_rows + k4_path
+                               if r["dtype"] == "float32"),
+            "ms": main_k4[f"{which}_ms"],
+            "plain_ms": main_k4[f"plain_{which}_ms"],
+            "bound_ms": main_k4[f"bound_{which}_ms"],
+            "bound_by": main_k4[f"bound_{which}_by"],
+            "library_ms": None,
+            "shape": f"B={main_k4['B']} S={main_k4['S']} W={RG_WIDTH} "
+                     f"fp32",
+            "path_shapes": [dict(
+                n_seqs=r["B"], bucket=r["S"], launches=r["launches"][i],
+                err=r["err"], ms=r[f"{which}_ms"],
+                plain_ms=r[f"plain_{which}_ms"],
+                bound_ms=r[f"bound_{which}_ms"],
+                bound_by=r[f"bound_{which}_by"]) for r in k4_path],
+        })
+    main_wide = max(k1_path, key=lambda r: (r["launches"], r["B"] * r["S"]))
+    for i, which in enumerate(("fwd", "bwd")):
+        kernels.append({
+            "name": "flash_attention_packed_d256" + (
+                "_bwd" if which == "bwd" else ""),
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/"
+                      "flash_attention_packed.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:208",
+            "launches": counts["k1"][i],
+            "max_abs_err": max(r[f"max_abs_err_{which}"]
+                               for r in wide_rows + k1_path),
+            "ms": main_wide[f"{which}_ms"],
+            "plain_ms": main_wide[f"plain_{which}_ms"],
+            "bound_ms": main_wide[f"bound_{which}_ms"],
+            "bound_by": main_wide[f"bound_{which}_by"],
+            "library_ms": main_wide[f"library_{which}_ms"],
+            "shape": f"B={main_wide['B']} S={main_wide['S']} H=10 Hkv=1 "
+                     f"D=256 bf16 sliding {RG_WINDOW} "
+                     f"spans={main_wide['spans']}",
+            "path_shapes": [dict(
+                n_seqs=r["B"], bucket=r["S"], spans=r["spans"],
+                launches=r["launches"][i], pairs=r["pairs"], err=r["err"],
+                rel_err=r["rel_err"], ms=r[f"{which}_ms"],
+                plain_ms=r[f"plain_{which}_ms"],
+                bound_ms=r[f"bound_{which}_ms"],
+                bound_by=r[f"bound_{which}_by"],
+                library_ms=r[f"library_{which}_ms"]) for r in k1_path],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -150,7 +150,8 @@ class Engine:
     >>> rep = eng.serving(slots=4).run(trace)
 
     `model` is an arch id or a ModelConfig: internvl3-2b (trains and
-    serves) or mamba2-370m (trains; SSM serving is a later slice). VLM
+    serves), mamba2-370m or recurrentgemma-2b (train; SSM and hybrid
+    serving are later slices). VLM
     configs run in token-stream mode (the LM decoder over pre-counted
     tokens), as in the JAX package. `device=None` places the model on
     the card and raises when there is none; `device="cpu"` runs on the

@@ -3,12 +3,13 @@ from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig, SSMCfg, VLMCfg
+from .base import HybridCfg, ModelConfig, SSMCfg, VLMCfg
 
 _MODULES = {
     # the paper's own workload; further archs join with their families
     "internvl3-2b": "internvl3_2b",
     "mamba2-370m": "mamba2_370m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ALL_ARCHS = list(_MODULES)
@@ -21,4 +22,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ModelConfig", "SSMCfg", "VLMCfg", "get_config", "ALL_ARCHS"]
+__all__ = ["HybridCfg", "ModelConfig", "SSMCfg", "VLMCfg", "get_config",
+           "ALL_ARCHS"]

@@ -1,15 +1,15 @@
 """Model / run configuration system.
 
 One frozen dataclass describes an architecture; `ModelConfig.reduced()`
-derives the CPU smoke-test variant (2 layers, d_model <= 256). This copy
-carries the fields of the families the port runs (dense, VLM as dense,
-SSM); the other sub-configs (MoE, hybrid, encoder-decoder) come with the
-slices that port those families.
+derives the CPU smoke-test variant (2 layers, 3 for the hybrid family,
+d_model <= 256). This copy carries the fields of the families the port
+runs (dense, VLM as dense, SSM, hybrid); the other sub-configs (MoE,
+encoder-decoder) come with the slices that port those families.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +24,15 @@ class SSMCfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class HybridCfg:
+    # RecurrentGemma / Griffin: pattern unit (rec, rec, attn)
+    pattern: Tuple[str, ...] = ("rec", "rec", "attn")
+    lru_width: Optional[int] = None   # defaults to d_model
+    window: int = 2048                # local attention window
+    conv_width: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class VLMCfg:
     """Pixtral-style VLM; ViT frontend is a stub providing patch embeds."""
     vision_dim: int = 1024            # stub patch-embedding dim
@@ -33,7 +42,7 @@ class VLMCfg:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str               # dense | vlm | ssm
+    family: str               # dense | vlm | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -51,6 +60,7 @@ class ModelConfig:
     tie_embeddings: bool = False
 
     ssm: Optional[SSMCfg] = None
+    hybrid: Optional[HybridCfg] = None
     vlm: Optional[VLMCfg] = None
 
     # attention behaviour
@@ -58,7 +68,8 @@ class ModelConfig:
     attn_impl: str = "cuda"                 # reference | cuda
     # activation checkpoint per layer (the JAX package's default is on);
     # here on only for a config whose largest group does not fit the card
-    # without it: mamba2-370m (see tests/test_torch_cuda.py)
+    # without it: mamba2-370m and recurrentgemma-2b (see
+    # tests/test_torch_cuda.py)
     remat: bool = False
     param_dtype: str = "bfloat16"
 
@@ -71,14 +82,14 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant: 2 layers, d_model<=256."""
+        """Smoke-test variant: 2 layers (3 hybrid), d_model<=256."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         kv = max(1, min(self.kv_heads, n_heads))
         while n_heads % kv:
             kv -= 1
         kw = dict(
-            n_layers=2,
+            n_layers=2 if self.family != "hybrid" else 3,
             d_model=d_model,
             n_heads=n_heads,
             kv_heads=kv,
@@ -92,6 +103,9 @@ class ModelConfig:
         if self.ssm:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=32, chunk=32)
+        if self.hybrid:
+            kw["hybrid"] = dataclasses.replace(
+                self.hybrid, lru_width=d_model, window=64)
         if self.vlm:
             kw["vlm"] = dataclasses.replace(self.vlm, vision_dim=64)
         return self.with_(**kw)

@@ -6,9 +6,10 @@ For each planned CP group the executor:
      (`core/packing.flatten_group`): tokens concatenated, positions
      reset per segment, a segment table making attention block-diagonal,
      a span table for the bidirectional vision/audio blocks, padding only
-     at the TAIL to a pooled bucket. PADDED (the SSM family, whose
-     state crosses segment boundaries) gives each sequence its own row,
-     padded to the bucket of the longest (`data/pipeline.padded_batch`);
+     at the TAIL to a pooled bucket. PADDED (the SSM and hybrid
+     families, whose recurrent state crosses segment boundaries) gives
+     each sequence its own row, padded to the bucket of the longest
+     (`data/pipeline.padded_batch`);
   2. fetches the group's rank slot (`GroupPool.mesh_for`) and its step
      function from the pool, keyed ("pgrad", start, degree, bucket[,
      "mm"]) when packed and ("grad", start, degree, n_seqs, bucket[,
@@ -16,7 +17,8 @@ For each planned CP group the executor:
   3. runs forward and backward of the batch; attention is the packed
      kernel K1 in every layer (`cfg.attn_impl="cuda"`), or the
      full-matrix reference (`"reference"`); an SSM layer runs the SSD
-     chunk kernel K3, or its plain version;
+     chunk kernel K3, a recurrent layer the RG-LRU scan kernel K4, or
+     their plain versions;
   4. adds the group's gradient, weighted by its loss tokens, into an
      fp32 accumulator on the device.
 The result is the token-weighted mean gradient of the global batch:
@@ -40,10 +42,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..data.pipeline import RaggedBatch, padded_batch
-from ..models.model import forward
+from ..models.model import _head, forward_hidden
 from ..obs.trace import get_tracer
 from ..training.optimizer import tree_leaves, tree_map
 from .group_pool import GroupPool
@@ -51,10 +54,10 @@ from .packing import MODALITY_CLASSES, flatten_group
 from .scheduler import ExecutionPlan
 
 #: families whose attention layers take block-diagonal segment masks;
-#: recurrent state (ssm) crosses segment boundaries
+#: recurrent state (ssm, hybrid) crosses segment boundaries
 PACKABLE_FAMILIES = ("dense",)
 #: families the executor runs
-EXECUTABLE_FAMILIES = ("dense", "ssm")
+EXECUTABLE_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def _token_nll(logits, labels):
@@ -68,9 +71,33 @@ def _token_nll(logits, labels):
     return logz - gold
 
 
-def _masked_nll(logits, labels, mask):
-    nll = _token_nll(logits, labels) * mask
-    return nll.sum(), mask.sum()
+#: fp32 logits of one piece of a padded batch's loss (see `token_nll`)
+LOSS_PIECE_BYTES = 1 << 30
+
+
+def token_nll(params, cfg: ModelConfig, batch,
+              pieces: bool = False) -> torch.Tensor:
+    """Per-position NLL [B, S] of the batch, differentiable in `params`.
+    With `pieces` (the padded path) the head and the NLL run over pieces
+    of the batch's tokens, each under `torch.utils.checkpoint`, so that
+    only one piece's fp32 logits (at most LOSS_PIECE_BYTES: 1048 tokens
+    of recurrentgemma-2b's 256000-word vocabulary) are alive at once, in
+    the forward and again in the backward, which recomputes them. The
+    sums are the same. Without (every packed group, one row) the head
+    runs on the whole batch."""
+    x, _ = forward_hidden(params, cfg, batch)
+    labels = batch["labels"]
+    B, S = labels.shape
+    if not pieces:
+        return _token_nll(_head(params, cfg, x), labels)
+
+    def piece_nll(xp, lp):
+        return _token_nll(_head(params, cfg, xp), lp)
+    n = max(1, LOSS_PIECE_BYTES // (4 * cfg.vocab))
+    xs, ls = x.reshape(B * S, -1), labels.reshape(B * S)
+    return torch.cat([checkpoint(piece_nll, xs[i:i + n], ls[i:i + n],
+                                 use_reentrant=False)
+                      for i in range(0, B * S, n)]).reshape(B, S)
 
 
 def _sync(device) -> None:
@@ -111,12 +138,11 @@ class DHPExecutor:
                       for t in tree_leaves(params)]
             it = iter(leaves)
             p = tree_map(lambda _: next(it), params)
-            logits, _ = forward(p, cfg, batch)
+            nll = token_nll(p, cfg, batch, pieces=not self.packed)
             aux = None
             if not with_spans:
-                s, c = _masked_nll(logits, batch["labels"], batch["mask"])
+                s, c = (nll * batch["mask"]).sum(), batch["mask"].sum()
             else:
-                nll = _token_nll(logits, batch["labels"])
                 lm = batch["loss_mask"]
                 s, c = (nll * lm).sum(), lm.sum()
                 cls = batch["modality_classes"]
@@ -128,7 +154,7 @@ class DHPExecutor:
                                                  mk.sum()]))
                     aux = torch.stack(rows).double()
             loss = s / torch.clamp(c, min=1.0)
-            del logits
+            del nll
             grads = torch.autograd.grad(loss, leaves)
             it = iter(grads)
             g = tree_map(lambda _: next(it), params)

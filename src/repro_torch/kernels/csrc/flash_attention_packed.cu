@@ -42,6 +42,12 @@
 //   * fp32: the CUDA cores (TF32 tensor cores would break the 1e-4
 //     parity tolerance), same tiling idea with fp32 tiles in shared
 //     memory.
+//   * head_dim 256 (recurrentgemma-2b, bf16 only): the forward reads Q's
+//     fragments from shared memory per key tile (105 KB of shared memory,
+//     two blocks an SM), and the backward splits each 16-key group's
+//     work over two warps, one for P and dV, one for dS and dK, so each
+//     holds one 16 x 256 fp32 accumulator (8 warps, 189 KB, one block an
+//     SM; see packed_bwd_tc_wide_kernel).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -235,9 +241,15 @@ packed_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   const int r_lo = warp * 16 + g;
-  uint32_t qf[D / 16][4];
+  // Q fragments stay in registers up to D = 128; at D = 256 they (64
+  // registers) and the O accumulator (128) would not fit without spills,
+  // so each tile reads them from shared memory instead
+  constexpr bool kQReg = D <= 128;
+  uint32_t qf[kQReg ? D / 16 : 1][4];
+  if constexpr (kQReg) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], Qs, QP, warp * 16, kk * 16, g, t);
+    for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], Qs, QP, warp * 16, kk * 16, g, t);
+  }
 
   const int qpos[2] = {q0 + r_lo, q0 + r_lo + 8};
   int segq_r[2], spanq_r[2];
@@ -290,15 +302,33 @@ packed_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
 
     float s[NT][4];
+    if constexpr (kQReg) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+      for (int n = 0; n < NT; ++n) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t bfrag[2];
+          load_b(bfrag, Ks, QP, n * 8, kk * 16, g, t);
+          mma_bf16(s[n], qf[kk], bfrag);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bfrag[2];
-        load_b(bfrag, Ks, QP, n * 8, kk * 16, g, t);
-        mma_bf16(s[n], qf[kk], bfrag);
+        uint32_t qa[4];
+        load_a(qa, Qs, QP, warp * 16, kk * 16, g, t);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          uint32_t bfrag[2];
+          load_b(bfrag, Ks, QP, n * 8, kk * 16, g, t);
+          mma_bf16(s[n], qa, bfrag);
+        }
       }
     }
 
@@ -816,6 +846,280 @@ packed_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
+// Backward, bf16, tensor cores, D = 256. The kernel above keeps each
+// warp's dK and dV for 16 keys x D in registers: 256 fp32 a thread at
+// D = 256, past the 255 a thread may hold. Here the block (64-key tile,
+// KV head, batch) has 8 warps, two for each 16 keys: warp w < 4 forms
+// S^T = K_w Q^T, P^T and dV_w += P^T dO; warp w + 4 forms dP^T = V_w
+// dO^T, takes P^T from warp w through shared memory (fp32, in fragment
+// order), and forms dS^T and dK_w += dS^T Q. Each warp holds one 16 x D
+// accumulator (128 registers a thread), and no product is computed twice.
+// dQ = dS K is then shared by the 8 warps, D / 8 columns each.
+// ---------------------------------------------------------------------
+constexpr int W_THREADS = 256;
+
+template <int D>
+struct BwdWideTile {
+  static constexpr int RP = D + 8;
+  static constexpr int KTP = B_BK + 8;
+  static constexpr int QTP = B_BQ + 8;
+  static constexpr int SP = B_BK + 8;
+  static constexpr size_t elems = 2 * B_BK * RP + D * KTP + 2 * B_BQ * RP +
+                                  2 * D * QTP + B_BQ * SP;
+  static constexpr size_t smem = sizeof(bf16) * elems +
+                                 sizeof(float) * (2 * B_BQ + B_BK * B_BQ) +
+                                 sizeof(int) * (2 * B_BK + 2 * B_BQ);
+};
+
+template <int D, bool SPANS>
+__global__ void __launch_bounds__(W_THREADS)
+packed_bwd_tc_wide_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, Params p, float scale) {
+  using Tile = BwdWideTile<D>;
+  constexpr int RP = Tile::RP, KTP = Tile::KTP, QTP = Tile::QTP,
+                SP = Tile::SP;
+  constexpr int CH = D / 8;
+  constexpr int NQ = B_BQ / 8;  // 8-query column tiles of S^T
+  constexpr int NDW = D / 64;   // 8-wide d tiles of dQ per warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [B_BK][RP]
+  bf16* Vs = Ks + B_BK * RP;                      // [B_BK][RP]
+  bf16* Kt = Vs + B_BK * RP;                      // [D][KTP]
+  bf16* Qs = Kt + D * KTP;                        // [B_BQ][RP]
+  bf16* dOs = Qs + B_BQ * RP;                     // [B_BQ][RP]
+  bf16* Qt = dOs + B_BQ * RP;                     // [D][QTP]
+  bf16* dOt = Qt + D * QTP;                       // [D][QTP]
+  bf16* dSs = dOt + D * QTP;                      // [B_BQ][SP]
+  float* lse_s = reinterpret_cast<float*>(dSs + B_BQ * SP);
+  float* delta_s = lse_s + B_BQ;
+  float* Px = delta_s + B_BQ;  // P^T fragments [4][NQ][4][32]
+  int* segk_s = reinterpret_cast<int*>(Px + B_BK * B_BQ);
+  int* spank_s = segk_s + B_BK;
+  int* segq_s = spank_s + B_BK;
+  int* spanq_s = segq_s + B_BQ;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool dk_warp = warp >= 4;  // warps 4-7: dP, dS, dK; 0-3: P, dV
+  const int kw = warp & 3;         // the warp's 16 keys of the tile
+  const int k0 = blockIdx.x * B_BK, hk = blockIdx.y, b = blockIdx.z;
+  const int H = p.H, Hkv = p.Hkv, Sq = p.Sq, Sk = p.Sk, G = H / Hkv;
+  const int k1 = min(k0 + B_BK, Sk);
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
+  const bf16* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const bf16* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+
+  for (int i = tid; i < B_BK * CH; i += W_THREADS) {
+    const int c = i % B_BK, ch = i / B_BK, kp = k0 + c;
+    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+    if (kp < Sk) {
+      kv = *reinterpret_cast<const uint4*>(kb + (int64_t)kp * kv_stride +
+                                           ch * 8);
+      vv = *reinterpret_cast<const uint4*>(vb + (int64_t)kp * kv_stride +
+                                           ch * 8);
+    }
+    *reinterpret_cast<uint4*>(Ks + c * RP + ch * 8) = kv;
+    *reinterpret_cast<uint4*>(Vs + c * RP + ch * 8) = vv;
+    const bf16* ke = reinterpret_cast<const bf16*>(&kv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) Kt[(ch * 8 + e) * KTP + c] = ke[e];
+  }
+  if (tid < B_BK) {
+    const int kp = k0 + tid;
+    segk_s[tid] = kp < Sk ? p.segk[(int64_t)b * Sk + kp] : -2;
+    spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
+  }
+  __syncthreads();
+
+  const int kl[2] = {kw * 16 + g, kw * 16 + g + 8};  // local key rows
+  int kpos[2], segk_r[2], spank_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kpos[i] = p.kv_offset + k0 + kl[i];
+    segk_r[i] = segk_s[kl[i]];
+    spank_r[i] = spank_s[kl[i]];
+  }
+  const bf16* As = dk_warp ? Vs : Ks;   // V_w (dP^T) or K_w (S^T)
+  const bf16* Bs = dk_warp ? dOs : Qs;  // against dO or Q
+  const bf16* Ct = dk_warp ? Qt : dOt;  // dK += dS^T Q, dV += P^T dO
+  float* px = Px + kw * (NQ * 4 * 32);
+
+  float acc[D / 8][4];  // dV_w (warps 0-3) or dK_w (warps 4-7)
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  int i_lo = 0;
+  if (!SPANS && p.mode != kFull) i_lo = max(0, p.kv_offset + k0);
+  i_lo = (i_lo / B_BQ) * B_BQ;
+
+  for (int hh = 0; hh < G; ++hh) {
+    const int h = hk * G + hh;
+    const bf16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+    const bf16* db = dout + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+    const float* lseb = lse + ((int64_t)b * H + h) * Sq;
+    const float* delb = delta + ((int64_t)b * H + h) * Sq;
+    float* dqb = dq_acc + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+    for (int q0 = i_lo; q0 < Sq; q0 += B_BQ) {
+      const int q1 = min(q0 + B_BQ, Sq);
+      if (!tile_live<SPANS>(p, b, q0, q1, k0, k1)) continue;
+      __syncthreads();  // the previous tile's Q/dO/dS are consumed
+      for (int i = tid; i < B_BQ * CH; i += W_THREADS) {
+        const int c = i % B_BQ, ch = i / B_BQ, qp = q0 + c;
+        uint4 qv = make_uint4(0u, 0u, 0u, 0u), dvv = qv;
+        if (qp < Sq) {
+          qv = *reinterpret_cast<const uint4*>(qb + (int64_t)qp * q_stride +
+                                               ch * 8);
+          dvv = *reinterpret_cast<const uint4*>(db + (int64_t)qp * q_stride +
+                                                ch * 8);
+        }
+        *reinterpret_cast<uint4*>(Qs + c * RP + ch * 8) = qv;
+        *reinterpret_cast<uint4*>(dOs + c * RP + ch * 8) = dvv;
+        const bf16* qe = reinterpret_cast<const bf16*>(&qv);
+        const bf16* de = reinterpret_cast<const bf16*>(&dvv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          Qt[(ch * 8 + e) * QTP + c] = qe[e];
+          dOt[(ch * 8 + e) * QTP + c] = de[e];
+        }
+      }
+      if (tid < B_BQ) {
+        const int qp = q0 + tid;
+        const bool in = qp < Sq;
+        lse_s[tid] = in ? lseb[qp] : 0.f;
+        delta_s[tid] = in ? delb[qp] : 0.f;
+        segq_s[tid] = in ? p.segq[(int64_t)b * Sq + qp] : -1;
+        spanq_s[tid] = (SPANS && in) ? p.spanq[(int64_t)b * Sq + qp] : -1;
+      }
+      __syncthreads();
+
+      // S^T (warps 0-3) or dP^T (warps 4-7), 16 keys x 32 queries
+      float st[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        load_a(a, As, RP, kw * 16, kk * 16, g, t);
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          uint32_t bq[2];
+          load_b(bq, Bs, RP, n * 8, kk * 16, g, t);
+          mma_bf16(st[n], a, bq);
+        }
+      }
+      if (!dk_warp) {  // P^T in place of S^T, handed to warp w + 4
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
+            const bool ok = pair_ok<SPANS>(p.mode, p.window, q0 + c,
+                                           kpos[i], segq_s[c], segk_r[i],
+                                           spanq_s[c], spank_r[i]);
+            const float pv = ok ? __expf(st[n][e] * scale - lse_s[c]) : 0.f;
+            st[n][e] = pv;
+            px[(n * 4 + e) * 32 + lane] = pv;
+          }
+      }
+      __syncthreads();
+      if (dk_warp) {  // dS^T in place of dP^T
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = n * 8 + t * 2 + (e & 1);
+            st[n][e] = px[(n * 4 + e) * 32 + lane] *
+                       (st[n][e] - delta_s[c]) * scale;
+          }
+      }
+      // dV_w += P^T dO or dK_w += dS^T Q
+#pragma unroll
+      for (int kk = 0; kk < B_BQ / 16; ++kk) {
+        const uint32_t a[4] = {
+            pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+            pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+            pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+            pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+#pragma unroll
+        for (int nd = 0; nd < D / 8; ++nd) {
+          uint32_t bc[2];
+          load_b(bc, Ct, QTP, nd * 8, kk * 16, g, t);
+          mma_bf16(acc[nd], a, bc);
+        }
+      }
+      if (dk_warp) {
+#pragma unroll
+        for (int n = 0; n < NQ; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = n * 8 + t * 2 + (e & 1);
+            dSs[c * SP + kl[e >> 1]] = __float2bfloat16(st[n][e]);
+          }
+      }
+      __syncthreads();
+
+      // dQ tile [B_BQ x D] = dS [B_BQ x B_BK] K [B_BK x D]; warp w owns
+      // d columns [w*D/8, (w+1)*D/8)
+      float dqa[B_BQ / 16][NDW][4];
+#pragma unroll
+      for (int mi = 0; mi < B_BQ / 16; ++mi)
+#pragma unroll
+        for (int j = 0; j < NDW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dqa[mi][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < B_BK / 16; ++kk) {
+        uint32_t a[B_BQ / 16][4];
+#pragma unroll
+        for (int mi = 0; mi < B_BQ / 16; ++mi)
+          load_a(a[mi], dSs, SP, mi * 16, kk * 16, g, t);
+#pragma unroll
+        for (int j = 0; j < NDW; ++j) {
+          uint32_t bk[2];
+          load_b(bk, Kt, KTP, (warp * NDW + j) * 8, kk * 16, g, t);
+#pragma unroll
+          for (int mi = 0; mi < B_BQ / 16; ++mi) mma_bf16(dqa[mi][j], a[mi], bk);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < B_BQ / 16; ++mi)
+#pragma unroll
+        for (int j = 0; j < NDW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = q0 + mi * 16 + g + (e >> 1) * 8;
+            const int col = (warp * NDW + j) * 8 + t * 2 + (e & 1);
+            if (row < Sq)
+              atomicAdd(dqb + (int64_t)row * q_stride + col, dqa[mi][j][e]);
+          }
+    }
+  }
+
+  bf16* outb = (dk_warp ? dk : dv) + (int64_t)b * Sk * kv_stride +
+               (int64_t)hk * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + kl[i];
+    if (key >= Sk) continue;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(outb + (int64_t)key * kv_stride + nd * 8 +
+                                   t * 2) =
+          pack_bf16(acc[nd][2 * i], acc[nd][2 * i + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------
 // Backward, fp32, CUDA cores. Block = (32-key tile, KV head, batch);
 // thread = (key, quarter of D: d = part + 4*i). Per live 32-row query
 // tile, each thread forms its key's scores and dP over the tile (a
@@ -1024,7 +1328,19 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       p.Sq, p.H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value && D == 256) {
+    constexpr size_t smem = BwdWideTile<D>::smem;
+    err = cudaFuncSetAttribute(packed_bwd_tc_wide_kernel<D, SPANS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.Sk + B_BK - 1) / B_BK, p.Hkv, p.B);
+    packed_bwd_tc_wide_kernel<D, SPANS><<<grid, W_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+        delta, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), p,
+        scale);
+  } else if constexpr (std::is_same<T, bf16>::value) {
     constexpr size_t smem = BwdTile<D>::smem;
     err = cudaFuncSetAttribute(packed_bwd_tc_kernel<D, SPANS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1076,18 +1392,22 @@ Params make_params(int B, int Sq, int Sk, int H, int Hkv, int mode,
   return p;
 }
 
-bool bad_args(int B, int Sq, int Sk, int H, int Hkv, int D, int mode,
-              int window) {
+// head_dim 64 and 128 in fp32 and bf16; 256 (recurrentgemma-2b) in bf16
+// only, the one type a config runs it in
+bool bad_args(int B, int Sq, int Sk, int H, int Hkv, int D, int dtype,
+              int mode, int window) {
   return B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Hkv <= 0 ||
-         H % Hkv != 0 || (D != 64 && D != 128) || mode < 0 || mode > 2 ||
-         (mode == kSliding && window < 1);
+         H % Hkv != 0 || (dtype != 0 && dtype != 1) ||
+         !(D == 64 || D == 128 || (D == 256 && dtype == 1)) || mode < 0 ||
+         mode > 2 || (mode == kSliding && window < 1);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. mode: 0 full, 1 causal, 2 sliding.
+// dtype: 0 = float32, 1 = bfloat16. D: 64 or 128, or 256 in bfloat16.
+// mode: 0 full, 1 causal, 2 sliding.
 // Tables are int32 [B, S]; spanq/spank are both null (no span table) or
 // both set. sumq/sumk are int32 scratch of 4 * B * ceil(S/32) entries.
 // o is q's type [B, Sq, H, D]; lse fp32 [B, H, Sq].
@@ -1097,7 +1417,7 @@ int k1_forward(const void* q, const void* k, const void* v, void* o,
                const void* spanq, const void* spank, void* sumq, void* sumk,
                int B, int Sq, int Sk, int H, int Hkv, int D, int dtype,
                int mode, int window, int kv_offset, void* stream) {
-  if (bad_args(B, Sq, Sk, H, Hkv, D, mode, window) ||
+  if (bad_args(B, Sq, Sk, H, Hkv, D, dtype, mode, window) ||
       (spanq == nullptr) != (spank == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1117,6 +1437,7 @@ int k1_forward(const void* q, const void* k, const void* v, void* o,
   }
   if (dtype == 1) {
     if (D == 64) K1_FWD(bf16, 64);
+    if (D == 256) K1_FWD(bf16, 256);
     K1_FWD(bf16, 128);
   }
 #undef K1_FWD
@@ -1132,7 +1453,7 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
                 const void* spanq, const void* spank, void* sumq, void* sumk,
                 int B, int Sq, int Sk, int H, int Hkv, int D, int dtype,
                 int mode, int window, int kv_offset, void* stream) {
-  if (bad_args(B, Sq, Sk, H, Hkv, D, mode, window) ||
+  if (bad_args(B, Sq, Sk, H, Hkv, D, dtype, mode, window) ||
       (spanq == nullptr) != (spank == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1156,6 +1477,7 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
   }
   if (dtype == 1) {
     if (D == 64) K1_BWD(bf16, 64);
+    if (D == 256) K1_BWD(bf16, 256);
     K1_BWD(bf16, 128);
   }
 #undef K1_BWD

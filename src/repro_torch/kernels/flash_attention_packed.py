@@ -23,7 +23,8 @@ On CPU tensors the wrappers run the plain versions (the backward is the
 autograd gradient of the plain forward); on CUDA tensors they launch
 `csrc/flash_attention_packed.cu` or raise, never falling back. bf16 runs
 on the tensor cores (`mma.sync`, fp32 accumulation, P and dS rounded to
-bf16 before their products); fp32 on the CUDA cores.
+bf16 before their products); fp32 on the CUDA cores. Head dims 64 and
+128 run in both types, 256 (recurrentgemma-2b) in bf16 only.
 """
 from __future__ import annotations
 
@@ -37,7 +38,10 @@ from . import build
 from .flash_attention import MODES
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
+#: head dims the kernels take in bf16 only (recurrentgemma-2b's 256: no
+#: config runs it in fp32)
+_BF16_ONLY = (256,)
 _SUM_ROWS = 32            # rows per table summary entry of the kernel
 NEG_INF = -1e30
 
@@ -175,6 +179,9 @@ def _check_launch(tensors, D) -> None:
                         f"{tensors[0].dtype}")
     if D not in _HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, not {D}")
+    if D in _BF16_ONLY and tensors[0].dtype != torch.bfloat16:
+        raise ValueError(f"kernel takes head_dim {D} in bfloat16 only, "
+                         f"not {tensors[0].dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("q, k, v (and o, do) must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):

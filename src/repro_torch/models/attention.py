@@ -2,11 +2,13 @@
 
 Implementations (`cfg.attn_impl`):
   * reference — full score matrix, with optional segment and span tables.
-  * cuda      — the hand-written kernels: without tables the flash-
-                attention kernel K2 (kernels/flash_attention.py), with
-                segment/span tables the packed kernel K1
-                (kernels/flash_attention_packed.py, forward and backward);
-                their plain versions on CPU tensors.
+  * cuda      — the hand-written kernels: without tables and without a
+                gradient the flash-attention kernel K2
+                (kernels/flash_attention.py); with segment/span tables, or
+                when a gradient is needed, the packed kernel K1
+                (kernels/flash_attention_packed.py, forward and backward;
+                one segment per row when no table is given); their plain
+                versions on CPU tensors.
 
 The serving-only cores `attn_prefill_chunk` (chunked prefill against a
 KV cache, with the mixed modality mask) and `attn_decode` (one token
@@ -170,8 +172,8 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
     concatenated sequences and attention is block-diagonal over segments;
     pass per-segment `positions` so RoPE matches. `span_ids` ([B,S], -1 =
     causal) adds the mixed modality mask. `impl="cuda"` runs kernel K1
-    when a table is given and K2 otherwise; `impl="reference"` the full
-    matrix."""
+    when a table is given or a gradient is needed, and K2 otherwise;
+    `impl="reference"` the full matrix."""
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
     k = (x @ params["wk"]).reshape(B, S, kv_heads, head_dim)
@@ -182,7 +184,11 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
     k = apply_rope(k, positions, rope_theta, rope_frac)
 
     if impl == "cuda":
-        if segment_ids is not None or span_ids is not None:
+        # K2 has no backward: a table-free call that needs a gradient
+        # (a padded text-only group) runs K1 with one segment per row
+        needs_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v))
+        if segment_ids is not None or span_ids is not None or needs_grad:
             seg = (segment_ids if segment_ids is not None
                    else torch.zeros(B, S, dtype=torch.int32,
                                     device=x.device))

@@ -1,8 +1,9 @@
-"""Top-level model API: the dense family (training and serving) and the
-SSM family (training).
+"""Top-level model API: the dense family (training and serving), the SSM
+and hybrid families (training).
 
   init_params(cfg, seed=, device=)               -> params dict
   forward(params, cfg, batch)                    -> (logits [B,S,V], aux)
+  forward_hidden(params, cfg, batch)             -> (hidden [B,S,D], aux)
   prefill(params, cfg, batch, cache_len)         -> (last logits, cache)
   prefill_chunk(params, cfg, cache, tokens, pos) -> cache
   init_cache(cfg, batch_size, cache_len, device) -> decode cache
@@ -30,18 +31,24 @@ from .attention import (attention, attn_decode, attn_prefill_chunk,
 from .layers import (_dtype, apply_rope, dense_init, embed, init_embedding,
                      init_rmsnorm, mlp, rms_norm, unembed)
 from .transformer import (_BLOCK, _LAYER_INIT, _attn_kwargs,
-                          _rope_frac, init_stack, unstack)
+                          _dense_block, _init_dense_layer, _init_rec_layer,
+                          _rec_block, _rope_frac, hybrid_layout, init_stack,
+                          unstack)
+
+#: families `forward` runs
+FAMILIES = (*_BLOCK, "hybrid")
 
 
 def _check_family(cfg: ModelConfig, *, serving: bool = False) -> None:
-    if cfg.family not in _BLOCK:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ported: "
-            f"{sorted(_BLOCK)}; Engine runs VLM configs as dense)")
+            f"{sorted(FAMILIES)}; Engine runs VLM configs as dense)")
     if serving and cfg.family != "dense":
+        name = "SSM" if cfg.family == "ssm" else cfg.family
         raise NotImplementedError(
             f"family {cfg.family!r} trains but does not serve yet: its "
-            f"state cache and decode step come with the SSM serving "
+            f"state cache and decode step come with the {name} serving "
             f"slice of the port")
 
 
@@ -63,8 +70,18 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, cfg.vocab, dt, device)
-    params["layers"] = init_stack(gen, cfg, cfg.n_layers,
-                                  _LAYER_INIT[cfg.family], device)
+    if cfg.family != "hybrid":
+        params["layers"] = init_stack(gen, cfg, cfg.n_layers,
+                                      _LAYER_INIT[cfg.family], device)
+        return params
+    # hybrid: stacked [n_units] pattern units, then an unstacked tail
+    n_units, tail = hybrid_layout(cfg)
+    init = {"rec": _init_rec_layer, "attn": _init_dense_layer}
+    params["units"] = {
+        f"{i}_{kind}": init_stack(gen, cfg, n_units, init[kind], device)
+        for i, kind in enumerate(cfg.hybrid.pattern)}
+    params["tail"] = {f"{i}_{kind}": init[kind](gen, cfg, device)
+                      for i, kind in enumerate(tail)}
     return params
 
 
@@ -95,33 +112,68 @@ def _table(batch, key, device):
 
 def forward(params, cfg: ModelConfig, batch,
             mode: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward -> (logits [B,S,V] in the param dtype, aux loss). `batch`
+    """Forward -> (logits [B,S,V] in the param dtype, aux loss): the
+    final hidden states of `forward_hidden` through the head."""
+    x, aux = forward_hidden(params, cfg, batch, mode)
+    return _head(params, cfg, x), aux
+
+
+def forward_hidden(params, cfg: ModelConfig, batch,
+                   mode: Optional[str] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward up to the head -> (hidden [B,S,d_model], aux loss). `batch`
     holds `tokens` and optionally `positions` (per-segment positions of a
     packed buffer), `segment_ids` (the packed block-diagonal table, -1 =
     tail padding) and `modality_ids` (the mixed-mask table of
     bidirectional blocks, -1 = causal), as `core/packing.flatten_group`
-    emits them; the SSM family ignores the tables (one sequence per
-    row). Differentiable; layers run in a Python loop over the unstacked
-    parameters. With `cfg.remat` each layer keeps only its input for the
-    backward and is run again there (`torch.utils.checkpoint`), as the
-    JAX package wraps each layer in `jax.checkpoint`."""
+    emits them; the SSM family and the hybrid's recurrent layers ignore
+    the tables (one sequence per row). Differentiable; layers run in a
+    Python loop over the unstacked parameters. With `cfg.remat` each
+    layer (each pattern unit of the hybrid family, whose tail is not
+    checkpointed) keeps only its input for the backward and is run again
+    there (`torch.utils.checkpoint`), as the JAX package wraps each scan
+    step in `jax.checkpoint`."""
     _check_family(cfg)
     x = _input_embeddings(params, cfg, batch)
     attn_mode = mode or ("sliding" if cfg.sliding_window else "causal")
-    kw = dict(mode=attn_mode, window=cfg.sliding_window,
-              positions=_table(batch, "positions", x.device),
-              segment_ids=_table(batch, "segment_ids", x.device),
-              span_ids=_table(batch, "modality_ids", x.device))
-    block = _BLOCK[cfg.family]
+    tables = dict(positions=_table(batch, "positions", x.device),
+                  segment_ids=_table(batch, "segment_ids", x.device),
+                  span_ids=_table(batch, "modality_ids", x.device))
+    if cfg.family == "hybrid":
+        block, stacked, kw = _hybrid_block, params["units"], tables
+    else:
+        block, stacked = _BLOCK[cfg.family], params["layers"]
+        kw = dict(mode=attn_mode, window=cfg.sliding_window, **tables)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in unstack(params["layers"]):
+    for p in unstack(stacked):
         if remat:
             x, a = checkpoint(block, p, x, cfg, use_reentrant=False, **kw)
         else:
             x, a = block(p, x, cfg, **kw)
         aux = aux + a
-    return _head(params, cfg, x), aux
+    if cfg.family == "hybrid":
+        x, a = _hybrid_block(params["tail"], x, cfg, **kw)
+        aux = aux + a
+    return x, aux
+
+
+def _hybrid_block(p_unit, x, cfg: ModelConfig, positions=None,
+                  segment_ids=None, span_ids=None):
+    """One pattern unit (or the tail) of the hybrid family, its layers in
+    sorted-key order ("0_rec", "1_rec", "2_attn"); attention layers run
+    sliding at the hybrid window."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for name in sorted(p_unit):
+        if name.split("_")[1] == "rec":
+            x, a = _rec_block(p_unit[name], x, cfg)
+        else:
+            x, a = _dense_block(p_unit[name], x, cfg, mode="sliding",
+                                window=cfg.hybrid.window,
+                                positions=positions,
+                                segment_ids=segment_ids, span_ids=span_ids)
+        aux = aux + a
+    return x, aux
 
 
 # ==========================================================================

@@ -5,18 +5,20 @@ package (whose `lax.scan` consumes them); here a Python loop walks the
 layers and `unstack(stack)` gives each layer's leaves as views.
 
 Families:
-  dense — [attn + MLP] x L   (internvl3-2b's LM, run as dense)
-  ssm   — [mamba2 SSD] x L   (mamba2-370m)
+  dense  — [attn + MLP] x L                   (internvl3-2b's LM, as dense)
+  ssm    — [mamba2 SSD] x L                   (mamba2-370m)
+  hybrid — [(rec, rec, attn) + MLP each] x .. (recurrentgemma-2b)
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
 from .attention import attention, init_attention
 from .layers import _dtype, init_mlp, init_rmsnorm, mlp, rms_norm
+from .rglru import init_rglru_block, rglru_block
 from .ssm import init_ssm, ssm_forward
 
 
@@ -41,6 +43,19 @@ def _init_ssm_layer(gen, cfg: ModelConfig, device, stack: tuple = ()):
                         head_dim=s.head_dim, expand=s.expand,
                         conv_width=s.conv_width, dtype=dt, device=device,
                         stack=stack),
+    }
+
+
+def _init_rec_layer(gen, cfg: ModelConfig, device, stack: tuple = ()):
+    dt = _dtype(cfg.param_dtype)
+    h = cfg.hybrid
+    return {
+        "ln1": init_rmsnorm(cfg.d_model, dt, device, stack),
+        "rec": init_rglru_block(gen, cfg.d_model, h.lru_width or cfg.d_model,
+                                h.conv_width, dt, device, stack=stack),
+        "ln2": init_rmsnorm(cfg.d_model, dt, device, stack),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt,
+                        device, stack),
     }
 
 
@@ -101,6 +116,26 @@ def _ssm_block(p, x, cfg: ModelConfig, **_):
                         head_dim=s.head_dim, expand=s.expand,
                         chunk=s.chunk, impl=cfg.attn_impl)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _rec_block(p, x, cfg: ModelConfig, **_):
+    """One Griffin recurrent layer (pre-norm RG-LRU block + MLP) -> (x,
+    aux loss 0). The tables are ignored: the recurrence and the conv run
+    over whole rows (hybrid sequences run padded, one per row)."""
+    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+    x = x + rglru_block(p["rec"], h, impl=cfg.attn_impl)
+    h = rms_norm(p["ln2"], x, cfg.norm_eps)
+    x = x + mlp(p["mlp"], h, cfg.activation)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def hybrid_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
+    """(n_full_units, tail_block_types). 26 layers @ (rec,rec,attn) ->
+    8 full units + ('rec','rec') tail."""
+    unit = cfg.hybrid.pattern
+    n_units = cfg.n_layers // len(unit)
+    tail = cfg.n_layers - n_units * len(unit)
+    return n_units, unit[:tail]
 
 
 _LAYER_INIT = {"dense": _init_dense_layer, "ssm": _init_ssm_layer}

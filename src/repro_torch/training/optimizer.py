@@ -8,9 +8,11 @@ for every leaf with `ndim >= 2` only. Layer leaves are stacked `[L, ...]`,
 so a stacked norm scale (`layers.ln1.scale`, `[L, d]`) IS decayed while
 `ln_f.scale` (`[d]`) is not — the rule of the reference, kept.
 
-Trees are nested dicts of tensors; `update` returns new tensors (the
-parameters are not updated in place, so a caller's reference to the old
-tree stays valid).
+Trees are nested dicts of tensors. `update` returns new parameter
+tensors (a caller's reference to the old parameters stays valid) and
+updates the fp32 moments in place: they belong to the optimizer state,
+and new copies beside the old ones would take twice their memory (the
+moments of recurrentgemma-2b's 3.34 B parameters are 26.7 GB).
 """
 from __future__ import annotations
 
@@ -75,24 +77,15 @@ class AdamW:
 
         def upd(g, m, v, p):
             gf = g.float()
-            m_new = b1 * m + (1 - b1) * gf
-            v_new = b2 * v + (1 - b2) * gf * gf
-            delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + self.eps)
+            m.mul_(b1).add_((1 - b1) * gf)              # in place
+            v.mul_(b2).add_((1 - b2) * gf * gf)
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
             if p.dim() >= 2:   # decoupled weight decay on matrices only
                 delta = delta + self.weight_decay * p.float()
-            new_p = (p.float() - lr * delta).to(p.dtype)
-            return new_p, m_new, v_new
+            return (p.float() - lr * delta).to(p.dtype)
 
-        out = tree_map(upd, grads, state.m, state.v, params)
-        return _pick(out, 0), AdamWState(step=step, m=_pick(out, 1),
-                                         v=_pick(out, 2))
-
-
-def _pick(tree, i):
-    """Element i of every (p, m, v) tuple leaf."""
-    if isinstance(tree, dict):
-        return {k: _pick(v, i) for k, v in tree.items()}
-    return tree[i]
+        new_params = tree_map(upd, grads, state.m, state.v, params)
+        return new_params, AdamWState(step=step, m=state.m, v=state.v)
 
 
 def cosine_schedule(peak: float, warmup: int, total: int,

@@ -393,3 +393,318 @@ def test_mamba2_full_width_training_needs_remat(card):
     assert oom is None and peak < REMAT_LIMIT_BYTES, peaks
     peak, oom = peaks[False]
     assert oom is not None or peak > REMAT_LIMIT_BYTES, peaks
+
+
+# ------------------------------------------------- RG-LRU scan (K4)
+#: K4 against its plain version run in fp64 on the same inputs: fp32 h,
+#: da, db within K4_TOL x max(1, |plain|) (the state is carried in fp32;
+#: the chunked scan composes the same products in another order), bf16
+#: within K4_BF16_TOL (h, da, db come back in bf16, one rounding of up to
+#: 2^-9 of the value, and da is formed from the saved bf16 h)
+K4_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+K4_CASES = [  # B, S, W
+    (1, 4096, 2560),     # recurrentgemma-2b: one 4096-token row
+    (3, 100, 300),       # ragged: a part chunk, a part channel block
+    (2, 64, 32),         # exactly one chunk
+    (1, 1, 7),
+]
+
+
+def _k4_inputs(card, dtype, B, S, W, seed=11):
+    """a in (0.3, 0.999) as the model's gates make it (a = sigmoid(L)^(8
+    r), L in (2, 5)), b and the output gradient standard normal."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.3, 0.999, (B, S, W)).astype(np.float32)
+    b, dh = (rng.standard_normal((B, S, W)).astype(np.float32)
+             for _ in range(2))
+    return [torch.from_numpy(x).to(card, dtype) for x in (a, b, dh)]
+
+
+def _k4_err(a, r):
+    r = r.double()
+    assert torch.isfinite(a).all()
+    return ((a.double() - r).abs() / r.abs().clamp_min(1.0)).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K4_CASES)
+def test_rglru_scan_kernel_matches_plain(card, dtype, case):
+    from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
+                                                rglru_scan_bwd_plain,
+                                                rglru_scan_plain)
+    a, b, dh = _k4_inputs(card, dtype, *case)
+    n_fwd, n_bwd = rglru_scan.launches, rglru_scan_bwd.launches
+    h = rglru_scan(a, b)
+    da, db = rglru_scan_bwd(a, h, dh)
+    rh = rglru_scan_plain(a.double(), b.double())
+    rda, rdb = rglru_scan_bwd_plain(a.double(), rh, dh.double())
+    torch.cuda.synchronize()
+    assert h.dtype == da.dtype == db.dtype == dtype
+    errs = {n: _k4_err(x, r) for n, x, r in (("h", h, rh), ("da", da, rda),
+                                             ("db", db, rdb))}
+    print(f"K4 {case} {dtype}: {errs}")
+    assert all(e <= K4_TOL[dtype] for e in errs.values()), errs
+    assert rglru_scan.launches == n_fwd + 1
+    assert rglru_scan_bwd.launches == n_bwd + 1
+
+
+@pytest.mark.cuda
+def test_rglru_scan_autograd_runs_both_kernels(card):
+    from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
+                                                rglru_scan_plain)
+    a, b, dh = _k4_inputs(card, torch.float32, 2, 300, 96, seed=12)
+    ins = [t.clone().requires_grad_(True) for t in (a, b)]
+    n_fwd, n_bwd = rglru_scan.launches, rglru_scan_bwd.launches
+    got = torch.autograd.grad(rglru_scan(*ins), ins, dh)
+    ref_ins = [t.double().requires_grad_(True) for t in (a, b)]
+    want = torch.autograd.grad(rglru_scan_plain(*ref_ins), ref_ins,
+                               dh.double())
+    torch.cuda.synchronize()
+    for x, r in zip(got, want):
+        assert _k4_err(x, r) <= K4_TOL[torch.float32]
+    assert (rglru_scan.launches, rglru_scan_bwd.launches) == \
+        (n_fwd + 1, n_bwd + 1)
+
+
+#: planted faults of K4: name -> (the outputs it must show in, the line
+#: of csrc/rglru_scan.cu it edits, the edited line). Each drops, for
+#: every chunk, the map of the chunk next to it from the carry
+K4_FAULTS = {
+    "fwd_drops_previous_chunk": (("h",), (
+        "    h = fmaf(sumA[so + (int64_t)k * s.W], h, "
+        "sumB[so + (int64_t)k * s.W]);\n"),
+        "    if (k != c - 1) h = fmaf(sumA[so + (int64_t)k * s.W], h, "
+        "sumB[so + (int64_t)k * s.W]);\n"),
+    "bwd_drops_next_chunk": (("da", "db"), (
+        "    g = fmaf(sumP[so + (int64_t)k * s.W], g, "
+        "sumG[so + (int64_t)k * s.W]);\n"),
+        "    if (k != c + 1) g = fmaf(sumP[so + (int64_t)k * s.W], g, "
+        "sumG[so + (int64_t)k * s.W]);\n"),
+}
+_K4_RUN = """
+import sys, torch
+import repro_torch
+assert repro_torch.__file__.startswith(sys.argv[3]), repro_torch.__file__
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_bwd
+a, b, dh, h_sound = [t.cuda() for t in torch.load(sys.argv[1])]
+h = rglru_scan(a, b)
+da, db = rglru_scan_bwd(a, h_sound, dh)
+assert rglru_scan.launches == rglru_scan_bwd.launches == 1
+torch.save([t.cpu() for t in (h, da, db)], sys.argv[2])
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", sorted(K4_FAULTS))
+def test_rglru_scan_limit_catches_planted_fault(card, tmp_path, fault):
+    """K4's fp32 limit (K4_TOL) lies between the sound kernel and one
+    with a planted fault, at recurrentgemma-2b's width (one 1024-token
+    row of 2560 channels). The faulty kernel is built from an edited copy
+    of the package in a temporary directory. Prints both readings."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
+                                                rglru_scan_bwd_plain,
+                                                rglru_scan_plain)
+    must_show, line, edited = K4_FAULTS[fault]
+    pkg = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    copy = tmp_path / "src" / "repro_torch"
+    shutil.copytree(pkg, copy,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cu = copy / "kernels" / "csrc" / "rglru_scan.cu"
+    text = cu.read_text()
+    assert text.count(line) == 1, fault
+    cu.write_text(text.replace(line, edited))
+
+    a, b, dh = _k4_inputs(card, torch.float32, 1, 1024, 2560, seed=13)
+    h = rglru_scan(a, b)
+    sound = [h, *rglru_scan_bwd(a, h, dh)]
+    rh = rglru_scan_plain(a.double(), b.double())
+    ref = [rh, *rglru_scan_bwd_plain(a.double(), rh, dh.double())]
+    torch.save([t.cpu() for t in (a, b, dh, h)], tmp_path / "in.pt")
+    env = dict(os.environ, PYTHONPATH=str(tmp_path / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", _K4_RUN, str(tmp_path / "in.pt"),
+         str(tmp_path / "out.pt"), str(copy)],
+        cwd=tmp_path, env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    faulty = torch.load(tmp_path / "out.pt")
+    names = ("h", "da", "db")
+    readings = {"sound": {n: _k4_err(x, r) for n, x, r
+                          in zip(names, sound, ref)},
+                "fault": {n: _k4_err(x.to(card), r) for n, x, r
+                          in zip(names, faulty, ref)}}
+    print(f"K4 planted fault {fault}: {readings}")
+    limit = K4_TOL[torch.float32]
+    assert all(e <= limit for e in readings["sound"].values()), readings
+    for name in must_show:
+        assert readings["fault"][name] > limit, (name, readings)
+
+
+# -------------------------------------- K1 at head_dim 256 (hybrid)
+def _hybrid_tables(B, S, spans):
+    """One segment per row (the padded hybrid batch: no segment table is
+    emitted, attention takes segment 0 everywhere) and a span table with
+    the given (start, length) bidirectional blocks in every row."""
+    seg = np.zeros((B, S), np.int32)
+    span = np.full((B, S), -1, np.int32)
+    for i, (start, n) in enumerate(spans):
+        span[:, start:start + n] = i
+    return seg, span
+
+
+K1_WIDE_CASES = [  # B, S, window, spans
+    # recurrentgemma-2b: window 2048, 256-token frames after 32 text
+    # tokens each, over one 4096-token row
+    (1, 4096, 2048, [(32 + 288 * i, 256) for i in range(14)]),
+    # a span longer than the window (the reduced config's window is 64)
+    (2, 512, 64, [(40, 200), (300, 20)]),
+    (3, 300, 64, []),       # no spans: the span-free kernel
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(K1_WIDE_CASES)))
+def test_packed_kernel_head_dim_256(card, case):
+    """K1 in bf16 at recurrentgemma-2b's heads (10 query heads over one
+    KV head, D = 256), sliding, against the plain versions, with PR 12's
+    limits: elementwise TOL / GRAD_TOL and REL_TOL_BF16 as whole
+    tensors."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd,
+        flash_attention_packed_bwd_ref, flash_attention_packed_ref)
+    B, S, window, spans = K1_WIDE_CASES[case]
+    seg, span = _hybrid_tables(B, S, spans)
+    rng = np.random.default_rng(20 + case)
+    dtype = torch.bfloat16
+    q, do = [torch.from_numpy(rng.standard_normal((B, S, 10, 256))
+                              .astype(np.float32)).to(card, dtype)
+             for _ in range(2)]
+    k, v = [torch.from_numpy(rng.standard_normal((B, S, 1, 256))
+                             .astype(np.float32)).to(card, dtype)
+            for _ in range(2)]
+    segt = torch.from_numpy(seg).to(card)
+    kw = dict(mode="sliding", window=window,
+              span_ids=torch.from_numpy(span).to(card) if spans else None)
+    n_fwd = flash_attention_packed.launches
+    n_bwd = flash_attention_packed_bwd.launches
+    o, lse = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
+    grads = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
+    ro, rlse = flash_attention_packed_ref(q, k, v, segt, **kw)
+    refs = flash_attention_packed_bwd_ref(q, k, v, do, segt, **kw)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, r in [("o", o, ro), ("dq", grads[0], refs[0]),
+                       ("dk", grads[1], refs[1]), ("dv", grads[2], refs[2])]:
+        r = r.float()
+        diff = (a.float() - r).abs()
+        errs[name] = ((diff / r.abs().clamp_min(1.0)).max().item(),
+                      diff.max().item() / r.abs().max().item())
+    print(f"K1 D=256 case {case}: {errs}")
+    for name, (err, rel) in errs.items():
+        tol = TOL[dtype] if name == "o" else GRAD_TOL[dtype]
+        assert err <= tol and rel <= REL_TOL_BF16, (name, errs)
+    fin = torch.isfinite(rlse)
+    assert torch.equal(fin, torch.isfinite(lse))
+    assert (lse[fin] - rlse[fin]).abs().max().item() <= 1e-3
+    assert flash_attention_packed.launches == n_fwd + 1
+    assert flash_attention_packed_bwd.launches == n_bwd + 1
+
+
+@pytest.mark.cuda
+def test_packed_kernel_head_dim_256_refuses_fp32(card):
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed)
+    q = torch.zeros(1, 64, 10, 256, device=card)
+    k = torch.zeros(1, 64, 1, 256, device=card)
+    seg = torch.zeros(1, 64, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        flash_attention_packed(q, k, k, seg, mode="sliding", window=16)
+
+
+@pytest.mark.cuda
+def test_table_free_attention_with_gradient_runs_k1(card):
+    """A padded text-only group has no tables; its attention needs a
+    gradient, which K2 cannot give, so it runs K1 with one segment per
+    row (and K2 still serves calls without a gradient)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd)
+    from repro_torch.models.attention import attention, init_attention
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = init_attention(gen, 256, 4, 1, 64, torch.bfloat16, card)
+    x = torch.randn(2, 96, 256, generator=gen, device=card).to(
+        torch.bfloat16)
+    kw = dict(n_heads=4, kv_heads=1, head_dim=64, rope_theta=1e4,
+              mode="sliding", window=32, impl="cuda")
+    n = (flash_attention.launches, flash_attention_packed.launches,
+         flash_attention_packed_bwd.launches)
+    xg = x.clone().requires_grad_(True)
+    out = attention(params, xg, **kw)
+    (dx,) = torch.autograd.grad(out.float().square().sum(), xg)
+    with torch.no_grad():
+        again = attention(params, x, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - n[0],
+            flash_attention_packed.launches - n[1],
+            flash_attention_packed_bwd.launches - n[2]) == (1, 1, 1)
+    assert torch.isfinite(dx).all()
+    ref = attention(params, x, **{**kw, "impl": "reference"})
+    for o in (out, again):
+        err = (o.float() - ref.float()).abs().max().item()
+        assert err <= TOL[torch.bfloat16] * max(
+            1.0, ref.float().abs().max().item()), err
+
+
+@pytest.mark.cuda
+def test_recurrentgemma_full_width_training_memory(card, monkeypatch):
+    """recurrentgemma-2b's openvid run of `chip_smoke.py` (global batch
+    8, sequences up to 4096 tokens, padded one per row) fits the card
+    only with both of its memory measures: `remat` per pattern unit (on
+    in its config) and the padded path's head and NLL in checkpointed
+    pieces (`core/executor.token_nll`). Without either it runs out of
+    memory. Prints the three peaks."""
+    import gc
+
+    from repro_torch.api import ClusterSpec, Engine
+    from repro_torch.configs import get_config
+    from repro_torch.core import executor as ex
+
+    token_nll = ex.token_nll
+
+    def whole_batch_nll(params, cfg, batch, pieces=False):
+        return token_nll(params, cfg, batch)
+
+    cfg = get_config("recurrentgemma-2b")
+    assert cfg.remat
+    run = dict(steps=3, dataset="openvid", global_batch=8,
+               max_tokens=4096, tokens_per_frame=256)
+    peaks = {}
+    for name, remat, nll in (("without remat", False, ex.token_nll),
+                             ("whole-batch loss", True, whole_batch_nll),
+                             ("both", True, ex.token_nll)):
+        monkeypatch.setattr(ex, "token_nll", nll)
+        eng = Engine(cfg.with_(remat=remat),
+                     ClusterSpec.auto(mem_budget=4096), seed=0)
+        torch.cuda.reset_peak_memory_stats(card)
+        oom = None
+        try:
+            eng.train(**run)
+        except torch.OutOfMemoryError as e:
+            oom = str(e).split("\n")[0]
+        finally:
+            eng.close()
+        peaks[name] = (torch.cuda.max_memory_allocated(card), oom)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"recurrentgemma-2b peak bytes, out-of-memory: {peaks}")
+    assert peaks["both"][1] is None, peaks
+    assert peaks["without remat"][1] is not None, peaks
+    assert peaks["whole-batch loss"][1] is not None, peaks

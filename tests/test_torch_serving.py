@@ -132,6 +132,9 @@ def test_port_imports_neither_jax_nor_repro():
         "       ('jax', 'jaxlib', 'repro')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
+        "assert {'repro_torch.models.rglru',\n"
+        "        'repro_torch.kernels.rglru_scan',\n"
+        "        'repro_torch.configs.recurrentgemma_2b'} <= set(names)\n"
         "print(len(names))\n")
     r = subprocess.run([sys.executable, "-c", script],
                        env={**os.environ, "PYTHONPATH": SRC},
