@@ -41,7 +41,10 @@ Phases:
                 o, dq, dk, dv is also held as a whole: its largest error
                 within 2e-2 of its largest plain value (most gradient
                 elements are far below 1, so the elementwise limit alone
-                is about as large as a typical gradient)
+                is about as large as a typical gradient). Prints the
+                bf16 D=128 backward's design facts at one 4096-token
+                row: its stage, grid, threads, shared memory and the
+                fp32 scratch of the heads' dK / dV partials
   8. train parity — reduced internvl3-2b, fp32: two DHP training steps
                 with the kernels (attn_impl="cuda") vs the same steps
                 through the plain full-matrix attention: losses, the
@@ -403,9 +406,10 @@ GRAD_TOL = {torch.bfloat16: 4e-2, torch.float32: 1e-4}
 #: bf16 K1 outputs and gradients, as whole tensors: max|err| / max|plain|.
 #: Sound kernels read up to 0.0067 on an H100 (S 1024 and 4096, every
 #: mode, with and without spans); a planted fault that drops one 64-key
-#: tile from dQ, one 32-query tile from dK or from the whole backward,
-#: shifts the span-free query start by a tile, or drops one key tile
-#: from the forward, reads 0.10 or more on the tensor it touches
+#: tile from dQ, one 64-query tile from dK or from the whole backward,
+#: shifts the query start by a tile, leaves one query head out of the
+#: group sum of dK and dV, or drops one key tile from the forward, reads
+#: 0.09 or more on the tensor it must show in (k1_fault_check.py)
 REL_TOL_BF16 = 2e-2
 
 
@@ -547,6 +551,30 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
                bound_bwd_by=bb_by)
     print(f"  K1 {json.dumps(row)} ({card})")
     return row
+
+
+#: how far the redesign of K1's bf16 backward at D = 64 / 128 went: 1 a
+#: (query head, 64-key tile) grid with the heads' dK / dV summed after
+#: it, 2 cp.async tiles and no transposed copies, 3 16-byte vector
+#: atomics for dQ, 4 every product by wgmma (its source note)
+K1_BWD_STAGE = 4
+
+
+def k1_bwd_design(card):
+    """Facts of K1's bf16 backward at the training path's shape (one
+    4096-token row, internvl3-2b's heads): its stage, its launch as the
+    library computes it, and the scratch the wrapper allocates for it."""
+    from repro_torch.kernels.flash_attention_packed import backward_plan
+    plan = backward_plan(1, 4096, 4096, H, HKV, D, torch.bfloat16)
+    gx, gy, gz = plan["grid"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    facts = dict(stage=K1_BWD_STAGE, grid=[gx, gy, gz],
+                 blocks=gx * gy * gz, threads=plan["threads"], sms=sms,
+                 smem_bytes=plan["smem_bytes"],
+                 dkdv_scratch_bytes=plan["work_bytes"],
+                 dq_fp32_bytes=4 * 4096 * H * D)
+    print(f"  K1 bwd design {json.dumps(facts)} ({card})")
+    return facts
 
 
 def phase_packed(dev, card):
@@ -1504,6 +1532,7 @@ def main() -> int:
 
     print("[7/19] packed kernel K1 vs plain versions")
     packed_rows = phase_packed(dev, card)
+    k1_design = k1_bwd_design(card)
     print("[8/19] training parity at reduced size (fp32)")
     phase_train_parity(dev)
     print("[9/19] full-width DHP training (bf16)")
@@ -1537,6 +1566,7 @@ def main() -> int:
             "library_ms": main_k1[f"library_{which}_ms"],
             "shape": f"B=1 S={main_k1['S']} H={H} Hkv={HKV} D={D} bf16 "
                      f"causal spans={main_k1['spans']}",
+            **({"design": k1_design} if which == "bwd" else {}),
             "path_shapes": [dict(
                 bucket=r["S"], spans=r["spans"], launches=r["launches"],
                 pairs=r["pairs"], err=r["err"], rel_err=r["rel_err"],

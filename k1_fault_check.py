@@ -3,7 +3,7 @@
     python3 k1_fault_check.py [--out FILE]
 
 For each planted fault below, copies `src/repro_torch` into a temporary
-directory, edits one line of the copy's `flash_attention_packed.cu`,
+directory, plants the fault in the copy's `flash_attention_packed.cu`,
 builds it there on the card and runs K1 forward and backward against
 the plain versions at internvl3-2b's heads (12 query, 2 KV, head_dim
 128) over packed layouts of 1024 and 4096 tokens. For each of o, dq,
@@ -27,23 +27,28 @@ CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                   "flash_attention_packed.cu")
 REL_TOL_BF16 = 2e-2     # as in chip_smoke.py
 
-#: fault name -> (the tensors it must show in, [(text, replacement)])
+#: fault name -> (the tensors it must show in, [(text, replacement)]);
+#: the backward faults are planted in the bf16 kernel at D = 64 / 128
+#: (packed_bwd_kv_kernel) and its group reduction
 FAULTS = {
     "sound": ((), []),
     "dq_drops_key_tile": (("dq",), [(
-        "            if (row < Sq)\n              atomicAdd(dqb",
-        "            if (row < Sq && k0 != 128)\n"
-        "              atomicAdd(dqb")]),
+        "        if (row < Sq) red_add_v4(",
+        "        if (row < Sq && k0 != 128) red_add_v4(")]),
     "bwd_skips_query_tile": (("dq", "dk", "dv"), [(
-        "if (!tile_live<SPANS>(p, b, q0, q1, k0, k1)) continue;",
-        "if (!tile_live<SPANS>(p, b, q0, q1, k0, k1) || q0 == 160) "
-        "continue;")]),
+        "            FULL, qt < Sq && tile_live<SPANS>(",
+        "            FULL, qt < Sq && qt != 192 && tile_live<SPANS>(")]),
     "dk_skips_query_tile": (("dk",), [(
-        "          mma_bf16(dka[nd], as, bq);",
-        "          if (q0 != 160) mma_bf16(dka[nd], as, bq);")]),
+        "        const uint64_t dsc = wg_desc(c0 + kk * 2048, SW_BLOCK, "
+        "SW_GROUP);\n",
+        "        const uint64_t dsc = wg_desc(c0 + kk * 2048, SW_BLOCK, "
+        "SW_GROUP);\n        if (dk_warp && q0 == 192) continue;\n")]),
     "query_start_one_tile_late": (("dq", "dk", "dv"), [(
-        "  i_lo = (i_lo / B_BQ) * B_BQ;\n",
-        "  i_lo = (i_lo / B_BQ) * B_BQ + B_BQ;\n")]),
+        "  i_lo = (i_lo / K_BQ) * K_BQ;\n",
+        "  i_lo = (i_lo / K_BQ) * K_BQ + K_BQ;\n")]),
+    "reduction_drops_a_head": (("dk", "dv"), [(
+        "  for (int hh = 1; hh < G; ++hh) {",
+        "  for (int hh = 1; hh < G - 1; ++hh) {")]),
     "fwd_drops_key_tile": (("o",), [(
         "if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + F_BK, Sk))) "
         "continue;",

@@ -33,12 +33,11 @@
 // (4*D flops per pair forward, 10*D backward, against q/k/v/o read
 // once), so both directions keep scores and probabilities on chip:
 //   * bf16: mma.sync m16n8k16 on the tensor cores with fp32 accumulation
-//     (P and dS rounded to bf16 before their products); wgmma/TMA are
-//     later work. Forward: 4 warps x 16 query rows, 64-key tiles.
-//     Backward: one block per (64-key tile, KV head, batch), each warp
-//     owning 16 keys whose dK/dV accumulate in registers over the KV
-//     head's G query heads and all 32-row query tiles (no atomics on
-//     dK/dV); dQ goes to an fp32 buffer through atomicAdd.
+//     (P and dS rounded to bf16 before their products). Forward: 4 warps
+//     x 16 query rows, 64-key tiles (wgmma and TMA are later work there).
+//     Backward at D = 64 / 128: wgmma, one block per (query head, 64-key
+//     tile, batch), a group sum of the heads' dK / dV after it and
+//     16-byte vector atomics for dQ (see packed_bwd_kv_kernel).
 //   * fp32: the CUDA cores (TF32 tensor cores would break the 1e-4
 //     parity tolerance), same tiling idea with fp32 tiles in shared
 //     memory.
@@ -580,93 +579,343 @@ __global__ void bwd_delta_kernel(const T* __restrict__ o,
 }
 
 // ---------------------------------------------------------------------
-// Backward, bf16, tensor cores. Block = (64-key tile, KV head, batch),
-// 4 warps of 16 keys each. For each of the KV head's G query heads and
-// each live 32-row query tile, a warp computes S^T = K_w Q^T and
-// dP^T = V_w dO^T (16 x 32), P^T = exp(S^T*scale - lse), dS^T =
-// P^T (dP^T - delta) * scale, and accumulates dV_w += P^T dO and dK_w +=
-// dS^T Q in registers (the accumulators of S^T/dS^T are the A fragments
-// of those products). dS goes to shared memory as [query][key], and the
-// block computes dQ = dS K for the tile, each warp a quarter of D,
-// added to the fp32 dq buffer with atomicAdd.
+// Backward, bf16, tensor cores, D = 64 and 128, designed for the H100.
+// The gradient of K1's function (src/repro/kernels/flash_attention.py ::
+// flash_attention_packed_flat; the Pallas kernel has no backward, and
+// the JAX package differentiates src/repro/models/attention.py ::
+// _attn_chunked_bwd's math): dq, dk, dv from q, k, v, dO, the forward's
+// LSE and delta = rowsum(dO * O).
+//
+// What bounds it: 10*D flops per valid (query, key) pair per query head
+// (S, dP, dV, dK, dQ), against q, k, v, o, dO, dq, dk, dv crossing HBM
+// once: at the training path's 4096-token rows the work is compute-bound
+// (the bound is in operations). What the design does about it:
+//
+//  1. Grid. A block is (query head, 64-key tile, batch), heads fastest,
+//     so blocks are issued key tile by key tile and the heaviest tiles
+//     of a causal row (tile 0 walks every query tile) start first. One
+//     4096-token row at 12 heads gives 768 blocks (5.8 per SM), not 128
+//     for 132 SMs. Each block keeps its query head's dK and dV for its
+//     64 keys in registers and writes them once: in bf16 when H == Hkv,
+//     else in fp32 to scratch [B, Sk, H, D], which bwd_kv_reduce_kernel
+//     sums over the G = H / Hkv heads of each KV head in a fixed order.
+//     No atomics touch dK or dV, so both come out the same bits on
+//     every call.
+//  2. Loads and products. K and V (once) and each live query tile's Q,
+//     dO, LSE, delta and table slices arrive by cp.async, the bf16 tiles
+//     in the 128-byte-swizzled layout wgmma reads, so every product is a
+//     warpgroup MMA (wgmma, sm_90a) with its operands in shared memory,
+//     whatever their major, and no transposed copy exists. Warpgroup 0
+//     forms S^T = K Q^T, P^T and dV += P^T dO (P^T from registers);
+//     warpgroup 1 forms dP^T = V dO^T, takes P^T from warpgroup 0
+//     through shared memory (fp32, fragment order), and forms dS^T and
+//     dK += dS^T Q. Each thread holds one 64 x D / 128 share of dK or
+//     dV; no product is formed twice. One stage of query tiles (94 KB
+//     of shared memory at D = 128, at most 128 registers) lets two
+//     blocks share an SM, each computing while the other's next tile
+//     lands: a two-stage ring would need 126 KB and so one block an SM,
+//     and measured slower. The next tile is requested as soon as this
+//     one's Q and dO are read, before dQ. Which query tiles are live
+//     each warp learns 32 at a time (one ballot), so no table summary is
+//     read on the way from one tile to the next.
+//  3. Masks. A warp whose 16 keys share one segment skips the pair mask
+//     for a query tile that lies wholly in that segment and after (and,
+//     sliding, within a window of) those keys: below the diagonal of a
+//     long sequence, nearly every tile. Other tiles test every pair.
+//  4. dQ. dS^T goes to shared memory in bf16, each warpgroup forms half
+//     of the tile's dQ = dS K by wgmma (at D = 64 warpgroup 0 all of it),
+//     and each pair of lanes swaps halves so that every lane adds four
+//     consecutive floats of one row with one 16-byte vector atomic
+//     (sm_90): a quarter of the atomic instructions of per-element adds,
+//     whole 16-byte lines. dQ's fp32 buffer stays (the order of its sums
+//     varies from call to call).
+// P and dS are rounded to bf16 before their products, as the forward
+// rounds P; a row with no valid key (LSE -inf) has P = 0 exactly.
 // ---------------------------------------------------------------------
-constexpr int B_BK = 64, B_BQ = 32, B_THREADS = 128;
+constexpr int B_BK = 64, B_BQ = 32;  // tiles of the D = 256 kernel below
+constexpr int K_BK = 64, K_BQ = 64, K_THREADS = 256;  // two warpgroups
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, asynchronous; zero-filled when !in
+// (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// dst[0:4] += v as one 16-byte vector reduction (sm_90, global memory)
+__device__ __forceinline__ void red_add_v4(float* dst, float4 v) {
+  atomicAdd(reinterpret_cast<float4*>(dst), v);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// byte strides of the tiles as wgmma's descriptors take them: a group of
+// 8 rows of 128 bytes, and one [64][64] block of a [64][D] tile
+constexpr uint32_t SW_GROUP = 1024, SW_BLOCK = 64 * 128;
+
+// shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (K-major: the stride between
+// 8-row groups; N- or M-major: between 64-wide blocks, then between
+// 8-row groups of K)
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                           uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+// byte offset of 16-byte chunk c of row r in a [ROWS][cols] bf16 tile
+// kept as cols / 64 blocks of [ROWS][64], rows of 128 bytes whose chunks
+// are swizzled by r % 8 (the 128-byte swizzle wgmma reads)
+template <int ROWS>
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return (uint32_t)((c >> 3) * (ROWS * 128) + r * 128 +
+                    (((c & 7) ^ (r & 7)) << 4));
+}
+
+// D[64 x 64] (+)= A B, A and B from shared memory (descriptors), fp32
+// D; TRANS_A / TRANS_B: 0 K-major, 1 M- / N-major
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n64(float d[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// D[64 x 64] += A B, A from registers (bf16 pairs in the accumulator's
+// layout), B from shared memory; TRANS_B as above
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n64(float d[32], const uint32_t a[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TRANS_B),
+        "r"(1));
+}
+
+// D[64 x 128] += A B, A from registers (bf16 pairs in the accumulator's
+// layout), B from shared memory; TRANS_B as above
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n128(float d[64], const uint32_t a[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TRANS_B),
+        "r"(1));
+}
 
 template <int D>
-struct BwdTile {
-  static constexpr int RP = D + 8;       // [row][d] tiles
-  static constexpr int KTP = B_BK + 8;   // K^T [d][key]
-  static constexpr int QTP = B_BQ + 8;   // Q^T, dO^T [d][query]
-  static constexpr int SP = B_BK + 8;    // dS [query][key]
-  static constexpr size_t elems = 2 * B_BK * RP + D * KTP + 2 * B_BQ * RP +
-                                  2 * D * QTP + B_BQ * SP;
-  static constexpr size_t smem = sizeof(bf16) * elems +
-                                 sizeof(float) * 2 * B_BQ +
-                                 sizeof(int) * (2 * B_BK + 2 * B_BQ);
+struct BwdKvTile {
+  static constexpr int TB = K_BK * D * 2;  // bytes of one [64][D] tile
+  // K, V, Q, dO, dS^T, P^T (fp32), the query tables, the key tables, and
+  // room to align the tiles to 1024 bytes
+  static constexpr size_t smem =
+      1024 + 4 * TB + K_BK * K_BQ * 2 +
+      sizeof(float) * (K_BK * K_BQ + 2 * K_BQ) +
+      sizeof(int) * (2 * K_BQ + 2 * K_BK);
 };
 
 template <int D, bool SPANS>
-__global__ void __launch_bounds__(B_THREADS)
-packed_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__global__ void __launch_bounds__(K_THREADS, 2)
+packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const bf16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                     float* __restrict__ dq_acc,
+                     float* __restrict__ dk_part,
+                     float* __restrict__ dv_part, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, Params p, float scale) {
-  using Tile = BwdTile<D>;
-  constexpr int RP = Tile::RP, KTP = Tile::KTP, QTP = Tile::QTP,
-                SP = Tile::SP;
-  constexpr int CH = D / 8;
-  constexpr int NDW = D / 32;  // 8-wide d tiles of dQ per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [B_BK][RP]
-  bf16* Vs = Ks + B_BK * RP;                      // [B_BK][RP]
-  bf16* Kt = Vs + B_BK * RP;                      // [D][KTP]
-  bf16* Qs = Kt + D * KTP;                        // [B_BQ][RP]
-  bf16* dOs = Qs + B_BQ * RP;                     // [B_BQ][RP]
-  bf16* Qt = dOs + B_BQ * RP;                     // [D][QTP]
-  bf16* dOt = Qt + D * QTP;                       // [D][QTP]
-  bf16* dSs = dOt + D * QTP;                      // [B_BQ][SP]
-  float* lse_s = reinterpret_cast<float*>(dSs + B_BQ * SP);
-  float* delta_s = lse_s + B_BQ;
-  int* segk_s = reinterpret_cast<int*>(delta_s + B_BQ);
-  int* spank_s = segk_s + B_BK;
-  int* segq_s = spank_s + B_BK;
-  int* spanq_s = segq_s + B_BQ;
+  constexpr int TB = BwdKvTile<D>::TB, CH = D / 8, NQ = K_BQ / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  unsigned char* Ks = sm;             // [64][D], swizzled
+  unsigned char* Vs = Ks + TB;        // [64][D]
+  unsigned char* Qs = Vs + TB;        // [64][D]
+  unsigned char* dOs = Qs + TB;       // [64][D]
+  unsigned char* dSt = dOs + TB;      // [64 keys][64 queries]
+  float* Px = reinterpret_cast<float*>(dSt + K_BK * K_BQ * 2);
+  float* lse_s = Px + K_BK * K_BQ;                // [K_BQ]
+  float* delta_s = lse_s + K_BQ;                  // [K_BQ]
+  int* segq_s = reinterpret_cast<int*>(delta_s + K_BQ);
+  int* spanq_s = segq_s + K_BQ;                   // [K_BQ]
+  int* segk_s = spanq_s + K_BQ;                   // [K_BK]
+  int* spank_s = segk_s + K_BK;
+  const uint32_t ks_a = smem_u32(Ks), vs_a = smem_u32(Vs),
+                 qs_a = smem_u32(Qs), dos_a = smem_u32(dOs),
+                 dst_a = smem_u32(dSt);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * B_BK, hk = blockIdx.y, b = blockIdx.z;
+  const bool dk_warp = warp >= 4;  // warpgroup 1: dP, dS, dK; 0: S, P, dV
+  const int kw = warp & 3;         // the warp's 16 keys of the tile
+  const int h = blockIdx.x, b = blockIdx.z;
   const int H = p.H, Hkv = p.Hkv, Sq = p.Sq, Sk = p.Sk, G = H / Hkv;
-  const int k1 = min(k0 + B_BK, Sk);
+  const int hk = h / G;
+  const int k0 = blockIdx.y * K_BK, k1 = min(k0 + K_BK, Sk);
   const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
   const bf16* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
   const bf16* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const bf16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+  const bf16* db = dout + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+  const float* lseb = lse + ((int64_t)b * H + h) * Sq;
+  const float* delb = delta + ((int64_t)b * H + h) * Sq;
+  const int* segqb = p.segq + (int64_t)b * Sq;
+  const int* spanqb = SPANS ? p.spanq + (int64_t)b * Sq : p.segq;
+  float* dqb = dq_acc + (int64_t)b * Sq * q_stride + (int64_t)h * D;
 
-  for (int i = tid; i < B_BK * CH; i += B_THREADS) {
-    const int c = i % B_BK, ch = i / B_BK, kp = k0 + c;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-    if (kp < Sk) {
-      kv = *reinterpret_cast<const uint4*>(kb + (int64_t)kp * kv_stride +
-                                           ch * 8);
-      vv = *reinterpret_cast<const uint4*>(vb + (int64_t)kp * kv_stride +
-                                           ch * 8);
-    }
-    *reinterpret_cast<uint4*>(Ks + c * RP + ch * 8) = kv;
-    *reinterpret_cast<uint4*>(Vs + c * RP + ch * 8) = vv;
-    const bf16* ke = reinterpret_cast<const bf16*>(&kv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) Kt[(ch * 8 + e) * KTP + c] = ke[e];
+  for (int i = tid; i < K_BK * CH; i += K_THREADS) {
+    const int r = i / CH, c = i % CH, kp = k0 + r;
+    const int64_t off = (int64_t)(kp < Sk ? kp : k0) * kv_stride + c * 8;
+    cp_async16(Ks + sw128<K_BK>(r, c), kb + off, kp < Sk);
+    cp_async16(Vs + sw128<K_BK>(r, c), vb + off, kp < Sk);
   }
-  if (tid < B_BK) {
+  cp_async_commit();
+  if (tid < K_BK) {
     const int kp = k0 + tid;
     segk_s[tid] = kp < Sk ? p.segk[(int64_t)b * Sk + kp] : -2;
     spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
   }
-  __syncthreads();
 
-  const int kl[2] = {warp * 16 + g, warp * 16 + g + 8};  // local key rows
+  // the query tile at q0: rows past Sq read as zeros and are masked by
+  // position below
+  auto load_q = [&](int q0) {
+    for (int i = tid; i < K_BQ * CH; i += K_THREADS) {
+      const int r = i / CH, c = i % CH, qp = q0 + r;
+      const int64_t off = (int64_t)(qp < Sq ? qp : q0) * q_stride + c * 8;
+      cp_async16(Qs + sw128<K_BQ>(r, c), qb + off, qp < Sq);
+      cp_async16(dOs + sw128<K_BQ>(r, c), db + off, qp < Sq);
+    }
+    for (int i = tid; i < 4 * K_BQ; i += K_THREADS) {
+      const int which = i / K_BQ, r = i % K_BQ, qp = q0 + r;
+      const int qc = qp < Sq ? qp : q0;
+      if (which == 0) cp_async4(lse_s + r, lseb + qc, qp < Sq);
+      if (which == 1) cp_async4(delta_s + r, delb + qc, qp < Sq);
+      if (which == 2) cp_async4(segq_s + r, segqb + qc, qp < Sq);
+      if (which == 3 && SPANS) cp_async4(spanq_s + r, spanqb + qc, qp < Sq);
+    }
+    cp_async_commit();
+  };
+  // the first live query tile at or after q0 (Sq if none), uniform: each
+  // warp tests 32 tiles at once (lane j tile base + j) and keeps the
+  // ballot, so the tables' summaries are read once per 32 tiles
+  const int n_qt = (Sq + K_BQ - 1) / K_BQ;
+  int live_base = -32;
+  uint32_t live_bits = 0;
+  auto next_live = [&](int q0) {
+    for (int j = q0 / K_BQ; j < n_qt;) {
+      if (j >= live_base + 32) {
+        live_base = j;
+        const int qt = (j + lane) * K_BQ;
+        live_bits = __ballot_sync(
+            FULL, qt < Sq && tile_live<SPANS>(p, b, qt, min(qt + K_BQ, Sq),
+                                              k0, k1));
+      }
+      const uint32_t ahead = live_bits >> (j - live_base);
+      if (ahead) return (j + __ffs(ahead) - 1) * K_BQ;
+      j = live_base + 32;
+    }
+    return Sq;
+  };
+
+  int i_lo = 0;
+  if (!SPANS && p.mode != kFull) i_lo = max(0, p.kv_offset + k0);
+  i_lo = (i_lo / K_BQ) * K_BQ;
+  int q0 = next_live(i_lo);
+  if (q0 < Sq) load_q(q0);
+
+  cp_async_wait<0>();  // K, V (and the first query tile) have landed
+  __syncthreads();
+  const int kl[2] = {kw * 16 + g, kw * 16 + g + 8};  // local key rows
   int kpos[2], segk_r[2], spank_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -674,175 +923,209 @@ packed_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     segk_r[i] = segk_s[kl[i]];
     spank_r[i] = spank_s[kl[i]];
   }
+  // the warp's 16 keys lie in one segment (seg_w >= 0): a query tile all
+  // in that segment and after (and, sliding, within a window of) the
+  // keys then needs no mask
+  const int seg_w = segk_s[kw * 16];
+  const bool one_seg =
+      __all_sync(FULL, segk_s[kw * 16 + (lane & 15)] == seg_w) && seg_w >= 0;
+  const int kpos_w = p.kv_offset + k0 + kw * 16;  // the warp's first key
+  float* px = Px + kw * (NQ * 4 * 32);
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float acc[D / 8][4];  // dV (warpgroup 0) or dK (warpgroup 1), 64 keys
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
 
-  // Without spans, queries before the tile's first key never see it.
-  int i_lo = 0;
-  if (!SPANS && p.mode != kFull) i_lo = max(0, p.kv_offset + k0);
-  i_lo = (i_lo / B_BQ) * B_BQ;
+  while (q0 < Sq) {
+    cp_async_wait<0>();   // this query tile has landed
+    fence_proxy_async();  // the copies are seen by wgmma's reads
+    __syncthreads();
 
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = hk * G + hh;
-    const bf16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-    const bf16* db = dout + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-    const float* lseb = lse + ((int64_t)b * H + h) * Sq;
-    const float* delb = delta + ((int64_t)b * H + h) * Sq;
-    float* dqb = dq_acc + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-    for (int q0 = i_lo; q0 < Sq; q0 += B_BQ) {
-      const int q1 = min(q0 + B_BQ, Sq);
-      if (!tile_live<SPANS>(p, b, q0, q1, k0, k1)) continue;
-      __syncthreads();  // the previous tile's Q/dO/dS are consumed
-      for (int i = tid; i < B_BQ * CH; i += B_THREADS) {
-        const int c = i % B_BQ, ch = i / B_BQ, qp = q0 + c;
-        uint4 qv = make_uint4(0u, 0u, 0u, 0u), dvv = qv;
-        if (qp < Sq) {
-          qv = *reinterpret_cast<const uint4*>(qb + (int64_t)qp * q_stride +
-                                               ch * 8);
-          dvv = *reinterpret_cast<const uint4*>(db + (int64_t)qp * q_stride +
-                                                ch * 8);
-        }
-        *reinterpret_cast<uint4*>(Qs + c * RP + ch * 8) = qv;
-        *reinterpret_cast<uint4*>(dOs + c * RP + ch * 8) = dvv;
-        const bf16* qe = reinterpret_cast<const bf16*>(&qv);
-        const bf16* de = reinterpret_cast<const bf16*>(&dvv);
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1): 64 keys x
+    // 64 queries, both operands K-major
+    float sc[NQ][4];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          Qt[(ch * 8 + e) * QTP + c] = qe[e];
-          dOt[(ch * 8 + e) * QTP + c] = de[e];
-        }
-      }
-      if (tid < B_BQ) {
-        const int qp = q0 + tid;
-        const bool in = qp < Sq;
-        lse_s[tid] = in ? lseb[qp] : 0.f;
-        delta_s[tid] = in ? delb[qp] : 0.f;
-        segq_s[tid] = in ? p.segq[(int64_t)b * Sq + qp] : -1;
-        spanq_s[tid] = (SPANS && in) ? p.spanq[(int64_t)b * Sq + qp] : -1;
-      }
-      __syncthreads();
-
-      float sT[B_BQ / 8][4], dpT[B_BQ / 8][4];
+    for (int n = 0; n < NQ; ++n)
 #pragma unroll
-      for (int n = 0; n < B_BQ / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    {
+      const uint32_t a0 = dk_warp ? vs_a : ks_a, b0 = dk_warp ? dos_a : qs_a;
+      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a(ak, Ks, RP, warp * 16, kk * 16, g, t);
-        load_a(av, Vs, RP, warp * 16, kk * 16, g, t);
-#pragma unroll
-        for (int n = 0; n < B_BQ / 8; ++n) {
-          uint32_t bq[2], bd[2];
-          load_b(bq, Qs, RP, n * 8, kk * 16, g, t);
-          load_b(bd, dOs, RP, n * 8, kk * 16, g, t);
-          mma_bf16(sT[n], ak, bq);
-          mma_bf16(dpT[n], av, bd);
-        }
+        const uint32_t off = (kk >> 2) * SW_BLOCK + (kk & 3) * 32;
+        wgmma_ss_n64<0, 0>(&sc[0][0], wg_desc(a0 + off, 16, SW_GROUP),
+                           wg_desc(b0 + off, 16, SW_GROUP), 1);
       }
-
-      // P^T and dS^T in place of S^T and dP^T
+      wgmma_commit();
+      wgmma_wait0();
+    }
+    if (!dk_warp) {
+      bool all_ok = one_seg && q0 + K_BQ <= Sq &&
+                    (p.mode == kFull ||
+                     (kpos_w + 15 <= q0 &&
+                      (p.mode != kSliding ||
+                       kpos_w > q0 + K_BQ - 1 - p.window)));
+      all_ok = __all_sync(FULL, all_ok && segq_s[lane] == seg_w &&
+                                    segq_s[lane + 32] == seg_w);
+      if (all_ok) {
 #pragma unroll
-      for (int n = 0; n < B_BQ / 8; ++n)
+        for (int n = 0; n < NQ; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
-          const bool ok = pair_ok<SPANS>(p.mode, p.window, q0 + c, kpos[i],
-                                         segq_s[c], segk_r[i], spanq_s[c],
-                                         spank_r[i]);
-          const float pv = ok ? __expf(sT[n][e] * scale - lse_s[c]) : 0.f;
-          sT[n][e] = pv;
-          dpT[n][e] = pv * (dpT[n][e] - delta_s[c]) * scale;
-        }
-
+          for (int e = 0; e < 4; ++e) {
+            const int c = n * 8 + t * 2 + (e & 1);
+            sc[n][e] = __expf(sc[n][e] * scale - lse_s[c]);
+            px[(n * 4 + e) * 32 + lane] = sc[n][e];
+          }
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < B_BQ / 16; ++kk) {
-        const uint32_t ap[4] = {
-            pack_bf16(sT[2 * kk][0], sT[2 * kk][1]),
-            pack_bf16(sT[2 * kk][2], sT[2 * kk][3]),
-            pack_bf16(sT[2 * kk + 1][0], sT[2 * kk + 1][1]),
-            pack_bf16(sT[2 * kk + 1][2], sT[2 * kk + 1][3])};
-        const uint32_t as[4] = {
-            pack_bf16(dpT[2 * kk][0], dpT[2 * kk][1]),
-            pack_bf16(dpT[2 * kk][2], dpT[2 * kk][3]),
-            pack_bf16(dpT[2 * kk + 1][0], dpT[2 * kk + 1][1]),
-            pack_bf16(dpT[2 * kk + 1][2], dpT[2 * kk + 1][3])};
+        for (int n = 0; n < NQ; ++n)
 #pragma unroll
-        for (int nd = 0; nd < D / 8; ++nd) {
-          uint32_t bo[2], bq[2];
-          load_b(bo, dOt, QTP, nd * 8, kk * 16, g, t);
-          load_b(bq, Qt, QTP, nd * 8, kk * 16, g, t);
-          mma_bf16(dva[nd], ap, bo);
-          mma_bf16(dka[nd], as, bq);
-        }
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
+            const bool ok =
+                q0 + c < Sq &&
+                pair_ok<SPANS>(p.mode, p.window, q0 + c, kpos[i], segq_s[c],
+                               segk_r[i], spanq_s[c], spank_r[i]);
+            const float pv = ok ? __expf(sc[n][e] * scale - lse_s[c]) : 0.f;
+            sc[n][e] = pv;
+            px[(n * 4 + e) * 32 + lane] = pv;
+          }
       }
-
+    }
+    __syncthreads();
+    if (dk_warp) {
 #pragma unroll
-      for (int n = 0; n < B_BQ / 8; ++n)
+      for (int n = 0; n < NQ; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = n * 8 + t * 2 + (e & 1);
-          dSs[c * SP + kl[e >> 1]] = __float2bfloat16(dpT[n][e]);
+          sc[n][e] = px[(n * 4 + e) * 32 + lane] *
+                     (sc[n][e] - delta_s[c]) * scale;
         }
-      __syncthreads();
-
-      // dQ tile [B_BQ x D] = dS [B_BQ x B_BK] K [B_BK x D]; warp w owns
-      // d columns [w*D/4, (w+1)*D/4)
-      float dqa[B_BQ / 16][NDW][4];
 #pragma unroll
-      for (int mi = 0; mi < B_BQ / 16; ++mi)
-#pragma unroll
-        for (int j = 0; j < NDW; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dqa[mi][j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < B_BK / 16; ++kk) {
-        uint32_t a[B_BQ / 16][4];
-#pragma unroll
-        for (int mi = 0; mi < B_BQ / 16; ++mi)
-          load_a(a[mi], dSs, SP, mi * 16, kk * 16, g, t);
-#pragma unroll
-        for (int j = 0; j < NDW; ++j) {
-          uint32_t bk[2];
-          load_b(bk, Kt, KTP, (warp * NDW + j) * 8, kk * 16, g, t);
-#pragma unroll
-          for (int mi = 0; mi < B_BQ / 16; ++mi) mma_bf16(dqa[mi][j], a[mi], bk);
-        }
+        for (int i = 0; i < 2; ++i)
+          *reinterpret_cast<uint32_t*>(dSt + sw128<K_BK>(kl[i], n) + t * 4) =
+              pack_bf16(sc[n][2 * i], sc[n][2 * i + 1]);
       }
-#pragma unroll
-      for (int mi = 0; mi < B_BQ / 16; ++mi)
-#pragma unroll
-        for (int j = 0; j < NDW; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = q0 + mi * 16 + g + (e >> 1) * 8;
-            const int col = (warp * NDW + j) * 8 + t * 2 + (e & 1);
-            if (row < Sq)
-              atomicAdd(dqb + (int64_t)row * q_stride + col, dqa[mi][j][e]);
-          }
+      fence_proxy_async();  // dS^T is seen by the dQ wgmma
     }
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1): A from
+    // registers, B (dO or Q) N-major: 16 queries a step, 64-wide d blocks
+    {
+      uint32_t a[K_BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < K_BQ / 16; ++kk) {
+        a[kk][0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+        a[kk][1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+        a[kk][2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+        a[kk][3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+      }
+      const uint32_t c0 = dk_warp ? qs_a : dos_a;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < K_BQ / 16; ++kk) {
+        const uint64_t dsc = wg_desc(c0 + kk * 2048, SW_BLOCK, SW_GROUP);
+        if constexpr (D == 128) wgmma_rs_n128<1>(&acc[0][0], a[kk], dsc);
+        else wgmma_rs_n64<1>(&acc[0][0], a[kk], dsc);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+    }
+    __syncthreads();  // dS^T is whole; this tile's Q, dO are read
+    const int q_next = next_live(q0 + K_BQ);
+    if (q_next < Sq) load_q(q_next);  // lands while dQ is formed
+
+    // dQ [64 queries x D] = dS K: warpgroup w takes d columns [w D / 2,
+    // (w + 1) D / 2) at D = 128, warpgroup 0 all of them at D = 64; A =
+    // dS^T's tile read M-major, B = K N-major
+    if (D == 128 || !dk_warp) {
+      float dqa[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+      const uint32_t b0 = ks_a + (D == 128 && dk_warp ? SW_BLOCK : 0);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < K_BK / 16; ++kk)
+        wgmma_ss_n64<1, 1>(&dqa[0][0],
+                           wg_desc(dst_a + kk * 2048, SW_BLOCK, SW_GROUP),
+                           wg_desc(b0 + kk * 2048, SW_BLOCK, SW_GROUP), 1);
+      wgmma_commit();
+      wgmma_wait0();
+      const bool odd = t & 1;
+      const int col0 = D == 128 && dk_warp ? 64 : 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float* c = dqa[j];
+        const float r0 = __shfl_xor_sync(FULL, odd ? c[0] : c[2], 1);
+        const float r1 = __shfl_xor_sync(FULL, odd ? c[1] : c[3], 1);
+        const int row = q0 + kw * 16 + g + (odd ? 8 : 0);
+        const int col = col0 + j * 8 + (t & 2) * 2;
+        const float4 val = odd ? make_float4(r0, r1, c[2], c[3])
+                               : make_float4(c[0], c[1], r0, r1);
+        if (row < Sq) red_add_v4(dqb + (int64_t)row * q_stride + col, val);
+      }
+    }
+    q0 = q_next;
   }
 
-  bf16* dkb = dk + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
-  bf16* dvb = dv + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  // this head's dK / dV: bf16 into dk / dv when G == 1, else fp32
+  // partials [B, Sk, H, D] for bwd_kv_reduce_kernel
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + kl[i];
     if (key >= Sk) continue;
+    if (G == 1) {
+      bf16* out = (dk_warp ? dk : dv) +
+                  ((int64_t)b * Sk + key) * kv_stride + (int64_t)hk * D;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const int64_t off = (int64_t)key * kv_stride + nd * 8 + t * 2;
-      *reinterpret_cast<uint32_t*>(dkb + off) =
-          pack_bf16(dka[nd][2 * i], dka[nd][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dvb + off) =
-          pack_bf16(dva[nd][2 * i], dva[nd][2 * i + 1]);
+      for (int nd = 0; nd < D / 8; ++nd)
+        *reinterpret_cast<uint32_t*>(out + nd * 8 + t * 2) =
+            pack_bf16(acc[nd][2 * i], acc[nd][2 * i + 1]);
+    } else {
+      float* out = (dk_warp ? dk_part : dv_part) +
+                   ((int64_t)b * Sk + key) * q_stride + (int64_t)h * D;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+        *reinterpret_cast<float2*>(out + nd * 8 + t * 2) =
+            make_float2(acc[nd][2 * i], acc[nd][2 * i + 1]);
     }
   }
+}
+
+// dk, dv [B, Sk, Hkv, D] bf16 = the sums over the G query heads of each
+// KV head of the fp32 partials [B, Sk, H, D], in head order; a thread
+// per 4 consecutive d of one (b, key, KV head) row
+template <int D>
+__global__ void bwd_kv_reduce_kernel(const float* __restrict__ dk_part,
+                                     const float* __restrict__ dv_part,
+                                     bf16* __restrict__ dk,
+                                     bf16* __restrict__ dv, int64_t n4,
+                                     int G) {
+  constexpr int C4 = D / 4;
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const int64_t row = i / C4;  // (b * Sk + key) * Hkv + hk
+  const int c = (int)(i % C4);
+  // query head hk * G + hh of that row is partial row row * G + hh
+  const float4* pk =
+      reinterpret_cast<const float4*>(dk_part) + row * G * C4 + c;
+  const float4* pv =
+      reinterpret_cast<const float4*>(dv_part) + row * G * C4 + c;
+  float4 sk = pk[0], sv = pv[0];
+  for (int hh = 1; hh < G; ++hh) {
+    const float4 a = pk[hh * C4], e = pv[hh * C4];
+    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+    sv.x += e.x; sv.y += e.y; sv.z += e.z; sv.w += e.w;
+  }
+  reinterpret_cast<uint2*>(dk)[i] =
+      make_uint2(pack_bf16(sk.x, sk.y), pack_bf16(sk.z, sk.w));
+  reinterpret_cast<uint2*>(dv)[i] =
+      make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
 }
 
 // ---------------------------------------------------------------------
@@ -1320,7 +1603,7 @@ template <typename T, int D, bool SPANS>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
                        float* delta, float* dq_acc, void* dk, void* dv,
-                       const Params& p, cudaStream_t stream) {
+                       float* work, const Params& p, cudaStream_t stream) {
   const float scale = 1.f / sqrtf((float)D);
   const int rows = p.B * p.Sq * p.H;
   bwd_delta_kernel<T, D><<<(rows + 3) / 4, 128, 0, stream>>>(
@@ -1341,17 +1624,27 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
         delta, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), p,
         scale);
   } else if constexpr (std::is_same<T, bf16>::value) {
-    constexpr size_t smem = BwdTile<D>::smem;
-    err = cudaFuncSetAttribute(packed_bwd_tc_kernel<D, SPANS>,
+    constexpr size_t smem = BwdKvTile<D>::smem;
+    err = cudaFuncSetAttribute(packed_bwd_kv_kernel<D, SPANS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.Sk + B_BK - 1) / B_BK, p.Hkv, p.B);
-    packed_bwd_tc_kernel<D, SPANS><<<grid, B_THREADS, smem, stream>>>(
+    // the partials of dK and dV, [B, Sk, H, D] each, when H > Hkv
+    const bool grouped = p.H != p.Hkv;
+    float* dk_part = grouped ? work : nullptr;
+    float* dv_part = grouped ? work + (int64_t)p.B * p.Sk * p.H * D : nullptr;
+    const dim3 grid(p.H, (p.Sk + K_BK - 1) / K_BK, p.B);
+    packed_bwd_kv_kernel<D, SPANS><<<grid, K_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), p,
-        scale);
+        delta, dq_acc, dk_part, dv_part, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), p, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || !grouped) return err;
+    const int64_t n4 = (int64_t)p.B * p.Sk * p.Hkv * D / 4;
+    bwd_kv_reduce_kernel<D><<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+        dk_part, dv_part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n4,
+        p.H / p.Hkv);
   } else {
     constexpr size_t smem = bwd_f32_smem<D>();
     err = cudaFuncSetAttribute(packed_bwd_f32_kernel<D, SPANS>,
@@ -1446,15 +1739,19 @@ int k1_forward(const void* q, const void* k, const void* v, void* o,
 
 // dq_acc: fp32 [B, Sq, H, D], zeroed by the caller (for fp32 inputs it
 // is dq itself); delta: fp32 scratch [B, H, Sq]; dk/dv in k's type
-// [B, Sk, Hkv, D], written in full.
+// [B, Sk, Hkv, D], written in full. work: fp32 scratch [2, B, Sk, H, D]
+// (the per-query-head dK and dV) for bfloat16 at D 64 or 128 when
+// H > Hkv, else unused and may be null.
 int k1_backward(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const void* lse, void* delta, void* dq_acc,
-                void* dk, void* dv, const void* segq, const void* segk,
-                const void* spanq, const void* spank, void* sumq, void* sumk,
-                int B, int Sq, int Sk, int H, int Hkv, int D, int dtype,
-                int mode, int window, int kv_offset, void* stream) {
+                void* dk, void* dv, void* work, const void* segq,
+                const void* segk, const void* spanq, const void* spank,
+                void* sumq, void* sumk, int B, int Sq, int Sk, int H,
+                int Hkv, int D, int dtype, int mode, int window,
+                int kv_offset, void* stream) {
   if (bad_args(B, Sq, Sk, H, Hkv, D, dtype, mode, window) ||
-      (spanq == nullptr) != (spank == nullptr))
+      (spanq == nullptr) != (spank == nullptr) ||
+      (work == nullptr && dtype == 1 && D != 256 && H != Hkv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Params p = make_params(B, Sq, Sk, H, Hkv, mode, window, kv_offset,
@@ -1465,12 +1762,13 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   float* dqa = static_cast<float*>(dq_acc);
+  float* w = static_cast<float*>(work);
   const bool spans = spanq != nullptr;
 #define K1_BWD(T, DD)                                                      \
   return (int)(spans ? launch_bwd<T, DD, true>(q, k, v, o, dout, l, dl,    \
-                                               dqa, dk, dv, p, s)          \
+                                               dqa, dk, dv, w, p, s)       \
                      : launch_bwd<T, DD, false>(q, k, v, o, dout, l, dl,   \
-                                                dqa, dk, dv, p, s))
+                                                dqa, dk, dv, w, p, s))
   if (dtype == 0) {
     if (D == 64) K1_BWD(float, 64);
     K1_BWD(float, 128);
@@ -1482,6 +1780,34 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
   }
 #undef K1_BWD
   return (int)cudaErrorInvalidValue;
+}
+
+// The launch of k1_backward's main kernel for these arguments: out[0..2]
+// its grid, out[3] its threads per block, out[4] its dynamic shared
+// memory in bytes, out[5] the bytes of fp32 scratch `work` it needs (0:
+// none, pass null). Returns 0, or cudaErrorInvalidValue for arguments
+// k1_backward refuses. Launches nothing.
+int k1_backward_plan(int B, int Sq, int Sk, int H, int Hkv, int D,
+                     int dtype, long long* out) {
+  if (bad_args(B, Sq, Sk, H, Hkv, D, dtype, kCausal, 0))
+    return (int)cudaErrorInvalidValue;
+  long long plan[6] = {(Sk + BS_BK - 1) / BS_BK, Hkv, B, BS_THREADS,
+                       (long long)(D == 64 ? bwd_f32_smem<64>()
+                                           : bwd_f32_smem<128>()),
+                       0};
+  if (dtype == 1 && D == 256) {
+    const long long wide[6] = {(Sk + B_BK - 1) / B_BK, Hkv, B, W_THREADS,
+                               (long long)BwdWideTile<256>::smem, 0};
+    for (int i = 0; i < 6; ++i) plan[i] = wide[i];
+  } else if (dtype == 1) {
+    const long long kv[6] = {
+        H, (Sk + K_BK - 1) / K_BK, B, K_THREADS,
+        (long long)(D == 64 ? BwdKvTile<64>::smem : BwdKvTile<128>::smem),
+        H != Hkv ? 2LL * B * Sk * H * D * (long long)sizeof(float) : 0};
+    for (int i = 0; i < 6; ++i) plan[i] = kv[i];
+  }
+  for (int i = 0; i < 6; ++i) out[i] = plan[i];
+  return 0;
 }
 
 const char* k1_error_string(int err) {

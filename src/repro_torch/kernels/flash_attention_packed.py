@@ -232,6 +232,26 @@ def _launch_fwd(q, k, v, tables, mode, window, kv_offset):
     return o, lse
 
 
+def backward_plan(B: int, Sq: int, Sk: int, H: int, Hkv: int, D: int,
+                  dtype: torch.dtype) -> dict:
+    """How the backward kernel launches for these shapes, as the library
+    computes it: `grid` (x, y, z), `threads` a block, `smem_bytes` of
+    dynamic shared memory, `work_bytes` of fp32 scratch the wrapper
+    allocates for it (bf16 at head_dim 64/128 with H > Hkv: each query
+    head's dK and dV before the group sum). Builds the library if
+    needed; launches nothing."""
+    lib = build.load("flash_attention_packed")
+    fn = lib.k1_backward_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * 6)()
+    if fn(B, Sq, Sk, H, Hkv, D, _DTYPES[dtype], out) != 0:
+        raise ValueError(f"no backward kernel for B={B} Sq={Sq} Sk={Sk} "
+                         f"H={H} Hkv={Hkv} D={D} {dtype}")
+    return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4],
+                work_bytes=out[5])
+
+
 def _launch_bwd(q, k, v, o, lse, do, tables, mode, window, kv_offset):
     segq, segk, spanq, spank = tables
     B, Sq, H, D = q.shape
@@ -242,19 +262,22 @@ def _launch_bwd(q, k, v, o, lse, do, tables, mode, window, kv_offset):
         raise ValueError("o and do must have q's dtype")
     lib = build.load("flash_attention_packed")
     fn = lib.k1_backward
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + \
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     sumq, sumk = _summaries(B, Sq, q.device), _summaries(B, Sk, q.device)
+    need = backward_plan(B, Sq, Sk, H, Hkv, D, q.dtype)["work_bytes"]
+    work = (torch.empty(need // 4, dtype=torch.float32, device=q.device)
+            if need else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 segq.data_ptr(), segk.data_ptr(), _ptr(spanq),
+                 _ptr(work), segq.data_ptr(), segk.data_ptr(), _ptr(spanq),
                  _ptr(spank), sumq.data_ptr(), sumk.data_ptr(), B, Sq, Sk,
                  H, Hkv, D, _DTYPES[q.dtype], MODES[mode],
                  int(window or 0), int(kv_offset), stream)

@@ -147,6 +147,142 @@ def test_packed_kernel_forward_and_backward_match_plain(card, dtype, D):
     assert flash_attention_packed_bwd.launches == n_bwd + len(K1_CASES)
 
 
+# The bf16 backward at D = 64 / 128: one block per (query head, 64-key
+# tile), each head's dK / dV summed over its KV head's group after the
+# kernel, dQ added with 16-byte vector atomics
+def _k1_bf16(card, rng, B, Sq, Sk, H, Hkv, D):
+    q, do = [torch.from_numpy(rng.standard_normal((B, Sq, H, D))
+                              .astype(np.float32)).to(card, torch.bfloat16)
+             for _ in range(2)]
+    k, v = [torch.from_numpy(rng.standard_normal((B, Sk, Hkv, D))
+                             .astype(np.float32)).to(card, torch.bfloat16)
+            for _ in range(2)]
+    return q, k, v, do
+
+
+def _k1_grads(card, q, k, v, do, seg, **kw):
+    """(kernel (dq, dk, dv), plain (dq, dk, dv)); the forward's o and lse
+    come from the kernel, as on the training path."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd,
+        flash_attention_packed_bwd_ref)
+    segt = torch.as_tensor(seg, device=card)
+    o, lse = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
+    got = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
+    want = flash_attention_packed_bwd_ref(q, k, v, do, segt, **kw)
+    torch.cuda.synchronize()
+    return got, want, (o, lse, segt)
+
+
+def _k1_close(tag, got, want):
+    """The other K1 checks' limits: GRAD_TOL elementwise, REL_TOL_BF16
+    as whole tensors."""
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        r = r.float()
+        diff = (a.float() - r).abs()
+        err = (diff / r.abs().clamp_min(1.0)).max().item()
+        rel = diff.max().item() / r.abs().max().item()
+        print(f"K1 bwd {tag} {name}: elementwise {err:.4g} whole {rel:.4g}")
+        assert err <= GRAD_TOL[torch.bfloat16], (tag, name, err)
+        assert rel <= REL_TOL_BF16, (tag, name, rel)
+
+
+def _frames(S, frame=256, text=32):
+    """One segment of S tokens with `frame`-token bidirectional spans
+    after every `text` causal tokens, as an openvid row packs."""
+    span = np.full(S, -1, np.int32)
+    p, sid = text, 0
+    while p < S:
+        span[p:p + frame] = sid
+        sid, p = sid + 1, p + frame + text
+    return np.zeros(S, np.int32), span
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_packed_backward_at_the_training_shape(card, D):
+    """The training path's shape: one 4096-token row, 12 query heads over
+    2 KV heads, 256-token frames, causal (at D = 128 internvl3-2b's
+    heads). Most tiles take the unmasked path; the launch count moves
+    once per call."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed_bwd)
+    rng = np.random.default_rng(30)
+    q, k, v, do = _k1_bf16(card, rng, 1, 4096, 4096, 12, 2, D)
+    seg, span = _frames(4096)
+    n_bwd = flash_attention_packed_bwd.launches
+    got, want, _ = _k1_grads(card, q, k, v, do, seg,
+                             span_ids=torch.from_numpy(span).to(card))
+    _k1_close(f"4096 D={D}", got, want)
+    assert flash_attention_packed_bwd.launches == n_bwd + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("mode,window,spans", [("causal", None, True),
+                                               ("full", None, False),
+                                               ("sliding", 100, True)])
+def test_packed_backward_one_query_head_per_kv_head(card, D, mode, window,
+                                                    spans):
+    """H == Hkv: each block writes bf16 dK / dV itself and the reduction
+    is skipped. Segments long enough for whole 64-row tiles in one
+    segment (the unmasked path) beside ragged ones."""
+    rng = np.random.default_rng(31)
+    B, S, H = 2, 700, 4
+    seg, span = _packed_tables(B, S, [300, 37, 250, 1], spans, frame=40)
+    q, k, v, do = _k1_bf16(card, rng, B, S, S, H, H, D)
+    kw = dict(mode=mode, window=window)
+    if spans:
+        kw["span_ids"] = torch.from_numpy(span).to(card)
+    got, want, _ = _k1_grads(card, q, k, v, do, seg, **kw)
+    _k1_close(f"G=1 D={D} {mode}", got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_packed_backward_rows_without_keys_are_zero(card, D):
+    """A ring hop whose keys hold no token of some query segments (their
+    rows have LSE -inf) and padding on both sides: those rows of dq, and
+    the rows of dk / dv no query sees, are exactly 0; the rest match
+    the plain version."""
+    rng = np.random.default_rng(32)
+    B, Sq, Sk, H, Hkv = 1, 300, 200, 12, 2
+    seg = np.full((B, Sq), -1, np.int32)
+    seg[0, :120], seg[0, 120:250] = 0, 1          # segment 1: no keys
+    kseg = np.full((B, Sk), -2, np.int32)
+    kseg[0, :150] = 0                             # kv padding after 150
+    q, k, v, do = _k1_bf16(card, rng, B, Sq, Sk, H, Hkv, D)
+    kw = dict(kv_segment_ids=torch.from_numpy(kseg).to(card),
+              kv_offset=-Sk)
+    got, want, (_, lse, _) = _k1_grads(card, q, k, v, do, seg, **kw)
+    _k1_close(f"no keys D={D}", got, want)
+    assert torch.isinf(lse[0, :, 120:]).all()
+    assert torch.isfinite(lse[0, :, :120]).all()
+    assert (got[0][0, 120:] == 0).all()
+    assert (got[1][0, 150:] == 0).all() and (got[2][0, 150:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_packed_backward_dk_dv_are_deterministic(card, D):
+    """dK and dV are written once per (query head, key) and summed over
+    the group in a fixed order: two calls give the same bits. (dQ is
+    added with atomics in an order that varies, so it is not.)"""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed_bwd)
+    rng = np.random.default_rng(33)
+    B, S = 2, 1024
+    seg, span = _packed_tables(B, S, [600, 300, 100], True, frame=64)
+    q, k, v, do = _k1_bf16(card, rng, B, S, S, 12, 2, D)
+    kw = dict(span_ids=torch.from_numpy(span).to(card))
+    got, want, (o, lse, segt) = _k1_grads(card, q, k, v, do, seg, **kw)
+    _k1_close(f"determinism D={D}", got, want)
+    n_bwd = flash_attention_packed_bwd.launches
+    again = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
+    assert flash_attention_packed_bwd.launches == n_bwd + 1
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+
+
 # ----------------------------------------------------- SSD chunk (K3)
 #: K3 against its plain version run in fp64 on the same inputs (the
 #: exact value of the function): y, states and cum within K3_TOL x max(1,
