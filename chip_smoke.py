@@ -43,8 +43,8 @@ Phases:
                 elements are far below 1, so the elementwise limit alone
                 is about as large as a typical gradient). Prints the
                 bf16 D=128 backward's design facts at one 4096-token
-                row: its stage, grid, threads, shared memory and the
-                fp32 scratch of the heads' dK / dV partials
+                row: its stage, and the grid, threads, shared memory and
+                fp32 scratch (the heads' dK / dV) of the launch that ran
   8. train parity — reduced internvl3-2b, fp32: two DHP training steps
                 with the kernels (attn_impl="cuda") vs the same steps
                 through the plain full-matrix attention: losses, the
@@ -560,23 +560,6 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
 K1_BWD_STAGE = 4
 
 
-def k1_bwd_design(card):
-    """Facts of K1's bf16 backward at the training path's shape (one
-    4096-token row, internvl3-2b's heads): its stage, its launch as the
-    library computes it, and the scratch the wrapper allocates for it."""
-    from repro_torch.kernels.flash_attention_packed import backward_plan
-    plan = backward_plan(1, 4096, 4096, H, HKV, D, torch.bfloat16)
-    gx, gy, gz = plan["grid"]
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    facts = dict(stage=K1_BWD_STAGE, grid=[gx, gy, gz],
-                 blocks=gx * gy * gz, threads=plan["threads"], sms=sms,
-                 smem_bytes=plan["smem_bytes"],
-                 dkdv_scratch_bytes=plan["work_bytes"],
-                 dq_fp32_bytes=4 * 4096 * H * D)
-    print(f"  K1 bwd design {json.dumps(facts)} ({card})")
-    return facts
-
-
 def phase_packed(dev, card):
     gen = torch.Generator(device=dev).manual_seed(2)
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -587,6 +570,16 @@ def phase_packed(dev, card):
             seg, span = packed_layout(S, lens, frame)
             rows.append(check_packed(dev, card, gen, S, bf16, seg, span,
                                      tag="synthetic"))
+            if S == 4096 and frame:
+                # the training path's shape: one 4096-token row, 12:2
+                # heads, D = 128; the launch as the library recorded it
+                from repro_torch.kernels.flash_attention_packed import (
+                    last_bwd_kv_launch)
+                facts = dict(stage=K1_BWD_STAGE, **last_bwd_kv_launch())
+                facts["sms"] = torch.cuda.get_device_properties(
+                    0).multi_processor_count
+                print(f"  K1 bwd design at S={S} H={H} Hkv={HKV} D={D} "
+                      f"{json.dumps(facts)} ({card})")
     S, lens = 1024, [400, 300, 250]
     seg, span = packed_layout(S, lens, 128)
     rows.append(check_packed(dev, card, gen, S, fp32, seg, span,
@@ -1532,7 +1525,6 @@ def main() -> int:
 
     print("[7/19] packed kernel K1 vs plain versions")
     packed_rows = phase_packed(dev, card)
-    k1_design = k1_bwd_design(card)
     print("[8/19] training parity at reduced size (fp32)")
     phase_train_parity(dev)
     print("[9/19] full-width DHP training (bf16)")
@@ -1566,7 +1558,6 @@ def main() -> int:
             "library_ms": main_k1[f"library_{which}_ms"],
             "shape": f"B=1 S={main_k1['S']} H={H} Hkv={HKV} D={D} bf16 "
                      f"causal spans={main_k1['spans']}",
-            **({"design": k1_design} if which == "bwd" else {}),
             "path_shapes": [dict(
                 bucket=r["S"], spans=r["spans"], launches=r["launches"],
                 pairs=r["pairs"], err=r["err"], rel_err=r["rel_err"],

@@ -1,20 +1,42 @@
-"""Holds the bf16 limits of K1's checks between sound and faulty kernels.
+"""K1's bf16 limits against planted faults, and K1's bf16 backward timed
+against other source trees, on one card.
 
     python3 k1_fault_check.py [--out FILE]
+    python3 k1_fault_check.py --time [--tree LABEL=DIR ...]
+                              [--variant LABEL=TREE:EDIT[+EDIT...] ...]
+                              [--rounds N] [--out FILE]
 
-For each planted fault below, copies `src/repro_torch` into a temporary
-directory, plants the fault in the copy's `flash_attention_packed.cu`,
-builds it there on the card and runs K1 forward and backward against
+Both modes build edited copies of `flash_attention_packed.cu` with nvcc
+in a temporary directory, one nvcc per copy, all at once. The checkout
+itself is never edited. Needs one NVIDIA GPU and nvcc; prints the
+card's name and power limit.
+
+Fault mode (the default): for each planted fault of FAULTS, the port's
+K1 wrappers run on that copy's library, forward and backward, against
 the plain versions at internvl3-2b's heads (12 query, 2 KV, head_dim
-128) over packed layouts of 1024 and 4096 tokens. For each of o, dq,
-dk, dv it prints, per case, max|err| / max(1, |plain|) (`elementwise`,
-the form `chip_smoke.py` holds to 2e-2 / 4e-2) and max|err| / max|plain|
-(`whole`, held to 2e-2 in bf16). A limit is sound when every "sound"
-reading lies below it and every fault reads above it on the tensor it
-touches. The checkout itself is never edited. Needs one NVIDIA GPU and
-nvcc; exits non-zero when a fault passes the whole-tensor limit.
+128) over the packed layouts of `cases()` (1024 and 4096 tokens). For
+each of o, dq, dk, dv it prints, per case, max|err| / max(1, |plain|)
+(`elementwise`, the form `chip_smoke.py` holds to 2e-2 for o and 4e-2
+for the gradients) and max|err| / max|plain| (`whole`, held to 2e-2 in
+bf16). The whole-tensor limit is sound when every "sound" reading lies
+below it and each fault reads above it, on a tensor it must show in, in
+every case it must show in. Exits non-zero otherwise.
+
+Time mode: the checkout's tree is "change"; `--tree` adds another
+checkout root (for example the parent commit unpacked with `git
+archive`), and `--variant` a tree's source with the named EDITS applied
+(measurements only: some drop work on purpose, and their errors show
+it). Each is called through its C interface `k1_backward` on one
+4096-token openvid row with its 256-token frames: 12:2 heads, D = 128,
+bf16, causal with spans (internvl3-2b's attention on the training path),
+held to the plain version (max|err| / max|plain| of dq, dk, dv, and
+whether two calls give the same dk and dv bits), and timed in turns,
+forwards then backwards, `--rounds` times (CUDA events, 10 calls after
+2), beside SDPA with the tables' boolean mask and `chip_smoke.py`'s
+bound.
 """
 import argparse
+import ctypes
 import json
 import os
 import shutil
@@ -23,74 +45,136 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
 CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                   "flash_attention_packed.cu")
 REL_TOL_BF16 = 2e-2     # as in chip_smoke.py
+H, HKV, D, S = 12, 2, 128, 4096
 
-#: fault name -> (the tensors it must show in, [(text, replacement)]);
-#: the backward faults are planted in the bf16 kernel at D = 64 / 128
+#: fault name -> (the tensors it must show in, the modes of the cases it
+#: must show in (None: every case), [(text, replacement)]); the backward
+#: faults are planted in the bf16 kernel at D = 64 / 128
 #: (packed_bwd_kv_kernel) and its group reduction
 FAULTS = {
-    "sound": ((), []),
-    "dq_drops_key_tile": (("dq",), [(
+    "sound": ((), None, []),
+    "dq_drops_key_tile": (("dq",), None, [(
         "        if (row < Sq) red_add_v4(",
         "        if (row < Sq && k0 != 128) red_add_v4(")]),
-    "bwd_skips_query_tile": (("dq", "dk", "dv"), [(
+    "bwd_skips_query_tile": (("dq", "dk", "dv"), None, [(
         "            FULL, qt < Sq && tile_live<SPANS>(",
         "            FULL, qt < Sq && qt != 192 && tile_live<SPANS>(")]),
-    "dk_skips_query_tile": (("dk",), [(
+    "dk_skips_query_tile": (("dk",), None, [(
         "        const uint64_t dsc = wg_desc(c0 + kk * 2048, SW_BLOCK, "
         "SW_GROUP);\n",
         "        const uint64_t dsc = wg_desc(c0 + kk * 2048, SW_BLOCK, "
         "SW_GROUP);\n        if (dk_warp && q0 == 192) continue;\n")]),
-    "query_start_one_tile_late": (("dq", "dk", "dv"), [(
+    "query_start_one_tile_late": (("dq", "dk", "dv"), None, [(
         "  i_lo = (i_lo / K_BQ) * K_BQ;\n",
         "  i_lo = (i_lo / K_BQ) * K_BQ + K_BQ;\n")]),
-    "reduction_drops_a_head": (("dk", "dv"), [(
+    "reduction_drops_a_head": (("dk", "dv"), None, [(
         "  for (int hh = 1; hh < G; ++hh) {",
         "  for (int hh = 1; hh < G - 1; ++hh) {")]),
-    "fwd_drops_key_tile": (("o",), [(
+    # the unmasked path taken one query tile too far: the diagonal tile
+    # (keys after some of its queries), and past the window's edge (keys
+    # within the window of the tile's first query but not its last)
+    "unmasked_causal_edge": (("dq", "dk", "dv"), ("causal",), [(
+        "                     (kpos_w + 15 <= q0 &&",
+        "                     (kpos_w + 15 <= q0 + K_BQ &&")]),
+    "unmasked_window_edge": (("dq", "dk", "dv"), ("sliding",), [(
+        "                       kpos_w > q0 + K_BQ - 1 - p.window)));",
+        "                       kpos_w > q0 - 1 - p.window)));")]),
+    "fwd_drops_key_tile": (("o",), None, [(
         "if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + F_BK, Sk))) "
         "continue;",
         "if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + F_BK, Sk)) || "
         "j0 == 128) continue;")]),
 }
 
+#: measurement-only edits of this tree's kernel for `--time --variant`
+EDITS = {
+    "no_dq_adds": [("        if (row < Sq) red_add_v4(",
+                    "        if (row < -1) red_add_v4(")],
+    "no_dq": [("    if (D == 128 || !dk_warp) {",
+               "    if (p.B < 0) {")],
+    "unmasked": [(
+        "      all_ok = __all_sync(FULL, all_ok && segq_s[lane] == seg_w &&\n"
+        "                                    segq_s[lane + 32] == seg_w);",
+        "      all_ok = p.B > 0;")],
+    # as many blocks an SM as a two-stage ring of query tiles would allow
+    "one_block_per_sm": [
+        ("__global__ void __launch_bounds__(K_THREADS, 2)",
+         "__global__ void __launch_bounds__(K_THREADS, 1)"),
+        ("      1024 + 4 * TB + K_BK * K_BQ * 2 +",
+         "      1024 + 6 * TB + K_BK * K_BQ * 2 +")],
+}
 
+
+def plant(src: str, edits, what: str) -> str:
+    """`src` with each (text, replacement) applied to its first match."""
+    for text, new in edits:
+        if text not in src:
+            raise SystemExit(f"{what}: the text to edit is not in the source")
+        src = src.replace(text, new, 1)
+    return src
+
+
+def build(sources: dict, tmp: str) -> dict:
+    """label -> source text, built at once (one nvcc each); label ->
+    loaded library."""
+    from repro_torch.kernels.build import NVCC_FLAGS, _nvcc
+    procs = {}
+    for label, text in sources.items():
+        cu, so = (os.path.join(tmp, f"{label}{ext}") for ext in (".cu", ".so"))
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[label] = (so, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", so, cu], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for label, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"nvcc failed for {label}:\n{log[-4000:]}")
+        libs[label] = ctypes.CDLL(so)
+    return libs
+
+
+# ------------------------------------------------------------ fault mode
 def cases():
     """(name, S, lens, frame, text, mode, window): the layouts of
-    chip_smoke.py phase 7 plus a long and a single segment."""
+    chip_smoke.py phase 7 plus a long and a single segment, and sliding
+    at 4096 tokens."""
     out = []
-    for S, lens in ((1024, [400, 300, 250]),
+    for n, lens in ((1024, [400, 300, 250]),
                     (4096, [1500, 900, 1200, 400])):
         for frame in (None, 256):
-            out.append((f"S{S}_spans{frame is not None}", S, lens, frame,
+            out.append((f"S{n}_spans{frame is not None}", n, lens, frame,
                         32, "causal", None))
     out.append(("full1024", 1024, [400, 300, 250], 128, 32, "full", None))
     out.append(("sliding1024", 1024, [400, 300, 250], 128, 32, "sliding",
                 256))
+    out.append(("sliding4096", 4096, [2600, 1200], 256, 32, "sliding", 256))
     out.append(("S4096_long", 4096, [2600, 1200], 256, 32, "causal", None))
     out.append(("S4096_one", 4096, [3900], 256, 64, "causal", None))
     return out
 
 
-def worker(fault: str) -> None:
-    """Runs in the copy's directory: readings of every case."""
-    import torch
-    sys.path.insert(0, os.path.join(os.getcwd(), "src"))
-    sys.path.insert(0, ROOT)
+def readings(torch):
+    """One row of readings a case, through the port's wrappers and
+    whatever library `build.load` hands them."""
     from chip_smoke import packed_layout
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed, flash_attention_packed_bwd,
         flash_attention_packed_bwd_ref, flash_attention_packed_ref)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    H, HKV, D, bf16 = 12, 2, 128, torch.bfloat16
-    for name, S, lens, frame, text, mode, window in cases():
-        seg, span = packed_layout(S, lens, frame, text)
-        q, do = (torch.randn(1, S, H, D, generator=gen, device=dev).to(bf16)
+    bf16 = torch.bfloat16
+    rows = []
+    for name, n, lens, frame, text, mode, window in cases():
+        seg, span = packed_layout(n, lens, frame, text)
+        q, do = (torch.randn(1, n, H, D, generator=gen, device=dev).to(bf16)
                  for _ in range(2))
-        k, v = (torch.randn(1, S, HKV, D, generator=gen, device=dev)
+        k, v = (torch.randn(1, n, HKV, D, generator=gen, device=dev)
                 .to(bf16) for _ in range(2))
         segt = torch.as_tensor(seg, device=dev)
         kw = dict(mode=mode, window=window, span_ids=None if span is None
@@ -100,67 +184,198 @@ def worker(fault: str) -> None:
                                                       segt, **kw))
         want = (flash_attention_packed_ref(q, k, v, segt, **kw)[0],) + \
             tuple(flash_attention_packed_bwd_ref(q, k, v, do, segt, **kw))
-        row = {"case": name}
+        row = {"case": name, "mode": mode}
         for t, a, r in zip(("o", "dq", "dk", "dv"), got, want):
             r = r.float()
             d = (a.float() - r).abs()
             row[t] = {
                 "elementwise": (d / r.abs().clamp_min(1.0)).max().item(),
                 "whole": d.max().item() / r.abs().max().item()}
-        print(json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def fault_mode(torch, tmp):
+    from repro_torch.kernels import build as kbuild
+    src = open(os.path.join(ROOT, CU)).read()
+    libs = build({f: plant(src, edits, f)
+                  for f, (_, _, edits) in FAULTS.items()}, tmp)
+    result, ok = {}, True
+    for fault, (shows, modes, _) in FAULTS.items():
+        # the wrappers load "flash_attention_packed" through build.load
+        kbuild._libs["flash_attention_packed"] = libs[fault]
+        rows = readings(torch)
+        torch.cuda.synchronize()
+        must = [r for r in rows if modes is None or r["mode"] in modes]
+        for r in rows:
+            print(json.dumps({"fault": fault, **r}), flush=True)
+        for t in ("o", "dq", "dk", "dv"):
+            whole = [r[t]["whole"] for r in must]
+            elt = [r[t]["elementwise"] for r in must]
+            print(f"{fault:26s} {t:2s} whole {min(whole):.4f}-"
+                  f"{max(whole):.4f}  elementwise {min(elt):.4f}-"
+                  f"{max(elt):.4f}  ({len(must)} cases)")
+        if fault == "sound":
+            caught = [False]
+            ok &= all(r[t]["whole"] <= REL_TOL_BF16 for r in rows
+                      for t in ("o", "dq", "dk", "dv"))
+        else:
+            caught = [max(r[t]["whole"] for t in shows) > REL_TOL_BF16
+                      for r in must]
+            ok &= all(caught)
+        result[fault] = {"rows": rows, "caught_in": sum(caught),
+                         "cases": len(must)}
+    return {"ok": ok, "rel_tol_bf16": REL_TOL_BF16, "faults": result}
+
+
+# ------------------------------------------------------------- time mode
+def inputs(torch):
+    """The main path's row: one 4096-token openvid sequence with its
+    frames, random bf16 q, k, v, dO (seed 0), o and LSE from K1."""
+    from repro_torch.core.packing import flatten_group
+    from repro_torch.data.pipeline import HeterogeneousLoader
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed)
+    batch = next(HeterogeneousLoader("openvid", 8, 151674, seed=0,
+                                     max_tokens=S, tokens_per_frame=256))
+    spans = batch.spans_by_id()
+    info, toks = next((i, t) for i, t in zip(batch.infos, batch.tokens)
+                      if len(t) == S)
+    b, _ = flatten_group([toks], S, spans=[spans.get(info.seq_id)])
+    dev = torch.device("cuda")
+    seg = torch.as_tensor(b["segment_ids"][0], device=dev)
+    span = torch.as_tensor(b["modality_ids"][0], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, do = (torch.randn(1, S, H, D, generator=gen, device=dev).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(1, S, HKV, D, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    o, lse = flash_attention_packed(q, k, v, seg, span_ids=span,
+                                    return_lse=True)
+    return dict(q=q, k=k, v=v, o=o, lse=lse, do=do, seg=seg, span=span)
+
+
+def backward(torch, lib, x):
+    """dq, dk, dv through `lib`'s k1_backward. Trees from before the
+    scratch pointer `work` (no k1_last_bwd_kv_launch) take none."""
+    from repro_torch.kernels.flash_attention_packed import (_summaries,
+                                                            _tables)
+    q, k = x["q"], x["k"]
+    segq, segk, spanq, spank = _tables(q, k, x["seg"], x["span"], None,
+                                       None)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(x["v"])
+    delta = torch.empty(1, H, S, dtype=torch.float32, device=q.device)
+    ptrs = [q, k, x["v"], x["o"], x["do"], x["lse"], delta, dq, dk, dv]
+    if hasattr(lib, "k1_last_bwd_kv_launch"):
+        ptrs.append(torch.empty(2 * S * H * D, dtype=torch.float32,
+                                device=q.device))
+    ptrs += [segq, segk, spanq, spank, _summaries(1, S, q.device),
+             _summaries(1, S, q.device)]
+    fn = lib.k1_backward
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 10 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*[t.data_ptr() for t in ptrs], 1, S, S, H, HKV, D, 1, 1, 0, 0,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"k1_backward returned {err}")
+    return dq.bfloat16(), dk, dv
+
+
+def time_mode(torch, tmp, trees, variants, rounds):
+    import torch.nn.functional as F
+    from chip_smoke import cuda_ms, packed_bound
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed_bwd_ref, pair_mask, _tables)
+    srcs = {label: open(os.path.join(root, CU)).read()
+            for label, root in trees.items()}
+    for label, spec in variants.items():
+        tree, names = spec.split(":")
+        srcs[label] = plant(srcs[tree], [e for n in names.split("+")
+                                         for e in EDITS[n]], label)
+    libs = build(srcs, tmp)
+    x = inputs(torch)
+    ref = flash_attention_packed_bwd_ref(x["q"], x["k"], x["v"], x["do"],
+                                         x["seg"], span_ids=x["span"])
+    rows = {}
+    for label, lib in libs.items():
+        got, again = backward(torch, lib, x), backward(torch, lib, x)
+        torch.cuda.synchronize()
+        rows[label] = {"whole_err": {
+            n: ((a.float() - r.float()).abs().max()
+                / r.float().abs().max()).item()
+            for n, a, r in zip(("dq", "dk", "dv"), got, ref)},
+            "dk_dv_same_bits": bool(torch.equal(got[1], again[1])
+                                    and torch.equal(got[2], again[2])),
+            "ms": []}
+    order = list(libs) + list(libs)[::-1]
+    for _ in range(rounds):
+        for label in order:
+            rows[label]["ms"].append(cuda_ms(
+                lambda: backward(torch, libs[label], x), iters=10,
+                warmup=2))
+    tabs = _tables(x["q"], x["k"], x["seg"], x["span"], None, None)
+    mask = pair_mask(S, S, *tabs)
+    pairs = int(mask.sum())
+    qt, kt, vt = (x[n].transpose(1, 2).contiguous().requires_grad_(True)
+                  for n in ("q", "k", "v"))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None],
+                                         enable_gqa=True)
+    dot = x["do"].transpose(1, 2)
+    sdpa = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True),
+                   iters=10, warmup=2)
+    bound, bound_by = packed_bound(1, S, S, H, HKV, D, torch.bfloat16,
+                                   pairs, True, 2)
+    for label, row in rows.items():
+        print(f"{label:24s} ms {row['ms']}  whole err {row['whole_err']} "
+              f"same dk/dv bits {row['dk_dv_same_bits']}")
+    return {"shape": f"B=1 S={S} H={H} Hkv={HKV} D={D} bf16 causal spans",
+            "pairs": pairs, "bound_ms": bound, "bound_by": bound_by,
+            "sdpa_ms": sdpa, "kernels": rows}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--time", action="store_true",
+                    help="time the backward of trees and variants")
+    ap.add_argument("--tree", action="append", default=[])
+    ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--out", help="write every reading to this JSON file")
-    ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
-    if args.worker:
-        worker(args.worker)
-        return 0
     import torch
     if not torch.cuda.is_available():
         print("k1_fault_check: no CUDA device visible", file=sys.stderr)
         return 1
-    readings, ok = {}, True
-    for fault, (shows, edits) in FAULTS.items():
-        with tempfile.TemporaryDirectory() as tmp:
-            shutil.copytree(os.path.join(ROOT, "src", "repro_torch"),
-                            os.path.join(tmp, "src", "repro_torch"),
-                            ignore=shutil.ignore_patterns("__pycache__"))
-            path = os.path.join(tmp, CU)
-            src = open(path).read()
-            for text, new in edits:
-                if text not in src:
-                    raise SystemExit(f"{fault}: line to edit not found")
-                src = src.replace(text, new, 1)
-            with open(path, "w") as f:
-                f.write(src)
-            run = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                  "--worker", fault], cwd=tmp,
-                                 capture_output=True, text=True)
-        if run.returncode != 0:
-            print(run.stderr[-4000:], file=sys.stderr)
-            raise SystemExit(f"{fault}: the run failed")
-        rows = [json.loads(line) for line in run.stdout.splitlines()]
-        readings[fault] = rows
-        for t in ("o", "dq", "dk", "dv"):
-            whole = [r[t]["whole"] for r in rows]
-            elt = [r[t]["elementwise"] for r in rows]
-            print(f"{fault:26s} {t:2s} whole {min(whole):.4f}-"
-                  f"{max(whole):.4f}  elementwise {min(elt):.4f}-"
-                  f"{max(elt):.4f}")
-        if fault == "sound":
-            ok &= all(r[t]["whole"] <= REL_TOL_BF16 for r in rows
-                      for t in ("o", "dq", "dk", "dv"))
+    from chip_smoke import card_line
+    card = card_line()
+    print(card)
+    tmp = tempfile.mkdtemp()
+    try:
+        if args.time:
+            trees = {"change": ROOT}
+            trees.update(t.split("=", 1) for t in args.tree)
+            result = time_mode(torch, tmp, trees,
+                               dict(v.split("=", 1) for v in args.variant),
+                               args.rounds)
         else:
-            ok &= all(max(r[t]["whole"] for t in shows) > REL_TOL_BF16
-                      for r in rows)
+            result = fault_mode(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["card"] = card
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(readings, f)
-    print(json.dumps({"ok": ok, "rel_tol_bf16": REL_TOL_BF16}))
-    return 0 if ok else 1
+            json.dump(result, f)
+    summary = {k: v for k, v in result.items()
+               if k not in ("faults", "kernels")}
+    if "faults" in result:
+        summary["caught"] = {f: f"{r['caught_in']}/{r['cases']}"
+                             for f, r in result["faults"].items()
+                             if f != "sound"}
+    print(json.dumps(summary))
+    return 0 if result.get("ok", True) else 1
 
 
 if __name__ == "__main__":

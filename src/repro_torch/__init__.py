@@ -5,15 +5,6 @@ imports torch and numpy, never JAX, and nothing of `repro`. Entry points
 (`Engine`, `ClusterSpec`, `ServingEngine`) run on the CUDA card unless
 the caller passes `device="cpu"`.
 """
-import torch as _torch
-
-# The first `torch.exp` of a process, when torch's CPU threads share it,
-# can come back about 1.5e-4 off on one thread's part of the elements
-# (about 1 fresh process in 30 on a loaded 8-core machine; none when a
-# one-thread exp ran first; exp_fault_check.py at the repository root
-# repeats it). One exp of a single element, on one thread, comes first.
-_torch.exp(_torch.zeros(1))
-
-from .api import ClusterSpec, Engine, get_strategy  # noqa: E402
+from .api import ClusterSpec, Engine, get_strategy
 
 __all__ = ["ClusterSpec", "Engine", "get_strategy"]

@@ -1599,6 +1599,10 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// grid x, y, z, threads, shared memory and scratch bytes of the last
+// packed_bwd_kv_kernel launch (k1_last_bwd_kv_launch reads them)
+static long long g_bwd_kv_launch[6] = {0, 0, 0, 0, 0, 0};
+
 template <typename T, int D, bool SPANS>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* o, const void* dout, const float* lse,
@@ -1634,6 +1638,11 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     float* dk_part = grouped ? work : nullptr;
     float* dv_part = grouped ? work + (int64_t)p.B * p.Sk * p.H * D : nullptr;
     const dim3 grid(p.H, (p.Sk + K_BK - 1) / K_BK, p.B);
+    const long long launch[6] = {
+        grid.x, grid.y, grid.z, K_THREADS, (long long)smem,
+        grouped ? 2LL * p.B * p.Sk * p.H * D * (long long)sizeof(float)
+                : 0};
+    for (int i = 0; i < 6; ++i) g_bwd_kv_launch[i] = launch[i];
     packed_bwd_kv_kernel<D, SPANS><<<grid, K_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
@@ -1782,32 +1791,12 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-// The launch of k1_backward's main kernel for these arguments: out[0..2]
-// its grid, out[3] its threads per block, out[4] its dynamic shared
-// memory in bytes, out[5] the bytes of fp32 scratch `work` it needs (0:
-// none, pass null). Returns 0, or cudaErrorInvalidValue for arguments
-// k1_backward refuses. Launches nothing.
-int k1_backward_plan(int B, int Sq, int Sk, int H, int Hkv, int D,
-                     int dtype, long long* out) {
-  if (bad_args(B, Sq, Sk, H, Hkv, D, dtype, kCausal, 0))
-    return (int)cudaErrorInvalidValue;
-  long long plan[6] = {(Sk + BS_BK - 1) / BS_BK, Hkv, B, BS_THREADS,
-                       (long long)(D == 64 ? bwd_f32_smem<64>()
-                                           : bwd_f32_smem<128>()),
-                       0};
-  if (dtype == 1 && D == 256) {
-    const long long wide[6] = {(Sk + B_BK - 1) / B_BK, Hkv, B, W_THREADS,
-                               (long long)BwdWideTile<256>::smem, 0};
-    for (int i = 0; i < 6; ++i) plan[i] = wide[i];
-  } else if (dtype == 1) {
-    const long long kv[6] = {
-        H, (Sk + K_BK - 1) / K_BK, B, K_THREADS,
-        (long long)(D == 64 ? BwdKvTile<64>::smem : BwdKvTile<128>::smem),
-        H != Hkv ? 2LL * B * Sk * H * D * (long long)sizeof(float) : 0};
-    for (int i = 0; i < 6; ++i) plan[i] = kv[i];
-  }
-  for (int i = 0; i < 6; ++i) out[i] = plan[i];
-  return 0;
+// The last launch of packed_bwd_kv_kernel (bfloat16 at D 64 or 128), as
+// launch_bwd made it: out[0..2] its grid, out[3] its threads per block,
+// out[4] its dynamic shared memory in bytes, out[5] the bytes of `work`
+// it addressed (0 when H == Hkv). All 0 before the first such launch.
+void k1_last_bwd_kv_launch(long long* out) {
+  for (int i = 0; i < 6; ++i) out[i] = g_bwd_kv_launch[i];
 }
 
 const char* k1_error_string(int err) {

@@ -232,22 +232,16 @@ def _launch_fwd(q, k, v, tables, mode, window, kv_offset):
     return o, lse
 
 
-def backward_plan(B: int, Sq: int, Sk: int, H: int, Hkv: int, D: int,
-                  dtype: torch.dtype) -> dict:
-    """How the backward kernel launches for these shapes, as the library
-    computes it: `grid` (x, y, z), `threads` a block, `smem_bytes` of
-    dynamic shared memory, `work_bytes` of fp32 scratch the wrapper
-    allocates for it (bf16 at head_dim 64/128 with H > Hkv: each query
-    head's dK and dV before the group sum). Builds the library if
-    needed; launches nothing."""
+def last_bwd_kv_launch() -> dict:
+    """The last launch of the bf16 backward kernel at head_dim 64 / 128,
+    as the library recorded it: `grid` (x, y, z), `threads` a block,
+    `smem_bytes` of dynamic shared memory and `work_bytes` of the fp32
+    scratch (each query head's dK and dV) it addressed."""
     lib = build.load("flash_attention_packed")
-    fn = lib.k1_backward_plan
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = (ctypes.c_longlong * 6)()
-    if fn(B, Sq, Sk, H, Hkv, D, _DTYPES[dtype], out) != 0:
-        raise ValueError(f"no backward kernel for B={B} Sq={Sq} Sk={Sk} "
-                         f"H={H} Hkv={Hkv} D={D} {dtype}")
+    lib.k1_last_bwd_kv_launch.argtypes = [ctypes.c_void_p]
+    lib.k1_last_bwd_kv_launch.restype = None
+    lib.k1_last_bwd_kv_launch(out)
     return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4],
                 work_bytes=out[5])
 
@@ -269,9 +263,11 @@ def _launch_bwd(q, k, v, o, lse, do, tables, mode, window, kv_offset):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     sumq, sumk = _summaries(B, Sq, q.device), _summaries(B, Sk, q.device)
-    need = backward_plan(B, Sq, Sk, H, Hkv, D, q.dtype)["work_bytes"]
-    work = (torch.empty(need // 4, dtype=torch.float32, device=q.device)
-            if need else None)
+    # bf16 at head_dim 64 / 128 with H > Hkv: each query head's dK and dV
+    # in fp32 before the group sum
+    work = (torch.empty(2 * B * Sk * H * D, dtype=torch.float32,
+                        device=q.device)
+            if q.dtype == torch.bfloat16 and D != 256 and H != Hkv else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

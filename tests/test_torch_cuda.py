@@ -204,9 +204,10 @@ def test_packed_backward_at_the_training_shape(card, D):
     """The training path's shape: one 4096-token row, 12 query heads over
     2 KV heads, 256-token frames, causal (at D = 128 internvl3-2b's
     heads). Most tiles take the unmasked path; the launch count moves
-    once per call."""
+    once per call, and the library records a launch of one block per
+    (query head, 64-key tile) with each head's fp32 dK / dV as scratch."""
     from repro_torch.kernels.flash_attention_packed import (
-        flash_attention_packed_bwd)
+        flash_attention_packed_bwd, last_bwd_kv_launch)
     rng = np.random.default_rng(30)
     q, k, v, do = _k1_bf16(card, rng, 1, 4096, 4096, 12, 2, D)
     seg, span = _frames(4096)
@@ -215,6 +216,9 @@ def test_packed_backward_at_the_training_shape(card, D):
                              span_ids=torch.from_numpy(span).to(card))
     _k1_close(f"4096 D={D}", got, want)
     assert flash_attention_packed_bwd.launches == n_bwd + 1
+    launch = last_bwd_kv_launch()
+    assert launch["grid"] == (12, 4096 // 64, 1), launch
+    assert launch["work_bytes"] == 2 * 4096 * 12 * D * 4, launch
 
 
 @pytest.mark.cuda
@@ -227,6 +231,7 @@ def test_packed_backward_one_query_head_per_kv_head(card, D, mode, window,
     """H == Hkv: each block writes bf16 dK / dV itself and the reduction
     is skipped. Segments long enough for whole 64-row tiles in one
     segment (the unmasked path) beside ragged ones."""
+    from repro_torch.kernels.flash_attention_packed import last_bwd_kv_launch
     rng = np.random.default_rng(31)
     B, S, H = 2, 700, 4
     seg, span = _packed_tables(B, S, [300, 37, 250, 1], spans, frame=40)
@@ -236,6 +241,7 @@ def test_packed_backward_one_query_head_per_kv_head(card, D, mode, window,
         kw["span_ids"] = torch.from_numpy(span).to(card)
     got, want, _ = _k1_grads(card, q, k, v, do, seg, **kw)
     _k1_close(f"G=1 D={D} {mode}", got, want)
+    assert last_bwd_kv_launch()["work_bytes"] == 0
 
 
 @pytest.mark.cuda
