@@ -107,7 +107,9 @@ Phases:
  16. packed 256 — K1 in bf16 at recurrentgemma-2b's heads (10 query heads
                 over one KV head, D = 256), sliding at window 2048 over a
                 4096-token row with and without 256-token frames, and a
-                span longer than its window; phase 7's limits
+                span longer than its window; phase 7's limits. Prints the
+                bf16 D=256 backward's launch at the row with frames:
+                grid, threads, shared memory, fp32 scratch
  17. hybrid parity — reduced recurrentgemma-2b, fp32: two DHP training
                 steps with K4 and K1 vs the same steps through their
                 plain versions, limits as phase 8
@@ -121,8 +123,11 @@ Phases:
                 every group; K4 and K1 launches equal to the count from
                 the run's own groups (remat: each unit's layers run
                 forward twice, the tail's once); losses and parameters
-                finite; one more step under torch.profiler for the busy
-                share and the device time by kernel
+                finite; each step's groups (n_seqs, bucket) and the
+                caching allocator's retries and new device allocations
+                during it; one more step under torch.profiler for the
+                busy share and the device time by kernel (K1 forward,
+                backward and its group sum apart)
  19. hybrid path — K4 (fp32) and K1 (bf16, D = 256) forward and backward
                 vs plain at every shape the hybrid run launched, K1 on
                 the run's own span tables, with times and bounds; these
@@ -1208,6 +1213,8 @@ def hybrid_tables(n_rows, S, frame, text=32):
 def phase_packed_wide(dev, card):
     """K1 in bf16 at recurrentgemma-2b's heads, sliding at its window,
     against the plain versions with phase 7's limits."""
+    from repro_torch.kernels.flash_attention_packed import (
+        last_bwd_kv_launch)
     gen = torch.Generator(device=dev).manual_seed(7)
     bf16 = torch.bfloat16
     rows = []
@@ -1215,6 +1222,12 @@ def phase_packed_wide(dev, card):
     rows.append(check_packed(dev, card, gen, 4096, bf16, seg, span,
                              mode="sliding", window=RG_WINDOW,
                              tag="synthetic", heads=RG_HEADS))
+    # the hybrid path's shape: one 4096-token row, 10:1 heads, D = 256;
+    # the launch as the library recorded it
+    facts = dict(last_bwd_kv_launch(), sms=torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    print(f"  K1 bwd design at S=4096 H={RG_HEADS[0]} Hkv={RG_HEADS[1]} "
+          f"D={RG_HEADS[2]} {json.dumps(facts)} ({card})")
     rows.append(check_packed(dev, card, gen, 4096, bf16, seg, None,
                              mode="sliding", window=RG_WINDOW,
                              tag="synthetic", heads=RG_HEADS))
@@ -1354,10 +1367,27 @@ def phase_hybrid_training(dev, card):
           f"{c.param_dtype}, remat {c.remat}, init "
           f"{time.perf_counter() - t0:.1f} s")
     plans = []
+    # each step's groups (n_seqs, bucket) and what the caching allocator
+    # did for it: retries (every cached block freed and the allocation
+    # tried again) and new device allocations
+    per_step = []
+    execute = eng.execute
+
+    def counted_execute(plan, data):
+        keys = ("num_alloc_retries", "num_device_alloc")
+        before = torch.cuda.memory_stats(dev)
+        m = execute(plan, data)
+        after = torch.cuda.memory_stats(dev)
+        per_step.append(dict(
+            groups=[k[3:5] for k in eng.executor.last_exe_keys],
+            **{k: after.get(k, 0) - before.get(k, 0) for k in keys}))
+        return m
+    eng.execute = counted_execute
     torch.cuda.reset_peak_memory_stats(dev)
     _zero_k4_k1_counts()
     hist = eng.train(steps=3, lookahead=True, plan_log=plans, trace=True,
                      **run)
+    eng.execute = execute
     torch.cuda.synchronize()
     counts = _k4_k1_counts()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1374,7 +1404,7 @@ def phase_hybrid_training(dev, card):
     if counts != want or not groups:
         raise AssertionError(f"K4/K1 launches {counts}, want {want} for "
                              f"{len(groups)} groups of {per_group}")
-    for m in hist:
+    for m, st in zip(hist, per_step):
         if not math.isfinite(m.loss):
             raise AssertionError(f"step {m.step}: loss {m.loss}")
         tok_s = m.tokens / m.step_time_s
@@ -1384,7 +1414,9 @@ def phase_hybrid_training(dev, card):
               f"{m.padding_efficiency} degrees={m.degree_histogram} "
               f"groups={sum(m.degree_histogram.values())} "
               f"schedule_ms={m.schedule_ms} plan_overlap_ms="
-              f"{m.plan_overlap_ms} ({card})")
+              f"{m.plan_overlap_ms} (n_seqs, bucket)={st['groups']} "
+              f"alloc_retries={st['num_alloc_retries']} "
+              f"device_allocs={st['num_device_alloc']} ({card})")
     if len(hist) != 3:
         raise AssertionError(f"{len(hist)} training steps, want 3")
     if not all(torch.isfinite(t).all() for t in tree_leaves(
@@ -1417,7 +1449,8 @@ def phase_hybrid_training(dev, card):
                              f"the run's {sorted(set(groups))}")
 
     profile_step(eng, run, card, "hybrid train",
-                 {"k4": "k4_", "k1": "packed_"})
+                 {"k4": "k4_", "k1": "packed_", "k1_fwd": "packed_fwd",
+                  "k1_bwd": "packed_bwd", "k1_bwd_sum": "bwd_kv_reduce"})
     eng.close()
     del eng, params
     gc.collect()

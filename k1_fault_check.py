@@ -1,39 +1,49 @@
 """K1's bf16 limits against planted faults, and K1's bf16 backward timed
 against other source trees, on one card.
 
-    python3 k1_fault_check.py [--out FILE]
-    python3 k1_fault_check.py --time [--tree LABEL=DIR ...]
+    python3 k1_fault_check.py [--shape internvl|rg ...] [--out FILE]
+    python3 k1_fault_check.py --time [--shape internvl|rg ...]
+                              [--tree LABEL=DIR ...]
                               [--variant LABEL=TREE:EDIT[+EDIT...] ...]
                               [--rounds N] [--out FILE]
+
+Two shapes, the main path's attention of two models (`--shape`, given
+once or more; internvl by default):
+  * internvl: internvl3-2b, 12 query heads over 2 KV heads of 128,
+    causal with 256-token frames;
+  * rg: recurrentgemma-2b, 10 query heads over one KV head of 256,
+    sliding at window 2048 with 256-token frames after 32 text tokens.
 
 Both modes build edited copies of `flash_attention_packed.cu` with nvcc
 in a temporary directory, one nvcc per copy, all at once. The checkout
 itself is never edited. Needs one NVIDIA GPU and nvcc; prints the
 card's name and power limit.
 
-Fault mode (the default): for each planted fault of FAULTS, the port's
-K1 wrappers run on that copy's library, forward and backward, against
-the plain versions at internvl3-2b's heads (12 query, 2 KV, head_dim
-128) over the packed layouts of `cases()` (1024 and 4096 tokens). For
-each of o, dq, dk, dv it prints, per case, max|err| / max(1, |plain|)
-(`elementwise`, the form `chip_smoke.py` holds to 2e-2 for o and 4e-2
-for the gradients) and max|err| / max|plain| (`whole`, held to 2e-2 in
-bf16). The whole-tensor limit is sound when every "sound" reading lies
-below it and each fault reads above it, on a tensor it must show in, in
-every case it must show in. Exits non-zero otherwise.
+Fault mode (the default): for each planted fault of FAULTS[shape], the
+port's K1 wrappers run on that copy's library, forward and backward,
+against the plain versions at the shape's heads over the packed layouts
+of `cases(shape)` (internvl: 1024 and 4096 tokens in several segments;
+rg: one 4096-token row with and without frames, and a two-row padded
+group of 2048). For each of o, dq, dk, dv it prints, per case, max|err|
+/ max(1, |plain|) (`elementwise`, the form `chip_smoke.py` holds to 2e-2
+for o and 4e-2 for the gradients) and max|err| / max|plain| (`whole`,
+held to 2e-2 in bf16). The whole-tensor limit is sound when every
+"sound" reading lies below it and each fault reads above it, on a
+tensor it must show in, in every case it must show in. Exits non-zero
+otherwise.
 
 Time mode: the checkout's tree is "change"; `--tree` adds another
 checkout root (for example the parent commit unpacked with `git
-archive`), and `--variant` a tree's source with the named EDITS applied
-(measurements only: some drop work on purpose, and their errors show
-it). Each is called through its C interface `k1_backward` on one
-4096-token openvid row with its 256-token frames: 12:2 heads, D = 128,
-bf16, causal with spans (internvl3-2b's attention on the training path),
-held to the plain version (max|err| / max|plain| of dq, dk, dv, and
-whether two calls give the same dk and dv bits), and timed in turns,
-forwards then backwards, `--rounds` times (CUDA events, 10 calls after
-2), beside SDPA with the tables' boolean mask and `chip_smoke.py`'s
-bound.
+archive`), and `--variant` a tree's source with the named EDITS (or
+WIDE_EDITS, for trees that still hold the D = 256 kernel this one
+replaced) applied (measurements only: some drop work on purpose, and
+their errors show it). Each is called through its C interface
+`k1_backward` on the shape's main-path row, one 4096-token openvid
+sequence with its 256-token frames in bf16, held to the plain version
+(max|err| / max|plain| of dq, dk, dv, and whether two calls give the
+same dk and dv bits), and timed in turns, forwards then backwards,
+`--rounds` times (CUDA events, 10 calls after 2), beside SDPA with the
+tables' boolean mask and `chip_smoke.py`'s bound.
 """
 import argparse
 import ctypes
@@ -44,18 +54,30 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                   "flash_attention_packed.cu")
 REL_TOL_BF16 = 2e-2     # as in chip_smoke.py
-H, HKV, D, S = 12, 2, 128, 4096
+S = 4096                # the main path's row
 
-#: fault name -> (the tensors it must show in, the modes of the cases it
+#: shape -> query heads, KV heads, head_dim, the mode and window of the
+#: model's attention, and its vocabulary (for the data loader)
+SHAPES = {
+    "internvl": dict(H=12, HKV=2, D=128, mode="causal", window=None,
+                     vocab=151674),
+    "rg": dict(H=10, HKV=1, D=256, mode="sliding", window=2048,
+               vocab=256000),
+}
+_MODES = {"full": 0, "causal": 1, "sliding": 2}
+
+#: fault name -> (the tensors it must show in, the tags of the cases it
 #: must show in (None: every case), [(text, replacement)]); the backward
-#: faults are planted in the bf16 kernel at D = 64 / 128
-#: (packed_bwd_kv_kernel) and its group reduction
-FAULTS = {
+#: faults are planted in the bf16 kernel (packed_bwd_kv_kernel, every
+#: head dim) and its group reduction
+_COMMON = {
     "sound": ((), None, []),
     "dq_drops_key_tile": (("dq",), None, [(
         "        if (row < Sq) red_add_v4(",
@@ -74,13 +96,10 @@ FAULTS = {
     "reduction_drops_a_head": (("dk", "dv"), None, [(
         "  for (int hh = 1; hh < G; ++hh) {",
         "  for (int hh = 1; hh < G - 1; ++hh) {")]),
-    # the unmasked path taken one query tile too far: the diagonal tile
-    # (keys after some of its queries), and past the window's edge (keys
-    # within the window of the tile's first query but not its last)
-    "unmasked_causal_edge": (("dq", "dk", "dv"), ("causal",), [(
-        "                     (kpos_w + 15 <= q0 &&",
-        "                     (kpos_w + 15 <= q0 + K_BQ &&")]),
-    "unmasked_window_edge": (("dq", "dk", "dv"), ("sliding",), [(
+    # the unmasked path taken one query tile past the window's edge (keys
+    # within the window of the tile's first query but not its last): it
+    # can show only where a row is longer than the window
+    "unmasked_window_edge": (("dq", "dk", "dv"), ("past_window",), [(
         "                       kpos_w > q0 + K_BQ - 1 - p.window)));",
         "                       kpos_w > q0 - 1 - p.window)));")]),
     "fwd_drops_key_tile": (("o",), None, [(
@@ -89,23 +108,70 @@ FAULTS = {
         "if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + F_BK, Sk)) || "
         "j0 == 128) continue;")]),
 }
+FAULTS = {
+    "internvl": {
+        **_COMMON,
+        # the unmasked path taken one query tile too far: the diagonal
+        # tile (keys after some of its queries)
+        "unmasked_causal_edge": (("dq", "dk", "dv"), ("causal",), [(
+            "                     (kpos_w + 15 <= q0 &&",
+            "                     (kpos_w + 15 <= q0 + K_BQ &&")]),
+    },
+    "rg": {
+        **_COMMON,
+        # D = 256 alone: dK / dV's upper 128 columns formed from the
+        # wrong 64-wide block of Q / dO (a block stride of 1 for 2)
+        "block_stride_256": (("dk", "dv"), None, [(
+            "          const uint32_t hi = c0 + 2 * SW_BLOCK + kk * 2048;",
+            "          const uint32_t hi = c0 + SW_BLOCK + kk * 2048;")]),
+        # D = 256 alone: each warpgroup's second 64-column chunk of dQ
+        # (columns 128-255) never formed
+        "dq_drops_second_chunk": (("dq",), None, [(
+            "      if (chunk >= D / 64) break;",
+            "      if (chunk >= D / 64 || j2 > 0) break;")]),
+    },
+}
 
 #: measurement-only edits of this tree's kernel for `--time --variant`
 EDITS = {
     "no_dq_adds": [("        if (row < Sq) red_add_v4(",
                     "        if (row < -1) red_add_v4(")],
-    "no_dq": [("    if (D == 128 || !dk_warp) {",
-               "    if (p.B < 0) {")],
+    "no_dq": [("    for (int j2 = 0; j2 < (D / 64 + 1) / 2; ++j2) {",
+               "    for (int j2 = 0; j2 < 0; ++j2) {")],
     "unmasked": [(
         "      all_ok = __all_sync(FULL, all_ok && segq_s[lane] == seg_w &&\n"
         "                                    segq_s[lane + 32] == seg_w);",
         "      all_ok = p.B > 0;")],
-    # as many blocks an SM as a two-stage ring of query tiles would allow
-    "one_block_per_sm": [
-        ("__global__ void __launch_bounds__(K_THREADS, 2)",
-         "__global__ void __launch_bounds__(K_THREADS, 1)"),
-        ("      1024 + 4 * TB + K_BK * K_BQ * 2 +",
-         "      1024 + 6 * TB + K_BK * K_BQ * 2 +")],
+    # the stage count of every head dim: two stages (and so one block an
+    # SM at D = 128), or one (at D = 256)
+    "two_stages": [
+        ("  static constexpr int STAGES = D == 256 ? 2 : 1;",
+         "  static constexpr int STAGES = 2;"),
+        ("  static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;",
+         "  static constexpr int MIN_BLOCKS = 1;")],
+    "one_stage": [("  static constexpr int STAGES = D == 256 ? 2 : 1;",
+                   "  static constexpr int STAGES = 1;")],
+}
+
+#: measurement-only edits of the D = 256 backward kernel that this tree
+#: replaced (packed_bwd_tc_wide_kernel: one block per (64-key tile, KV
+#: head), the query heads of the group in turn, mma.sync), for trees
+#: that still hold it
+WIDE_EDITS = {
+    "wide_dq_stores": [(
+        "              atomicAdd(dqb + (int64_t)row * q_stride + col, "
+        "dqa[mi][j][e]);",
+        "              dqb[(int64_t)row * q_stride + col] = dqa[mi][j][e];")],
+    "wide_no_transposes": [(
+        "          Qt[(ch * 8 + e) * QTP + c] = qe[e];\n"
+        "          dOt[(ch * 8 + e) * QTP + c] = de[e];\n", "")],
+    # one query head of the ten: what one head's work takes on the
+    # kernel's 64 blocks
+    "wide_one_head": [(
+        "  for (int hh = 0; hh < G; ++hh) {\n    const int h = hk * G + hh;\n"
+        "    const bf16* qb",
+        "  for (int hh = 0; hh < 1; ++hh) {\n    const int h = hk * G + hh;\n"
+        "    const bf16* qb")],
 }
 
 
@@ -136,45 +202,84 @@ def build(sources: dict, tmp: str) -> dict:
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {label}:\n{log[-4000:]}")
         libs[label] = ctypes.CDLL(so)
+        for line in ptxas_report(log):
+            print(f"{label}: {line}")
     return libs
 
 
-# ------------------------------------------------------------ fault mode
-def cases():
-    """(name, S, lens, frame, text, mode, window): the layouts of
-    chip_smoke.py phase 7 plus a long and a single segment, and sliding
-    at 4096 tokens."""
-    out = []
-    for n, lens in ((1024, [400, 300, 250]),
-                    (4096, [1500, 900, 1200, 400])):
-        for frame in (None, 256):
-            out.append((f"S{n}_spans{frame is not None}", n, lens, frame,
-                        32, "causal", None))
-    out.append(("full1024", 1024, [400, 300, 250], 128, 32, "full", None))
-    out.append(("sliding1024", 1024, [400, 300, 250], 128, 32, "sliding",
-                256))
-    out.append(("sliding4096", 4096, [2600, 1200], 256, 32, "sliding", 256))
-    out.append(("S4096_long", 4096, [2600, 1200], 256, 32, "causal", None))
-    out.append(("S4096_one", 4096, [3900], 256, 64, "causal", None))
+def ptxas_report(log, key="packed_bwd"):
+    """ptxas's registers, stack and spills of the entry functions whose
+    (mangled) name holds `key`, one line each."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and key in name and ("registers" in line
+                                       or "spill" in line):
+            # the kernel's name and template arguments, e.g.
+            # packed_bwd_kv_kernelILi256ELb1EE: D = 256 with spans
+            out.append(f"{name[name.find(key):][:36]} {line.strip()}")
     return out
 
 
-def readings(torch):
+# ------------------------------------------------------------ fault mode
+def cases(shape):
+    """(name, tags, segment table, span table or None, mode, window): for
+    internvl the layouts of chip_smoke.py phase 7 plus a long and a
+    single segment, and sliding at 4096 tokens; for rg a 4096-token row
+    with and without frames and a two-row padded group (one segment a
+    row, as the padded hybrid batch has). The tags are the mode and,
+    where a row is longer than the window, "past_window"."""
+    from chip_smoke import hybrid_tables, packed_layout
+    out = []
+    if shape == "rg":
+        window = SHAPES["rg"]["window"]
+        for name, rows, n, frame in (("rg4096_frames", 1, 4096, 256),
+                                     ("rg4096_text", 1, 4096, None),
+                                     ("rg2x2048_frames", 2, 2048, 256)):
+            seg, span = hybrid_tables(rows, n, frame or 256)
+            out.append((name, seg, span if frame else None, "sliding",
+                        window))
+    else:
+        for n, lens in ((1024, [400, 300, 250]),
+                        (4096, [1500, 900, 1200, 400])):
+            for frame in (None, 256):
+                out.append((f"S{n}_spans{frame is not None}",
+                            *packed_layout(n, lens, frame, 32), "causal",
+                            None))
+        out.append(("full1024", *packed_layout(1024, [400, 300, 250], 128),
+                    "full", None))
+        out.append(("sliding1024",
+                    *packed_layout(1024, [400, 300, 250], 128), "sliding",
+                    256))
+        out.append(("sliding4096", *packed_layout(4096, [2600, 1200], 256),
+                    "sliding", 256))
+        out.append(("S4096_long", *packed_layout(4096, [2600, 1200], 256),
+                    "causal", None))
+        out.append(("S4096_one", *packed_layout(4096, [3900], 256, 64),
+                    "causal", None))
+    return [(name, {mode} | ({"past_window"} if window and
+                              np.shape(seg)[-1] > window else set()),
+             seg, span, mode, window)
+            for name, seg, span, mode, window in out]
+
+
+def readings(torch, shape):
     """One row of readings a case, through the port's wrappers and
     whatever library `build.load` hands them."""
-    from chip_smoke import packed_layout
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed, flash_attention_packed_bwd,
         flash_attention_packed_bwd_ref, flash_attention_packed_ref)
+    H, HKV, D = (SHAPES[shape][k] for k in ("H", "HKV", "D"))
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     bf16 = torch.bfloat16
     rows = []
-    for name, n, lens, frame, text, mode, window in cases():
-        seg, span = packed_layout(n, lens, frame, text)
-        q, do = (torch.randn(1, n, H, D, generator=gen, device=dev).to(bf16)
+    for name, tags, seg, span, mode, window in cases(shape):
+        B, n = (1, len(seg)) if np.ndim(seg) == 1 else np.shape(seg)
+        q, do = (torch.randn(B, n, H, D, generator=gen, device=dev).to(bf16)
                  for _ in range(2))
-        k, v = (torch.randn(1, n, HKV, D, generator=gen, device=dev)
+        k, v = (torch.randn(B, n, HKV, D, generator=gen, device=dev)
                 .to(bf16) for _ in range(2))
         segt = torch.as_tensor(seg, device=dev)
         kw = dict(mode=mode, window=window, span_ids=None if span is None
@@ -184,7 +289,7 @@ def readings(torch):
                                                       segt, **kw))
         want = (flash_attention_packed_ref(q, k, v, segt, **kw)[0],) + \
             tuple(flash_attention_packed_bwd_ref(q, k, v, do, segt, **kw))
-        row = {"case": name, "mode": mode}
+        row = {"case": name, "tags": sorted(tags)}
         for t, a, r in zip(("o", "dq", "dk", "dv"), got, want):
             r = r.float()
             d = (a.float() - r).abs()
@@ -192,51 +297,61 @@ def readings(torch):
                 "elementwise": (d / r.abs().clamp_min(1.0)).max().item(),
                 "whole": d.max().item() / r.abs().max().item()}
         rows.append(row)
+        del q, do, k, v, o, lse, got, want
+        torch.cuda.empty_cache()
     return rows
 
 
-def fault_mode(torch, tmp):
+def fault_mode(torch, tmp, shapes):
     from repro_torch.kernels import build as kbuild
     src = open(os.path.join(ROOT, CU)).read()
-    libs = build({f: plant(src, edits, f)
-                  for f, (_, _, edits) in FAULTS.items()}, tmp)
+    edits = {f: e for shape in shapes for f, (_, _, e) in
+             FAULTS[shape].items()}
+    libs = build({f: plant(src, e, f) for f, e in edits.items()}, tmp)
     result, ok = {}, True
-    for fault, (shows, modes, _) in FAULTS.items():
-        # the wrappers load "flash_attention_packed" through build.load
-        kbuild._libs["flash_attention_packed"] = libs[fault]
-        rows = readings(torch)
-        torch.cuda.synchronize()
-        must = [r for r in rows if modes is None or r["mode"] in modes]
-        for r in rows:
-            print(json.dumps({"fault": fault, **r}), flush=True)
-        for t in ("o", "dq", "dk", "dv"):
-            whole = [r[t]["whole"] for r in must]
-            elt = [r[t]["elementwise"] for r in must]
-            print(f"{fault:26s} {t:2s} whole {min(whole):.4f}-"
-                  f"{max(whole):.4f}  elementwise {min(elt):.4f}-"
-                  f"{max(elt):.4f}  ({len(must)} cases)")
-        if fault == "sound":
-            caught = [False]
-            ok &= all(r[t]["whole"] <= REL_TOL_BF16 for r in rows
-                      for t in ("o", "dq", "dk", "dv"))
-        else:
-            caught = [max(r[t]["whole"] for t in shows) > REL_TOL_BF16
-                      for r in must]
-            ok &= all(caught)
-        result[fault] = {"rows": rows, "caught_in": sum(caught),
-                         "cases": len(must)}
+    for shape in shapes:
+        for fault, (shows, tags, _) in FAULTS[shape].items():
+            # the wrappers load "flash_attention_packed" through build.load
+            kbuild._libs["flash_attention_packed"] = libs[fault]
+            rows = readings(torch, shape)
+            torch.cuda.synchronize()
+            must = [r for r in rows
+                    if tags is None or set(tags) & set(r["tags"])]
+            for r in rows:
+                print(json.dumps({"shape": shape, "fault": fault, **r}),
+                      flush=True)
+            for t in ("o", "dq", "dk", "dv"):
+                whole = [r[t]["whole"] for r in must]
+                elt = [r[t]["elementwise"] for r in must]
+                print(f"{shape:8s} {fault:26s} {t:2s} whole "
+                      f"{min(whole):.4f}-{max(whole):.4f}  elementwise "
+                      f"{min(elt):.4f}-{max(elt):.4f}  ({len(must)} cases)")
+            if fault == "sound":
+                caught = [False]
+                ok &= all(r[t]["whole"] <= REL_TOL_BF16 for r in rows
+                          for t in ("o", "dq", "dk", "dv"))
+            else:
+                caught = [max(r[t]["whole"] for t in shows) > REL_TOL_BF16
+                          for r in must]
+                ok &= all(caught)
+            result[f"{shape}:{fault}"] = {"rows": rows,
+                                          "caught_in": sum(caught),
+                                          "cases": len(must)}
     return {"ok": ok, "rel_tol_bf16": REL_TOL_BF16, "faults": result}
 
 
 # ------------------------------------------------------------- time mode
-def inputs(torch):
+def inputs(torch, shape):
     """The main path's row: one 4096-token openvid sequence with its
-    frames, random bf16 q, k, v, dO (seed 0), o and LSE from K1."""
+    frames (one segment: the packed and the padded tables agree), random
+    bf16 q, k, v, dO (seed 0), o and LSE from K1."""
     from repro_torch.core.packing import flatten_group
     from repro_torch.data.pipeline import HeterogeneousLoader
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed)
-    batch = next(HeterogeneousLoader("openvid", 8, 151674, seed=0,
+    cfg = SHAPES[shape]
+    H, HKV, D = cfg["H"], cfg["HKV"], cfg["D"]
+    batch = next(HeterogeneousLoader("openvid", 8, cfg["vocab"], seed=0,
                                      max_tokens=S, tokens_per_frame=256))
     spans = batch.spans_by_id()
     info, toks = next((i, t) for i, t in zip(batch.infos, batch.tokens)
@@ -250,9 +365,11 @@ def inputs(torch):
              for _ in range(2))
     k, v = (torch.randn(1, S, HKV, D, generator=gen, device=dev).bfloat16()
             for _ in range(2))
+    kw = dict(mode=cfg["mode"], window=cfg["window"])
     o, lse = flash_attention_packed(q, k, v, seg, span_ids=span,
-                                    return_lse=True)
-    return dict(q=q, k=k, v=v, o=o, lse=lse, do=do, seg=seg, span=span)
+                                    return_lse=True, **kw)
+    return dict(q=q, k=k, v=v, o=o, lse=lse, do=do, seg=seg, span=span,
+                kw=kw, shape=shape)
 
 
 def backward(torch, lib, x):
@@ -260,6 +377,8 @@ def backward(torch, lib, x):
     scratch pointer `work` (no k1_last_bwd_kv_launch) take none."""
     from repro_torch.kernels.flash_attention_packed import (_summaries,
                                                             _tables)
+    cfg = SHAPES[x["shape"]]
+    H, HKV, D = cfg["H"], cfg["HKV"], cfg["D"]
     q, k = x["q"], x["k"]
     segq, segk, spanq, spank = _tables(q, k, x["seg"], x["span"], None,
                                        None)
@@ -276,28 +395,38 @@ def backward(torch, lib, x):
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(*[t.data_ptr() for t in ptrs], 1, S, S, H, HKV, D, 1, 1, 0, 0,
+    err = fn(*[t.data_ptr() for t in ptrs], 1, S, S, H, HKV, D, 1,
+             _MODES[cfg["mode"]], int(cfg["window"] or 0), 0,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"k1_backward returned {err}")
     return dq.bfloat16(), dk, dv
 
 
-def time_mode(torch, tmp, trees, variants, rounds):
-    import torch.nn.functional as F
-    from chip_smoke import cuda_ms, packed_bound
-    from repro_torch.kernels.flash_attention_packed import (
-        flash_attention_packed_bwd_ref, pair_mask, _tables)
+def build_trees(tmp, trees, variants):
+    """label -> library of each tree's source and of each variant (a
+    tree's source with EDITS / WIDE_EDITS applied), built at once."""
     srcs = {label: open(os.path.join(root, CU)).read()
             for label, root in trees.items()}
     for label, spec in variants.items():
         tree, names = spec.split(":")
         srcs[label] = plant(srcs[tree], [e for n in names.split("+")
-                                         for e in EDITS[n]], label)
-    libs = build(srcs, tmp)
-    x = inputs(torch)
+                                         for e in {**EDITS, **WIDE_EDITS}[n]],
+                            label)
+    return build(srcs, tmp)
+
+
+def time_mode(torch, libs, shape, rounds):
+    import torch.nn.functional as F
+    from chip_smoke import cuda_ms, packed_bound
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed_bwd_ref, pair_mask, _tables)
+    cfg = SHAPES[shape]
+    H, HKV, D = cfg["H"], cfg["HKV"], cfg["D"]
+    x = inputs(torch, shape)
     ref = flash_attention_packed_bwd_ref(x["q"], x["k"], x["v"], x["do"],
-                                         x["seg"], span_ids=x["span"])
+                                         x["seg"], span_ids=x["span"],
+                                         **x["kw"])
     rows = {}
     for label, lib in libs.items():
         got, again = backward(torch, lib, x), backward(torch, lib, x)
@@ -309,6 +438,7 @@ def time_mode(torch, tmp, trees, variants, rounds):
             "dk_dv_same_bits": bool(torch.equal(got[1], again[1])
                                     and torch.equal(got[2], again[2])),
             "ms": []}
+    del ref
     order = list(libs) + list(libs)[::-1]
     for _ in range(rounds):
         for label in order:
@@ -316,7 +446,7 @@ def time_mode(torch, tmp, trees, variants, rounds):
                 lambda: backward(torch, libs[label], x), iters=10,
                 warmup=2))
     tabs = _tables(x["q"], x["k"], x["seg"], x["span"], None, None)
-    mask = pair_mask(S, S, *tabs)
+    mask = pair_mask(S, S, *tabs, **x["kw"])
     pairs = int(mask.sum())
     qt, kt, vt = (x[n].transpose(1, 2).contiguous().requires_grad_(True)
                   for n in ("q", "k", "v"))
@@ -329,9 +459,11 @@ def time_mode(torch, tmp, trees, variants, rounds):
     bound, bound_by = packed_bound(1, S, S, H, HKV, D, torch.bfloat16,
                                    pairs, True, 2)
     for label, row in rows.items():
-        print(f"{label:24s} ms {row['ms']}  whole err {row['whole_err']} "
-              f"same dk/dv bits {row['dk_dv_same_bits']}")
-    return {"shape": f"B=1 S={S} H={H} Hkv={HKV} D={D} bf16 causal spans",
+        print(f"{shape:8s} {label:24s} ms {row['ms']}  whole err "
+              f"{row['whole_err']} same dk/dv bits {row['dk_dv_same_bits']}")
+    window = f" {cfg['window']}" if cfg["window"] else ""
+    return {"shape": f"B=1 S={S} H={H} Hkv={HKV} D={D} bf16 "
+                     f"{cfg['mode']}{window} spans",
             "pairs": pairs, "bound_ms": bound, "bound_by": bound_by,
             "sdpa_ms": sdpa, "kernels": rows}
 
@@ -340,11 +472,14 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--time", action="store_true",
                     help="time the backward of trees and variants")
+    ap.add_argument("--shape", action="append", choices=sorted(SHAPES),
+                    help="internvl (the default) or rg; repeatable")
     ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--out", help="write every reading to this JSON file")
     args = ap.parse_args()
+    shapes = args.shape or ["internvl"]
     import torch
     if not torch.cuda.is_available():
         print("k1_fault_check: no CUDA device visible", file=sys.stderr)
@@ -357,23 +492,31 @@ def main() -> int:
         if args.time:
             trees = {"change": ROOT}
             trees.update(t.split("=", 1) for t in args.tree)
-            result = time_mode(torch, tmp, trees,
-                               dict(v.split("=", 1) for v in args.variant),
-                               args.rounds)
+            libs = build_trees(tmp, trees, dict(v.split("=", 1)
+                                                for v in args.variant))
+            # the inputs' forward runs this tree's library too
+            from repro_torch.kernels import build as kbuild
+            kbuild._libs["flash_attention_packed"] = libs["change"]
+            result = {"times": {shape: time_mode(torch, libs, shape,
+                                                 args.rounds)
+                                for shape in shapes}}
         else:
-            result = fault_mode(torch, tmp)
+            result = fault_mode(torch, tmp, shapes)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result["card"] = card
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f)
-    summary = {k: v for k, v in result.items()
-               if k not in ("faults", "kernels")}
-    if "faults" in result:
+    if "times" in result:
+        summary = {"card": card, "times": {
+            shape: {k: v for k, v in r.items() if k != "kernels"}
+            for shape, r in result["times"].items()}}
+    else:
+        summary = {k: v for k, v in result.items() if k != "faults"}
         summary["caught"] = {f: f"{r['caught_in']}/{r['cases']}"
                              for f, r in result["faults"].items()
-                             if f != "sound"}
+                             if not f.endswith(":sound")}
     print(json.dumps(summary))
     return 0 if result.get("ok", True) else 1
 

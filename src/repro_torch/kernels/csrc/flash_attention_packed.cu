@@ -32,21 +32,20 @@
 // (1k-4k tokens, D = 128) the valid pairs make the work compute-bound
 // (4*D flops per pair forward, 10*D backward, against q/k/v/o read
 // once), so both directions keep scores and probabilities on chip:
-//   * bf16: mma.sync m16n8k16 on the tensor cores with fp32 accumulation
-//     (P and dS rounded to bf16 before their products). Forward: 4 warps
-//     x 16 query rows, 64-key tiles (wgmma and TMA are later work there).
-//     Backward at D = 64 / 128: wgmma, one block per (query head, 64-key
-//     tile, batch), a group sum of the heads' dK / dV after it and
-//     16-byte vector atomics for dQ (see packed_bwd_kv_kernel).
+//   * bf16 forward: mma.sync m16n8k16 on the tensor cores with fp32
+//     accumulation (P rounded to bf16 before its product), 4 warps x 16
+//     query rows, 64-key tiles (wgmma and TMA are later work there); at
+//     head_dim 256 (recurrentgemma-2b, bf16 only) it reads Q's fragments
+//     from shared memory per key tile (105 KB, two blocks an SM).
+//   * bf16 backward, every head dim: wgmma, one block per (query head,
+//     64-key tile, batch), a group sum of the heads' dK / dV after it and
+//     16-byte vector atomics for dQ (P and dS rounded to bf16 before
+//     their products; see packed_bwd_kv_kernel). At head_dim 256 each
+//     thread's share of dK or dV is 128 registers, so one block an SM
+//     with a second stage of query tiles.
 //   * fp32: the CUDA cores (TF32 tensor cores would break the 1e-4
 //     parity tolerance), same tiling idea with fp32 tiles in shared
 //     memory.
-//   * head_dim 256 (recurrentgemma-2b, bf16 only): the forward reads Q's
-//     fragments from shared memory per key tile (105 KB of shared memory,
-//     two blocks an SM), and the backward splits each 16-key group's
-//     work over two warps, one for P and dV, one for dS and dK, so each
-//     holds one 16 x 256 fp32 accumulator (8 warps, 189 KB, one block an
-//     SM; see packed_bwd_tc_wide_kernel).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -579,9 +578,9 @@ __global__ void bwd_delta_kernel(const T* __restrict__ o,
 }
 
 // ---------------------------------------------------------------------
-// Backward, bf16, tensor cores, D = 64 and 128, designed for the H100.
-// The gradient of K1's function (src/repro/kernels/flash_attention.py ::
-// flash_attention_packed_flat; the Pallas kernel has no backward, and
+// Backward, bf16, tensor cores, D = 64, 128 and 256, designed for the
+// H100. The gradient of K1's function (src/repro/kernels/flash_attention.py
+// :: flash_attention_packed_flat; the Pallas kernel has no backward, and
 // the JAX package differentiates src/repro/models/attention.py ::
 // _attn_chunked_bwd's math): dq, dk, dv from q, k, v, dO, the forward's
 // LSE and delta = rowsum(dO * O).
@@ -594,13 +593,14 @@ __global__ void bwd_delta_kernel(const T* __restrict__ o,
 //  1. Grid. A block is (query head, 64-key tile, batch), heads fastest,
 //     so blocks are issued key tile by key tile and the heaviest tiles
 //     of a causal row (tile 0 walks every query tile) start first. One
-//     4096-token row at 12 heads gives 768 blocks (5.8 per SM), not 128
-//     for 132 SMs. Each block keeps its query head's dK and dV for its
-//     64 keys in registers and writes them once: in bf16 when H == Hkv,
-//     else in fp32 to scratch [B, Sk, H, D], which bwd_kv_reduce_kernel
-//     sums over the G = H / Hkv heads of each KV head in a fixed order.
-//     No atomics touch dK or dV, so both come out the same bits on
-//     every call.
+//     4096-token row gives 768 blocks at internvl3-2b's 12 heads and 640
+//     at recurrentgemma-2b's 10 (one KV head: a grid over KV heads would
+//     have 64 for 132 SMs). Each block keeps its query head's dK and dV
+//     for its 64 keys in registers and writes them once: in bf16 when
+//     H == Hkv, else in fp32 to scratch [B, Sk, H, D], which
+//     bwd_kv_reduce_kernel sums over the G = H / Hkv heads of each KV
+//     head in a fixed order. No atomics touch dK or dV, so both come out
+//     the same bits on every call.
 //  2. Loads and products. K and V (once) and each live query tile's Q,
 //     dO, LSE, delta and table slices arrive by cp.async, the bf16 tiles
 //     in the 128-byte-swizzled layout wgmma reads, so every product is a
@@ -610,29 +610,33 @@ __global__ void bwd_delta_kernel(const T* __restrict__ o,
 //     warpgroup 1 forms dP^T = V dO^T, takes P^T from warpgroup 0
 //     through shared memory (fp32, fragment order), and forms dS^T and
 //     dK += dS^T Q. Each thread holds one 64 x D / 128 share of dK or
-//     dV; no product is formed twice. One stage of query tiles (94 KB
-//     of shared memory at D = 128, at most 128 registers) lets two
-//     blocks share an SM, each computing while the other's next tile
-//     lands: a two-stage ring would need 126 KB and so one block an SM,
-//     and measured slower. The next tile is requested as soon as this
-//     one's Q and dO are read, before dQ. Which query tiles are live
-//     each warp learns 32 at a time (one ballot), so no table summary is
-//     read on the way from one tile to the next.
+//     dV; no product is formed twice. Stages (BwdKvTile): at D = 64 / 128
+//     one stage of query tiles (94 KB at D = 128, at most 128 registers)
+//     lets two blocks share an SM, each computing while the other's next
+//     tile lands: a two-stage ring would need 126 KB and so one block an
+//     SM, and measured slower. At D = 256 the dK / dV share alone is 128
+//     registers a thread and the tiles 32 KB each, so one block an SM
+//     whatever (up to 255 registers); two stages (219 KB) keep the next
+//     tile landing behind the whole of this one. A tile is requested as
+//     soon as the stage it goes to has been read, before dQ. Which query
+//     tiles are live each warp learns 32 at a time (one ballot), so no
+//     table summary is read on the way from one tile to the next.
 //  3. Masks. A warp whose 16 keys share one segment skips the pair mask
 //     for a query tile that lies wholly in that segment and after (and,
 //     sliding, within a window of) those keys: below the diagonal of a
 //     long sequence, nearly every tile. Other tiles test every pair.
-//  4. dQ. dS^T goes to shared memory in bf16, each warpgroup forms half
-//     of the tile's dQ = dS K by wgmma (at D = 64 warpgroup 0 all of it),
-//     and each pair of lanes swaps halves so that every lane adds four
-//     consecutive floats of one row with one 16-byte vector atomic
-//     (sm_90): a quarter of the atomic instructions of per-element adds,
-//     whole 16-byte lines. dQ's fp32 buffer stays (the order of its sums
-//     varies from call to call).
+//  4. dQ. dS^T goes to shared memory in bf16, dQ = dS K is formed by
+//     wgmma in 64-column chunks, warpgroup w taking chunks w, w + 2, ...
+//     (at D = 64 warpgroup 0 the only one; at D = 256 two each, one
+//     after the other, to stay within 255 registers), and each pair of
+//     lanes swaps halves so that every lane adds four consecutive floats
+//     of one row with one 16-byte vector atomic (sm_90): a quarter of
+//     the atomic instructions of per-element adds, whole 16-byte lines.
+//     dQ's fp32 buffer stays (the order of its sums varies from call to
+//     call).
 // P and dS are rounded to bf16 before their products, as the forward
 // rounds P; a row with no valid key (LSE -inf) has P = 0 exactly.
 // ---------------------------------------------------------------------
-constexpr int B_BK = 64, B_BQ = 32;  // tiles of the D = 256 kernel below
 constexpr int K_BK = 64, K_BQ = 64, K_THREADS = 256;  // two warpgroups
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -792,19 +796,29 @@ __device__ __forceinline__ void wgmma_rs_n128(float d[64], const uint32_t a[4],
         "r"(1));
 }
 
+// Per-head-dim traits of packed_bwd_kv_kernel. D = 64 / 128: one stage of
+// query tiles (94 KB at D = 128), two blocks an SM, at most 128
+// registers a thread. D = 256: the 64 x 256 share of dK or dV alone is
+// 128 fp32 registers a thread, so one block an SM (up to 255 registers);
+// the SM's shared memory then has room for a second stage (219 KB), so
+// the next query tile but one is requested while this one is computed.
 template <int D>
 struct BwdKvTile {
   static constexpr int TB = K_BK * D * 2;  // bytes of one [64][D] tile
-  // K, V, Q, dO, dS^T, P^T (fp32), the query tables, the key tables, and
-  // room to align the tiles to 1024 bytes
-  static constexpr size_t smem =
-      1024 + 4 * TB + K_BK * K_BQ * 2 +
-      sizeof(float) * (K_BK * K_BQ + 2 * K_BQ) +
-      sizeof(int) * (2 * K_BQ + 2 * K_BK);
+  static constexpr int STAGES = D == 256 ? 2 : 1;
+  static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;
+  // one stage: Q, dO, then LSE, delta, segment and span ids of its rows
+  static constexpr int STAGE = 2 * TB + 4 * 4 * K_BQ;
+  // K, V, the stages, dS^T, P^T (fp32), the key tables, and room to
+  // align the tiles to 1024 bytes
+  static constexpr size_t smem = 1024 + 2 * TB + STAGES * STAGE +
+                                 K_BK * K_BQ * 2 +
+                                 sizeof(float) * K_BK * K_BQ +
+                                 sizeof(int) * 2 * K_BK;
 };
 
 template <int D, bool SPANS>
-__global__ void __launch_bounds__(K_THREADS, 2)
+__global__ void __launch_bounds__(K_THREADS, BwdKvTile<D>::MIN_BLOCKS)
 packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v,
                      const bf16* __restrict__ dout,
@@ -814,24 +828,22 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      float* __restrict__ dk_part,
                      float* __restrict__ dv_part, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, Params p, float scale) {
-  constexpr int TB = BwdKvTile<D>::TB, CH = D / 8, NQ = K_BQ / 8;
+  using Tile = BwdKvTile<D>;
+  constexpr int TB = Tile::TB, CH = D / 8, NQ = K_BQ / 8;
+  constexpr int STAGES = Tile::STAGES, STAGE = Tile::STAGE;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
   unsigned char* Ks = sm;             // [64][D], swizzled
   unsigned char* Vs = Ks + TB;        // [64][D]
-  unsigned char* Qs = Vs + TB;        // [64][D]
-  unsigned char* dOs = Qs + TB;       // [64][D]
-  unsigned char* dSt = dOs + TB;      // [64 keys][64 queries]
+  // stage s at stages + s * STAGE: Q and dO ([64][D] each, swizzled),
+  // then the rows' LSE, delta, segment and span ids ([K_BQ] each)
+  unsigned char* stages = Vs + TB;
+  unsigned char* dSt = stages + STAGES * STAGE;  // [64 keys][64 queries]
   float* Px = reinterpret_cast<float*>(dSt + K_BK * K_BQ * 2);
-  float* lse_s = Px + K_BK * K_BQ;                // [K_BQ]
-  float* delta_s = lse_s + K_BQ;                  // [K_BQ]
-  int* segq_s = reinterpret_cast<int*>(delta_s + K_BQ);
-  int* spanq_s = segq_s + K_BQ;                   // [K_BQ]
-  int* segk_s = spanq_s + K_BQ;                   // [K_BK]
+  int* segk_s = reinterpret_cast<int*>(Px + K_BK * K_BQ);  // [K_BK]
   int* spank_s = segk_s + K_BK;
   const uint32_t ks_a = smem_u32(Ks), vs_a = smem_u32(Vs),
-                 qs_a = smem_u32(Qs), dos_a = smem_u32(dOs),
                  dst_a = smem_u32(dSt);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -866,22 +878,29 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
   }
 
-  // the query tile at q0: rows past Sq read as zeros and are masked by
-  // position below
-  auto load_q = [&](int q0) {
-    for (int i = tid; i < K_BQ * CH; i += K_THREADS) {
-      const int r = i / CH, c = i % CH, qp = q0 + r;
-      const int64_t off = (int64_t)(qp < Sq ? qp : q0) * q_stride + c * 8;
-      cp_async16(Qs + sw128<K_BQ>(r, c), qb + off, qp < Sq);
-      cp_async16(dOs + sw128<K_BQ>(r, c), db + off, qp < Sq);
-    }
-    for (int i = tid; i < 4 * K_BQ; i += K_THREADS) {
-      const int which = i / K_BQ, r = i % K_BQ, qp = q0 + r;
-      const int qc = qp < Sq ? qp : q0;
-      if (which == 0) cp_async4(lse_s + r, lseb + qc, qp < Sq);
-      if (which == 1) cp_async4(delta_s + r, delb + qc, qp < Sq);
-      if (which == 2) cp_async4(segq_s + r, segqb + qc, qp < Sq);
-      if (which == 3 && SPANS) cp_async4(spanq_s + r, spanqb + qc, qp < Sq);
+  // the query tile at q0 into stage s (nothing when q0 >= Sq), one
+  // commit group either way: rows past Sq read as zeros and are masked
+  // by position below
+  auto load_q = [&](int q0, int s) {
+    unsigned char* Qs = stages + s * STAGE;
+    unsigned char* dOs = Qs + TB;
+    float* lse_s = reinterpret_cast<float*>(dOs + TB);
+    if (q0 < Sq) {
+      for (int i = tid; i < K_BQ * CH; i += K_THREADS) {
+        const int r = i / CH, c = i % CH, qp = q0 + r;
+        const int64_t off = (int64_t)(qp < Sq ? qp : q0) * q_stride + c * 8;
+        cp_async16(Qs + sw128<K_BQ>(r, c), qb + off, qp < Sq);
+        cp_async16(dOs + sw128<K_BQ>(r, c), db + off, qp < Sq);
+      }
+      for (int i = tid; i < 4 * K_BQ; i += K_THREADS) {
+        const int which = i / K_BQ, r = i % K_BQ, qp = q0 + r;
+        const int qc = qp < Sq ? qp : q0;
+        float* dst = lse_s + which * K_BQ + r;
+        if (which == 0) cp_async4(dst, lseb + qc, qp < Sq);
+        if (which == 1) cp_async4(dst, delb + qc, qp < Sq);
+        if (which == 2) cp_async4(dst, segqb + qc, qp < Sq);
+        if (which == 3 && SPANS) cp_async4(dst, spanqb + qc, qp < Sq);
+      }
     }
     cp_async_commit();
   };
@@ -910,10 +929,16 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int i_lo = 0;
   if (!SPANS && p.mode != kFull) i_lo = max(0, p.kv_offset + k0);
   i_lo = (i_lo / K_BQ) * K_BQ;
-  int q0 = next_live(i_lo);
-  if (q0 < Sq) load_q(q0);
+  // the live query tiles in flight: q0 in stage st and, with two
+  // stages, q_next in the other
+  int q0 = next_live(i_lo), q_next = Sq, st = 0;
+  load_q(q0, 0);
+  if constexpr (STAGES == 2) {
+    if (q0 < Sq) q_next = next_live(q0 + K_BQ);
+    load_q(q_next, 1);
+  }
 
-  cp_async_wait<0>();  // K, V (and the first query tile) have landed
+  cp_async_wait<STAGES - 1>();  // K, V (and the first query tile) landed
   __syncthreads();
   const int kl[2] = {kw * 16 + g, kw * 16 + g + 8};  // local key rows
   int kpos[2], segk_r[2], spank_r[2];
@@ -939,9 +964,15 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
 
   while (q0 < Sq) {
-    cp_async_wait<0>();   // this query tile has landed
-    fence_proxy_async();  // the copies are seen by wgmma's reads
+    cp_async_wait<STAGES - 1>();  // this query tile has landed
+    fence_proxy_async();          // the copies are seen by wgmma's reads
     __syncthreads();
+    unsigned char* Qs = stages + st * STAGE;
+    const uint32_t qs_a = smem_u32(Qs), dos_a = qs_a + TB;
+    const float* lse_s = reinterpret_cast<const float*>(Qs + 2 * TB);
+    const float* delta_s = lse_s + K_BQ;
+    const int* segq_s = reinterpret_cast<const int*>(delta_s + K_BQ);
+    const int* spanq_s = segq_s + K_BQ;
 
     // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1): 64 keys x
     // 64 queries, both operands K-major
@@ -1013,7 +1044,8 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       fence_proxy_async();  // dS^T is seen by the dQ wgmma
     }
     // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1): A from
-    // registers, B (dO or Q) N-major: 16 queries a step, 64-wide d blocks
+    // registers, B (dO or Q) N-major: 16 queries a step, 64-wide d blocks,
+    // at D = 256 as two products of 128 columns
     {
       uint32_t a[K_BQ / 16][4];
 #pragma unroll
@@ -1028,26 +1060,47 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int kk = 0; kk < K_BQ / 16; ++kk) {
         const uint64_t dsc = wg_desc(c0 + kk * 2048, SW_BLOCK, SW_GROUP);
-        if constexpr (D == 128) wgmma_rs_n128<1>(&acc[0][0], a[kk], dsc);
-        else wgmma_rs_n64<1>(&acc[0][0], a[kk], dsc);
+        if constexpr (D == 64) {
+          wgmma_rs_n64<1>(&acc[0][0], a[kk], dsc);
+        } else {
+          wgmma_rs_n128<1>(&acc[0][0], a[kk], dsc);
+        }
+        if constexpr (D == 256) {
+          const uint32_t hi = c0 + 2 * SW_BLOCK + kk * 2048;
+          wgmma_rs_n128<1>(&acc[16][0], a[kk],
+                           wg_desc(hi, SW_BLOCK, SW_GROUP));
+        }
       }
       wgmma_commit();
       wgmma_wait0();
     }
     __syncthreads();  // dS^T is whole; this tile's Q, dO are read
-    const int q_next = next_live(q0 + K_BQ);
-    if (q_next < Sq) load_q(q_next);  // lands while dQ is formed
+    // request the next query tile that is not in flight yet into the
+    // stage just read; it lands while dQ is formed (and, with two
+    // stages, while the next tile is computed)
+    int q_after;
+    if constexpr (STAGES == 1) {
+      q_next = q_after = next_live(q0 + K_BQ);
+      load_q(q_after, 0);
+    } else {
+      q_after = q_next < Sq ? next_live(q_next + K_BQ) : Sq;
+      load_q(q_after, st);
+    }
 
-    // dQ [64 queries x D] = dS K: warpgroup w takes d columns [w D / 2,
-    // (w + 1) D / 2) at D = 128, warpgroup 0 all of them at D = 64; A =
-    // dS^T's tile read M-major, B = K N-major
-    if (D == 128 || !dk_warp) {
+    // dQ [64 queries x D] = dS K in 64-column chunks: warpgroup w takes
+    // chunks w, w + 2, ... (at D = 64 warpgroup 0 the only one), each
+    // added before the next is formed; A = dS^T's tile read M-major, B =
+    // K N-major
+#pragma unroll
+    for (int j2 = 0; j2 < (D / 64 + 1) / 2; ++j2) {
+      const int chunk = 2 * j2 + (dk_warp ? 1 : 0);
+      if (chunk >= D / 64) break;
       float dqa[8][4];
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-      const uint32_t b0 = ks_a + (D == 128 && dk_warp ? SW_BLOCK : 0);
+      const uint32_t b0 = ks_a + chunk * SW_BLOCK;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < K_BK / 16; ++kk)
@@ -1057,7 +1110,7 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wgmma_commit();
       wgmma_wait0();
       const bool odd = t & 1;
-      const int col0 = D == 128 && dk_warp ? 64 : 0;
+      const int col0 = chunk * 64;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const float* c = dqa[j];
@@ -1071,6 +1124,10 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     q0 = q_next;
+    if constexpr (STAGES == 2) {
+      q_next = q_after;
+      st ^= 1;
+    }
   }
 
   // this head's dK / dV: bf16 into dk / dv when G == 1, else fp32
@@ -1126,280 +1183,6 @@ __global__ void bwd_kv_reduce_kernel(const float* __restrict__ dk_part,
       make_uint2(pack_bf16(sk.x, sk.y), pack_bf16(sk.z, sk.w));
   reinterpret_cast<uint2*>(dv)[i] =
       make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
-}
-
-// ---------------------------------------------------------------------
-// Backward, bf16, tensor cores, D = 256. The kernel above keeps each
-// warp's dK and dV for 16 keys x D in registers: 256 fp32 a thread at
-// D = 256, past the 255 a thread may hold. Here the block (64-key tile,
-// KV head, batch) has 8 warps, two for each 16 keys: warp w < 4 forms
-// S^T = K_w Q^T, P^T and dV_w += P^T dO; warp w + 4 forms dP^T = V_w
-// dO^T, takes P^T from warp w through shared memory (fp32, in fragment
-// order), and forms dS^T and dK_w += dS^T Q. Each warp holds one 16 x D
-// accumulator (128 registers a thread), and no product is computed twice.
-// dQ = dS K is then shared by the 8 warps, D / 8 columns each.
-// ---------------------------------------------------------------------
-constexpr int W_THREADS = 256;
-
-template <int D>
-struct BwdWideTile {
-  static constexpr int RP = D + 8;
-  static constexpr int KTP = B_BK + 8;
-  static constexpr int QTP = B_BQ + 8;
-  static constexpr int SP = B_BK + 8;
-  static constexpr size_t elems = 2 * B_BK * RP + D * KTP + 2 * B_BQ * RP +
-                                  2 * D * QTP + B_BQ * SP;
-  static constexpr size_t smem = sizeof(bf16) * elems +
-                                 sizeof(float) * (2 * B_BQ + B_BK * B_BQ) +
-                                 sizeof(int) * (2 * B_BK + 2 * B_BQ);
-};
-
-template <int D, bool SPANS>
-__global__ void __launch_bounds__(W_THREADS)
-packed_bwd_tc_wide_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          float* __restrict__ dq_acc, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, Params p, float scale) {
-  using Tile = BwdWideTile<D>;
-  constexpr int RP = Tile::RP, KTP = Tile::KTP, QTP = Tile::QTP,
-                SP = Tile::SP;
-  constexpr int CH = D / 8;
-  constexpr int NQ = B_BQ / 8;  // 8-query column tiles of S^T
-  constexpr int NDW = D / 64;   // 8-wide d tiles of dQ per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [B_BK][RP]
-  bf16* Vs = Ks + B_BK * RP;                      // [B_BK][RP]
-  bf16* Kt = Vs + B_BK * RP;                      // [D][KTP]
-  bf16* Qs = Kt + D * KTP;                        // [B_BQ][RP]
-  bf16* dOs = Qs + B_BQ * RP;                     // [B_BQ][RP]
-  bf16* Qt = dOs + B_BQ * RP;                     // [D][QTP]
-  bf16* dOt = Qt + D * QTP;                       // [D][QTP]
-  bf16* dSs = dOt + D * QTP;                      // [B_BQ][SP]
-  float* lse_s = reinterpret_cast<float*>(dSs + B_BQ * SP);
-  float* delta_s = lse_s + B_BQ;
-  float* Px = delta_s + B_BQ;  // P^T fragments [4][NQ][4][32]
-  int* segk_s = reinterpret_cast<int*>(Px + B_BK * B_BQ);
-  int* spank_s = segk_s + B_BK;
-  int* segq_s = spank_s + B_BK;
-  int* spanq_s = segq_s + B_BQ;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bool dk_warp = warp >= 4;  // warps 4-7: dP, dS, dK; 0-3: P, dV
-  const int kw = warp & 3;         // the warp's 16 keys of the tile
-  const int k0 = blockIdx.x * B_BK, hk = blockIdx.y, b = blockIdx.z;
-  const int H = p.H, Hkv = p.Hkv, Sq = p.Sq, Sk = p.Sk, G = H / Hkv;
-  const int k1 = min(k0 + B_BK, Sk);
-  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
-  const bf16* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
-  const bf16* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
-
-  for (int i = tid; i < B_BK * CH; i += W_THREADS) {
-    const int c = i % B_BK, ch = i / B_BK, kp = k0 + c;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-    if (kp < Sk) {
-      kv = *reinterpret_cast<const uint4*>(kb + (int64_t)kp * kv_stride +
-                                           ch * 8);
-      vv = *reinterpret_cast<const uint4*>(vb + (int64_t)kp * kv_stride +
-                                           ch * 8);
-    }
-    *reinterpret_cast<uint4*>(Ks + c * RP + ch * 8) = kv;
-    *reinterpret_cast<uint4*>(Vs + c * RP + ch * 8) = vv;
-    const bf16* ke = reinterpret_cast<const bf16*>(&kv);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) Kt[(ch * 8 + e) * KTP + c] = ke[e];
-  }
-  if (tid < B_BK) {
-    const int kp = k0 + tid;
-    segk_s[tid] = kp < Sk ? p.segk[(int64_t)b * Sk + kp] : -2;
-    spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
-  }
-  __syncthreads();
-
-  const int kl[2] = {kw * 16 + g, kw * 16 + g + 8};  // local key rows
-  int kpos[2], segk_r[2], spank_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    kpos[i] = p.kv_offset + k0 + kl[i];
-    segk_r[i] = segk_s[kl[i]];
-    spank_r[i] = spank_s[kl[i]];
-  }
-  const bf16* As = dk_warp ? Vs : Ks;   // V_w (dP^T) or K_w (S^T)
-  const bf16* Bs = dk_warp ? dOs : Qs;  // against dO or Q
-  const bf16* Ct = dk_warp ? Qt : dOt;  // dK += dS^T Q, dV += P^T dO
-  float* px = Px + kw * (NQ * 4 * 32);
-
-  float acc[D / 8][4];  // dV_w (warps 0-3) or dK_w (warps 4-7)
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-
-  int i_lo = 0;
-  if (!SPANS && p.mode != kFull) i_lo = max(0, p.kv_offset + k0);
-  i_lo = (i_lo / B_BQ) * B_BQ;
-
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = hk * G + hh;
-    const bf16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-    const bf16* db = dout + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-    const float* lseb = lse + ((int64_t)b * H + h) * Sq;
-    const float* delb = delta + ((int64_t)b * H + h) * Sq;
-    float* dqb = dq_acc + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-    for (int q0 = i_lo; q0 < Sq; q0 += B_BQ) {
-      const int q1 = min(q0 + B_BQ, Sq);
-      if (!tile_live<SPANS>(p, b, q0, q1, k0, k1)) continue;
-      __syncthreads();  // the previous tile's Q/dO/dS are consumed
-      for (int i = tid; i < B_BQ * CH; i += W_THREADS) {
-        const int c = i % B_BQ, ch = i / B_BQ, qp = q0 + c;
-        uint4 qv = make_uint4(0u, 0u, 0u, 0u), dvv = qv;
-        if (qp < Sq) {
-          qv = *reinterpret_cast<const uint4*>(qb + (int64_t)qp * q_stride +
-                                               ch * 8);
-          dvv = *reinterpret_cast<const uint4*>(db + (int64_t)qp * q_stride +
-                                                ch * 8);
-        }
-        *reinterpret_cast<uint4*>(Qs + c * RP + ch * 8) = qv;
-        *reinterpret_cast<uint4*>(dOs + c * RP + ch * 8) = dvv;
-        const bf16* qe = reinterpret_cast<const bf16*>(&qv);
-        const bf16* de = reinterpret_cast<const bf16*>(&dvv);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          Qt[(ch * 8 + e) * QTP + c] = qe[e];
-          dOt[(ch * 8 + e) * QTP + c] = de[e];
-        }
-      }
-      if (tid < B_BQ) {
-        const int qp = q0 + tid;
-        const bool in = qp < Sq;
-        lse_s[tid] = in ? lseb[qp] : 0.f;
-        delta_s[tid] = in ? delb[qp] : 0.f;
-        segq_s[tid] = in ? p.segq[(int64_t)b * Sq + qp] : -1;
-        spanq_s[tid] = (SPANS && in) ? p.spanq[(int64_t)b * Sq + qp] : -1;
-      }
-      __syncthreads();
-
-      // S^T (warps 0-3) or dP^T (warps 4-7), 16 keys x 32 queries
-      float st[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        load_a(a, As, RP, kw * 16, kk * 16, g, t);
-#pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          uint32_t bq[2];
-          load_b(bq, Bs, RP, n * 8, kk * 16, g, t);
-          mma_bf16(st[n], a, bq);
-        }
-      }
-      if (!dk_warp) {  // P^T in place of S^T, handed to warp w + 4
-#pragma unroll
-        for (int n = 0; n < NQ; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
-            const bool ok = pair_ok<SPANS>(p.mode, p.window, q0 + c,
-                                           kpos[i], segq_s[c], segk_r[i],
-                                           spanq_s[c], spank_r[i]);
-            const float pv = ok ? __expf(st[n][e] * scale - lse_s[c]) : 0.f;
-            st[n][e] = pv;
-            px[(n * 4 + e) * 32 + lane] = pv;
-          }
-      }
-      __syncthreads();
-      if (dk_warp) {  // dS^T in place of dP^T
-#pragma unroll
-        for (int n = 0; n < NQ; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = n * 8 + t * 2 + (e & 1);
-            st[n][e] = px[(n * 4 + e) * 32 + lane] *
-                       (st[n][e] - delta_s[c]) * scale;
-          }
-      }
-      // dV_w += P^T dO or dK_w += dS^T Q
-#pragma unroll
-      for (int kk = 0; kk < B_BQ / 16; ++kk) {
-        const uint32_t a[4] = {
-            pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-            pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-            pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-            pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-#pragma unroll
-        for (int nd = 0; nd < D / 8; ++nd) {
-          uint32_t bc[2];
-          load_b(bc, Ct, QTP, nd * 8, kk * 16, g, t);
-          mma_bf16(acc[nd], a, bc);
-        }
-      }
-      if (dk_warp) {
-#pragma unroll
-        for (int n = 0; n < NQ; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = n * 8 + t * 2 + (e & 1);
-            dSs[c * SP + kl[e >> 1]] = __float2bfloat16(st[n][e]);
-          }
-      }
-      __syncthreads();
-
-      // dQ tile [B_BQ x D] = dS [B_BQ x B_BK] K [B_BK x D]; warp w owns
-      // d columns [w*D/8, (w+1)*D/8)
-      float dqa[B_BQ / 16][NDW][4];
-#pragma unroll
-      for (int mi = 0; mi < B_BQ / 16; ++mi)
-#pragma unroll
-        for (int j = 0; j < NDW; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) dqa[mi][j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < B_BK / 16; ++kk) {
-        uint32_t a[B_BQ / 16][4];
-#pragma unroll
-        for (int mi = 0; mi < B_BQ / 16; ++mi)
-          load_a(a[mi], dSs, SP, mi * 16, kk * 16, g, t);
-#pragma unroll
-        for (int j = 0; j < NDW; ++j) {
-          uint32_t bk[2];
-          load_b(bk, Kt, KTP, (warp * NDW + j) * 8, kk * 16, g, t);
-#pragma unroll
-          for (int mi = 0; mi < B_BQ / 16; ++mi) mma_bf16(dqa[mi][j], a[mi], bk);
-        }
-      }
-#pragma unroll
-      for (int mi = 0; mi < B_BQ / 16; ++mi)
-#pragma unroll
-        for (int j = 0; j < NDW; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = q0 + mi * 16 + g + (e >> 1) * 8;
-            const int col = (warp * NDW + j) * 8 + t * 2 + (e & 1);
-            if (row < Sq)
-              atomicAdd(dqb + (int64_t)row * q_stride + col, dqa[mi][j][e]);
-          }
-    }
-  }
-
-  bf16* outb = (dk_warp ? dk : dv) + (int64_t)b * Sk * kv_stride +
-               (int64_t)hk * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = k0 + kl[i];
-    if (key >= Sk) continue;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<uint32_t*>(outb + (int64_t)key * kv_stride + nd * 8 +
-                                   t * 2) =
-          pack_bf16(acc[nd][2 * i], acc[nd][2 * i + 1]);
-  }
 }
 
 // ---------------------------------------------------------------------
@@ -1615,19 +1398,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       p.Sq, p.H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if constexpr (std::is_same<T, bf16>::value && D == 256) {
-    constexpr size_t smem = BwdWideTile<D>::smem;
-    err = cudaFuncSetAttribute(packed_bwd_tc_wide_kernel<D, SPANS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.Sk + B_BK - 1) / B_BK, p.Hkv, p.B);
-    packed_bwd_tc_wide_kernel<D, SPANS><<<grid, W_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, dq_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), p,
-        scale);
-  } else if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value) {
     constexpr size_t smem = BwdKvTile<D>::smem;
     err = cudaFuncSetAttribute(packed_bwd_kv_kernel<D, SPANS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1749,8 +1520,8 @@ int k1_forward(const void* q, const void* k, const void* v, void* o,
 // dq_acc: fp32 [B, Sq, H, D], zeroed by the caller (for fp32 inputs it
 // is dq itself); delta: fp32 scratch [B, H, Sq]; dk/dv in k's type
 // [B, Sk, Hkv, D], written in full. work: fp32 scratch [2, B, Sk, H, D]
-// (the per-query-head dK and dV) for bfloat16 at D 64 or 128 when
-// H > Hkv, else unused and may be null.
+// (the per-query-head dK and dV) for bfloat16 when H > Hkv, else unused
+// and may be null.
 int k1_backward(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const void* lse, void* delta, void* dq_acc,
                 void* dk, void* dv, void* work, const void* segq,
@@ -1760,7 +1531,7 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
                 int kv_offset, void* stream) {
   if (bad_args(B, Sq, Sk, H, Hkv, D, dtype, mode, window) ||
       (spanq == nullptr) != (spank == nullptr) ||
-      (work == nullptr && dtype == 1 && D != 256 && H != Hkv))
+      (work == nullptr && dtype == 1 && H != Hkv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Params p = make_params(B, Sq, Sk, H, Hkv, mode, window, kv_offset,
@@ -1791,7 +1562,7 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-// The last launch of packed_bwd_kv_kernel (bfloat16 at D 64 or 128), as
+// The last launch of packed_bwd_kv_kernel (bfloat16, any head dim), as
 // launch_bwd made it: out[0..2] its grid, out[3] its threads per block,
 // out[4] its dynamic shared memory in bytes, out[5] the bytes of `work`
 // it addressed (0 when H == Hkv). All 0 before the first such launch.

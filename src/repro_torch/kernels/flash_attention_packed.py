@@ -22,9 +22,12 @@ LSE -inf.
 On CPU tensors the wrappers run the plain versions (the backward is the
 autograd gradient of the plain forward); on CUDA tensors they launch
 `csrc/flash_attention_packed.cu` or raise, never falling back. bf16 runs
-on the tensor cores (`mma.sync`, fp32 accumulation, P and dS rounded to
-bf16 before their products); fp32 on the CUDA cores. Head dims 64 and
-128 run in both types, 256 (recurrentgemma-2b) in bf16 only.
+on the tensor cores with fp32 accumulation, P and dS rounded to bf16
+before their products: the forward by `mma.sync`, the backward by `wgmma`
+with one block per (query head, 64-key tile), each query head's fp32 dK
+and dV summed over its KV head's group afterwards. fp32 runs on the CUDA
+cores. Head dims 64 and 128 run in both types, 256 (recurrentgemma-2b) in
+bf16 only.
 """
 from __future__ import annotations
 
@@ -233,8 +236,8 @@ def _launch_fwd(q, k, v, tables, mode, window, kv_offset):
 
 
 def last_bwd_kv_launch() -> dict:
-    """The last launch of the bf16 backward kernel at head_dim 64 / 128,
-    as the library recorded it: `grid` (x, y, z), `threads` a block,
+    """The last launch of the bf16 backward kernel (any head_dim), as
+    the library recorded it: `grid` (x, y, z), `threads` a block,
     `smem_bytes` of dynamic shared memory and `work_bytes` of the fp32
     scratch (each query head's dK and dV) it addressed."""
     lib = build.load("flash_attention_packed")
@@ -263,11 +266,11 @@ def _launch_bwd(q, k, v, o, lse, do, tables, mode, window, kv_offset):
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     sumq, sumk = _summaries(B, Sq, q.device), _summaries(B, Sk, q.device)
-    # bf16 at head_dim 64 / 128 with H > Hkv: each query head's dK and dV
-    # in fp32 before the group sum
+    # bf16 with H > Hkv: each query head's dK and dV in fp32 before the
+    # group sum
     work = (torch.empty(2 * B * Sk * H * D, dtype=torch.float32,
                         device=q.device)
-            if q.dtype == torch.bfloat16 and D != 256 and H != Hkv else None)
+            if q.dtype == torch.bfloat16 and H != Hkv else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

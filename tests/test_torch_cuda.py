@@ -147,9 +147,14 @@ def test_packed_kernel_forward_and_backward_match_plain(card, dtype, D):
     assert flash_attention_packed_bwd.launches == n_bwd + len(K1_CASES)
 
 
-# The bf16 backward at D = 64 / 128: one block per (query head, 64-key
+# The bf16 backward (every head dim): one block per (query head, 64-key
 # tile), each head's dK / dV summed over its KV head's group after the
 # kernel, dQ added with 16-byte vector atomics
+#: query and KV heads by head_dim: internvl3-2b's 12:2 at 64 / 128,
+#: recurrentgemma-2b's 10:1 (MQA) at 256
+K1_HEADS = {64: (12, 2), 128: (12, 2), 256: (10, 1)}
+
+
 def _k1_bf16(card, rng, B, Sq, Sk, H, Hkv, D):
     q, do = [torch.from_numpy(rng.standard_normal((B, Sq, H, D))
                               .astype(np.float32)).to(card, torch.bfloat16)
@@ -199,30 +204,34 @@ def _frames(S, frame=256, text=32):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_packed_backward_at_the_training_shape(card, D):
-    """The training path's shape: one 4096-token row, 12 query heads over
-    2 KV heads, 256-token frames, causal (at D = 128 internvl3-2b's
-    heads). Most tiles take the unmasked path; the launch count moves
-    once per call, and the library records a launch of one block per
-    (query head, 64-key tile) with each head's fp32 dK / dV as scratch."""
+    """The training path's shape: one 4096-token row with 256-token
+    frames; at D = 64 / 128 12 query heads over 2 KV heads, causal
+    (internvl3-2b's heads at 128), at D = 256 recurrentgemma-2b's 10
+    over one KV head, sliding at its window of 2048. Most tiles take the
+    unmasked path; the launch count moves once per call, and the library
+    records a launch of one block per (query head, 64-key tile) with
+    each head's fp32 dK / dV as scratch."""
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed_bwd, last_bwd_kv_launch)
     rng = np.random.default_rng(30)
-    q, k, v, do = _k1_bf16(card, rng, 1, 4096, 4096, 12, 2, D)
+    H, Hkv = K1_HEADS[D]
+    q, k, v, do = _k1_bf16(card, rng, 1, 4096, 4096, H, Hkv, D)
     seg, span = _frames(4096)
+    kw = dict(mode="sliding", window=2048) if D == 256 else {}
     n_bwd = flash_attention_packed_bwd.launches
     got, want, _ = _k1_grads(card, q, k, v, do, seg,
-                             span_ids=torch.from_numpy(span).to(card))
+                             span_ids=torch.from_numpy(span).to(card), **kw)
     _k1_close(f"4096 D={D}", got, want)
     assert flash_attention_packed_bwd.launches == n_bwd + 1
     launch = last_bwd_kv_launch()
-    assert launch["grid"] == (12, 4096 // 64, 1), launch
-    assert launch["work_bytes"] == 2 * 4096 * 12 * D * 4, launch
+    assert launch["grid"] == (H, 4096 // 64, 1), launch
+    assert launch["work_bytes"] == 2 * 4096 * H * D * 4, launch
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("mode,window,spans", [("causal", None, True),
                                                ("full", None, False),
                                                ("sliding", 100, True)])
@@ -245,14 +254,14 @@ def test_packed_backward_one_query_head_per_kv_head(card, D, mode, window,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_packed_backward_rows_without_keys_are_zero(card, D):
     """A ring hop whose keys hold no token of some query segments (their
     rows have LSE -inf) and padding on both sides: those rows of dq, and
     the rows of dk / dv no query sees, are exactly 0; the rest match
     the plain version."""
     rng = np.random.default_rng(32)
-    B, Sq, Sk, H, Hkv = 1, 300, 200, 12, 2
+    (B, Sq, Sk), (H, Hkv) = (1, 300, 200), K1_HEADS[D]
     seg = np.full((B, Sq), -1, np.int32)
     seg[0, :120], seg[0, 120:250] = 0, 1          # segment 1: no keys
     kseg = np.full((B, Sk), -2, np.int32)
@@ -269,17 +278,18 @@ def test_packed_backward_rows_without_keys_are_zero(card, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_packed_backward_dk_dv_are_deterministic(card, D):
     """dK and dV are written once per (query head, key) and summed over
     the group in a fixed order: two calls give the same bits. (dQ is
-    added with atomics in an order that varies, so it is not.)"""
+    added with atomics in an order that varies, so it is not.) At D =
+    256 over recurrentgemma-2b's ten query heads of one KV head."""
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed_bwd)
     rng = np.random.default_rng(33)
     B, S = 2, 1024
     seg, span = _packed_tables(B, S, [600, 300, 100], True, frame=64)
-    q, k, v, do = _k1_bf16(card, rng, B, S, S, 12, 2, D)
+    q, k, v, do = _k1_bf16(card, rng, B, S, S, *K1_HEADS[D], D)
     kw = dict(span_ids=torch.from_numpy(span).to(card))
     got, want, (o, lse, segt) = _k1_grads(card, q, k, v, do, seg, **kw)
     _k1_close(f"determinism D={D}", got, want)

@@ -53,6 +53,10 @@ from repro_torch.models import rglru as trg
 from repro_torch.training import TrainState
 from repro_torch.training.optimizer import tree_map
 
+# torch's first multi-threaded CPU exp of a process can be 1.5e-4 off
+# under load (ROADMAP Queue 3): one single-element exp first avoids it
+torch.exp(torch.zeros(1))
+
 LOSS_TOL, GRAD_TOL, FWD_TOL, SCAN_TOL = 2e-5, 1e-4, 1e-4, 1e-5
 RUN = dict(dataset="openvid", global_batch=4, max_tokens=256,
            tokens_per_frame=16)

@@ -7,6 +7,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 from repro.api import Engine as JaxEngine
@@ -27,6 +28,10 @@ from repro_torch.serving.kv_cache import KVCacheManager
 from repro_torch.training import TrainState
 from repro_torch.serving.scheduler import (ContinuousBatchingScheduler,
                                            ServeRequest)
+
+# torch's first multi-threaded CPU exp of a process can be 1.5e-4 off
+# under load (ROADMAP Queue 3): one single-element exp first avoids it
+torch.exp(torch.zeros(1))
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 JCFG = jax_get_config("internvl3-2b").reduced().with_(attn_impl="pallas")

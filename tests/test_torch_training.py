@@ -40,6 +40,10 @@ from repro_torch.training import (AdamW, TrainState, clip_by_global_norm,
                                   cosine_schedule)
 from repro_torch.training.optimizer import tree_leaves, tree_map
 
+# torch's first multi-threaded CPU exp of a process can be 1.5e-4 off
+# under load (ROADMAP Queue 3): one single-element exp first avoids it
+torch.exp(torch.zeros(1))
+
 LOSS_TOL, GRAD_TOL = 2e-5, 1e-4
 RUN = dict(dataset="openvid", global_batch=8, max_tokens=512,
            tokens_per_frame=16)
