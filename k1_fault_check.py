@@ -142,15 +142,13 @@ EDITS = {
         "      all_ok = __all_sync(FULL, all_ok && segq_s[lane] == seg_w &&\n"
         "                                    segq_s[lane + 32] == seg_w);",
         "      all_ok = p.B > 0;")],
-    # the stage count of every head dim: two stages (and so one block an
-    # SM at D = 128), or one (at D = 256)
-    "two_stages": [
-        ("  static constexpr int STAGES = D == 256 ? 2 : 1;",
-         "  static constexpr int STAGES = 2;"),
+    # as many blocks an SM as a two-stage ring of query tiles would allow
+    # at D = 128 (D = 256 has one an SM whatever)
+    "one_block_per_sm": [
         ("  static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;",
-         "  static constexpr int MIN_BLOCKS = 1;")],
-    "one_stage": [("  static constexpr int STAGES = D == 256 ? 2 : 1;",
-                   "  static constexpr int STAGES = 1;")],
+         "  static constexpr int MIN_BLOCKS = 1;"),
+        ("      1024 + 4 * TB + K_BK * K_BQ * 2 +",
+         "      1024 + 6 * TB + K_BK * K_BQ * 2 +")],
 }
 
 #: measurement-only edits of the D = 256 backward kernel that this tree

@@ -41,8 +41,7 @@
 //     64-key tile, batch), a group sum of the heads' dK / dV after it and
 //     16-byte vector atomics for dQ (P and dS rounded to bf16 before
 //     their products; see packed_bwd_kv_kernel). At head_dim 256 each
-//     thread's share of dK or dV is 128 registers, so one block an SM
-//     with a second stage of query tiles.
+//     thread's share of dK or dV is 128 registers, so one block an SM.
 //   * fp32: the CUDA cores (TF32 tensor cores would break the 1e-4
 //     parity tolerance), same tiling idea with fp32 tiles in shared
 //     memory.
@@ -610,17 +609,17 @@ __global__ void bwd_delta_kernel(const T* __restrict__ o,
 //     warpgroup 1 forms dP^T = V dO^T, takes P^T from warpgroup 0
 //     through shared memory (fp32, fragment order), and forms dS^T and
 //     dK += dS^T Q. Each thread holds one 64 x D / 128 share of dK or
-//     dV; no product is formed twice. Stages (BwdKvTile): at D = 64 / 128
-//     one stage of query tiles (94 KB at D = 128, at most 128 registers)
-//     lets two blocks share an SM, each computing while the other's next
-//     tile lands: a two-stage ring would need 126 KB and so one block an
-//     SM, and measured slower. At D = 256 the dK / dV share alone is 128
-//     registers a thread and the tiles 32 KB each, so one block an SM
-//     whatever (up to 255 registers); two stages (219 KB) keep the next
-//     tile landing behind the whole of this one. A tile is requested as
-//     soon as the stage it goes to has been read, before dQ. Which query
-//     tiles are live each warp learns 32 at a time (one ballot), so no
-//     table summary is read on the way from one tile to the next.
+//     dV; no product is formed twice. At D = 64 / 128 one stage of
+//     query tiles (94 KB of shared memory at D = 128, at most 128
+//     registers) lets two blocks share an SM, each computing while the
+//     other's next tile lands: a two-stage ring would need 126 KB and so
+//     one block an SM, and measured slower. At D = 256 the dK / dV share
+//     alone is 128 registers a thread, so one block an SM whatever (255
+//     registers, no spill); a second stage there (219 KB) measured no
+//     faster. The next tile is requested as soon as this one's Q and dO
+//     are read, before dQ. Which query tiles are live each warp learns
+//     32 at a time (one ballot), so no table summary is read on the way
+//     from one tile to the next.
 //  3. Masks. A warp whose 16 keys share one segment skips the pair mask
 //     for a query tile that lies wholly in that segment and after (and,
 //     sliding, within a window of) those keys: below the diagonal of a
@@ -796,25 +795,20 @@ __device__ __forceinline__ void wgmma_rs_n128(float d[64], const uint32_t a[4],
         "r"(1));
 }
 
-// Per-head-dim traits of packed_bwd_kv_kernel. D = 64 / 128: one stage of
-// query tiles (94 KB at D = 128), two blocks an SM, at most 128
-// registers a thread. D = 256: the 64 x 256 share of dK or dV alone is
-// 128 fp32 registers a thread, so one block an SM (up to 255 registers);
-// the SM's shared memory then has room for a second stage (219 KB), so
-// the next query tile but one is requested while this one is computed.
+// Per-head-dim traits of packed_bwd_kv_kernel. D = 64 / 128: two blocks
+// an SM (94 KB of shared memory at D = 128, at most 128 registers a
+// thread). D = 256: the 64 x 256 share of dK or dV alone is 128 fp32
+// registers a thread, so one block an SM (158 KB, up to 255 registers).
 template <int D>
 struct BwdKvTile {
   static constexpr int TB = K_BK * D * 2;  // bytes of one [64][D] tile
-  static constexpr int STAGES = D == 256 ? 2 : 1;
   static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;
-  // one stage: Q, dO, then LSE, delta, segment and span ids of its rows
-  static constexpr int STAGE = 2 * TB + 4 * 4 * K_BQ;
-  // K, V, the stages, dS^T, P^T (fp32), the key tables, and room to
-  // align the tiles to 1024 bytes
-  static constexpr size_t smem = 1024 + 2 * TB + STAGES * STAGE +
-                                 K_BK * K_BQ * 2 +
-                                 sizeof(float) * K_BK * K_BQ +
-                                 sizeof(int) * 2 * K_BK;
+  // K, V, Q, dO, dS^T, P^T (fp32), the query tables, the key tables, and
+  // room to align the tiles to 1024 bytes
+  static constexpr size_t smem =
+      1024 + 4 * TB + K_BK * K_BQ * 2 +
+      sizeof(float) * (K_BK * K_BQ + 2 * K_BQ) +
+      sizeof(int) * (2 * K_BQ + 2 * K_BK);
 };
 
 template <int D, bool SPANS>
@@ -828,22 +822,24 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      float* __restrict__ dk_part,
                      float* __restrict__ dv_part, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, Params p, float scale) {
-  using Tile = BwdKvTile<D>;
-  constexpr int TB = Tile::TB, CH = D / 8, NQ = K_BQ / 8;
-  constexpr int STAGES = Tile::STAGES, STAGE = Tile::STAGE;
+  constexpr int TB = BwdKvTile<D>::TB, CH = D / 8, NQ = K_BQ / 8;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
   unsigned char* Ks = sm;             // [64][D], swizzled
   unsigned char* Vs = Ks + TB;        // [64][D]
-  // stage s at stages + s * STAGE: Q and dO ([64][D] each, swizzled),
-  // then the rows' LSE, delta, segment and span ids ([K_BQ] each)
-  unsigned char* stages = Vs + TB;
-  unsigned char* dSt = stages + STAGES * STAGE;  // [64 keys][64 queries]
+  unsigned char* Qs = Vs + TB;        // [64][D]
+  unsigned char* dOs = Qs + TB;       // [64][D]
+  unsigned char* dSt = dOs + TB;      // [64 keys][64 queries]
   float* Px = reinterpret_cast<float*>(dSt + K_BK * K_BQ * 2);
-  int* segk_s = reinterpret_cast<int*>(Px + K_BK * K_BQ);  // [K_BK]
+  float* lse_s = Px + K_BK * K_BQ;                // [K_BQ]
+  float* delta_s = lse_s + K_BQ;                  // [K_BQ]
+  int* segq_s = reinterpret_cast<int*>(delta_s + K_BQ);
+  int* spanq_s = segq_s + K_BQ;                   // [K_BQ]
+  int* segk_s = spanq_s + K_BQ;                   // [K_BK]
   int* spank_s = segk_s + K_BK;
   const uint32_t ks_a = smem_u32(Ks), vs_a = smem_u32(Vs),
+                 qs_a = smem_u32(Qs), dos_a = smem_u32(dOs),
                  dst_a = smem_u32(dSt);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -878,29 +874,22 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
   }
 
-  // the query tile at q0 into stage s (nothing when q0 >= Sq), one
-  // commit group either way: rows past Sq read as zeros and are masked
-  // by position below
-  auto load_q = [&](int q0, int s) {
-    unsigned char* Qs = stages + s * STAGE;
-    unsigned char* dOs = Qs + TB;
-    float* lse_s = reinterpret_cast<float*>(dOs + TB);
-    if (q0 < Sq) {
-      for (int i = tid; i < K_BQ * CH; i += K_THREADS) {
-        const int r = i / CH, c = i % CH, qp = q0 + r;
-        const int64_t off = (int64_t)(qp < Sq ? qp : q0) * q_stride + c * 8;
-        cp_async16(Qs + sw128<K_BQ>(r, c), qb + off, qp < Sq);
-        cp_async16(dOs + sw128<K_BQ>(r, c), db + off, qp < Sq);
-      }
-      for (int i = tid; i < 4 * K_BQ; i += K_THREADS) {
-        const int which = i / K_BQ, r = i % K_BQ, qp = q0 + r;
-        const int qc = qp < Sq ? qp : q0;
-        float* dst = lse_s + which * K_BQ + r;
-        if (which == 0) cp_async4(dst, lseb + qc, qp < Sq);
-        if (which == 1) cp_async4(dst, delb + qc, qp < Sq);
-        if (which == 2) cp_async4(dst, segqb + qc, qp < Sq);
-        if (which == 3 && SPANS) cp_async4(dst, spanqb + qc, qp < Sq);
-      }
+  // the query tile at q0: rows past Sq read as zeros and are masked by
+  // position below
+  auto load_q = [&](int q0) {
+    for (int i = tid; i < K_BQ * CH; i += K_THREADS) {
+      const int r = i / CH, c = i % CH, qp = q0 + r;
+      const int64_t off = (int64_t)(qp < Sq ? qp : q0) * q_stride + c * 8;
+      cp_async16(Qs + sw128<K_BQ>(r, c), qb + off, qp < Sq);
+      cp_async16(dOs + sw128<K_BQ>(r, c), db + off, qp < Sq);
+    }
+    for (int i = tid; i < 4 * K_BQ; i += K_THREADS) {
+      const int which = i / K_BQ, r = i % K_BQ, qp = q0 + r;
+      const int qc = qp < Sq ? qp : q0;
+      if (which == 0) cp_async4(lse_s + r, lseb + qc, qp < Sq);
+      if (which == 1) cp_async4(delta_s + r, delb + qc, qp < Sq);
+      if (which == 2) cp_async4(segq_s + r, segqb + qc, qp < Sq);
+      if (which == 3 && SPANS) cp_async4(spanq_s + r, spanqb + qc, qp < Sq);
     }
     cp_async_commit();
   };
@@ -929,16 +918,10 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int i_lo = 0;
   if (!SPANS && p.mode != kFull) i_lo = max(0, p.kv_offset + k0);
   i_lo = (i_lo / K_BQ) * K_BQ;
-  // the live query tiles in flight: q0 in stage st and, with two
-  // stages, q_next in the other
-  int q0 = next_live(i_lo), q_next = Sq, st = 0;
-  load_q(q0, 0);
-  if constexpr (STAGES == 2) {
-    if (q0 < Sq) q_next = next_live(q0 + K_BQ);
-    load_q(q_next, 1);
-  }
+  int q0 = next_live(i_lo);
+  if (q0 < Sq) load_q(q0);
 
-  cp_async_wait<STAGES - 1>();  // K, V (and the first query tile) landed
+  cp_async_wait<0>();  // K, V (and the first query tile) have landed
   __syncthreads();
   const int kl[2] = {kw * 16 + g, kw * 16 + g + 8};  // local key rows
   int kpos[2], segk_r[2], spank_r[2];
@@ -964,15 +947,9 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
 
   while (q0 < Sq) {
-    cp_async_wait<STAGES - 1>();  // this query tile has landed
-    fence_proxy_async();          // the copies are seen by wgmma's reads
+    cp_async_wait<0>();   // this query tile has landed
+    fence_proxy_async();  // the copies are seen by wgmma's reads
     __syncthreads();
-    unsigned char* Qs = stages + st * STAGE;
-    const uint32_t qs_a = smem_u32(Qs), dos_a = qs_a + TB;
-    const float* lse_s = reinterpret_cast<const float*>(Qs + 2 * TB);
-    const float* delta_s = lse_s + K_BQ;
-    const int* segq_s = reinterpret_cast<const int*>(delta_s + K_BQ);
-    const int* spanq_s = segq_s + K_BQ;
 
     // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1): 64 keys x
     // 64 queries, both operands K-major
@@ -1075,17 +1052,8 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       wgmma_wait0();
     }
     __syncthreads();  // dS^T is whole; this tile's Q, dO are read
-    // request the next query tile that is not in flight yet into the
-    // stage just read; it lands while dQ is formed (and, with two
-    // stages, while the next tile is computed)
-    int q_after;
-    if constexpr (STAGES == 1) {
-      q_next = q_after = next_live(q0 + K_BQ);
-      load_q(q_after, 0);
-    } else {
-      q_after = q_next < Sq ? next_live(q_next + K_BQ) : Sq;
-      load_q(q_after, st);
-    }
+    const int q_next = next_live(q0 + K_BQ);
+    if (q_next < Sq) load_q(q_next);  // lands while dQ is formed
 
     // dQ [64 queries x D] = dS K in 64-column chunks: warpgroup w takes
     // chunks w, w + 2, ... (at D = 64 warpgroup 0 the only one), each
@@ -1124,10 +1092,6 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
     q0 = q_next;
-    if constexpr (STAGES == 2) {
-      q_next = q_after;
-      st ^= 1;
-    }
   }
 
   // this head's dK / dV: bf16 into dk / dv when G == 1, else fp32
