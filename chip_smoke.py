@@ -123,8 +123,9 @@ Phases:
                 every group; K4 and K1 launches equal to the count from
                 the run's own groups (remat: each unit's layers run
                 forward twice, the tail's once); losses and parameters
-                finite; each step's groups (n_seqs, bucket) and the
-                caching allocator's retries and new device allocations
+                finite; each step's groups (n_seqs, bucket) with each
+                group's time, its peak memory, the caching allocator's
+                retries and the time in Python's garbage collector
                 during it; one more step under torch.profiler for the
                 busy share and the device time by kernel (K1 forward,
                 backward and its group sum apart)
@@ -132,6 +133,11 @@ Phases:
                 vs plain at every shape the hybrid run launched, K1 on
                 the run's own span tables, with times and bounds; these
                 feed the kernels line
+
+Each full-width training phase (9, 13, 18) first collects what the
+earlier phases left in reference cycles (the profiler's event trees
+among it) and prints what that took: left to the garbage collector, its
+full pass over that heap lands inside one of the run's timed steps.
 """
 import json
 import math
@@ -974,6 +980,18 @@ def phase_ssm_parity(dev):
                              "plain path by more than 1e-4")
 
 
+def collect_garbage(label):
+    """Collect what earlier phases left in reference cycles (the
+    profiler's event trees among it) before a timed training run, so
+    that the collector's full pass over it does not land inside one of
+    the run's steps; prints what it found and took."""
+    import gc
+    t0 = time.perf_counter()
+    n = gc.collect()
+    print(f"  {label}: gc.collect() before the run found {n} unreachable "
+          f"objects in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+
 def profile_step(eng, run, card, label, kernel_keys, ranges=()):
     """One more training step under torch.profiler: wall, device busy
     share, the 15 kernels with the most device time, and for each name
@@ -1367,37 +1385,53 @@ def phase_hybrid_training(dev, card):
           f"{c.param_dtype}, remat {c.remat}, init "
           f"{time.perf_counter() - t0:.1f} s")
     plans = []
-    # each step's groups (n_seqs, bucket) and what the caching allocator
-    # did for it: retries (every cached block freed and the allocation
-    # tried again) and new device allocations
+    # each step's groups (n_seqs, bucket), its peak memory, the caching
+    # allocator's retries (every cached block freed and the allocation
+    # tried again) and the time the garbage collector held the
+    # interpreter
     per_step = []
     execute = eng.execute
+    gc_s = [0.0, None]
+
+    def gc_clock(phase, info):
+        if phase == "start":
+            gc_s[1] = time.perf_counter()
+        elif gc_s[1] is not None:
+            gc_s[0] += time.perf_counter() - gc_s[1]
 
     def counted_execute(plan, data):
-        keys = ("num_alloc_retries", "num_device_alloc")
-        before = torch.cuda.memory_stats(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        retries = torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+        gc_s[0] = 0.0
         m = execute(plan, data)
-        after = torch.cuda.memory_stats(dev)
         per_step.append(dict(
             groups=[k[3:5] for k in eng.executor.last_exe_keys],
-            **{k: after.get(k, 0) - before.get(k, 0) for k in keys}))
+            peak=torch.cuda.max_memory_allocated(dev), gc_ms=gc_s[0] * 1e3,
+            alloc_retries=torch.cuda.memory_stats(dev).get(
+                "num_alloc_retries", 0) - retries))
         return m
     eng.execute = counted_execute
-    torch.cuda.reset_peak_memory_stats(dev)
+    gc.callbacks.append(gc_clock)
     _zero_k4_k1_counts()
-    hist = eng.train(steps=3, lookahead=True, plan_log=plans, trace=True,
-                     **run)
-    eng.execute = execute
+    try:
+        hist = eng.train(steps=3, lookahead=True, plan_log=plans,
+                         trace=True, **run)
+    finally:
+        eng.execute = execute
+        gc.callbacks.remove(gc_clock)
     torch.cuda.synchronize()
     counts = _k4_k1_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = max(st["peak"] for st in per_step)
 
     tracer = eng.last_tracer
     if tracer.dropped:
         raise AssertionError(f"the tracer dropped {tracer.dropped} events")
+    spans = [e for e in tracer.to_json()["traceEvents"]
+             if e.get("name") == "execute"]
     groups = [(e["args"]["n_seqs"], e["args"]["bucket"], e["args"]["spans"])
-              for e in tracer.to_json()["traceEvents"]
-              if e.get("name") == "execute"]
+              for e in spans]
+    # each group's span (run synchronously under trace), in step order
+    group_ms = iter(e["dur"] / 1e3 for e in spans)
     per_group = hybrid_launches(eng.cfg)
     want = {k: (f * len(groups), b * len(groups))
             for k, (f, b) in per_group.items()}
@@ -1415,8 +1449,9 @@ def phase_hybrid_training(dev, card):
               f"groups={sum(m.degree_histogram.values())} "
               f"schedule_ms={m.schedule_ms} plan_overlap_ms="
               f"{m.plan_overlap_ms} (n_seqs, bucket)={st['groups']} "
-              f"alloc_retries={st['num_alloc_retries']} "
-              f"device_allocs={st['num_device_alloc']} ({card})")
+              f"group_ms={[next(group_ms) for _ in st['groups']]} "
+              f"peak_bytes={st['peak']} gc_ms={st['gc_ms']} "
+              f"alloc_retries={st['alloc_retries']} ({card})")
     if len(hist) != 3:
         raise AssertionError(f"{len(hist)} training steps, want 3")
     if not all(torch.isfinite(t).all() for t in tree_leaves(
@@ -1561,6 +1596,7 @@ def main() -> int:
     print("[8/19] training parity at reduced size (fp32)")
     phase_train_parity(dev)
     print("[9/19] full-width DHP training (bf16)")
+    collect_garbage("train")
     n_fwd, n_bwd, tables, n_layers = phase_training(dev, card)
     torch.cuda.empty_cache()
     print("[10/19] K1 vs plain versions at the training run's shapes")
@@ -1607,6 +1643,7 @@ def main() -> int:
     phase_ssm_parity(dev)
     print("[13/19] full-width mamba2-370m DHP training (bf16)")
     torch.cuda.empty_cache()
+    collect_garbage("ssm train")
     s_fwd, s_bwd, ssm_shapes, ssm_layers, chunk = phase_ssm_training(dev,
                                                                      card)
     torch.cuda.empty_cache()
@@ -1652,6 +1689,7 @@ def main() -> int:
     phase_hybrid_parity(dev)
     print("[18/19] full-width recurrentgemma-2b DHP training (bf16)")
     torch.cuda.empty_cache()
+    collect_garbage("hybrid train")
     counts, hy_tables, per_group = phase_hybrid_training(dev, card)
     torch.cuda.empty_cache()
     print("[19/19] K4 and K1 vs plain versions at the hybrid run's shapes")

@@ -34,10 +34,9 @@ otherwise.
 
 Time mode: the checkout's tree is "change"; `--tree` adds another
 checkout root (for example the parent commit unpacked with `git
-archive`), and `--variant` a tree's source with the named EDITS (or
-WIDE_EDITS, for trees that still hold the D = 256 kernel this one
-replaced) applied (measurements only: some drop work on purpose, and
-their errors show it). Each is called through its C interface
+archive`), and `--variant` a tree's source with the named EDITS applied
+(measurements only: some drop work on purpose, and their errors show
+it). Each is called through its C interface
 `k1_backward` on the shape's main-path row, one 4096-token openvid
 sequence with its 256-token frames in bf16, held to the plain version
 (max|err| / max|plain| of dq, dk, dv, and whether two calls give the
@@ -71,7 +70,6 @@ SHAPES = {
     "rg": dict(H=10, HKV=1, D=256, mode="sliding", window=2048,
                vocab=256000),
 }
-_MODES = {"full": 0, "causal": 1, "sliding": 2}
 
 #: fault name -> (the tensors it must show in, the tags of the cases it
 #: must show in (None: every case), [(text, replacement)]); the backward
@@ -150,28 +148,6 @@ EDITS = {
         ("      1024 + 4 * TB + K_BK * K_BQ * 2 +",
          "      1024 + 6 * TB + K_BK * K_BQ * 2 +")],
 }
-
-#: measurement-only edits of the D = 256 backward kernel that this tree
-#: replaced (packed_bwd_tc_wide_kernel: one block per (64-key tile, KV
-#: head), the query heads of the group in turn, mma.sync), for trees
-#: that still hold it
-WIDE_EDITS = {
-    "wide_dq_stores": [(
-        "              atomicAdd(dqb + (int64_t)row * q_stride + col, "
-        "dqa[mi][j][e]);",
-        "              dqb[(int64_t)row * q_stride + col] = dqa[mi][j][e];")],
-    "wide_no_transposes": [(
-        "          Qt[(ch * 8 + e) * QTP + c] = qe[e];\n"
-        "          dOt[(ch * 8 + e) * QTP + c] = de[e];\n", "")],
-    # one query head of the ten: what one head's work takes on the
-    # kernel's 64 blocks
-    "wide_one_head": [(
-        "  for (int hh = 0; hh < G; ++hh) {\n    const int h = hk * G + hh;\n"
-        "    const bf16* qb",
-        "  for (int hh = 0; hh < 1; ++hh) {\n    const int h = hk * G + hh;\n"
-        "    const bf16* qb")],
-}
-
 
 def plant(src: str, edits, what: str) -> str:
     """`src` with each (text, replacement) applied to its first match."""
@@ -373,6 +349,7 @@ def inputs(torch, shape):
 def backward(torch, lib, x):
     """dq, dk, dv through `lib`'s k1_backward. Trees from before the
     scratch pointer `work` (no k1_last_bwd_kv_launch) take none."""
+    from repro_torch.kernels.flash_attention import MODES
     from repro_torch.kernels.flash_attention_packed import (_summaries,
                                                             _tables)
     cfg = SHAPES[x["shape"]]
@@ -394,7 +371,7 @@ def backward(torch, lib, x):
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(*[t.data_ptr() for t in ptrs], 1, S, S, H, HKV, D, 1,
-             _MODES[cfg["mode"]], int(cfg["window"] or 0), 0,
+             MODES[cfg["mode"]], int(cfg["window"] or 0), 0,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"k1_backward returned {err}")
@@ -403,13 +380,13 @@ def backward(torch, lib, x):
 
 def build_trees(tmp, trees, variants):
     """label -> library of each tree's source and of each variant (a
-    tree's source with EDITS / WIDE_EDITS applied), built at once."""
+    tree's source with EDITS applied), built at once."""
     srcs = {label: open(os.path.join(root, CU)).read()
             for label, root in trees.items()}
     for label, spec in variants.items():
         tree, names = spec.split(":")
         srcs[label] = plant(srcs[tree], [e for n in names.split("+")
-                                         for e in {**EDITS, **WIDE_EDITS}[n]],
+                                         for e in EDITS[n]],
                             label)
     return build(srcs, tmp)
 
