@@ -42,9 +42,11 @@ Phases:
                 within 2e-2 of its largest plain value (most gradient
                 elements are far below 1, so the elementwise limit alone
                 is about as large as a typical gradient). Prints the
-                bf16 D=128 backward's design facts at one 4096-token
-                row: its stage, and the grid, threads, shared memory and
-                fp32 scratch (the heads' dK / dV) of the launch that ran
+                bf16 D=128 forward's and backward's design facts at one
+                4096-token row: each one's stage, and the grid, threads
+                and shared memory of the launch that ran, with the query
+                heads a forward block takes and the backward's fp32
+                scratch (the heads' dK / dV)
   8. train parity — reduced internvl3-2b, fp32: two DHP training steps
                 with the kernels (attn_impl="cuda") vs the same steps
                 through the plain full-matrix attention: losses, the
@@ -569,6 +571,11 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
 #: it, 2 cp.async tiles and no transposed copies, 3 16-byte vector
 #: atomics for dQ, 4 every product by wgmma (its source note)
 K1_BWD_STAGE = 4
+#: how far the redesign of K1's bf16 forward at D = 64 / 128 went: 1
+#: every product by wgmma, 2 a cp.async ring of K/V tiles found by
+#: ballot, 3 the unmasked path, 4 two warpgroups a block, the heaviest
+#: query tiles first (its source note)
+K1_FWD_STAGE = 4
 
 
 def phase_packed(dev, card):
@@ -585,12 +592,15 @@ def phase_packed(dev, card):
                 # the training path's shape: one 4096-token row, 12:2
                 # heads, D = 128; the launch as the library recorded it
                 from repro_torch.kernels.flash_attention_packed import (
-                    last_bwd_kv_launch)
-                facts = dict(stage=K1_BWD_STAGE, **last_bwd_kv_launch())
-                facts["sms"] = torch.cuda.get_device_properties(
+                    last_bwd_kv_launch, last_fwd_launch)
+                sms = torch.cuda.get_device_properties(
                     0).multi_processor_count
-                print(f"  K1 bwd design at S={S} H={H} Hkv={HKV} D={D} "
-                      f"{json.dumps(facts)} ({card})")
+                for which, stage, launch in (
+                        ("fwd", K1_FWD_STAGE, last_fwd_launch),
+                        ("bwd", K1_BWD_STAGE, last_bwd_kv_launch)):
+                    facts = dict(stage=stage, **launch(), sms=sms)
+                    print(f"  K1 {which} design at S={S} H={H} Hkv={HKV} "
+                          f"D={D} {json.dumps(facts)} ({card})")
     S, lens = 1024, [400, 300, 250]
     seg, span = packed_layout(S, lens, 128)
     rows.append(check_packed(dev, card, gen, S, fp32, seg, span,
@@ -761,7 +771,9 @@ def phase_training(dev, card):
                              f"the run's {sorted(set(groups))}")
 
     # one more step under the profiler: the device's busy share
-    profile_step(eng, run, card, "train", {"k1": "packed_"})
+    profile_step(eng, run, card, "train",
+                 {"k1": "packed_", "k1_fwd": "packed_fwd",
+                  "k1_bwd": "packed_bwd", "k1_bwd_sum": "bwd_kv_reduce"})
     eng.close()
     return n_fwd, n_bwd, tables, eng.cfg.n_layers
 

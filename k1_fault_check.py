@@ -1,8 +1,9 @@
-"""K1's bf16 limits against planted faults, and K1's bf16 backward timed
-against other source trees, on one card.
+"""K1's bf16 limits against planted faults, and K1's bf16 forward and
+backward timed against other source trees, on one card.
 
     python3 k1_fault_check.py [--shape internvl|rg ...] [--out FILE]
-    python3 k1_fault_check.py --time [--shape internvl|rg ...]
+    python3 k1_fault_check.py --time [--direction fwd|bwd|both]
+                              [--shape internvl|rg ...]
                               [--tree LABEL=DIR ...]
                               [--variant LABEL=TREE:EDIT[+EDIT...] ...]
                               [--rounds N] [--out FILE]
@@ -36,13 +37,16 @@ Time mode: the checkout's tree is "change"; `--tree` adds another
 checkout root (for example the parent commit unpacked with `git
 archive`), and `--variant` a tree's source with the named EDITS applied
 (measurements only: some drop work on purpose, and their errors show
-it). Each is called through its C interface
-`k1_backward` on the shape's main-path row, one 4096-token openvid
-sequence with its 256-token frames in bf16, held to the plain version
-(max|err| / max|plain| of dq, dk, dv, and whether two calls give the
-same dk and dv bits), and timed in turns, forwards then backwards,
-`--rounds` times (CUDA events, 10 calls after 2), beside SDPA with the
-tables' boolean mask and `chip_smoke.py`'s bound.
+it). Each is called through its C interface, `k1_forward` and / or
+`k1_backward` (`--direction`, both by default), on the shape's main-path
+row, one 4096-token openvid sequence with its 256-token frames in bf16,
+held to the plain version (forward: max|err| / max|plain| of o, the
+LSE's largest error on rows with keys, and whether two calls give the
+same o and LSE bits; backward: max|err| / max|plain| of dq, dk, dv, and
+whether two calls give the same dk and dv bits), and timed in turns,
+forwards then backwards, `--rounds` times (CUDA events, 10 calls after
+2), beside SDPA with the tables' boolean mask and `chip_smoke.py`'s
+bound (`packed_bound`, forward or backward).
 """
 import argparse
 import ctypes
@@ -100,11 +104,6 @@ _COMMON = {
     "unmasked_window_edge": (("dq", "dk", "dv"), ("past_window",), [(
         "                       kpos_w > q0 + K_BQ - 1 - p.window)));",
         "                       kpos_w > q0 - 1 - p.window)));")]),
-    "fwd_drops_key_tile": (("o",), None, [(
-        "if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + F_BK, Sk))) "
-        "continue;",
-        "if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + F_BK, Sk)) || "
-        "j0 == 128) continue;")]),
 }
 FAULTS = {
     "internvl": {
@@ -114,9 +113,42 @@ FAULTS = {
         "unmasked_causal_edge": (("dq", "dk", "dv"), ("causal",), [(
             "                     (kpos_w + 15 <= q0 &&",
             "                     (kpos_w + 15 <= q0 + K_BQ &&")]),
+        # the forward at D = 64 / 128 (packed_fwd_wg_kernel): key tile 2
+        # (keys 128-191) never computed
+        "fwd_drops_key_tile": (("o",), None, [(
+            "        mine = (live_mine >> (j - live_base)) & 1u;",
+            "        mine = (live_mine >> (j - live_base)) & 1u && j != 2;")]),
+        # its unmasked path one key tile past the diagonal: the tile
+        # whose keys start at the rows' first (later keys than some rows)
+        "fwd_unmasked_causal_edge": (("o",), ("causal",), [(
+            "                    (kpos0 + W_BK - 1 <= r0 &&",
+            "                    (kpos0 - 1 <= r0 &&")]),
+        # ... or within the window of the rows' first row but not their
+        # last: it can show only where a row is longer than the window
+        "fwd_unmasked_window_edge": (("o",), ("past_window",), [(
+            "(p.mode != kSliding || kpos0 > r0 + 63 - p.window)));",
+            "(p.mode != kSliding || kpos0 > r0 - 1 - p.window)));")]),
+        # V read from the ring's other stage (the tile before, or the
+        # one landing)
+        "fwd_ring_stage_stale": (("o",), None, [(
+            "smem_u32(ring + st * 2 * TB), va = ka + TB;",
+            "smem_u32(ring + st * 2 * TB),\n"
+            "                     va = smem_u32(ring + (st ^ 1) * 2 * TB) "
+            "+ TB;")]),
+        # the second warpgroup's rows formed from the first's queries
+        "fwd_second_wg_reads_first_q": (("o",), None, [(
+            "  const uint32_t qa = smem_u32(Qs + wg * TB);",
+            "  const uint32_t qa = smem_u32(Qs);")]),
     },
     "rg": {
         **_COMMON,
+        # the forward at D = 256 (packed_fwd_tc_kernel): key tile 2 (keys
+        # 128-191) never computed
+        "fwd_drops_key_tile": (("o",), None, [(
+            "if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + F_BK, Sk))) "
+            "continue;",
+            "if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + F_BK, Sk)) || "
+            "j0 == 128) continue;")]),
         # D = 256 alone: dK / dV's upper 128 columns formed from the
         # wrong 64-wide block of Q / dO (a block stride of 1 for 2)
         "block_stride_256": (("dk", "dv"), None, [(
@@ -131,6 +163,8 @@ FAULTS = {
 }
 
 #: measurement-only edits of this tree's kernel for `--time --variant`
+#: (the fwd_ ones edit the forward at D = 64 / 128, the others the
+#: backward)
 EDITS = {
     "no_dq_adds": [("        if (row < Sq) red_add_v4(",
                     "        if (row < -1) red_add_v4(")],
@@ -147,6 +181,30 @@ EDITS = {
          "  static constexpr int MIN_BLOCKS = 1;"),
         ("      1024 + 4 * TB + K_BK * K_BQ * 2 +",
          "      1024 + 6 * TB + K_BK * K_BQ * 2 +")],
+    # what the unmasked path bought: every tile tests every pair
+    "fwd_masked": [("      bool whole = one_seg &&",
+                    "      bool whole = false &&")],
+    # what the pair mask still costs: every tile unmasked
+    "fwd_unmasked": [(
+        "      whole = __all_sync(FULL, whole && segk_s[lane] == seg_w &&\n"
+        "                                   segk_s[lane + 32] == seg_w);",
+        "      whole = p.B > 0;")],
+    # what the ring bought: one stage, each tile loaded after the last
+    # is computed
+    "fwd_one_stage": [
+        ("constexpr int W_STAGES = 2;", "constexpr int W_STAGES = 1;"),
+        ("    if (jn < jt_hi) load_kv(jn, st ^ 1);", ""),
+        ("    mine = mine_next;\n    st ^= 1;",
+         "    mine = mine_next;\n    if (j < jt_hi) {\n"
+         "      __syncthreads();\n      load_kv(j, 0);\n    }")],
+    # one block an SM: up to 255 registers a thread, no spill
+    "fwd_one_block_per_sm": [("__launch_bounds__(W_THREADS, 2)",
+                              "__launch_bounds__(W_THREADS, 1)")],
+    # what the order bought: the first query tiles issued first
+    "fwd_light_first": [(
+        "  const int q0 = ((Sq + W_BQ - 1) / W_BQ - 1 - (int)blockIdx.y) * "
+        "W_BQ;",
+        "  const int q0 = (int)blockIdx.y * W_BQ;")],
 }
 
 def plant(src: str, edits, what: str) -> str:
@@ -181,15 +239,15 @@ def build(sources: dict, tmp: str) -> dict:
     return libs
 
 
-def ptxas_report(log, key="packed_bwd"):
+def ptxas_report(log, keys=("packed_bwd", "packed_fwd_wg")):
     """ptxas's registers, stack and spills of the entry functions whose
-    (mangled) name holds `key`, one line each."""
+    (mangled) name holds one of `keys`, one line each."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif name and key in name and ("registers" in line
-                                       or "spill" in line):
+            key = next((k for k in keys if k in name), None)
+        elif name and key and ("registers" in line or "spill" in line):
             # the kernel's name and template arguments, e.g.
             # packed_bwd_kv_kernelILi256ELb1EE: D = 256 with spans
             out.append(f"{name[name.find(key):][:36]} {line.strip()}")
@@ -279,14 +337,23 @@ def readings(torch, shape):
 def fault_mode(torch, tmp, shapes):
     from repro_torch.kernels import build as kbuild
     src = open(os.path.join(ROOT, CU)).read()
-    edits = {f: e for shape in shapes for f, (_, _, e) in
-             FAULTS[shape].items()}
-    libs = build({f: plant(src, e, f) for f, e in edits.items()}, tmp)
+    # one build per distinct edited source: a fault of one name may sit
+    # in another kernel at each shape (fwd_drops_key_tile)
+    sources, label_of = {}, {}
+    for shape in shapes:
+        for fault, (_, _, edits) in FAULTS[shape].items():
+            text = plant(src, edits, fault)
+            label = next((lb for lb, t in sources.items() if t == text),
+                         f"{shape}_{fault}")
+            sources[label] = text
+            label_of[shape, fault] = label
+    libs = build(sources, tmp)
     result, ok = {}, True
     for shape in shapes:
         for fault, (shows, tags, _) in FAULTS[shape].items():
             # the wrappers load "flash_attention_packed" through build.load
-            kbuild._libs["flash_attention_packed"] = libs[fault]
+            kbuild._libs["flash_attention_packed"] = libs[
+                label_of[shape, fault]]
             rows = readings(torch, shape)
             torch.cuda.synchronize()
             must = [r for r in rows
@@ -346,17 +413,48 @@ def inputs(torch, shape):
                 kw=kw, shape=shape)
 
 
-def backward(torch, lib, x):
-    """dq, dk, dv through `lib`'s k1_backward. Trees from before the
-    scratch pointer `work` (no k1_last_bwd_kv_launch) take none."""
+def _call_args(torch, x):
+    """The tables and summaries of the row, and its sizes and mode as
+    k1_forward and k1_backward take them."""
     from repro_torch.kernels.flash_attention import MODES
     from repro_torch.kernels.flash_attention_packed import (_summaries,
                                                             _tables)
     cfg = SHAPES[x["shape"]]
-    H, HKV, D = cfg["H"], cfg["HKV"], cfg["D"]
+    q = x["q"]
+    tables = [*_tables(q, x["k"], x["seg"], x["span"], None, None),
+              _summaries(1, S, q.device), _summaries(1, S, q.device)]
+    ints = [1, S, S, cfg["H"], cfg["HKV"], cfg["D"], 1, MODES[cfg["mode"]],
+            int(cfg["window"] or 0), 0]
+    return tables, ints
+
+
+def _call(torch, fn, ptrs, ints, what):
+    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 10 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(*[t.data_ptr() for t in ptrs], *ints,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{what} returned {err}")
+
+
+def forward(torch, lib, x):
+    """o, lse through `lib`'s k1_forward."""
+    q = x["q"]
+    tables, ints = _call_args(torch, x)
+    o = torch.empty_like(q)
+    lse = torch.empty(1, ints[3], S, dtype=torch.float32, device=q.device)
+    _call(torch, lib.k1_forward, [q, x["k"], x["v"], o, lse, *tables], ints,
+          "k1_forward")
+    return o, lse
+
+
+def backward(torch, lib, x):
+    """dq, dk, dv through `lib`'s k1_backward. Trees from before the
+    scratch pointer `work` (no k1_last_bwd_kv_launch) take none."""
     q, k = x["q"], x["k"]
-    segq, segk, spanq, spank = _tables(q, k, x["seg"], x["span"], None,
-                                       None)
+    tables, ints = _call_args(torch, x)
+    H, D = ints[3], ints[5]
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(x["v"])
     delta = torch.empty(1, H, S, dtype=torch.float32, device=q.device)
@@ -364,17 +462,7 @@ def backward(torch, lib, x):
     if hasattr(lib, "k1_last_bwd_kv_launch"):
         ptrs.append(torch.empty(2 * S * H * D, dtype=torch.float32,
                                 device=q.device))
-    ptrs += [segq, segk, spanq, spank, _summaries(1, S, q.device),
-             _summaries(1, S, q.device)]
-    fn = lib.k1_backward
-    fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 10 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(*[t.data_ptr() for t in ptrs], 1, S, S, H, HKV, D, 1,
-             MODES[cfg["mode"]], int(cfg["window"] or 0), 0,
-             torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"k1_backward returned {err}")
+    _call(torch, lib.k1_backward, ptrs + tables, ints, "k1_backward")
     return dq.bfloat16(), dk, dv
 
 
@@ -391,62 +479,110 @@ def build_trees(tmp, trees, variants):
     return build(srcs, tmp)
 
 
-def time_mode(torch, libs, shape, rounds):
-    import torch.nn.functional as F
-    from chip_smoke import cuda_ms, packed_bound
-    from repro_torch.kernels.flash_attention_packed import (
-        flash_attention_packed_bwd_ref, pair_mask, _tables)
-    cfg = SHAPES[shape]
-    H, HKV, D = cfg["H"], cfg["HKV"], cfg["D"]
-    x = inputs(torch, shape)
-    ref = flash_attention_packed_bwd_ref(x["q"], x["k"], x["v"], x["do"],
-                                         x["seg"], span_ids=x["span"],
-                                         **x["kw"])
+def _whole(a, r):
+    return ((a.float() - r.float()).abs().max()
+            / r.float().abs().max()).item()
+
+
+def _readings_fwd(torch, libs, x, ref):
+    """label -> whole error of o, the LSE's largest error on rows with
+    keys, and whether two calls give the same bits."""
+    ro, rlse = ref
+    fin = torch.isfinite(rlse)
+    rows = {}
+    for label, lib in libs.items():
+        (o, lse), (o2, lse2) = forward(torch, lib, x), forward(torch, lib, x)
+        torch.cuda.synchronize()
+        rows[label] = {
+            "whole_err": {"o": _whole(o, ro)},
+            "lse_err": (lse[fin] - rlse[fin]).abs().max().item(),
+            "lse_rows_agree": bool(torch.equal(torch.isfinite(lse), fin)),
+            "same_bits": bool(torch.equal(o, o2) and torch.equal(lse, lse2)),
+            "ms": []}
+    return rows
+
+
+def _readings_bwd(torch, libs, x, ref):
+    """label -> whole errors of dq, dk, dv and whether two calls give the
+    same dk and dv bits."""
     rows = {}
     for label, lib in libs.items():
         got, again = backward(torch, lib, x), backward(torch, lib, x)
         torch.cuda.synchronize()
-        rows[label] = {"whole_err": {
-            n: ((a.float() - r.float()).abs().max()
-                / r.float().abs().max()).item()
-            for n, a, r in zip(("dq", "dk", "dv"), got, ref)},
-            "dk_dv_same_bits": bool(torch.equal(got[1], again[1])
-                                    and torch.equal(got[2], again[2])),
+        rows[label] = {
+            "whole_err": {n: _whole(a, r)
+                          for n, a, r in zip(("dq", "dk", "dv"), got, ref)},
+            "same_bits": bool(torch.equal(got[1], again[1])
+                              and torch.equal(got[2], again[2])),
             "ms": []}
-    del ref
-    order = list(libs) + list(libs)[::-1]
-    for _ in range(rounds):
-        for label in order:
-            rows[label]["ms"].append(cuda_ms(
-                lambda: backward(torch, libs[label], x), iters=10,
-                warmup=2))
+    return rows
+
+
+def time_mode(torch, libs, shape, rounds, directions):
+    """For each direction, every library held to the plain version and
+    timed in turns (change, ..., ..., change), beside SDPA with the
+    tables' boolean mask and chip_smoke.py's bound."""
+    import torch.nn.functional as F
+    from chip_smoke import cuda_ms, packed_bound
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed_bwd_ref, flash_attention_packed_ref,
+        pair_mask, _tables)
+    cfg = SHAPES[shape]
+    H, HKV, D = cfg["H"], cfg["HKV"], cfg["D"]
+    x = inputs(torch, shape)
     tabs = _tables(x["q"], x["k"], x["seg"], x["span"], None, None)
     mask = pair_mask(S, S, *tabs, **x["kw"])
     pairs = int(mask.sum())
     qt, kt, vt = (x[n].transpose(1, 2).contiguous().requires_grad_(True)
                   for n in ("q", "k", "v"))
-    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None],
-                                         enable_gqa=True)
-    dot = x["do"].transpose(1, 2)
-    sdpa = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                               retain_graph=True),
-                   iters=10, warmup=2)
-    bound, bound_by = packed_bound(1, S, S, H, HKV, D, torch.bfloat16,
-                                   pairs, True, 2)
-    for label, row in rows.items():
-        print(f"{shape:8s} {label:24s} ms {row['ms']}  whole err "
-              f"{row['whole_err']} same dk/dv bits {row['dk_dv_same_bits']}")
     window = f" {cfg['window']}" if cfg["window"] else ""
-    return {"shape": f"B=1 S={S} H={H} Hkv={HKV} D={D} bf16 "
-                     f"{cfg['mode']}{window} spans",
-            "pairs": pairs, "bound_ms": bound, "bound_by": bound_by,
-            "sdpa_ms": sdpa, "kernels": rows}
+    out = {"shape": f"B=1 S={S} H={H} Hkv={HKV} D={D} bf16 "
+                    f"{cfg['mode']}{window} spans", "pairs": pairs}
+    for direction in directions:
+        ref_fn, readings_fn, call = (
+            (flash_attention_packed_ref, _readings_fwd, forward)
+            if direction == "fwd" else
+            (flash_attention_packed_bwd_ref, _readings_bwd, backward))
+        args = [x[n] for n in ("q", "k", "v")]
+        if direction == "bwd":
+            args.append(x["do"])
+        ref = ref_fn(*args, x["seg"], span_ids=x["span"], **x["kw"])
+        rows = readings_fn(torch, libs, x, ref)
+        del ref
+        order = list(libs) + list(libs)[::-1]
+        for _ in range(rounds):
+            for label in order:
+                rows[label]["ms"].append(cuda_ms(
+                    lambda: call(torch, libs[label], x), iters=10,
+                    warmup=2))
+        if direction == "fwd":
+            sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True),
+                iters=10, warmup=2)
+        else:
+            o = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
+            dot = x["do"].transpose(1, 2)
+            sdpa = cuda_ms(lambda: torch.autograd.grad(
+                o, (qt, kt, vt), dot, retain_graph=True), iters=10,
+                warmup=2)
+            del o
+        bound, bound_by = packed_bound(1, S, S, H, HKV, D, torch.bfloat16,
+                                       pairs, direction == "bwd", 2)
+        for label, row in rows.items():
+            print(f"{shape:8s} {direction} {label:24s} ms {row['ms']}  "
+                  f"{ {k: v for k, v in row.items() if k != 'ms'} }")
+        out[direction] = {"bound_ms": bound, "bound_by": bound_by,
+                          "sdpa_ms": sdpa, "kernels": rows}
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--time", action="store_true",
-                    help="time the backward of trees and variants")
+                    help="time the kernels of trees and variants")
+    ap.add_argument("--direction", choices=("fwd", "bwd", "both"),
+                    default="both", help="what --time times")
     ap.add_argument("--shape", action="append", choices=sorted(SHAPES),
                     help="internvl (the default) or rg; repeatable")
     ap.add_argument("--tree", action="append", default=[])
@@ -455,6 +591,8 @@ def main() -> int:
     ap.add_argument("--out", help="write every reading to this JSON file")
     args = ap.parse_args()
     shapes = args.shape or ["internvl"]
+    directions = (("fwd", "bwd") if args.direction == "both"
+                  else (args.direction,))
     import torch
     if not torch.cuda.is_available():
         print("k1_fault_check: no CUDA device visible", file=sys.stderr)
@@ -473,7 +611,7 @@ def main() -> int:
             from repro_torch.kernels import build as kbuild
             kbuild._libs["flash_attention_packed"] = libs["change"]
             result = {"times": {shape: time_mode(torch, libs, shape,
-                                                 args.rounds)
+                                                 args.rounds, directions)
                                 for shape in shapes}}
         else:
             result = fault_mode(torch, tmp, shapes)
@@ -485,7 +623,8 @@ def main() -> int:
             json.dump(result, f)
     if "times" in result:
         summary = {"card": card, "times": {
-            shape: {k: v for k, v in r.items() if k != "kernels"}
+            shape: {d: ({k: v for k, v in r[d].items() if k != "kernels"}
+                        if d in directions else r[d]) for d in r}
             for shape, r in result["times"].items()}}
     else:
         summary = {k: v for k, v in result.items() if k != "faults"}

@@ -30,13 +30,27 @@
 //
 // What bounds it on the H100: at the training path's packed buckets
 // (1k-4k tokens, D = 128) the valid pairs make the work compute-bound
-// (4*D flops per pair forward, 10*D backward, against q/k/v/o read
-// once), so both directions keep scores and probabilities on chip:
-//   * bf16 forward: mma.sync m16n8k16 on the tensor cores with fp32
-//     accumulation (P rounded to bf16 before its product), 4 warps x 16
-//     query rows, 64-key tiles (wgmma and TMA are later work there); at
-//     head_dim 256 (recurrentgemma-2b, bf16 only) it reads Q's fragments
-//     from shared memory per key tile (105 KB, two blocks an SM).
+// (4*D flops per valid pair per query head forward, 10*D backward,
+// against q/k/v/o read once), so both directions keep scores and
+// probabilities on chip:
+//   * bf16 forward at head_dim 64 / 128 (packed_fwd_wg_kernel, replacing
+//     the Pallas `_packed_kernel` of flash_attention_packed_flat):
+//     operations bound it, so every product is a warpgroup MMA (wgmma):
+//     S = Q K^T from shared memory, O += P V with P from registers
+//     (rounded to bf16) and V read N-major from its row-major tile, fp32
+//     accumulation, no transposed copy of any tile. A block is two
+//     warpgroups over 128 query rows of one head, sharing each 64-key
+//     K/V tile, which arrive by cp.async in a two-stage ring (the next
+//     live tile lands while this one is computed; 98 KB at D = 128, two
+//     blocks an SM). Live key tiles are found 32 at a time by one ballot
+//     over the tables' summaries; a tile wholly in the rows' one
+//     segment and at or before their first row (sliding: within the
+//     last row's window) skips the pair mask; the last query tiles,
+//     the heaviest under causal order, are issued first.
+//   * bf16 forward at head_dim 256 (recurrentgemma-2b, bf16 only):
+//     mma.sync m16n8k16 with fp32 accumulation, 4 warps x 16 query
+//     rows, 64-key tiles, Q's fragments read from shared memory per key
+//     tile (105 KB, two blocks an SM).
 //   * bf16 backward, every head dim: wgmma, one block per (query head,
 //     64-key tile, batch), a group sum of the heads' dK / dV after it and
 //     16-byte vector atomics for dQ (P and dS rounded to bf16 before
@@ -185,7 +199,8 @@ __device__ __forceinline__ void load_b(uint32_t b[2], const bf16* base,
 }
 
 // ---------------------------------------------------------------------
-// Forward, bf16, tensor cores: block = (64 query rows, head, batch).
+// Forward, bf16, tensor cores, D = 256 (D = 64 / 128 run
+// packed_fwd_wg_kernel): block = (64 query rows, head, batch).
 // ---------------------------------------------------------------------
 constexpr int F_BQ = 64, F_BK = 64, F_THREADS = 128;
 
@@ -1150,6 +1165,299 @@ __global__ void bwd_kv_reduce_kernel(const float* __restrict__ dk_part,
 }
 
 // ---------------------------------------------------------------------
+// Forward, bf16, tensor cores, D = 64 and 128, designed for the H100 (the
+// source note says what bounds it and what the design does about it).
+// A block is two warpgroups over W_BQ query rows of one query head, 64
+// rows each; both share each K/V tile of a ring of W_STAGES.
+// ---------------------------------------------------------------------
+constexpr int W_BQ = 128, W_BK = 64, W_THREADS = 256;
+constexpr int W_STAGES = 2;  // K/V tiles: one in use, one landing
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D>
+struct FwdWgTile {
+  static constexpr int TB = 64 * D * 2;  // bytes of one [64][D] tile
+  // Q of both warpgroups, the ring's K, V and key tables, and room to
+  // align the tiles to 1024 bytes (98 KB at D = 128: two blocks an SM)
+  static constexpr size_t smem =
+      1024 + 2 * TB + W_STAGES * (2 * TB + sizeof(int) * 2 * W_BK);
+};
+
+template <int D, bool SPANS>
+__global__ void __launch_bounds__(W_THREADS, 2)
+packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, Params p, float scale) {
+  constexpr int TB = FwdWgTile<D>::TB, CH = D / 8, NK = W_BK / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  unsigned char* Qs = sm;             // [2][64][D], one tile a warpgroup
+  unsigned char* ring = Qs + 2 * TB;  // W_STAGES x K, V [64][D]
+  // W_STAGES x the stage's key segments and spans [2][64]
+  int* ktab = reinterpret_cast<int*>(ring + W_STAGES * 2 * TB);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2;
+  const int H = p.H, Sq = p.Sq, Sk = p.Sk, h = blockIdx.x, b = blockIdx.z;
+  const int hk = h / (H / p.Hkv);
+  // blocks are issued y by y: the last query tiles, the heaviest under
+  // causal order, first
+  const int q0 = ((Sq + W_BQ - 1) / W_BQ - 1 - (int)blockIdx.y) * W_BQ;
+  const int q1 = min(q0 + W_BQ, Sq);
+  const int r0 = q0 + 64 * wg;  // the warpgroup's first row
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)p.Hkv * D;
+  const bf16* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const bf16* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const int* segqb = p.segq + (int64_t)b * Sq;
+  const int* segkb = p.segk + (int64_t)b * Sk;
+  const int* spankb = SPANS ? p.spank + (int64_t)b * Sk : segkb;
+
+  // Q, 64 rows a warpgroup; rows past Sq read as zeros (and are masked)
+  const bf16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+  for (int i = tid; i < W_BQ * CH; i += W_THREADS) {
+    const int r = i / CH, c = i % CH, qp = q0 + r;
+    cp_async16(Qs + (r / 64) * TB + sw128<64>(r % 64, c),
+               qb + (int64_t)(qp < Sq ? qp : q0) * q_stride + c * 8,
+               qp < Sq);
+  }
+  cp_async_commit();
+
+  // key tile j into ring stage st: K and V in the swizzled layout wgmma
+  // reads, the tables beside them (-2 past Sk, as kv padding)
+  auto load_kv = [&](int j, int st) {
+    const int j0 = j * W_BK;
+    unsigned char* Ks = ring + st * 2 * TB;
+    for (int i = tid; i < W_BK * CH; i += W_THREADS) {
+      const int r = i / CH, c = i % CH, kp = j0 + r;
+      const int64_t off = (int64_t)(kp < Sk ? kp : j0) * kv_stride + c * 8;
+      cp_async16(Ks + sw128<W_BK>(r, c), kb + off, kp < Sk);
+      cp_async16(Ks + TB + sw128<W_BK>(r, c), vb + off, kp < Sk);
+    }
+    if (tid < (SPANS ? 2 : 1) * W_BK) {
+      const int kp = j0 + tid % W_BK;
+      int* dst = ktab + st * 2 * W_BK + tid;
+      if (kp < Sk)
+        cp_async4(dst, (tid < W_BK ? segkb : spankb) + kp, true);
+      else
+        *dst = -2;
+    }
+    cp_async_commit();
+  };
+
+  // the first live key tile at or after j (jt_hi if none), uniform: each
+  // warp tests 32 tiles at once (lane i tile base + i) against the rows
+  // of both warpgroups and keeps the ballots, so the tables' summaries
+  // are read once per 32 tiles; `mine`: the tile is live for this
+  // warpgroup's rows (the other's may be all it is live for)
+  int j_lo = 0, j_hi = Sk;
+  if (!SPANS && p.mode != kFull) {
+    j_hi = max(0, min(Sk, q1 - p.kv_offset));
+    if (p.mode == kSliding) j_lo = max(0, q0 - p.window - p.kv_offset + 1);
+  }
+  const int jt_hi = (j_hi + W_BK - 1) / W_BK;
+  int live_base = -32;
+  uint32_t live_any = 0, live_mine = 0;
+  auto next_live = [&](int j, bool& mine) {
+    while (j < jt_hi) {
+      if (j >= live_base + 32) {
+        live_base = j;
+        const int k0 = (j + lane) * W_BK, k1 = min(k0 + W_BK, Sk);
+        const bool in = j + lane < jt_hi;
+        const uint32_t b0 = __ballot_sync(
+            FULL, in && tile_live<SPANS>(p, b, q0, min(q0 + 64, Sq), k0, k1));
+        const uint32_t b1 = __ballot_sync(
+            FULL, in && tile_live<SPANS>(p, b, q0 + 64, min(q0 + 128, Sq),
+                                         k0, k1));
+        live_any = b0 | b1;
+        live_mine = wg ? b1 : b0;
+      }
+      const uint32_t ahead = live_any >> (j - live_base);
+      if (ahead) {
+        j += __ffs(ahead) - 1;
+        mine = (live_mine >> (j - live_base)) & 1u;
+        return j;
+      }
+      j = live_base + 32;
+    }
+    mine = false;
+    return jt_hi;
+  };
+
+  // the thread's two rows: qrow and qrow + 8
+  const int qrow = r0 + (warp & 3) * 16 + g;
+  const int* spanqb = SPANS ? p.spanq + (int64_t)b * Sq : segqb;
+  // the warpgroup's 64 rows lie in one segment (seg_w >= 0): a key tile
+  // all in that segment, at or before the first row (and, sliding,
+  // within the last row's window) then needs no mask
+  const int seg_w = r0 < Sq ? segqb[r0] : -1;
+  const bool one_seg = __all_sync(
+      FULL, r0 + 64 <= Sq && seg_w >= 0 && segqb[r0 + lane] == seg_w &&
+                segqb[r0 + 32 + lane] == seg_w);
+
+  const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  const uint32_t qa = smem_u32(Qs + wg * TB);
+
+  bool mine;
+  int j = next_live(j_lo / W_BK, mine), st = 0;
+  if (j < jt_hi) load_kv(j, 0);
+  while (j < jt_hi) {
+    cp_async_wait<0>();   // tile j (the first time, Q too) has landed
+    fence_proxy_async();  // the copies are seen by wgmma's reads
+    __syncthreads();      // every warp is done with the other stage
+    bool mine_next;
+    const int jn = next_live(j + 1, mine_next);
+    if (jn < jt_hi) load_kv(jn, st ^ 1);  // lands while tile j is formed
+    if (mine) {
+      const int kpos0 = p.kv_offset + j * W_BK;
+      const uint32_t ka = smem_u32(ring + st * 2 * TB), va = ka + TB;
+      const int* segk_s = ktab + st * 2 * W_BK;
+      const int* spank_s = segk_s + W_BK;
+
+      // S = Q K^T: 64 rows x 64 keys, both operands K-major
+      float s[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * SW_BLOCK + (kk & 3) * 32;
+        wgmma_ss_n64<0, 0>(&s[0][0], wg_desc(qa + off, 16, SW_GROUP),
+                           wg_desc(ka + off, 16, SW_GROUP), 1);
+      }
+      wgmma_commit();
+      wgmma_wait0();
+
+      bool whole = one_seg &&
+                   (p.mode == kFull ||
+                    (kpos0 + W_BK - 1 <= r0 &&
+                     (p.mode != kSliding || kpos0 > r0 + 63 - p.window)));
+      whole = __all_sync(FULL, whole && segk_s[lane] == seg_w &&
+                                   segk_s[lane + 32] == seg_w);
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (whole) {
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] *= sl2;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+          }
+      } else {
+        int segq_r[2], spanq_r[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const bool in = qrow + 8 * i < Sq;
+          segq_r[i] = in ? segqb[qrow + 8 * i] : -1;
+          spanq_r[i] = (SPANS && in) ? spanqb[qrow + 8 * i] : -1;
+        }
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
+            const bool ok = pair_ok<SPANS>(p.mode, p.window, qrow + 8 * i,
+                                           kpos0 + c, segq_r[i], segk_s[c],
+                                           spanq_r[i], spank_s[c]);
+            s[n][e] = ok ? s[n][e] * sl2 : -INFINITY;
+            mx[i] = fmaxf(mx[i], s[n][e]);
+          }
+      }
+      // online softmax; a row with no valid key so far keeps m = -inf and
+      // subtracts 0, so its probabilities are exactly 0
+      float corr[2], mu[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        mu[i] = m_new == -INFINITY ? 0.f : m_new;
+        corr[i] = ex2(m[i] - mu[i]);
+        m[i] = m_new;
+      }
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = ex2(s[n][e] - mu[e >> 1]);
+          psum[e >> 1] += s[n][e];
+        }
+      // l is the thread's share of its rows' sums until the end
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd) {
+        acc[nd][0] *= corr[0];
+        acc[nd][1] *= corr[0];
+        acc[nd][2] *= corr[1];
+        acc[nd][3] *= corr[1];
+      }
+      // O += P V: P from registers (rounded to bf16), V N-major straight
+      // from its row-major tile, 16 keys a step
+      uint32_t a[W_BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < W_BK / 16; ++kk) {
+        a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < W_BK / 16; ++kk) {
+        const uint64_t dsc = wg_desc(va + kk * 2048, SW_BLOCK, SW_GROUP);
+        if constexpr (D == 64) {
+          wgmma_rs_n64<1>(&acc[0][0], a[kk], dsc);
+        } else {
+          wgmma_rs_n128<1>(&acc[0][0], a[kk], dsc);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait0();
+    }
+    j = jn;
+    mine = mine_next;
+    st ^= 1;
+  }
+  cp_async_wait<0>();  // Q, where no key tile was live
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+  }
+  bf16* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = qrow + 8 * i;
+    if (qp >= Sq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    bf16* orow = ob + (int64_t)qp * q_stride + t * 2;
+#pragma unroll
+    for (int nd = 0; nd < D / 8; ++nd)
+      *reinterpret_cast<uint32_t*>(orow + nd * 8) =
+          pack_bf16(acc[nd][2 * i] * inv, acc[nd][2 * i + 1] * inv);
+    if (t == 0)
+      lse[((int64_t)b * H + h) * Sq + qp] =
+          l[i] > 0.f ? m[i] * 0.6931471805599453f + logf(l[i]) : -INFINITY;
+  }
+}
+
+// ---------------------------------------------------------------------
 // Backward, fp32, CUDA cores. Block = (32-key tile, KV head, batch);
 // thread = (key, quarter of D: d = part + 4*i). Per live 32-row query
 // tile, each thread forms its key's scores and dP over the tile (a
@@ -1318,11 +1626,28 @@ cudaError_t summarize(const Params& p, int4* sumq, int4* sumk,
   return cudaGetLastError();
 }
 
+// grid x, y, z, threads and shared memory of the last
+// packed_fwd_wg_kernel launch (k1_last_fwd_launch reads them)
+static long long g_fwd_launch[5] = {0, 0, 0, 0, 0};
+
 template <typename T, int D, bool SPANS>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, const Params& p, cudaStream_t stream) {
   const float scale = 1.f / sqrtf((float)D);
-  if constexpr (std::is_same<T, bf16>::value) {
+  if constexpr (std::is_same<T, bf16>::value && D <= 128) {
+    constexpr size_t smem = FwdWgTile<D>::smem;
+    cudaError_t err = cudaFuncSetAttribute(
+        packed_fwd_wg_kernel<D, SPANS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.H, (p.Sq + W_BQ - 1) / W_BQ, p.B);
+    const long long launch[5] = {grid.x, grid.y, grid.z, W_THREADS,
+                                 (long long)smem};
+    for (int i = 0; i < 5; ++i) g_fwd_launch[i] = launch[i];
+    packed_fwd_wg_kernel<D, SPANS><<<grid, W_THREADS, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, p, scale);
+  } else if constexpr (std::is_same<T, bf16>::value) {
     constexpr size_t smem = FwdTile<D>::smem;
     cudaError_t err = cudaFuncSetAttribute(
         packed_fwd_tc_kernel<D, SPANS>,
@@ -1532,6 +1857,14 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
 // it addressed (0 when H == Hkv). All 0 before the first such launch.
 void k1_last_bwd_kv_launch(long long* out) {
   for (int i = 0; i < 6; ++i) out[i] = g_bwd_kv_launch[i];
+}
+
+// The last launch of packed_fwd_wg_kernel (bfloat16, head_dim 64 or
+// 128), as launch_fwd made it: out[0..2] its grid, out[3] its threads per
+// block, out[4] its dynamic shared memory in bytes. All 0 before the
+// first such launch.
+void k1_last_fwd_launch(long long* out) {
+  for (int i = 0; i < 5; ++i) out[i] = g_fwd_launch[i];
 }
 
 const char* k1_error_string(int err) {

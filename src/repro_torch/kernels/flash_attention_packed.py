@@ -23,11 +23,12 @@ On CPU tensors the wrappers run the plain versions (the backward is the
 autograd gradient of the plain forward); on CUDA tensors they launch
 `csrc/flash_attention_packed.cu` or raise, never falling back. bf16 runs
 on the tensor cores with fp32 accumulation, P and dS rounded to bf16
-before their products: the forward by `mma.sync`, the backward by `wgmma`
-with one block per (query head, 64-key tile), each query head's fp32 dK
-and dV summed over its KV head's group afterwards. fp32 runs on the CUDA
-cores. Head dims 64 and 128 run in both types, 256 (recurrentgemma-2b) in
-bf16 only.
+before their products: the forward at head_dim 64 / 128 by `wgmma`, two
+warpgroups over 128 query rows sharing a ring of K/V tiles (at 256 by
+`mma.sync`), the backward by `wgmma` with one block per (query head,
+64-key tile), each query head's fp32 dK and dV summed over its KV head's
+group afterwards. fp32 runs on the CUDA cores. Head dims 64 and 128 run
+in both types, 256 (recurrentgemma-2b) in bf16 only.
 """
 from __future__ import annotations
 
@@ -235,16 +236,29 @@ def _launch_fwd(q, k, v, tables, mode, window, kv_offset):
     return o, lse
 
 
+def _last_launch(fn: str, n: int) -> list:
+    lib = build.load("flash_attention_packed")
+    out = (ctypes.c_longlong * n)()
+    getattr(lib, fn).argtypes = [ctypes.c_void_p]
+    getattr(lib, fn).restype = None
+    getattr(lib, fn)(out)
+    return list(out)
+
+
+def last_fwd_launch() -> dict:
+    """The last launch of the bf16 forward kernel at head_dim 64 / 128,
+    as the library recorded it: `grid` (x, y, z), `threads` a block and
+    `smem_bytes` of dynamic shared memory."""
+    out = _last_launch("k1_last_fwd_launch", 5)
+    return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4])
+
+
 def last_bwd_kv_launch() -> dict:
     """The last launch of the bf16 backward kernel (any head_dim), as
     the library recorded it: `grid` (x, y, z), `threads` a block,
     `smem_bytes` of dynamic shared memory and `work_bytes` of the fp32
     scratch (each query head's dK and dV) it addressed."""
-    lib = build.load("flash_attention_packed")
-    out = (ctypes.c_longlong * 6)()
-    lib.k1_last_bwd_kv_launch.argtypes = [ctypes.c_void_p]
-    lib.k1_last_bwd_kv_launch.restype = None
-    lib.k1_last_bwd_kv_launch(out)
+    out = _last_launch("k1_last_bwd_kv_launch", 6)
     return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4],
                 work_bytes=out[5])
 

@@ -299,6 +299,146 @@ def test_packed_backward_dk_dv_are_deterministic(card, D):
     assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
 
 
+# The bf16 forward at D = 64 / 128: two warpgroups over 128 query rows,
+# every product by wgmma, a ring of K/V tiles
+def _k1_forward(card, q, k, v, seg, **kw):
+    """(kernel (o, lse), plain (o, lse)), the kernel's launch counted."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_ref)
+    segt = torch.as_tensor(seg, device=card)
+    n_fwd = flash_attention_packed.launches
+    got = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
+    want = flash_attention_packed_ref(q, k, v, segt, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_packed.launches == n_fwd + 1
+    return got, want
+
+
+def _k1_fwd_close(tag, got, want):
+    """Phase 7's limits: o within TOL elementwise and REL_TOL_BF16 as a
+    whole, the LSE within 1e-3 on rows with keys, -inf on the others."""
+    (o, lse), (ro, rlse) = got, want
+    ro = ro.float()
+    diff = (o.float() - ro).abs()
+    err = (diff / ro.abs().clamp_min(1.0)).max().item()
+    rel = diff.max().item() / ro.abs().max().item()
+    fin = torch.isfinite(rlse)
+    lse_err = (lse[fin] - rlse[fin]).abs().max().item()
+    print(f"K1 fwd {tag}: o elementwise {err:.4g} whole {rel:.4g}, "
+          f"lse {lse_err:.3g}")
+    assert err <= TOL[torch.bfloat16], (tag, err)
+    assert rel <= REL_TOL_BF16, (tag, rel)
+    assert torch.equal(fin, torch.isfinite(lse)), tag
+    assert lse_err <= 1e-3, (tag, lse_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_packed_forward_at_the_training_shape(card, D):
+    """internvl3-2b's main-path row: one 4096-token row with 256-token
+    frames, 12 query heads over 2 KV heads, causal; most key tiles take
+    the unmasked path. The library records the launch: two warpgroups a
+    block over 128 rows of one query head."""
+    from repro_torch.kernels.flash_attention_packed import last_fwd_launch
+    rng = np.random.default_rng(40)
+    H, Hkv = K1_HEADS[D]
+    q, k, v, _ = _k1_bf16(card, rng, 1, 4096, 4096, H, Hkv, D)
+    seg, span = _frames(4096)
+    got, want = _k1_forward(card, q, k, v, seg,
+                            span_ids=torch.from_numpy(span).to(card))
+    _k1_fwd_close(f"4096 D={D}", got, want)
+    launch = last_fwd_launch()
+    assert launch["grid"] == (H, 4096 // 128, 1), launch
+    assert launch["threads"] == 256, launch
+
+
+K1_FWD_CASES = [  # mode, window, spans, H == Hkv, ring hop
+    ("causal", None, True, False, False), ("causal", None, False, True,
+                                           False),
+    ("full", None, False, False, False), ("full", None, True, True, False),
+    ("sliding", 100, True, False, False), ("sliding", 100, False, True,
+                                           False),
+    ("causal", None, True, False, True), ("sliding", 100, False, False,
+                                          True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", range(len(K1_FWD_CASES)))
+def test_packed_forward_modes(card, D, case):
+    """Every mode, with and without spans, over segments long enough for
+    whole 64-key tiles in one segment (the unmasked path) beside ragged
+    ones and a partial last query tile; 12:2 heads and H == Hkv; a ring
+    hop: the buffer's last 400 queries against its first 400 keys, which
+    bring their own tables, at kv_offset -400."""
+    mode, window, spans, mha, hop = K1_FWD_CASES[case]
+    rng = np.random.default_rng(41 + case)
+    B, Sq = 2, 700
+    H, Hkv = (4, 4) if mha else K1_HEADS[D]
+    seg, span = _packed_tables(B, Sq, [300, 37, 250, 1], spans, frame=40)
+    kw = dict(mode=mode, window=window)
+    Sk = Sq
+    if hop:
+        Sk = 400
+        kseg = np.where(seg[:, :Sk] >= 0, seg[:, :Sk], -2).astype(np.int32)
+        kw.update(kv_offset=-Sk,
+                  kv_segment_ids=torch.from_numpy(kseg).to(card))
+        if spans:
+            kw["kv_span_ids"] = torch.from_numpy(span[:, :Sk]).to(card)
+        seg, span = seg[:, Sk - 100:], (None if span is None
+                                        else span[:, Sk - 100:])
+        Sq = seg.shape[1]
+    if spans:
+        kw["span_ids"] = torch.from_numpy(np.ascontiguousarray(span)).to(
+            card)
+    q, k, v, _ = _k1_bf16(card, rng, B, Sq, Sk, H, Hkv, D)
+    got, want = _k1_forward(card, q, k, v, np.ascontiguousarray(seg), **kw)
+    _k1_fwd_close(f"D={D} {mode} spans={spans} mha={mha} hop={hop}", got,
+                  want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_packed_forward_rows_without_keys(card, D):
+    """A ring hop whose keys hold no token of one query segment, and
+    padding on both sides: those rows' o is exactly 0 and their LSE
+    -inf; the rest match the plain version."""
+    rng = np.random.default_rng(42)
+    (B, Sq, Sk), (H, Hkv) = (1, 300, 200), K1_HEADS[D]
+    seg = np.full((B, Sq), -1, np.int32)
+    seg[0, :120], seg[0, 120:250] = 0, 1          # segment 1: no keys
+    kseg = np.full((B, Sk), -2, np.int32)
+    kseg[0, :150] = 0                             # kv padding after 150
+    q, k, v, _ = _k1_bf16(card, rng, B, Sq, Sk, H, Hkv, D)
+    got, want = _k1_forward(card, q, k, v, seg, kv_offset=-Sk,
+                            kv_segment_ids=torch.from_numpy(kseg).to(card))
+    _k1_fwd_close(f"no keys D={D}", got, want)
+    o, lse = got
+    assert torch.isinf(lse[0, :, 120:]).all()
+    assert torch.isfinite(lse[0, :, :120]).all()
+    assert (o[0, 120:] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_packed_forward_is_deterministic(card, D):
+    """Each row's sums run in one fixed order: two calls give the same
+    bits of o and the LSE."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed)
+    rng = np.random.default_rng(43)
+    B, S = 2, 1024
+    seg, span = _packed_tables(B, S, [600, 300, 100], True, frame=64)
+    q, k, v, _ = _k1_bf16(card, rng, B, S, S, *K1_HEADS[D], D)
+    kw = dict(span_ids=torch.from_numpy(span).to(card))
+    got, want = _k1_forward(card, q, k, v, seg, **kw)
+    _k1_fwd_close(f"determinism D={D}", got, want)
+    again = flash_attention_packed(q, k, v, torch.as_tensor(seg, device=card),
+                                   return_lse=True, **kw)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
 # ----------------------------------------------------- SSD chunk (K3)
 #: K3 against its plain version run in fp64 on the same inputs (the
 #: exact value of the function): y, states and cum within K3_TOL x max(1,
