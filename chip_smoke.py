@@ -110,8 +110,9 @@ Phases:
                 over one KV head, D = 256), sliding at window 2048 over a
                 4096-token row with and without 256-token frames, and a
                 span longer than its window; phase 7's limits. Prints the
-                bf16 D=256 backward's launch at the row with frames:
-                grid, threads, shared memory, fp32 scratch
+                bf16 D=256 forward's and backward's launches at the row
+                with frames: grid, threads, shared memory (and the
+                backward's fp32 scratch), with the card's SMs
  17. hybrid parity — reduced recurrentgemma-2b, fp32: two DHP training
                 steps with K4 and K1 vs the same steps through their
                 plain versions, limits as phase 8
@@ -571,7 +572,7 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
 #: it, 2 cp.async tiles and no transposed copies, 3 16-byte vector
 #: atomics for dQ, 4 every product by wgmma (its source note)
 K1_BWD_STAGE = 4
-#: how far the redesign of K1's bf16 forward at D = 64 / 128 went: 1
+#: how far the redesign of K1's bf16 forward (every head dim) went: 1
 #: every product by wgmma, 2 a cp.async ring of K/V tiles found by
 #: ballot, 3 the unmasked path, 4 two warpgroups a block, the heaviest
 #: query tiles first (its source note)
@@ -1244,7 +1245,7 @@ def phase_packed_wide(dev, card):
     """K1 in bf16 at recurrentgemma-2b's heads, sliding at its window,
     against the plain versions with phase 7's limits."""
     from repro_torch.kernels.flash_attention_packed import (
-        last_bwd_kv_launch)
+        last_bwd_kv_launch, last_fwd_launch)
     gen = torch.Generator(device=dev).manual_seed(7)
     bf16 = torch.bfloat16
     rows = []
@@ -1253,11 +1254,14 @@ def phase_packed_wide(dev, card):
                              mode="sliding", window=RG_WINDOW,
                              tag="synthetic", heads=RG_HEADS))
     # the hybrid path's shape: one 4096-token row, 10:1 heads, D = 256;
-    # the launch as the library recorded it
-    facts = dict(last_bwd_kv_launch(), sms=torch.cuda.get_device_properties(
-        0).multi_processor_count)
-    print(f"  K1 bwd design at S=4096 H={RG_HEADS[0]} Hkv={RG_HEADS[1]} "
-          f"D={RG_HEADS[2]} {json.dumps(facts)} ({card})")
+    # the launches as the library recorded them
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for which, stage, launch in (("fwd", K1_FWD_STAGE, last_fwd_launch),
+                                 ("bwd", K1_BWD_STAGE, last_bwd_kv_launch)):
+        facts = dict(stage=stage, **launch(), sms=sms)
+        print(f"  K1 {which} design at S=4096 H={RG_HEADS[0]} "
+              f"Hkv={RG_HEADS[1]} D={RG_HEADS[2]} {json.dumps(facts)} "
+              f"({card})")
     rows.append(check_packed(dev, card, gen, 4096, bf16, seg, None,
                              mode="sliding", window=RG_WINDOW,
                              tag="synthetic", heads=RG_HEADS))

@@ -46,7 +46,9 @@ same o and LSE bits; backward: max|err| / max|plain| of dq, dk, dv, and
 whether two calls give the same dk and dv bits), and timed in turns,
 forwards then backwards, `--rounds` times (CUDA events, 10 calls after
 2), beside SDPA with the tables' boolean mask and `chip_smoke.py`'s
-bound (`packed_bound`, forward or backward).
+bound (`packed_bound`, forward or backward). The forward also prints
+`waves`: how far the last wave of its blocks runs past a perfect
+balance over the card's SMs, modelled from the row's live key tiles.
 """
 import argparse
 import ctypes
@@ -78,7 +80,8 @@ SHAPES = {
 #: fault name -> (the tensors it must show in, the tags of the cases it
 #: must show in (None: every case), [(text, replacement)]); the backward
 #: faults are planted in the bf16 kernel (packed_bwd_kv_kernel, every
-#: head dim) and its group reduction
+#: head dim) and its group reduction, the forward ones (fwd_) in
+#: packed_fwd_wg_kernel (every head dim)
 _COMMON = {
     "sound": ((), None, []),
     "dq_drops_key_tile": (("dq",), None, [(
@@ -104,6 +107,27 @@ _COMMON = {
     "unmasked_window_edge": (("dq", "dk", "dv"), ("past_window",), [(
         "                       kpos_w > q0 + K_BQ - 1 - p.window)));",
         "                       kpos_w > q0 - 1 - p.window)));")]),
+    # the forward: key tile 2 (keys 128-191) never computed
+    "fwd_drops_key_tile": (("o",), None, [(
+        "        mine = (live_mine >> (j - live_base)) & 1u;",
+        "        mine = (live_mine >> (j - live_base)) & 1u && j != 2;")]),
+    # its unmasked path taken within the window of the rows' first row
+    # but not their last: it can show only where a row is longer than
+    # the window
+    "fwd_unmasked_window_edge": (("o",), ("past_window",), [(
+        "(p.mode != kSliding || kpos0 > r0 + 63 - p.window)));",
+        "(p.mode != kSliding || kpos0 > r0 - 1 - p.window)));")]),
+    # V read from the ring's other stage (the tile before, or the one
+    # landing)
+    "fwd_ring_stage_stale": (("o",), None, [(
+        "smem_u32(ring + st * 2 * TB), va = ka + TB;",
+        "smem_u32(ring + st * 2 * TB),\n"
+        "                     va = smem_u32(ring + (st ^ 1) * 2 * TB) "
+        "+ TB;")]),
+    # the second warpgroup's rows formed from the first's queries
+    "fwd_second_wg_reads_first_q": (("o",), None, [(
+        "  const uint32_t qa = smem_u32(Qs + wg * TB);",
+        "  const uint32_t qa = smem_u32(Qs);")]),
 }
 FAULTS = {
     "internvl": {
@@ -113,42 +137,20 @@ FAULTS = {
         "unmasked_causal_edge": (("dq", "dk", "dv"), ("causal",), [(
             "                     (kpos_w + 15 <= q0 &&",
             "                     (kpos_w + 15 <= q0 + K_BQ &&")]),
-        # the forward at D = 64 / 128 (packed_fwd_wg_kernel): key tile 2
-        # (keys 128-191) never computed
-        "fwd_drops_key_tile": (("o",), None, [(
-            "        mine = (live_mine >> (j - live_base)) & 1u;",
-            "        mine = (live_mine >> (j - live_base)) & 1u && j != 2;")]),
-        # its unmasked path one key tile past the diagonal: the tile
-        # whose keys start at the rows' first (later keys than some rows)
+        # the forward's unmasked path one key tile past the diagonal: the
+        # tile whose keys start at the rows' first (later keys than some
+        # rows)
         "fwd_unmasked_causal_edge": (("o",), ("causal",), [(
             "                    (kpos0 + W_BK - 1 <= r0 &&",
             "                    (kpos0 - 1 <= r0 &&")]),
-        # ... or within the window of the rows' first row but not their
-        # last: it can show only where a row is longer than the window
-        "fwd_unmasked_window_edge": (("o",), ("past_window",), [(
-            "(p.mode != kSliding || kpos0 > r0 + 63 - p.window)));",
-            "(p.mode != kSliding || kpos0 > r0 - 1 - p.window)));")]),
-        # V read from the ring's other stage (the tile before, or the
-        # one landing)
-        "fwd_ring_stage_stale": (("o",), None, [(
-            "smem_u32(ring + st * 2 * TB), va = ka + TB;",
-            "smem_u32(ring + st * 2 * TB),\n"
-            "                     va = smem_u32(ring + (st ^ 1) * 2 * TB) "
-            "+ TB;")]),
-        # the second warpgroup's rows formed from the first's queries
-        "fwd_second_wg_reads_first_q": (("o",), None, [(
-            "  const uint32_t qa = smem_u32(Qs + wg * TB);",
-            "  const uint32_t qa = smem_u32(Qs);")]),
     },
     "rg": {
         **_COMMON,
-        # the forward at D = 256 (packed_fwd_tc_kernel): key tile 2 (keys
-        # 128-191) never computed
-        "fwd_drops_key_tile": (("o",), None, [(
-            "if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + F_BK, Sk))) "
-            "continue;",
-            "if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + F_BK, Sk)) || "
-            "j0 == 128) continue;")]),
+        # D = 256 alone: O's upper 128 columns formed from the wrong
+        # 64-wide block of V (a block stride of 1 for 2)
+        "fwd_pv_upper_block": (("o",), None, [(
+            "          const uint32_t vhi = va + 2 * SW_BLOCK + kk * 2048;",
+            "          const uint32_t vhi = va + SW_BLOCK + kk * 2048;")]),
         # D = 256 alone: dK / dV's upper 128 columns formed from the
         # wrong 64-wide block of Q / dO (a block stride of 1 for 2)
         "block_stride_256": (("dk", "dv"), None, [(
@@ -163,7 +165,7 @@ FAULTS = {
 }
 
 #: measurement-only edits of this tree's kernel for `--time --variant`
-#: (the fwd_ ones edit the forward at D = 64 / 128, the others the
+#: (the fwd_ ones edit the forward, every head dim, the others the
 #: backward)
 EDITS = {
     "no_dq_adds": [("        if (row < Sq) red_add_v4(",
@@ -197,9 +199,34 @@ EDITS = {
         ("    mine = mine_next;\n    st ^= 1;",
          "    mine = mine_next;\n    if (j < jt_hi) {\n"
          "      __syncthreads();\n      load_kv(j, 0);\n    }")],
-    # one block an SM: up to 255 registers a thread, no spill
-    "fwd_one_block_per_sm": [("__launch_bounds__(W_THREADS, 2)",
-                              "__launch_bounds__(W_THREADS, 1)")],
+    # one block an SM: up to 255 registers a thread, no spill (D = 256
+    # has one an SM whatever)
+    "fwd_one_block_per_sm": [(
+        "__launch_bounds__(W_THREADS, FwdWgTile<D>::MIN_BLOCKS)",
+        "__launch_bounds__(W_THREADS, 1)")],
+    # a block of two warpgroups over the same 64 rows of two query heads
+    # (H even, both heads of one KV head), sharing each K/V tile
+    "fwd_two_heads": [
+        ("Sk = p.Sk, h = blockIdx.x, b = blockIdx.z;",
+         "Sk = p.Sk, h = 2 * blockIdx.x + wg, b = blockIdx.z;"),
+        ("  const int q0 = ((Sq + W_BQ - 1) / W_BQ - 1 - (int)blockIdx.y) * "
+         "W_BQ;",
+         "  const int q0 = ((Sq + 63) / 64 - 1 - (int)blockIdx.y) * 64;"),
+        ("  const int q1 = min(q0 + W_BQ, Sq);",
+         "  const int q1 = min(q0 + 64, Sq);"),
+        ("  const int r0 = q0 + 64 * wg;", "  const int r0 = q0;"),
+        ("    const int r = i / CH, c = i % CH, qp = q0 + r;\n"
+         "    cp_async16(Qs + (r / 64) * TB",
+         "    const int r = i / CH, c = i % CH, qp = q0 + r % 64;\n"
+         "    cp_async16(Qs + (r / 64) * TB"),
+        ("               qb + (int64_t)(qp < Sq ? qp : q0) * q_stride + "
+         "c * 8,",
+         "               qb + (r / 64 - wg) * D + (int64_t)(qp < Sq ? qp : "
+         "q0) * q_stride + c * 8,"),
+        ("tile_live<SPANS>(p, b, q0 + 64, min(q0 + 128, Sq),",
+         "tile_live<SPANS>(p, b, q0, min(q0 + 64, Sq),"),
+        ("const dim3 grid(p.H, (p.Sq + W_BQ - 1) / W_BQ, p.B);",
+         "const dim3 grid(p.H / 2, (p.Sq + 63) / 64, p.B);")],
     # what the order bought: the first query tiles issued first
     "fwd_light_first": [(
         "  const int q0 = ((Sq + W_BQ - 1) / W_BQ - 1 - (int)blockIdx.y) * "
@@ -260,18 +287,20 @@ def cases(shape):
     internvl the layouts of chip_smoke.py phase 7 plus a long and a
     single segment, and sliding at 4096 tokens; for rg a 4096-token row
     with and without frames and a two-row padded group (one segment a
-    row, as the padded hybrid batch has). The tags are the mode and,
-    where a row is longer than the window, "past_window"."""
+    row, as the padded hybrid batch has) at the model's window, and a
+    4096-token row with frames at a window of 256. The tags are the mode
+    and, where a row is longer than the window, "past_window"."""
     from chip_smoke import hybrid_tables, packed_layout
     out = []
     if shape == "rg":
         window = SHAPES["rg"]["window"]
-        for name, rows, n, frame in (("rg4096_frames", 1, 4096, 256),
-                                     ("rg4096_text", 1, 4096, None),
-                                     ("rg2x2048_frames", 2, 2048, 256)):
+        for name, rows, n, frame, w in (
+                ("rg4096_frames", 1, 4096, 256, window),
+                ("rg4096_text", 1, 4096, None, window),
+                ("rg2x2048_frames", 2, 2048, 256, window),
+                ("rg4096_w256_frames", 1, 4096, 256, 256)):
             seg, span = hybrid_tables(rows, n, frame or 256)
-            out.append((name, seg, span if frame else None, "sliding",
-                        window))
+            out.append((name, seg, span if frame else None, "sliding", w))
     else:
         for n, lens in ((1024, [400, 300, 250]),
                         (4096, [1500, 900, 1200, 400])):
@@ -518,6 +547,32 @@ def _readings_bwd(torch, libs, x, ref):
     return rows
 
 
+def waves(mask, H, slots, rows=128, keys=64):
+    """The forward's blocks (one query head, `rows` query rows) as the
+    card issues them, each taking one of `slots` block slots (SMs x
+    blocks an SM) as one frees: the work of a block is its key tiles of
+    `keys` with a valid pair (from the pair mask, [1, Sq, Sk]). For the
+    heaviest query tiles first (as the kernel issues them) and the
+    lightest first: the busiest slot's tiles beside the tiles of a
+    perfect balance (all over `slots`); their ratio less 1 is the share
+    the last wave adds. A model of the schedule, not a measurement."""
+    import heapq
+    _, Sq, Sk = mask.shape
+    nq, nk = -(-Sq // rows), -(-Sk // keys)
+    m = np.zeros((nq * rows, nk * keys), bool)
+    m[:Sq, :Sk] = mask[0].cpu().numpy()
+    work = m.reshape(nq, rows, nk, keys).any(axis=(1, 3)).sum(1)
+    out = {"blocks": nq * H, "slots": slots, "tiles": int(work.sum()) * H,
+           "balanced_tiles": float(work.sum()) * H / slots}
+    for name, order in (("heavy_first", work[::-1]), ("light_first", work)):
+        free = [0] * slots
+        for w in np.repeat(order, H):
+            heapq.heappush(free, heapq.heappop(free) + int(w))
+        out[f"{name}_tiles"] = max(free)
+        out[f"{name}_tail"] = max(free) / out["balanced_tiles"] - 1
+    return out
+
+
 def time_mode(torch, libs, shape, rounds, directions):
     """For each direction, every library held to the plain version and
     timed in turns (change, ..., ..., change), beside SDPA with the
@@ -574,6 +629,11 @@ def time_mode(torch, libs, shape, rounds, directions):
                   f"{ {k: v for k, v in row.items() if k != 'ms'} }")
         out[direction] = {"bound_ms": bound, "bound_by": bound_by,
                           "sdpa_ms": sdpa, "kernels": rows}
+        if direction == "fwd":
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            out["fwd"]["waves"] = waves(mask, H,
+                                        sms * (1 if D == 256 else 2))
+            print(f"{shape:8s} fwd waves {out['fwd']['waves']}")
     return out
 
 

@@ -33,24 +33,24 @@
 // (4*D flops per valid pair per query head forward, 10*D backward,
 // against q/k/v/o read once), so both directions keep scores and
 // probabilities on chip:
-//   * bf16 forward at head_dim 64 / 128 (packed_fwd_wg_kernel, replacing
-//     the Pallas `_packed_kernel` of flash_attention_packed_flat):
+//   * bf16 forward, every head dim (packed_fwd_wg_kernel, replacing the
+//     Pallas `_packed_kernel` of flash_attention_packed_flat):
 //     operations bound it, so every product is a warpgroup MMA (wgmma):
 //     S = Q K^T from shared memory, O += P V with P from registers
 //     (rounded to bf16) and V read N-major from its row-major tile, fp32
 //     accumulation, no transposed copy of any tile. A block is two
 //     warpgroups over 128 query rows of one head, sharing each 64-key
 //     K/V tile, which arrive by cp.async in a two-stage ring (the next
-//     live tile lands while this one is computed; 98 KB at D = 128, two
-//     blocks an SM). Live key tiles are found 32 at a time by one ballot
-//     over the tables' summaries; a tile wholly in the rows' one
-//     segment and at or before their first row (sliding: within the
-//     last row's window) skips the pair mask; the last query tiles,
-//     the heaviest under causal order, are issued first.
-//   * bf16 forward at head_dim 256 (recurrentgemma-2b, bf16 only):
-//     mma.sync m16n8k16 with fp32 accumulation, 4 warps x 16 query
-//     rows, 64-key tiles, Q's fragments read from shared memory per key
-//     tile (105 KB, two blocks an SM).
+//     live tile lands while this one is computed). Live key tiles are
+//     found 32 at a time by one ballot over the tables' summaries; a
+//     tile wholly in the rows' one segment and at or before their first
+//     row (sliding: within the last row's window) skips the pair mask;
+//     the last query tiles, the heaviest under causal order, are issued
+//     first. D = 64 / 128: 98 KB at D = 128, two blocks an SM. D = 256
+//     (recurrentgemma-2b, bf16 only): the O share alone is 128 fp32 a
+//     thread, so one block an SM (194 KB, up to 255 registers), and
+//     O += P V runs as two m64n128 products, V's 64-wide blocks 0-1 and
+//     2-3.
 //   * bf16 backward, every head dim: wgmma, one block per (query head,
 //     64-key tile, batch), a group sum of the heads' dK / dV after it and
 //     16-byte vector atomics for dQ (P and dS rounded to bf16 before
@@ -159,263 +159,9 @@ __device__ __forceinline__ bool pair_ok(int mode, int window, int qpos,
 // ---------------------------------------------------------------------
 // Shared helpers for the tensor-core paths.
 // ---------------------------------------------------------------------
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-        "r"(b[1]));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 x 16, row-major) of a [row][col] bf16 tile with pitch P
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* base,
-                                       int P, int row0, int col0, int g,
-                                       int t) {
-  const bf16* p = base + (row0 + g) * P + col0 + t * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * P);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * P + 8);
-}
-
-// B fragment (16 x 8, "col"): tile stored [n][k] with pitch P
-__device__ __forceinline__ void load_b(uint32_t b[2], const bf16* base,
-                                       int P, int n0, int k0, int g,
-                                       int t) {
-  const bf16* p = base + (n0 + g) * P + k0 + t * 2;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// ---------------------------------------------------------------------
-// Forward, bf16, tensor cores, D = 256 (D = 64 / 128 run
-// packed_fwd_wg_kernel): block = (64 query rows, head, batch).
-// ---------------------------------------------------------------------
-constexpr int F_BQ = 64, F_BK = 64, F_THREADS = 128;
-
-template <int D>
-struct FwdTile {
-  static constexpr int QP = D + 8;      // pitch of Q and K rows
-  static constexpr int VP = F_BK + 8;   // pitch of V^T rows
-  static constexpr size_t smem =
-      sizeof(bf16) * (F_BQ * QP + F_BK * QP + D * VP) +
-      sizeof(int) * 2 * F_BK;
-};
-
-template <int D, bool SPANS>
-__global__ void __launch_bounds__(F_THREADS)
-packed_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                     float* __restrict__ lse, Params p, float scale) {
-  using Tile = FwdTile<D>;
-  constexpr int QP = Tile::QP, VP = Tile::VP;
-  constexpr int CH = D / 8;       // 16-byte chunks per row
-  constexpr int NT = F_BK / 8;    // 8-key column tiles of S
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + F_BQ * QP;        // [F_BK][QP]
-  bf16* Vt = Ks + F_BK * QP;        // [D][VP]
-  int* segk_s = reinterpret_cast<int*>(Vt + D * VP);
-  int* spank_s = segk_s + F_BK;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * F_BQ, h = blockIdx.y, b = blockIdx.z;
-  const int H = p.H, Hkv = p.Hkv, Sq = p.Sq, Sk = p.Sk;
-  const int hk = h / (H / Hkv);
-  const int q1 = min(q0 + F_BQ, Sq);
-
-  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
-  const bf16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-  const bf16* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
-  const bf16* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
-  bf16* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-
-  for (int i = tid; i < F_BQ * CH; i += F_THREADS) {
-    const int rr = i / CH, c = i % CH, qp = q0 + rr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (qp < Sq)
-      val = *reinterpret_cast<const uint4*>(qb + (int64_t)qp * q_stride +
-                                            c * 8);
-    *reinterpret_cast<uint4*>(Qs + rr * QP + c * 8) = val;
-  }
-  __syncthreads();
-
-  const int r_lo = warp * 16 + g;
-  // Q fragments stay in registers up to D = 128; at D = 256 they (64
-  // registers) and the O accumulator (128) would not fit without spills,
-  // so each tile reads them from shared memory instead
-  constexpr bool kQReg = D <= 128;
-  uint32_t qf[kQReg ? D / 16 : 1][4];
-  if constexpr (kQReg) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) load_a(qf[kk], Qs, QP, warp * 16, kk * 16, g, t);
-  }
-
-  const int qpos[2] = {q0 + r_lo, q0 + r_lo + 8};
-  int segq_r[2], spanq_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool in = qpos[i] < Sq;
-    segq_r[i] = in ? p.segq[(int64_t)b * Sq + qpos[i]] : -1;
-    spanq_r[i] = (SPANS && in) ? p.spanq[(int64_t)b * Sq + qpos[i]] : -1;
-  }
-
-  // Without spans, keys after the tile's last query never count (causal
-  // and sliding), and sliding drops keys a window before its first.
-  int j_lo = 0, j_hi = Sk;
-  if (!SPANS && p.mode != kFull) {
-    j_hi = max(0, min(Sk, q1 - p.kv_offset));
-    if (p.mode == kSliding) j_lo = max(0, q0 - p.window - p.kv_offset + 1);
-  }
-  j_lo = (j_lo / F_BK) * F_BK;
-
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-
-  for (int j0 = j_lo; j0 < j_hi; j0 += F_BK) {
-    if (!tile_live<SPANS>(p, b, q0, q1, j0, min(j0 + F_BK, Sk))) continue;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < F_BK * CH; i += F_THREADS) {
-      const int c = i % F_BK, ch = i / F_BK, kp = j0 + c;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (kp < Sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (int64_t)kp * kv_stride +
-                                             ch * 8);
-        vv = *reinterpret_cast<const uint4*>(vb + (int64_t)kp * kv_stride +
-                                             ch * 8);
-      }
-      *reinterpret_cast<uint4*>(Ks + c * QP + ch * 8) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(ch * 8 + e) * VP + c] = ve[e];
-    }
-    if (tid < F_BK) {
-      const int kp = j0 + tid;
-      segk_s[tid] = kp < Sk ? p.segk[(int64_t)b * Sk + kp] : -2;
-      spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
-    }
-    __syncthreads();
-
-    float s[NT][4];
-    if constexpr (kQReg) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          uint32_t bfrag[2];
-          load_b(bfrag, Ks, QP, n * 8, kk * 16, g, t);
-          mma_bf16(s[n], qf[kk], bfrag);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t qa[4];
-        load_a(qa, Qs, QP, warp * 16, kk * 16, g, t);
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          uint32_t bfrag[2];
-          load_b(bfrag, Ks, QP, n * 8, kk * 16, g, t);
-          mma_bf16(s[n], qa, bfrag);
-        }
-      }
-    }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
-        const bool ok = pair_ok<SPANS>(p.mode, p.window, qpos[i],
-                                       p.kv_offset + j0 + c, segq_r[i],
-                                       segk_s[c], spanq_r[i], spank_s[c]);
-        const float val = ok ? s[n][e] * scale : -INFINITY;
-        s[n][e] = val;
-        mx[i] = fmaxf(mx[i], val);
-      }
-    float corr[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = m[i] == -INFINITY ? 0.f : __expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv =
-            s[n][e] == -INFINITY ? 0.f : __expf(s[n][e] - m[e >> 1]);
-        s[n][e] = pv;
-        psum[e >> 1] += pv;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      psum[i] += __shfl_xor_sync(FULL, psum[i], 1);
-      psum[i] += __shfl_xor_sync(FULL, psum[i], 2);
-      l[i] = l[i] * corr[i] + psum[i];
-    }
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      acc[nd][0] *= corr[0];
-      acc[nd][1] *= corr[0];
-      acc[nd][2] *= corr[1];
-      acc[nd][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < F_BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        uint32_t bfrag[2];
-        load_b(bfrag, Vt, VP, nd * 8, kk * 16, g, t);
-        mma_bf16(acc[nd], a, bfrag);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (qpos[i] >= Sq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    bf16* orow = ob + (int64_t)qpos[i] * q_stride + t * 2;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd)
-      *reinterpret_cast<uint32_t*>(orow + nd * 8) =
-          pack_bf16(acc[nd][2 * i] * inv, acc[nd][2 * i + 1] * inv);
-    if (t == 0)
-      lse[((int64_t)b * H + h) * Sq + qpos[i]] =
-          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
-  }
 }
 
 // ---------------------------------------------------------------------
@@ -1165,8 +911,8 @@ __global__ void bwd_kv_reduce_kernel(const float* __restrict__ dk_part,
 }
 
 // ---------------------------------------------------------------------
-// Forward, bf16, tensor cores, D = 64 and 128, designed for the H100 (the
-// source note says what bounds it and what the design does about it).
+// Forward, bf16, tensor cores, D = 64, 128 and 256, designed for the H100
+// (the source note says what bounds it and what the design does about it).
 // A block is two warpgroups over W_BQ query rows of one query head, 64
 // rows each; both share each K/V tile of a ring of W_STAGES.
 // ---------------------------------------------------------------------
@@ -1179,17 +925,22 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// Per-head-dim traits of packed_fwd_wg_kernel. D = 64 / 128: two blocks
+// an SM (98 KB of shared memory at D = 128, at most 128 registers a
+// thread). D = 256: the 64 x 256 share of O alone is 128 fp32 registers a
+// thread, so one block an SM (194 KB, up to 255 registers).
 template <int D>
 struct FwdWgTile {
   static constexpr int TB = 64 * D * 2;  // bytes of one [64][D] tile
+  static constexpr int MIN_BLOCKS = D <= 128 ? 2 : 1;
   // Q of both warpgroups, the ring's K, V and key tables, and room to
-  // align the tiles to 1024 bytes (98 KB at D = 128: two blocks an SM)
+  // align the tiles to 1024 bytes
   static constexpr size_t smem =
       1024 + 2 * TB + W_STAGES * (2 * TB + sizeof(int) * 2 * W_BK);
 };
 
 template <int D, bool SPANS>
-__global__ void __launch_bounds__(W_THREADS, 2)
+__global__ void __launch_bounds__(W_THREADS, FwdWgTile<D>::MIN_BLOCKS)
 packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, Params p, float scale) {
@@ -1407,7 +1158,8 @@ packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         acc[nd][3] *= corr[1];
       }
       // O += P V: P from registers (rounded to bf16), V N-major straight
-      // from its row-major tile, 16 keys a step
+      // from its row-major tile, 16 keys a step; at D = 256 as two
+      // products of 128 columns
       uint32_t a[W_BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < W_BK / 16; ++kk) {
@@ -1424,6 +1176,11 @@ packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           wgmma_rs_n64<1>(&acc[0][0], a[kk], dsc);
         } else {
           wgmma_rs_n128<1>(&acc[0][0], a[kk], dsc);
+        }
+        if constexpr (D == 256) {
+          const uint32_t vhi = va + 2 * SW_BLOCK + kk * 2048;
+          wgmma_rs_n128<1>(&acc[16][0], a[kk],
+                           wg_desc(vhi, SW_BLOCK, SW_GROUP));
         }
       }
       wgmma_commit();
@@ -1634,7 +1391,7 @@ template <typename T, int D, bool SPANS>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, const Params& p, cudaStream_t stream) {
   const float scale = 1.f / sqrtf((float)D);
-  if constexpr (std::is_same<T, bf16>::value && D <= 128) {
+  if constexpr (std::is_same<T, bf16>::value) {
     constexpr size_t smem = FwdWgTile<D>::smem;
     cudaError_t err = cudaFuncSetAttribute(
         packed_fwd_wg_kernel<D, SPANS>,
@@ -1645,16 +1402,6 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                                  (long long)smem};
     for (int i = 0; i < 5; ++i) g_fwd_launch[i] = launch[i];
     packed_fwd_wg_kernel<D, SPANS><<<grid, W_THREADS, smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, p, scale);
-  } else if constexpr (std::is_same<T, bf16>::value) {
-    constexpr size_t smem = FwdTile<D>::smem;
-    cudaError_t err = cudaFuncSetAttribute(
-        packed_fwd_tc_kernel<D, SPANS>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((p.Sq + F_BQ - 1) / F_BQ, p.H, p.B);
-    packed_fwd_tc_kernel<D, SPANS><<<grid, F_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, p, scale);
   } else {
@@ -1859,8 +1606,8 @@ void k1_last_bwd_kv_launch(long long* out) {
   for (int i = 0; i < 6; ++i) out[i] = g_bwd_kv_launch[i];
 }
 
-// The last launch of packed_fwd_wg_kernel (bfloat16, head_dim 64 or
-// 128), as launch_fwd made it: out[0..2] its grid, out[3] its threads per
+// The last launch of packed_fwd_wg_kernel (bfloat16, any head dim), as
+// launch_fwd made it: out[0..2] its grid, out[3] its threads per
 // block, out[4] its dynamic shared memory in bytes. All 0 before the
 // first such launch.
 void k1_last_fwd_launch(long long* out) {

@@ -23,11 +23,11 @@ On CPU tensors the wrappers run the plain versions (the backward is the
 autograd gradient of the plain forward); on CUDA tensors they launch
 `csrc/flash_attention_packed.cu` or raise, never falling back. bf16 runs
 on the tensor cores with fp32 accumulation, P and dS rounded to bf16
-before their products: the forward at head_dim 64 / 128 by `wgmma`, two
-warpgroups over 128 query rows sharing a ring of K/V tiles (at 256 by
-`mma.sync`), the backward by `wgmma` with one block per (query head,
-64-key tile), each query head's fp32 dK and dV summed over its KV head's
-group afterwards. fp32 runs on the CUDA cores. Head dims 64 and 128 run
+before their products: the forward by `wgmma`, two warpgroups over 128
+query rows sharing a ring of K/V tiles (two blocks an SM at head_dim 64
+/ 128, one at 256), the backward by `wgmma` with one block per (query
+head, 64-key tile), each query head's fp32 dK and dV summed over its KV
+head's group afterwards. fp32 runs on the CUDA cores. Head dims 64 and 128 run
 in both types, 256 (recurrentgemma-2b) in bf16 only.
 """
 from __future__ import annotations
@@ -246,7 +246,7 @@ def _last_launch(fn: str, n: int) -> list:
 
 
 def last_fwd_launch() -> dict:
-    """The last launch of the bf16 forward kernel at head_dim 64 / 128,
+    """The last launch of the bf16 forward kernel (any head_dim),
     as the library recorded it: `grid` (x, y, z), `threads` a block and
     `smem_bytes` of dynamic shared memory."""
     out = _last_launch("k1_last_fwd_launch", 5)

@@ -299,7 +299,7 @@ def test_packed_backward_dk_dv_are_deterministic(card, D):
     assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
 
 
-# The bf16 forward at D = 64 / 128: two warpgroups over 128 query rows,
+# The bf16 forward (every head dim): two warpgroups over 128 query rows,
 # every product by wgmma, a ring of K/V tiles
 def _k1_forward(card, q, k, v, seg, **kw):
     """(kernel (o, lse), plain (o, lse)), the kernel's launch counted."""
@@ -333,10 +333,12 @@ def _k1_fwd_close(tag, got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_packed_forward_at_the_training_shape(card, D):
-    """internvl3-2b's main-path row: one 4096-token row with 256-token
-    frames, 12 query heads over 2 KV heads, causal; most key tiles take
+    """The training path's row: one 4096-token row with 256-token
+    frames; at D = 64 / 128 12 query heads over 2 KV heads, causal
+    (internvl3-2b's heads at 128), at D = 256 recurrentgemma-2b's 10
+    over one KV head, sliding at its window of 2048. Most key tiles take
     the unmasked path. The library records the launch: two warpgroups a
     block over 128 rows of one query head."""
     from repro_torch.kernels.flash_attention_packed import last_fwd_launch
@@ -344,8 +346,9 @@ def test_packed_forward_at_the_training_shape(card, D):
     H, Hkv = K1_HEADS[D]
     q, k, v, _ = _k1_bf16(card, rng, 1, 4096, 4096, H, Hkv, D)
     seg, span = _frames(4096)
+    kw = dict(mode="sliding", window=2048) if D == 256 else {}
     got, want = _k1_forward(card, q, k, v, seg,
-                            span_ids=torch.from_numpy(span).to(card))
+                            span_ids=torch.from_numpy(span).to(card), **kw)
     _k1_fwd_close(f"4096 D={D}", got, want)
     launch = last_fwd_launch()
     assert launch["grid"] == (H, 4096 // 128, 1), launch
@@ -364,13 +367,13 @@ K1_FWD_CASES = [  # mode, window, spans, H == Hkv, ring hop
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("case", range(len(K1_FWD_CASES)))
 def test_packed_forward_modes(card, D, case):
     """Every mode, with and without spans, over segments long enough for
     whole 64-key tiles in one segment (the unmasked path) beside ragged
-    ones and a partial last query tile; 12:2 heads and H == Hkv; a ring
-    hop: the buffer's last 400 queries against its first 400 keys, which
+    ones and a partial last query tile; the head dim's model's heads
+    (12:2, at D = 256 10:1) and H == Hkv; a ring hop: the buffer's last 400 queries against its first 400 keys, which
     bring their own tables, at kv_offset -400."""
     mode, window, spans, mha, hop = K1_FWD_CASES[case]
     rng = np.random.default_rng(41 + case)
@@ -399,7 +402,7 @@ def test_packed_forward_modes(card, D, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_packed_forward_rows_without_keys(card, D):
     """A ring hop whose keys hold no token of one query segment, and
     padding on both sides: those rows' o is exactly 0 and their LSE
@@ -421,7 +424,7 @@ def test_packed_forward_rows_without_keys(card, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_packed_forward_is_deterministic(card, D):
     """Each row's sums run in one fixed order: two calls give the same
     bits of o and the LSE."""

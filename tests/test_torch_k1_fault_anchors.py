@@ -61,3 +61,16 @@ def test_each_fault_must_show_in_some_case(shape, fault):
     if fault == "unmasked_window_edge":
         assert all(seg.shape[-1] > window
                    for _, _, seg, _, _, window in must)
+
+
+def test_wave_model_places_blocks_in_issue_order():
+    """`waves` gives each block, in the order the card issues them, the
+    slot that frees first: causal 256 x 256 at two heads has query tiles
+    of 2 and 4 live key tiles; on 3 slots the heaviest first end
+    together (4 tiles each), the lightest first leave one slot 6."""
+    mask = torch.ones(1, 256, 256, dtype=torch.bool).tril()
+    w = K1.waves(mask, 2, 3)
+    assert (w["blocks"], w["tiles"], w["balanced_tiles"]) == (4, 12, 4.0)
+    assert (w["heavy_first_tiles"], w["light_first_tiles"]) == (4, 6)
+    assert w["heavy_first_tail"] == 0.0
+    assert w["light_first_tail"] == pytest.approx(0.5)
