@@ -20,7 +20,11 @@ Phases:
                 within tol * max(1, |plain|) of the plain version's (bf16
                 tol 2e-2: the two round at different points, and a bf16
                 step is up to 2^-7 of |o|; fp32 tol 1e-4: sums in a
-                different order)
+                different order). Times by CUDA events around 20 calls
+                (`ms`, the host's cost included where it is the larger)
+                and by the kernels' own time (`device_ms`,
+                torch.profiler), for K2 and for SDPA; each bf16 call's
+                launch (grid, threads, shared memory) beside the SMs
   4. parity   — reduced internvl3-2b, fp32, attn_impl="cuda": the
                 ServingEngine's token streams equal greedy_generate's
   5. serving  — full-width internvl3-2b, bf16, through
@@ -28,7 +32,8 @@ Phases:
                 traced: the (rows, bucket) shape of every co-batched
                 prefill is read back from the runtime's spans
   6. path     — kernel vs plain version at each shape the serving run
-                launched, with times; these feed the kernels line
+                launched, with times and launches as phase 3; these feed
+                the kernels line
   7. packed   — the packed kernel K1, forward and backward, vs its plain
                 versions (the plain forward and its autograd gradient):
                 bf16 and fp32, with and without span tables, causal,
@@ -183,6 +188,34 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3):
+    """(device time per call, kernels per call) of `fn` over `iters`
+    back-to-back calls after `warmup`: the summed durations of the
+    kernels the calls launched, as torch.profiler traces them on the
+    card. Beside `cuda_ms` (the time between two events around the
+    calls, the host's enqueue included where it is the slower), it
+    splits a call's time into the host's and the device's. A session
+    that traces no kernel at all (seen once, some 50 sessions into a
+    process) is run again, up to three times."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if evs:
+            return (sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
+                    / iters, len(evs) / iters)
+    raise AssertionError("torch.profiler traced no device time in three "
+                         "sessions")
+
+
 def attention_bound(B, Sq, Sk, H, Hkv, D, dtype, mode, window, kv_offset):
     """Least time the card could take for the same work: each input read
     once and the output written once at HBM rate, vs 4*D flops per valid
@@ -199,17 +232,18 @@ def attention_bound(B, Sq, Sk, H, Hkv, D, dtype, mode, window, kv_offset):
 
 
 def library_ms(q, k, v, mode):
-    """One PyTorch call computing the same function (a yardstick only;
-    the port never calls it): SDPA in [B, H, S, D] layout."""
+    """(events ms, device ms) of one PyTorch call computing the same
+    function (a yardstick only; the port never calls it): SDPA in [B, H,
+    S, D] layout; (None, None) where it has no such mode."""
     import torch.nn.functional as F
     if mode not in ("causal", "full"):
-        return None
+        return None, None
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
     def call():
         return F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=(mode == "causal"), enable_gqa=True)
-    return cuda_ms(call)
+    return cuda_ms(call), device_ms(call)[0]
 
 
 H, HKV, D = 12, 2, 128     # internvl3-2b's attention heads
@@ -218,9 +252,12 @@ H, HKV, D = 12, 2, 128     # internvl3-2b's attention heads
 def check_kernel(dev, card, gen, B, S, dtype, mode="causal", window=None,
                  off=0):
     """Hold the kernel against its plain version on one random input at
-    [B, S, H, D] / [B, S, HKV, D]; time both and the library call."""
+    [B, S, H, D] / [B, S, HKV, D]; time both and the library call, the
+    kernel and the library call also by device time (torch.profiler),
+    and print the bf16 kernel's launch beside the card's SMs."""
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_ref)
+                                                     flash_attention_ref,
+                                                     last_launch)
     q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, S, HKV, D, generator=gen, device=dev).to(dtype)
     v = torch.randn(B, S, HKV, D, generator=gen, device=dev).to(dtype)
@@ -236,17 +273,24 @@ def check_kernel(dev, card, gen, B, S, dtype, mode="causal", window=None,
             f"kernel disagrees with its plain version: B={B} S={S} "
             f"{dtype} {mode} kv_offset={off}: max|err|/max(1,|ref|) "
             f"{scaled} > {TOL[dtype]} (max|err| {err})")
+    if dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"  kernel launch B={B} S={S} "
+              f"{json.dumps(dict(**last_launch(), sms=sms))} ({card})")
     ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
+    dev_ms, _ = device_ms(lambda: flash_attention(q, k, v, **kw))
     plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
                     iters=5, warmup=1)
-    lib = library_ms(q, k, v, mode) if off == 0 else None
+    lib, lib_dev = (library_ms(q, k, v, mode) if off == 0
+                    else (None, None))
     bound, bound_by = attention_bound(B, S, S, H, HKV, D, dtype, mode,
                                       window, off)
     row = dict(B=B, S=S, H=H, Hkv=HKV, D=D,
                dtype=str(dtype).split(".")[-1], mode=mode, window=window,
                kv_offset=off, max_abs_err=err, max_scaled_err=scaled,
-               tol=TOL[dtype], ms=ms, plain_ms=plain, library_ms=lib,
-               bound_ms=bound, bound_by=bound_by)
+               tol=TOL[dtype], ms=ms, device_ms=dev_ms, plain_ms=plain,
+               library_ms=lib, library_device_ms=lib_dev, bound_ms=bound,
+               bound_by=bound_by)
     print(f"  kernel {json.dumps(row)} ({card})")
     return row
 
@@ -1587,8 +1631,9 @@ def main() -> int:
     usual = [r for r in rows if r["dtype"] == "bfloat16"
              and r["mode"] == "causal" and r["kv_offset"] == 0
              and r["S"] <= 256]
-    keys = ("launches", "max_abs_err", "max_scaled_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+    keys = ("launches", "max_abs_err", "max_scaled_err", "ms", "device_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms")
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",
@@ -1597,10 +1642,12 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in path + usual),
         "ms": main_row["ms"],
+        "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "library_device_ms": main_row["library_device_ms"],
         "shape": f"B={main_row['B']} S={main_row['S']} H={H} Hkv={HKV} "
                  f"D={D} bf16 causal",
         "path_shapes": [dict(rows=r["B"], bucket=r["S"],

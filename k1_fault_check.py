@@ -16,8 +16,9 @@ once or more; internvl by default):
     sliding at window 2048 with 256-token frames after 32 text tokens.
 
 Both modes build edited copies of `flash_attention_packed.cu` with nvcc
-in a temporary directory, one nvcc per copy, all at once. The checkout
-itself is never edited. Needs one NVIDIA GPU and nvcc; prints the
+in a temporary directory, one nvcc per copy, all at once, each with `-I`
+at its tree's `csrc` for the headers it includes. The checkout itself
+is never edited. Needs one NVIDIA GPU and nvcc; prints the
 card's name and power limit.
 
 Fault mode (the default): for each planted fault of FAULTS[shape], the
@@ -243,25 +244,33 @@ def plant(src: str, edits, what: str) -> str:
     return src
 
 
-def build(sources: dict, tmp: str) -> dict:
-    """label -> source text, built at once (one nvcc each); label ->
-    loaded library."""
+def csrc(root: str) -> str:
+    """The kernels' source directory of the checkout at `root`."""
+    return os.path.join(root, os.path.dirname(CU))
+
+
+def build(sources: dict, tmp: str, roots: dict = None,
+          keys=("packed_bwd", "packed_fwd_wg")) -> dict:
+    """label -> source text, built at once (one nvcc each), each copy
+    including the headers of its tree's `csrc` (`roots`: label ->
+    checkout root, this one by default); label -> loaded library."""
     from repro_torch.kernels.build import NVCC_FLAGS, _nvcc
     procs = {}
     for label, text in sources.items():
         cu, so = (os.path.join(tmp, f"{label}{ext}") for ext in (".cu", ".so"))
         with open(cu, "w") as f:
             f.write(text)
+        inc = csrc((roots or {}).get(label, ROOT))
         procs[label] = (so, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", so, cu], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+            [_nvcc(), *NVCC_FLAGS, "-I", inc, "-o", so, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for label, (so, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {label}:\n{log[-4000:]}")
         libs[label] = ctypes.CDLL(so)
-        for line in ptxas_report(log):
+        for line in ptxas_report(log, keys):
             print(f"{label}: {line}")
     return libs
 
@@ -495,17 +504,20 @@ def backward(torch, lib, x):
     return dq.bfloat16(), dk, dv
 
 
-def build_trees(tmp, trees, variants):
-    """label -> library of each tree's source and of each variant (a
-    tree's source with EDITS applied), built at once."""
-    srcs = {label: open(os.path.join(root, CU)).read()
+def build_trees(tmp, trees, variants, cu=CU, edits=EDITS,
+                keys=("packed_bwd", "packed_fwd_wg")):
+    """label -> library of each tree's source `cu` and of each variant (a
+    tree's source with `edits` applied), built at once."""
+    srcs = {label: open(os.path.join(root, cu)).read()
             for label, root in trees.items()}
+    roots = dict(trees)
     for label, spec in variants.items():
         tree, names = spec.split(":")
         srcs[label] = plant(srcs[tree], [e for n in names.split("+")
-                                         for e in EDITS[n]],
+                                         for e in edits[n]],
                             label)
-    return build(srcs, tmp)
+        roots[label] = trees[tree]
+    return build(srcs, tmp, roots, keys)
 
 
 def _whole(a, r):

@@ -1,0 +1,305 @@
+"""K2's bf16 limit against planted faults, and K2's bf16 forward timed
+against other source trees, on one card.
+
+    python3 k2_fault_check.py [--out FILE]
+    python3 k2_fault_check.py --time [--tree LABEL=DIR ...]
+                              [--variant LABEL=TREE:EDIT[+EDIT...] ...]
+                              [--rounds N] [--out FILE]
+
+The shape is internvl3-2b's attention on the serving path: 12 query
+heads over 2 KV heads of 128, bf16, in the model layout [B, S, H, D].
+Both modes build copies of `flash_attention.cu` with nvcc in a temporary
+directory, one nvcc per copy, all at once, each with `-I` at its tree's
+`csrc` for the headers it includes. The checkout itself is never edited.
+Needs one NVIDIA GPU and nvcc; prints the card's name and power limit.
+
+Fault mode (the default): for each planted fault of FAULTS, the port's
+K2 wrapper runs on that copy's library against the plain version over
+the cases of CASES (chip_smoke.py phase 3's 4x2048 causal, 4x256 causal
+at kv_offset 96 and 2x512 sliding at window 128). Per case it prints
+max|err| / max(1, |plain|) (`elementwise`, the form phase 3 holds to
+2e-2 in bf16) and max|err| / max|plain| (`whole`). The limit is sound
+when every "sound" reading lies below it and each fault reads above it
+in every case it must show in. Exits non-zero otherwise.
+
+Time mode: the checkout's tree is "change"; `--tree` adds another
+checkout root (for example the parent commit unpacked with `git
+archive`), and `--variant` a tree's source with the named EDITS applied
+(measurements only: some drop work on purpose, and their errors show
+it). Each is called through its C interface `flash_attention_fwd` at
+the causal shapes of TIME_SHAPES (phases 3 and 6), held to the plain
+version (elementwise error, and whether two calls give the same bits),
+and timed in turns, `--rounds` times: `ms` by CUDA events around 20
+back-to-back calls (after 3), `device_ms` the kernels' own time per call
+from torch.profiler. Beside them: the port's wrapper around the
+change's library (`wrapper_ms`: the host's cost of a call from Python),
+SDPA both ways, and chip_smoke.py's bound.
+"""
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, ROOT)
+from k1_fault_check import build, build_trees, plant  # noqa: E402
+
+CU = os.path.join("src", "repro_torch", "kernels", "csrc",
+                  "flash_attention.cu")
+REL_TOL_BF16 = 2e-2     # chip_smoke.py phase 3's bf16 limit
+H, HKV, D = 12, 2, 128  # internvl3-2b's attention heads
+KEYS = ("flash_fwd",)   # ptxas lines of K2's kernels
+
+#: case -> B, S, mode, window, kv_offset, tags
+CASES = {
+    "4x2048_causal": (4, 2048, "causal", None, 0, {"causal"}),
+    "4x256_causal_offset96": (4, 256, "causal", None, 96, {"causal"}),
+    "2x512_sliding128": (2, 512, "sliding", 128, 0, {"sliding"}),
+}
+
+#: fault -> (the tags of the cases it must show in (None: every case),
+#: [(text, replacement)]), planted in flash_fwd_wg_kernel
+FAULTS = {
+    "sound": (None, []),
+    # key tile 2 (keys 128-191) never computed
+    "drops_key_tile": (None, [(
+        "    if (!mine(j)) continue;",
+        "    if (!mine(j) || j == 2) continue;")]),
+    # the unmasked path one key tile past the diagonal: the tile whose
+    # keys reach past some of the warpgroup's rows
+    "unmasked_causal_edge": ({"causal"}, [(
+        "            (kp0 + W_BK - 1 <= r0 &&",
+        "            (kp0 - 1 <= r0 &&")]),
+    # the unmasked path within the window of the warpgroup's first row
+    # but not of its last
+    "unmasked_window_edge": ({"sliding"}, [(
+        "             (mode != kSliding || kp0 > r0 + 63 - window)));",
+        "             (mode != kSliding || kp0 > r0 - 1 - window)));")]),
+    # V read from the ring's other stage (the tile before, or the one
+    # landing)
+    "ring_stage_stale": (None, [(
+        "    const uint32_t ka = smem_u32(ring + st * 2 * TB), va = ka + TB;",
+        "    const uint32_t ka = smem_u32(ring + st * 2 * TB),\n"
+        "                   va = smem_u32(ring + (st ^ 1) * 2 * TB) + TB;")]),
+    # the second warpgroup's rows formed from the first's queries
+    "second_wg_reads_first_q": (None, [(
+        "  const uint32_t qa = smem_u32(Qs + wg * TB);",
+        "  const uint32_t qa = smem_u32(Qs);")]),
+    # each query head reads the next group's KV head
+    "kv_head_off_by_one": (None, [(
+        "  const int h = blockIdx.x, b = blockIdx.z;\n"
+        "  const int hk = h / (H / Hkv);",
+        "  const int h = blockIdx.x, b = blockIdx.z;\n"
+        "  const int hk = (h / (H / Hkv) + 1) % Hkv;")]),
+}
+
+#: measurement-only edits of this tree's kernel for `--time --variant`
+EDITS = {
+    # what the unmasked path bought: every tile tests every pair
+    "masked": [("    if (whole(j)) {", "    if (false && whole(j)) {")],
+    # what the pair mask still costs: every tile unmasked
+    "unmasked": [("    if (whole(j)) {", "    if (true || whole(j)) {")],
+    # what the ring bought: one stage, each tile loaded after the last is
+    # formed
+    "one_stage": [
+        ("constexpr int W_STAGES = 2;", "constexpr int W_STAGES = 1;"),
+        ("  for (; j < jt_hi; ++j, st ^= 1) {\n",
+         "  for (; j < jt_hi; ++j) {\n    if (j > j_lo / W_BK) {\n"
+         "      __syncthreads();\n      load_kv(j, 0);\n    }\n"),
+        ("    if (j + 1 < jt_hi) load_kv(j + 1, st ^ 1);  // lands while j "
+         "is formed\n", "")],
+    # what the exponentials cost: p = s - m, no ex2 (o is wrong)
+    "no_exp": [("        s[n][e] = ex2(s[n][e] - mu[e >> 1]);",
+                "        s[n][e] = s[n][e] - mu[e >> 1];")],
+    # what O += P V costs: the product never issued (o is wrong)
+    "no_pv": [("        wgmma_rs_n128<1>(&acc[0][0], a[kk], dsc);",
+               "        if (Sq < 0) wgmma_rs_n128<1>(&acc[0][0], a[kk], dsc);")],
+    # one block an SM: up to 255 registers a thread, no spill
+    "one_block_per_sm": [("__launch_bounds__(W_THREADS, 2)",
+                          "__launch_bounds__(W_THREADS, 1)")],
+    # what the order bought: the first query tiles issued first
+    "light_first": [(
+        "  const int q0 = ((Sq + W_BQ - 1) / W_BQ - 1 - (int)blockIdx.y) * "
+        "W_BQ;",
+        "  const int q0 = (int)blockIdx.y * W_BQ;")],
+}
+
+#: (B, S) of the causal bf16 shapes timed: phase 3's and phase 6's
+TIME_SHAPES = [(1, 64), (1, 128), (4, 256), (4, 2048)]
+
+
+def _inputs(torch, B, S, seed):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, HKV, D, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    return q, k, v
+
+
+def _errs(out, ref):
+    """Elementwise and whole errors; a value that is not finite (a read of
+    shared memory never written) counts as an infinite error."""
+    ref = ref.float()
+    d = (out.float() - ref).abs().nan_to_num(nan=float("inf"))
+    return {"elementwise": (d / ref.abs().clamp_min(1.0)).max().item(),
+            "whole": d.max().item() / ref.abs().max().item()}
+
+
+# ------------------------------------------------------------ fault mode
+def readings(torch):
+    """One row of readings a case, through the port's wrapper and
+    whatever library `build.load` hands it."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    rows = []
+    for i, (name, (B, S, mode, window, off, tags)) in enumerate(
+            CASES.items()):
+        q, k, v = _inputs(torch, B, S, 10 + i)
+        kw = dict(mode=mode, window=window, kv_offset=off)
+        out = flash_attention(q, k, v, **kw)
+        ref = flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        rows.append({"case": name, "tags": sorted(tags), **_errs(out, ref)})
+    return rows
+
+
+def fault_mode(torch, tmp):
+    from repro_torch.kernels import build as kbuild
+    src = open(os.path.join(ROOT, CU)).read()
+    libs = build({f: plant(src, edits, f)
+                  for f, (_, edits) in FAULTS.items()}, tmp, keys=KEYS)
+    result, ok = {}, True
+    for fault, (tags, _) in FAULTS.items():
+        # the wrapper loads "flash_attention" through build.load
+        kbuild._libs["flash_attention"] = libs[fault]
+        rows = readings(torch)
+        must = [r for r in rows if tags is None or tags & set(r["tags"])]
+        for r in rows:
+            print(json.dumps({"fault": fault, **r}), flush=True)
+        elt = [r["elementwise"] for r in must]
+        print(f"{fault:28s} elementwise {min(elt):.4f}-{max(elt):.4f} "
+              f"({len(must)} cases)")
+        if fault == "sound":
+            caught = [False]
+            ok &= all(r["elementwise"] <= REL_TOL_BF16 for r in rows)
+        else:
+            caught = [r["elementwise"] > REL_TOL_BF16 for r in must]
+            ok &= all(caught)
+        result[fault] = {"rows": rows, "caught_in": sum(caught),
+                         "cases": len(must)}
+    return {"ok": ok, "rel_tol_bf16": REL_TOL_BF16, "faults": result}
+
+
+# ------------------------------------------------------------- time mode
+def call(torch, lib, q, k, v, o):
+    """o <- flash_attention_fwd of `lib`, bf16 causal, no offset."""
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:     # bound once a library, as the wrapper does
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    B, S = q.shape[:2]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S,
+             S, H, HKV, D, 1, 1, 0, 0,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_fwd returned {err}")
+    return o
+
+
+def time_shape(torch, libs, B, S, rounds):
+    import torch.nn.functional as F
+    from chip_smoke import attention_bound, cuda_ms, device_ms
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    q, k, v = _inputs(torch, B, S, 0)
+    ref = flash_attention_ref(q, k, v, mode="causal")
+    rows = {}
+    for label, lib in libs.items():
+        o1, o2 = (call(torch, lib, q, k, v, torch.empty_like(q))
+                  for _ in range(2))
+        torch.cuda.synchronize()
+        rows[label] = {"err": _errs(o1, ref)["elementwise"],
+                       "same_bits": bool(torch.equal(o1, o2)),
+                       "ms": [], "device_ms": []}
+    o = torch.empty_like(q)
+    for _ in range(rounds):
+        for label in list(libs) + list(libs)[::-1]:
+            fn = (lambda lib=libs[label]: call(torch, lib, q, k, v, o))
+            rows[label]["ms"].append(cuda_ms(fn))
+            rows[label]["device_ms"].append(device_ms(fn)[0])
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+    wrap = (lambda: flash_attention(q, k, v, mode="causal"))
+    bound, bound_by = attention_bound(B, S, S, H, HKV, D, torch.bfloat16,
+                                      "causal", None, 0)
+    out = {"shape": f"B={B} S={S} H={H} Hkv={HKV} D={D} bf16 causal",
+           "bound_ms": bound, "bound_by": bound_by}
+    for name, fn in (("wrapper", wrap), ("sdpa", sdpa)):
+        out[f"{name}_ms"] = cuda_ms(fn)
+        out[f"{name}_device_ms"], out[f"{name}_kernels_per_call"] = \
+            device_ms(fn)
+    out["kernels"] = rows
+    for label, row in rows.items():
+        print(f"{B}x{S} {label:22s} ms {row['ms']} device_ms "
+              f"{row['device_ms']} err {row['err']:.4g} same_bits "
+              f"{row['same_bits']}")
+    print(f"{B}x{S} " + json.dumps({k: w for k, w in out.items()
+                                    if k != "kernels"}))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--time", action="store_true",
+                    help="time the kernels of trees and variants")
+    ap.add_argument("--tree", action="append", default=[])
+    ap.add_argument("--variant", action="append", default=[])
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--out", help="write every reading to this JSON file")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("k2_fault_check: no CUDA device visible", file=sys.stderr)
+        return 1
+    from chip_smoke import card_line
+    card = card_line()
+    print(card)
+    tmp = tempfile.mkdtemp()
+    try:
+        if args.time:
+            trees = {"change": ROOT}
+            trees.update(t.split("=", 1) for t in args.tree)
+            libs = build_trees(tmp, trees, dict(v.split("=", 1)
+                                                for v in args.variant),
+                               cu=CU, edits=EDITS, keys=KEYS)
+            # the wrapper's calls run this tree's library
+            from repro_torch.kernels import build as kbuild
+            kbuild._libs["flash_attention"] = libs["change"]
+            result = {"times": [time_shape(torch, libs, B, S, args.rounds)
+                                for B, S in TIME_SHAPES]}
+        else:
+            result = fault_mode(torch, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["card"] = card
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f)
+    if "faults" in result:
+        print(json.dumps({"card": card, "ok": result["ok"], "caught": {
+            f: f"{r['caught_in']}/{r['cases']}"
+            for f, r in result["faults"].items() if f != "sound"}}))
+    return 0 if result.get("ok", True) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,10 +9,12 @@ for Hopper (`sm_90a`) into its own shared library, loaded with ctypes:
 Libraries land in the checkout's git-ignored `build/repro_torch/` when
 the package runs from the checkout's `src/`, and in the user's cache
 directory (`$XDG_CACHE_HOME/repro_torch`, else `~/.cache/repro_torch`)
-when it is installed. Each is named by a hash of its source, so a
-rebuilt source never loads a stale library. Nothing here runs at import: the first launch of a
-kernel builds it, and `build_all()` starts one `nvcc` per source at
-once (what `chip_smoke.py` calls up front).
+when it is installed. Each is named by a hash of its source and of the
+headers of `csrc/` (`hopper.cuh`, which K1 and K2 share), so an edited
+source or header never loads a stale library. Nothing here runs at
+import: the first launch of a kernel builds it, and `build_all()`
+starts one `nvcc` per source at once (what `chip_smoke.py` calls up
+front).
 """
 from __future__ import annotations
 
@@ -63,10 +65,18 @@ def _nvcc() -> str:
     return path
 
 
+def digest(name: str, csrc: Path = CSRC) -> str:
+    """A hash of `<name>.cu` together with every header of `csrc`, which
+    any source may include: an edit of either rebuilds the library."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return h.hexdigest()[:12]
+
+
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return BUILD_DIR / f"{name}-{digest(name)}.so"
 
 
 def _start(name: str) -> Optional[subprocess.Popen]:

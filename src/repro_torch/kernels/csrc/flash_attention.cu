@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a), plain C interface.
+// Flash attention forward (kernel K2) for Hopper (sm_90a), plain C
+// interface.
 //
 // Replaces: src/repro/kernels/flash_attention.py :: flash_attention_flat
 // (Pallas body `_kernel`) together with its model-layout wrapper
@@ -19,14 +20,39 @@
 // What bounds it on the H100: at the serving path's shapes (S <= 2048,
 // D = 128) the least time is set by the bytes at short prompts (q, k, v
 // and o cross HBM once: some 30 flops per byte at S = 64) and by the
-// tensor-core rate from S of about 700 on (the flops per byte grow
-// with S). So the design keeps every intermediate (scores,
-// probabilities, the running max and sum) on chip and reads each KV
-// tile once per block of 64 query rows, and the bf16 path puts both
-// products on the tensor cores:
-//   * bf16: flash_fwd_tc_kernel, mma.sync m16n8k16 with fp32
-//     accumulation (the Ampere-style instruction; Hopper's wgmma and TMA
-//     are later work), 4 warps x 16 query rows, 64-key tiles.
+// tensor-core rate from S of about 700 on (4*D flops per valid pair per
+// query head grow with S). So every intermediate (scores,
+// probabilities, the running max and sum) stays on chip, each K/V tile
+// is read once per block of 128 query rows, and the bf16 path is built
+// for Hopper's tensor cores:
+//   * bf16: flash_fwd_wg_kernel, D = 32, 64 and 128.
+//     1. Grid. A block is two warpgroups (256 threads) over 128 query
+//        rows of one (query head, batch), 64 rows each; the grid is
+//        (H, ceil(Sq / 128), B), and y is issued in reverse, so the last
+//        query tiles, the heaviest under causal order, start first.
+//     2. Products. Both by warpgroup MMA (wgmma, sm_90a) with fp32
+//        accumulation: S = Q K^T from 128-byte-swizzled shared memory,
+//        O += P V with P from registers (rounded to bf16) and V read
+//        N-major from its row-major tile: no transposed copy of V.
+//     3. Loads. 64-key K/V tiles arrive by cp.async in a two-stage ring
+//        in the swizzled layout wgmma reads: the next tile lands while
+//        this one is formed.
+//     4. Live keys by arithmetic: the block visits the key tiles its
+//        rows can see (causal: up to its last row; sliding: from the
+//        first row's window on), and a warpgroup skips a tile none of
+//        its own 64 rows can see.
+//     5. Masks. A tile wholly valid for the warpgroup's 64 rows (full
+//        mode; causal at or before its first row; sliding also within
+//        its last row's window) skips the pair mask.
+//     6. Online softmax in fp32, in log2 units (ex2.approx).
+//     7. Two blocks an SM (97 KB of shared memory at D = 128, at most
+//        128 registers a thread: 32 bytes spill at D = 128).
+//     What still holds it back at 4 x 2048 (3x its bound): each
+//     warpgroup waits on its own products and softmax in turn; only the
+//     SM's other warpgroups fill the tensor cores meanwhile.
+//     D = 32 (no main path) runs as D = 64 with Q's, K's and V's upper
+//     32 columns zero-filled in shared memory: exact, at twice the
+//     products.
 //   * fp32: flash_fwd_f32_kernel, fp32 FMAs on the CUDA cores (the tensor
 //     cores would round the inputs to TF32): two threads per query row,
 //     each holding half of the row's scores and of its accumulator in
@@ -40,6 +66,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -187,225 +215,237 @@ flash_fwd_f32_kernel(const float* __restrict__ q,
   }
 }
 
+
 // ---------------------------------------------------------------------
-// bf16 path on the tensor cores (mma.sync m16n8k16, fp32 accumulate).
-// One block per (64 query rows, head, batch): four warps, each owning
-// 16 query rows whose Q fragments stay in registers for the whole KV
-// loop. Per 64-key tile: S = Q K^T by mma from K staged [key][d] in
-// shared memory; the online softmax runs on the S accumulators in
-// registers (a row's entries are spread over the 4 threads of a quad);
-// P is rounded to bf16 and re-used as the A operand of O += P V, with
-// V staged transposed ([d][key]) so each B fragment is one 32-bit load.
+// bf16 path on the tensor cores, designed for the H100 (the source note
+// says what bounds it and what the design does about it). A block is
+// two warpgroups over W_BQ query rows of one query head, 64 rows each;
+// both share each K/V tile of a ring of W_STAGES.
 // ---------------------------------------------------------------------
-constexpr int TC_BQ = 64;        // 4 warps x 16 query rows
-constexpr int TC_BK = 64;        // keys per KV tile
-constexpr int TC_THREADS = 128;
+using bf16 = __nv_bfloat16;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int W_BQ = 128, W_BK = 64, W_THREADS = 256;
+constexpr int W_STAGES = 2;  // K/V tiles: one in use, one landing
 
 template <int D>
-struct TcTile {
-  static constexpr int QP = D + 8;       // bf16 pitch of Q and K rows
-  static constexpr int VP = TC_BK + 8;   // bf16 pitch of V^T rows
-  static constexpr size_t smem =
-      sizeof(__nv_bfloat16) * (TC_BQ * QP + TC_BK * QP + D * VP);
+struct WgTile {
+  static constexpr int DP = D < 64 ? 64 : D;  // D = 32 as one 64-wide block
+  static constexpr int TB = 64 * DP * 2;      // bytes of one [64][DP] tile
+  // Q of both warpgroups, the ring's K and V, and room to align the
+  // tiles to 1024 bytes
+  static constexpr size_t smem = 1024 + 2 * TB + W_STAGES * 2 * TB;
 };
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-        "r"(b[1]));
-}
-
-// two floats -> one register of two bf16, the lower index in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
-                    int Hkv, int mode, int window, int kv_offset,
-                    float scale) {
-  using Tile = TcTile<D>;
-  constexpr int QP = Tile::QP, VP = Tile::VP;
-  constexpr int CH = D / 8;          // 16-byte chunks per row
-  constexpr int NT = TC_BK / 8;      // 8-key column tiles of S
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + TC_BQ * QP;   // [TC_BK][QP]
-  __nv_bfloat16* Vt = Ks + TC_BK * QP;   // [D][VP], V transposed
+__global__ void __launch_bounds__(W_THREADS, 2)
+flash_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    int Sq, int Sk, int H, int Hkv, int mode, int window,
+                    int kv_offset, float scale) {
+  constexpr int DP = WgTile<D>::DP, TB = WgTile<D>::TB;
+  constexpr int CH = D / 8, CHP = DP / 8, NK = W_BK / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  unsigned char* Qs = sm;             // [2][64][DP], one tile a warpgroup
+  unsigned char* ring = Qs + 2 * TB;  // W_STAGES x K, V [64][DP]
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;   // mma fragment coordinates
-  const int q0 = blockIdx.x * TC_BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2;
+  const int h = blockIdx.x, b = blockIdx.z;
   const int hk = h / (H / Hkv);
+  // blocks are issued y by y: the last query tiles, the heaviest under
+  // causal order, first
+  const int q0 = ((Sq + W_BQ - 1) / W_BQ - 1 - (int)blockIdx.y) * W_BQ;
+  const int q1 = min(q0 + W_BQ, Sq);
+  const int r0 = q0 + 64 * wg;  // the warpgroup's first row
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
+  const bf16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+  const bf16* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const bf16* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
 
-  const int64_t q_stride = (int64_t)H * D;
-  const int64_t kv_stride = (int64_t)Hkv * D;
-  const __nv_bfloat16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-  const __nv_bfloat16* kb =
-      k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
-  const __nv_bfloat16* vb =
-      v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
-  __nv_bfloat16* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-
-  for (int i = tid; i < TC_BQ * CH; i += TC_THREADS) {
-    const int rr = i / CH, c = i % CH;
-    const int qp = q0 + rr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (qp < Sq)
-      val = *reinterpret_cast<const uint4*>(qb + (int64_t)qp * q_stride +
-                                            c * 8);
-    *reinterpret_cast<uint4*>(Qs + rr * QP + c * 8) = val;
+  // Q, 64 rows a warpgroup; rows past Sq and columns past D read as
+  // zeros (the rows are never written)
+  for (int i = tid; i < W_BQ * CHP; i += W_THREADS) {
+    const int r = i / CHP, c = i % CHP, qp = q0 + r;
+    cp_async16(Qs + (r / 64) * TB + sw128<64>(r % 64, c),
+               qb + (int64_t)(qp < Sq ? qp : q0) * q_stride +
+                   (c < CH ? c : 0) * 8,
+               qp < Sq && c < CH);
   }
-  __syncthreads();
+  cp_async_commit();
 
-  const int r_lo = warp * 16 + g;          // this thread's rows: r_lo, +8
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* p = Qs + r_lo * QP + kk * 16 + t * 2;
-    qf[kk][0] = ld32(p);
-    qf[kk][1] = ld32(p + 8 * QP);
-    qf[kk][2] = ld32(p + 8);
-    qf[kk][3] = ld32(p + 8 * QP + 8);
-  }
+  // key tile j into ring stage st, K and V in the swizzled layout wgmma
+  // reads; keys past Sk and columns past D read as zeros
+  auto load_kv = [&](int j, int st) {
+    const int j0 = j * W_BK;
+    unsigned char* Ks = ring + st * 2 * TB;
+    for (int i = tid; i < W_BK * CHP; i += W_THREADS) {
+      const int r = i / CHP, c = i % CHP, kp = j0 + r;
+      const int64_t off =
+          (int64_t)(kp < Sk ? kp : j0) * kv_stride + (c < CH ? c : 0) * 8;
+      cp_async16(Ks + sw128<W_BK>(r, c), kb + off, kp < Sk && c < CH);
+      cp_async16(Ks + TB + sw128<W_BK>(r, c), vb + off, kp < Sk && c < CH);
+    }
+    cp_async_commit();
+  };
 
-  const int q_last = min(q0 + TC_BQ, Sq) - 1;
+  // the key tiles some row of the block sees: [j_lo / W_BK, jt_hi)
   int j_lo = 0, j_hi = Sk;
   if (mode != kFull) {
-    j_hi = min(Sk, q_last - kv_offset + 1);
+    j_hi = max(0, min(Sk, q1 - kv_offset));
     if (mode == kSliding) j_lo = max(0, q0 - window - kv_offset + 1);
   }
-  j_lo = (j_lo / TC_BK) * TC_BK;
+  const int jt_hi = (j_hi + W_BK - 1) / W_BK;
+  // the warpgroup's rows [r0, w1): `mine` (tile j holds a key one of
+  // them sees) and `whole` (every key of tile j is valid for all 64 of
+  // them: no pair mask); both uniform across the warpgroup
+  const int w1 = min(r0 + 64, Sq);
+  auto mine = [&](int j) {
+    const int kp0 = kv_offset + j * W_BK;
+    return r0 < Sq &&
+           (mode == kFull ||
+            (kp0 <= w1 - 1 &&
+             (mode != kSliding || kp0 + W_BK - 1 > r0 - window)));
+  };
+  auto whole = [&](int j) {
+    const int kp0 = kv_offset + j * W_BK;
+    return (j + 1) * W_BK <= Sk &&
+           (mode == kFull ||
+            (kp0 + W_BK - 1 <= r0 &&
+             (mode != kSliding || kp0 > r0 + 63 - window)));
+  };
 
-  const int qpos[2] = {q0 + r_lo, q0 + r_lo + 8};
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  // the thread's two rows: qrow and qrow + 8
+  const int qrow = r0 + (warp & 3) * 16 + g;
+  const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
+  for (int nd = 0; nd < DP / 8; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  const uint32_t qa = smem_u32(Qs + wg * TB);
 
-  for (int j0 = j_lo; j0 < j_hi; j0 += TC_BK) {
-    __syncthreads();  // every warp is done with the previous tile
-    // key c = i % TC_BK: a warp's transposed V stores hit distinct banks
-    for (int i = tid; i < TC_BK * CH; i += TC_THREADS) {
-      const int c = i % TC_BK, ch = i / TC_BK;
-      const int kp = j0 + c;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (kp < Sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (int64_t)kp * kv_stride +
-                                             ch * 8);
-        vv = *reinterpret_cast<const uint4*>(vb + (int64_t)kp * kv_stride +
-                                             ch * 8);
-      }
-      *reinterpret_cast<uint4*>(Ks + c * QP + ch * 8) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) Vt[(ch * 8 + e) * VP + c] = ve[e];
-    }
-    __syncthreads();
+  int j = j_lo / W_BK, st = 0;
+  if (j < jt_hi) load_kv(j, 0);
+  for (; j < jt_hi; ++j, st ^= 1) {
+    cp_async_wait<0>();   // tile j (the first time, Q too) has landed
+    fence_proxy_async();  // the copies are seen by wgmma's reads
+    __syncthreads();      // every warp is done with the other stage
+    if (j + 1 < jt_hi) load_kv(j + 1, st ^ 1);  // lands while j is formed
+    if (!mine(j)) continue;
+    const uint32_t ka = smem_u32(ring + st * 2 * TB), va = ka + TB;
 
-    float s[NT][4];
+    // S = Q K^T: 64 rows x 64 keys, both operands K-major
+    float s[NK][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* p = Ks + (n * 8 + g) * QP + kk * 16 + t * 2;
-        const uint32_t bfrag[2] = {ld32(p), ld32(p + 8)};
-        mma_bf16(s[n], qf[kk], bfrag);
-      }
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * SW_BLOCK + (kk & 3) * 32;
+      wgmma_ss_n64<0, 0>(&s[0][0], wg_desc(qa + off, 16, SW_GROUP),
+                         wg_desc(ka + off, 16, SW_GROUP), 1);
     }
+    wgmma_commit();
+    wgmma_wait0();
 
-    // mask (exact 0 weight for a masked pair), scale, row max
     float mx[2] = {-INFINITY, -INFINITY};
+    if (whole(j)) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+      for (int n = 0; n < NK; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = qpos[e >> 1];
-        const int j = j0 + n * 8 + t * 2 + (e & 1);
-        const int kpos = kv_offset + j;
-        bool ok = j < Sk;
-        if (mode != kFull) {
-          ok = ok && kpos <= row;
-          if (mode == kSliding) ok = ok && kpos > row - window;
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] *= sl2;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
         }
-        const float val = ok ? s[n][e] * scale : -INFINITY;
-        s[n][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    float corr[2], psum[2] = {0.f, 0.f};
+    } else {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = qrow + 8 * (e >> 1);
+          const int kj = j * W_BK + n * 8 + t * 2 + (e & 1);
+          const int kpos = kv_offset + kj;
+          bool ok = kj < Sk;
+          if (mode != kFull) {
+            ok = ok && kpos <= row;
+            if (mode == kSliding) ok = ok && kpos > row - window;
+          }
+          s[n][e] = ok ? s[n][e] * sl2 : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+    }
+    // online softmax; a row with no valid key so far keeps m = -inf and
+    // subtracts 0, so its probabilities are exactly 0
+    float corr[2], mu[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
       const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = m[i] == -INFINITY ? 0.f : __expf(m[i] - m_new);
+      mu[i] = m_new == -INFINITY ? 0.f : m_new;
+      corr[i] = ex2(m[i] - mu[i]);
       m[i] = m_new;
     }
+    float psum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < NK; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p =
-            s[n][e] == -INFINITY ? 0.f : __expf(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        psum[e >> 1] += p;
+        s[n][e] = ex2(s[n][e] - mu[e >> 1]);
+        psum[e >> 1] += s[n][e];
       }
+    // l is the thread's share of its rows' sums until the end
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
-      l[i] = l[i] * corr[i] + psum[i];
-    }
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
+    for (int nd = 0; nd < DP / 8; ++nd) {
       acc[nd][0] *= corr[0];
       acc[nd][1] *= corr[0];
       acc[nd][2] *= corr[1];
       acc[nd][3] *= corr[1];
     }
-
-    // O += P V: the S accumulators of key tiles 2kk, 2kk+1 are the A
-    // fragment of the 16-key step kk
+    // O += P V: P from registers (rounded to bf16), V N-major straight
+    // from its row-major tile, 16 keys a step
+    uint32_t a[W_BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int kk = 0; kk < W_BK / 16; ++kk) {
+      a[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    wgmma_fence();
 #pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const __nv_bfloat16* p = Vt + (nd * 8 + g) * VP + kk * 16 + t * 2;
-        const uint32_t bfrag[2] = {ld32(p), ld32(p + 8)};
-        mma_bf16(acc[nd], a, bfrag);
+    for (int kk = 0; kk < W_BK / 16; ++kk) {
+      const uint64_t dsc = wg_desc(va + kk * 2048, SW_BLOCK, SW_GROUP);
+      if constexpr (DP == 64) {
+        wgmma_rs_n64<1>(&acc[0][0], a[kk], dsc);
+      } else {
+        wgmma_rs_n128<1>(&acc[0][0], a[kk], dsc);
       }
     }
+    wgmma_commit();
+    wgmma_wait0();
   }
+  cp_async_wait<0>();  // Q, where no key tile was live
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (qpos[i] >= Sq) continue;
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+  }
+  bf16* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = qrow + 8 * i;
+    if (qp >= Sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    __nv_bfloat16* orow = ob + (int64_t)qpos[i] * q_stride + t * 2;
+    bf16* orow = ob + (int64_t)qp * q_stride + t * 2;
 #pragma unroll
     for (int nd = 0; nd < D / 8; ++nd)
       *reinterpret_cast<uint32_t*>(orow + nd * 8) =
@@ -413,27 +453,50 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// grid x, y, z, threads and shared memory of the last
+// flash_fwd_wg_kernel launch (k2_last_launch reads them)
+static long long g_launch[5] = {0, 0, 0, 0, 0};
+
+// A kernel's dynamic shared memory limit raised to `smem` bytes, once per
+// device (`done`: one flag a device, the kernel's own)
+constexpr int MAX_DEVICES = 64;
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem,
+                       bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Sq, int Sk, int H, int Hkv, int mode,
                    int window, int kv_offset, cudaStream_t stream) {
   const float scale = 1.f / sqrtf((float)D);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    constexpr size_t smem = TcTile<D>::smem;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+  static bool smem_set[MAX_DEVICES];  // one set a template instance
+  if constexpr (std::is_same<T, bf16>::value) {
+    constexpr size_t smem = WgTile<D>::smem;
+    cudaError_t err = allow_smem(flash_fwd_wg_kernel<D>, smem, smem_set);
     if (err != cudaSuccess) return err;
-    const dim3 grid((Sq + TC_BQ - 1) / TC_BQ, H, B);
-    flash_fwd_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+    const dim3 grid(H, (Sq + W_BQ - 1) / W_BQ, B);
+    const long long rec[5] = {grid.x, grid.y, grid.z, W_THREADS,
+                              (long long)smem};
+    for (int i = 0; i < 5; ++i) g_launch[i] = rec[i];
+    flash_fwd_wg_kernel<D><<<grid, W_THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Hkv, mode,
         window, kv_offset, scale);
   } else {
     constexpr size_t smem = smem_bytes<D>();
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem, smem_set);
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + BQ - 1) / BQ, H, B);
     flash_fwd_f32_kernel<D><<<grid, NTHREADS, smem, stream>>>(
@@ -481,9 +544,17 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
     return (int)launch_d<float>(D, q, k, v, o, B, Sq, Sk, H, Hkv, mode,
                                 window, kv_offset, s);
   if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, q, k, v, o, B, Sq, Sk, H, Hkv,
-                                        mode, window, kv_offset, s);
+    return (int)launch_d<bf16>(D, q, k, v, o, B, Sq, Sk, H, Hkv, mode,
+                               window, kv_offset, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The last launch of flash_fwd_wg_kernel (bfloat16, any head dim), as
+// launch made it: out[0..2] its grid, out[3] its threads per block,
+// out[4] its dynamic shared memory in bytes. All 0 before the first
+// such launch.
+void k2_last_launch(long long* out) {
+  for (int i = 0; i < 5; ++i) out[i] = g_launch[i];
 }
 
 const char* flash_attention_error_string(int err) {

@@ -13,9 +13,10 @@ On CPU tensors the wrapper runs `flash_attention_ref`; on CUDA tensors
 it launches `csrc/flash_attention.cu` or raises. It never falls back.
 The kernel has no backward, so on the card it refuses inputs that need
 a gradient (training attends through the packed kernel K1).
-bf16 inputs run on the tensor cores (`mma.sync`, fp32 accumulation,
-probabilities rounded to bf16 before the product with V); fp32 inputs
-run in fp32 on the CUDA cores.
+bf16 inputs run on the tensor cores (`wgmma`, fp32 accumulation,
+probabilities rounded to bf16 before the product with V; two
+warpgroups over 128 query rows a block, whose launch `last_launch`
+reads back); fp32 inputs run in fp32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -84,6 +85,31 @@ def _check_args(q, k, v, mode, window) -> None:
         raise ValueError(f"dtype mismatch: {q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def _library() -> ctypes.CDLL:
+    """The kernel's library, its functions' C types bound once per
+    loaded library rather than on every call."""
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.k2_last_launch.argtypes = [ctypes.c_void_p]
+        lib.k2_last_launch.restype = None
+    return lib
+
+
+def last_launch() -> dict:
+    """The last launch of the bf16 kernel (any head_dim), as the library
+    recorded it: `grid` (x, y, z), `threads` a block and `smem_bytes` of
+    dynamic shared memory; all 0 before the first."""
+    out = (ctypes.c_longlong * 5)()
+    _library().k2_last_launch(out)
+    return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4])
+
+
 def _launch(q, k, v, mode, window, kv_offset) -> torch.Tensor:
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
@@ -98,20 +124,15 @@ def _launch(q, k, v, mode, window, kv_offset) -> torch.Tensor:
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k, v must start on 16-byte boundaries (the "
                          "bf16 kernel loads rows 16 bytes at a time)")
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _library()
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 B, Sq, k.shape[1], H, k.shape[2], D, _DTYPES[q.dtype],
-                 MODES[mode], int(window or 0), int(kv_offset), stream)
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
+            k.shape[1], H, k.shape[2], D, _DTYPES[q.dtype], MODES[mode],
+            int(window or 0), int(kv_offset), stream)
     if err != 0:
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg}")
     flash_attention.launches += 1

@@ -46,6 +46,7 @@ def _t(*arrays):
     (2, 128, 128, 4, 2, 32),     # GQA, block-aligned
     (1, 100, 100, 4, 1, 64),     # unaligned lengths, one KV head
     (1, 96, 160, 2, 2, 32),      # Sq != Sk
+    (1, 64, 192, 6, 1, 32),      # MQA with Sk > Sq
 ])
 def test_plain_flash_matches_pallas(mode, window, B, Sq, Sk, H, Hkv, D):
     q, k, v = _qkv(B, Sq, H, Hkv, D, Sk)

@@ -62,6 +62,105 @@ def test_flash_attention_kernel_matches_plain(card, dtype, B, Sq, Sk, D):
     assert flash_attention.launches == before + len(CASES)
 
 
+# The bf16 kernel (D = 32, 64, 128): two warpgroups over 128 query rows
+# of one (head, batch), every product by wgmma, a ring of K/V tiles, the
+# live key range by arithmetic and an unmasked path
+def _k2_close(card, tag, B, Sq, Sk, H, Hkv, D, seed, **kw):
+    """K2 in bf16 on random inputs vs its plain version (phase 3's
+    elementwise limit); returns (kernel output, plain output)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(card, torch.bfloat16)
+               for s in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, **kw)
+    ref = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    diff = (out.float() - ref.float()).abs()
+    err = (diff / ref.float().abs().clamp_min(1.0)).max().item()
+    print(f"K2 {tag} {kw}: elementwise {err:.4g}")
+    assert err <= TOL[torch.bfloat16], (tag, kw, err)
+    return out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_k2_long_rows(card, case):
+    """4 rows of 2048 at internvl3-2b's 12:2 heads of 128: 32 key tiles a
+    row through the ring, most on the unmasked path; the library records
+    the launch: (H, ceil(Sq / 128), B) blocks of 256 threads."""
+    from repro_torch.kernels.flash_attention import last_launch
+    mode, window, off = CASES[case]
+    _k2_close(card, "4x2048", 4, 2048, 2048, 12, 2, 128, 50 + case,
+              mode=mode, window=window, kv_offset=off)
+    launch = last_launch()
+    assert launch["grid"] == (12, 2048 // 128, 4), launch
+    assert launch["threads"] == 256, launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Hkv", [1, 2, 12])
+def test_k2_kv_heads(card, Hkv, D):
+    """12 query heads over 1 (MQA), 2 or 12 KV heads, every mode and
+    kv_offset of CASES, a partial last query tile and key tile."""
+    for mode, window, off in CASES:
+        _k2_close(card, f"Hkv={Hkv} D={D}", 2, 300, 300, 12, Hkv, D,
+                  60 + Hkv, mode=mode, window=window, kv_offset=off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_k2_more_keys_than_queries(card, D):
+    """Sk > Sq with positive kv_offset (keys start after some queries, so
+    the first rows see none) and with the queries at the end of the keys
+    (a chunk after a cache), causal and sliding."""
+    for mode, window in (("causal", None), ("sliding", 100)):
+        for off in (40, -320):
+            _k2_close(card, f"Sk>Sq D={D}", 2, 200, 520, 12, 2, D, 70,
+                      mode=mode, window=window, kv_offset=off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [16, 64, 200])
+def test_k2_sliding_windows(card, window):
+    """Windows below, at and above a key tile, each with and without an
+    offset: the unmasked path must stop at the window's edge."""
+    for off in (0, -30, 50):
+        _k2_close(card, f"window {window}", 2, 700, 700, 12, 2, 128, 80,
+                  mode="sliding", window=window, kv_offset=off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,window", [("causal", None),
+                                         ("sliding", 64)])
+def test_k2_rows_without_keys_are_zero(card, mode, window):
+    """kv_offset 150: queries 0-149 see no key and come out exactly 0
+    (the documented deviation from the Pallas kernel); the rest match."""
+    out, _ = _k2_close(card, "no keys", 2, 300, 300, 12, 2, 128, 90,
+                       mode=mode, window=window, kv_offset=150)
+    assert (out[:, :150] == 0).all()
+    assert out[:, 150:].abs().amax(dim=(0, 2, 3)).min() > 0
+
+
+@pytest.mark.cuda
+def test_k2_is_deterministic(card):
+    """Each row's sums run in one fixed order: two calls give the same
+    bits."""
+    for B, S, mode, window in ((4, 256, "causal", None),
+                               (2, 700, "sliding", 64)):
+        rng = np.random.default_rng(95)
+        q, k, v = [torch.from_numpy(rng.standard_normal(s)
+                                    .astype(np.float32))
+                   .to(card, torch.bfloat16)
+                   for s in ((B, S, 12, 128), (B, S, 2, 128),
+                             (B, S, 2, 128))]
+        a = flash_attention(q, k, v, mode=mode, window=window)
+        b = flash_attention(q, k, v, mode=mode, window=window)
+        assert torch.equal(a, b), (B, S, mode)
+
+
 # ------------------------------------------------- packed attention (K1)
 def _packed_tables(B, S, lens, with_spans, frame=8):
     """Segments of `lens` tokens then tail padding (-1); with spans,
