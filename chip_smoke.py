@@ -85,7 +85,14 @@ Phases:
                 the input type); the gradients within 1e-3 * max(1,
                 |plain|) and, as whole tensors, 1e-4 * max|plain|; dC,
                 dB, dx returned in bf16 within 1e-2 both ways (one bf16
-                rounding of nearly the same value)
+                rounding of nearly the same value). Prints each
+                backward's launch (the kernel that took the heads, its
+                grid, threads, shared memory, heads a block and scratch)
+                beside the card's SMs, and times forward and backward by
+                events (`fwd_ms`, `bwd_ms`) and by the kernels' own time
+                (`fwd_device_ms`, `bwd_device_ms`) beside the bounds
+                (the backward's also with its tensor-core products at
+                the TF32 peak, `bound_tc_bwd_ms`)
  12. ssm parity — reduced mamba2-370m, fp32: two DHP training steps with
                 K3 (attn_impl="cuda") vs the same steps through its plain
                 version: losses, the first batch's gradient and the
@@ -100,11 +107,12 @@ Phases:
                 that (each layer is run again in the backward: remat);
                 losses and parameters finite; one more step under
                 torch.profiler for the busy share and the device time by
-                kernel and of the inter-chunk scan
+                kernel (K3's forward and backward apart) and of the
+                inter-chunk scan
  14. ssd path   — K3 forward and backward vs plain at each (n_seqs,
-                bucket) shape the SSM run launched, with times, bounds
-                and the inter-chunk scan's time; these feed the kernels
-                line
+                bucket) shape the SSM run launched, with launches, times
+                and bounds as phase 11 and the inter-chunk scan's time;
+                these feed the kernels line
  15. rglru      — the RG-LRU scan kernel K4, forward and backward, vs its
                 plain versions (sequential loops over time, run in fp64):
                 one 4096-token row at recurrentgemma-2b's width (2560)
@@ -160,6 +168,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # H100 SXM dense tensor-core bf16
               torch.float32: 67e12}     # H100 SXM fp32 (CUDA cores)
+PEAK_TF32 = 495e12                      # H100 SXM dense tensor-core TF32
 PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
@@ -188,15 +197,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3):
-    """(device time per call, kernels per call) of `fn` over `iters`
-    back-to-back calls after `warmup`: the summed durations of the
-    kernels the calls launched, as torch.profiler traces them on the
+def device_ms(fn, iters: int = 20, warmup: int = 3, each_once=False):
+    """(device time per call, kernels traced per call) of `fn` over
+    `iters` back-to-back calls after `warmup`: the summed durations of
+    the kernels the calls launched, as torch.profiler traces them on the
     card. Beside `cuda_ms` (the time between two events around the
     calls, the host's enqueue included where it is the slower), it
     splits a call's time into the host's and the device's. A session
     that traces no kernel at all (seen once, some 50 sessions into a
-    process) is run again, up to three times."""
+    process) is run again, up to three times.
+
+    `each_once`: every call launches each of its kernels once, on the
+    same inputs, so a call's device time is the sum over kernel names of
+    each kernel's mean traced duration. That reading stands where the
+    profiler drops some launches' events (seen in this script's process
+    after many sessions: 1 to 8 of 10 launches traced); the kernels
+    traced per call say how many it saw."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -209,9 +225,17 @@ def device_ms(fn, iters: int = 20, warmup: int = 3):
             torch.cuda.synchronize()
         evs = [ev for ev in prof.events()
                if ev.device_type == torch.autograd.DeviceType.CUDA]
-        if evs:
-            return (sum(ev.time_range.elapsed_us() for ev in evs) / 1e3
-                    / iters, len(evs) / iters)
+        if not evs:
+            continue
+        if each_once:
+            by_name = {}
+            for ev in evs:
+                by_name.setdefault(ev.name, []).append(
+                    ev.time_range.elapsed_us())
+            ms = sum(sum(d) / len(d) for d in by_name.values()) / 1e3
+        else:
+            ms = sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / iters
+        return ms, len(evs) / iters
     raise AssertionError("torch.profiler traced no device time in three "
                          "sessions")
 
@@ -864,7 +888,7 @@ def ssd_inputs(dev, gen, Bsz, S, H, N, P, dtype):
     return C.to(dtype), B.to(dtype), x.to(dtype), -dt, dt
 
 
-def ssd_bound(Bsz, S, H, N, P, c, dtype, backward):
+def ssd_bound(Bsz, S, H, N, P, c, dtype, backward, tensor_cores=False):
     """Least time for the same work: inputs read once and outputs written
     once (C and B once for all heads) against the products over the
     lower triangle of each cell's c x c scores at the fp32 peak (the
@@ -874,7 +898,11 @@ def ssd_bound(Bsz, S, H, N, P, c, dtype, backward):
     gradient summed over heads. Forward: C B^T (2N flops a pair), the
     scores times x (2P a pair and head), the states (2cNP a cell).
     Backward: C B^T again, dC, dB (6N a pair), dS and dx (4P a pair and
-    head), the states' terms of dx and dB (4cNP a cell)."""
+    head), the states' terms of dx and dB (4cNP a cell).
+
+    `tensor_cores` (backward): the products the backward runs on the
+    tensor cores (C B^T, dS and the states' terms) at the TF32 peak, the
+    rest (dC, dB, dx) at the fp32 peak, the two units side by side."""
     elt = torch.finfo(dtype).bits // 8
     cells = Bsz * (S // c) * H
     pairs = c * (c + 1) // 2 * Bsz * (S // c)      # per (sequence, chunk)
@@ -888,6 +916,10 @@ def ssd_bound(Bsz, S, H, N, P, c, dtype, backward):
         nbytes = ins + y + st + cum
         flops = 2 * N * pairs + 2 * P * pairs * H + 2 * c * N * P * cells
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.float32]
+    if backward and tensor_cores:
+        tc = 2 * N * pairs + 2 * P * pairs * H + 4 * c * N * P * cells
+        t_ops = max(tc / PEAK_TF32,
+                    (flops - tc) / PEAK_FLOPS[torch.float32])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -896,12 +928,17 @@ def check_ssd(dev, card, gen, Bsz, S, H, N, P, c, dtype, tag, time_it=True):
     """K3 forward and backward vs plain on one random input; times
     kernel, plain, and the inter-chunk part of `ssd_chunk_scan`."""
     from repro_torch.kernels.ssd_chunk import (
-        ssd_chunk, ssd_chunk_bwd, ssd_chunk_bwd_plain, ssd_chunk_plain,
-        ssd_chunk_scan)
+        last_bwd_launch, ssd_chunk, ssd_chunk_bwd, ssd_chunk_bwd_plain,
+        ssd_chunk_plain, ssd_chunk_scan)
     C, B, x, da, dt = ssd_inputs(dev, gen, Bsz, S, H, N, P, dtype)
     outs = ssd_chunk(C, B, x, da, dt, chunk=c)
     douts = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
     grads = ssd_chunk_bwd(C, B, x, da, dt, *douts, chunk=c)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    launch = dict(**last_bwd_launch(), sms=sms)
+    print(f"  K3 backward launch {tag} Bsz={Bsz} S={S} H={H} N={N} P={P} "
+          f"c={c} {str(dtype).split('.')[-1]}: {json.dumps(launch)} "
+          f"({card})")
     ins64 = [t.double() for t in (C, B, x, da, dt)]
     refs = ssd_chunk_plain(*ins64, chunk=c)
     rgrads = ssd_chunk_bwd_plain(*ins64, *douts, chunk=c)
@@ -938,12 +975,18 @@ def check_ssd(dev, card, gen, Bsz, S, H, N, P, c, dtype, tag, time_it=True):
                err={n: e[1] for n, e in errs.items()},
                rel_err={n: e[2] for n, e in errs.items()},
                max_abs_err_fwd=max(errs[n][0] for n in names[:3]),
-               max_abs_err_bwd=max(errs[n][0] for n in names[3:]))
+               max_abs_err_bwd=max(errs[n][0] for n in names[3:]),
+               bwd_launch=launch)
     if time_it:
-        row["fwd_ms"] = cuda_ms(lambda: ssd_chunk(C, B, x, da, dt, chunk=c),
-                                iters=10, warmup=2)
-        row["bwd_ms"] = cuda_ms(lambda: ssd_chunk_bwd(
-            C, B, x, da, dt, *douts, chunk=c), iters=10, warmup=2)
+        # each call launches each of its kernels once (the forward one,
+        # the backward three)
+        for which, fn in (
+                ("fwd", lambda: ssd_chunk(C, B, x, da, dt, chunk=c)),
+                ("bwd", lambda: ssd_chunk_bwd(C, B, x, da, dt, *douts,
+                                              chunk=c))):
+            row[f"{which}_ms"] = cuda_ms(fn, iters=10, warmup=2)
+            row[f"{which}_device_ms"], row[f"{which}_kernels_traced"] = \
+                device_ms(fn, iters=10, warmup=2, each_once=True)
         row["plain_fwd_ms"] = cuda_ms(lambda: ssd_chunk_plain(
             C, B, x, da, dt, chunk=c), iters=3, warmup=1)
         row["plain_bwd_ms"] = cuda_ms(lambda: ssd_chunk_bwd_plain(
@@ -962,6 +1005,8 @@ def check_ssd(dev, card, gen, Bsz, S, H, N, P, c, dtype, tag, time_it=True):
         for which in ("fwd", "bwd"):
             b, by = ssd_bound(Bsz, S, H, N, P, c, dtype, which == "bwd")
             row[f"bound_{which}_ms"], row[f"bound_{which}_by"] = b, by
+        row["bound_tc_bwd_ms"], row["bound_tc_bwd_by"] = ssd_bound(
+            Bsz, S, H, N, P, c, dtype, True, tensor_cores=True)
     print(f"  K3 {json.dumps(row)} ({card})")
     return row
 
@@ -1155,7 +1200,8 @@ def phase_ssm_training(dev, card):
     print(f"  ssm train group shapes (n_seqs, bucket): {groups}")
     print(f"  ssm train K3 launches: forward {n_fwd}, backward {n_bwd}")
 
-    prof = profile_step(eng, run, card, "ssm train", {"k3": "k3_"},
+    prof = profile_step(eng, run, card, "ssm train",
+                        {"k3_fwd": "k3_fwd", "k3_bwd": "k3_bwd"},
                         ranges=(INTER_CHUNK,))
     inter = [e for e in prof.key_averages() if e.key == INTER_CHUNK]
     if inter:
@@ -1729,15 +1775,20 @@ def main() -> int:
                                for r in ssd_rows + ssd_path
                                if r["dtype"] == "bfloat16"),
             "ms": main_k3[f"{which}_ms"],
+            "device_ms": main_k3[f"{which}_device_ms"],
             "plain_ms": main_k3[f"plain_{which}_ms"],
             "bound_ms": main_k3[f"bound_{which}_ms"],
             "bound_by": main_k3[f"bound_{which}_by"],
             "library_ms": None,
             "shape": f"Bsz={main_k3['Bsz']} S={main_k3['S']} "
                      f"H={SSD_HEADS} N={SSD_N} P={SSD_P} c={chunk} bf16",
+            **({"bound_tc_ms": main_k3["bound_tc_bwd_ms"],
+                "bound_tc_by": main_k3["bound_tc_bwd_by"]}
+               if which == "bwd" else {}),
             "path_shapes": [dict(
                 n_seqs=r["Bsz"], bucket=r["bucket"], launches=r["launches"],
                 err=r["err"], ms=r[f"{which}_ms"],
+                device_ms=r[f"{which}_device_ms"],
                 plain_ms=r[f"plain_{which}_ms"],
                 bound_ms=r[f"bound_{which}_ms"],
                 bound_by=r[f"bound_{which}_by"],

@@ -457,25 +457,6 @@ flash_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // flash_fwd_wg_kernel launch (k2_last_launch reads them)
 static long long g_launch[5] = {0, 0, 0, 0, 0};
 
-// A kernel's dynamic shared memory limit raised to `smem` bytes, once per
-// device (`done`: one flag a device, the kernel's own)
-constexpr int MAX_DEVICES = 64;
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem,
-                       bool (&done)[MAX_DEVICES]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    done[dev] = true;
-  }
-  return cudaSuccess;
-}
-
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Sq, int Sk, int H, int Hkv, int mode,

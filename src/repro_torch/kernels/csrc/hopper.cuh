@@ -1,11 +1,13 @@
 // Hopper (sm_90a) helpers shared by the bf16 attention kernels K1
-// (flash_attention_packed.cu) and K2 (flash_attention.cu): cp.async
-// copies into shared memory, the 128-byte swizzle and the matrix
-// descriptors wgmma reads, warpgroup MMAs (wgmma) with fp32
-// accumulation, and the fp32 / bf16 conversions of the online softmax.
+// (flash_attention_packed.cu) and K2 (flash_attention.cu), and by K3
+// (ssd_chunk.cu): cp.async copies into shared memory, the 128-byte
+// swizzle and the matrix descriptors wgmma reads, warpgroup MMAs (wgmma)
+// with fp32 accumulation, the fp32 / bf16 conversions of the online
+// softmax, and a kernel's shared-memory limit raised once per device.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -167,6 +169,25 @@ __device__ __forceinline__ void wgmma_rs_n128(float d[64], const uint32_t a[4],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TRANS_B),
         "r"(1));
+}
+
+// A kernel's dynamic shared memory limit raised to `smem` bytes, once per
+// device (`done`: one flag a device, the kernel's own)
+constexpr int MAX_DEVICES = 64;
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem,
+                       bool (&done)[MAX_DEVICES]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
 }
 
 // 2^x, the online softmax's exponential (scores in log2 units)

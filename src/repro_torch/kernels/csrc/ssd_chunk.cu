@@ -12,34 +12,56 @@
 //   states = (B * dt * exp(cum_end - cum))^T x            [N,P]
 //
 // The backward (no TPU model: the Pallas kernel cannot be differentiated)
-// is the gradient of that function; see k3_bwd below.
+// is the gradient of that function; see the backward section below.
 //
 // Layouts (model layout, no copies): C and B are [Bsz, S, N] with a token
 // stride `ld_cb` (one B/C group shared by every head, as Mamba-2 has it:
 // the TPU path broadcast them to all heads first); x is [Bsz, S, H, P]
 // with a token stride `ld_x` and heads contiguous; da, dt, cum are fp32
 // [Bsz, S, H]; y is fp32 [Bsz, S, H, P]; states fp32 [Bsz, nc, H, N, P];
-// dx is contiguous [Bsz, S, H, P] in x's type.
-// C, B and x are fp32 or bf16 and are upcast as they are loaded: all
-// arithmetic is fp32 on the CUDA cores (TF32 would miss the 1e-4 limit).
+// dx is contiguous [Bsz, S, H, P] in x's type, dC and dB [Bsz, S, N].
+// C, B and x are fp32 or bf16 and are upcast as they are loaded. The
+// forward's arithmetic is fp32 on the CUDA cores. The backward runs some
+// products on the tensor cores in TF32 with each fp32 operand split into
+// two TF32 halves, which keeps fp32's precision (plain TF32 would miss
+// the 1e-4 limit); bf16 values are exact in TF32 and are not split.
 //
 // What bounds it: at mamba2-370m's c=256, N=128, P=64 a cell does some
 // 16.8 MFLOP on 0.1 MB of inputs, far above the card's ridge, so fp32
-// operations bound it. The TPU kernel holds a whole cell ([c,N] C and B,
-// [c,P] x, the [c,c] scores: 0.4 MB) in VMEM; an SM has 227 KB. So one
-// block per cell walks 32-row tiles: for each row tile i only the key
-// tiles j <= i are visited (the causal skip), each C B^T tile is built
-// over the full N from shared memory, and states take their own pass.
-// exp(cum_i - cum_j) is formed only where i >= j: above the diagonal it
-// overflows at c=256 (the sum of dt there is about 190), and inf * 0
-// would poison the backward.
+// operations bound it. exp(cum_i - cum_j) is formed only where i >= j:
+// above the diagonal it overflows at c=256 (the sum of dt there is about
+// 190), and inf * 0 would poison the backward.
 //
-// Each thread owns a (rows / 16) x (cols / 16) register tile of every
-// product (rows ty + 16a, cols tx + 16b); shared tiles are row-major with
-// an odd row stride, so that reads along either index hit distinct banks.
+// Forward: the TPU kernel holds a whole cell ([c,N] C and B, [c,P] x, the
+// [c,c] scores: 0.4 MB) in VMEM; an SM has 227 KB. So one block per cell
+// walks 32-row tiles: for each row tile i only the key tiles j <= i are
+// visited (the causal skip), each C B^T tile is built over the full N
+// from shared memory, and states take their own pass. Each thread owns a
+// (rows / 16) x (cols / 16) register tile of every product (rows ty + 16a,
+// cols tx + 16b); shared tiles are row-major with an odd row stride, so
+// that reads along either index hit distinct banks.
+//
+// Backward: C B^T, dC and dB belong to the chunk, not the head, and 62% of
+// a per-head block's work formed them again for each of the 32 heads. So
+// C B^T is formed once a (sequence, chunk) (k3_bwd_cb), a block takes a
+// group of up to four heads of a chunk (k3_bwd_heads: the count chosen by
+// the waves of blocks the card takes) and sums the score gradient M over
+// them, and dC = (sum M) B and dB = (sum M)^T C run once a chunk after the
+// groups are summed in order (k3_bwd_dcb): 9.7 GFLOP at one 4096-token
+// row against the per-head design's 30.9. The heads block walks 64-wide
+// tile pairs and loads each step's operands (cp.async; x through
+// registers into fp32) while the step before is formed. C B^T, dS = dy
+// x^T and the end-state products run on the tensor cores (mma.sync,
+// split TF32: two products a step where x or B is bf16, three where both
+// operands are fp32); dx += S^T dy, whose operands are both fp32, runs
+// on the CUDA cores, each thread a 4 x 4 register tile fed by 16-byte
+// shared reads, and so do dC and dB. No atomics: two calls give the
+// same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -209,235 +231,748 @@ __global__ void __launch_bounds__(NT)
 }
 
 // ----------------------------------------------------------------- backward
-// Given dy [c,P], dst [N,P] and dcum [c] of a cell, with
-// S_ij = CB_ij L_ij dt_j, M_ij = dS_ij L_ij dt_j, Q_ij = dS_ij CB_ij L_ij
-// (all for i >= j, else 0), dS = dy x^T, e_j = exp(cum_end - cum_j),
-// w_j = e_j dt_j and q_j = sum_{n,p} B_jn x_jp dst_np:
+// Given dy [c,P], dst [N,P] and dcum [c] of a cell (sequence, chunk,
+// head), with S_ij = CB_ij L_ij dt_j, M_ij = dS_ij L_ij dt_j and
+// Q_ij = dS_ij CB_ij L_ij (all for i >= j, else 0), dS = dy x^T,
+// e_j = exp(cum_end - cum_j), w_j = e_j dt_j and q_j = x_j . (B dst)_j:
 //
 //   dx_j   = sum_i S_ij dy_i + w_j (B dst)_j
-//   dC_i   = sum_j M_ij B_j                      (summed over heads after)
-//   dB_j   = sum_i M_ij C_i + w_j (x dst^T)_j    (summed over heads after)
+//   dC     = (sum_h M_h) B                     (one product a chunk)
+//   dB     = (sum_h M_h)^T C + sum_h w_h x_h dst_h^T
 //   ddt_j  = sum_i Q_ij + e_j q_j
 //   dcum_k = dcum_k + sum_j Q_kj dt_j - dt_k sum_i Q_ik - w_k q_k
 //            + [k = c-1] sum_j w_j q_j
 //   dda_k  = sum_{i >= k} dcum_i
 //
-// Pass A walks row tiles i (dC and the row sums of Q dt), pass B column
-// tiles j (dx, dB, the column sums of Q, q); both rebuild C B^T and dS on
-// the tile pairs j <= i. dC and dB are written per head, fp32, into
-// [Bsz, S, H, N] partials that the wrapper sums over heads.
-template <typename In, int N, int P>
-__global__ void __launch_bounds__(NT)
-    k3_bwd(const In* __restrict__ C, const In* __restrict__ B,
-           const In* __restrict__ x, const float* __restrict__ da,
-           const float* __restrict__ dt, const float* __restrict__ dy,
-           const float* __restrict__ dst, const float* __restrict__ dcum,
-           float* __restrict__ dC, float* __restrict__ dB,
-           In* __restrict__ dx, float* __restrict__ dda,
-           float* __restrict__ ddt, int S, int H, int c, long ld_cb,
-           long ld_x) {
-  extern __shared__ float sm[];
-  const Cell cl = cell_of(S, H, c);
-  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
-  float* s_cum = sm;                    // c
-  float* s_dt = s_cum + c;              // c
-  float* s_e = s_dt + c;                // c: exp(cum_end - cum)
-  float* s_w = s_e + c;                 // c: e * dt
-  float* s_rowR = s_w + c;              // c: sum_j Q_kj dt_j
-  float* s_colQ = s_rowR + c;           // c: sum_i Q_ik
-  float* s_q = s_colQ + c;              // c
-  float* s_dcum = s_q + c;              // c
-  float* s_dst = s_dcum + c;            // N x (P+1)
-  float* s_C = s_dst + N * (P + 1);     // T x (N+1)
-  float* s_B = s_C + T * (N + 1);       // T x (N+1)
-  float* s_X = s_B + T * (N + 1);       // T x (P+1)
-  float* s_dY = s_X + T * (P + 1);      // T x (P+1)
-  float* s_S = s_dY + T * (P + 1);      // T x (T+1)
-  float* s_M = s_S + T * (T + 1);       // T x (T+1)
+// C B^T and the sums over heads belong to the chunk, not the head, so
+// three kernels run in turn: k3_bwd_cb forms C B^T once a (sequence,
+// chunk); k3_bwd_heads takes a group of heads of a chunk and writes
+// everything per head (dx, dda, ddt) and the group's sums of M and of
+// w x dst^T; k3_bwd_dcb sums the groups in order and forms dC and dB.
+constexpr int BT = 64;               // rows and columns of a tile
+constexpr int LDT = BT + 4;          // row stride of [*][BT] fp32 tiles
+constexpr int BG = 4;                // most heads a k3_bwd_heads block
+constexpr int RB = 16;               // rows a k3_bwd_dcb block
+constexpr int SMEM_MAX = 232448;     // shared memory an H100 block may use
 
-  for (int t = tid; t < c; t += NT) {
-    const long g = (cl.tok0 + t) * H + cl.h;
-    s_cum[t] = da[g];
-    s_dt[t] = dt[g];
-    s_dcum[t] = dcum[g];
-    s_rowR[t] = 0.f;
-    s_colQ[t] = 0.f;
-    s_q[t] = 0.f;
+// V consecutive elements of shared memory as floats (16-byte aligned
+// for four floats, 8-byte for four bf16)
+template <int V>
+__device__ __forceinline__ void ldv(float (&o)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+  } else if constexpr (V == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    o[0] = v.x, o[1] = v.y;
+  } else {
+    o[0] = *p;
   }
-  const float* dstg = dst + (cl.bk * H + cl.h) * (long)(N * P);
-  load_tile(s_dst, dstg, P, N, P);
-  __syncthreads();
-  if (tid == 0) {
-    float acc = 0.f;
-    for (int t = 0; t < c; ++t) {
-      acc += s_cum[t];
-      s_cum[t] = acc;
+}
+template <int V>
+__device__ __forceinline__ void ldv(float (&o)[V], const __nv_bfloat16* p) {
+  if constexpr (V == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    o[0] = __uint_as_float(u.x << 16), o[1] = __uint_as_float(u.x & 0xffff0000u);
+    o[2] = __uint_as_float(u.y << 16), o[3] = __uint_as_float(u.y & 0xffff0000u);
+  } else if constexpr (V == 2) {
+    const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+    o[0] = __uint_as_float(u << 16), o[1] = __uint_as_float(u & 0xffff0000u);
+  } else {
+    o[0] = __bfloat162float(*p);
+  }
+}
+template <int V>
+__device__ __forceinline__ void stv(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// the column of a thread's n-th output when B is read along n (below)
+template <int RN>
+__device__ __forceinline__ int ncol(int tx, int n) {
+  return RN <= 4 ? tx * RN + n : (n / 4) * 64 + tx * 4 + n % 4;
+}
+
+// acc[r][n] += sum_{k < K} A(m_r, k) B(k, col_n) over shared-memory
+// operands on the CUDA cores, four k at a time (K % 4 == 0): a thread's
+// rows are m_r = ty RM + r, its columns col_n = ncol<RN>(tx, n). A_KC:
+// A(m, k) = A[m lda + k], else A[k lda + m]; B(k, n) = B[k ldb + n].
+// Each k brings RM + RN values for RM x RN FMAs; a warp reads A at two
+// rows (two ty), broadcast, and B along 16 threads' columns.
+template <int RM, int RN, bool A_KC, typename TA, typename TB>
+__device__ __forceinline__ void mm(float (&acc)[RM][RN], int K, const TA* A,
+                                   int lda, const TB* B, int ldb) {
+  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
+#pragma unroll 4
+  for (int k = 0; k < K; k += 4) {
+    float a[RM][4], b[RN][4];
+    if constexpr (A_KC) {
+#pragma unroll
+      for (int r = 0; r < RM; ++r) ldv<4>(a[r], A + (ty * RM + r) * lda + k);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float v[RM];
+        ldv<RM>(v, A + (k + kk) * lda + ty * RM);
+#pragma unroll
+        for (int r = 0; r < RM; ++r) a[r][kk] = v[r];
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (RN <= 4) {
+        float v[RN];
+        ldv<RN>(v, B + (k + kk) * ldb + tx * RN);
+#pragma unroll
+        for (int n = 0; n < RN; ++n) b[n][kk] = v[n];
+      } else {
+#pragma unroll
+        for (int q = 0; q < RN / 4; ++q) {
+          float v[4];
+          ldv<4>(v, B + (k + kk) * ldb + q * 64 + tx * 4);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) b[q * 4 + n][kk] = v[n];
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int n = 0; n < RN; ++n)
+          acc[r][n] = fmaf(a[r][kk], b[n][kk], acc[r][n]);
+  }
+}
+
+// x rounded to TF32 (nearest, ties away from zero), as the tensor cores
+// take it
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d[16 x 8] += a[16 x 8] b[8 x 8] on the tensor cores: TF32 operands,
+// fp32 sums. Lane l holds a at rows l/4 (+8), cols l%4 (+4); b at rows
+// l%4 (+4), col l/4; d at rows l/4 (+8), cols 2 (l%4) (+1)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// v as TF32 hi and, when SPLIT, lo = v - hi in TF32 too: an fp32 value
+// is carried to some 2^-22 of itself by hi + lo; a bf16 value is exact
+// in TF32 (lo is not formed)
+template <bool SPLIT, int V>
+__device__ __forceinline__ void to_tf32(const float (&v)[V], uint32_t (&hi)[V],
+                                        uint32_t (&lo)[V]) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    hi[i] = SPLIT ? tf32(v[i]) : __float_as_uint(v[i]);
+    if constexpr (SPLIT) lo[i] = tf32(v[i] - __uint_as_float(hi[i]));
+  }
+}
+
+// The warp's acc[n][e] (rows m0 + l/4 + 8 (e / 2), cols n0 + 8 n + 2 (l%4)
+// + e % 2, for lane l) += sum_{k < K} A(m, k) B(k, n) over shared-memory
+// operands, eight k at a time on the tensor cores (K % 8 == 0). A(m, k)
+// = A[m lda + k] when A_KC, else A[k lda + m]; B(k, n) = B[n ldb + k]
+// when B_KC, else B[k ldb + n]. SA / SB: that operand is fp32 and is
+// split (hi + lo), and the products hi hi', hi lo', lo hi' are summed
+// (lo lo' lies below fp32's precision); else it is taken as exact. With
+// every row stride 4 floats past a multiple of 32, a warp's 32 reads of
+// an operand fall on 32 banks.
+template <int NN, bool A_KC, bool B_KC, bool SA, bool SB, typename TA,
+          typename TB>
+__device__ __forceinline__ void wmm(float (&acc)[NN][4], int K, const TA* A,
+                                    int lda, const TB* B, int ldb, int m0,
+                                    int n0) {
+  const int l = threadIdx.x & 31, g = l >> 2, t = l & 3;
+  auto a_at = [&](int m, int k) {
+    return ldf(A_KC ? A + m * lda + k : A + k * lda + m);
+  };
+  auto b_at = [&](int k, int n) {
+    return ldf(B_KC ? B + n * ldb + k : B + k * ldb + n);
+  };
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    const float av[4] = {a_at(m0 + g, k0 + t), a_at(m0 + g + 8, k0 + t),
+                         a_at(m0 + g, k0 + t + 4),
+                         a_at(m0 + g + 8, k0 + t + 4)};
+    uint32_t ah[4], al[4];
+    to_tf32<SA>(av, ah, al);
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const float bv[2] = {b_at(k0 + t, n0 + 8 * n + g),
+                           b_at(k0 + t + 4, n0 + 8 * n + g)};
+      uint32_t bh[2], bl[2];
+      to_tf32<SB>(bv, bh, bl);
+      if constexpr (SB) mma_tf32(acc[n], ah, bl);
+      if constexpr (SA) mma_tf32(acc[n], al, bh);
+      mma_tf32(acc[n], ah, bh);
     }
   }
-  __syncthreads();
-  const float cend = s_cum[c - 1];
-  for (int t = tid; t < c; t += NT) {
-    s_e[t] = expf(cend - s_cum[t]);
-    s_w[t] = s_e[t] * s_dt[t];
+}
+
+// nrows rows of W elements from global (row stride ld) into shared
+// memory (row stride lds), 16 bytes a cp.async; rows at or past `rows`
+// are zero-filled
+template <int W, typename E>
+__device__ __forceinline__ void tile_async(E* s, int lds, const E* g, long ld,
+                                           int rows, int nrows = BT) {
+  constexpr int V = 16 / sizeof(E), CPR = W / V;
+  for (int q = threadIdx.x; q < nrows * CPR; q += NT) {
+    const int r = q / CPR, cc = q - r * CPR;
+    const bool in = r < rows;
+    cp_async16(s + r * lds + cc * V, in ? g + r * ld + cc * V : g, in);
   }
-  const In* Cg = C + cl.tok0 * ld_cb;
-  const In* Bg = B + cl.tok0 * ld_cb;
-  const In* Xg = x + cl.tok0 * ld_x + (long)cl.h * P;
-  const long ldy = (long)H * P, ldn = (long)H * N;
-  const float* dYg = dy + cl.tok0 * ldy + (long)cl.h * P;
+}
+
+// a 16-byte chunk of In values, stored to shared memory as floats
+template <typename In>
+__device__ __forceinline__ void st_chunk(float* s, const uint4& v) {
+  if constexpr (sizeof(In) == 4) {
+    *reinterpret_cast<uint4*>(s) = v;
+  } else {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float4*>(s + 4 * i) = make_float4(
+          __uint_as_float(w[2 * i] << 16),
+          __uint_as_float(w[2 * i] & 0xffff0000u),
+          __uint_as_float(w[2 * i + 1] << 16),
+          __uint_as_float(w[2 * i + 1] & 0xffff0000u));
+  }
+}
+
+// inclusive scan of a[0, 32 per) by one warp: prefix sums, or with
+// `reverse` suffix sums (a[k] <- sum_{i >= k} a[i]). Each lane sums its
+// run of `per` elements in order, then the runs' totals are scanned
+// across the lanes
+__device__ __forceinline__ void warp_scan(float* a, int per, bool reverse) {
+  const int lane = threadIdx.x & 31, n = 32 * per;
+  float run = 0.f;
+  for (int i = 0; i < per; ++i) {
+    const int k = lane * per + i, idx = reverse ? n - 1 - k : k;
+    run += a[idx];
+    a[idx] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  const float up = __shfl_up_sync(0xffffffffu, incl, 1);
+  const float excl = lane > 0 ? up : 0.f;
+  for (int i = 0; i < per; ++i) {
+    const int k = lane * per + i;
+    a[reverse ? n - 1 - k : k] += excl;
+  }
+}
+
+// the pair index of tile pair (it, jt), jt <= it, and back
+__device__ __forceinline__ int pair_id(int it, int jt) {
+  return it * (it + 1) / 2 + jt;
+}
+
+// C B^T of one tile pair (row tile it of C, column tile jt of B, jt <=
+// it) of one (sequence, chunk), fp32, [BT][BT] into cbw. Eight warps of
+// 16 x 32; bf16 C and B are exact in TF32 (one product), fp32 ones split
+template <typename In, int N>
+__global__ void __launch_bounds__(NT)
+    k3_bwd_cb(const In* __restrict__ C, const In* __restrict__ B,
+              float* __restrict__ cbw, int S, int c, long ld_cb) {
+  constexpr int LDN = N + 16 / sizeof(In);
+  constexpr bool F32 = sizeof(In) == 4;
+  extern __shared__ float4 smv[];
+  In* sC = reinterpret_cast<In*>(smv);
+  In* sB = sC + BT * LDN;
+  const int nt = (c + BT - 1) / BT, npairs = nt * (nt + 1) / 2;
+  const int pr = blockIdx.x, nc = S / c;
+  const long bk = blockIdx.y, tok0 = (bk / nc) * S + (bk % nc) * c;
+  int it = 0;
+  while (pair_id(it + 1, 0) <= pr) ++it;
+  const int jt = pr - pair_id(it, 0);
+  tile_async<N>(sC, LDN, C + (tok0 + it * BT) * ld_cb, ld_cb, c - it * BT);
+  tile_async<N>(sB, LDN, B + (tok0 + jt * BT) * ld_cb, ld_cb, c - jt * BT);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = 16 * (warp & 3), wn = 32 * (warp >> 2);
+  float acc[4][4];
+  zero(acc);
+  wmm<4, true, true, F32, F32>(acc, N, sC, LDN, sB, LDN, wm, wn);
+  float* out = cbw + (bk * npairs + pr) * (long)(BT * BT);
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out[(wm + (lane >> 2) + 8 * (e >> 1)) * BT + wn + 8 * n +
+          2 * (lane & 3) + (e & 1)] = acc[n][e];
+}
+
+// k3_bwd_heads' shared memory, byte offsets (host and device)
+struct HeadsSmem {
+  int a, x, s, red, cb, bt, dx, vec, total;
+  __host__ __device__ HeadsSmem(int c, int N, int P, int elt, int G) {
+    const int ldp = P + 4, ldn = N + 16 / elt;
+    const int cpad = (c + BT - 1) / BT * BT;
+    a = 0;                           // 2 stages: dy's row tile or dst rows
+    x = a + 2 * BT * ldp * 4;        // 2 stages: x's column tile, fp32
+    s = x + 2 * BT * ldp * 4;        // S of the tile pair
+    red = s + BT * LDT * 4;          // warps' partial row and column sums
+    cb = red + 8 * BT * 4;           // C B^T of the tile pair
+    bt = cb + BT * LDT * 4;          // B's column tile, In
+    dx = bt + (BT * ldn * elt + 15) / 16 * 16;   // dx's column, a head each
+    vec = dx + G * BT * P * 4;       // cum, dt, rowR, colQ, q, a head each
+    total = vec + 5 * G * cpad * 4;
+  }
+};
+
+// a step of k3_bwd_heads: kind 0 takes head g's end-state terms of column
+// tile jt (rows `half` of dst), kind 1 the tile pair (it, jt) of head
+// g; kind -1 is past the last
+struct Step {
+  int kind, jt, it, g, half;
+};
+
+// Everything per head of the heads [h0, h0 + Gv) of one (sequence,
+// chunk), and the group's sums of M (per tile pair, into msw) and of
+// w x dst^T (into xdw). Column tiles jt in turn; each starts with its
+// end-state steps (dx = w B dst, q, the group's w x dst^T), then walks
+// the tile pairs (it >= jt) and, inside each, the heads: C B^T is read
+// once for the group and M summed over it. Every step's operands (dy
+// or dst rows by cp.async, x through registers into fp32) are loaded
+// while the step before is formed, into the other of two stages. dS and
+// the end-state products run on the tensor cores, by warps of 16 rows
+// (wm) and half the columns (wh), their fp32 operands (dy, dst; x and B
+// when fp32) split in two TF32 halves; dx += S^T dy runs on the CUDA
+// cores
+template <typename In, int N, int P>
+__global__ void __launch_bounds__(NT, 1)
+    k3_bwd_heads(const In* __restrict__ B, const In* __restrict__ x,
+                 const float* __restrict__ da, const float* __restrict__ dt,
+                 const float* __restrict__ dy, const float* __restrict__ dst,
+                 const float* __restrict__ dcum, In* __restrict__ dx,
+                 float* __restrict__ dda, float* __restrict__ ddt,
+                 const float* __restrict__ cbw, float* __restrict__ msw,
+                 float* __restrict__ xdw, int S, int H, int c, int G,
+                 long ld_cb, long ld_x) {
+  constexpr int LDP = P + 4, LDN = N + 16 / sizeof(In);
+  constexpr int NH = N < BT ? N : BT, HALVES = N / NH;  // dst rows a step
+  constexpr int NP = P / 16, NQ = NH / 16;  // n8 tiles of a warp's columns
+  constexpr int RP = P / TX;                // dx columns of a thread
+  constexpr int XE = 16 / sizeof(In), XCPR = P / XE, XV = BT * XCPR / NT;
+  constexpr bool F32 = sizeof(In) == 4;
+  extern __shared__ float4 smv[];
+  unsigned char* smb = reinterpret_cast<unsigned char*>(smv);
+  const HeadsSmem lay(c, N, P, sizeof(In), G);
+  float* sA = reinterpret_cast<float*>(smb + lay.a);
+  float* sX = reinterpret_cast<float*>(smb + lay.x);
+  float* sS = reinterpret_cast<float*>(smb + lay.s);
+  float* sCQ = reinterpret_cast<float*>(smb + lay.red);  // [4][BT]
+  float* sRQ = sCQ + 4 * BT;                             // [2][BT]
+  float* sCB = reinterpret_cast<float*>(smb + lay.cb);
+  In* sBt = reinterpret_cast<In*>(smb + lay.bt);
+  float* sDX = reinterpret_cast<float*>(smb + lay.dx);
+  const int nt = (c + BT - 1) / BT, cpad = nt * BT, npairs = nt * (nt + 1) / 2;
+  float* sCum = reinterpret_cast<float*>(smb + lay.vec);
+  float* sDt = sCum + G * cpad;
+  float* sRowR = sDt + G * cpad;
+  float* sColQ = sRowR + G * cpad;
+  float* sQ = sColQ + G * cpad;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty = tid / TX, tx = tid % TX;
+  const int fg = lane >> 2, ft = lane & 3;          // fragment row, column
+  const int wm = 16 * (warp & 3), wh = warp >> 2;   // warp's rows, half
+  const int grp = blockIdx.x, ngroups = gridDim.x, nc = S / c;
+  const long bk = blockIdx.y, tok0 = (bk / nc) * S + (bk % nc) * c;
+  const int h0 = grp * G, Gv = min(G, H - h0);
+  const long ldh = (long)H * P;  // token stride of dy and dx
+
+  for (int t = tid; t < G * cpad; t += NT) {
+    const int g = t / cpad, i = t - g * cpad;
+    const bool in = g < Gv && i < c;
+    const long gi = (tok0 + i) * H + h0 + g;
+    sCum[t] = in ? da[gi] : 0.f;
+    sDt[t] = in ? dt[gi] : 0.f;
+    sRowR[t] = sColQ[t] = sQ[t] = 0.f;
+  }
+  __syncthreads();
+  if (warp < Gv) warp_scan(sCum + warp * cpad, cpad / 32, false);
   __syncthreads();
 
-  // C B^T and dy x^T on tile pair (i0, j0), from s_C/s_B and s_dY/s_X
-  auto scores = [&](float (&cb)[T / TY][T / TX],
-                    float (&ds)[T / TY][T / TX]) {
-    zero(cb);
-    zero(ds);
-    mac(cb, N, [&](int i, int n) { return s_C[i * (N + 1) + n]; },
-        [&](int n, int j) { return s_B[j * (N + 1) + n]; });
-    mac(ds, P, [&](int i, int p) { return s_dY[i * (P + 1) + p]; },
-        [&](int p, int j) { return s_X[j * (P + 1) + p]; });
+  auto next = [&](const Step& s) -> Step {
+    if (s.kind == 0) {
+      if (s.half + 1 < HALVES) return {0, s.jt, 0, s.g, s.half + 1};
+      if (s.g + 1 < Gv) return {0, s.jt, 0, s.g + 1, 0};
+      return {1, s.jt, s.jt, 0, 0};
+    }
+    if (s.g + 1 < Gv) return {1, s.jt, s.it, s.g + 1, 0};
+    if (s.it + 1 < nt) return {1, s.jt, s.it + 1, 0, 0};
+    if (s.jt + 1 < nt) return {0, s.jt + 1, 0, 0, 0};
+    return {-1, 0, 0, 0, 0};
+  };
+  uint4 xr[XV];
+  // step s's operands into stage st: x's column tile into registers,
+  // dy's row tile or dst's rows by cp.async, with C B^T at a tile pair's
+  // first head and B's column tile at a column's first step
+  auto issue = [&](const Step& s, int st) {
+    const int h = h0 + s.g, rows = c - s.jt * BT;
+    const In* xg = x + (tok0 + s.jt * BT) * ld_x + (long)h * P;
+#pragma unroll
+    for (int v = 0; v < XV; ++v) {
+      const int q = tid + v * NT, r = q / XCPR, cc = q - r * XCPR;
+      xr[v] = r < rows
+                  ? __ldg(reinterpret_cast<const uint4*>(xg + r * ld_x + cc * XE))
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+    float* a = sA + st * BT * LDP;
+    if (s.kind == 1) {
+      tile_async<P>(a, LDP, dy + (tok0 + s.it * BT) * ldh + (long)h * P, ldh,
+                    c - s.it * BT);
+      if (s.g == 0)
+        tile_async<BT>(sCB, LDT,
+                       cbw + (bk * npairs + pair_id(s.it, s.jt)) *
+                                 (long)(BT * BT),
+                       BT, BT);
+    } else {
+      tile_async<P>(a, LDP, dst + ((bk * H + h) * N + s.half * NH) * (long)P,
+                    P, NH, NH);
+      if (s.g == 0 && s.half == 0)
+        tile_async<N>(sBt, LDN, B + (tok0 + s.jt * BT) * ld_cb, ld_cb, rows);
+    }
+    cp_async_commit();
+  };
+  // the stage issued last has landed and is seen by every thread
+  auto land = [&](int st) {
+    float* xs = sX + st * BT * LDP;
+#pragma unroll
+    for (int v = 0; v < XV; ++v) {
+      const int q = tid + v * NT, r = q / XCPR, cc = q - r * XCPR;
+      st_chunk<In>(xs + r * LDP + cc * XE, xr[v]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  };
+  // the row (of a [BT][*] tile) and column of fragment element e of n8
+  // tile n, for a warp whose columns start at col0
+  auto frow = [&](int e) { return wm + fg + 8 * (e >> 1); };
+  auto fcol = [&](int col0, int n, int e) {
+    return col0 + 8 * n + 2 * ft + (e & 1);
   };
 
-  // pass A: dC and the row sums of R = Q dt, by row tile
-  for (int i0 = 0; i0 < c; i0 += T) {
-    load_tile(s_C, Cg + i0 * ld_cb, ld_cb, T, N);
-    load_tile(s_dY, dYg + i0 * ldy, ldy, T, P);
-    float acc[T / TY][N / TX];
-    zero(acc);
-    for (int j0 = 0; j0 <= i0; j0 += T) {
-      load_tile(s_B, Bg + j0 * ld_cb, ld_cb, T, N);
-      load_tile(s_X, Xg + j0 * ld_x, ld_x, T, P);
-      __syncthreads();
-      float cb[T / TY][T / TX], ds[T / TY][T / TX];
-      scores(cb, ds);
+  Step cur = {0, 0, 0, 0, 0};
+  int st = 0;
+  issue(cur, 0);
+  land(0);
+  for (int jt = 0; jt < nt; ++jt) {
+    const int j0 = jt * BT;
+    // end-state steps: dx_h = w_h B dst_h and q_h of the column, and the
+    // group's w x dst^T over its rows
+    float xd[HALVES][NQ][4];
 #pragma unroll
-      for (int a = 0; a < T / TY; ++a)
+    for (int hf = 0; hf < HALVES; ++hf) zero(xd[hf]);
+    for (int g = 0; g < Gv; ++g) {
+      const float* cum = sCum + g * cpad;
+      const float cend = cum[c - 1];
+      float wv[2], bd[NP][4];
 #pragma unroll
-        for (int b = 0; b < T / TX; ++b) {
-          const int i = ty + TY * a, j = tx + TX * b;
-          const int gi = i0 + i, gj = j0 + j;
-          const float L = gi >= gj ? expf(s_cum[gi] - s_cum[gj]) : 0.f;
-          const float m = ds[a][b] * L * s_dt[gj];
-          s_M[i * (T + 1) + j] = m;
-          s_S[i * (T + 1) + j] = m * cb[a][b];    // R_ij = Q_ij dt_j
-        }
-      __syncthreads();
-      if (tid < T) {
-        float r = 0.f;
-        for (int j = 0; j < T; ++j) r += s_S[tid * (T + 1) + j];
-        s_rowR[i0 + tid] += r;
+      for (int h = 0; h < 2; ++h) {
+        const int j = j0 + wm + fg + 8 * h;
+        wv[h] = j < c ? expf(cend - cum[j]) * sDt[g * cpad + j] : 0.f;
       }
-      mac(acc, T, [&](int i, int j) { return s_M[i * (T + 1) + j]; },
-          [&](int j, int n) { return s_B[j * (N + 1) + n]; });
-      __syncthreads();
-    }
+      zero(bd);
 #pragma unroll
-    for (int a = 0; a < T / TY; ++a)
+      for (int hf = 0; hf < HALVES; ++hf) {
+        const Step nx = next(cur);     // never past the last: pairs follow
+        issue(nx, st ^ 1);
+        const float* ds = sA + st * BT * LDP;    // dst rows hf NH ...
+        const float* xs = sX + st * BT * LDP;
+        wmm<NP, true, false, F32, true>(bd, NH, sBt + hf * NH, LDN, ds, LDP,
+                                        wm, wh * (P / 2));
+        float tp[NQ][4];
+        zero(tp);
+        wmm<NQ, true, true, F32, true>(tp, P, xs, LDP, ds, LDP, wm,
+                                       wh * (NH / 2));
 #pragma unroll
-      for (int b = 0; b < N / TX; ++b)
-        dC[(cl.tok0 + i0 + ty + TY * a) * ldn + (long)cl.h * N + tx +
-           TX * b] = acc[a][b];
-  }
-
-  // pass B: dx, dB, the column sums of Q and q, by column tile
-  for (int j0 = 0; j0 < c; j0 += T) {
-    load_tile(s_B, Bg + j0 * ld_cb, ld_cb, T, N);
-    load_tile(s_X, Xg + j0 * ld_x, ld_x, T, P);
-    __syncthreads();
-    float adx[T / TY][P / TX], adb[T / TY][N / TX];
-    zero(adx);
-    zero(adb);
-    mac(adx, N, [&](int j, int n) { return s_B[j * (N + 1) + n]; },
-        [&](int n, int p) { return s_dst[n * (P + 1) + p]; });
-    mac(adb, P, [&](int j, int p) { return s_X[j * (P + 1) + p]; },
-        [&](int p, int n) { return s_dst[n * (P + 1) + p]; });
+        for (int n = 0; n < NQ; ++n)
 #pragma unroll
-    for (int a = 0; a < T / TY; ++a) {
-      const int j = ty + TY * a;
-      float part = 0.f;
+          for (int e = 0; e < 4; ++e) xd[hf][n][e] += wv[e >> 1] * tp[n][e];
+        if (hf == HALVES - 1) {
+          // q_j = x_j . (B dst)_j, and dx starts at w_j (B dst)_j
+          float* dxs = sDX + g * BT * P;
+          float qp[2] = {0.f, 0.f};
 #pragma unroll
-      for (int b = 0; b < N / TX; ++b)
-        part += s_B[j * (N + 1) + tx + TX * b] * adb[a][b];
-      atomicAdd(&s_q[j0 + j], part);
-      const float w = s_w[j0 + j];
+          for (int n = 0; n < NP; ++n)
 #pragma unroll
-      for (int b = 0; b < P / TX; ++b) adx[a][b] *= w;
+            for (int e = 0; e < 4; ++e) {
+              const int r = frow(e), p = fcol(wh * (P / 2), n, e);
+              qp[e >> 1] = fmaf(xs[r * LDP + p], bd[n][e], qp[e >> 1]);
+              dxs[r * P + p] = wv[e >> 1] * bd[n][e];
+            }
 #pragma unroll
-      for (int b = 0; b < N / TX; ++b) adb[a][b] *= w;
-    }
-    float colq[T / TX];
-#pragma unroll
-    for (int b = 0; b < T / TX; ++b) colq[b] = 0.f;
-    for (int i0 = j0; i0 < c; i0 += T) {
-      load_tile(s_C, Cg + i0 * ld_cb, ld_cb, T, N);
-      load_tile(s_dY, dYg + i0 * ldy, ldy, T, P);
-      __syncthreads();
-      float cb[T / TY][T / TX], ds[T / TY][T / TX];
-      scores(cb, ds);
-#pragma unroll
-      for (int a = 0; a < T / TY; ++a)
-#pragma unroll
-        for (int b = 0; b < T / TX; ++b) {
-          const int i = ty + TY * a, j = tx + TX * b;
-          const int gi = i0 + i, gj = j0 + j;
-          const float L = gi >= gj ? expf(s_cum[gi] - s_cum[gj]) : 0.f;
-          s_S[i * (T + 1) + j] = cb[a][b] * L * s_dt[gj];
-          s_M[i * (T + 1) + j] = ds[a][b] * L * s_dt[gj];
-          colq[b] += ds[a][b] * cb[a][b] * L;
+          for (int h = 0; h < 2; ++h) {
+            qp[h] += __shfl_xor_sync(0xffffffffu, qp[h], 1);
+            qp[h] += __shfl_xor_sync(0xffffffffu, qp[h], 2);
+            if (ft == 0) sRQ[wh * BT + wm + fg + 8 * h] = qp[h];
+          }
+          __syncthreads();
+          if (tid < BT) sQ[g * cpad + j0 + tid] = sRQ[tid] + sRQ[BT + tid];
         }
-      __syncthreads();
-      mac(adx, T, [&](int j, int i) { return s_S[i * (T + 1) + j]; },
-          [&](int i, int p) { return s_dY[i * (P + 1) + p]; });
-      mac(adb, T, [&](int j, int i) { return s_M[i * (T + 1) + j]; },
-          [&](int i, int n) { return s_C[i * (N + 1) + n]; });
-      __syncthreads();
+        land(st ^ 1);
+        cur = nx;
+        st ^= 1;
+      }
     }
+    float* xo = xdw + ((bk * ngroups + grp) * cpad + j0) * (long)N;
 #pragma unroll
-    for (int b = 0; b < T / TX; ++b)
-      atomicAdd(&s_colQ[j0 + tx + TX * b], colq[b]);
+    for (int hf = 0; hf < HALVES; ++hf)
 #pragma unroll
-    for (int a = 0; a < T / TY; ++a) {
-      const long tok = cl.tok0 + j0 + ty + TY * a;
+      for (int n = 0; n < NQ; ++n)
 #pragma unroll
-      for (int b = 0; b < P / TX; ++b)
-        stf(dx + tok * ldy + (long)cl.h * P + tx + TX * b, adx[a][b]);
+        for (int e = 0; e < 4; ++e)
+          xo[frow(e) * N + hf * NH + fcol(wh * (NH / 2), n, e)] = xd[hf][n][e];
+
+    // the tile pairs (it, jt), it >= jt, each over the group's heads
+    for (int it = jt; it < nt; ++it) {
+      const int i0 = it * BT;
+      float cbr[4][4], msum[4][4];
+      for (int g = 0; g < Gv; ++g) {
+        if (g == 0) {
 #pragma unroll
-      for (int b = 0; b < N / TX; ++b)
-        dB[tok * ldn + (long)cl.h * N + tx + TX * b] = adb[a][b];
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              cbr[n][e] = sCB[frow(e) * LDT + fcol(wh * 32, n, e)];
+          zero(msum);
+          __syncthreads();             // the C B^T stage is refilled below
+        }
+        const Step nx = next(cur);
+        if (nx.kind >= 0) issue(nx, st ^ 1);
+        const float* dys = sA + st * BT * LDP;
+        const float* xs = sX + st * BT * LDP;
+        // dS = dy x^T on the pair
+        float dsc[4][4];
+        zero(dsc);
+        wmm<4, true, true, true, F32>(dsc, P, dys, LDP, xs, LDP, wm, wh * 32);
+        const float* cum = sCum + g * cpad;
+        const float* dtp = sDt + g * cpad;
+        float ci[2], rr[2] = {0.f, 0.f}, cq[4][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) ci[h] = cum[i0 + wm + fg + 8 * h];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          cq[n][0] = cq[n][1] = 0.f;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int gi = i0 + frow(e), jj = fcol(wh * 32, n, e);
+            const int gj = j0 + jj;
+            const float cj = cum[gj], dj = dtp[gj];
+            // exp only where i >= j: above, cum_i - cum_j is a positive
+            // sum of dt that overflows at c = 256
+            const float L = (gi >= gj && gi < c) ? expf(ci[e >> 1] - cj) : 0.f;
+            const float sdt = L * dj, m = dsc[n][e] * sdt;
+            msum[n][e] += m;
+            rr[e >> 1] = fmaf(m, cbr[n][e], rr[e >> 1]);           // Q dt_j
+            cq[n][e & 1] = fmaf(dsc[n][e] * cbr[n][e], L, cq[n][e & 1]);  // Q
+            sS[frow(e) * LDT + jj] = cbr[n][e] * sdt;
+          }
+        }
+        // the warps' partial row sums (over their 32 columns) and column
+        // sums (over their 16 rows), added in order below
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          rr[h] += __shfl_xor_sync(0xffffffffu, rr[h], 1);
+          rr[h] += __shfl_xor_sync(0xffffffffu, rr[h], 2);
+          if (ft == 0) sRQ[wh * BT + wm + fg + 8 * h] = rr[h];
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = cq[n][e];
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1)
+              v += __shfl_xor_sync(0xffffffffu, v, o);
+            if (fg == 0) sCQ[(warp & 3) * BT + fcol(wh * 32, n, e)] = v;
+          }
+        __syncthreads();
+        if (tid < BT) {
+          sColQ[g * cpad + j0 + tid] += (sCQ[tid] + sCQ[BT + tid]) +
+                                        (sCQ[2 * BT + tid] + sCQ[3 * BT + tid]);
+          sRowR[g * cpad + i0 + tid] += sRQ[tid] + sRQ[BT + tid];
+        }
+        // dx_h of the column += S^T dy, on the CUDA cores: both operands
+        // are fp32, and their three split products cost the tensor cores
+        // more than the 4 x RP register tiles do here
+        float* dxs = sDX + g * BT * P + (ty * 4) * P + tx * RP;
+        float dacc[4][RP];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) ldv<RP>(dacc[a], dxs + a * P);
+        mm<4, RP, false>(dacc, BT, sS, LDT, dys, LDP);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) stv<RP>(dxs + a * P, dacc[a]);
+        if (nx.kind >= 0) {
+          land(st ^ 1);
+        } else {
+          __syncthreads();
+        }
+        cur = nx;
+        st ^= 1;
+      }
+      float* mo = msw + ((bk * ngroups + grp) * npairs + pair_id(it, jt)) *
+                            (long)(BT * BT);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mo[frow(e) * BT + fcol(wh * 32, n, e)] = msum[n][e];
     }
+    // dx of the column, each head; the next column's first steps write
+    // the dx stage again
+    for (int q = tid; q < Gv * BT * P; q += NT) {
+      const int g = q / (BT * P), r = q / P - g * BT, p = q % P;
+      if (j0 + r < c)
+        stf(dx + (tok0 + j0 + r) * ldh + (long)(h0 + g) * P + p, sDX[q]);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   // ddt and dcum per token; then dda = reverse cumsum of dcum
-  for (int t = tid; t < c; t += NT) {
-    const float q = s_q[t];
-    ddt[(cl.tok0 + t) * H + cl.h] = s_colQ[t] + s_e[t] * q;
-    s_q[t] = s_w[t] * q;                                     // u_t
-    s_dcum[t] += s_rowR[t] - s_dt[t] * s_colQ[t] - s_q[t];
+  if (warp < Gv) {
+    const int g = warp;
+    const long h = h0 + g;
+    const float* cum = sCum + g * cpad;
+    const float* dtp = sDt + g * cpad;
+    const float* colq = sColQ + g * cpad;
+    const float* qv = sQ + g * cpad;
+    float* v = sRowR + g * cpad;
+    const float cend = cum[c - 1];
+    float us = 0.f;
+    for (int t = lane; t < cpad; t += 32) {
+      float vt = 0.f;
+      if (t < c) {
+        const long gi = (tok0 + t) * H + h;
+        const float e = expf(cend - cum[t]), q = qv[t], u = e * dtp[t] * q;
+        ddt[gi] = colq[t] + e * q;
+        us += u;
+        vt = dcum[gi] + v[t] - dtp[t] * colq[t] - u;
+      }
+      v[t] = vt;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) us += __shfl_xor_sync(0xffffffffu, us, o);
+    __syncwarp();
+    if (lane == 0) v[c - 1] += us;
+    __syncwarp();
+    warp_scan(v, cpad / 32, true);
+    __syncwarp();
+    for (int t = lane; t < c; t += 32) dda[(tok0 + t) * H + h] = v[t];
   }
-  __syncthreads();
-  if (tid == 0) {
-    float usum = 0.f;
-    for (int t = 0; t < c; ++t) usum += s_q[t];
-    s_dcum[c - 1] += usum;
-    float acc = 0.f;
-    for (int t = c - 1; t >= 0; --t) {
-      acc += s_dcum[t];
-      s_dcum[t] = acc;
+}
+
+// dC and dB of RB rows of one (sequence, chunk): the groups' sums of M
+// added in group order, then dC = M B and dB = M^T C + the groups' w x
+// dst^T, added in group order
+template <typename In, int N>
+__global__ void __launch_bounds__(NT)
+    k3_bwd_dcb(const In* __restrict__ C, const In* __restrict__ B,
+               const float* __restrict__ msw, const float* __restrict__ xdw,
+               In* __restrict__ dC, In* __restrict__ dB, int S, int c,
+               int ngroups, long ld_cb) {
+  constexpr int LDN = N + 16 / sizeof(In), RN = N / TX, LDR = RB + 4;
+  constexpr int RM = RB / TY;
+  extern __shared__ float4 smv[];
+  float* sM = reinterpret_cast<float*>(smv);   // [RB][LDT]: rows of M
+  float* sMT = sM + RB * LDT;                  // [BT][LDR]: cols of M
+  In* sT = reinterpret_cast<In*>(sMT + BT * LDR);  // [BT][LDN]: B or C
+  const int nt = (c + BT - 1) / BT, cpad = nt * BT, npairs = nt * (nt + 1) / 2;
+  const int r0 = blockIdx.x * RB, t0 = r0 / BT, off = r0 % BT, nc = S / c;
+  const long bk = blockIdx.y, tok0 = (bk / nc) * S + (bk % nc) * c;
+  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
+  const long gstride = (long)npairs * BT * BT;
+  const float* ms = msw + bk * ngroups * gstride;
+  float accC[RM][RN], accB[RM][RN];
+  zero(accC);
+  zero(accB);
+  // dC's rows: tile pairs (t0, jt), jt <= t0
+  for (int jt = 0; jt <= t0; ++jt) {
+    tile_async<N>(sT, LDN, B + (tok0 + jt * BT) * ld_cb, ld_cb, c - jt * BT);
+    cp_async_commit();
+    const float* m = ms + pair_id(t0, jt) * (long)(BT * BT) + off * BT;
+    for (int q = tid; q < RB * BT / 4; q += NT) {
+      const int r = q / (BT / 4), cc = q - r * (BT / 4);
+      float4 s = __ldg(reinterpret_cast<const float4*>(m + r * BT + cc * 4));
+#pragma unroll 4
+      for (int g = 1; g < ngroups; ++g) {
+        const float4 u = __ldg(reinterpret_cast<const float4*>(
+            m + g * gstride + r * BT + cc * 4));
+        s.x += u.x, s.y += u.y, s.z += u.z, s.w += u.w;
+      }
+      *reinterpret_cast<float4*>(sM + r * LDT + cc * 4) = s;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    mm<RM, RN, true>(accC, BT, sM, LDT, sT, LDN);
+    __syncthreads();
+  }
+  // dB's rows: tile pairs (it, t0), it >= t0
+  for (int it = t0; it < nt; ++it) {
+    tile_async<N>(sT, LDN, C + (tok0 + it * BT) * ld_cb, ld_cb, c - it * BT);
+    cp_async_commit();
+    const float* m = ms + pair_id(it, t0) * (long)(BT * BT) + off;
+    for (int q = tid; q < BT * RB / 4; q += NT) {
+      const int i = q / (RB / 4), cc = q - i * (RB / 4);
+      float4 s = __ldg(reinterpret_cast<const float4*>(m + i * BT + cc * 4));
+#pragma unroll 4
+      for (int g = 1; g < ngroups; ++g) {
+        const float4 u = __ldg(reinterpret_cast<const float4*>(
+            m + g * gstride + i * BT + cc * 4));
+        s.x += u.x, s.y += u.y, s.z += u.z, s.w += u.w;
+      }
+      *reinterpret_cast<float4*>(sMT + i * LDR + cc * 4) = s;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    mm<RM, RN, false>(accB, BT, sMT, LDR, sT, LDN);
+    __syncthreads();
+  }
+  const float* xd = xdw + bk * ngroups * (long)cpad * N;
+#pragma unroll
+  for (int a = 0; a < RM; ++a) {
+    const int r = r0 + ty * RM + a;
+    if (r >= c) continue;
+#pragma unroll
+    for (int n = 0; n < RN; ++n) {
+      const int col = ncol<RN>(tx, n);
+      float v = accB[a][n];
+#pragma unroll 4
+      for (int g = 0; g < ngroups; ++g)
+        v += xd[((long)g * cpad + r) * N + col];
+      stf(dC + (tok0 + r) * N + col, accC[a][n]);
+      stf(dB + (tok0 + r) * N + col, v);
     }
   }
-  __syncthreads();
-  for (int t = tid; t < c; t += NT) dda[(cl.tok0 + t) * H + cl.h] = s_dcum[t];
 }
 
 size_t fwd_smem(int c, int N, int P) {
   return sizeof(float) *
          (3 * c + 2 * T * (N + 1) + T * (P + 1) + T * (T + 1));
-}
-
-size_t bwd_smem(int c, int N, int P) {
-  return sizeof(float) * (8 * c + N * (P + 1) + 2 * T * (N + 1) +
-                          2 * T * (P + 1) + 2 * T * (T + 1));
 }
 
 template <typename In, int N, int P>
@@ -457,22 +992,96 @@ cudaError_t launch_fwd(const void* C, const void* B, const void* x,
   return cudaGetLastError();
 }
 
+// the card's SMs, read once per device
+int sm_count() {
+  static int sms[MAX_DEVICES];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= MAX_DEVICES) return 132;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    return 132;
+  return sms[dev];
+}
+
+// heads a k3_bwd_heads block: of the counts up to BG whose vectors (5 of
+// cpad floats a head) and dx columns fit its shared memory, the one whose
+// waves of blocks (one an SM) take least, a block's time taken as G +
+// 0.55 heads' worth (measured on an H100 at one 4096-token row: 0.458,
+// 0.254, 0.154 ms at G = 4, 2, 1). One 4096-token row takes 4 (128
+// blocks, one wave); three rows of 2048 take 2 (384 blocks, three waves
+// of 0.55 against two of 1)
+int heads_per_block(int c, int N, int P, int elt, int Bsz, int S, int H) {
+  const long nbk = (long)Bsz * (S / c), sms = sm_count();
+  int best = 1;
+  double best_t = 0;
+  for (int G = BG < H ? BG : H; G >= 1; --G) {
+    if (HeadsSmem(c, N, P, elt, G).total > SMEM_MAX) continue;
+    const long blocks = nbk * ((H + G - 1) / G);
+    const double t = (double)((blocks + sms - 1) / sms) * (G + 0.55);
+    if (best_t == 0 || t < best_t) best = G, best_t = t;
+  }
+  return best;
+}
+
+// bytes of the backward's fp32 scratch: C B^T a tile pair, and per
+// group of heads its sum of M a tile pair and its w x dst^T a row
+long long bwd_work_bytes(int Bsz, int S, int H, int N, int P, int c,
+                         int elt) {
+  const long long G = heads_per_block(c, N, P, elt, Bsz, S, H);
+  const long long ngroups = (H + G - 1) / G, nt = (c + BT - 1) / BT;
+  const long long pairs = nt * (nt + 1) / 2 * BT * BT;
+  return 4LL * Bsz * (S / c) * (pairs * (1 + ngroups) + ngroups * nt * BT * N);
+}
+
+// kernel (1: k3_bwd_heads), grid x, y, z, threads, shared memory, heads a
+// block and scratch bytes of the last backward's k3_bwd_heads launch
+// (k3_last_bwd_launch reads them)
+static long long g_bwd_launch[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+
 template <typename In, int N, int P>
 cudaError_t launch_bwd(const void* C, const void* B, const void* x,
                        const float* da, const float* dt, const float* dy,
-                       const float* dst, const float* dcum, float* dC,
-                       float* dB, void* dx, float* dda, float* ddt, int Bsz,
-                       int S, int H, int c, long ld_cb, long ld_x,
-                       cudaStream_t stream) {
-  auto kern = k3_bwd<In, N, P>;
-  const size_t smem = bwd_smem(c, N, P);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                       const float* dst, const float* dcum, void* dC,
+                       void* dB, void* dx, float* dda, float* ddt,
+                       float* work, int Bsz, int S, int H, int c, long ld_cb,
+                       long ld_x, cudaStream_t stream) {
+  constexpr int elt = sizeof(In), ldn = N + 16 / elt;
+  static bool set_cb[MAX_DEVICES], set_heads[MAX_DEVICES],
+      set_dcb[MAX_DEVICES];
+  cudaError_t err = allow_smem(k3_bwd_cb<In, N>, SMEM_MAX, set_cb);
+  if (err == cudaSuccess)
+    err = allow_smem(k3_bwd_heads<In, N, P>, SMEM_MAX, set_heads);
+  if (err == cudaSuccess) err = allow_smem(k3_bwd_dcb<In, N>, SMEM_MAX, set_dcb);
   if (err != cudaSuccess) return err;
-  const long cells = (long)Bsz * (S / c) * H;
-  kern<<<cells, NT, smem, stream>>>(
-      (const In*)C, (const In*)B, (const In*)x, da, dt, dy, dst, dcum, dC,
-      dB, (In*)dx, dda, ddt, S, H, c, ld_cb, ld_x);
+  const int G = heads_per_block(c, N, P, elt, Bsz, S, H);
+  const int ngroups = (H + G - 1) / G;
+  const int nt = (c + BT - 1) / BT, npairs = nt * (nt + 1) / 2;
+  const long nbk = (long)Bsz * (S / c);
+  float* cbw = work;
+  float* msw = cbw + nbk * npairs * BT * BT;
+  float* xdw = msw + nbk * ngroups * npairs * BT * BT;
+
+  k3_bwd_cb<In, N><<<dim3(npairs, nbk), NT, 2 * BT * ldn * elt, stream>>>(
+      (const In*)C, (const In*)B, cbw, S, c, ld_cb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t smem = HeadsSmem(c, N, P, elt, G).total;
+  const dim3 grid(ngroups, nbk);
+  const long long rec[8] = {1, grid.x, grid.y, grid.z, NT, (long long)smem, G,
+                            bwd_work_bytes(Bsz, S, H, N, P, c, elt)};
+  for (int i = 0; i < 8; ++i) g_bwd_launch[i] = rec[i];
+  k3_bwd_heads<In, N, P><<<grid, NT, smem, stream>>>(
+      (const In*)B, (const In*)x, da, dt, dy, dst, dcum, (In*)dx, dda, ddt,
+      cbw, msw, xdw, S, H, c, G, ld_cb, ld_x);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t smem_dcb = 4 * (RB * LDT + BT * (RB + 4)) + BT * ldn * elt;
+  k3_bwd_dcb<In, N><<<dim3(nt * BT / RB, nbk), NT, smem_dcb, stream>>>(
+      (const In*)C, (const In*)B, msw, xdw, (In*)dC, (In*)dB, S, c, ngroups,
+      ld_cb);
   return cudaGetLastError();
 }
 
@@ -501,15 +1110,15 @@ cudaError_t fwd_any(int dtype, int N, int P, const void* C, const void* B,
 cudaError_t bwd_any(int dtype, int N, int P, const void* C, const void* B,
                     const void* x, const float* da, const float* dt,
                     const float* dy, const float* dst, const float* dcum,
-                    float* dC, float* dB, void* dx, float* dda, float* ddt,
-                    int Bsz, int S, int H, int c, long ld_cb, long ld_x,
-                    cudaStream_t stream) {
+                    void* dC, void* dB, void* dx, float* dda, float* ddt,
+                    float* work, int Bsz, int S, int H, int c, long ld_cb,
+                    long ld_x, cudaStream_t stream) {
   if (dtype == 0) {
     K3_DISPATCH(float, launch_bwd, C, B, x, da, dt, dy, dst, dcum, dC, dB,
-                dx, dda, ddt, Bsz, S, H, c, ld_cb, ld_x, stream)
+                dx, dda, ddt, work, Bsz, S, H, c, ld_cb, ld_x, stream)
   }
   K3_DISPATCH(__nv_bfloat16, launch_bwd, C, B, x, da, dt, dy, dst, dcum,
-              dC, dB, dx, dda, ddt, Bsz, S, H, c, ld_cb, ld_x, stream)
+              dC, dB, dx, dda, ddt, work, Bsz, S, H, c, ld_cb, ld_x, stream)
 }
 
 bool shape_ok(int S, int c) {
@@ -531,16 +1140,37 @@ int k3_forward(const void* C, const void* B, const void* x, const void* da,
                  (long)ld_cb, (long)ld_x, (cudaStream_t)stream);
 }
 
+// dC and dB [Bsz, S, N] and dx in the inputs' type, dda and ddt fp32;
+// `work`: k3_backward_work(...) bytes of fp32 scratch. C, B, x, dy, dst
+// and work start on 16-byte boundaries and the token strides of C, B
+// and x are whole 16-byte units (the kernels load 16 bytes at a time).
 int k3_backward(const void* C, const void* B, const void* x, const void* da,
                 const void* dt, const void* dy, const void* dst,
                 const void* dcum, void* dC, void* dB, void* dx, void* dda,
-                void* ddt, int Bsz, int S, int H, int N, int P, int c,
-                long long ld_cb, long long ld_x, int dtype, void* stream) {
-  if (!shape_ok(S, c) || Bsz <= 0 || H <= 0) return cudaErrorInvalidValue;
+                void* ddt, void* work, int Bsz, int S, int H, int N, int P,
+                int c, long long ld_cb, long long ld_x, int dtype,
+                void* stream) {
+  if (!shape_ok(S, c) || Bsz <= 0 || H <= 0 || (long)Bsz * (S / c) > 65535)
+    return cudaErrorInvalidValue;
+  const int elt = dtype == 0 ? 4 : 2;
+  const void* vec16[] = {C, B, x, dy, dst, work};
+  for (const void* p : vec16)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  if ((ld_cb * elt) % 16 || (ld_x * elt) % 16)
+    return cudaErrorMisalignedAddress;
   return bwd_any(dtype, N, P, C, B, x, (const float*)da, (const float*)dt,
-                 (const float*)dy, (const float*)dst, (const float*)dcum,
-                 (float*)dC, (float*)dB, dx, (float*)dda, (float*)ddt, Bsz,
-                 S, H, c, (long)ld_cb, (long)ld_x, (cudaStream_t)stream);
+                 (const float*)dy, (const float*)dst, (const float*)dcum, dC,
+                 dB, dx, (float*)dda, (float*)ddt, (float*)work, Bsz, S, H, c,
+                 (long)ld_cb, (long)ld_x, (cudaStream_t)stream);
+}
+
+long long k3_backward_work(int Bsz, int S, int H, int N, int P, int c,
+                           int dtype) {
+  return bwd_work_bytes(Bsz, S, H, N, P, c, dtype == 0 ? 4 : 2);
+}
+
+void k3_last_bwd_launch(long long* out) {
+  for (int i = 0; i < 8; ++i) out[i] = g_bwd_launch[i];
 }
 
 const char* k3_error_string(int err) {

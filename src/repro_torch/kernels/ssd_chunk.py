@@ -30,8 +30,11 @@ Two layouts:
 
 On CPU tensors `ssd_chunk` runs the plain version; on CUDA tensors it
 launches `csrc/ssd_chunk.cu` (fp32 or bf16 C, B, x, upcast in the
-kernel; fp32 arithmetic) or raises, never falling back. The backward
-kernel sums dC and dB over heads after the launch.
+kernel; fp32 arithmetic, the backward's tensor-core products in split
+TF32 that keeps it) or raises, never falling back. The backward
+forms C B^T once a chunk and sums the score gradient over heads before
+its products with B and C, in three kernels (`last_bwd_launch` records
+the launch of the one that takes the heads).
 """
 from __future__ import annotations
 
@@ -175,10 +178,30 @@ def _check_launch(C, B, x, chunk) -> None:
                          f"up to 1024, not {chunk}")
 
 
+def _library() -> ctypes.CDLL:
+    """The kernels' library, its functions' C types bound once per loaded
+    library rather than on every call."""
+    lib = build.load("ssd_chunk")
+    if lib.k3_backward.argtypes is None:
+        lib.k3_forward.argtypes = [ctypes.c_void_p] * 8 + \
+            [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + \
+            [ctypes.c_int, ctypes.c_void_p]
+        lib.k3_forward.restype = ctypes.c_int
+        lib.k3_backward.argtypes = [ctypes.c_void_p] * 14 + \
+            [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + \
+            [ctypes.c_int, ctypes.c_void_p]
+        lib.k3_backward.restype = ctypes.c_int
+        lib.k3_backward_work.argtypes = [ctypes.c_int] * 7
+        lib.k3_backward_work.restype = ctypes.c_longlong
+        lib.k3_last_bwd_launch.argtypes = [ctypes.c_void_p]
+        lib.k3_last_bwd_launch.restype = None
+        lib.k3_error_string.argtypes = [ctypes.c_int]
+        lib.k3_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _raise_on(lib, err: int, what: str) -> None:
     if err != 0:
-        lib.k3_error_string.restype = ctypes.c_char_p
-        lib.k3_error_string.argtypes = [ctypes.c_int]
         msg = lib.k3_error_string(err).decode()
         raise RuntimeError(f"ssd_chunk {what} kernel launch failed: {msg}")
 
@@ -191,57 +214,91 @@ def _launch_fwd(C, B, x, da, dt, chunk):
     C, B, x, ld_cb, ld_x, da, dt = _operands(C, B, x, da, dt, chunk)
     Bsz, S, H, P = x.shape
     N, nc = C.shape[-1], S // chunk
-    lib = build.load("ssd_chunk")
-    fn = lib.k3_forward
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
-        [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = _library()
     dev = x.device
     y = torch.empty(Bsz, S, H, P, dtype=torch.float32, device=dev)
     states = torch.empty(Bsz, nc, H, N, P, dtype=torch.float32, device=dev)
     cum = torch.empty(Bsz, S, H, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = fn(C.data_ptr(), B.data_ptr(), x.data_ptr(), da.data_ptr(),
-                 dt.data_ptr(), y.data_ptr(), states.data_ptr(),
-                 cum.data_ptr(), Bsz, S, H, N, P, chunk, ld_cb, ld_x,
-                 _DTYPES[x.dtype], _stream(x))
+        err = lib.k3_forward(
+            C.data_ptr(), B.data_ptr(), x.data_ptr(), da.data_ptr(),
+            dt.data_ptr(), y.data_ptr(), states.data_ptr(), cum.data_ptr(),
+            Bsz, S, H, N, P, chunk, ld_cb, ld_x, _DTYPES[x.dtype],
+            _stream(x))
     _raise_on(lib, err, "forward")
     ssd_chunk.launches += 1
     return y, states, cum
 
 
+#: the backward kernels' name in `last_bwd_launch`, by the library's code
+_BWD_KERNELS = {0: None, 1: "k3_bwd_heads"}
+
+
+def last_bwd_launch() -> dict:
+    """The last backward launch, as the library recorded it: the kernel
+    that took the heads (`k3_bwd_heads`, after `k3_bwd_cb` and before
+    `k3_bwd_dcb`), its `grid` (x, y, z), `threads` a block, `smem_bytes`
+    of dynamic shared memory and `heads_per_block`, and `work_bytes` of
+    fp32 scratch the backward used; all 0 (kernel None) before the
+    first."""
+    out = (ctypes.c_longlong * 8)()
+    _library().k3_last_bwd_launch(out)
+    return dict(kernel=_BWD_KERNELS[out[0]], grid=tuple(out[1:4]),
+                threads=out[4], smem_bytes=out[5], heads_per_block=out[6],
+                work_bytes=out[7])
+
+
+def _misaligned(t, ld=None) -> bool:
+    """Whether `t` (or its token stride `ld`, in elements) is not in
+    whole 16-byte units: the backward kernels load 16 bytes at a time."""
+    return bool(t.data_ptr() % 16
+                or (ld is not None and ld * t.element_size() % 16))
+
+
+def _aligned(t, ld=None):
+    """`t`, or a fresh contiguous copy of it where it is misaligned."""
+    return t.clone(memory_format=torch.contiguous_format) \
+        if _misaligned(t, ld) else t
+
+
 def _launch_bwd(C, B, x, da, dt, dy, dstates, dcum, chunk):
     in_dtype = C.dtype
     C, B, x, ld_cb, ld_x, da, dt = _operands(C, B, x, da, dt, chunk)
+    if _misaligned(C, ld_cb) or _misaligned(B, ld_cb):
+        C, B = (t.clone(memory_format=torch.contiguous_format)
+                for t in (C, B))
+        ld_cb = C.stride(1)
+    x = _aligned(x, ld_x)
+    ld_x = x.stride(1)
     Bsz, S, H, P = x.shape
     N, nc = C.shape[-1], S // chunk
     dev = x.device
     f32 = dict(dtype=torch.float32, device=dev)
     dy = (torch.zeros(Bsz, S, H, P, **f32) if dy is None
-          else dy.float().contiguous())
+          else _aligned(dy.float().contiguous()))
     dstates = (torch.zeros(Bsz, nc, H, N, P, **f32) if dstates is None
-               else dstates.float().contiguous())
+               else _aligned(dstates.float().contiguous()))
     dcum = (torch.zeros(Bsz, S, H, **f32) if dcum is None
             else dcum.float().contiguous())
-    lib = build.load("ssd_chunk")
-    fn = lib.k3_backward
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + \
-        [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    dC = torch.empty(Bsz, S, H, N, **f32)       # per head, summed below
-    dB = torch.empty(Bsz, S, H, N, **f32)
+    lib = _library()
+    code = _DTYPES[in_dtype]
+    work = torch.empty(lib.k3_backward_work(Bsz, S, H, N, P, chunk, code),
+                       dtype=torch.uint8, device=dev)
+    dC = torch.empty(Bsz, S, N, dtype=in_dtype, device=dev)
+    dB = torch.empty(Bsz, S, N, dtype=in_dtype, device=dev)
     dx = torch.empty(Bsz, S, H, P, dtype=in_dtype, device=dev)
     dda = torch.empty(Bsz, S, H, **f32)
     ddt = torch.empty(Bsz, S, H, **f32)
     with torch.cuda.device(dev):
-        err = fn(C.data_ptr(), B.data_ptr(), x.data_ptr(), da.data_ptr(),
-                 dt.data_ptr(), dy.data_ptr(), dstates.data_ptr(),
-                 dcum.data_ptr(), dC.data_ptr(), dB.data_ptr(),
-                 dx.data_ptr(), dda.data_ptr(), ddt.data_ptr(), Bsz, S, H,
-                 N, P, chunk, ld_cb, ld_x, _DTYPES[in_dtype], _stream(x))
+        err = lib.k3_backward(
+            C.data_ptr(), B.data_ptr(), x.data_ptr(), da.data_ptr(),
+            dt.data_ptr(), dy.data_ptr(), dstates.data_ptr(),
+            dcum.data_ptr(), dC.data_ptr(), dB.data_ptr(), dx.data_ptr(),
+            dda.data_ptr(), ddt.data_ptr(), work.data_ptr(), Bsz, S, H, N,
+            P, chunk, ld_cb, ld_x, code, _stream(x))
     _raise_on(lib, err, "backward")
     ssd_chunk_bwd.launches += 1
-    return (dC.sum(2).to(in_dtype), dB.sum(2).to(in_dtype), dx, dda, ddt)
+    return dC, dB, dx, dda, ddt
 
 
 def _on_card(t) -> bool:

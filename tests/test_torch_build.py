@@ -28,7 +28,8 @@ def csrc(tmp_path):
 @pytest.mark.parametrize("name", build.sources())
 def test_digest_changes_with_a_shared_header(csrc, name):
     """A library is named by its source and every header of csrc, so an
-    edit of hopper.cuh (which K1 and K2 include) rebuilds each source."""
+    edit of hopper.cuh (which K1, K2 and K3 include) rebuilds each
+    source."""
     before = build.digest(name, csrc)
     assert build.digest(name, csrc) == before
     assert before == build.digest(name)          # the copy is the source
@@ -65,7 +66,8 @@ class _Proc:
         return "", None
 
 
-@pytest.mark.parametrize("script", ["k1_fault_check", "k2_fault_check"])
+@pytest.mark.parametrize("script", ["k1_fault_check", "k2_fault_check",
+                                    "k3_fault_check"])
 def test_fault_tools_include_each_trees_headers(script, monkeypatch,
                                                 tmp_path):
     """The tools build edited copies in a temporary directory, where

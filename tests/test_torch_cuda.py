@@ -640,12 +640,11 @@ def test_ssd_chunk_gradient_is_finite_at_full_chunk(card):
         _k3_close(name, a, r, K3_GRAD_TOL, whole=K3_TOL)
 
 
-#: planted faults of K3, each one skipped (row tile, key tile) pair of
-#: every cell: name -> (the outputs it must show in, the loop header it
-#: edits in csrc/ssd_chunk.cu, the skip inserted at the top of its body).
-#: The pair is next to the diagonal: with the model's dt the decay
-#: across a whole 32-token tile is some exp(-25), so a pair farther off
-#: adds nothing an fp32 sum can hold, and dropping it changes nothing
+#: planted faults of K3: name -> (the outputs it must show in, a piece of
+#: csrc/ssd_chunk.cu, the line inserted after its first line). Each is
+#: next to the diagonal: with the model's dt the decay across a whole
+#: 32-token tile is some exp(-25), so a fault farther off adds nothing
+#: an fp32 sum can hold, and changes nothing
 K3_FAULTS = {
     "fwd_drops_key_tile": (("y",), (
         "    for (int j0 = 0; j0 <= i0; j0 += T) {\n"
@@ -654,16 +653,16 @@ K3_FAULTS = {
         "      __syncthreads();\n"
         "      float cb[T / TY][T / TX];\n"),
         "      if (i0 == 4 * T && j0 == 3 * T) continue;\n"),
-    "bwd_pass_a_drops_key_tile": (("dC", "dda"), (
-        "    for (int j0 = 0; j0 <= i0; j0 += T) {\n"
-        "      load_tile(s_B, Bg + j0 * ld_cb, ld_cb, T, N);\n"
-        "      load_tile(s_X, Xg + j0 * ld_x, ld_x, T, P);\n"
-        "      __syncthreads();\n"
-        "      float cb[T / TY][T / TX], ds"),
-        "      if (i0 == 4 * T && j0 == 3 * T) continue;\n"),
-    "bwd_pass_b_drops_row_tile": (("dB", "dx", "ddt"), (
-        "    for (int i0 = j0; i0 < c; i0 += T) {\n"),
-        "      if (j0 == T && i0 == 2 * T) continue;\n"),
+    # k3_bwd_heads: dS zero on the 64-wide tile pair (2, 1), under the
+    # diagonal tile (1, 1)
+    "bwd_drops_pair_next_to_diagonal": (("dC", "dB", "dda", "ddt"), (
+        "        wmm<4, true, true, true, F32>(dsc, P, dys, LDP, xs, LDP, wm, "
+        "wh * 32);\n"),
+        "        if (it == 2 && jt == 1) zero(dsc);\n"),
+    # k3_bwd_heads: the group's sum of M leaves out its second head
+    "bwd_group_sum_drops_a_head": (("dC", "dB"), (
+        "            msum[n][e] += m;\n"),
+        "            if (g == 1) msum[n][e] -= m;\n"),
 }
 K3_NAMES = ("y", "states", "cum", "dC", "dB", "dx", "dda", "ddt")
 #: launches K3 forward and backward from the package on PYTHONPATH
@@ -693,9 +692,10 @@ def _whole_errs(got, ref):
 def test_ssd_chunk_limit_catches_planted_fault(card, tmp_path, fault):
     """K3's whole-tensor limit (K3_TOL) lies between the sound kernel and
     one with a planted fault, at mamba2-370m's full width (fp32, one
-    1024-token row, 32 heads). The fault is built from an edited copy
-    of the package in a temporary directory; the checkout is not
-    touched. Prints both readings."""
+    4096-token row, 32 heads: the backward takes four heads a block
+    there, so a fault in a group's sum shows). The fault is built from
+    an edited copy of the package in a temporary directory; the
+    checkout is not touched. Prints both readings."""
     import os
     import shutil
     import subprocess
@@ -717,7 +717,7 @@ def test_ssd_chunk_limit_catches_planted_fault(card, tmp_path, fault):
     cu.write_text(text.replace(anchor, head + "\n" + skip + rest))
 
     c = 256
-    ins = _k3_inputs(card, torch.float32, 1, 1024, 32, 128, 64, seed=7)
+    ins = _k3_inputs(card, torch.float32, 1, 4096, 32, 128, 64, seed=7)
     rng = np.random.default_rng(8)
     outs = ssd_chunk(*ins, chunk=c)
     douts = [torch.from_numpy(rng.standard_normal(tuple(o.shape))
@@ -742,6 +742,93 @@ def test_ssd_chunk_limit_catches_planted_fault(card, tmp_path, fault):
     assert all(e <= K3_TOL for e in readings["sound"].values()), readings
     for name in must_show:
         assert readings["fault"][name] > K3_TOL, (name, readings)
+
+
+#: (Bsz, S) of phase 14's bf16 shapes with mamba2-370m's 32 heads: two
+#: rows of 2048 tokens and one of 4096
+K3_TRAIN_SHAPES = [(2, 2048), (1, 4096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bsz,S", K3_TRAIN_SHAPES)
+def test_ssd_chunk_backward_at_the_training_shape(card, Bsz, S):
+    """K3's backward at mamba2-370m's training shape (bf16, 32 heads,
+    N=128, P=64, c=256), held to the plain version in fp64 with
+    test_ssd_chunk_kernel_matches_plain's limits; its launch takes four
+    heads a block over every (sequence, chunk)."""
+    from repro_torch.kernels.ssd_chunk import (last_bwd_launch,
+                                               ssd_chunk_bwd,
+                                               ssd_chunk_bwd_plain)
+    H, N, P, c = 32, 128, 64, 256
+    ins = _k3_inputs(card, torch.bfloat16, Bsz, S, H, N, P, seed=9)
+    rng = np.random.default_rng(10)
+    douts = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             .to(card) for s in ((Bsz, S, H, P), (Bsz, S // c, H, N, P),
+                                 (Bsz, S, H))]
+    grads = ssd_chunk_bwd(*ins, *douts, chunk=c)
+    launch = last_bwd_launch()
+    rgrads = ssd_chunk_bwd_plain(*[t.double() for t in ins], *douts,
+                                 chunk=c)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dC", "dB", "dx", "dda", "ddt"), grads, rgrads):
+        if name in ("dC", "dB", "dx"):
+            assert a.dtype == torch.bfloat16, name
+            _k3_close(name, a, r, K3_BF16_GRAD_TOL, whole=K3_BF16_GRAD_TOL)
+        else:
+            assert a.dtype == torch.float32, name
+            _k3_close(name, a, r, K3_GRAD_TOL, whole=K3_TOL)
+    assert launch["kernel"] == "k3_bwd_heads", launch
+    assert launch["grid"] == (H // 4, Bsz * S // c, 1), launch
+    assert launch["threads"] == 256 and launch["heads_per_block"] == 4
+    print(f"K3 backward launch at {Bsz}x{S}: {launch}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bsz,S,H", [(1, 512, 8), (1, 4096, 32),
+                                     (3, 2048, 32)])
+def test_ssd_chunk_backward_launch_names_the_grouped_kernel(card, Bsz, S, H):
+    """bf16, (N, P) = (128, 64), c = 256 runs k3_bwd_heads, and its record
+    is what the launch needed: one block per group of heads of a chunk
+    (1 to 4 heads, by the waves of blocks the card takes: 4 at one
+    4096-token row), its shared memory within the H100's 227 KB, and the
+    scratch for C B^T and the groups' sums."""
+    from repro_torch.kernels.ssd_chunk import last_bwd_launch, ssd_chunk_bwd
+    N, P, c = 128, 64, 256
+    ins = _k3_inputs(card, torch.bfloat16, Bsz, S, H, N, P, seed=11)
+    douts = [torch.ones(s, device=card) for s in (
+        (Bsz, S, H, P), (Bsz, S // c, H, N, P), (Bsz, S, H))]
+    ssd_chunk_bwd(*ins, *douts, chunk=c)
+    torch.cuda.synchronize()
+    launch = last_bwd_launch()
+    G = launch["heads_per_block"]
+    groups, nbk = -(-H // G), Bsz * S // c
+    pairs = (c // 64) * (c // 64 + 1) // 2 * 64 * 64
+    assert launch == dict(
+        kernel="k3_bwd_heads", grid=(groups, nbk, 1), threads=256,
+        smem_bytes=launch["smem_bytes"], heads_per_block=G,
+        work_bytes=4 * nbk * (pairs * (1 + groups) + groups * c * N))
+    assert 1 <= G <= 4 and 0 < launch["smem_bytes"] <= 232448
+    if (Bsz, S) == (1, 4096):
+        assert G == 4
+    print(f"K3 backward launch at {Bsz}x{S}, {H} heads: {launch}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_backward_is_deterministic(card, dtype):
+    """No atomics: two calls give the same bits in every gradient."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
+    Bsz, S, H, N, P, c = 1, 1024, 6, 128, 64, 256
+    ins = _k3_inputs(card, dtype, Bsz, S, H, N, P, seed=12)
+    rng = np.random.default_rng(13)
+    douts = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             .to(card) for s in ((Bsz, S, H, P), (Bsz, S // c, H, N, P),
+                                 (Bsz, S, H))]
+    first = ssd_chunk_bwd(*ins, *douts, chunk=c)
+    again = ssd_chunk_bwd(*ins, *douts, chunk=c)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 #: the device memory a training run may hold without per-layer remat
