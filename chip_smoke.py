@@ -86,13 +86,14 @@ Phases:
                 |plain|) and, as whole tensors, 1e-4 * max|plain|; dC,
                 dB, dx returned in bf16 within 1e-2 both ways (one bf16
                 rounding of nearly the same value). Prints each
-                backward's launch (the kernel that took the heads, its
-                grid, threads, shared memory, heads a block and scratch)
-                beside the card's SMs, and times forward and backward by
-                events (`fwd_ms`, `bwd_ms`) and by the kernels' own time
-                (`fwd_device_ms`, `bwd_device_ms`) beside the bounds
-                (the backward's also with its tensor-core products at
-                the TF32 peak, `bound_tc_bwd_ms`)
+                forward's and backward's launch (the kernel that took
+                the heads, its grid, threads, shared memory, heads a
+                block and scratch) beside the card's SMs, and times
+                forward and backward by events (`fwd_ms`, `bwd_ms`) and
+                by the kernels' own time (`fwd_device_ms`,
+                `bwd_device_ms`) beside the bounds (also with the
+                products each runs on the tensor cores at the TF32 peak,
+                `bound_tc_fwd_ms`, `bound_tc_bwd_ms`)
  12. ssm parity — reduced mamba2-370m, fp32: two DHP training steps with
                 K3 (attn_impl="cuda") vs the same steps through its plain
                 version: losses, the first batch's gradient and the
@@ -107,7 +108,8 @@ Phases:
                 that (each layer is run again in the backward: remat);
                 losses and parameters finite; one more step under
                 torch.profiler for the busy share and the device time by
-                kernel (K3's forward and backward apart) and of the
+                kernel (K3's forward, its backward and the C B^T kernel
+                both share apart, each with its launches) and of the
                 inter-chunk scan
  14. ssd path   — K3 forward and backward vs plain at each (n_seqs,
                 bucket) shape the SSM run launched, with launches, times
@@ -900,9 +902,11 @@ def ssd_bound(Bsz, S, H, N, P, c, dtype, backward, tensor_cores=False):
     Backward: C B^T again, dC, dB (6N a pair), dS and dx (4P a pair and
     head), the states' terms of dx and dB (4cNP a cell).
 
-    `tensor_cores` (backward): the products the backward runs on the
-    tensor cores (C B^T, dS and the states' terms) at the TF32 peak, the
-    rest (dC, dB, dx) at the fp32 peak, the two units side by side."""
+    `tensor_cores`: the products a direction runs on the tensor cores
+    at the TF32 peak, the rest at the fp32 peak, the two units side by
+    side. Forward: every product (C B^T, the scores times x, the
+    states). Backward: C B^T, dS and the states' terms on the tensor
+    cores; dC, dB and dx on the CUDA cores."""
     elt = torch.finfo(dtype).bits // 8
     cells = Bsz * (S // c) * H
     pairs = c * (c + 1) // 2 * Bsz * (S // c)      # per (sequence, chunk)
@@ -916,8 +920,9 @@ def ssd_bound(Bsz, S, H, N, P, c, dtype, backward, tensor_cores=False):
         nbytes = ins + y + st + cum
         flops = 2 * N * pairs + 2 * P * pairs * H + 2 * c * N * P * cells
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.float32]
-    if backward and tensor_cores:
-        tc = 2 * N * pairs + 2 * P * pairs * H + 4 * c * N * P * cells
+    if tensor_cores:
+        tc = (2 * N * pairs + 2 * P * pairs * H + 4 * c * N * P * cells
+              if backward else flops)
         t_ops = max(tc / PEAK_TF32,
                     (flops - tc) / PEAK_FLOPS[torch.float32])
     return (max(t_bytes, t_ops) * 1e3,
@@ -928,17 +933,19 @@ def check_ssd(dev, card, gen, Bsz, S, H, N, P, c, dtype, tag, time_it=True):
     """K3 forward and backward vs plain on one random input; times
     kernel, plain, and the inter-chunk part of `ssd_chunk_scan`."""
     from repro_torch.kernels.ssd_chunk import (
-        last_bwd_launch, ssd_chunk, ssd_chunk_bwd, ssd_chunk_bwd_plain,
-        ssd_chunk_plain, ssd_chunk_scan)
+        last_bwd_launch, last_fwd_launch, ssd_chunk, ssd_chunk_bwd,
+        ssd_chunk_bwd_plain, ssd_chunk_plain, ssd_chunk_scan)
     C, B, x, da, dt = ssd_inputs(dev, gen, Bsz, S, H, N, P, dtype)
     outs = ssd_chunk(C, B, x, da, dt, chunk=c)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fwd_launch = dict(**last_fwd_launch(), sms=sms)
     douts = [torch.randn(o.shape, generator=gen, device=dev) for o in outs]
     grads = ssd_chunk_bwd(C, B, x, da, dt, *douts, chunk=c)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     launch = dict(**last_bwd_launch(), sms=sms)
-    print(f"  K3 backward launch {tag} Bsz={Bsz} S={S} H={H} N={N} P={P} "
-          f"c={c} {str(dtype).split('.')[-1]}: {json.dumps(launch)} "
-          f"({card})")
+    what = (f"{tag} Bsz={Bsz} S={S} H={H} N={N} P={P} c={c} "
+            f"{str(dtype).split('.')[-1]}")
+    print(f"  K3 forward launch {what}: {json.dumps(fwd_launch)} ({card})")
+    print(f"  K3 backward launch {what}: {json.dumps(launch)} ({card})")
     ins64 = [t.double() for t in (C, B, x, da, dt)]
     refs = ssd_chunk_plain(*ins64, chunk=c)
     rgrads = ssd_chunk_bwd_plain(*ins64, *douts, chunk=c)
@@ -976,9 +983,9 @@ def check_ssd(dev, card, gen, Bsz, S, H, N, P, c, dtype, tag, time_it=True):
                rel_err={n: e[2] for n, e in errs.items()},
                max_abs_err_fwd=max(errs[n][0] for n in names[:3]),
                max_abs_err_bwd=max(errs[n][0] for n in names[3:]),
-               bwd_launch=launch)
+               fwd_launch=fwd_launch, bwd_launch=launch)
     if time_it:
-        # each call launches each of its kernels once (the forward one,
+        # each call launches each of its kernels once (the forward two,
         # the backward three)
         for which, fn in (
                 ("fwd", lambda: ssd_chunk(C, B, x, da, dt, chunk=c)),
@@ -1003,10 +1010,10 @@ def check_ssd(dev, card, gen, Bsz, S, H, N, P, c, dtype, tag, time_it=True):
         row["inter_chunk_fwd_bwd_ms"] = (row["scan_fwd_bwd_ms"]
                                          - row["fwd_ms"] - row["bwd_ms"])
         for which in ("fwd", "bwd"):
-            b, by = ssd_bound(Bsz, S, H, N, P, c, dtype, which == "bwd")
-            row[f"bound_{which}_ms"], row[f"bound_{which}_by"] = b, by
-        row["bound_tc_bwd_ms"], row["bound_tc_bwd_by"] = ssd_bound(
-            Bsz, S, H, N, P, c, dtype, True, tensor_cores=True)
+            for tc in ("", "tc_"):
+                row[f"bound_{tc}{which}_ms"], row[f"bound_{tc}{which}_by"] = \
+                    ssd_bound(Bsz, S, H, N, P, c, dtype, which == "bwd",
+                              tensor_cores=bool(tc))
     print(f"  K3 {json.dumps(row)} ({card})")
     return row
 
@@ -1097,8 +1104,9 @@ def collect_garbage(label):
 def profile_step(eng, run, card, label, kernel_keys, ranges=()):
     """One more training step under torch.profiler: wall, device busy
     share, the 15 kernels with the most device time, and for each name
-    -> key of `kernel_keys` the device time of kernels whose name holds
-    the key (printed as `<name>_device_ms`). `ranges` names profiler
+    -> key of `kernel_keys` the device time and the launches of kernels
+    whose name holds the key (printed as `<name>_device_ms` and
+    `<name>_launches`). `ranges` names profiler
     ranges of the code: each appears on the device's timeline as a span
     over its kernels, which is reported apart and kept out of the busy
     time."""
@@ -1128,10 +1136,10 @@ def profile_step(eng, run, card, label, kernel_keys, ranges=()):
                                 key=lambda kv: -kv[1][0])[:15]:
         print(f"  {label} device time {t:.1f} ms over {n} launches: "
               f"{kname[:110]}")
-    k_ms = {name: sum(ev.time_range.elapsed_us() / 1e3 for ev in cuda_evs
-                      if key in ev.name)
-            for name, key in kernel_keys.items()}
-    k_ms = " ".join(f"{name}_device_ms={t}" for name, t in k_ms.items())
+    sums = {name: [sum(v[i] for n, v in by_name.items() if key in n)
+                   for i in (0, 1)] for name, key in kernel_keys.items()}
+    k_ms = " ".join(f"{name}_device_ms={t} {name}_launches={k}"
+                    for name, (t, k) in sums.items())
     print(f"  {label} profiled step: wall_ms={wall_ms} device_busy_ms="
           f"{busy_ms} device_busy_share={busy_ms / wall_ms} {k_ms} "
           f"({card})")
@@ -1200,8 +1208,10 @@ def phase_ssm_training(dev, card):
     print(f"  ssm train group shapes (n_seqs, bucket): {groups}")
     print(f"  ssm train K3 launches: forward {n_fwd}, backward {n_bwd}")
 
+    # k3_cb forms C B^T for both directions: its time is neither's alone
     prof = profile_step(eng, run, card, "ssm train",
-                        {"k3_fwd": "k3_fwd", "k3_bwd": "k3_bwd"},
+                        {"k3_fwd": "k3_fwd", "k3_bwd": "k3_bwd",
+                         "k3_cb": "k3_cb"},
                         ranges=(INTER_CHUNK,))
     inter = [e for e in prof.key_averages() if e.key == INTER_CHUNK]
     if inter:
@@ -1782,9 +1792,8 @@ def main() -> int:
             "library_ms": None,
             "shape": f"Bsz={main_k3['Bsz']} S={main_k3['S']} "
                      f"H={SSD_HEADS} N={SSD_N} P={SSD_P} c={chunk} bf16",
-            **({"bound_tc_ms": main_k3["bound_tc_bwd_ms"],
-                "bound_tc_by": main_k3["bound_tc_bwd_by"]}
-               if which == "bwd" else {}),
+            "bound_tc_ms": main_k3[f"bound_tc_{which}_ms"],
+            "bound_tc_by": main_k3[f"bound_tc_{which}_by"],
             "path_shapes": [dict(
                 n_seqs=r["Bsz"], bucket=r["bucket"], launches=r["launches"],
                 err=r["err"], ms=r[f"{which}_ms"],

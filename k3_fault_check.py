@@ -1,6 +1,6 @@
-"""K3's backward: its whole-tensor limit against planted faults, and the
-backward (with the forward beside it) timed against other source trees,
-on one card.
+"""K3, forward and backward: its whole-tensor limit against planted
+faults, and both directions timed against other source trees, on one
+card.
 
     python3 k3_fault_check.py [--out FILE]
     python3 k3_fault_check.py --time [--tree LABEL=DIR ...]
@@ -17,29 +17,30 @@ NVIDIA GPU and nvcc; prints the card's name and power limit.
 Fault mode (the default): for each planted fault of FAULTS, the port's
 K3 wrappers (`ssd_chunk`, `ssd_chunk_bwd`) run on that copy's library
 against the plain versions run in fp64, over the fp32 cases of CASES.
-Per case and gradient it prints max|err| / max|plain| (`whole`, the
-form tests/test_torch_cuda.py holds every fp32 gradient to, K3_TOL =
-1e-4). The limit is sound when every "sound" reading lies below it and
-each fault reads above it in every gradient it must show in, in every
-case. Exits non-zero otherwise.
+Per case and output (y, states, cum) or gradient it prints max|err| /
+max|plain| (`whole`, the form tests/test_torch_cuda.py holds every fp32
+gradient to, K3_TOL = 1e-4). The limit is sound when every "sound"
+reading lies below it and each fault reads above it in every output it
+must show in, in every case. Exits non-zero otherwise.
 
 Time mode: the checkout's tree is "change"; `--tree` adds another
 checkout root (for example the parent commit unpacked with `git
 archive`), and `--variant` a tree's source with the named EDITS applied
 (measurements only). At each shape (`--shape`, default TIME_SHAPES: one
 4096-token row and the shapes of chip_smoke.py phase 14), bf16 inputs
-with the model's dt, each library's backward is called as the port's
-wrapper calls it (outputs allocated, the C function `k3_backward`, and
-for a library that writes per-head fp32 partials of dC and dB, their
-sum over heads in the input type), held to the plain version (whole
-error of each gradient; whether two calls give the same bits), and
-timed in turns, `--rounds` times: `ms` by CUDA events around 10
-back-to-back calls (after 2), `device_ms` the kernels' own time per call
-from torch.profiler. The forward's C function `k3_forward` is timed the
-same way. Beside them: the change's wrappers `ssd_chunk_bwd` and
-`ssd_chunk` (the host's cost of a call from Python), and chip_smoke.py's
-bounds (the backward's also with its tensor-core products at the TF32
-peak).
+with the model's dt, each library's backward and forward are called as
+the port's wrappers call them (outputs and scratch allocated, the C
+functions `k3_backward` and `k3_forward` by the library's own signature,
+and for a library that writes per-head fp32 partials of dC and dB,
+their sum over heads in the input type), held to the plain versions
+(whole error of each output and gradient; whether two calls give the
+same bits), their kernels timed apart (`bwd_by_kernel`,
+`fwd_by_kernel`), and both directions timed in turns, `--rounds` times:
+`ms` by CUDA events around 10 back-to-back calls (after 2), `device_ms`
+the kernels' own time per call from torch.profiler. Beside them: the
+change's wrappers `ssd_chunk_bwd` and `ssd_chunk` (the host's cost of a
+call from Python), and chip_smoke.py's bounds (also with the products
+that run on the tensor cores at the TF32 peak).
 """
 import argparse
 import ctypes
@@ -58,6 +59,7 @@ CU = os.path.join("src", "repro_torch", "kernels", "csrc", "ssd_chunk.cu")
 K3_TOL = 1e-4               # tests/test_torch_cuda.py's whole-tensor limit
 H, N, P, CHUNK = 32, 128, 64, 256   # mamba2-370m's SSD
 KEYS = ("k3_",)             # ptxas lines of K3's kernels
+OUTS = ("y", "states", "cum")
 GRADS = ("dC", "dB", "dx", "dda", "ddt")
 
 #: case -> Bsz, S, heads; fp32 inputs, mamba2-370m's N, P and chunk.
@@ -69,12 +71,45 @@ CASES = {
     "4x2048_h5": (4, 2048, 5),
 }
 
-#: fault -> (the gradients it must show in, [(text, replacement)]),
-#: planted in the backward kernels. Each sits next to the diagonal: with
-#: the model's dt the decay across a 64-token tile is some exp(-45), so
-#: a fault farther off reads 0.
+#: fault -> (the outputs or gradients it must show in, [(text,
+#: replacement)]), planted in the forward's kernel (fwd_) or the
+#: backward's. Each sits next to the diagonal: with the model's dt the
+#: decay across a 64-token tile is some exp(-45), so a fault farther off
+#: reads 0.
 FAULTS = {
     "sound": ((), []),
+    # y leaves out tile pair (2, 1), the pair under the diagonal tile (1, 1)
+    "fwd_drops_pair_next_to_diagonal": (("y",), [(
+        "    wmm<NY, true, false, true, F32>(yacc, BT, sS, LDT, xs, LDP, wm,\n",
+        "    if (cur.it != 2 || cur.jt != 1)\n"
+        "    wmm<NY, true, false, true, F32>(yacc, BT, sS, LDT, xs, LDP, wm,\n")]),
+    # every pair's C B^T read from the diagonal tile of its row
+    "fwd_cb_from_wrong_tile": (("y",), [(
+        "                     cbw + (bk * npairs + pair_id(s.it, s.jt)) *\n"
+        "                               (long)(BT * BT),\n"
+        "                     BT, BT);",
+        "                     cbw + (bk * npairs + pair_id(s.it, s.it)) *\n"
+        "                               (long)(BT * BT),\n"
+        "                     BT, BT);")]),
+    # a step's x read from the stage being filled for the next step
+    "fwd_x_from_next_stage": (("y", "states"), [(
+        "    const float* xs = sX + st * BT * LDP;\n    const bool last_row",
+        "    const float* xs = sX + (st ^ 1) * BT * LDP;\n"
+        "    const bool last_row")]),
+    # each head's y written to the next head of its group
+    "fwd_y_to_neighbour_head": (("y",), [(
+        "    float* yg = y + (tok0 + i0) * ldh + (long)h * P;",
+        "    float* yg = y + (tok0 + i0) * ldh + "
+        "(long)(h0 + (cur.g + 1) % Gv) * P;")]),
+    # the decay off the diagonal one token off: D from the row tile's
+    # first token, not the one before it
+    "fwd_decay_off_by_a_token": (("y",), [(
+        "const float D = expf(cum[i0 - 1] - cum[j0 + BT - 1]);",
+        "const float D = expf(cum[i0] - cum[j0 + BT - 1]);")]),
+    # the states' w taken from the chunk's last token but one
+    "fwd_states_w_off_by_one": (("states",), [(
+        "expf(cum[c - 1] - cum[i]) * sDt[t]",
+        "expf(cum[c - 2] - cum[i]) * sDt[t]")]),
     # dS zero on tile pair (2, 1), the pair under the diagonal tile (1, 1)
     "drops_pair_next_to_diagonal": (("dC", "dB", "dda", "ddt"), [(
         "        wmm<4, true, true, true, F32>(dsc, P, dys, LDP, xs, LDP, wm, "
@@ -104,29 +139,30 @@ FAULTS = {
 }
 
 #: measurement-only edits of this tree's kernel for `--time --variant`
-_G_LOOP = "  for (int G = BG < H ? BG : H; G >= 1; --G) {"
+_BWD_G = "  return heads_per_block(BG, 0.55,"
+_FWD_G = "  return heads_per_block(FG, 0.12,"
 EDITS = {
-    # heads a block fixed, not chosen by the waves of blocks: one (32
-    # blocks a chunk: C B^T read and M written once a head), two, four
-    "one_head_a_block": [(_G_LOOP, "  for (int G = 1; G >= 1; --G) {")],
-    "two_heads_a_block": [(_G_LOOP,
-                           "  for (int G = 2 < H ? 2 : H; G >= 1; --G) {")],
-    "four_heads_a_block": [(_G_LOOP, "  for (int G = BG < H ? BG : H; "
-                            "G >= (BG < H ? BG : H); --G) {")],
-    # what the two stages bought: each step's loads waited for at once
+    # the backward's heads a block fixed, not chosen by the waves of
+    # blocks: one (32 blocks a chunk: C B^T read and M written once a
+    # head), two, four
+    "one_head_a_block": [(_BWD_G, "  return 1;\n" + _BWD_G)],
+    "two_heads_a_block": [(_BWD_G, "  return 2;\n" + _BWD_G)],
+    "four_heads_a_block": [(_BWD_G, "  return 4;\n" + _BWD_G)],
+    # what the backward's two stages bought: each step's loads waited
+    # for at once
     "serial_loads": [("    cp_async_commit();\n  };",
                       "    cp_async_commit();\n    cp_async_wait<0>();\n  };")],
-    # what the decay's exponentials cost: L = cum_i - cum_j (wrong)
+    # what the backward's exponentials cost: L = cum_i - cum_j (wrong)
     "no_exp": [("? expf(ci[e >> 1] - cj) : 0.f;", "? (ci[e >> 1] - cj) : 0.f;")],
-    # what each product costs (wrong): dS = dy x^T, dx += S^T dy, and the
-    # end-state steps' B dst and w x dst^T
+    # what each of the backward's products costs (wrong): dS = dy x^T,
+    # dx += S^T dy, and the end-state steps' B dst and w x dst^T
     "no_ds_product": [(
         "        wmm<4, true, true, true, F32>(dsc, P, dys, LDP, xs, LDP, wm, "
         "wh * 32);\n", "")],
     "no_dx_product": [(
         "        mm<4, RP, false>(dacc, BT, sS, LDT, dys, LDP);\n",
         "")],
-    # the last stage at 32 rows a block (half the blocks)
+    # the backward's last stage at 32 rows a block (half the blocks)
     "dcb_32_rows": [("constexpr int RB = 16;", "constexpr int RB = 32;")],
     "no_state_products": [(
         "        wmm<NP, true, false, F32, true>(bd, NH, sBt + hf * NH, LDN, ds, "
@@ -135,6 +171,75 @@ EDITS = {
         "        wmm<NQ, true, true, F32, true>(tp, P, xs, LDP, ds, LDP, wm,\n",
         "        if (Gv < 0) wmm<NQ, true, true, F32, true>(tp, P, xs, LDP, ds, "
         "LDP, wm,\n")],
+    # the forward's heads a block fixed: one (C B^T's tiles loaded once a
+    # head), two, four
+    "fwd_one_head_a_block": [(_FWD_G, "  return 1;\n" + _FWD_G)],
+    "fwd_two_heads_a_block": [(_FWD_G, "  return 2;\n" + _FWD_G)],
+    "fwd_four_heads_a_block": [(_FWD_G, "  return 4;\n" + _FWD_G)],
+    # what the forward's overlap of loads buys: every step's loads
+    # issued after the step before and waited for at once
+    "fwd_serial_loads": [(
+        "const bool late = nx.it >= 0 && nx.g == 0 && nx.jt % SLAB == slot;",
+        "const bool late = nx.it >= 0;")],
+    # what the forward's exponentials cost: L = cum_i - cum_j on the
+    # diagonal pairs, D = cum_s - cum_r off it (wrong)
+    "fwd_no_exp": [("? expf(ci - cj[u]) : 0.f;", "? (ci - cj[u]) : 0.f;"), (
+        "const float D = expf(cum[i0 - 1] - cum[j0 + BT - 1]);",
+        "const float D = (cum[i0 - 1] - cum[j0 + BT - 1]);")],
+    # every pair's decay by an exponential an element, as on the diagonal
+    "fwd_direct_exp": [("    if (cur.it == cur.jt) {\n      float cj[4], dj[4];",
+                        "    if (true) {\n      float cj[4], dj[4];")],
+    # what the forward's products cost (wrong): y += S x, the states
+    "fwd_no_y_product": [(
+        "    wmm<NY, true, false, true, F32>(yacc, BT, sS, LDT, xs, LDP, wm,\n"
+        "                                    wh * (P / 2));\n", "")],
+    "fwd_no_states_product": [("    if (last_row && 16 * warp < N)\n",
+                               "    if (last_row && 16 * warp < 0)\n")],
+    # y += S x on the CUDA cores, not the tensor cores: each thread a 4 x
+    # P/16 register tile fed by 16-byte shared reads (mm<>)
+    "fwd_sx_simt": [
+        ("float yacc[NY][4],", "float yacc[4][P / TX],"),
+        ("        frag_io(yacc, yg, ldh, wm, wh * (P / 2), c - i0, false);",
+         """        for (int a = 0; a < 4; ++a)
+          if (i0 + tid / TX * 4 + a < c)
+            ldv<P / TX>(yacc[a], yg + (tid / TX * 4 + a) * ldh +
+                                     tid % TX * (P / TX));"""),
+        ("    wmm<NY, true, false, true, F32>(yacc, BT, sS, LDT, xs, LDP, wm,\n"
+         "                                    wh * (P / 2));\n",
+         "    mm<4, P / TX, true>(yacc, BT, sS, LDT, xs, LDP);\n"),
+        ("      frag_io(yacc, yg, ldh, wm, wh * (P / 2), c - i0, true);",
+         """      for (int a = 0; a < 4; ++a)
+        if (i0 + tid / TX * 4 + a < c)
+          stv<P / TX>(yg + (tid / TX * 4 + a) * ldh + tid % TX * (P / TX),
+                      yacc[a]);""")],
+    # the states' product on the CUDA cores: each thread N/16 x P/16
+    "fwd_states_simt": [
+        ("  if constexpr (V == 4) {\n"
+         "    const float4 v = *reinterpret_cast<const float4*>(p);",
+         """  if constexpr (V == 8) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    const float4 v = *reinterpret_cast<const float4*>(p + 4);
+    o[0] = u.x, o[1] = u.y, o[2] = u.z, o[3] = u.w;
+    o[4] = v.x, o[5] = v.y, o[6] = v.z, o[7] = v.w;
+  } else if constexpr (V == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);"""),
+        ("sacc[NS][4];", "sacc[N / TY][P / TX];"),
+        ("        if (last_row) frag_io(sacc, sg, P, 16 * warp, 0, N, false);",
+         """        if (last_row)
+          for (int a = 0; a < N / TY; ++a)
+            ldv<P / TX>(sacc[a], sg + (tid / TX * (N / TY) + a) * P +
+                                     tid % TX * (P / TX));"""),
+        ("    if (last_row && 16 * warp < N)\n"
+         "      wmm<NS, false, false, true, F32>(sacc, BT, sB + st * BT * LDB, "
+         "LDB,\n                                       xs, LDP, 16 * warp, "
+         "0);\n",
+         "    if (last_row)\n      mm<N / TY, P / TX, false>(sacc, BT, "
+         "sB + st * BT * LDB, LDB, xs, LDP);\n"),
+        ("      if (last_row) frag_io(sacc, sg, P, 16 * warp, 0, N, true);",
+         """      if (last_row)
+        for (int a = 0; a < N / TY; ++a)
+          stv<P / TX>(sg + (tid / TX * (N / TY) + a) * P +
+                          tid % TX * (P / TX), sacc[a]);""")],
 }
 
 #: (Bsz, S) timed: one 4096-token row and the other shapes of
@@ -164,24 +269,31 @@ def _whole(a, r):
 
 
 def _reference(torch, ins, douts):
-    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd_plain
+    """The plain forward's (y, states, cum) and backward's gradients, run
+    in fp64."""
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk_bwd_plain,
+                                               ssd_chunk_plain)
     ins64 = [t.double() for t in ins]
-    return ssd_chunk_bwd_plain(*ins64, *douts, chunk=CHUNK)
+    return (ssd_chunk_plain(*ins64, chunk=CHUNK),
+            ssd_chunk_bwd_plain(*ins64, *douts, chunk=CHUNK))
 
 
 # ------------------------------------------------------------ fault mode
 def readings(torch):
-    """One row of whole errors a case, through the port's wrappers and
-    whatever library `build.load` hands them."""
-    from repro_torch.kernels.ssd_chunk import ssd_chunk_bwd
+    """One row of whole errors a case, of every output and gradient,
+    through the port's wrappers and whatever library `build.load` hands
+    them."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
     rows = []
     for i, (name, (Bsz, S, heads)) in enumerate(CASES.items()):
         ins, douts = _inputs(torch, Bsz, S, heads, torch.float32, 20 + i)
-        got = ssd_chunk_bwd(*ins, *douts, chunk=CHUNK)
-        ref = _reference(torch, ins, douts)
+        got = (*ssd_chunk(*ins, chunk=CHUNK),
+               *ssd_chunk_bwd(*ins, *douts, chunk=CHUNK))
+        ref_fwd, ref_bwd = _reference(torch, ins, douts)
         torch.cuda.synchronize()
-        rows.append({"case": name, **{g: _whole(a, r) for g, a, r in
-                                      zip(GRADS, got, ref)}})
+        rows.append({"case": name, **{k: _whole(a, r) for k, a, r in
+                                      zip(OUTS + GRADS, got,
+                                          (*ref_fwd, *ref_bwd))}})
     return rows
 
 
@@ -199,13 +311,13 @@ def fault_mode(torch, tmp):
             print(json.dumps({"fault": fault, **r}), flush=True)
         if fault == "sound":
             caught = []
-            ok &= all(r[g] <= K3_TOL for r in rows for g in GRADS)
+            ok &= all(r[k] <= K3_TOL for r in rows for k in OUTS + GRADS)
         else:
-            caught = [r[g] > K3_TOL for r in rows for g in must]
+            caught = [r[k] > K3_TOL for r in rows for k in must]
             ok &= all(caught)
-        print(f"{fault:28s} " + " ".join(
-            f"{g} {min(r[g] for r in rows):.3g}-{max(r[g] for r in rows):.3g}"
-            for g in GRADS))
+        print(f"{fault:32s} " + " ".join(
+            f"{k} {min(r[k] for r in rows):.3g}-{max(r[k] for r in rows):.3g}"
+            for k in OUTS + GRADS))
         result[fault] = {"rows": rows, "caught_in": sum(caught),
                          "readings": len(caught)}
     return {"ok": ok, "k3_tol": K3_TOL, "faults": result}
@@ -214,23 +326,22 @@ def fault_mode(torch, tmp):
 # ------------------------------------------------------------- time mode
 def _bind(lib):
     """The C functions' types, bound once a library (as the wrapper
-    does); whether the library takes a scratch buffer and writes dC and
-    dB summed over heads (else per-head fp32 partials)."""
+    does). Returns (whether the backward takes a scratch buffer and
+    writes dC and dB summed over heads, else per-head fp32 partials;
+    whether the forward takes a scratch buffer, the C B^T it shares)."""
     grouped = hasattr(lib, "k3_backward_work")
+    fwd_work = hasattr(lib, "k3_forward_work")
     if lib.k3_backward.argtypes is None:
-        n_ptr = 14 if grouped else 13
-        lib.k3_backward.argtypes = [ctypes.c_void_p] * n_ptr + \
-            [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + \
-            [ctypes.c_int, ctypes.c_void_p]
-        lib.k3_backward.restype = ctypes.c_int
-        lib.k3_forward.argtypes = [ctypes.c_void_p] * 8 + \
-            [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + \
-            [ctypes.c_int, ctypes.c_void_p]
-        lib.k3_forward.restype = ctypes.c_int
-        if grouped:
-            lib.k3_backward_work.argtypes = [ctypes.c_int] * 7
-            lib.k3_backward_work.restype = ctypes.c_longlong
-    return grouped
+        for fn, n_ptr in ((lib.k3_backward, 14 if grouped else 13),
+                          (lib.k3_forward, 9 if fwd_work else 8)):
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + \
+                [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for name in ["k3_backward_work"] * grouped + \
+                ["k3_forward_work"] * fwd_work:
+            getattr(lib, name).argtypes = [ctypes.c_int] * 7
+            getattr(lib, name).restype = ctypes.c_longlong
+    return grouped, fwd_work
 
 
 def backward(torch, lib, ins, douts):
@@ -238,7 +349,7 @@ def backward(torch, lib, ins, douts):
     them: bf16 dC, dB, dx; fp32 dda, ddt."""
     C, B, x, da, dt = ins
     Bsz, S, heads, _ = x.shape
-    grouped = _bind(lib)
+    grouped, _ = _bind(lib)
     dev, f32 = x.device, dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dda, ddt = (torch.empty(Bsz, S, heads, **f32) for _ in range(2))
@@ -263,15 +374,21 @@ def backward(torch, lib, ins, douts):
 
 
 def forward(torch, lib, ins):
+    """(y, states, cum) of `lib`, fp32, as the port's wrapper makes
+    them."""
     C, B, x, da, dt = ins
     Bsz, S, heads, _ = x.shape
-    _bind(lib)
+    _, fwd_work = _bind(lib)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty(Bsz, S, heads, P, **f32)
     st = torch.empty(Bsz, S // CHUNK, heads, N, P, **f32)
     cum = torch.empty(Bsz, S, heads, **f32)
-    err = lib.k3_forward(*[t.data_ptr() for t in (C, B, x, da, dt, y, st,
-                                                   cum)],
+    ptrs = [C, B, x, da, dt, y, st, cum]
+    if fwd_work:
+        nbytes = lib.k3_forward_work(Bsz, S, heads, N, P, CHUNK, 1)
+        ptrs.append(torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                                device=x.device))
+    err = lib.k3_forward(*[t.data_ptr() for t in ptrs],
                          Bsz, S, heads, N, P, CHUNK, C.stride(1),
                          x.stride(1), 1,
                          torch.cuda.current_stream().cuda_stream)
@@ -307,20 +424,26 @@ def time_shape(torch, libs, Bsz, S, rounds):
     from chip_smoke import cuda_ms, device_ms, ssd_bound
     from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
     ins, douts = _inputs(torch, Bsz, S, H, torch.bfloat16, 0)
-    ref = _reference(torch, ins, douts)
+    ref_fwd, ref = _reference(torch, ins, douts)
     rows = {}
     for label, lib in libs.items():
         g1, g2 = (backward(torch, lib, ins, douts) for _ in range(2))
+        o1, o2 = (forward(torch, lib, ins) for _ in range(2))
         torch.cuda.synchronize()
         rows[label] = {
             "whole": {g: _whole(a, r) for g, a, r in zip(GRADS, g1, ref)},
             "same_bits": all(torch.equal(a, b) for a, b in zip(g1, g2)),
+            "fwd_whole": {k: _whole(a, r)
+                          for k, a, r in zip(OUTS, o1, ref_fwd)},
+            "fwd_same_bits": all(torch.equal(a, b) for a, b in zip(o1, o2)),
             "bwd_by_kernel": kernel_ms(torch, lambda lib=lib: backward(
                 torch, lib, ins, douts)),
+            "fwd_by_kernel": kernel_ms(torch, lambda lib=lib: forward(
+                torch, lib, ins)),
             "bwd_ms": [], "bwd_device_ms": [], "fwd_ms": [],
             "fwd_device_ms": []}
-        del g1, g2
-    del ref
+        del g1, g2, o1, o2
+    del ref, ref_fwd
     order = list(libs) + list(libs)[::-1]
     for _ in range(rounds):
         for label in order:
@@ -340,10 +463,9 @@ def time_shape(torch, libs, Bsz, S, rounds):
         b, by = ssd_bound(Bsz, S, H, N, P, CHUNK, torch.bfloat16,
                           which == "bwd")
         out[f"{which}_bound_ms"], out[f"{which}_bound_by"] = b, by
-        if which == "bwd":
-            out["bwd_bound_tc_ms"], out["bwd_bound_tc_by"] = ssd_bound(
-                Bsz, S, H, N, P, CHUNK, torch.bfloat16, True,
-                tensor_cores=True)
+        out[f"{which}_bound_tc_ms"], out[f"{which}_bound_tc_by"] = \
+            ssd_bound(Bsz, S, H, N, P, CHUNK, torch.bfloat16,
+                      which == "bwd", tensor_cores=True)
         out[f"{which}_wrapper_ms"] = cuda_ms(fn, iters=10, warmup=2)
         out[f"{which}_wrapper_device_ms"], \
             out[f"{which}_wrapper_kernels_per_call"] = device_ms(

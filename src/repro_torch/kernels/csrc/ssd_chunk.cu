@@ -20,30 +20,44 @@
 // with a token stride `ld_x` and heads contiguous; da, dt, cum are fp32
 // [Bsz, S, H]; y is fp32 [Bsz, S, H, P]; states fp32 [Bsz, nc, H, N, P];
 // dx is contiguous [Bsz, S, H, P] in x's type, dC and dB [Bsz, S, N].
-// C, B and x are fp32 or bf16 and are upcast as they are loaded. The
-// forward's arithmetic is fp32 on the CUDA cores. The backward runs some
-// products on the tensor cores in TF32 with each fp32 operand split into
-// two TF32 halves, which keeps fp32's precision (plain TF32 would miss
-// the 1e-4 limit); bf16 values are exact in TF32 and are not split.
+// C, B and x are fp32 or bf16 and are upcast as they are loaded; all
+// arithmetic is fp32. Some products run on the tensor cores in TF32 with
+// each fp32 operand split into two TF32 halves, which keeps fp32's
+// precision (plain TF32 would miss the 1e-4 limit); bf16 values are exact
+// in TF32 and are not split. The others run on the CUDA cores, each
+// thread a 4 x 4 (or 8 x 4) register tile fed by 16-byte shared reads.
 //
 // What bounds it: at mamba2-370m's c=256, N=128, P=64 a cell does some
-// 16.8 MFLOP on 0.1 MB of inputs, far above the card's ridge, so fp32
-// operations bound it. exp(cum_i - cum_j) is formed only where i >= j:
-// above the diagonal it overflows at c=256 (the sum of dt there is about
-// 190), and inf * 0 would poison the backward.
+// 9.4 MFLOP forward on 0.1 MB of inputs, far above the card's ridge, so
+// fp32 operations bound it. exp(cum_i - cum_j) is formed only where i >=
+// j: above the diagonal it overflows at c=256 (the sum of dt there is
+// about 190), and inf * 0 would poison the backward.
 //
-// Forward: the TPU kernel holds a whole cell ([c,N] C and B, [c,P] x, the
-// [c,c] scores: 0.4 MB) in VMEM; an SM has 227 KB. So one block per cell
-// walks 32-row tiles: for each row tile i only the key tiles j <= i are
-// visited (the causal skip), each C B^T tile is built over the full N
-// from shared memory, and states take their own pass. Each thread owns a
-// (rows / 16) x (cols / 16) register tile of every product (rows ty + 16a,
-// cols tx + 16b); shared tiles are row-major with an odd row stride, so
-// that reads along either index hit distinct banks.
+// C and B are shared by the heads, so C B^T belongs to the (sequence,
+// chunk), not to the cell: k3_cb forms it once a chunk, as 64 x 64 tile
+// pairs (it, jt), jt <= it, on the tensor cores, for both directions.
+//
+// Forward: a block per cell formed C B^T again for each of the 32 heads
+// (51% of its work) and took the states in a second pass. k3_fwd_heads
+// takes a group of heads of a chunk (the count chosen by the waves of
+// blocks the card takes). Row tile by row tile, each head of the group
+// walks the column tiles jt <= it of the row: the first head loads C
+// B^T's tiles of the row into shared memory and every head reads them
+// there; a step forms S = C B^T * L * dt_j of the pair and y += S x.
+// Off the diagonal L is E_i D F_j, a row's and a column's factor formed
+// once a head and one exponential a pair (see the kernel). In the last
+// row a step also adds (B w)^T x of its column tile, w = exp(cum_end -
+// cum) dt, so the states take no pass of their own. Every step's
+// operands (x, and B times w in the last row, through registers into
+// fp32; C B^T's tile by cp.async) are loaded while the step before is
+// formed, into the other of two stages. cum is a running sum a head
+// (see the kernel). Both products run on the tensor cores (mma.sync,
+// split TF32: S and B w split, x where it is fp32): on an H100 at one
+// 4096-token row they took 31% longer on the CUDA cores.
 //
 // Backward: C B^T, dC and dB belong to the chunk, not the head, and 62% of
 // a per-head block's work formed them again for each of the 32 heads. So
-// C B^T is formed once a (sequence, chunk) (k3_bwd_cb), a block takes a
+// C B^T is formed once a (sequence, chunk) (k3_cb), a block takes a
 // group of up to four heads of a chunk (k3_bwd_heads: the count chosen by
 // the waves of blocks the card takes) and sums the score gradient M over
 // them, and dC = (sum M) B and dB = (sum M)^T C run once a chunk after the
@@ -55,20 +69,30 @@
 // split TF32: two products a step where x or B is bf16, three where both
 // operands are fp32); dx += S^T dy, whose operands are both fp32, runs
 // on the CUDA cores, each thread a 4 x 4 register tile fed by 16-byte
-// shared reads, and so do dC and dB. No atomics: two calls give the
-// same bits.
+// shared reads, and so do dC and dB. No atomics, in either direction:
+// two calls give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int T = 32;     // rows of a tile (and cols of a score tile)
+constexpr int T = 32;     // chunk lengths: multiples of T
 constexpr int NT = 256;   // threads per block
 constexpr int TX = 16;    // thread grid 16 x 16 over every product
 constexpr int TY = 16;
+
+constexpr int BT = 64;               // rows and columns of a tile
+constexpr int LDT = BT + 4;          // row stride of [*][BT] fp32 tiles
+constexpr int BG = 4;                // most heads a k3_bwd_heads block
+constexpr int FG = 8;                // most heads a k3_fwd_heads block
+constexpr int SLAB = 4;              // C B^T tiles of a row k3_fwd_heads holds
+constexpr int RB = 16;               // rows a k3_bwd_dcb block
+constexpr int SMEM_MAX = 232448;     // shared memory an H100 block may use
 
 __device__ __forceinline__ float ldf(const float* p) { return *p; }
 __device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
@@ -79,36 +103,6 @@ __device__ __forceinline__ void stf(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// rows x cols from global (row stride ldg) into shared (row stride
-// cols + 1), upcast to fp32
-template <typename In>
-__device__ __forceinline__ void load_tile(float* s, const In* g, long ldg,
-                                          int rows, int cols) {
-  for (int idx = threadIdx.x; idx < rows * cols; idx += NT) {
-    const int r = idx / cols, c = idx - r * cols;
-    s[r * (cols + 1) + c] = ldf(g + r * ldg + c);
-  }
-}
-
-// acc[a][b] += sum_k A(ty + 16a, k) * B(k, tx + 16b) for k < K
-template <int RM, int RN, typename FA, typename FB>
-__device__ __forceinline__ void mac(float (&acc)[RM][RN], int K, FA A,
-                                    FB B) {
-  const int ty = threadIdx.x / TX, tx = threadIdx.x % TX;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[RM], bv[RN];
-#pragma unroll
-    for (int a = 0; a < RM; ++a) av[a] = A(ty + TY * a, k);
-#pragma unroll
-    for (int b = 0; b < RN; ++b) bv[b] = B(k, tx + TX * b);
-#pragma unroll
-    for (int a = 0; a < RM; ++a)
-#pragma unroll
-      for (int b = 0; b < RN; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-  }
-}
-
 template <int RM, int RN>
 __device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
 #pragma unroll
@@ -116,144 +110,6 @@ __device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
 #pragma unroll
     for (int b = 0; b < RN; ++b) acc[a][b] = 0.f;
 }
-
-struct Cell {
-  long tok0;  // first token of the chunk, over Bsz * S
-  long bk;    // b * nc + k
-  int h;
-};
-
-__device__ __forceinline__ Cell cell_of(int S, int H, int c) {
-  const int nc = S / c;
-  const long cell = blockIdx.x;
-  Cell r;
-  r.h = (int)(cell % H);
-  r.bk = cell / H;
-  const long b = r.bk / nc, k = r.bk % nc;
-  r.tok0 = b * S + k * c;
-  return r;
-}
-
-// ------------------------------------------------------------------ forward
-template <typename In, int N, int P>
-__global__ void __launch_bounds__(NT)
-    k3_fwd(const In* __restrict__ C, const In* __restrict__ B,
-           const In* __restrict__ x, const float* __restrict__ da,
-           const float* __restrict__ dt, float* __restrict__ y,
-           float* __restrict__ states, float* __restrict__ cum_out, int S,
-           int H, int c, long ld_cb, long ld_x) {
-  extern __shared__ float sm[];
-  const Cell cl = cell_of(S, H, c);
-  const int tid = threadIdx.x, ty = tid / TX, tx = tid % TX;
-  float* s_cum = sm;                 // c
-  float* s_dt = s_cum + c;           // c
-  float* s_w = s_dt + c;             // c: exp(cum_end - cum) * dt
-  float* s_C = s_w + c;              // T x (N+1)
-  float* s_B = s_C + T * (N + 1);    // T x (N+1)
-  float* s_X = s_B + T * (N + 1);    // T x (P+1)
-  float* s_S = s_X + T * (P + 1);    // T x (T+1)
-
-  for (int t = tid; t < c; t += NT) {
-    s_cum[t] = da[(cl.tok0 + t) * H + cl.h];
-    s_dt[t] = dt[(cl.tok0 + t) * H + cl.h];
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float acc = 0.f;
-    for (int t = 0; t < c; ++t) {
-      acc += s_cum[t];
-      s_cum[t] = acc;
-    }
-  }
-  __syncthreads();
-  const float cend = s_cum[c - 1];
-  for (int t = tid; t < c; t += NT) {
-    s_w[t] = expf(cend - s_cum[t]) * s_dt[t];
-    cum_out[(cl.tok0 + t) * H + cl.h] = s_cum[t];
-  }
-  const In* Cg = C + cl.tok0 * ld_cb;
-  const In* Bg = B + cl.tok0 * ld_cb;
-  const In* Xg = x + cl.tok0 * ld_x + (long)cl.h * P;
-  const long ldy = (long)H * P;
-  float* Yg = y + cl.tok0 * ldy + (long)cl.h * P;
-
-  for (int i0 = 0; i0 < c; i0 += T) {
-    load_tile(s_C, Cg + i0 * ld_cb, ld_cb, T, N);
-    float acc[T / TY][P / TX];
-    zero(acc);
-    for (int j0 = 0; j0 <= i0; j0 += T) {
-      load_tile(s_B, Bg + j0 * ld_cb, ld_cb, T, N);
-      load_tile(s_X, Xg + j0 * ld_x, ld_x, T, P);
-      __syncthreads();
-      float cb[T / TY][T / TX];
-      zero(cb);
-      mac(cb, N, [&](int i, int n) { return s_C[i * (N + 1) + n]; },
-          [&](int n, int j) { return s_B[j * (N + 1) + n]; });
-#pragma unroll
-      for (int a = 0; a < T / TY; ++a)
-#pragma unroll
-        for (int b = 0; b < T / TX; ++b) {
-          const int i = ty + TY * a, j = tx + TX * b;
-          const int gi = i0 + i, gj = j0 + j;
-          s_S[i * (T + 1) + j] =
-              gi >= gj ? cb[a][b] * expf(s_cum[gi] - s_cum[gj]) * s_dt[gj]
-                       : 0.f;
-        }
-      __syncthreads();
-      mac(acc, T, [&](int i, int j) { return s_S[i * (T + 1) + j]; },
-          [&](int j, int p) { return s_X[j * (P + 1) + p]; });
-      __syncthreads();
-    }
-#pragma unroll
-    for (int a = 0; a < T / TY; ++a)
-#pragma unroll
-      for (int b = 0; b < P / TX; ++b)
-        Yg[(long)(i0 + ty + TY * a) * ldy + tx + TX * b] = acc[a][b];
-  }
-
-  float st[N / TY][P / TX];
-  zero(st);
-  for (int j0 = 0; j0 < c; j0 += T) {
-    load_tile(s_B, Bg + j0 * ld_cb, ld_cb, T, N);
-    load_tile(s_X, Xg + j0 * ld_x, ld_x, T, P);
-    __syncthreads();
-    mac(st, T,
-        [&](int n, int j) { return s_B[j * (N + 1) + n] * s_w[j0 + j]; },
-        [&](int j, int p) { return s_X[j * (P + 1) + p]; });
-    __syncthreads();
-  }
-  float* Sg = states + (cl.bk * H + cl.h) * (long)(N * P);
-#pragma unroll
-  for (int a = 0; a < N / TY; ++a)
-#pragma unroll
-    for (int b = 0; b < P / TX; ++b)
-      Sg[(ty + TY * a) * P + tx + TX * b] = st[a][b];
-}
-
-// ----------------------------------------------------------------- backward
-// Given dy [c,P], dst [N,P] and dcum [c] of a cell (sequence, chunk,
-// head), with S_ij = CB_ij L_ij dt_j, M_ij = dS_ij L_ij dt_j and
-// Q_ij = dS_ij CB_ij L_ij (all for i >= j, else 0), dS = dy x^T,
-// e_j = exp(cum_end - cum_j), w_j = e_j dt_j and q_j = x_j . (B dst)_j:
-//
-//   dx_j   = sum_i S_ij dy_i + w_j (B dst)_j
-//   dC     = (sum_h M_h) B                     (one product a chunk)
-//   dB     = (sum_h M_h)^T C + sum_h w_h x_h dst_h^T
-//   ddt_j  = sum_i Q_ij + e_j q_j
-//   dcum_k = dcum_k + sum_j Q_kj dt_j - dt_k sum_i Q_ik - w_k q_k
-//            + [k = c-1] sum_j w_j q_j
-//   dda_k  = sum_{i >= k} dcum_i
-//
-// C B^T and the sums over heads belong to the chunk, not the head, so
-// three kernels run in turn: k3_bwd_cb forms C B^T once a (sequence,
-// chunk); k3_bwd_heads takes a group of heads of a chunk and writes
-// everything per head (dx, dda, ddt) and the group's sums of M and of
-// w x dst^T; k3_bwd_dcb sums the groups in order and forms dC and dB.
-constexpr int BT = 64;               // rows and columns of a tile
-constexpr int LDT = BT + 4;          // row stride of [*][BT] fp32 tiles
-constexpr int BG = 4;                // most heads a k3_bwd_heads block
-constexpr int RB = 16;               // rows a k3_bwd_dcb block
-constexpr int SMEM_MAX = 232448;     // shared memory an H100 block may use
 
 // V consecutive elements of shared memory as floats (16-byte aligned
 // for four floats, 8-byte for four bf16)
@@ -488,11 +344,12 @@ __device__ __forceinline__ int pair_id(int it, int jt) {
 }
 
 // C B^T of one tile pair (row tile it of C, column tile jt of B, jt <=
-// it) of one (sequence, chunk), fp32, [BT][BT] into cbw. Eight warps of
-// 16 x 32; bf16 C and B are exact in TF32 (one product), fp32 ones split
+// it) of one (sequence, chunk), fp32, [BT][BT] into cbw: the operand the
+// forward and the backward share. Eight warps of 16 x 32; bf16 C and B
+// are exact in TF32 (one product), fp32 ones split
 template <typename In, int N>
 __global__ void __launch_bounds__(NT)
-    k3_bwd_cb(const In* __restrict__ C, const In* __restrict__ B,
+    k3_cb(const In* __restrict__ C, const In* __restrict__ B,
               float* __restrict__ cbw, int S, int c, long ld_cb) {
   constexpr int LDN = N + 16 / sizeof(In);
   constexpr bool F32 = sizeof(In) == 4;
@@ -524,6 +381,327 @@ __global__ void __launch_bounds__(NT)
           2 * (lane & 3) + (e & 1)] = acc[n][e];
 }
 
+// ------------------------------------------------------------------ forward
+// a 16-byte chunk of In values times w, stored to shared memory as floats
+template <typename In>
+__device__ __forceinline__ void st_scaled(float* s, const uint4& v, float w) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+  if constexpr (sizeof(In) == 4) {
+    *reinterpret_cast<float4*>(s) =
+        make_float4(__uint_as_float(u[0]) * w, __uint_as_float(u[1]) * w,
+                    __uint_as_float(u[2]) * w, __uint_as_float(u[3]) * w);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float4*>(s + 4 * i) = make_float4(
+          __uint_as_float(u[2 * i] << 16) * w,
+          __uint_as_float(u[2 * i] & 0xffff0000u) * w,
+          __uint_as_float(u[2 * i + 1] << 16) * w,
+          __uint_as_float(u[2 * i + 1] & 0xffff0000u) * w);
+  }
+}
+
+// a warp's fragments acc (n8 tile n: rows m0 + l/4 (+ 8), columns n0 +
+// 8 n + 2 (l%4) (+ 1), for lane l) loaded from or stored to rows of g
+// (row stride ld), two columns at a time; rows at or past `rows` are
+// left alone
+template <int NN>
+__device__ __forceinline__ void frag_io(float (&acc)[NN][4], float* g,
+                                        long ld, int m0, int n0, int rows,
+                                        bool store) {
+  const int l = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + (l >> 2) + 8 * h;
+      if (r >= rows) continue;
+      float2* q = reinterpret_cast<float2*>(g + r * ld + n0 + 8 * n +
+                                            2 * (l & 3));
+      if (store) {
+        *q = make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+      } else {
+        const float2 v = *q;
+        acc[n][2 * h] = v.x, acc[n][2 * h + 1] = v.y;
+      }
+    }
+}
+
+// k3_fwd_heads' shared memory, byte offsets (host and device)
+struct FwdSmem {
+  int cb, s, x, b, vec, total;
+  __host__ __device__ FwdSmem(int c, int N, int P, int G) {
+    const int nt = (c + BT - 1) / BT;
+    cb = 0;                               // C B^T: SLAB tiles of a row
+    s = cb + (nt < SLAB ? nt : SLAB) * BT * LDT * 4;  // S of the pair
+    x = s + BT * LDT * 4;                 // 2 stages: x's column tile
+    b = x + 2 * BT * (P + 8) * 4;         // 2 stages: B's column tile * w
+    vec = b + 2 * BT * (N + 8) * 4;       // cum, dt, w, E, F dt: a head each
+    total = vec + 5 * G * nt * BT * 4;
+  }
+};
+
+// a step of k3_fwd_heads: head g of the group on tile pair (it, jt);
+// it < 0 is past the last
+struct FwdStep {
+  int it, g, jt;
+};
+
+// y, states and cum of the heads [h0, h0 + Gv) of one (sequence, chunk),
+// given C B^T's tile pairs in cbw (k3_cb). Row tiles it in turn; in each,
+// the column tiles jt <= it go by segments of SLAB, and in a segment each
+// head walks its tiles: the first head loads C B^T's tile of each step
+// into the segment's slot, the others read it there. A step forms S =
+// C B^T * L * dt_j of the pair (the decay L below) and y_it += S x_jt,
+// kept in registers over the head's walk of the segment (over several
+// segments, for c > SLAB * BT, added to what the segment before wrote);
+// in the last row it also adds (B_jt w)^T x_jt to the head's states.
+// Both products run on the tensor cores in split TF32 (S and B w split,
+// x where it is fp32): y by warps of 16 rows (wm) and half the columns
+// (wh), the states by warps of 16 of the N rows.
+template <typename In, int N, int P>
+__global__ void __launch_bounds__(NT, 1)
+    k3_fwd_heads(const In* __restrict__ B, const In* __restrict__ x,
+                 const float* __restrict__ da, const float* __restrict__ dt,
+                 const float* __restrict__ cbw, float* __restrict__ y,
+                 float* __restrict__ states, float* __restrict__ cum_out,
+                 int S, int H, int c, int G, long ld_cb, long ld_x) {
+  // x's and B w's row strides, 8 floats past a multiple of 32: a warp's
+  // fragment reads down their columns fall on 32 banks
+  constexpr int LDP = P + 8, LDB = N + 8;
+  constexpr int NY = P / 16, NS = P / 8;    // n8 tiles of a warp's y, states
+  constexpr bool F32 = sizeof(In) == 4;
+  constexpr int E = 16 / sizeof(In);        // elements a 16-byte load
+  constexpr int XCPR = P / E, XV = (BT * XCPR + NT - 1) / NT;
+  constexpr int BCPR = N / E, BV = (BT * BCPR + NT - 1) / NT;
+  extern __shared__ float4 smv[];
+  unsigned char* smb = reinterpret_cast<unsigned char*>(smv);
+  const FwdSmem lay(c, N, P, G);
+  float* sCB = reinterpret_cast<float*>(smb + lay.cb);
+  float* sS = reinterpret_cast<float*>(smb + lay.s);
+  float* sX = reinterpret_cast<float*>(smb + lay.x);
+  float* sB = reinterpret_cast<float*>(smb + lay.b);
+  const int nt = (c + BT - 1) / BT, cpad = nt * BT, npairs = nt * (nt + 1) / 2;
+  float* sCum = reinterpret_cast<float*>(smb + lay.vec);
+  float* sDt = sCum + G * cpad;
+  float* sW = sDt + G * cpad;
+  float* sE = sW + G * cpad;
+  float* sFd = sE + G * cpad;
+
+  const int tid = threadIdx.x, warp = tid >> 5, nc = S / c;
+  const int wm = 16 * (warp & 3), wh = warp >> 2;   // a warp's y rows, half
+  const long bk = blockIdx.y, tok0 = (bk / nc) * S + (bk % nc) * c;
+  const int h0 = blockIdx.x * G, Gv = min(G, H - h0);
+  const long ldh = (long)H * P;  // token stride of y
+
+  for (int t = tid; t < G * cpad; t += NT) {
+    const int g = t / cpad, i = t - g * cpad;
+    const bool in = g < Gv && i < c;
+    const long gi = (tok0 + i) * H + h0 + g;
+    sCum[t] = in ? da[gi] : 0.f;
+    sDt[t] = in ? dt[gi] : 0.f;
+  }
+  __syncthreads();
+  // cum by a thread a head, in token order: the decay takes cum_i - cum_j
+  // of nearby tokens, which a running sum carries within a rounding or
+  // two of |cum| (some 200 at c = 256), where warp_scan's lanes, whose
+  // totals are scanned by a tree, round apart by several (its y missed
+  // the 1e-4 limit)
+  if (tid < Gv) {
+    float* cum = sCum + tid * cpad;
+    float run = 0.f;
+    for (int t = 0; t < c; ++t) cum[t] = run += cum[t];
+  }
+  __syncthreads();
+  // off the diagonal (tile pairs it > jt, every i > j) the decay is
+  // exp(cum_i - cum_j) = E_i D F_j: E_i = exp(cum_i - cum_s), s the token
+  // before i's tile; F_j = exp(cum_r - cum_j), r the last token of j's
+  // tile; D = exp(cum_s - cum_r), one a pair. Each factor is at most 1
+  // and a step forms no exponential an element
+  for (int t = tid; t < Gv * cpad; t += NT) {
+    const int g = t / cpad, i = t - g * cpad;
+    const float* cum = sCum + g * cpad;
+    const int s0 = i / BT * BT, r = min(s0 + BT, c) - 1;
+    sW[t] = i < c ? expf(cum[c - 1] - cum[i]) * sDt[t] : 0.f;
+    sE[t] = i < c && s0 > 0 ? expf(cum[i] - cum[s0 - 1]) : 0.f;
+    sFd[t] = i < c ? expf(cum[r] - cum[i]) * sDt[t] : 0.f;
+    if (i < c) cum_out[(tok0 + i) * H + h0 + g] = cum[i];
+  }
+  __syncthreads();
+
+  // the last column tile of jt's segment in row it
+  auto seg_end = [&](int it, int jt) {
+    return min((jt / SLAB + 1) * SLAB, it + 1) - 1;
+  };
+  auto next = [&](const FwdStep& s) -> FwdStep {
+    if (s.jt < seg_end(s.it, s.jt)) return {s.it, s.g, s.jt + 1};
+    if (s.g + 1 < Gv) return {s.it, s.g + 1, s.jt / SLAB * SLAB};
+    if (s.jt < s.it) return {s.it, 0, s.jt + 1};
+    if (s.it + 1 < nt) return {s.it + 1, 0, 0};
+    return {-1, 0, 0};
+  };
+  uint4 xr[XV], br[BV];
+  // step s's operands: x's column tile (and in the last row B's) into
+  // registers, and at a segment's first head C B^T's tile of the pair
+  // into its slot by cp.async
+  auto issue = [&](const FwdStep& s) {
+    const int rows = c - s.jt * BT;
+    const In* xg = x + (tok0 + s.jt * BT) * ld_x + (long)(h0 + s.g) * P;
+#pragma unroll
+    for (int v = 0; v < XV; ++v) {
+      const int q = tid + v * NT, r = q / XCPR, cc = q - r * XCPR;
+      xr[v] = q < BT * XCPR && r < rows
+                  ? __ldg(reinterpret_cast<const uint4*>(xg + r * ld_x + cc * E))
+                  : make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (s.it == nt - 1) {
+      const In* bg = B + (tok0 + s.jt * BT) * ld_cb;
+#pragma unroll
+      for (int v = 0; v < BV; ++v) {
+        const int q = tid + v * NT, r = q / BCPR, cc = q - r * BCPR;
+        br[v] = q < BT * BCPR && r < rows
+                    ? __ldg(reinterpret_cast<const uint4*>(bg + r * ld_cb +
+                                                            cc * E))
+                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    if (s.g == 0)
+      tile_async<BT>(sCB + (s.jt % SLAB) * BT * LDT, LDT,
+                     cbw + (bk * npairs + pair_id(s.it, s.jt)) *
+                               (long)(BT * BT),
+                     BT, BT);
+    cp_async_commit();  // empty where no tile was issued
+  };
+  // step s's registers into stage st (B times head g's w), and its C
+  // B^T tile landed: seen by every thread
+  auto land = [&](const FwdStep& s, int st) {
+    float* xs = sX + st * BT * LDP;
+#pragma unroll
+    for (int v = 0; v < XV; ++v) {
+      const int q = tid + v * NT, r = q / XCPR, cc = q - r * XCPR;
+      if (q < BT * XCPR) st_chunk<In>(xs + r * LDP + cc * E, xr[v]);
+    }
+    if (s.it == nt - 1) {
+      float* bs = sB + st * BT * LDB;
+      const float* w = sW + s.g * cpad + s.jt * BT;
+#pragma unroll
+      for (int v = 0; v < BV; ++v) {
+        const int q = tid + v * NT, r = q / BCPR, cc = q - r * BCPR;
+        if (q < BT * BCPR) st_scaled<In>(bs + r * LDB + cc * E, br[v], w[r]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+  };
+
+  float yacc[NY][4], sacc[NS][4];
+  FwdStep cur = {0, 0, 0};
+  int st = 0;
+  issue(cur);
+  land(cur, 0);
+  for (;;) {
+    const FwdStep nx = next(cur);
+    const int slot = cur.jt % SLAB;
+    // the next step's C B^T tile would overwrite the slot this step
+    // reads: issue it once this step is done
+    const bool late = nx.it >= 0 && nx.g == 0 && nx.jt % SLAB == slot;
+    if (nx.it >= 0 && !late) issue(nx);
+    const int i0 = cur.it * BT, j0 = cur.jt * BT, h = h0 + cur.g;
+    const float* cum = sCum + cur.g * cpad;
+    const float* dtp = sDt + cur.g * cpad;
+    const float* cbt = sCB + slot * BT * LDT;
+    // S of the pair: each thread four runs of four columns
+    const int c4 = (tid & 15) * 4;
+    if (cur.it == cur.jt) {
+      float cj[4], dj[4];
+      ldv<4>(cj, cum + j0 + c4);
+      ldv<4>(dj, dtp + j0 + c4);
+#pragma unroll
+      for (int q = 0; q < BT * BT / 4 / NT; ++q) {
+        const int r = (q * NT + tid) >> 4, gi = i0 + r;
+        const float ci = cum[gi];
+        float cb[4], s[4];
+        ldv<4>(cb, cbt + r * LDT + c4);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          // exp only where i >= j: above, cum_i - cum_j is a positive
+          // sum of dt that overflows at c = 256
+          const float L =
+              (gi >= j0 + c4 + u && gi < c) ? expf(ci - cj[u]) : 0.f;
+          s[u] = cb[u] * L * dj[u];
+        }
+        stv<4>(sS + r * LDT + c4, s);
+      }
+    } else {
+      const float D = expf(cum[i0 - 1] - cum[j0 + BT - 1]);
+      const float* Eg = sE + cur.g * cpad;
+      float fd[4];
+      ldv<4>(fd, sFd + cur.g * cpad + j0 + c4);
+#pragma unroll
+      for (int q = 0; q < BT * BT / 4 / NT; ++q) {
+        const int r = (q * NT + tid) >> 4;
+        const float ed = Eg[i0 + r] * D;
+        float cb[4], s[4];
+        ldv<4>(cb, cbt + r * LDT + c4);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) s[u] = cb[u] * ed * fd[u];
+        stv<4>(sS + r * LDT + c4, s);
+      }
+    }
+    __syncthreads();
+    const float* xs = sX + st * BT * LDP;
+    const bool last_row = cur.it == nt - 1;
+    float* yg = y + (tok0 + i0) * ldh + (long)h * P;
+    float* sg = states + (bk * H + h) * (long)(N * P);
+    if (slot == 0) {
+      // the head's first step of the segment: y (and the states) start
+      // at 0, or at what the row's segment before wrote
+      zero(yacc);
+      zero(sacc);
+      if (cur.jt > 0) {
+        frag_io(yacc, yg, ldh, wm, wh * (P / 2), c - i0, false);
+        if (last_row) frag_io(sacc, sg, P, 16 * warp, 0, N, false);
+      }
+    }
+    wmm<NY, true, false, true, F32>(yacc, BT, sS, LDT, xs, LDP, wm,
+                                    wh * (P / 2));
+    if (last_row && 16 * warp < N)
+      wmm<NS, false, false, true, F32>(sacc, BT, sB + st * BT * LDB, LDB,
+                                       xs, LDP, 16 * warp, 0);
+    if (cur.jt == seg_end(cur.it, cur.jt)) {
+      frag_io(yacc, yg, ldh, wm, wh * (P / 2), c - i0, true);
+      if (last_row) frag_io(sacc, sg, P, 16 * warp, 0, N, true);
+    }
+    if (nx.it < 0) break;
+    if (late) {
+      __syncthreads();
+      issue(nx);
+    }
+    land(nx, st ^ 1);
+    cur = nx;
+    st ^= 1;
+  }
+}
+
+// ----------------------------------------------------------------- backward
+// Given dy [c,P], dst [N,P] and dcum [c] of a cell (sequence, chunk,
+// head), with S_ij = CB_ij L_ij dt_j, M_ij = dS_ij L_ij dt_j and
+// Q_ij = dS_ij CB_ij L_ij (all for i >= j, else 0), dS = dy x^T,
+// e_j = exp(cum_end - cum_j), w_j = e_j dt_j and q_j = x_j . (B dst)_j:
+//
+//   dx_j   = sum_i S_ij dy_i + w_j (B dst)_j
+//   dC     = (sum_h M_h) B                     (one product a chunk)
+//   dB     = (sum_h M_h)^T C + sum_h w_h x_h dst_h^T
+//   ddt_j  = sum_i Q_ij + e_j q_j
+//   dcum_k = dcum_k + sum_j Q_kj dt_j - dt_k sum_i Q_ik - w_k q_k
+//            + [k = c-1] sum_j w_j q_j
+//   dda_k  = sum_{i >= k} dcum_i
+//
+// C B^T and the sums over heads belong to the chunk, not the head, so
+// three kernels run in turn: k3_cb forms C B^T once a (sequence,
+// chunk); k3_bwd_heads takes a group of heads of a chunk and writes
+// everything per head (dx, dda, ddt) and the group's sums of M and of
+// w x dst^T; k3_bwd_dcb sums the groups in order and forms dC and dB.
 // k3_bwd_heads' shared memory, byte offsets (host and device)
 struct HeadsSmem {
   int a, x, s, red, cb, bt, dx, vec, total;
@@ -970,28 +1148,7 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-size_t fwd_smem(int c, int N, int P) {
-  return sizeof(float) *
-         (3 * c + 2 * T * (N + 1) + T * (P + 1) + T * (T + 1));
-}
-
-template <typename In, int N, int P>
-cudaError_t launch_fwd(const void* C, const void* B, const void* x,
-                       const float* da, const float* dt, float* y,
-                       float* states, float* cum, int Bsz, int S, int H,
-                       int c, long ld_cb, long ld_x, cudaStream_t stream) {
-  auto kern = k3_fwd<In, N, P>;
-  const size_t smem = fwd_smem(c, N, P);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const long cells = (long)Bsz * (S / c) * H;
-  kern<<<cells, NT, smem, stream>>>(
-      (const In*)C, (const In*)B, (const In*)x, da, dt, y, states, cum, S, H,
-      c, ld_cb, ld_x);
-  return cudaGetLastError();
-}
-
+// ------------------------------------------------------------- launches
 // the card's SMs, read once per device
 int sm_count() {
   static int sms[MAX_DEVICES];
@@ -1004,40 +1161,106 @@ int sm_count() {
   return sms[dev];
 }
 
-// heads a k3_bwd_heads block: of the counts up to BG whose vectors (5 of
-// cpad floats a head) and dx columns fit its shared memory, the one whose
-// waves of blocks (one an SM) take least, a block's time taken as G +
-// 0.55 heads' worth (measured on an H100 at one 4096-token row: 0.458,
-// 0.254, 0.154 ms at G = 4, 2, 1). One 4096-token row takes 4 (128
-// blocks, one wave); three rows of 2048 take 2 (384 blocks, three waves
-// of 0.55 against two of 1)
-int heads_per_block(int c, int N, int P, int elt, int Bsz, int S, int H) {
-  const long nbk = (long)Bsz * (S / c), sms = sm_count();
+// heads a block of a heads kernel: of the counts up to gmax whose shared
+// memory (smem(G) bytes) fits a block, the one whose waves of blocks (one
+// an SM) over nbk chunks take least, a block's time taken as G + `fixed`
+// heads' worth
+template <typename Smem>
+int heads_per_block(int gmax, double fixed, Smem smem, long nbk, int H) {
+  const long sms = sm_count();
   int best = 1;
   double best_t = 0;
-  for (int G = BG < H ? BG : H; G >= 1; --G) {
-    if (HeadsSmem(c, N, P, elt, G).total > SMEM_MAX) continue;
+  for (int G = gmax < H ? gmax : H; G >= 1; --G) {
+    if (smem(G) > SMEM_MAX) continue;
     const long blocks = nbk * ((H + G - 1) / G);
-    const double t = (double)((blocks + sms - 1) / sms) * (G + 0.55);
+    const double t = (double)((blocks + sms - 1) / sms) * (G + fixed);
     if (best_t == 0 || t < best_t) best = G, best_t = t;
   }
   return best;
+}
+
+// heads a k3_bwd_heads block: up to BG whose vectors (5 of cpad floats a
+// head) and dx columns fit, a block's time taken as G + 0.55 heads'
+// worth (measured on an H100 at one 4096-token row: 0.458, 0.254, 0.154
+// ms at G = 4, 2, 1). One 4096-token row takes 4 (128 blocks, one wave);
+// three rows of 2048 take 3 (264 blocks, two waves)
+int bwd_heads(int c, int N, int P, int elt, int Bsz, int S, int H) {
+  const auto smem = [&](int G) { return HeadsSmem(c, N, P, elt, G).total; };
+  return heads_per_block(BG, 0.55, smem, (long)Bsz * (S / c), H);
+}
+
+// heads a k3_fwd_heads block: up to FG whose vectors (5 of cpad floats a
+// head) fit, a block's time taken as G + 0.12 heads' worth (measured on
+// an H100 at one 4096-token row: 0.153, 0.157, 0.167 ms at G = 4 in one
+// wave, 2 in two, 1 in four). One 4096-token row takes 4 (128 blocks,
+// one wave), three rows of 2048 take 3, five take 2, four of 4096 take 4
+int fwd_heads(int c, int N, int P, int Bsz, int S, int H) {
+  const auto smem = [&](int G) { return FwdSmem(c, N, P, G).total; };
+  return heads_per_block(FG, 0.12, smem, (long)Bsz * (S / c), H);
+}
+
+// bytes of C B^T's fp32 scratch, a tile pair of each (sequence, chunk)
+long long cb_work_bytes(int Bsz, int S, int c) {
+  const long long nt = (c + BT - 1) / BT;
+  return 4LL * Bsz * (S / c) * (nt * (nt + 1) / 2 * BT * BT);
 }
 
 // bytes of the backward's fp32 scratch: C B^T a tile pair, and per
 // group of heads its sum of M a tile pair and its w x dst^T a row
 long long bwd_work_bytes(int Bsz, int S, int H, int N, int P, int c,
                          int elt) {
-  const long long G = heads_per_block(c, N, P, elt, Bsz, S, H);
+  const long long G = bwd_heads(c, N, P, elt, Bsz, S, H);
   const long long ngroups = (H + G - 1) / G, nt = (c + BT - 1) / BT;
   const long long pairs = nt * (nt + 1) / 2 * BT * BT;
-  return 4LL * Bsz * (S / c) * (pairs * (1 + ngroups) + ngroups * nt * BT * N);
+  return cb_work_bytes(Bsz, S, c) +
+         4LL * Bsz * (S / c) * ngroups * (pairs + nt * BT * N);
 }
 
-// kernel (1: k3_bwd_heads), grid x, y, z, threads, shared memory, heads a
-// block and scratch bytes of the last backward's k3_bwd_heads launch
-// (k3_last_bwd_launch reads them)
+// kernel (1: the heads kernel), grid x, y, z, threads, shared memory,
+// heads a block and scratch bytes of the last forward's k3_fwd_heads and
+// the last backward's k3_bwd_heads launch (k3_last_fwd_launch and
+// k3_last_bwd_launch read them)
+static long long g_fwd_launch[8] = {0, 0, 0, 0, 0, 0, 0, 0};
 static long long g_bwd_launch[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+
+// C B^T's tile pairs of every (sequence, chunk) into cbw
+template <typename In, int N>
+cudaError_t launch_cb(const void* C, const void* B, float* cbw, long nbk,
+                      int S, int c, long ld_cb, cudaStream_t stream) {
+  constexpr int ldn = N + 16 / sizeof(In);
+  static bool set[MAX_DEVICES];
+  cudaError_t err = allow_smem(k3_cb<In, N>, SMEM_MAX, set);
+  if (err != cudaSuccess) return err;
+  const int nt = (c + BT - 1) / BT;
+  k3_cb<In, N><<<dim3(nt * (nt + 1) / 2, nbk), NT,
+                 2 * BT * ldn * sizeof(In), stream>>>(
+      (const In*)C, (const In*)B, cbw, S, c, ld_cb);
+  return cudaGetLastError();
+}
+
+template <typename In, int N, int P>
+cudaError_t launch_fwd(const void* C, const void* B, const void* x,
+                       const float* da, const float* dt, float* y,
+                       float* states, float* cum, float* work, int Bsz,
+                       int S, int H, int c, long ld_cb, long ld_x,
+                       cudaStream_t stream) {
+  static bool set_heads[MAX_DEVICES];
+  cudaError_t err = allow_smem(k3_fwd_heads<In, N, P>, SMEM_MAX, set_heads);
+  if (err != cudaSuccess) return err;
+  const long nbk = (long)Bsz * (S / c);
+  err = launch_cb<In, N>(C, B, work, nbk, S, c, ld_cb, stream);
+  if (err != cudaSuccess) return err;
+  const int G = fwd_heads(c, N, P, Bsz, S, H);
+  const size_t smem = FwdSmem(c, N, P, G).total;
+  const dim3 grid((H + G - 1) / G, nbk);
+  const long long rec[8] = {1, grid.x, grid.y, grid.z, NT, (long long)smem, G,
+                            cb_work_bytes(Bsz, S, c)};
+  for (int i = 0; i < 8; ++i) g_fwd_launch[i] = rec[i];
+  k3_fwd_heads<In, N, P><<<grid, NT, smem, stream>>>(
+      (const In*)B, (const In*)x, da, dt, work, y, states, cum, S, H, c, G,
+      ld_cb, ld_x);
+  return cudaGetLastError();
+}
 
 template <typename In, int N, int P>
 cudaError_t launch_bwd(const void* C, const void* B, const void* x,
@@ -1047,14 +1270,11 @@ cudaError_t launch_bwd(const void* C, const void* B, const void* x,
                        float* work, int Bsz, int S, int H, int c, long ld_cb,
                        long ld_x, cudaStream_t stream) {
   constexpr int elt = sizeof(In), ldn = N + 16 / elt;
-  static bool set_cb[MAX_DEVICES], set_heads[MAX_DEVICES],
-      set_dcb[MAX_DEVICES];
-  cudaError_t err = allow_smem(k3_bwd_cb<In, N>, SMEM_MAX, set_cb);
-  if (err == cudaSuccess)
-    err = allow_smem(k3_bwd_heads<In, N, P>, SMEM_MAX, set_heads);
+  static bool set_heads[MAX_DEVICES], set_dcb[MAX_DEVICES];
+  cudaError_t err = allow_smem(k3_bwd_heads<In, N, P>, SMEM_MAX, set_heads);
   if (err == cudaSuccess) err = allow_smem(k3_bwd_dcb<In, N>, SMEM_MAX, set_dcb);
   if (err != cudaSuccess) return err;
-  const int G = heads_per_block(c, N, P, elt, Bsz, S, H);
+  const int G = bwd_heads(c, N, P, elt, Bsz, S, H);
   const int ngroups = (H + G - 1) / G;
   const int nt = (c + BT - 1) / BT, npairs = nt * (nt + 1) / 2;
   const long nbk = (long)Bsz * (S / c);
@@ -1062,9 +1282,7 @@ cudaError_t launch_bwd(const void* C, const void* B, const void* x,
   float* msw = cbw + nbk * npairs * BT * BT;
   float* xdw = msw + nbk * ngroups * npairs * BT * BT;
 
-  k3_bwd_cb<In, N><<<dim3(npairs, nbk), NT, 2 * BT * ldn * elt, stream>>>(
-      (const In*)C, (const In*)B, cbw, S, c, ld_cb);
-  err = cudaGetLastError();
+  err = launch_cb<In, N>(C, B, cbw, nbk, S, c, ld_cb, stream);
   if (err != cudaSuccess) return err;
 
   const size_t smem = HeadsSmem(c, N, P, elt, G).total;
@@ -1096,15 +1314,15 @@ cudaError_t launch_bwd(const void* C, const void* B, const void* x,
 
 cudaError_t fwd_any(int dtype, int N, int P, const void* C, const void* B,
                     const void* x, const float* da, const float* dt,
-                    float* y, float* states, float* cum, int Bsz, int S,
-                    int H, int c, long ld_cb, long ld_x,
+                    float* y, float* states, float* cum, float* work,
+                    int Bsz, int S, int H, int c, long ld_cb, long ld_x,
                     cudaStream_t stream) {
   if (dtype == 0) {
-    K3_DISPATCH(float, launch_fwd, C, B, x, da, dt, y, states, cum, Bsz, S,
-                H, c, ld_cb, ld_x, stream)
+    K3_DISPATCH(float, launch_fwd, C, B, x, da, dt, y, states, cum, work,
+                Bsz, S, H, c, ld_cb, ld_x, stream)
   }
   K3_DISPATCH(__nv_bfloat16, launch_fwd, C, B, x, da, dt, y, states, cum,
-              Bsz, S, H, c, ld_cb, ld_x, stream)
+              work, Bsz, S, H, c, ld_cb, ld_x, stream)
 }
 
 cudaError_t bwd_any(int dtype, int N, int P, const void* C, const void* B,
@@ -1121,43 +1339,58 @@ cudaError_t bwd_any(int dtype, int N, int P, const void* C, const void* B,
               dC, dB, dx, dda, ddt, work, Bsz, S, H, c, ld_cb, ld_x, stream)
 }
 
-bool shape_ok(int S, int c) {
-  return c >= T && c % T == 0 && c <= 1024 && S > 0 && S % c == 0;
+// what both directions take: a chunk length and grid they can launch,
+// and operands the kernels can load 16 bytes at a time
+cudaError_t check_launch(int Bsz, int S, int H, int c, int elt,
+                         long long ld_cb, long long ld_x,
+                         std::initializer_list<const void*> vec16) {
+  if (!(c >= T && c % T == 0 && c <= 1024 && S > 0 && S % c == 0) ||
+      Bsz <= 0 || H <= 0 || (long)Bsz * (S / c) > 65535)
+    return cudaErrorInvalidValue;
+  for (const void* p : vec16)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
+  if ((ld_cb * elt) % 16 || (ld_x * elt) % 16)
+    return cudaErrorMisalignedAddress;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = fp32, 1 = bf16 (C, B, x and dx); returns a cudaError_t
+// dtype: 0 = fp32, 1 = bf16 (C, B, x and dx); returns a cudaError_t.
+// `work`: k3_forward_work(...) bytes of fp32 scratch. C, B, x and work
+// start on 16-byte boundaries and the token strides of C, B and x are
+// whole 16-byte units (the kernels load 16 bytes at a time).
 int k3_forward(const void* C, const void* B, const void* x, const void* da,
-               const void* dt, void* y, void* states, void* cum, int Bsz,
-               int S, int H, int N, int P, int c, long long ld_cb,
+               const void* dt, void* y, void* states, void* cum, void* work,
+               int Bsz, int S, int H, int N, int P, int c, long long ld_cb,
                long long ld_x, int dtype, void* stream) {
-  if (!shape_ok(S, c) || Bsz <= 0 || H <= 0) return cudaErrorInvalidValue;
+  const cudaError_t err = check_launch(Bsz, S, H, c, dtype == 0 ? 4 : 2,
+                                       ld_cb, ld_x, {C, B, x, work});
+  if (err != cudaSuccess) return err;
   return fwd_any(dtype, N, P, C, B, x, (const float*)da, (const float*)dt,
-                 (float*)y, (float*)states, (float*)cum, Bsz, S, H, c,
-                 (long)ld_cb, (long)ld_x, (cudaStream_t)stream);
+                 (float*)y, (float*)states, (float*)cum, (float*)work, Bsz,
+                 S, H, c, (long)ld_cb, (long)ld_x, (cudaStream_t)stream);
+}
+
+long long k3_forward_work(int Bsz, int S, int H, int N, int P, int c,
+                          int dtype) {
+  return cb_work_bytes(Bsz, S, c);
 }
 
 // dC and dB [Bsz, S, N] and dx in the inputs' type, dda and ddt fp32;
-// `work`: k3_backward_work(...) bytes of fp32 scratch. C, B, x, dy, dst
-// and work start on 16-byte boundaries and the token strides of C, B
-// and x are whole 16-byte units (the kernels load 16 bytes at a time).
+// `work`: k3_backward_work(...) bytes of fp32 scratch; alignment as
+// k3_forward's, and dy and dst on 16-byte boundaries too.
 int k3_backward(const void* C, const void* B, const void* x, const void* da,
                 const void* dt, const void* dy, const void* dst,
                 const void* dcum, void* dC, void* dB, void* dx, void* dda,
                 void* ddt, void* work, int Bsz, int S, int H, int N, int P,
                 int c, long long ld_cb, long long ld_x, int dtype,
                 void* stream) {
-  if (!shape_ok(S, c) || Bsz <= 0 || H <= 0 || (long)Bsz * (S / c) > 65535)
-    return cudaErrorInvalidValue;
-  const int elt = dtype == 0 ? 4 : 2;
-  const void* vec16[] = {C, B, x, dy, dst, work};
-  for (const void* p : vec16)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return cudaErrorMisalignedAddress;
-  if ((ld_cb * elt) % 16 || (ld_x * elt) % 16)
-    return cudaErrorMisalignedAddress;
+  const cudaError_t err = check_launch(Bsz, S, H, c, dtype == 0 ? 4 : 2,
+                                       ld_cb, ld_x, {C, B, x, dy, dst, work});
+  if (err != cudaSuccess) return err;
   return bwd_any(dtype, N, P, C, B, x, (const float*)da, (const float*)dt,
                  (const float*)dy, (const float*)dst, (const float*)dcum, dC,
                  dB, dx, (float*)dda, (float*)ddt, (float*)work, Bsz, S, H, c,
@@ -1167,6 +1400,10 @@ int k3_backward(const void* C, const void* B, const void* x, const void* da,
 long long k3_backward_work(int Bsz, int S, int H, int N, int P, int c,
                            int dtype) {
   return bwd_work_bytes(Bsz, S, H, N, P, c, dtype == 0 ? 4 : 2);
+}
+
+void k3_last_fwd_launch(long long* out) {
+  for (int i = 0; i < 8; ++i) out[i] = g_fwd_launch[i];
 }
 
 void k3_last_bwd_launch(long long* out) {

@@ -30,11 +30,13 @@ Two layouts:
 
 On CPU tensors `ssd_chunk` runs the plain version; on CUDA tensors it
 launches `csrc/ssd_chunk.cu` (fp32 or bf16 C, B, x, upcast in the
-kernel; fp32 arithmetic, the backward's tensor-core products in split
-TF32 that keeps it) or raises, never falling back. The backward
-forms C B^T once a chunk and sums the score gradient over heads before
-its products with B and C, in three kernels (`last_bwd_launch` records
-the launch of the one that takes the heads).
+kernel; fp32 arithmetic, the tensor-core products in split TF32 that
+keeps it) or raises, never falling back. Both directions form C B^T
+once a chunk (C and B are shared by the heads) and take a group of
+heads a block: the forward in two kernels, the backward in three, which
+also sums the score gradient over heads before its products with B and
+C (`last_fwd_launch` and `last_bwd_launch` record the launch of the
+kernel that takes the heads).
 """
 from __future__ import annotations
 
@@ -152,15 +154,16 @@ def _rows(t):
 
 def _operands(C, B, x, da, dt, chunk):
     """Checked kernel operands: (C, B, x, the C/B token stride, the x
-    token stride, da and dt as contiguous fp32)."""
+    token stride, da and dt as contiguous fp32). C, B and x are copied
+    where the kernels could not load them 16 bytes at a time."""
     _check_launch(C, B, x, chunk)
     C, ld_cb = _rows(C)
     B, ld_b = _rows(B)
-    if ld_b != ld_cb:
-        C, B = C.contiguous(), B.contiguous()
-        ld_cb = C.stride(1)
-    x, ld_x = _rows(x)
-    return (C, B, x, ld_cb, ld_x, da.float().contiguous(),
+    if ld_b != ld_cb or _misaligned(C, ld_cb) or _misaligned(B, ld_cb):
+        C, B = (t.clone(memory_format=torch.contiguous_format)
+                for t in (C, B))
+    x = _aligned(*_rows(x))
+    return (C, B, x, C.stride(1), x.stride(1), da.float().contiguous(),
             dt.float().contiguous())
 
 
@@ -183,18 +186,16 @@ def _library() -> ctypes.CDLL:
     library rather than on every call."""
     lib = build.load("ssd_chunk")
     if lib.k3_backward.argtypes is None:
-        lib.k3_forward.argtypes = [ctypes.c_void_p] * 8 + \
-            [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + \
-            [ctypes.c_int, ctypes.c_void_p]
-        lib.k3_forward.restype = ctypes.c_int
-        lib.k3_backward.argtypes = [ctypes.c_void_p] * 14 + \
-            [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + \
-            [ctypes.c_int, ctypes.c_void_p]
-        lib.k3_backward.restype = ctypes.c_int
-        lib.k3_backward_work.argtypes = [ctypes.c_int] * 7
-        lib.k3_backward_work.restype = ctypes.c_longlong
-        lib.k3_last_bwd_launch.argtypes = [ctypes.c_void_p]
-        lib.k3_last_bwd_launch.restype = None
+        for fn, n_ptr in ((lib.k3_forward, 9), (lib.k3_backward, 14)):
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + \
+                [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for fn in (lib.k3_forward_work, lib.k3_backward_work):
+            fn.argtypes = [ctypes.c_int] * 7
+            fn.restype = ctypes.c_longlong
+        for fn in (lib.k3_last_fwd_launch, lib.k3_last_bwd_launch):
+            fn.argtypes = [ctypes.c_void_p]
+            fn.restype = None
         lib.k3_error_string.argtypes = [ctypes.c_int]
         lib.k3_error_string.restype = ctypes.c_char_p
     return lib
@@ -215,7 +216,9 @@ def _launch_fwd(C, B, x, da, dt, chunk):
     Bsz, S, H, P = x.shape
     N, nc = C.shape[-1], S // chunk
     lib = _library()
-    dev = x.device
+    dev, code = x.device, _DTYPES[x.dtype]
+    work = torch.empty(lib.k3_forward_work(Bsz, S, H, N, P, chunk, code),
+                       dtype=torch.uint8, device=dev)
     y = torch.empty(Bsz, S, H, P, dtype=torch.float32, device=dev)
     states = torch.empty(Bsz, nc, H, N, P, dtype=torch.float32, device=dev)
     cum = torch.empty(Bsz, S, H, dtype=torch.float32, device=dev)
@@ -223,34 +226,40 @@ def _launch_fwd(C, B, x, da, dt, chunk):
         err = lib.k3_forward(
             C.data_ptr(), B.data_ptr(), x.data_ptr(), da.data_ptr(),
             dt.data_ptr(), y.data_ptr(), states.data_ptr(), cum.data_ptr(),
-            Bsz, S, H, N, P, chunk, ld_cb, ld_x, _DTYPES[x.dtype],
+            work.data_ptr(), Bsz, S, H, N, P, chunk, ld_cb, ld_x, code,
             _stream(x))
     _raise_on(lib, err, "forward")
     ssd_chunk.launches += 1
     return y, states, cum
 
 
-#: the backward kernels' name in `last_bwd_launch`, by the library's code
-_BWD_KERNELS = {0: None, 1: "k3_bwd_heads"}
-
-
-def last_bwd_launch() -> dict:
-    """The last backward launch, as the library recorded it: the kernel
-    that took the heads (`k3_bwd_heads`, after `k3_bwd_cb` and before
-    `k3_bwd_dcb`), its `grid` (x, y, z), `threads` a block, `smem_bytes`
-    of dynamic shared memory and `heads_per_block`, and `work_bytes` of
-    fp32 scratch the backward used; all 0 (kernel None) before the
-    first."""
+def _launch_record(fn, kernel) -> dict:
     out = (ctypes.c_longlong * 8)()
-    _library().k3_last_bwd_launch(out)
-    return dict(kernel=_BWD_KERNELS[out[0]], grid=tuple(out[1:4]),
+    fn(out)
+    return dict(kernel=kernel if out[0] else None, grid=tuple(out[1:4]),
                 threads=out[4], smem_bytes=out[5], heads_per_block=out[6],
                 work_bytes=out[7])
 
 
+def last_fwd_launch() -> dict:
+    """The last forward launch, as the library recorded it: the kernel
+    that took the heads (`k3_fwd_heads`, after `k3_cb`), its `grid` (x,
+    y, z), `threads` a block, `smem_bytes` of dynamic shared memory and
+    `heads_per_block`, and `work_bytes` of fp32 scratch (C B^T) the
+    forward used; all 0 (kernel None) before the first."""
+    return _launch_record(_library().k3_last_fwd_launch, "k3_fwd_heads")
+
+
+def last_bwd_launch() -> dict:
+    """The last backward launch, as `last_fwd_launch` has it: the kernel
+    that took the heads (`k3_bwd_heads`, after `k3_cb` and before
+    `k3_bwd_dcb`) and the fp32 scratch the backward used."""
+    return _launch_record(_library().k3_last_bwd_launch, "k3_bwd_heads")
+
+
 def _misaligned(t, ld=None) -> bool:
     """Whether `t` (or its token stride `ld`, in elements) is not in
-    whole 16-byte units: the backward kernels load 16 bytes at a time."""
+    whole 16-byte units: the kernels load 16 bytes at a time."""
     return bool(t.data_ptr() % 16
                 or (ld is not None and ld * t.element_size() % 16))
 
@@ -264,12 +273,6 @@ def _aligned(t, ld=None):
 def _launch_bwd(C, B, x, da, dt, dy, dstates, dcum, chunk):
     in_dtype = C.dtype
     C, B, x, ld_cb, ld_x, da, dt = _operands(C, B, x, da, dt, chunk)
-    if _misaligned(C, ld_cb) or _misaligned(B, ld_cb):
-        C, B = (t.clone(memory_format=torch.contiguous_format)
-                for t in (C, B))
-        ld_cb = C.stride(1)
-    x = _aligned(x, ld_x)
-    ld_x = x.stride(1)
     Bsz, S, H, P = x.shape
     N, nc = C.shape[-1], S // chunk
     dev = x.device

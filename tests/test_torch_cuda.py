@@ -643,16 +643,15 @@ def test_ssd_chunk_gradient_is_finite_at_full_chunk(card):
 #: planted faults of K3: name -> (the outputs it must show in, a piece of
 #: csrc/ssd_chunk.cu, the line inserted after its first line). Each is
 #: next to the diagonal: with the model's dt the decay across a whole
-#: 32-token tile is some exp(-25), so a fault farther off adds nothing
+#: 64-token tile is some exp(-45), so a fault farther off adds nothing
 #: an fp32 sum can hold, and changes nothing
 K3_FAULTS = {
+    # k3_fwd_heads: y += S x skipped on the 64-wide tile pair (2, 1),
+    # under the diagonal tile (1, 1)
     "fwd_drops_key_tile": (("y",), (
-        "    for (int j0 = 0; j0 <= i0; j0 += T) {\n"
-        "      load_tile(s_B, Bg + j0 * ld_cb, ld_cb, T, N);\n"
-        "      load_tile(s_X, Xg + j0 * ld_x, ld_x, T, P);\n"
-        "      __syncthreads();\n"
-        "      float cb[T / TY][T / TX];\n"),
-        "      if (i0 == 4 * T && j0 == 3 * T) continue;\n"),
+        "    }\n"
+        "    wmm<NY, true, false, true, F32>(yacc, BT, sS, LDT, xs, LDP, wm,\n"),
+        "    if (cur.it != 2 || cur.jt != 1)\n"),
     # k3_bwd_heads: dS zero on the 64-wide tile pair (2, 1), under the
     # diagonal tile (1, 1)
     "bwd_drops_pair_next_to_diagonal": (("dC", "dB", "dda", "ddt"), (
@@ -829,6 +828,110 @@ def test_ssd_chunk_backward_is_deterministic(card, dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bsz,S", K3_TRAIN_SHAPES)
+def test_ssd_chunk_forward_at_the_training_shape(card, Bsz, S):
+    """K3's forward at mamba2-370m's training shape (bf16, 32 heads,
+    N=128, P=64, c=256, the model's dt), held to the plain version in
+    fp64 with test_ssd_chunk_kernel_matches_plain's limit; its launch
+    takes four heads a block over every (sequence, chunk)."""
+    from repro_torch.kernels.ssd_chunk import (last_fwd_launch, ssd_chunk,
+                                               ssd_chunk_plain)
+    H, N, P, c = 32, 128, 64, 256
+    ins = _k3_inputs(card, torch.bfloat16, Bsz, S, H, N, P, seed=14)
+    outs = ssd_chunk(*ins, chunk=c)
+    launch = last_fwd_launch()
+    refs = ssd_chunk_plain(*[t.double() for t in ins], chunk=c)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("y", "states", "cum"), outs, refs):
+        assert a.dtype == torch.float32, name
+        _k3_close(name, a, r, K3_TOL)
+    assert launch["kernel"] == "k3_fwd_heads", launch
+    assert launch["grid"] == (H // 4, Bsz * S // c, 1), launch
+    assert launch["threads"] == 256 and launch["heads_per_block"] == 4
+    print(f"K3 forward launch at {Bsz}x{S}: {launch}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bsz,S,H", [(1, 512, 8), (1, 4096, 32),
+                                     (3, 2048, 32)])
+def test_ssd_chunk_forward_launch_names_the_grouped_kernel(card, Bsz, S, H):
+    """bf16, (N, P) = (128, 64), c = 256 runs k3_fwd_heads after k3_cb,
+    and its record is what the launch needed: one block per group of
+    heads of a chunk (more than one head at one 4096-token row, by the
+    waves of blocks the card takes), its shared memory within the H100's
+    227 KB, and the scratch for C B^T's tile pairs."""
+    from repro_torch.kernels.ssd_chunk import last_fwd_launch, ssd_chunk
+    N, P, c = 128, 64, 256
+    ins = _k3_inputs(card, torch.bfloat16, Bsz, S, H, N, P, seed=15)
+    ssd_chunk(*ins, chunk=c)
+    torch.cuda.synchronize()
+    launch = last_fwd_launch()
+    G = launch["heads_per_block"]
+    nbk = Bsz * S // c
+    pairs = (c // 64) * (c // 64 + 1) // 2 * 64 * 64
+    assert launch == dict(
+        kernel="k3_fwd_heads", grid=(-(-H // G), nbk, 1), threads=256,
+        smem_bytes=launch["smem_bytes"], heads_per_block=G,
+        work_bytes=4 * nbk * pairs)
+    assert 1 <= G <= 8 and 0 < launch["smem_bytes"] <= 232448
+    if (Bsz, S) == (1, 4096):
+        assert G > 1
+    print(f"K3 forward launch at {Bsz}x{S}, {H} heads: {launch}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_forward_is_deterministic(card, dtype):
+    """No atomics: two calls give the same bits in y, states and cum."""
+    from repro_torch.kernels.ssd_chunk import ssd_chunk
+    Bsz, S, H, N, P, c = 1, 1024, 6, 128, 64, 256
+    ins = _k3_inputs(card, dtype, Bsz, S, H, N, P, seed=16)
+    first = ssd_chunk(*ins, chunk=c)
+    again = ssd_chunk(*ins, chunk=c)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_forward_takes_a_misaligned_slice(card, dtype):
+    """C and B sliced from one buffer at an odd offset and an odd token
+    stride (as a slice of the conv output could be), and x one element
+    into its buffer: the kernels load 16 bytes at a time, so the
+    wrapper copies them, and the forward and backward still agree with
+    the plain versions at test_ssd_chunk_kernel_matches_plain's limits."""
+    from repro_torch.kernels.ssd_chunk import (ssd_chunk, ssd_chunk_bwd,
+                                               ssd_chunk_bwd_plain,
+                                               ssd_chunk_plain)
+    Bsz, S, H, N, P, c = 2, 512, 4, 128, 64, 256
+    C0, B0, x0, da, dt = _k3_inputs(card, dtype, Bsz, S, H, N, P, seed=17)
+    buf = torch.zeros(Bsz, S, 2 * N + 3, dtype=dtype, device=card)
+    buf[..., 1:N + 1], buf[..., N + 2:2 * N + 2] = C0, B0
+    C, B = buf[..., 1:N + 1], buf[..., N + 2:2 * N + 2]
+    xbuf = torch.zeros(x0.numel() + 1, dtype=dtype, device=card)
+    x = xbuf[1:].view(x0.shape)
+    x.copy_(x0)
+    assert C.data_ptr() % 16 and x.data_ptr() % 16
+    outs = ssd_chunk(C, B, x, da, dt, chunk=c)
+    rng = np.random.default_rng(18)
+    douts = [torch.from_numpy(rng.standard_normal(tuple(o.shape))
+                              .astype(np.float32)).to(card) for o in outs]
+    grads = ssd_chunk_bwd(C, B, x, da, dt, *douts, chunk=c)
+    ins64 = [t.double() for t in (C0, B0, x0, da, dt)]
+    refs = ssd_chunk_plain(*ins64, chunk=c)
+    rgrads = ssd_chunk_bwd_plain(*ins64, *douts, chunk=c)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("y", "states", "cum"), outs, refs):
+        _k3_close(name, a, r, K3_TOL)
+    for name, a, r in zip(("dC", "dB", "dx", "dda", "ddt"), grads, rgrads):
+        if dtype == torch.bfloat16 and name in ("dC", "dB", "dx"):
+            _k3_close(name, a, r, K3_BF16_GRAD_TOL, whole=K3_BF16_GRAD_TOL)
+        else:
+            _k3_close(name, a, r, K3_GRAD_TOL, whole=K3_TOL)
 
 
 #: the device memory a training run may hold without per-layer remat
