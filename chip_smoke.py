@@ -120,7 +120,9 @@ Phases:
                 one 4096-token row at recurrentgemma-2b's width (2560)
                 and a ragged shape, fp32 and bf16, a in (0.3, 0.999) as
                 the gates make it; h, da, db within 1e-5 * max(1,
-                |plain|) in fp32, 2e-2 in bf16; with times and bounds
+                |plain|) in fp32, 2e-2 in bf16; with times (events and
+                each direction's device time from torch.profiler) and
+                bounds
  16. packed 256 — K1 in bf16 at recurrentgemma-2b's heads (10 query heads
                 over one KV head, D = 256), sliding at window 2048 over a
                 4096-token row with and without 256-token frames, and a
@@ -145,12 +147,13 @@ Phases:
                 group's time, its peak memory, the caching allocator's
                 retries and the time in Python's garbage collector
                 during it; one more step under torch.profiler for the
-                busy share and the device time by kernel (K1 forward,
-                backward and its group sum apart)
+                busy share and the device time by kernel (K4 forward
+                and backward apart, K1 forward, backward and its group
+                sum apart)
  19. hybrid path — K4 (fp32) and K1 (bf16, D = 256) forward and backward
                 vs plain at every shape the hybrid run launched, K1 on
-                the run's own span tables, with times and bounds; these
-                feed the kernels line
+                the run's own span tables, with times (K4's device
+                times too) and bounds; these feed the kernels line
 
 Each full-width training phase (9, 13, 18) first collects what the
 earlier phases left in reference cycles (the profiler's event trees
@@ -1301,8 +1304,11 @@ def check_rglru(dev, card, gen, B, S, W, dtype, tag, time_it=True):
                max_abs_err_fwd=errs["h"][0],
                max_abs_err_bwd=max(errs["da"][0], errs["db"][0]))
     if time_it:
-        row["fwd_ms"] = cuda_ms(lambda: rglru_scan(a, b), iters=20)
-        row["bwd_ms"] = cuda_ms(lambda: rglru_scan_bwd(a, h, dh), iters=20)
+        for which, fn in (("fwd", lambda: rglru_scan(a, b)),
+                          ("bwd", lambda: rglru_scan_bwd(a, h, dh))):
+            row[f"{which}_ms"] = cuda_ms(fn, iters=20)
+            row[f"{which}_device_ms"] = device_ms(fn, iters=20,
+                                                  each_once=True)[0]
         row["plain_fwd_ms"] = cuda_ms(lambda: rglru_scan_plain(a, b),
                                       iters=2, warmup=1)
         row["plain_bwd_ms"] = cuda_ms(lambda: rglru_scan_bwd_plain(a, h, dh),
@@ -1600,7 +1606,8 @@ def phase_hybrid_training(dev, card):
                              f"the run's {sorted(set(groups))}")
 
     profile_step(eng, run, card, "hybrid train",
-                 {"k4": "k4_", "k1": "packed_", "k1_fwd": "packed_fwd",
+                 {"k4": "k4_", "k4_fwd": "k4_fwd", "k4_bwd": "k4_bwd",
+                  "k1": "packed_", "k1_fwd": "packed_fwd",
                   "k1_bwd": "packed_bwd", "k1_bwd_sum": "bwd_kv_reduce"})
     eng.close()
     del eng, params
@@ -1834,6 +1841,7 @@ def main() -> int:
                                for r in rg_rows + k4_path
                                if r["dtype"] == "float32"),
             "ms": main_k4[f"{which}_ms"],
+            "device_ms": main_k4[f"{which}_device_ms"],
             "plain_ms": main_k4[f"plain_{which}_ms"],
             "bound_ms": main_k4[f"bound_{which}_ms"],
             "bound_by": main_k4[f"bound_{which}_by"],
@@ -1843,6 +1851,7 @@ def main() -> int:
             "path_shapes": [dict(
                 n_seqs=r["B"], bucket=r["S"], launches=r["launches"][i],
                 err=r["err"], ms=r[f"{which}_ms"],
+                device_ms=r[f"{which}_device_ms"],
                 plain_ms=r[f"plain_{which}_ms"],
                 bound_ms=r[f"bound_{which}_ms"],
                 bound_by=r[f"bound_{which}_by"]) for r in k4_path],

@@ -10,8 +10,8 @@ Libraries land in the checkout's git-ignored `build/repro_torch/` when
 the package runs from the checkout's `src/`, and in the user's cache
 directory (`$XDG_CACHE_HOME/repro_torch`, else `~/.cache/repro_torch`)
 when it is installed. Each is named by a hash of its source and of the
-headers of `csrc/` (`hopper.cuh`, which K1 and K2 share), so an edited
-source or header never loads a stale library. Nothing here runs at
+headers of `csrc/` (`hopper.cuh`, which K1, K2 and K3 include), so an
+edited source or header never loads a stale library. Nothing here runs at
 import: the first launch of a kernel builds it, and `build_all()`
 starts one `nvcc` per source at once (what `chip_smoke.py` calls up
 front).

@@ -5,7 +5,8 @@
 // body `_kernel`). Same function: h_t = a_t * h_{t-1} + b_t over
 // [B, S, W] with h_{-1} = 0, the state carried in fp32 and h written in
 // a's type (fp32 or bf16). The TPU kernel pads S to a chunk multiple with
-// the identity (a = 1, b = 0); here every loop is bounded by S instead.
+// the identity (a = 1, b = 0); here the steps past S load as the identity
+// and are not stored.
 //
 // What the port adds: the backward (the JAX package has none, and the
 // Pallas kernel cannot be differentiated), the reverse scan
@@ -18,28 +19,522 @@
 // of width 2560, 0.038 ms at 3.35 TB/s) and does 2 flops an element. The
 // TPU kernel walks chunks in order on one core and carries the state in
 // VMEM between grid steps; on Hopper blocks run in no order, so the
-// carry crosses blocks in a second kernel instead (chunk and carry, laid
-// across the card):
-//   1. summary: one thread per (row, chunk of CH steps, channel) scans its
-//      chunk from a zero state and writes the chunk's affine map
-//      h_end = A h_start + Bc (A the product of its a, Bc the local h_end);
-//   2. apply: the same threads compose the maps of all earlier chunks of
-//      their channel (a few KB per channel, L2-resident) into the carry,
-//      scan the chunk again from it and write h.
-// Consecutive threads hold consecutive channels, so every load and store
-// of a time step is coalesced. The price is one more read of a and b
-// (five tensors cross HBM, not three): about 1.7x the byte bound, left
-// for a single-pass scan (decoupled look-back) to recover. The backward
-// is the same two kernels run from the end of the sequence: the reverse
-// map of a chunk is g_start = G + P g_next with P the product of a over
-// the chunk shifted by one step.
+// forward is one pass with decoupled look-back (Merrill & Garland,
+// "Single-pass Parallel Prefix Scan with Decoupled Look-back", NVIDIA
+// 2016) over the affine maps h_end = A h_start + B that the Pallas kernel
+// composes:
+//   * a block takes its tile (row, 32 x V channels, FWD_TILE steps) from
+//     a global ticket, time slowest, so every tile it waits on belongs to
+//     a block that already holds a ticket (blockIdx order is not
+//     promised);
+//   * it loads its tile of a and b once into registers, one vector load a
+//     step where W and the pointers allow (V = 4 channels a thread: 16
+//     bytes in fp32, 8 in bf16, so that a bf16 row has as many chains of
+//     tiles as an fp32 one), every load issued before the first FMA; each
+//     warp owns FWD_STEPS steps of each channel; the warps' maps meet in
+//     shared memory and warp 0 publishes the tile's map (A, B) before any
+//     look-back waits;
+//   * tiles form groups of FWD_GROUP along time. The carry into a tile is
+//     the inclusive prefix (the state h) at the end of the group before,
+//     incl, taken through the map (Al, Bl) of its group's earlier tiles:
+//     Al incl + Bl. Only a group's last tile publishes an inclusive
+//     prefix. It composes its group's map (Al, Bl, then its own) before
+//     it waits, so its own follows the one before with one FMA by one
+//     warp, no barrier between: the chain of inclusive prefixes, one a
+//     group, moves about one record's trip a group. The stopping point
+//     and the order are fixed, so the same inputs give the same bits on
+//     every call;
+//   * each warp looks back at FWD_LOOK of the group's maps, loaded right
+//     after the tile's own loads so the two trips overlap; once the
+//     tile's map is out it polls again only if a tag had not yet come;
+//   * every thread then scans its registers from its carry and writes h
+//     once. a and b cross HBM once: three tensors, not five.
+// A record holds one channel's map as two 64-bit words, each the value
+// and the tag of the call and kind: a reader polls the words themselves
+// (relaxed loads, __nanosleep backoff), so no flag and no fence stand
+// between a map and its reader. The tags carry the call's epoch (a
+// tile's map 2e + 1, an inclusive prefix 2e + 2), so no record needs
+// clearing between calls; the records live in a state buffer the caller
+// zeroes once and keeps between calls on one stream (stale memory never
+// carries a live tag), with the ticket and a count of finished blocks at
+// its head: the last block to finish sets both to 0 and advances the
+// epoch.
+//
+// The backward is two kernels run from the end of the sequence: a summary
+// per (row, chunk of CH steps, channel), the chunk's reverse map
+// g_start = G + P g_next with P the product of a over the chunk shifted
+// by one step, then an apply kernel that composes the later chunks' maps
+// into its carry and scans the chunk again.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+// ---- forward
+constexpr int FWD_WARPS = 8;       // warps of a block, along time
+constexpr int FWD_STEPS = 8;       // time steps a thread holds
+constexpr int FWD_GROUP = 4;       // tiles a group along time
+constexpr int FWD_LOOK = 1;        // records a warp looks back at a round
+constexpr unsigned FWD_SLEEP_NS = 64;  // the longest backoff of a poll
+constexpr int FWD_THREADS = 32 * FWD_WARPS;
+constexpr int FWD_TILE = FWD_WARPS * FWD_STEPS;  // time steps a tile
+constexpr int STATE_HEAD = 4;  // ticket, finished blocks, epoch, unused
+
+struct Fwd {
+  int B, S, W;
+  int nct, ntt;  // channel tiles a row, time tiles a row
+  int tiles;     // B * nct * ntt
+};
+
+// One time step of V channels of T: 16 bytes in fp32, 8 in bf16 (the
+// first WORDS words).
+struct __align__(16) Raw {
+  uint32_t w[4];
+};
+
+template <typename T>
+struct Elt;
+template <>
+struct Elt<float> {
+  static constexpr int V = 4, WORDS = 4;
+  static constexpr int MIN_BLOCKS = 2;  // blocks an SM: 128 registers
+  static constexpr uint32_t ONE = 0x3f800000u;  // 1.0f
+  __device__ static float get(const Raw& r, int i) {
+    return __uint_as_float(r.w[i]);
+  }
+  __device__ static void set(Raw& r, int i, const float* p) {
+    r.w[i] = __float_as_uint(*p);
+  }
+  __device__ static Raw pack(const float* v) {
+    Raw r;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r.w[i] = __float_as_uint(v[i]);
+    return r;
+  }
+  __device__ static void put(float* p, float v) { *p = v; }
+};
+template <>
+struct Elt<bf16> {
+  static constexpr int V = 4, WORDS = 2;
+  static constexpr int MIN_BLOCKS = 3;  // half the registers hold a step
+  static constexpr uint32_t ONE = 0x3f803f80u;  // two bf16 ones
+  __device__ static float get(const Raw& r, int i) {
+    const uint32_t w = r.w[i >> 1];
+    return __uint_as_float((i & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+  __device__ static void set(Raw& r, int i, const bf16* p) {
+    const uint32_t x = __bfloat16_as_ushort(*p);
+    uint32_t& w = r.w[i >> 1];
+    w = (i & 1) ? ((w & 0xffffu) | (x << 16)) : ((w & 0xffff0000u) | x);
+  }
+  __device__ static Raw pack(const float* v) {
+    Raw r;
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) {
+      const __nv_bfloat162 x = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+      r.w[i] = *reinterpret_cast<const uint32_t*>(&x);
+    }
+    return r;
+  }
+  __device__ static void put(bf16* p, float v) { *p = __float2bfloat16(v); }
+};
+
+// One step of V channels from p; n of them valid (VEC: n is V or <= 0).
+// Channels and steps that are not valid read as `fill`.
+template <typename T, bool VEC>
+__device__ __forceinline__ Raw load_step(const T* p, int n, uint32_t fill) {
+  Raw r;
+  if (VEC && n > 0) {
+    if constexpr (Elt<T>::WORDS == 4) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+      r.w[0] = v.x, r.w[1] = v.y, r.w[2] = v.z, r.w[3] = v.w;
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+      r.w[0] = v.x, r.w[1] = v.y;
+    }
+    return r;
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r.w[i] = fill;
+  if (!VEC) {
+#pragma unroll
+    for (int i = 0; i < Elt<T>::V; ++i)
+      if (i < n) Elt<T>::set(r, i, p + i);
+  }
+  return r;
+}
+
+template <typename T, bool VEC>
+__device__ __forceinline__ void store_step(T* p, const float* v, int n) {
+  if (VEC) {
+    if (n > 0) {
+      const Raw r = Elt<T>::pack(v);
+      if constexpr (Elt<T>::WORDS == 4)
+        *reinterpret_cast<uint4*>(p) =
+            make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]);
+      else
+        *reinterpret_cast<uint2*>(p) = make_uint2(r.w[0], r.w[1]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < Elt<T>::V; ++i)
+    if (i < n) Elt<T>::put(p + i, v[i]);
+}
+
+// V values of shared memory, 16 bytes at a time.
+template <int V>
+__device__ __forceinline__ void sget(const float* p, float* v) {
+#pragma unroll
+  for (int q = 0; q < V; q += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p + q);
+    v[q] = x.x, v[q + 1] = x.y, v[q + 2] = x.z, v[q + 3] = x.w;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void sput(float* p, const float* v) {
+#pragma unroll
+  for (int q = 0; q < V; q += 4)
+    *reinterpret_cast<float4*>(p + q) =
+        make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+}
+
+__device__ __forceinline__ unsigned ld_relaxed(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// A record: one channel's map (A, B) as two 64-bit words, each the value
+// in its low half and the tag of the call and kind in its high half. A
+// 64-bit access is single-copy atomic, so a reader that sees the tag
+// sees the value written with it: no flag and no fence.
+using u64 = unsigned long long;
+
+__device__ __forceinline__ void st_record(u64* p, float A, float B,
+                                          unsigned tag) {
+  const u64 t = (u64)tag << 32;
+  asm volatile("st.relaxed.gpu.global.v2.u64 [%0], {%1, %2};" ::"l"(p),
+               "l"(t | __float_as_uint(A)), "l"(t | __float_as_uint(B))
+               : "memory");
+}
+
+__device__ __forceinline__ void ld_record(const u64* p, u64& lo, u64& hi) {
+  asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];"
+               : "=l"(lo), "=l"(hi)
+               : "l"(p)
+               : "memory");
+}
+
+__device__ __forceinline__ bool tagged(u64 lo, u64 hi, unsigned tag) {
+  return (unsigned)(lo >> 32) == tag && (unsigned)(hi >> 32) == tag;
+}
+
+// The lane's V channels of a tile's record, n of them inside W.
+template <int V>
+__device__ __forceinline__ void publish(u64* p, const float* A,
+                                        const float* B, unsigned tag,
+                                        int n) {
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (j < n) st_record(p + 2 * j, A[j], B[j], tag);
+}
+
+// One warp's share of a look-back round: records [k0, k0 + m) of the
+// round's list (`rec(k, tag)` gives record k's address and tag), lane l
+// holding channels [l V, l V + V), nv of them inside W. `issue` loads
+// them as they are; `wait` polls those whose tag is not yet the wanted
+// one until every one carries it; `partial` composes them in order.
+template <int V>
+struct Look {
+  u64 lo[FWD_LOOK][V], hi[FWD_LOOK][V];
+  int k0, m;
+
+  template <typename Rec>
+  __device__ __forceinline__ void issue(int base, int n, Rec rec, int nv) {
+    const int lane = threadIdx.x & 31;
+    k0 = base + (threadIdx.x >> 5) * FWD_LOOK;
+    m = max(0, min(FWD_LOOK, n - k0));
+#pragma unroll
+    for (int i = 0; i < FWD_LOOK; ++i) {
+      if (i >= m) continue;
+      unsigned tag;
+      const u64* p = rec(k0 + i, tag) + 2 * lane * V;
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (j < nv) ld_record(p + 2 * j, lo[i][j], hi[i][j]);
+    }
+  }
+
+  template <typename Rec>
+  __device__ __forceinline__ void wait(Rec rec, int nv) {
+    const int lane = threadIdx.x & 31;
+    unsigned ns = 32;
+    for (;;) {
+      bool ready = true;
+#pragma unroll
+      for (int i = 0; i < FWD_LOOK; ++i) {
+        if (i >= m) continue;
+        unsigned tag;
+        const u64* p = rec(k0 + i, tag) + 2 * lane * V;
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          if (j >= nv || tagged(lo[i][j], hi[i][j], tag)) continue;
+          ready = false;
+          ld_record(p + 2 * j, lo[i][j], hi[i][j]);
+        }
+      }
+      if (__all_sync(0xffffffffu, ready)) return;
+      __nanosleep(ns);
+      if (ns < FWD_SLEEP_NS) ns *= 2;
+    }
+  }
+
+  __device__ __forceinline__ void partial(float* pA, float* pB, int nv) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) pA[j] = 1.f, pB[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < FWD_LOOK; ++i) {
+      if (i >= m) continue;
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        if (j < nv) {
+          const float A = __uint_as_float((unsigned)lo[i][j]);
+          pB[j] = fmaf(A, pB[j], __uint_as_float((unsigned)hi[i][j]));
+          pA[j] *= A;
+        }
+    }
+  }
+};
+
+// One record polled until its tag comes (a warp): A, B of the lane's V
+// channels, nv of them inside W.
+template <int V>
+__device__ __forceinline__ void wait_record(const u64* p, unsigned tag,
+                                            int nv, float* A, float* B) {
+  unsigned ns = 32;
+  for (;;) {
+    bool ready = true;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (j >= nv) continue;
+      u64 lo, hi;
+      ld_record(p + 2 * j, lo, hi);
+      ready &= tagged(lo, hi, tag);
+      A[j] = __uint_as_float((unsigned)lo);
+      B[j] = __uint_as_float((unsigned)hi);
+    }
+    if (__all_sync(0xffffffffu, ready)) return;
+    __nanosleep(ns);
+    if (ns < FWD_SLEEP_NS) ns *= 2;
+  }
+}
+
+// The map of records [0, n) composed in time order, FWD_WARPS x FWD_LOOK
+// a round: each warp waits for its share and composes it, and every
+// thread composes the warps' partial maps in order from shared memory.
+// The first round's records were issued already (`look`). n is the same
+// for the whole block.
+template <int V, typename Rec>
+__device__ __forceinline__ void compose_records(Look<V>& look, int n,
+                                                Rec rec, int nv,
+                                                float (*sPA)[32 * V],
+                                                float (*sPB)[32 * V],
+                                                float* cA, float* cB) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < V; ++j) cA[j] = 1.f, cB[j] = 0.f;
+  for (int base = 0; base < n; base += FWD_WARPS * FWD_LOOK) {
+    if (base > 0) look.issue(base, n, rec, nv);
+    look.wait(rec, nv);
+    float pA[V], pB[V];
+    look.partial(pA, pB, nv);
+    sput<V>(&sPA[warp][lane * V], pA);
+    sput<V>(&sPB[warp][lane * V], pB);
+    __syncthreads();
+    for (int u = 0; u < FWD_WARPS; ++u) {
+      float x[V], y[V];
+      sget<V>(&sPA[u][lane * V], x);
+      sget<V>(&sPB[u][lane * V], y);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        cB[j] = fmaf(x[j], cB[j], y[j]);
+        cA[j] *= x[j];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The tile's map: the warps' maps in shared memory composed in order.
+template <int V>
+__device__ __forceinline__ void tile_map(float (*sA)[32 * V],
+                                         float (*sB)[32 * V], float* At,
+                                         float* Bt) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < V; ++j) At[j] = 1.f, Bt[j] = 0.f;
+  for (int u = 0; u < FWD_WARPS; ++u) {
+    float x[V], y[V];
+    sget<V>(&sA[u][lane * V], x);
+    sget<V>(&sB[u][lane * V], y);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      Bt[j] = fmaf(x[j], Bt[j], y[j]);
+      At[j] *= x[j];
+    }
+  }
+}
+
+// One tile a block: see the notes at the top. `state` holds the ticket,
+// the count of finished blocks, the epoch and then a record a (row, tile,
+// channel): the tile's map, or at the last tile of a group its inclusive
+// prefix (in B).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(FWD_THREADS, Elt<T>::MIN_BLOCKS)
+k4_fwd_lookback(const T* __restrict__ a, const T* __restrict__ b,
+                T* __restrict__ h, unsigned* __restrict__ state, Fwd f) {
+  constexpr int V = Elt<T>::V, CW = 32 * V;  // channels a thread, a tile
+  __shared__ unsigned s_ticket, s_epoch;
+  __shared__ __align__(16) float sA[FWD_WARPS][CW], sB[FWD_WARPS][CW];
+  __shared__ __align__(16) float sPA[FWD_WARPS][CW], sPB[FWD_WARPS][CW];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    s_ticket = atomicAdd(state, 1u);
+    s_epoch = ld_relaxed(state + 2);
+  }
+  __syncthreads();
+  const unsigned ticket = s_ticket;
+  if (ticket >= (unsigned)f.tiles) __trap();  // the state was not reset
+  const int chains = f.B * f.nct;
+  const int tt = (int)(ticket / chains), chain = (int)(ticket % chains);
+  const int r = chain / f.nct, ct = chain % f.nct;
+  const int c0 = ct * CW + lane * V;
+  const int nv = f.W - c0;  // channels of this lane inside W (if > 0)
+  const int t0 = tt * FWD_TILE + warp * FWD_STEPS;
+  const unsigned MAP = 2u * s_epoch + 1u, INCL = 2u * s_epoch + 2u;
+
+  // the thread's steps of a and b, every load issued before the first FMA
+  Raw av[FWD_STEPS], bv[FWD_STEPS];
+#pragma unroll
+  for (int i = 0; i < FWD_STEPS; ++i) {
+    const int n = t0 + i < f.S ? nv : 0;
+    const int64_t o = ((int64_t)r * f.S + t0 + i) * f.W + c0;
+    av[i] = load_step<T, VEC>(a + o, n, Elt<T>::ONE);
+    bv[i] = load_step<T, VEC>(b + o, n, 0u);
+  }
+
+  // records [B, ntt, W] of two 64-bit words after the 4-word head
+  u64* recs = reinterpret_cast<u64*>(state + STATE_HEAD);
+  const int64_t row_rec = (int64_t)r * f.ntt;
+  auto at = [&](int tile) {
+    return recs + ((row_rec + tile) * f.W + ct * CW) * 2;
+  };
+  const int first = tt - tt % FWD_GROUP;   // the group's first tile
+  const int n_look = tt - first;           // its group's before it
+  const bool last = tt % FWD_GROUP == FWD_GROUP - 1;
+  // the maps of the n_look tiles before this one, in time order, loaded
+  // beside the tile's own loads so that the two trips overlap
+  auto rec = [&](int k, unsigned& tag) {
+    tag = MAP;
+    return at(tt - n_look + k);
+  };
+  Look<V> look;
+  look.issue(0, n_look, rec, nv);
+
+  // the thread's map over its steps
+  {
+    float A[V], Bm[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      A[j] = 1.f, Bm[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < FWD_STEPS; ++i) {
+        const float x = Elt<T>::get(av[i], j);
+        Bm[j] = fmaf(x, Bm[j], Elt<T>::get(bv[i], j));
+        A[j] *= x;
+      }
+    }
+    sput<V>(&sA[warp][lane * V], A);
+    sput<V>(&sB[warp][lane * V], Bm);
+  }
+  __syncthreads();
+  // warp 0 publishes the tile's map before any look-back waits
+  float At[V], Bt[V];  // the tile's map (warp 0)
+  if (warp == 0) {
+    tile_map<V>(sA, sB, At, Bt);
+    if (!last) publish<V>(at(tt) + 2 * lane * V, At, Bt, MAP, nv);
+  }
+
+  // the map of the group's earlier tiles (Al, Bl), then the inclusive
+  // prefix at the end of the group before (warp 0 alone): the carry into
+  // the tile is Al incl + Bl. A group's last tile has its group's map
+  // (Al, Bl, then its own) ready before it waits, so its own inclusive
+  // prefix follows the one before with one FMA and no barrier: the chain
+  // of inclusive prefixes moves one record's trip a group
+  float Al[V], Bl[V];
+  compose_records<V>(look, n_look, rec, nv, sPA, sPB, Al, Bl);
+  if (warp == 0) {
+    float ga[V], gb[V], one[V], incl[V], prev[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      ga[j] = At[j] * Al[j], gb[j] = fmaf(At[j], Bl[j], Bt[j]);
+#pragma unroll
+    for (int j = 0; j < V; ++j) prev[j] = 0.f;
+    if (first > 0)
+      wait_record<V>(at(first - 1) + 2 * lane * V, INCL, nv, one, prev);
+    if (last) {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        one[j] = 1.f, incl[j] = fmaf(ga[j], prev[j], gb[j]);
+      publish<V>(at(tt) + 2 * lane * V, one, incl, INCL, nv);
+    }
+    sput<V>(&sPB[0][lane * V], prev);
+  }
+  __syncthreads();
+  float hc[V];
+  sget<V>(&sPB[0][lane * V], hc);
+#pragma unroll
+  for (int j = 0; j < V; ++j) hc[j] = fmaf(Al[j], hc[j], Bl[j]);
+
+  // the carry into this warp's steps, then its scan, h written once
+  for (int u = 0; u < warp; ++u) {
+    float x[V], y[V];
+    sget<V>(&sA[u][lane * V], x);
+    sget<V>(&sB[u][lane * V], y);
+#pragma unroll
+    for (int j = 0; j < V; ++j) hc[j] = fmaf(x[j], hc[j], y[j]);
+  }
+#pragma unroll
+  for (int i = 0; i < FWD_STEPS; ++i) {
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      hc[j] = fmaf(Elt<T>::get(av[i], j), hc[j], Elt<T>::get(bv[i], j));
+    const int n = t0 + i < f.S ? nv : 0;
+    store_step<T, VEC>(h + ((int64_t)r * f.S + t0 + i) * f.W + c0, hc, n);
+  }
+
+  // the last block to finish readies the state for the next call: every
+  // block has taken its ticket and read the epoch before it counts here
+  if (threadIdx.x == 0 &&
+      atomicAdd(state + 1, 1u) == (unsigned)f.tiles - 1) {
+    state[0] = 0;
+    state[1] = 0;
+    state[2] = s_epoch + 1;
+  }
+}
+
+// ---- backward
 constexpr int CH = 64;        // time steps per chunk
 constexpr int THREADS = 128;  // channels per block
 
@@ -55,51 +550,6 @@ __device__ __forceinline__ void st(bf16* p, float v) {
 struct Shape {
   int B, S, W, nc;
 };
-
-// Per (row, chunk, channel): the chunk's map h_end = A h_start + Bc.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-k4_fwd_summary(const T* __restrict__ a, const T* __restrict__ b,
-               float* __restrict__ sumA, float* __restrict__ sumB, Shape s) {
-  const int w = blockIdx.x * THREADS + threadIdx.x;
-  if (w >= s.W) return;
-  const int c = blockIdx.y, r = blockIdx.z;
-  const int t0 = c * CH, t1 = min(t0 + CH, s.S);
-  const int64_t base = (int64_t)r * s.S * s.W + w;
-  float A = 1.f, h = 0.f;
-  for (int t = t0; t < t1; ++t) {
-    const float at = ld(a + base + (int64_t)t * s.W);
-    h = fmaf(at, h, ld(b + base + (int64_t)t * s.W));
-    A *= at;
-  }
-  const int64_t o = ((int64_t)r * s.nc + c) * s.W + w;
-  sumA[o] = A;
-  sumB[o] = h;
-}
-
-// Per (row, chunk, channel): the carry from the earlier chunks' maps, then
-// the chunk's scan from it.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-k4_fwd_apply(const T* __restrict__ a, const T* __restrict__ b,
-             const float* __restrict__ sumA, const float* __restrict__ sumB,
-             T* __restrict__ h_out, Shape s) {
-  const int w = blockIdx.x * THREADS + threadIdx.x;
-  if (w >= s.W) return;
-  const int c = blockIdx.y, r = blockIdx.z;
-  const int64_t so = (int64_t)r * s.nc * s.W + w;
-  float h = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < c; ++k)
-    h = fmaf(sumA[so + (int64_t)k * s.W], h, sumB[so + (int64_t)k * s.W]);
-  const int t0 = c * CH, t1 = min(t0 + CH, s.S);
-  const int64_t base = (int64_t)r * s.S * s.W + w;
-  for (int t = t0; t < t1; ++t) {
-    const int64_t i = base + (int64_t)t * s.W;
-    h = fmaf(ld(a + i), h, ld(b + i));
-    st(h_out + i, h);
-  }
-}
 
 // Per (row, chunk, channel): the chunk's reverse map g_start = G + P g_next,
 // G the reverse scan of dh over the chunk from a zero g_next, P the
@@ -154,6 +604,7 @@ k4_bwd_apply(const T* __restrict__ a, const T* __restrict__ dh,
   }
 }
 
+// ---- launches
 Shape make_shape(int B, int S, int W) {
   return Shape{B, S, W, (S + CH - 1) / CH};
 }
@@ -163,15 +614,48 @@ dim3 grid_of(const Shape& s) {
 }
 
 template <typename T>
-cudaError_t launch_fwd(const void* a, const void* b, void* h, float* sa,
-                       float* sb, const Shape& s, cudaStream_t stream) {
+Fwd fwd_shape(int B, int S, int W) {
+  constexpr int CW = 32 * Elt<T>::V;
+  const int nct = (W + CW - 1) / CW, ntt = (S + FWD_TILE - 1) / FWD_TILE;
+  return Fwd{B, S, W, nct, ntt, (int)((int64_t)B * nct * ntt)};
+}
+
+bool bad_args(int B, int S, int W, int dtype) {
+  return B <= 0 || S <= 0 || W <= 0 || B > 65535 ||
+         (S + CH - 1) / CH > 65535 || (dtype != 0 && dtype != 1);
+}
+
+// The forward's state in 32-bit words (the head, then a record of four
+// words a (row, tile, channel)), or -1 where the shape is refused (the
+// tickets count in 32 bits).
+int64_t fwd_state_words(int B, int S, int W, int dtype) {
+  if (bad_args(B, S, W, dtype)) return -1;
+  const int64_t cw = 32 * (dtype == 0 ? Elt<float>::V : Elt<bf16>::V);
+  const int64_t ntt = (S + FWD_TILE - 1) / FWD_TILE;
+  if ((int64_t)B * ((W + cw - 1) / cw) * ntt > INT_MAX) return -1;
+  return STATE_HEAD + 4 * (int64_t)B * ntt * W;
+}
+
+bool aligned(const void* p, size_t bytes = 16) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+template <typename T>
+cudaError_t launch_fwd(const void* a, const void* b, void* h,
+                       unsigned* state, int B, int S, int W,
+                       cudaStream_t stream) {
+  const Fwd f = fwd_shape<T>(B, S, W);
   const T* at = static_cast<const T*>(a);
   const T* bt = static_cast<const T*>(b);
-  k4_fwd_summary<T><<<grid_of(s), THREADS, 0, stream>>>(at, bt, sa, sb, s);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  k4_fwd_apply<T><<<grid_of(s), THREADS, 0, stream>>>(
-      at, bt, sa, sb, static_cast<T*>(h), s);
+  T* ht = static_cast<T*>(h);
+  constexpr size_t step = Elt<T>::V * sizeof(T);  // bytes a vector load
+  if (W % Elt<T>::V == 0 && aligned(a, step) && aligned(b, step) &&
+      aligned(h, step))
+    k4_fwd_lookback<T, true><<<f.tiles, FWD_THREADS, 0, stream>>>(
+        at, bt, ht, state, f);
+  else
+    k4_fwd_lookback<T, false><<<f.tiles, FWD_THREADS, 0, stream>>>(
+        at, bt, ht, state, f);
   return cudaGetLastError();
 }
 
@@ -190,31 +674,34 @@ cudaError_t launch_bwd(const void* a, const void* dh, const void* h,
   return cudaGetLastError();
 }
 
-bool bad_args(int B, int S, int W, int dtype) {
-  return B <= 0 || S <= 0 || W <= 0 || B > 65535 ||
-         (S + CH - 1) / CH > 65535 || (dtype != 0 && dtype != 1);
-}
-
 }  // namespace
 
 extern "C" {
 
+// 32-bit words of the forward's state (the ticket, a count of finished
+// blocks, the epoch, then each tile's record), or -1 where k4_forward
+// refuses the shape. The caller zeroes it once and keeps it between
+// calls on one stream, sized for the largest shape it passes.
+long long k4_forward_state_words(int B, int S, int W, int dtype) {
+  return fwd_state_words(B, S, W, dtype);
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (a, b and h share it). a, b, h are
-// contiguous [B, S, W]; scratch is fp32 of 2 * B * ceil(S / 64) * W
-// elements. Returns the cudaError_t of the launches (0 = cudaSuccess).
-int k4_forward(const void* a, const void* b, void* h, void* scratch, int B,
+// contiguous [B, S, W]; state as above, 16-byte aligned. Returns the
+// cudaError_t of the launch (0 = cudaSuccess).
+int k4_forward(const void* a, const void* b, void* h, void* state, int B,
                int S, int W, int dtype, void* stream) {
-  if (bad_args(B, S, W, dtype)) return (int)cudaErrorInvalidValue;
-  const Shape s = make_shape(B, S, W);
-  float* sa = static_cast<float*>(scratch);
-  float* sb = sa + (int64_t)B * s.nc * W;
+  if (fwd_state_words(B, S, W, dtype) < 0 || !aligned(state))
+    return (int)cudaErrorInvalidValue;
+  unsigned* stt = static_cast<unsigned*>(state);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch_fwd<float>(a, b, h, sa, sb, s, st);
-  return (int)launch_fwd<bf16>(a, b, h, sa, sb, s, st);
+  if (dtype == 0) return (int)launch_fwd<float>(a, b, h, stt, B, S, W, st);
+  return (int)launch_fwd<bf16>(a, b, h, stt, B, S, W, st);
 }
 
 // a, dh, h (the forward's output) and the outputs da, db: contiguous
-// [B, S, W] in one type; scratch as for k4_forward.
+// [B, S, W] in one type; scratch is fp32 of 2 * B * ceil(S / 64) * W
+// elements.
 int k4_backward(const void* a, const void* dh, const void* h, void* da,
                 void* db, void* scratch, int B, int S, int W, int dtype,
                 void* stream) {

@@ -67,7 +67,7 @@ class _Proc:
 
 
 @pytest.mark.parametrize("script", ["k1_fault_check", "k2_fault_check",
-                                    "k3_fault_check"])
+                                    "k3_fault_check", "k4_fault_check"])
 def test_fault_tools_include_each_trees_headers(script, monkeypatch,
                                                 tmp_path):
     """The tools build edited copies in a temporary directory, where

@@ -1051,15 +1051,75 @@ def test_rglru_scan_autograd_runs_both_kernels(card):
         (n_fwd + 1, n_bwd + 1)
 
 
+@pytest.mark.cuda
+def test_rglru_scan_forward_calls_in_a_row_each_match_plain(card):
+    """The forward keeps its ticket, its count of finished blocks, its
+    epoch and its tiles' records between calls: calls in a row on other
+    inputs and other shapes (fewer tiles, then more, which remakes the
+    state, then fewer again) each equal their plain result."""
+    from repro_torch.kernels.rglru_scan import (rglru_scan,
+                                                rglru_scan_plain)
+    shapes = [(1, 4096, 2560), (1, 4096, 2560), (3, 100, 300),
+              (4, 4096, 2560), (1, 1000, 2560), (1, 1000, 2560)]
+    n_fwd = rglru_scan.launches
+    for i, case in enumerate(shapes):
+        a, b, _ = _k4_inputs(card, torch.float32, *case, seed=20 + i)
+        h = rglru_scan(a, b)
+        rh = rglru_scan_plain(a.double(), b.double())
+        torch.cuda.synchronize()
+        err = _k4_err(h, rh)
+        print(f"K4 call {i} {case}: h {err}")
+        assert err <= K4_TOL[torch.float32], (i, case, err)
+    assert rglru_scan.launches == n_fwd + len(shapes)
+
+
+@pytest.mark.cuda
+def test_rglru_scan_forward_many_more_tiles_than_the_card_holds(card):
+    """16 rows of 4096 steps at recurrentgemma-2b's width: 20480 tiles,
+    many times what the card holds at once, so most blocks take their
+    ticket after earlier ones have finished (a wrong ticket order would
+    hang or read a carry not yet there)."""
+    from repro_torch.kernels.rglru_scan import (rglru_scan,
+                                                rglru_scan_plain)
+    a, b, _ = _k4_inputs(card, torch.float32, 16, 4096, 2560, seed=14)
+    h = rglru_scan(a, b)
+    rh = rglru_scan_plain(a.double(), b.double())
+    torch.cuda.synchronize()
+    err = _k4_err(h, rh)
+    print(f"K4 16x4096: h {err}")
+    assert err <= K4_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_scan_forward_gives_the_same_bits_on_every_call(card, dtype):
+    """Held to the same bits, not to K4_TOL: every tile composes its
+    carry from the same maps in the same order (the inclusive prefix at
+    the end of the group before, then its group's earlier tiles' maps),
+    whatever order the blocks ran in."""
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    a, b, _ = _k4_inputs(card, dtype, 4, 4096, 2560, seed=15)
+    first = rglru_scan(a, b)
+    for _ in range(3):
+        assert torch.equal(rglru_scan(a, b), first)
+
+
 #: planted faults of K4: name -> (the outputs it must show in, the line
-#: of csrc/rglru_scan.cu it edits, the edited line). Each drops, for
-#: every chunk, the map of the chunk next to it from the carry
+#: of csrc/rglru_scan.cu it edits, the edited line). The forward's two
+#: break its look-back (each tile takes one tile fewer of its group,
+#: leaving out the group's first; a group's last tile publishes its
+#: carry as its inclusive prefix, without its own map); the backward's
+#: drops, for every chunk, the map of the chunk next to it from the
+#: carry
 K4_FAULTS = {
-    "fwd_drops_previous_chunk": (("h",), (
-        "    h = fmaf(sumA[so + (int64_t)k * s.W], h, "
-        "sumB[so + (int64_t)k * s.W]);\n"),
-        "    if (k != c - 1) h = fmaf(sumA[so + (int64_t)k * s.W], h, "
-        "sumB[so + (int64_t)k * s.W]);\n"),
+    "fwd_lookback_stops_one_tile_early": (("h",), (
+        "  const int n_look = tt - first;           // its group's before "
+        "it\n"),
+        "  const int n_look = tt - first - 1;       // its group's before "
+        "it\n"),
+    "fwd_inclusive_without_own_map": (("h",), (
+        "        one[j] = 1.f, incl[j] = fmaf(ga[j], prev[j], gb[j]);\n"),
+        "        one[j] = 1.f, incl[j] = fmaf(Al[j], prev[j], Bl[j]);\n"),
     "bwd_drops_next_chunk": (("da", "db"), (
         "    g = fmaf(sumP[so + (int64_t)k * s.W], g, "
         "sumG[so + (int64_t)k * s.W]);\n"),
