@@ -2,7 +2,8 @@
 kernels, holds each against its plain PyTorch version on the card, then
 drives the port's main paths — continuous-batching serving and DHP
 training of internvl3-2b, and DHP training of mamba2-370m and of
-recurrentgemma-2b, at full width — and checks what comes out.
+recurrentgemma-2b, at full width, and internvl3-2b's groups of degree
+> 1 as rings on the one card — and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -154,6 +155,30 @@ Phases:
                 vs plain at every shape the hybrid run launched, K1 on
                 the run's own span tables, with times (K4's device
                 times too) and bounds; these feed the kernels line
+ 20. ring       — ring context parallelism (parallel/ring_attention.py),
+                bf16: ring_attention in a LocalRing on the card (K1 a
+                hop, at most two launches a hop), forward (o, lse) and
+                backward, on phase 9's full-width 4096-token openvid
+                layout (segments and spans; the bucket rounded up to a
+                multiple of d) at internvl3-2b's heads (12:2, D = 128,
+                causal) for d = 2, 3, 4 and recurrentgemma-2b's (10:1,
+                D = 256, sliding 2048) for d = 2, 3, held with phase 7's
+                limits against K1 unsharded on the same inputs and
+                against the same ring on the plain versions (CPU
+                tensors); one hop's K1 backward under the merged o and
+                lse against the plain backward; the ring's forward +
+                backward ms beside K1 unsharded's. Then full-width
+                internvl3-2b, bf16, through Engine("internvl3-2b",
+                ClusterSpec(devices=[cuda:0] * 6, mem_budget=1408)): the
+                stream's first batch's DHP plan (rings of degree 2, 3, 4,
+                6) against its static plan at degree 1 (run twice: the
+                spread of degree 1), loss within RING_LOSS_RTOL; then
+                3 steps of .train(dataset="openvid", global_batch=8,
+                max_tokens=4096, tokens_per_frame=256): per step loss,
+                time, tokens/s, degrees, peak memory, K1 launches ==
+                layers x the groups' hop launches each way; losses and
+                parameters finite. The ranks share one card: the ring's
+                shifts are device copies, no NCCL and no link is run
 
 Each full-width training phase (9, 13, 18) first collects what the
 earlier phases left in reference cycles (the profiler's event trees
@@ -573,7 +598,8 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
     o, lse = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
     grads = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
     ro, rlse = flash_attention_packed_ref(q, k, v, segt, **kw)
-    rgrads = flash_attention_packed_bwd_ref(q, k, v, do, segt, **kw)
+    rgrads = flash_attention_packed_bwd_ref(q, k, v, ro, rlse, do, segt,
+                                            **kw)
     torch.cuda.synchronize()
     errs = {"o": _scaled_err(o, ro)}
     for name, a, r in zip(("dq", "dk", "dv"), grads, rgrads):
@@ -605,7 +631,7 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
     plain_fwd = cuda_ms(lambda: flash_attention_packed_ref(
         q, k, v, segt, **kw), iters=3, warmup=1)
     plain_bwd = cuda_ms(lambda: flash_attention_packed_bwd_ref(
-        q, k, v, do, segt, **kw), iters=3, warmup=1)
+        q, k, v, ro, rlse, do, segt, **kw), iters=3, warmup=1)
     # yardstick: SDPA with the tables' boolean mask, GQA in place
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
@@ -1642,6 +1668,318 @@ def phase_hybrid_path(dev, card, tables, per_group):
     return k4_rows, k1_rows
 
 
+# ------------------------------------------------ ring context parallelism
+#: the ring's function-level cases: (heads, mode, window, degrees)
+RING_SHAPES = (((H, HKV, D), "causal", None, (2, 3, 4)),
+               (RG_HEADS, "sliding", RG_WINDOW, (2, 3)))
+#: phase 20's engine: ranks on the one card and the budget (tokens a
+#: rank) at which the openvid stream's first plans hold degrees 2 and 3
+#: (at 4 ranks no budget plans a degree 3 in its first three batches)
+RING_RANKS, RING_BUDGET = 6, 1408
+#: one batch's DHP plan (rings) against its static plan at degree 1 on
+#: the same parameters: the loss within RING_LOSS_RTOL relative, the
+#: gradient within RING_GRAD_RTOL (max over leaves of max|diff| /
+#: max|g|). Two degree-1 runs gave the same loss bits (the forward is
+#: deterministic) and gradients 0.0159 apart (K1's dQ atomics); the
+#: rings read 1.77e-5 and 0.0296 (H100, PR 24); the planted ring faults
+#: of tests/test_torch_cuda.py read 0.57-1.0 on dK / dV
+RING_LOSS_RTOL = 1e-3
+RING_GRAD_RTOL = 0.1
+
+
+def _ring_rows(t, d):
+    """[1, S, ...] -> the LocalRing's [d, S / d, ...]: row r is rank r's
+    contiguous shard."""
+    return t.reshape(d, t.shape[1] // d, *t.shape[2:])
+
+
+def _ring_errs(got, want):
+    """{name: (max|err| / max(1, |ref|), max|err| / max|ref|)}."""
+    return {n: _scaled_err(got[n], want[n])[1:] for n in got}
+
+
+def _ring_hold(what, errs):
+    for name, (scaled, whole) in errs.items():
+        tol = TOL[torch.bfloat16] if name == "o" else \
+            GRAD_TOL[torch.bfloat16]
+        if not (math.isfinite(scaled) and scaled <= tol
+                and whole <= REL_TOL_BF16):
+            raise AssertionError(f"{what}: {name} max|err|/max(1,|ref|) "
+                                 f"{scaled} (limit {tol}), max|err|/max|ref| "
+                                 f"{whole} (limit {REL_TOL_BF16})")
+
+
+def ring_device_ms(fn, iters: int = 5):
+    """{device ms a call, of it K1's kernels ("packed_" in the name), the
+    kernels a call} of `fn`, from torch.profiler's trace of `iters`
+    calls after one more: what the card spends beside the host's cost
+    that `cuda_ms` includes."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [(ev.name, ev.time_range.elapsed_us() / 1e3)
+           for ev in prof.events()
+           if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        raise AssertionError("torch.profiler traced no device time")
+    return dict(total=sum(t for _, t in evs) / iters,
+                k1=sum(t for n, t in evs if "packed_" in n) / iters,
+                kernels=len(evs) / iters)
+
+
+def check_ring(dev, card, gen, seg, span, heads, mode, window, d):
+    """ring_attention in a LocalRing of degree d on the card, forward (o,
+    lse) and backward (dq, dk, dv), against K1 unsharded on the same
+    inputs and against the same ring on the plain versions (CPU tensors);
+    one hop's K1 backward under the merged o and lse against the plain
+    backward; the ring's forward + backward ms beside K1 unsharded's."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd,
+        flash_attention_packed_bwd_ref)
+    from repro_torch.parallel import LocalRing, ring_attention
+    Hq, Hkv, Dh = heads
+    pad = (-len(seg)) % d                # the bucket, a multiple of d
+    seg = np.concatenate([seg, np.full(pad, -1, np.int32)])
+    span = np.concatenate([span, np.full(pad, -1, np.int32)])
+    S, S_loc = len(seg), len(seg) // d
+    bf16 = torch.bfloat16
+    q, do = (torch.randn(1, S, Hq, Dh, generator=gen, device=dev).to(bf16)
+             for _ in range(2))
+    k, v = (torch.randn(1, S, Hkv, Dh, generator=gen, device=dev).to(bf16)
+            for _ in range(2))
+    segt = torch.as_tensor(seg, device=dev)[None]
+    spant = torch.as_tensor(span, device=dev)[None]
+    kw = dict(mode=mode, window=window)
+
+    def unsharded():
+        o, lse = flash_attention_packed(q, k, v, segt, span_ids=spant,
+                                        return_lse=True, **kw)
+        return (o, lse) + tuple(flash_attention_packed_bwd(
+            q, k, v, o, lse, do, segt, span_ids=spant, **kw))
+
+    def ring(device):
+        x = [_ring_rows(t, d).to(device) for t in (q, k, v, do, segt,
+                                                   spant)]
+        qs, ks, vs = (t.detach().requires_grad_(True) for t in x[:3])
+        o, lse = ring_attention(qs, ks, vs, x[4], ring=LocalRing(d),
+                                span_ids=x[5], return_lse=True, **kw)
+        grads = torch.autograd.grad(o, (qs, ks, vs), x[3])
+        return (o.detach(), lse) + grads
+
+    def whole(out):
+        """The ring's rows back in the unsharded layout."""
+        o, lse, dq, dk, dv = (t.to(dev) for t in out)
+        flat = lambda t: t.reshape(1, S, *t.shape[2:])  # noqa: E731
+        return dict(o=flat(o), lse=lse.permute(1, 0, 2).reshape(1, Hq, S),
+                    dq=flat(dq), dk=flat(dk), dv=flat(dv))
+
+    want = dict(zip(("o", "lse", "dq", "dk", "dv"), unsharded()))
+    n0 = (flash_attention_packed.launches,
+          flash_attention_packed_bwd.launches)
+    got = whole(ring(dev))
+    torch.cuda.synchronize()
+    launches = (flash_attention_packed.launches - n0[0],
+                flash_attention_packed_bwd.launches - n0[1])
+    if launches != (2 * d - 1,) * 2:     # hop 0 once, then two a hop
+        raise AssertionError(f"ring d={d}: K1 launches {launches}, want "
+                             f"{2 * d - 1} each way")
+    plain = whole(ring("cpu"))
+    names = ("o", "dq", "dk", "dv")
+    tag = f"ring d={d} H={Hq} Hkv={Hkv} D={Dh} {mode} window={window}"
+    errs = {"vs_k1": _ring_errs({n: got[n] for n in names}, want),
+            "vs_plain_ring": _ring_errs({n: got[n] for n in names}, plain)}
+    _ring_hold(f"{tag} against K1 unsharded", errs["vs_k1"])
+    _ring_hold(f"{tag} against the ring on the plain versions",
+               errs["vs_plain_ring"])
+    fin = torch.isfinite(want["lse"])
+    if not torch.equal(fin, torch.isfinite(got["lse"])):
+        raise AssertionError(f"{tag}: rows with keys differ (LSE)")
+    lse_err = (got["lse"][fin] - want["lse"][fin]).abs().max().item()
+    if not lse_err <= 1e-3:
+        raise AssertionError(f"{tag}: LSE off by {lse_err}")
+
+    # one hop under the merged o and lse: the last rank's queries against
+    # shard 0's keys (wrapped: offset -(d - 1) S_loc), kernel vs plain
+    r = d - 1
+    rows = lambda t: _ring_rows(t, d)    # noqa: E731
+    hop = (rows(q)[r:], rows(k)[:1], rows(v)[:1],
+           rows(got["o"])[r:].contiguous(),
+           got["lse"].reshape(1, Hq, d, S_loc)[:, :, r].contiguous(),
+           rows(do)[r:], rows(segt)[r:])
+    hkw = dict(span_ids=rows(spant)[r:], kv_segment_ids=rows(segt)[:1],
+               kv_span_ids=rows(spant)[:1], kv_offset=-r * S_loc, **kw)
+    hop_k = flash_attention_packed_bwd(*hop, **hkw)
+    hop_p = flash_attention_packed_bwd_ref(*hop, **hkw)
+    errs["hop_bwd_vs_plain"] = _ring_errs(dict(zip(names[1:], hop_k)),
+                                          dict(zip(names[1:], hop_p)))
+    _ring_hold(f"{tag}: one hop's K1 backward under the merged o and lse",
+               errs["hop_bwd_vs_plain"])
+
+    ring_ms = cuda_ms(lambda: ring(dev), iters=5, warmup=1)
+    k1_ms = cuda_ms(unsharded, iters=5, warmup=1)
+    ring_dev = ring_device_ms(lambda: ring(dev))
+    k1_dev = ring_device_ms(unsharded)
+    row = dict(tag=tag, d=d, S=S, S_loc=S_loc, H=Hq, Hkv=Hkv, D=Dh,
+               mode=mode, window=window, launches_fwd_bwd=launches,
+               err=errs, lse_err=lse_err, ring_fwd_bwd_ms=ring_ms,
+               k1_unsharded_fwd_bwd_ms=k1_ms,
+               ring_fwd_bwd_device_ms=ring_dev,
+               k1_unsharded_fwd_bwd_device_ms=k1_dev,
+               max_abs_err=max(_scaled_err(got[n], want[n])[0]
+                               for n in names))
+    print(f"  ring {json.dumps(row)} ({card})")
+    return row
+
+
+def phase_ring(dev, card, tables):
+    """Ring CP at function level, bf16, on one full-width openvid
+    4096-token packed layout (phase 9's, with segments and spans)."""
+    if (4096, True) not in tables:
+        raise AssertionError(f"no 4096-token group with spans in phase 9's "
+                             f"run: {sorted(tables)}")
+    seg, span = tables[(4096, True)][0]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for heads, mode, window, degrees in RING_SHAPES:
+        for d in degrees:
+            rows.append(check_ring(dev, card, gen, seg, span, heads, mode,
+                                   window, d))
+            torch.cuda.empty_cache()
+    return rows
+
+
+def _max_rel_diff(a, b):
+    """max over leaves of max|a - b| / max|b|."""
+    from repro_torch.training.optimizer import tree_leaves
+    return max(((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item()
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def phase_ring_training(dev, card):
+    """Full-width internvl3-2b DHP training with RING_RANKS ranks on the
+    one card, so that groups of degree > 1 run as rings: one batch's DHP
+    plan against its static plan at degree 1 (twice), then 3 steps.
+    Returns the K1 launches (forward, backward) of the 3 steps."""
+    import gc
+
+    from repro_torch.api import ClusterSpec, Engine
+    from repro_torch.core.scheduler import static_plan
+    from repro_torch.data.pipeline import HeterogeneousLoader
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd)
+    from repro_torch.training.optimizer import tree_leaves
+
+    run = dict(dataset="openvid", global_batch=8, max_tokens=4096,
+               tokens_per_frame=256)
+    eng = Engine("internvl3-2b", ClusterSpec(devices=[dev] * RING_RANKS,
+                                             mem_budget=RING_BUDGET), seed=0)
+    params = eng.state.params
+    L = eng.cfg.n_layers
+    runs = 2 if eng.cfg.remat else 1
+
+    # the stream's first batch before any update: its DHP plan against
+    # its static plan at degree 1, run twice (K1's dQ atomics make the
+    # two gradients differ; the forward is the same bits)
+    data = next(HeterogeneousLoader(
+        run["dataset"], run["global_batch"], eng.cfg.vocab, seed=eng.seed,
+        max_tokens=run["max_tokens"],
+        tokens_per_frame=run["tokens_per_frame"]))
+    plan = eng.plan(data)
+    flat = static_plan(data.infos, eng.cost_model, RING_RANKS, 4096.0)
+    if any(g.degree != 1 for mb in flat.micro_batches for g in mb.groups):
+        raise AssertionError("the static plan is not at degree 1")
+    l1, g1 = eng.executor.run_plan(params, flat, data)
+    l1b, g1b = eng.executor.run_plan(params, flat, data)
+    spread = (abs(float(l1) - float(l1b)), _max_rel_diff(g1b, g1))
+    del g1b
+    ld, gd = eng.executor.run_plan(params, plan, data)
+    keys = list(eng.executor.last_exe_keys)
+    diff = (abs(float(ld) - float(l1)), _max_rel_diff(gd, g1))
+    del gd, g1
+    torch.cuda.empty_cache()
+    rel = diff[0] / abs(float(l1))
+    print(f"  ring batch 0: DHP plan {plan.degree_histogram} keys {keys} "
+          f"loss {float(ld)}; static plan at degree 1 loss {float(l1)} and "
+          f"{float(l1b)}: degree-1 spread loss {spread[0]} gradient "
+          f"max|diff|/max|g| {spread[1]}; DHP vs degree 1 loss |diff| "
+          f"{diff[0]} (relative {rel}) gradient max|diff|/max|g| {diff[1]} "
+          f"({card})")
+    if max(k[2] for k in keys) < 2:
+        raise AssertionError(f"batch 0's plan holds no ring: {keys}")
+    if not (math.isfinite(float(ld)) and rel <= RING_LOSS_RTOL):
+        raise AssertionError(f"ring loss {float(ld)} against degree 1 "
+                             f"{float(l1)}: relative {rel} > "
+                             f"{RING_LOSS_RTOL}")
+    if not diff[1] <= RING_GRAD_RTOL:
+        raise AssertionError(f"ring gradient against degree 1: "
+                             f"{diff[1]} > {RING_GRAD_RTOL}")
+
+    plans, per_step = [], []
+    execute = eng.execute
+
+    def counted_execute(plan, data):
+        torch.cuda.reset_peak_memory_stats(dev)
+        n0 = (flash_attention_packed.launches,
+              flash_attention_packed_bwd.launches)
+        m = execute(plan, data)
+        per_step.append(dict(
+            keys=list(eng.executor.last_exe_keys),
+            peak=torch.cuda.max_memory_allocated(dev),
+            launches=(flash_attention_packed.launches - n0[0],
+                      flash_attention_packed_bwd.launches - n0[1])))
+        return m
+    eng.execute = counted_execute
+    flash_attention_packed.launches = 0
+    flash_attention_packed_bwd.launches = 0
+    try:
+        hist = eng.train(steps=3, lookahead=True, plan_log=plans, **run)
+    finally:
+        eng.execute = execute
+    torch.cuda.synchronize()
+    counts = (flash_attention_packed.launches,
+              flash_attention_packed_bwd.launches)
+    if len(hist) != 3:
+        raise AssertionError(f"{len(hist)} training steps, want 3")
+    degrees = set()
+    for m, st in zip(hist, per_step):
+        if not math.isfinite(m.loss):
+            raise AssertionError(f"ring step {m.step}: loss {m.loss}")
+        hops = sum(2 * k[2] - 1 for k in st["keys"])
+        want = (runs * L * hops, L * hops)
+        if st["launches"] != want:
+            raise AssertionError(f"ring step {m.step}: K1 launches "
+                                 f"{st['launches']}, want {want} for "
+                                 f"{st['keys']}")
+        degrees |= set(m.degree_histogram)
+        print(f"  ring train step {m.step}: loss={m.loss} step_time_s="
+              f"{m.step_time_s} tokens={m.tokens} tokens_per_s="
+              f"{m.tokens / m.step_time_s} padding_efficiency="
+              f"{m.padding_efficiency} degrees={m.degree_histogram} "
+              f"k1_launches_fwd_bwd={st['launches']} peak_bytes="
+              f"{st['peak']} keys={st['keys']} ({card})")
+    if not {2, 3} <= degrees:
+        raise AssertionError(f"the plans' degrees {sorted(degrees)} lack 2 "
+                             f"or 3")
+    if sum(counts) == 0 or counts != tuple(
+            sum(st["launches"][i] for st in per_step) for i in (0, 1)):
+        raise AssertionError(f"K1 launches {counts} over the 3 steps")
+    if not all(torch.isfinite(t).all() for t in tree_leaves(
+            eng.state.params)):
+        raise AssertionError("parameters are not finite after 3 steps")
+    print(f"  ring train max_memory_allocated_bytes = "
+          f"{max(st['peak'] for st in per_step)}; K1 launches {counts} "
+          f"over 3 steps ({card})")
+    eng.close()
+    del eng, params
+    gc.collect()
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1666,26 +2004,26 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/19] device: {name}; torch {torch.__version__} cuda "
+    print(f"[1/20] device: {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(card)
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"[2/19] build: {time.perf_counter() - t0:.1f} s for "
+    print(f"[2/20] build: {time.perf_counter() - t0:.1f} s for "
           f"{build.sources()}")
     for src, log in build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    print("[3/19] kernels vs plain versions")
+    print("[3/20] kernels vs plain versions")
     rows = phase_kernels(dev, card)
-    print("[4/19] parity at reduced size (fp32)")
+    print("[4/20] parity at reduced size (fp32)")
     phase_parity(dev)
-    print("[5/19] full-width serving (bf16)")
+    print("[5/20] full-width serving (bf16)")
     launches, shapes, n_layers = phase_serving(dev, card)
-    print("[6/19] kernels vs plain versions at the serving run's shapes")
+    print("[6/20] kernels vs plain versions at the serving run's shapes")
     path = phase_path(dev, card, shapes, n_layers)
 
     # the shape launched most often stands for the kernel; every shape
@@ -1717,15 +2055,15 @@ def main() -> int:
                              **{k: r[k] for k in keys}) for r in path],
     }]
 
-    print("[7/19] packed kernel K1 vs plain versions")
+    print("[7/20] packed kernel K1 vs plain versions")
     packed_rows = phase_packed(dev, card)
-    print("[8/19] training parity at reduced size (fp32)")
+    print("[8/20] training parity at reduced size (fp32)")
     phase_train_parity(dev)
-    print("[9/19] full-width DHP training (bf16)")
+    print("[9/20] full-width DHP training (bf16)")
     collect_garbage("train")
     n_fwd, n_bwd, tables, n_layers = phase_training(dev, card)
     torch.cuda.empty_cache()
-    print("[10/19] K1 vs plain versions at the training run's shapes")
+    print("[10/20] K1 vs plain versions at the training run's shapes")
     train_rows = phase_train_path(dev, card, tables, n_layers)
 
     # the shape launched most often stands for each K1 kernel; every
@@ -1763,17 +2101,17 @@ def main() -> int:
                 library_ms=r[f"library_{which}_ms"]) for r in train_rows],
         })
 
-    print("[11/19] SSD chunk kernel K3 vs plain versions")
+    print("[11/20] SSD chunk kernel K3 vs plain versions")
     ssd_rows = phase_ssd(dev, card)
-    print("[12/19] SSM training parity at reduced size (fp32)")
+    print("[12/20] SSM training parity at reduced size (fp32)")
     phase_ssm_parity(dev)
-    print("[13/19] full-width mamba2-370m DHP training (bf16)")
+    print("[13/20] full-width mamba2-370m DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("ssm train")
     s_fwd, s_bwd, ssm_shapes, ssm_layers, chunk = phase_ssm_training(dev,
                                                                      card)
     torch.cuda.empty_cache()
-    print("[14/19] K3 vs plain versions at the SSM training run's shapes")
+    print("[14/20] K3 vs plain versions at the SSM training run's shapes")
     ssd_path = phase_ssd_path(dev, card, ssm_shapes, ssm_layers, chunk)
 
     # the shape launched most often stands for each K3 kernel; every
@@ -1811,18 +2149,18 @@ def main() -> int:
                 inter_chunk_fwd_bwd_ms=r["inter_chunk_fwd_bwd_ms"])
                 for r in ssd_path],
         })
-    print("[15/19] RG-LRU scan kernel K4 vs plain versions")
+    print("[15/20] RG-LRU scan kernel K4 vs plain versions")
     rg_rows = phase_rglru(dev, card)
-    print("[16/19] K1 at head_dim 256 vs plain versions")
+    print("[16/20] K1 at head_dim 256 vs plain versions")
     wide_rows = phase_packed_wide(dev, card)
-    print("[17/19] hybrid training parity at reduced size (fp32)")
+    print("[17/20] hybrid training parity at reduced size (fp32)")
     phase_hybrid_parity(dev)
-    print("[18/19] full-width recurrentgemma-2b DHP training (bf16)")
+    print("[18/20] full-width recurrentgemma-2b DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("hybrid train")
     counts, hy_tables, per_group = phase_hybrid_training(dev, card)
     torch.cuda.empty_cache()
-    print("[19/19] K4 and K1 vs plain versions at the hybrid run's shapes")
+    print("[19/20] K4 and K1 vs plain versions at the hybrid run's shapes")
     k4_path, k1_path = phase_hybrid_path(dev, card, hy_tables, per_group)
 
     # the shape launched most often stands for each kernel; every shape
@@ -1885,6 +2223,30 @@ def main() -> int:
                 bound_by=r[f"bound_{which}_by"],
                 library_ms=r[f"library_{which}_ms"]) for r in k1_path],
         })
+    print("[20/20] ring context parallelism (bf16): LocalRing vs K1 "
+          "unsharded and vs the plain ring; full-width internvl3-2b at "
+          f"{RING_RANKS} ranks on the one card")
+    ring_rows = phase_ring(dev, card, tables)
+    torch.cuda.empty_cache()
+    collect_garbage("ring train")
+    ring_counts = phase_ring_training(dev, card)
+    torch.cuda.empty_cache()
+    # the ring's own path: its launches (phase 20's engine run) and its
+    # function-level cases beside the K1 entries of their head dim
+    for entry in kernels:
+        if entry["name"].startswith("flash_attention_packed"):
+            wide = "d256" in entry["name"]
+            which = 1 if entry["name"].endswith("_bwd") else 0
+            entry["ring_launches"] = 0 if wide else ring_counts[which]
+            entry["ring_path_shapes"] = [dict(
+                d=r["d"], S=r["S"], mode=r["mode"], window=r["window"],
+                launches=r["launches_fwd_bwd"][which],
+                err=r["err"], ring_fwd_bwd_ms=r["ring_fwd_bwd_ms"],
+                k1_unsharded_fwd_bwd_ms=r["k1_unsharded_fwd_bwd_ms"],
+                ring_fwd_bwd_device_ms=r["ring_fwd_bwd_device_ms"],
+                k1_unsharded_fwd_bwd_device_ms=r[
+                    "k1_unsharded_fwd_bwd_device_ms"])
+                for r in ring_rows if (r["D"] == 256) == wide]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

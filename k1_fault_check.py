@@ -357,8 +357,9 @@ def readings(torch, shape):
         o, lse = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
         got = (o,) + tuple(flash_attention_packed_bwd(q, k, v, o, lse, do,
                                                       segt, **kw))
-        want = (flash_attention_packed_ref(q, k, v, segt, **kw)[0],) + \
-            tuple(flash_attention_packed_bwd_ref(q, k, v, do, segt, **kw))
+        ro, rlse = flash_attention_packed_ref(q, k, v, segt, **kw)
+        want = (ro,) + tuple(flash_attention_packed_bwd_ref(
+            q, k, v, ro, rlse, do, segt, **kw))
         row = {"case": name, "tags": sorted(tags)}
         for t, a, r in zip(("o", "dq", "dk", "dv"), got, want):
             r = r.float()
@@ -612,7 +613,8 @@ def time_mode(torch, libs, shape, rounds, directions):
             (flash_attention_packed_bwd_ref, _readings_bwd, backward))
         args = [x[n] for n in ("q", "k", "v")]
         if direction == "bwd":
-            args.append(x["do"])
+            # the backward every library is given: the row's o and lse
+            args += [x["o"], x["lse"], x["do"]]
         ref = ref_fn(*args, x["seg"], span_ids=x["span"], **x["kw"])
         rows = readings_fn(torch, libs, x, ref)
         del ref

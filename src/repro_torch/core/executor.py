@@ -31,9 +31,19 @@ tail-padding row as the mean of V (all its scores are -1e30) where K1
 gives zeros. Padding rows carry mask 0 and no real row attends them, so
 losses and gradients agree; hidden states agree at real tokens only.
 
-A group of degree > 1 needs ring context parallelism over
-torch.distributed across cards, which a later slice adds; until then the
-executor refuses such a group rather than running it on one rank.
+A packed group of degree d > 1 runs its [1, bucket] buffer as [d,
+bucket / d]: row r is rank r's contiguous shard (the bucket is rounded up
+to a multiple of d), every per-token layer runs on the rows unchanged,
+attention runs ring context parallelism over a `LocalRing(d)` (K1 a hop,
+parallel/ring_attention.py), and the loss and the aux table sum over the
+rows, as the JAX executor runs the group under `shard_map` with the
+batch split `P(None, "cp")` and `psum`s them. That runs when all of the
+group's ranks are one device (one card, or the host in the tests); ranks
+on several devices need an executor with one process a card over NCCL
+(`DistRing`), which is not written yet. The padded families refuse a
+degree > 1: the reference's scan and conv restart from zero at every
+shard's first token, so its result at degree d is not the result at
+degree 1.
 """
 from __future__ import annotations
 
@@ -48,6 +58,7 @@ from ..configs.base import ModelConfig
 from ..data.pipeline import RaggedBatch, padded_batch
 from ..models.model import _head, forward_hidden
 from ..obs.trace import get_tracer
+from ..parallel.ring_attention import LocalRing
 from ..training.optimizer import tree_leaves, tree_map
 from .group_pool import GroupPool
 from .packing import MODALITY_CLASSES, flatten_group
@@ -75,17 +86,17 @@ def _token_nll(logits, labels):
 LOSS_PIECE_BYTES = 1 << 30
 
 
-def token_nll(params, cfg: ModelConfig, batch,
-              pieces: bool = False) -> torch.Tensor:
+def token_nll(params, cfg: ModelConfig, batch, pieces: bool = False,
+              ring=None) -> torch.Tensor:
     """Per-position NLL [B, S] of the batch, differentiable in `params`.
     With `pieces` (the padded path) the head and the NLL run over pieces
     of the batch's tokens, each under `torch.utils.checkpoint`, so that
     only one piece's fp32 logits (at most LOSS_PIECE_BYTES: 1048 tokens
     of recurrentgemma-2b's 256000-word vocabulary) are alive at once, in
     the forward and again in the backward, which recomputes them. The
-    sums are the same. Without (every packed group, one row) the head
-    runs on the whole batch."""
-    x, _ = forward_hidden(params, cfg, batch)
+    sums are the same. Without (every packed group) the head runs on the
+    whole batch. `ring` passes to `forward_hidden`."""
+    x, _ = forward_hidden(params, cfg, batch, ring=ring)
     labels = batch["labels"]
     B, S = labels.shape
     if not pieces:
@@ -124,21 +135,25 @@ class DHPExecutor:
         self.last_exe_keys: List[Tuple] = []
 
     # ------------------------------------------------------------------
-    def _build_step(self, with_spans: bool):
+    def _build_step(self, with_spans: bool, degree: int = 1):
         """(loss, grads[, modality nll table]) of one group's batch.
 
         `with_spans` adds the span-masked attention, the `loss_mask`
         (labels inside bidirectional spans carry no NLL — they attend
         their own future) and the per-class [n_classes, 2] (nll_sum,
-        label_count) aux table over every valid label."""
+        label_count) aux table over every valid label. A `degree` > 1
+        runs the batch's rows as the shards of a `LocalRing`; the sums
+        run over every row."""
         cfg = self.cfg
+        ring = LocalRing(degree) if degree > 1 else None
 
         def step(params, batch):
             leaves = [t.detach().requires_grad_(True)
                       for t in tree_leaves(params)]
             it = iter(leaves)
             p = tree_map(lambda _: next(it), params)
-            nll = token_nll(p, cfg, batch, pieces=not self.packed)
+            nll = token_nll(p, cfg, batch, pieces=not self.packed,
+                            ring=ring)
             aux = None
             if not with_spans:
                 s, c = (nll * batch["mask"]).sum(), batch["mask"].sum()
@@ -168,29 +183,43 @@ class DHPExecutor:
         whatever the group holds, keyed without n_seqs; padded: an
         [n_seqs, bucket] batch. Span-bearing groups get a distinct "mm"
         key; causal groups keep the span-free key (and the span-free
-        kernel)."""
-        if degree > 1:
+        kernel). A packed group of degree > 1 runs as a `LocalRing` when
+        its ranks are one device; see the module docstring."""
+        if degree > 1 and not self.packed:
             raise NotImplementedError(
-                f"a CP group of degree {degree} needs ring context "
-                f"parallelism across cards over torch.distributed (the "
-                f"ring-CP slice of the port); it is not run on one rank")
+                f"a {self.cfg.family!r} group of degree {degree}: the "
+                f"reference restarts its recurrent state (scan and conv) "
+                f"from zero at every shard's first token, so degree "
+                f"{degree} is another computation than degree 1; the port "
+                f"runs this family at degree 1 only")
         ranks = self.pool.mesh_for(start, degree)
+        if len(set(ranks)) > 1:
+            raise NotImplementedError(
+                f"a CP group of degree {degree} over devices {ranks}: "
+                f"ranks on several devices need the executor with one "
+                f"process a card over NCCL (parallel.DistRing), which is "
+                f"not written yet; this executor runs a group's ranks on "
+                f"one device")
         key = (("pgrad", start, degree, bucket) if self.packed
                else ("grad", start, degree, n_seqs, bucket)) \
             + (("mm",) if with_spans else ())
         exe, miss = self.pool.executable_for(
-            key, self._build_step(with_spans))
+            key, self._build_step(with_spans, degree))
         return exe, miss, key, ranks[0]
 
     def _group_batch(self, seqs, degree: int, spans=None):
         """(np_batch, real_tokens, padded_tokens, bucket) for one group.
         Both layouts emit the same per-sequence modality table, so
-        packed and padded execution apply the same mixed mask."""
+        packed and padded execution apply the same mixed mask. A packed
+        group of degree d comes as [d, bucket / d], row r rank r's
+        contiguous shard."""
         if self.packed:
             total = sum(len(s) for s in seqs)
             bucket = self.pool.bucket(total)
             bucket += (-bucket) % degree       # shardable over cp
             np_batch, cu = flatten_group(seqs, bucket, spans=spans)
+            np_batch = {k: a.reshape(degree, bucket // degree)
+                        for k, a in np_batch.items()}
             return np_batch, int(cu[-1]), bucket, bucket
         bucket = self.pool.bucket(max(len(s) for s in seqs))
         bucket += (-bucket) % degree           # shardable over cp

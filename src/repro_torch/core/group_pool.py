@@ -12,10 +12,12 @@ expensive. `GroupPool` keeps the pieces of that idea the port runs:
     same bucketed shapes the JAX package compiles for, so the stats read
     the same way;
   * `mesh_for(start, degree)` — the devices of the rank slice
-    [start, start+degree) (a rank is one card), cached per slot, and
-    `reconfigure(delta)`, which consumes a plan's GroupDelta. A group of
-    degree > 1 needs ring context parallelism over torch.distributed,
-    which a later slice adds; the executor refuses such groups.
+    [start, start+degree) (a rank is one device), cached per slot, and
+    `reconfigure(delta)`, which consumes a plan's GroupDelta. The
+    executor runs a group of degree > 1 as a ring on one device when
+    the slot's ranks are that device (several ranks may name one card);
+    a slot over several devices needs a process group a slot, which the
+    executor with one process a card over NCCL will add.
 """
 from __future__ import annotations
 

@@ -19,8 +19,9 @@ neighbour's tables and the position of its first key (defaults: the
 query side's tables, offset 0). A row with no valid key is zeros, with
 LSE -inf.
 
-On CPU tensors the wrappers run the plain versions (the backward is the
-autograd gradient of the plain forward); on CUDA tensors they launch
+On CPU tensors the wrappers run the plain versions (the backward forms
+P from the `lse` and delta from the `o` it is given, as the kernel does);
+on CUDA tensors they launch
 `csrc/flash_attention_packed.cu` or raise, never falling back. bf16 runs
 on the tensor cores with fp32 accumulation, P and dS rounded to bf16
 before their products: the forward by `wgmma`, two warpgroups over 128
@@ -122,7 +123,8 @@ def flash_attention_packed_ref(q, k, v, segment_ids, *,
     so that the autograd gradient of a row without keys stays finite
     (the row is then zeroed). Returns (o in q's dtype, lse fp32
     [B, H, Sq], -inf where a row has no key). Differentiable in q, k,
-    v: its autograd gradient is the backward kernel's plain version."""
+    v: its autograd gradient is what `flash_attention_packed_bwd_ref`
+    gives from this call's own o and lse."""
     _check_args(q, k, v, mode, window)
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -145,14 +147,46 @@ def flash_attention_packed_ref(q, k, v, segment_ids, *,
     return o.reshape(B, Sq, H, D).to(q.dtype), lse
 
 
-def flash_attention_packed_bwd_ref(q, k, v, do, segment_ids, **kw
+def flash_attention_packed_bwd_ref(q, k, v, o, lse, do, segment_ids, *,
+                                   mode: str = "causal",
+                                   window: Optional[int] = None,
+                                   span_ids=None, kv_segment_ids=None,
+                                   kv_span_ids=None, kv_offset: int = 0
                                    ) -> Tuple[torch.Tensor, ...]:
-    """Plain version of the backward kernel: (dq, dk, dv), the autograd
-    gradient of `flash_attention_packed_ref` against `do`."""
-    with torch.enable_grad():
-        qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
-        o, _ = flash_attention_packed_ref(qr, kr, vr, segment_ids, **kw)
-        return torch.autograd.grad(o, (qr, kr, vr), do)
+    """Plain version of the backward kernel: (dq, dk, dv) in the inputs'
+    dtypes for output gradient `do`, from the `o` and fp32 `lse` [B, H,
+    Sq] it is given, in fp32 as the kernel forms them: P = exp(S - lse)
+    on the valid pairs (0 elsewhere), dP = dO Vᵀ, delta = rowsum(dO ∘ o),
+    dS = P ∘ (dP - delta), then dq, and dk and dv summed over each KV
+    head's group. Rows whose `lse` is -inf give zeros. Given the
+    forward's own `o` and `lse` this is the autograd gradient of
+    `flash_attention_packed_ref`; given those of a larger softmax (a ring
+    hop's keys under the merged `o` and `lse`) it is this key block's
+    share of that softmax's gradient."""
+    _check_args(q, k, v, mode, window)
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    segq, segk, spanq, spank = _tables(q, k, segment_ids, span_ids,
+                                       kv_segment_ids, kv_span_ids)
+    valid = pair_mask(Sq, Sk, segq, segk, spanq, spank, mode=mode,
+                      window=window, kv_offset=kv_offset)
+    scale = 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, Sq, Hkv, G, D)
+    dog = do.float().reshape(B, Sq, Hkv, G, D)
+    kf, vf = k.float(), v.float()
+    lse = lse.float().reshape(B, Hkv, G, Sq, 1)
+    live = valid[:, None, None] & torch.isfinite(lse)   # [B,Hkv,G,Sq,Sk]
+    s = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
+    p = torch.where(live, torch.exp(s - lse.nan_to_num(neginf=0.0)), 0.0)
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, vf)
+    delta = (dog * o.float().reshape(B, Sq, Hkv, G, D)).sum(-1)
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dog)
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def _check_args(q, k, v, mode, window) -> None:
@@ -361,8 +395,8 @@ def flash_attention_packed_bwd(q, k, v, o, lse, do, segment_ids, *,
               kv_segment_ids=kv_segment_ids, kv_span_ids=kv_span_ids,
               kv_offset=kv_offset)
     if not _on_card(q):
-        return flash_attention_packed_bwd_ref(q, k, v, do, segment_ids,
-                                              **kw)
+        return flash_attention_packed_bwd_ref(q, k, v, o, lse, do,
+                                              segment_ids, **kw)
     tables = _tables(q, k, segment_ids, span_ids, kv_segment_ids,
                      kv_span_ids)
     return _launch_bwd(q.contiguous(), k.contiguous(), v.contiguous(),

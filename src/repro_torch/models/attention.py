@@ -13,8 +13,12 @@ Implementations (`cfg.attn_impl`):
 The serving-only cores `attn_prefill_chunk` (chunked prefill against a
 KV cache, with the mixed modality mask) and `attn_decode` (one token
 against a cache) are plain PyTorch, as they are plain jnp in the JAX
-package. The chunked and banded cores and ring context parallelism are
-not ported (a later slice adds ring CP over torch.distributed).
+package. The chunked and banded cores are not ported.
+
+With a `ring` (parallel/ring_attention.Ring), `attention` runs ring
+context parallelism whatever `impl` says, as the JAX package's `cp_axis`
+does: x is the ring's local rows of a contiguously sharded packed buffer,
+and every hop runs K1 (its plain version on CPU tensors).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import torch
 
 from ..kernels.flash_attention import flash_attention
 from ..kernels.flash_attention_packed import flash_attention_packed
+from ..parallel.ring_attention import ring_attention
 from .layers import apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -166,14 +171,16 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
               positions=None, mode: str = "causal",
               window: Optional[int] = None, impl: str = "cuda",
               rope_frac: float = 1.0, segment_ids=None, span_ids=None,
-              return_kv: bool = False):
+              return_kv: bool = False, ring=None):
     """Self-attention block on x [B,S,d_model]. `segment_ids` ([B,S],
     -1 = padding) selects the packed varlen path: x is a packed buffer of
     concatenated sequences and attention is block-diagonal over segments;
     pass per-segment `positions` so RoPE matches. `span_ids` ([B,S], -1 =
     causal) adds the mixed modality mask. `impl="cuda"` runs kernel K1
     when a table is given or a gradient is needed, and K2 otherwise;
-    `impl="reference"` the full matrix."""
+    `impl="reference"` the full matrix. With a `ring`, x's rows are the
+    ring's contiguous shards and the core is `ring_attention` (K1 a
+    hop), whatever `impl` says."""
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
     k = (x @ params["wk"]).reshape(B, S, kv_heads, head_dim)
@@ -183,7 +190,10 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
     q = apply_rope(q, positions, rope_theta, rope_frac)
     k = apply_rope(k, positions, rope_theta, rope_frac)
 
-    if impl == "cuda":
+    if ring is not None:
+        o = ring_attention(q, k, v, segment_ids, ring=ring, mode=mode,
+                           window=window, span_ids=span_ids)
+    elif impl == "cuda":
         # K2 has no backward: a table-free call that needs a gradient
         # (a padded text-only group) runs K1 with one segment per row
         needs_grad = torch.is_grad_enabled() and any(

@@ -119,7 +119,7 @@ def forward(params, cfg: ModelConfig, batch,
 
 
 def forward_hidden(params, cfg: ModelConfig, batch,
-                   mode: Optional[str] = None
+                   mode: Optional[str] = None, ring=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward up to the head -> (hidden [B,S,d_model], aux loss). `batch`
     holds `tokens` and optionally `positions` (per-segment positions of a
@@ -132,8 +132,18 @@ def forward_hidden(params, cfg: ModelConfig, batch,
     layer (each pattern unit of the hybrid family, whose tail is not
     checkpointed) keeps only its input for the backward and is run again
     there (`torch.utils.checkpoint`), as the JAX package wraps each scan
-    step in `jax.checkpoint`."""
+    step in `jax.checkpoint`.
+
+    With a `ring` (parallel/ring_attention.Ring; the dense family only)
+    the batch's rows are the ring's contiguous shards of one packed
+    buffer and every attention layer runs ring context parallelism, as
+    the JAX package's `cp_axis` does; the other layers are per token."""
     _check_family(cfg)
+    if ring is not None and cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} does not run on a ring: its recurrent "
+            f"state crosses shard borders, and the JAX reference restarts "
+            f"it from zero on every shard")
     x = _input_embeddings(params, cfg, batch)
     attn_mode = mode or ("sliding" if cfg.sliding_window else "causal")
     tables = dict(positions=_table(batch, "positions", x.device),
@@ -143,7 +153,8 @@ def forward_hidden(params, cfg: ModelConfig, batch,
         block, stacked, kw = _hybrid_block, params["units"], tables
     else:
         block, stacked = _BLOCK[cfg.family], params["layers"]
-        kw = dict(mode=attn_mode, window=cfg.sliding_window, **tables)
+        kw = dict(mode=attn_mode, window=cfg.sliding_window, ring=ring,
+                  **tables)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in unstack(stacked):

@@ -95,12 +95,15 @@ def _attn_kwargs(cfg: ModelConfig, mode: str, window=None):
 
 
 def _dense_block(p, x, cfg: ModelConfig, mode="causal", window=None,
-                 positions=None, segment_ids=None, span_ids=None):
-    """One dense layer (pre-norm attention + MLP) -> (x, aux loss 0)."""
+                 positions=None, segment_ids=None, span_ids=None,
+                 ring=None):
+    """One dense layer (pre-norm attention + MLP) -> (x, aux loss 0).
+    With a `ring`, attention runs ring context parallelism over x's rows
+    (the ring's shards); every other op is per token."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     x = x + attention(p["attn"], h, positions=positions,
                       segment_ids=segment_ids, span_ids=span_ids,
-                      **_attn_kwargs(cfg, mode, window))
+                      ring=ring, **_attn_kwargs(cfg, mode, window))
     h = rms_norm(p["ln2"], x, cfg.norm_eps)
     x = x + mlp(p["mlp"], h, cfg.activation)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)

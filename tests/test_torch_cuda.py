@@ -225,7 +225,8 @@ def test_packed_kernel_forward_and_backward_match_plain(card, dtype, D):
                                         **kw)
         ro, rlse = flash_attention_packed_ref(q, k, v, segt, **kw)
         grads = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
-        refs = flash_attention_packed_bwd_ref(q, k, v, do, segt, **kw)
+        refs = flash_attention_packed_bwd_ref(q, k, v, ro, rlse, do, segt,
+                                              **kw)
         torch.cuda.synchronize()
         for name, a, r in [("o", o, ro), ("dq", grads[0], refs[0]),
                            ("dk", grads[1], refs[1]),
@@ -265,15 +266,17 @@ def _k1_bf16(card, rng, B, Sq, Sk, H, Hkv, D):
 
 
 def _k1_grads(card, q, k, v, do, seg, **kw):
-    """(kernel (dq, dk, dv), plain (dq, dk, dv)); the forward's o and lse
-    come from the kernel, as on the training path."""
+    """(kernel (dq, dk, dv), plain (dq, dk, dv)); the kernel's forward o
+    and lse come from the kernel, as on the training path, the plain
+    backward's from the plain forward."""
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed, flash_attention_packed_bwd,
-        flash_attention_packed_bwd_ref)
+        flash_attention_packed_bwd_ref, flash_attention_packed_ref)
     segt = torch.as_tensor(seg, device=card)
     o, lse = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
     got = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
-    want = flash_attention_packed_bwd_ref(q, k, v, do, segt, **kw)
+    ro, rlse = flash_attention_packed_ref(q, k, v, segt, **kw)
+    want = flash_attention_packed_bwd_ref(q, k, v, ro, rlse, do, segt, **kw)
     torch.cuda.synchronize()
     return got, want, (o, lse, segt)
 
@@ -1241,7 +1244,7 @@ def test_packed_kernel_head_dim_256(card, case):
     o, lse = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
     grads = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
     ro, rlse = flash_attention_packed_ref(q, k, v, segt, **kw)
-    refs = flash_attention_packed_bwd_ref(q, k, v, do, segt, **kw)
+    refs = flash_attention_packed_bwd_ref(q, k, v, ro, rlse, do, segt, **kw)
     torch.cuda.synchronize()
     errs = {}
     for name, a, r in [("o", o, ro), ("dq", grads[0], refs[0]),
@@ -1352,3 +1355,94 @@ def test_recurrentgemma_full_width_training_memory(card, monkeypatch):
     assert peaks["both"][1] is None, peaks
     assert peaks["without remat"][1] is not None, peaks
     assert peaks["whole-batch loss"][1] is not None, peaks
+
+
+# Ring context parallelism (parallel/ring_attention.py): a LocalRing of
+# degree 3 on the card, every hop through K1, against K1 unsharded on the
+# same bf16 inputs, with the K1 checks' limits (TOL / GRAD_TOL
+# elementwise, REL_TOL_BF16 as whole tensors); segments and spans cross
+# the shard borders. Two planted faults must break those limits: the
+# wrapped rows' shard distance with the wrong sign, and dK / dV left one
+# shift short of home.
+#: head_dim -> (query heads, KV heads, mode, window): internvl3-2b's
+#: attention and recurrentgemma-2b's (a window below S_loc)
+RING_SHAPES = {128: (12, 2, "causal", None), 256: (10, 1, "sliding", 400)}
+
+
+def _ring_faults():
+    from repro_torch.parallel import LocalRing
+
+    class WrongSign(LocalRing):
+        """The wrapped rows' shard distance with the wrong sign."""
+
+        def hops(self, h, rows):
+            return [(s, abs(dist)) for s, dist in super().hops(h, rows)]
+
+    class ShortHome(LocalRing):
+        """dK and dV not shifted home after the last hop (the only shift
+        of two tensors: the hops move K, V and the tables with them)."""
+
+        def shift(self, *ts):
+            return ts if len(ts) == 2 else super().shift(*ts)
+
+    return {"wrong_sign": WrongSign, "short_home": ShortHome}
+
+
+def _ring_errors(card, D, ring, d=3, S=1536):
+    """{name: (elementwise, whole)} of ring_attention over `ring` against
+    K1 unsharded, for o, dq, dk, dv; and the ring's K1 launches."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd)
+    from repro_torch.parallel import ring_attention
+    Hq, Hkv, mode, window = RING_SHAPES[D]
+    seg, span = _packed_tables(1, S, [500, 410, 300, 250], True, frame=96)
+    rng = np.random.default_rng(31 + D)
+    q, k, v, do = _k1_bf16(card, rng, 1, S, S, Hq, Hkv, D)
+    segt, spant = (torch.from_numpy(t).to(card) for t in (seg, span))
+    kw = dict(mode=mode, window=window, span_ids=spant)
+    o, lse = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
+    want = (o,) + tuple(flash_attention_packed_bwd(q, k, v, o, lse, do, segt,
+                                                   **kw))
+    rows = lambda t: t.reshape(d, S // d, *t.shape[2:])  # noqa: E731
+    qs, ks, vs = (rows(t).detach().requires_grad_(True) for t in (q, k, v))
+    n = (flash_attention_packed.launches,
+         flash_attention_packed_bwd.launches)
+    ro = ring_attention(qs, ks, vs, rows(segt), ring=ring, mode=mode,
+                        window=window, span_ids=rows(spant))
+    got = (ro,) + torch.autograd.grad(ro, (qs, ks, vs), rows(do))
+    torch.cuda.synchronize()
+    launches = (flash_attention_packed.launches - n[0],
+                flash_attention_packed_bwd.launches - n[1])
+    errs = {}
+    for name, a, r in zip(("o", "dq", "dk", "dv"), got, want):
+        a, r = a.reshape(r.shape).float(), r.float()
+        diff = (a - r).abs()
+        errs[name] = ((diff / r.abs().clamp_min(1.0)).max().item(),
+                      diff.max().item() / r.abs().max().item())
+    return errs, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 256])
+def test_ring_matches_k1_unsharded(card, D):
+    from repro_torch.parallel import LocalRing
+    errs, launches = _ring_errors(card, D, LocalRing(3))
+    print(f"ring d=3 D={D}: {errs}")
+    assert launches == (5, 5)            # hop 0 once, then two a hop
+    for name, (err, rel) in errs.items():
+        tol = TOL[torch.bfloat16] if name == "o" else \
+            GRAD_TOL[torch.bfloat16]
+        assert err <= tol and rel <= REL_TOL_BF16, (name, errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["wrong_sign", "short_home"])
+def test_ring_limit_catches_planted_fault(card, fault):
+    errs, _ = _ring_errors(card, 128, _ring_faults()[fault](3))
+    print(f"ring fault {fault}: {errs}")
+    caught = [name for name, (err, rel) in errs.items()
+              if err > (TOL if name == "o" else GRAD_TOL)[torch.bfloat16]
+              or rel > REL_TOL_BF16]
+    assert caught, errs
+    if fault == "short_home":
+        assert set(caught) <= {"dk", "dv"} and caught, errs

@@ -228,6 +228,44 @@ def test_packed_gradient_matches_jax_grad_of_attn_reference(lens,
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
 
+@pytest.mark.parametrize("mode,window", MODES)
+@pytest.mark.parametrize("with_spans", [False, True])
+def test_plain_backward_uses_the_o_and_lse_it_is_given(mode, window,
+                                                       with_spans):
+    """The plain backward forms P from the `lse` and delta from the `o`
+    it is given, as the kernel does. With the call's own o and lse it is
+    the autograd gradient of the plain forward; with the whole
+    attention's o and lse, key blocks split as ring hops split them give
+    dq's that sum to the whole gradient and dk/dv's that concatenate to
+    it (before the repair: dq off by 1.30 against a largest |dq| of
+    1.54, fp32, S=64, 4:2 heads of 16, full mode)."""
+    lens = [23, 30, 9]
+    S = 64
+    q, k, v, seg, span = (_t(a) for a in _model_layout_case(
+        lens, S, with_spans, 13))
+    do = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        q.shape).astype(np.float32))
+    kw = dict(mode=mode, window=window, span_ids=span)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o, lse = flash_attention_packed(qr, kr, vr, seg, return_lse=True, **kw)
+    want = torch.autograd.grad(o, (qr, kr, vr), do)
+    o = o.detach()
+    own = flash_attention_packed_bwd(q, k, v, o, lse, do, seg, **kw)
+    for got, ref in zip(own, want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+    parts = []
+    for ks in (slice(0, 24), slice(24, 50), slice(50, S)):
+        parts.append(flash_attention_packed_bwd(
+            q, k[:, ks], v[:, ks], o, lse, do, seg,
+            kv_segment_ids=seg[:, ks],
+            kv_span_ids=None if span is None else span[:, ks],
+            kv_offset=ks.start, **kw))
+    dq = sum(p[0] for p in parts)
+    dk, dv = (torch.cat([p[i] for p in parts], dim=1) for i in (1, 2))
+    for got, ref in zip((dq, dk, dv), want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("with_spans", [False, True])
 def test_packed_lse_matches_jax_chunked_core(with_spans):
     lens = [23, 41, 9]

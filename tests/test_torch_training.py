@@ -13,7 +13,9 @@ same seeds, reduced internvl3-2b run as dense, `openvid`, one device:
     kernel K1's plain version (`attn_impl="cuda"` on CPU tensors) and
     with the full-matrix reference;
   * dynamic and static plans of one batch on one rank give the same
-    loss (2e-5) and gradient (1e-4); only the grouping differs.
+    loss (2e-5) and gradient (1e-4); only the grouping differs;
+  * a packed group at degree 2 (two ranks on one device, a ring) gives
+    its degree-1 loss and gradient; the padded families refuse it.
 
 The JAX executor runs its attention as one ring-CP hop; K1 gives zeros
 on tail-padding rows where that hop gives the mean of V. Padding rows
@@ -30,8 +32,8 @@ from repro.api import Engine as JaxEngine
 from repro.core.packing import flatten_group as jax_flatten_group
 from repro.data.pipeline import HeterogeneousLoader as JaxLoader
 from repro.training import optimizer as jopt
-from repro_torch.api import (Engine, StepMetrics, metrics_from_json,
-                             metrics_to_json)
+from repro_torch.api import (ClusterSpec, Engine, StepMetrics,
+                             metrics_from_json, metrics_to_json)
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.packing import flatten_group
 from repro_torch.core.scheduler import diff_plans
@@ -285,13 +287,39 @@ def test_strategy_keeps_one_plan_in_flight():
     strat.close()
 
 
-def test_group_of_degree_above_one_raises():
-    eng = Engine("internvl3-2b", reduced=True, device="cpu")
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b"])
+def test_group_of_degree_above_one_raises(arch):
+    """The padded families refuse a degree > 1: the JAX reference
+    restarts their recurrent state at every shard (ROADMAP Queue 3)."""
+    eng = Engine(arch, ClusterSpec(devices=[torch.device("cpu")] * 2),
+                 reduced=True)
     data = next(_loader(HeterogeneousLoader, eng.cfg.vocab))
     plan = eng.plan(data)
     plan.micro_batches[0].groups[0].degree = 2
-    with pytest.raises(NotImplementedError, match="ring"):
+    with pytest.raises(NotImplementedError, match="recurrent state"):
         eng.executor.run_plan(eng.state.params, plan, data)
+
+
+def test_dense_group_of_degree_two_matches_degree_one(jax_run):
+    """A packed group at degree 2 runs as a ring on one device and gives
+    the loss and gradient of the same plan at degree 1."""
+    eng = Engine("internvl3-2b",
+                 ClusterSpec(devices=[torch.device("cpu")] * 2),
+                 reduced=True)
+    eng.state = TrainState(params=params_from_numpy(jax_run["params0"]))
+    data = next(_loader(HeterogeneousLoader, eng.cfg.vocab))
+    plan = eng.plan(data)
+    loss1, grads1 = eng.executor.run_plan(eng.state.params, plan, data)
+    plan.micro_batches[0].groups[0].degree = 2
+    loss2, grads2 = eng.executor.run_plan(eng.state.params, plan, data)
+    assert eng.executor.last_exe_keys[0][2] == 2
+    assert abs(float(loss2) - float(loss1)) <= LOSS_TOL
+    _assert_trees_close(grads2, grads1, GRAD_TOL)
+    # ranks on several devices wait for the executor over NCCL
+    two = Engine("internvl3-2b", ClusterSpec(
+        devices=[torch.device("cpu"), torch.device("meta")]), reduced=True)
+    with pytest.raises(NotImplementedError, match="NCCL"):
+        two.executor.run_plan(two.state.params, plan, data)
 
 
 def test_trace_records_each_groups_bucket_and_spans():
