@@ -1,9 +1,11 @@
 """Chip smoke test of the PyTorch/CUDA port: builds the hand-written
 kernels, holds each against its plain PyTorch version on the card, then
 drives the port's main paths — continuous-batching serving and DHP
-training of internvl3-2b, and DHP training of mamba2-370m and of
-recurrentgemma-2b, at full width, and internvl3-2b's groups of degree
-> 1 as rings on the one card — and checks what comes out.
+training of internvl3-2b, DHP training of mamba2-370m and of
+recurrentgemma-2b, at full width, internvl3-2b's groups of degree > 1
+as rings on the one card, the serving of mamba2-370m and
+recurrentgemma-2b at full width, and the exact-length prefill of
+sliding-window caches — and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -180,6 +182,32 @@ Phases:
                 parameters finite. The ranks share one card: the ring's
                 shifts are device copies, no NCCL and no link is run
 
+ 21. state parity — reduced mamba2-370m and recurrentgemma-2b, fp32,
+                attn_impl="cuda": the ServingEngine's streams (slots=2,
+                four requests, so that a slot is reused) equal
+                greedy_generate's from a fresh cache and each prompt's
+                last token (the JAX runtime never feeds a state-cache
+                family's prompt into its state); 80 decode_step logits,
+                past the hybrid's window of 64, against forward through
+                the kernels (K3; K4 and K1) within DECODE_TOL x max(1,
+                |forward|). Then reduced internvl3-2b as dense with a
+                sliding window of 16: streams equal the exact-length
+                prefill plus greedy_generate; K2's launches on that path
+                (layers x prompts of more than one token), and K2 vs
+                plain at each exact length it ran, with times; these
+                feed the kernels line (`exact_prefill_launches`)
+ 22. state serving — full-width mamba2-370m, then recurrentgemma-2b,
+                bf16, after the earlier phases' memory is released:
+                full_width_trace through Engine(arch).serving(slots=4)
+                .run(): every request finishes with 32 in-vocab tokens;
+                tokens/s, mean and max TTFT, wall, decode steps, peak
+                memory, the slot cache's bytes and the kernels' launches
+                in the run (none: decode is torch ops);
+                Engine(arch).serve(batch=4, prompt_len=96,
+                gen_tokens=32)'s ms a token; the largest relative error
+                of 64 decode logits against forward, printed and not
+                held (bf16), both finite
+
 Each full-width training phase (9, 13, 18) first collects what the
 earlier phases left in reference cycles (the profiler's event trees
 among it) and prints what that took: left to the garbage collector, its
@@ -304,14 +332,16 @@ H, HKV, D = 12, 2, 128     # internvl3-2b's attention heads
 
 
 def check_kernel(dev, card, gen, B, S, dtype, mode="causal", window=None,
-                 off=0):
+                 off=0, heads=(H, HKV, D)):
     """Hold the kernel against its plain version on one random input at
-    [B, S, H, D] / [B, S, HKV, D]; time both and the library call, the
-    kernel and the library call also by device time (torch.profiler),
-    and print the bf16 kernel's launch beside the card's SMs."""
+    [B, S, H, D] / [B, S, HKV, D] (`heads` = (H, HKV, D), internvl3-2b's
+    by default); time both and the library call, the kernel and the
+    library call also by device time (torch.profiler), and print the
+    bf16 kernel's launch beside the card's SMs."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref,
                                                      last_launch)
+    H, HKV, D = heads
     q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
     k = torch.randn(B, S, HKV, D, generator=gen, device=dev).to(dtype)
     v = torch.randn(B, S, HKV, D, generator=gen, device=dev).to(dtype)
@@ -1980,6 +2010,254 @@ def phase_ring_training(dev, card):
     return counts
 
 
+# ------------------------------------------------ state-cache serving
+STATE_ARCHS = ("mamba2-370m", "recurrentgemma-2b")
+#: decode_step logits against forward, x max(1, |forward|) (the JAX
+#: package's test_ssm_decode_equals_chunked_scan and
+#: test_hybrid_decode_equals_forward)
+DECODE_TOL = 2e-3
+SLIDING_WINDOW = 16
+#: (prompt length, new tokens) at slots=2: requests 2 and 3 wait for a
+#: slot that an earlier request frees
+STATE_PARITY_REQUESTS = ((21, 4), (5, 6), (1, 3), (9, 5))
+
+
+def _all_kernel_counts():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
+    counts = {"k2": flash_attention.launches,
+              "k3": (ssd_chunk.launches, ssd_chunk_bwd.launches)}
+    counts.update(_k4_k1_counts())
+    return counts
+
+
+def _zero_all_kernel_counts():
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
+    for fn in (flash_attention, ssd_chunk, ssd_chunk_bwd):
+        fn.launches = 0
+    _zero_k4_k1_counts()
+
+
+def _parity_trace(vocab, rng):
+    from repro_torch.serving.scheduler import ServeRequest
+    return [ServeRequest(request_id=i,
+                         tokens=rng.integers(0, vocab, size=L,
+                                             dtype=np.int32),
+                         max_new_tokens=n)
+            for i, (L, n) in enumerate(STATE_PARITY_REQUESTS)]
+
+
+def _decode_logits(params, cfg, toks, cache_len):
+    """decode_step's logits [B, S, V] over toks [B, S] from a zero
+    cache."""
+    from repro_torch.models import model as tm
+    cache = tm.init_cache(cfg, toks.shape[0], cache_len, device=toks.device)
+    out = []
+    for t in range(toks.shape[1]):
+        logits, cache = tm.decode_step(params, cfg, cache, toks[:, t])
+        out.append(logits)
+    return torch.stack(out, dim=1)
+
+
+def _forward_logits(params, cfg, toks):
+    """forward's logits with one segment a row, so that attention runs
+    K1 (K2 takes no head_dim of 256)."""
+    from repro_torch.models import model as tm
+    seg = torch.zeros(toks.shape, dtype=torch.int32, device=toks.device)
+    with torch.no_grad():
+        logits, _ = tm.forward(params, cfg, {"tokens": toks,
+                                             "segment_ids": seg})
+    return logits
+
+
+def _scaled_max(got, want) -> float:
+    got, want = got.double(), want.double()
+    return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+
+
+def phase_state_parity(dev, card):
+    """Reduced mamba2-370m and recurrentgemma-2b (fp32, kernels on): the
+    ServingEngine's streams (slots=2, a slot reused) against
+    greedy_generate from a fresh cache and each prompt's last token, and
+    80 decode_step logits (past the hybrid's window of 64) against
+    forward through the kernels. Then reduced internvl3-2b as dense with
+    a sliding window of SLIDING_WINDOW: streams against the exact-length
+    prefill and greedy_generate, K2's launches in that run, and K2 vs
+    plain at each exact length it ran. Returns (K2 launches, rows)."""
+    from repro_torch.api import Engine
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model as tm
+    from repro_torch.serving.serve_step import greedy_generate
+
+    rng = np.random.default_rng(1)
+    for arch in STATE_ARCHS:
+        cfg = get_config(arch).reduced().with_(attn_impl="cuda")
+        eng = Engine(cfg, seed=0)
+        params = eng.state.params
+        trace = _parity_trace(cfg.vocab, rng)
+        rep = eng.serving(slots=2).run(trace)
+        for m in rep.requests:
+            r = trace[m.request_id]
+            cache = tm.init_cache(cfg, 1, rep.cache_len, device=dev)
+            first = torch.tensor([int(r.tokens[-1])], device=dev)
+            out, _ = greedy_generate(params, cfg, cache, first,
+                                     r.max_new_tokens)
+            if m.tokens != out[0].tolist():
+                raise AssertionError(
+                    f"{arch} request {m.request_id}: serving stream "
+                    f"{m.tokens} != greedy_generate {out[0].tolist()}")
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, size=(2, 80)),
+                               device=dev)
+        dec = _decode_logits(params, cfg, toks, 96)
+        _zero_all_kernel_counts()
+        full = _forward_logits(params, cfg, toks)
+        torch.cuda.synchronize()
+        counts = _all_kernel_counts()
+        err = _scaled_max(dec, full)
+        ran = {k: v for k, v in counts.items() if v and v != (0, 0)}
+        print(f"  {arch} parity: streams {[m.tokens for m in rep.requests]}"
+              f" == greedy_generate; 80 decode steps vs forward "
+              f"max|err|/max(1,|forward|) {err:.3e} (limit {DECODE_TOL}); "
+              f"forward launched {ran} ({card})")
+        if not math.isfinite(err) or err > DECODE_TOL:
+            raise AssertionError(f"{arch}: decode_step vs forward {err} > "
+                                 f"{DECODE_TOL}")
+        need = ("k3",) if cfg.family == "ssm" else ("k4", "k1")
+        if any(counts[k][0] == 0 for k in need):
+            raise AssertionError(f"{arch}: forward did not launch {need}: "
+                                 f"{counts}")
+
+    cfg = get_config("internvl3-2b").reduced().with_(
+        attn_impl="cuda", sliding_window=SLIDING_WINDOW)
+    eng = Engine(cfg, seed=0)
+    cfg, params = eng.cfg, eng.state.params
+    trace = _parity_trace(cfg.vocab, rng)
+    flash_attention.launches = 0
+    rep = eng.serving(slots=2).run(trace)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    lengths = [r.prompt_len for r in trace if r.prompt_len > 1]
+    for m in rep.requests:
+        r = trace[m.request_id]
+        toks = torch.as_tensor(r.tokens, device=dev)[None].long()
+        if r.prompt_len == 1:
+            cache = tm.init_cache(cfg, 1, rep.cache_len, device=dev)
+            out, _ = greedy_generate(params, cfg, cache, toks[:, 0],
+                                     r.max_new_tokens)
+            want = out[0].tolist()
+        else:
+            logits, cache = tm.prefill(
+                params, cfg, {"tokens": toks},
+                cache_len=min(SLIDING_WINDOW, rep.cache_len))
+            first = torch.argmax(logits[:, 0], dim=-1)
+            out, _ = greedy_generate(params, cfg, cache, first,
+                                     r.max_new_tokens - 1)
+            want = [int(first[0])] + out[0].tolist()
+        if m.tokens != want:
+            raise AssertionError(
+                f"sliding request {m.request_id}: serving stream "
+                f"{m.tokens} != exact prefill + greedy_generate {want}")
+    print(f"  sliding {SLIDING_WINDOW} parity: streams "
+          f"{[m.tokens for m in rep.requests]} == exact prefill + "
+          f"greedy_generate; K2 launches {launches} ({card})")
+    if launches != cfg.n_layers * len(lengths):
+        raise AssertionError(
+            f"{launches} K2 launches on the exact-length path, but "
+            f"{len(lengths)} prompts of {cfg.n_layers} layers")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    heads = (cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim)
+    rows = []
+    for L in sorted(set(lengths)):
+        row = check_kernel(dev, card, gen, 1, L, torch.float32, "sliding",
+                           SLIDING_WINDOW, heads=heads)
+        row["launches"] = cfg.n_layers * lengths.count(L)
+        rows.append(row)
+    return launches, rows
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def phase_state_serving(dev, card):
+    """Full-width mamba2-370m, then recurrentgemma-2b, bf16: the
+    full-width trace through Engine(arch).serving(slots=4).run(); every
+    request finishes with its tokens, in vocab; the kernels' launches in
+    the run (none: decode is torch ops); Engine.serve's ms a token; the
+    largest relative error of 64 decode logits against forward (printed,
+    not held: bf16 rounds the two paths at different points)."""
+    from repro_torch.api import Engine
+    from repro_torch.serving.serve_step import make_slot_cache
+
+    out = {}
+    for arch in STATE_ARCHS:
+        torch.cuda.empty_cache()
+        collect_garbage(f"{arch} serving")
+        t0 = time.perf_counter()
+        eng = Engine(arch, seed=0)
+        cfg, params = eng.cfg, eng.state.params
+        torch.cuda.synchronize()
+        print(f"  {arch} as {cfg.family}: {cfg.n_layers} layers d_model "
+              f"{cfg.d_model}, {sum(t.numel() for t in _leaves(params)) / 1e9:.3f}"
+              f" B params {cfg.param_dtype}, init "
+              f"{time.perf_counter() - t0:.1f} s")
+        trace = full_width_trace(cfg.vocab)
+        srv = eng.serving(slots=4)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_all_kernel_counts()
+        rep = srv.run(trace)
+        torch.cuda.synchronize()
+        counts = _all_kernel_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        by_id = {m.request_id: m for m in rep.requests}
+        for r in trace:
+            m = by_id.get(r.request_id)
+            if m is None or m.n_generated != r.max_new_tokens:
+                raise AssertionError(f"{arch} request {r.request_id} did "
+                                     f"not finish with {r.max_new_tokens} "
+                                     f"tokens")
+            if not all(0 <= t < cfg.vocab for t in m.tokens):
+                raise AssertionError(f"{arch} request {r.request_id}: "
+                                     f"token out of vocab: {m.tokens}")
+        slot_bytes = _tree_bytes(make_slot_cache(cfg, rep.n_slots,
+                                                 rep.cache_len,
+                                                 device="meta"))
+        _, served = eng.serve(batch=4, prompt_len=96, gen_tokens=32)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        toks = torch.randint(0, cfg.vocab, (1, 64), generator=gen,
+                             device=dev)
+        dec = _decode_logits(params, cfg, toks, 64)
+        full = _forward_logits(params, cfg, toks)
+        if not (torch.isfinite(dec).all() and torch.isfinite(full).all()):
+            raise AssertionError(f"{arch}: decode or forward logits are "
+                                 f"not finite")
+        stats = dict(requests=len(rep.requests), tokens=rep.total_tokens,
+                     tokens_per_s=rep.tokens_per_s,
+                     mean_ttft_s=rep.mean_ttft_s,
+                     max_ttft_s=rep.max_ttft_s, wall_s=rep.wall_s,
+                     decode_steps=rep.n_decode_steps,
+                     prefill_chunks=rep.n_prefill_chunks,
+                     n_slots=rep.n_slots, cache_len=rep.cache_len,
+                     slot_cache_bytes=slot_bytes,
+                     max_memory_allocated_bytes=peak,
+                     kernel_launches=counts,
+                     serve_ms_per_token=served["ms_per_token"],
+                     serve_batch=served["batch"],
+                     serve_prompt_len=served["prompt_len"],
+                     decode_vs_forward_max_rel_err=_scaled_max(dec, full))
+        for key, val in stats.items():
+            print(f"  {arch} serving {key} = {val} ({card})")
+        if rep.n_prefill_chunks:
+            raise AssertionError(f"{arch}: a state-cache family was "
+                                 f"prefilled")
+        out[arch] = stats
+        del eng, params, srv, dec, full
+    torch.cuda.empty_cache()
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2004,26 +2282,26 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/20] device: {name}; torch {torch.__version__} cuda "
+    print(f"[1/22] device: {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(card)
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"[2/20] build: {time.perf_counter() - t0:.1f} s for "
+    print(f"[2/22] build: {time.perf_counter() - t0:.1f} s for "
           f"{build.sources()}")
     for src, log in build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    print("[3/20] kernels vs plain versions")
+    print("[3/22] kernels vs plain versions")
     rows = phase_kernels(dev, card)
-    print("[4/20] parity at reduced size (fp32)")
+    print("[4/22] parity at reduced size (fp32)")
     phase_parity(dev)
-    print("[5/20] full-width serving (bf16)")
+    print("[5/22] full-width serving (bf16)")
     launches, shapes, n_layers = phase_serving(dev, card)
-    print("[6/20] kernels vs plain versions at the serving run's shapes")
+    print("[6/22] kernels vs plain versions at the serving run's shapes")
     path = phase_path(dev, card, shapes, n_layers)
 
     # the shape launched most often stands for the kernel; every shape
@@ -2055,15 +2333,15 @@ def main() -> int:
                              **{k: r[k] for k in keys}) for r in path],
     }]
 
-    print("[7/20] packed kernel K1 vs plain versions")
+    print("[7/22] packed kernel K1 vs plain versions")
     packed_rows = phase_packed(dev, card)
-    print("[8/20] training parity at reduced size (fp32)")
+    print("[8/22] training parity at reduced size (fp32)")
     phase_train_parity(dev)
-    print("[9/20] full-width DHP training (bf16)")
+    print("[9/22] full-width DHP training (bf16)")
     collect_garbage("train")
     n_fwd, n_bwd, tables, n_layers = phase_training(dev, card)
     torch.cuda.empty_cache()
-    print("[10/20] K1 vs plain versions at the training run's shapes")
+    print("[10/22] K1 vs plain versions at the training run's shapes")
     train_rows = phase_train_path(dev, card, tables, n_layers)
 
     # the shape launched most often stands for each K1 kernel; every
@@ -2101,17 +2379,17 @@ def main() -> int:
                 library_ms=r[f"library_{which}_ms"]) for r in train_rows],
         })
 
-    print("[11/20] SSD chunk kernel K3 vs plain versions")
+    print("[11/22] SSD chunk kernel K3 vs plain versions")
     ssd_rows = phase_ssd(dev, card)
-    print("[12/20] SSM training parity at reduced size (fp32)")
+    print("[12/22] SSM training parity at reduced size (fp32)")
     phase_ssm_parity(dev)
-    print("[13/20] full-width mamba2-370m DHP training (bf16)")
+    print("[13/22] full-width mamba2-370m DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("ssm train")
     s_fwd, s_bwd, ssm_shapes, ssm_layers, chunk = phase_ssm_training(dev,
                                                                      card)
     torch.cuda.empty_cache()
-    print("[14/20] K3 vs plain versions at the SSM training run's shapes")
+    print("[14/22] K3 vs plain versions at the SSM training run's shapes")
     ssd_path = phase_ssd_path(dev, card, ssm_shapes, ssm_layers, chunk)
 
     # the shape launched most often stands for each K3 kernel; every
@@ -2149,18 +2427,18 @@ def main() -> int:
                 inter_chunk_fwd_bwd_ms=r["inter_chunk_fwd_bwd_ms"])
                 for r in ssd_path],
         })
-    print("[15/20] RG-LRU scan kernel K4 vs plain versions")
+    print("[15/22] RG-LRU scan kernel K4 vs plain versions")
     rg_rows = phase_rglru(dev, card)
-    print("[16/20] K1 at head_dim 256 vs plain versions")
+    print("[16/22] K1 at head_dim 256 vs plain versions")
     wide_rows = phase_packed_wide(dev, card)
-    print("[17/20] hybrid training parity at reduced size (fp32)")
+    print("[17/22] hybrid training parity at reduced size (fp32)")
     phase_hybrid_parity(dev)
-    print("[18/20] full-width recurrentgemma-2b DHP training (bf16)")
+    print("[18/22] full-width recurrentgemma-2b DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("hybrid train")
     counts, hy_tables, per_group = phase_hybrid_training(dev, card)
     torch.cuda.empty_cache()
-    print("[19/20] K4 and K1 vs plain versions at the hybrid run's shapes")
+    print("[19/22] K4 and K1 vs plain versions at the hybrid run's shapes")
     k4_path, k1_path = phase_hybrid_path(dev, card, hy_tables, per_group)
 
     # the shape launched most often stands for each kernel; every shape
@@ -2223,7 +2501,7 @@ def main() -> int:
                 bound_by=r[f"bound_{which}_by"],
                 library_ms=r[f"library_{which}_ms"]) for r in k1_path],
         })
-    print("[20/20] ring context parallelism (bf16): LocalRing vs K1 "
+    print("[20/22] ring context parallelism (bf16): LocalRing vs K1 "
           "unsharded and vs the plain ring; full-width internvl3-2b at "
           f"{RING_RANKS} ranks on the one card")
     ring_rows = phase_ring(dev, card, tables)
@@ -2247,6 +2525,20 @@ def main() -> int:
                 k1_unsharded_fwd_bwd_device_ms=r[
                     "k1_unsharded_fwd_bwd_device_ms"])
                 for r in ring_rows if (r["D"] == 256) == wide]
+    print("[21/22] state-cache and sliding-window serving parity at "
+          "reduced size (fp32)")
+    torch.cuda.empty_cache()
+    exact_launches, exact_rows = phase_state_parity(dev, card)
+    kernels[0]["exact_prefill_launches"] = exact_launches
+    kernels[0]["exact_prefill_shapes"] = [dict(
+        rows=r["B"], length=r["S"], heads=f"{r['H']}:{r['Hkv']}",
+        D=r["D"], dtype=r["dtype"], window=r["window"],
+        **{k: r[k] for k in keys}) for r in exact_rows]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
+                                    *(r["max_abs_err"] for r in exact_rows))
+    print("[22/22] full-width state-cache serving (bf16): "
+          f"{', '.join(STATE_ARCHS)}")
+    phase_state_serving(dev, card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,10 +1,11 @@
 """Where the time of full-width serving goes on the card.
 
-    python3 profile_serving.py [--out DIR]
+    python3 profile_serving.py [--arch ARCH] [--out DIR]
 
-Serves chip_smoke.py's full-width trace (internvl3-2b as dense, bf16,
-`Engine(...).serving(slots=4, prefill_chunk=256)`) three times on one
-CUDA card: cold, warm with the port's host tracer on, and warm under
+Serves chip_smoke.py's full-width trace (bf16, `Engine(ARCH).serving(
+slots=4, prefill_chunk=256)`; ARCH internvl3-2b, as dense, by default,
+or mamba2-370m or recurrentgemma-2b, which decode from a fresh state
+cache) three times on one CUDA card: cold, warm with the port's host tracer on, and warm under
 `torch.profiler`. Prints each run's wall time, tokens/s and TTFT; the
 host-span totals by name; over the profiled run the device's busy share
 (summed time of kernels and copies over wall time), device ops per
@@ -26,6 +27,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="internvl3-2b",
+                    choices=("internvl3-2b", "mamba2-370m",
+                             "recurrentgemma-2b"))
     ap.add_argument("--out", default=os.path.join(ROOT, "build",
                                                   "profile_serving"))
     args = ap.parse_args()
@@ -41,7 +45,7 @@ def main() -> int:
     card = card_line()
     print(card)
     os.makedirs(args.out, exist_ok=True)
-    eng = Engine("internvl3-2b", seed=0)
+    eng = Engine(args.arch, seed=0)
     trace = full_width_trace(eng.cfg.vocab)
     srv = eng.serving(slots=4, prefill_chunk=256)
 
@@ -82,7 +86,7 @@ def main() -> int:
     busy_ms = sum(ms for _, ms in kernels.values())
     n_kernels = sum(n for n, _ in kernels.values())
     summary = {
-        "card": card, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "card": card, "arch": args.arch, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / wall_ms,
         "device_ops": n_kernels,
         "device_ops_per_decode_step": n_kernels / max(rep.n_decode_steps, 1),

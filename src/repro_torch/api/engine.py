@@ -149,9 +149,8 @@ class Engine:
     >>> history = eng.train(steps=3, dataset="openvid", global_batch=8)
     >>> rep = eng.serving(slots=4).run(trace)
 
-    `model` is an arch id or a ModelConfig: internvl3-2b (trains and
-    serves), mamba2-370m or recurrentgemma-2b (train; SSM and hybrid
-    serving are later slices). VLM
+    `model` is an arch id or a ModelConfig: internvl3-2b, mamba2-370m or
+    recurrentgemma-2b, each of which trains and serves. VLM
     configs run in token-stream mode (the LM decoder over pre-counted
     tokens), as in the JAX package. `device=None` places the model on
     the card and raises when there is none; `device="cpu"` runs on the
@@ -366,8 +365,11 @@ class Engine:
               gen_tokens: int = 32, cache_len: Optional[int] = None):
         """Batched prefill + greedy decode (the one-shot fixed-batch
         path). `prompts`: [B, S] token ids (drawn from the seed when
-        None). Returns (decoded [B, gen_tokens], dict of timings)."""
-        from ..models.model import prefill
+        None). The dense family prefills a K/V cache; the SSM and hybrid
+        families start from a fresh state cache with the prompts' last
+        token as the first decode input, as the JAX package does.
+        Returns (decoded [B, gen_tokens], dict of timings)."""
+        from ..models.model import init_cache, prefill
         from ..serving.serve_step import greedy_generate, make_serve_step
 
         if prompts is None:
@@ -380,9 +382,15 @@ class Engine:
         cache_len = cache_len or prompt_len + gen_tokens
 
         t0 = time.perf_counter()
-        logits, cache = prefill(self.state.params, self.cfg,
-                                {"tokens": prompts}, cache_len=cache_len)
-        first = torch.argmax(logits[:, 0], dim=-1)
+        if self.cfg.family == "dense":
+            logits, cache = prefill(self.state.params, self.cfg,
+                                    {"tokens": prompts},
+                                    cache_len=cache_len)
+            first = torch.argmax(logits[:, 0], dim=-1)
+        else:
+            cache = init_cache(self.cfg, batch, cache_len,
+                               device=self.device)
+            first = prompts[:, -1]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t_prefill = time.perf_counter() - t0
@@ -408,16 +416,17 @@ class Engine:
     # -- serving ---------------------------------------------------------
     def serving(self, *, slots: int = 4, prefill_chunk: int = 128,
                 cache_len: Optional[int] = None, block_size: int = 16,
-                n_blocks: Optional[int] = None):
+                n_blocks: Optional[int] = None, strategy: str = "dhp"):
         """The continuous-batching runtime over this engine's model and
-        cluster (serving/runtime.py): paged KV slots, DHP-planned
-        chunked prefill, iteration-level batching."""
+        cluster (serving/runtime.py): paged KV slots, chunked prefill
+        planned by `strategy` ("dhp" or "static"), iteration-level
+        batching."""
         from ..serving.runtime import ServingEngine
         return ServingEngine(
             self.cfg, self.state.params, self.cluster, self.cost_model,
             slots=slots, cache_len=cache_len, block_size=block_size,
             n_blocks=n_blocks, prefill_chunk=prefill_chunk,
-            seed=self.seed)
+            strategy=strategy, seed=self.seed)
 
     def close(self) -> None:
         self.strategy.close()

@@ -1,5 +1,5 @@
-"""Top-level model API: the dense family (training and serving), the SSM
-and hybrid families (training).
+"""Top-level model API: the dense, SSM and hybrid families, training and
+serving.
 
   init_params(cfg, seed=, device=)               -> params dict
   forward(params, cfg, batch)                    -> (logits [B,S,V], aux)
@@ -9,14 +9,24 @@ and hybrid families (training).
   init_cache(cfg, batch_size, cache_len, device) -> decode cache
   decode_step(params, cfg, cache, tokens [B])    -> (logits [B,V], cache)
 
-Caches are {"k", "v": [L,B,T,Hkv,D], "pos": int64 tensor}. `pos` is 0-d
-for a batch at one depth, or [B] for the serving slot cache, where every
-row is its own request at its own depth. Unlike the JAX package, which
-returns new caches, `prefill_chunk` and `decode_step` write K/V into the
-cache they are given (no second copy of a cache in device memory) and
-return it with `pos` advanced. The serving functions take the dense
-family only; the SSM family's state cache and decode step come with the
-SSM serving slice.
+Caches hold `pos`, an int64 tensor: 0-d for a batch at one depth, or [B]
+for the serving slot cache, where every row is its own request at its
+own depth. Their other leaves, by family (`cache_batch_axes` names each
+one's batch axis):
+
+  dense  — k, v [L,B,T,Hkv,D], T = min(sliding_window, cache_len)
+  ssm    — h [L,B,H,N,P] fp32, conv_buf [L,B,conv_width-1,d_inner+2N]
+  hybrid — rec_h [U,R,B,W] fp32, rec_conv [U,R,B,conv_width-1,W],
+           k, v [U,A,B,T,Hkv,D] (a ring of T = min(window, cache_len)),
+           tail_h [max(Rt,1),B,W] fp32, tail_conv [max(Rt,1),B,cw-1,W]
+
+(U pattern units of R recurrent and A attention layers, Rt recurrent
+layers in the tail.) Unlike the JAX package, which returns new caches,
+`prefill_chunk` and `decode_step` write into the cache they are given
+(no second copy of a cache in device memory) and return it with `pos`
+advanced. `prefill` and `prefill_chunk` take the dense family only, as
+the JAX package's do: the SSM and hybrid families serve from a fresh
+`init_cache` and the prompt's last token, through `decode_step`.
 """
 from __future__ import annotations
 
@@ -30,6 +40,8 @@ from .attention import (attention, attn_decode, attn_prefill_chunk,
                         project_qkv_decode)
 from .layers import (_dtype, apply_rope, dense_init, embed, init_embedding,
                      init_rmsnorm, mlp, rms_norm, unembed)
+from .rglru import rglru_decode_step
+from .ssm import ssm_decode_step
 from .transformer import (_BLOCK, _LAYER_INIT, _attn_kwargs,
                           _dense_block, _init_dense_layer, _init_rec_layer,
                           _rec_block, _rope_frac, hybrid_layout, init_stack,
@@ -39,17 +51,18 @@ from .transformer import (_BLOCK, _LAYER_INIT, _attn_kwargs,
 FAMILIES = (*_BLOCK, "hybrid")
 
 
-def _check_family(cfg: ModelConfig, *, serving: bool = False) -> None:
+def _check_family(cfg: ModelConfig, *, prefill: bool = False) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ported: "
             f"{sorted(FAMILIES)}; Engine runs VLM configs as dense)")
-    if serving and cfg.family != "dense":
+    if prefill and cfg.family != "dense":
         name = "SSM" if cfg.family == "ssm" else cfg.family
         raise NotImplementedError(
-            f"family {cfg.family!r} trains but does not serve yet: its "
-            f"state cache and decode step come with the {name} serving "
-            f"slice of the port")
+            f"family {cfg.family!r} has no prefill: {name} serving starts "
+            f"each request from a fresh init_cache and decodes from the "
+            f"prompt's last token, as the JAX package's runtime does (its "
+            f"prefill takes the attention families only)")
 
 
 # ==========================================================================
@@ -196,7 +209,7 @@ def prefill(params, cfg: ModelConfig, batch,
     """Returns (last_logits [B,1,V], cache). Sliding-window archs keep a
     ring buffer holding the final `window` positions (slot p % W);
     full-attention caches are padded to `cache_len` capacity."""
-    _check_family(cfg, serving=True)
+    _check_family(cfg, prefill=True)
     x = _input_embeddings(params, cfg, batch)
     B, S, _ = x.shape
     positions = batch.get("positions")
@@ -249,7 +262,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any],
     mixed modality mask (see attn_prefill_chunk). Needs a non-sliding
     cache. Writes into `cache` and returns it with pos = start_pos + C.
     """
-    _check_family(cfg, serving=True)
+    _check_family(cfg, prefill=True)
     if cfg.sliding_window is not None:
         raise ValueError("chunked prefill needs a non-rotating cache")
     start_pos = int(start_pos)
@@ -285,15 +298,60 @@ def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any],
 # ==========================================================================
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
                device="cuda") -> Dict[str, Any]:
-    """cache_len = context capacity; sliding-window archs allocate only
-    min(window, cache_len) slots (ring buffer)."""
-    _check_family(cfg, serving=True)
+    """Zero decode cache of `batch` rows at context capacity `cache_len`
+    (leaves in the module docstring). Sliding-window attention allocates
+    only min(window, cache_len) rows (ring buffer); recurrent state is
+    fp32, K/V and conv buffers are in `dtype` (the parameters')."""
+    _check_family(cfg)
     dt = dtype or _dtype(cfg.param_dtype)
-    T = min(cfg.sliding_window or cache_len, cache_len)
-    shape = (cfg.n_layers, batch, T, cfg.kv_heads, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-            "pos": torch.zeros((), dtype=torch.long, device=device)}
+    kw = dict(dtype=dt, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    cache = {"pos": torch.zeros((), dtype=torch.long, device=device)}
+    if cfg.family == "dense":
+        T = min(cfg.sliding_window or cache_len, cache_len)
+        shape = (cfg.n_layers, batch, T, cfg.kv_heads,
+                 cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, **kw)
+        cache["v"] = torch.zeros(shape, **kw)
+    elif cfg.family == "ssm":
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        L = cfg.n_layers
+        cache["h"] = torch.zeros(L, batch, d_inner // s.head_dim,
+                                 s.d_state, s.head_dim, **f32)
+        cache["conv_buf"] = torch.zeros(
+            L, batch, s.conv_width - 1, d_inner + 2 * s.d_state, **kw)
+    else:
+        n_units, tail = hybrid_layout(cfg)
+        h = cfg.hybrid
+        W = h.lru_width or cfg.d_model
+        n_rec = sum(k == "rec" for k in h.pattern)
+        n_attn = sum(k == "attn" for k in h.pattern)
+        n_tail = max(sum(k == "rec" for k in tail), 1)
+        T = min(h.window, cache_len)
+        cache["rec_h"] = torch.zeros(n_units, n_rec, batch, W, **f32)
+        cache["rec_conv"] = torch.zeros(n_units, n_rec, batch,
+                                        h.conv_width - 1, W, **kw)
+        shape = (n_units, n_attn, batch, T, cfg.kv_heads,
+                 cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, **kw)
+        cache["v"] = torch.zeros(shape, **kw)
+        cache["tail_h"] = torch.zeros(n_tail, batch, W, **f32)
+        cache["tail_conv"] = torch.zeros(n_tail, batch, h.conv_width - 1,
+                                         W, **kw)
+    return cache
+
+
+def cache_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
+    """The batch axis of every leaf of `init_cache(cfg, ...)` but `pos`:
+    1, behind the layer axis, except where the hybrid's leaves stack
+    [unit, layer in the unit]."""
+    if cfg.family == "hybrid":
+        return {"rec_h": 2, "rec_conv": 2, "k": 2, "v": 2, "tail_h": 1,
+                "tail_conv": 1}
+    if cfg.family == "ssm":
+        return {"h": 1, "conv_buf": 1}
+    return {"k": 1, "v": 1}
 
 
 # ==========================================================================
@@ -318,19 +376,69 @@ def _dense_decode_layer(p, x1, ck, cv, pos, cfg: ModelConfig):
     return x1 + mlp(p["mlp"], h, cfg.activation)
 
 
+def _rec_decode_layer(p, x1, h, conv_buf, cfg: ModelConfig):
+    """One Griffin recurrent layer for one token: x1 [B,d]; its state
+    h [B,W] and conv_buf [B,cw-1,W] are written in place."""
+    g = rms_norm(p["ln1"], x1, cfg.norm_eps)
+    y, st = rglru_decode_step(p["rec"], g, {"h": h, "conv_buf": conv_buf})
+    h.copy_(st["h"])
+    conv_buf.copy_(st["conv_buf"])
+    x1 = x1 + y
+    g = rms_norm(p["ln2"], x1, cfg.norm_eps)
+    return x1 + mlp(p["mlp"], g, cfg.activation)
+
+
+def _hybrid_decode(params, cfg: ModelConfig, cache, x1, pos):
+    """The hybrid's layers for one token, each unit's (and then the
+    tail's) in sorted-key order as `_hybrid_block` runs them; attention
+    layers write row pos % T of their ring at the rows' own `pos` [B]."""
+    for u, p_u in enumerate(unstack(params["units"])):
+        ri = ai = 0
+        for name in sorted(p_u):
+            if name.split("_")[1] == "rec":
+                x1 = _rec_decode_layer(p_u[name], x1, cache["rec_h"][u, ri],
+                                       cache["rec_conv"][u, ri], cfg)
+                ri += 1
+            else:
+                x1 = _dense_decode_layer(p_u[name], x1, cache["k"][u, ai],
+                                         cache["v"][u, ai], pos, cfg)
+                ai += 1
+    # the tail is a prefix of the pattern short of its attention layer
+    for ti, name in enumerate(sorted(params["tail"])):
+        x1 = _rec_decode_layer(params["tail"][name], x1,
+                               cache["tail_h"][ti], cache["tail_conv"][ti],
+                               cfg)
+    return x1
+
+
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
                 tokens) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """tokens: [B] -> (logits [B,V], cache with pos + 1)."""
-    _check_family(cfg, serving=True)
+    """tokens: [B] -> (logits [B,V], cache with pos + 1); the cache's
+    K/V rows and recurrent state are written in place."""
+    _check_family(cfg)
     tokens = torch.as_tensor(tokens,
                              device=params["embed"].device).long()
     B = tokens.shape[0]
     pos = cache["pos"]
     pos_b = pos.expand(B) if pos.dim() == 0 else pos
     x1 = embed(params["embed"], tokens)
-    for i, p in enumerate(unstack(params["layers"])):
-        x1 = _dense_decode_layer(p, x1, cache["k"][i], cache["v"][i],
-                                 pos_b, cfg)
+    if cfg.family == "dense":
+        for i, p in enumerate(unstack(params["layers"])):
+            x1 = _dense_decode_layer(p, x1, cache["k"][i], cache["v"][i],
+                                     pos_b, cfg)
+    elif cfg.family == "ssm":
+        s = cfg.ssm
+        for i, p in enumerate(unstack(params["layers"])):
+            h, conv_buf = cache["h"][i], cache["conv_buf"][i]
+            g = rms_norm(p["ln1"], x1, cfg.norm_eps)
+            y, st = ssm_decode_step(
+                p["ssm"], g, {"h": h, "conv_buf": conv_buf},
+                d_state=s.d_state, head_dim=s.head_dim, expand=s.expand)
+            h.copy_(st["h"])
+            conv_buf.copy_(st["conv_buf"])
+            x1 = x1 + y
+    else:
+        x1 = _hybrid_decode(params, cfg, cache, x1, pos_b)
     logits = _head(params, cfg, x1)
     return logits, {**cache, "pos": pos + 1}

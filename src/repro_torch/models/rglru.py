@@ -8,8 +8,10 @@ The gates run in fp32 as in the JAX package; the linear recurrence runs
 through kernel K4 (`kernels/rglru_scan.py`: the CUDA scan on the card,
 its plain loop on the CPU), where the JAX package's model takes
 `lax.associative_scan`. The Griffin block wraps the RG-LRU with a GeLU
-gate branch and a short causal conv, then projects back. The decode
-step and its state come with hybrid serving.
+gate branch and a short causal conv, then projects back. Serving
+decodes one token at a time through `rglru_decode_step` (one step of the
+recurrence in torch ops, as the JAX package's decode runs no kernel),
+from the state of `rglru_init_state`.
 """
 from __future__ import annotations
 
@@ -98,3 +100,28 @@ def rglru_block(params: dict, x: torch.Tensor, h0=None,
     u = _causal_conv(u, params["conv"])
     h = rglru_scan(params, u, h0, impl)
     return (h * gate).to(x.dtype) @ params["out"]
+
+
+def rglru_init_state(batch: int, lru_width: int, conv_width: int,
+                     dtype=torch.float32, device="cuda") -> dict:
+    """Zero decode state: `h` [B,W] fp32 and the conv's last
+    `conv_width - 1` inputs [B, conv_width-1, W] in `dtype`."""
+    return {
+        "h": torch.zeros(batch, lru_width, dtype=torch.float32,
+                         device=device),
+        "conv_buf": torch.zeros(batch, conv_width - 1, lru_width,
+                                dtype=dtype, device=device),
+    }
+
+
+def rglru_decode_step(params: dict, x1: torch.Tensor, state: dict):
+    """x1 [B,D] one token -> (y [B,D], new state); O(1). The conv's taps
+    line up with `_causal_conv`'s (tap W-1 takes the newest input); the
+    gates are `_gates`. Returns new tensors; `state` is left as it was."""
+    gate = F.gelu((x1 @ params["in_gate"]).float(), approximate="tanh")
+    buf = torch.cat([state["conv_buf"], (x1 @ params["in_rec"])[:, None]],
+                    dim=1)
+    a, b = _gates(params, torch.einsum("bwc,wc->bc", buf, params["conv"]))
+    h = a * state["h"] + b
+    y = (h * gate).to(x1.dtype) @ params["out"]
+    return y, {"h": h, "conv_buf": buf[:, 1:]}

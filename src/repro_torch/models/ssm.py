@@ -7,8 +7,10 @@ between chunks through an exact sequential scan. Scalar-identity A per
 head (Mamba-2's choice): a_t = exp(dt_t * A).
 
 One path: `ssm_forward` runs K3 on the card (`impl="cuda"`) and K3's
-plain version on the CPU or with `impl="reference"`. The decode step and
-its state cache come with the SSM serving slice.
+plain version on the CPU or with `impl="reference"`. Serving decodes one
+token at a time through `ssm_decode_step`, the recurrence in plain torch
+ops (the JAX package's decode runs no kernel either), from the state of
+`ssm_init_state`.
 """
 from __future__ import annotations
 
@@ -92,9 +94,53 @@ def ssm_forward(params: dict, xin: torch.Tensor, *, d_state: int,
 
 
 def _ssm_output(params, y, z, Bsz, S, d_inner, out_dtype):
-    """Gated RMSNorm (Mamba-2) + output projection."""
+    """Gated RMSNorm (Mamba-2) + output projection: y [B,S,...] fp32,
+    z [B,S,d_inner] -> [B,S,D]."""
     y = y.reshape(Bsz, S, d_inner)
     y = y * F.silu(z.float())
     var = y.square().mean(dim=-1, keepdim=True)
     y = y * torch.rsqrt(var + 1e-5) * params["norm_scale"].float()
     return y.to(out_dtype) @ params["out_proj"]
+
+
+def ssm_init_state(batch: int, d_model: int, *, d_state: int,
+                   head_dim: int, expand: int, conv_width: int,
+                   dtype=torch.float32, device="cuda") -> dict:
+    """Zero decode state: `h` [B,H,N,P] fp32 and the conv's last
+    `conv_width - 1` inputs [B, W-1, d_inner + 2N] in `dtype`."""
+    d_inner = expand * d_model
+    H = d_inner // head_dim
+    return {
+        "h": torch.zeros(batch, H, d_state, head_dim, dtype=torch.float32,
+                         device=device),
+        "conv_buf": torch.zeros(batch, conv_width - 1,
+                                d_inner + 2 * d_state, dtype=dtype,
+                                device=device),
+    }
+
+
+def ssm_decode_step(params: dict, x1: torch.Tensor, state: dict, *,
+                    d_state: int, head_dim: int, expand: int,
+                    dt_min: float = 1e-3):
+    """x1 [B,D] one token -> (y [B,D], new state); O(1) a token. The
+    conv's taps line up with `_causal_conv`'s: tap W-1 takes the newest
+    input. Returns new tensors; `state` is left as it was."""
+    Bsz, Dm = x1.shape
+    d_inner = expand * Dm
+    H = d_inner // head_dim
+    proj = x1 @ params["in_proj"]
+    z, x, Bm, Cm, dt = _split_proj(proj, d_inner, d_state, H)
+    buf = torch.cat([state["conv_buf"],
+                     torch.cat([x, Bm, Cm], dim=-1)[:, None]], dim=1)
+    xbc = F.silu(torch.einsum("bwc,wc->bc", buf, params["conv"]))
+    x, Bm, Cm = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
+
+    dt = F.softplus(dt.float() + params["dt_bias"]) + dt_min    # [B,H]
+    a = torch.exp(dt * -torch.exp(params["A_log"]))
+    xh = x.reshape(Bsz, H, head_dim).float()
+    dBx = torch.einsum("bh,bn,bhp->bhnp", dt, Bm.float(), xh)
+    h = state["h"] * a[..., None, None] + dBx
+    y = torch.einsum("bn,bhnp->bhp", Cm.float(), h)
+    y = y + xh * params["D"][None, :, None]
+    out = _ssm_output(params, y, z[:, None], Bsz, 1, d_inner, x1.dtype)
+    return out[:, 0], {"h": h, "conv_buf": buf[:, 1:]}

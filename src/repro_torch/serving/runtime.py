@@ -13,13 +13,19 @@ cluster's shared GroupPool keyed on bucketed shapes.
 
 Request streams are greedy and deterministic: a request decoded here
 yields exactly the token ids `greedy_generate` produces for the same
-prompt. Co-batched one-shot prefill runs the flash-attention kernel
-(`cfg.attn_impl="cuda"`); chunked prefill and decode attention are
-plain PyTorch.
+prompt. Co-batched one-shot prefill and the exact-length prefill of
+sliding-window caches run the flash-attention kernel
+(`cfg.attn_impl="cuda"`); chunked prefill and decode are plain PyTorch.
+
+State-cache families (ssm, hybrid) are never prefilled, as in the JAX
+package: a request starts from a fresh `init_cache` and decodes from
+its prompt's last token, so the earlier prompt tokens do not reach its
+stream.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Dict, List, Optional, Sequence as Seq
 
@@ -34,6 +40,9 @@ from ..obs.trace import Tracer, get_tracer, tracing
 from .kv_cache import KVCacheManager
 from .scheduler import (DECODE, ContinuousBatchingScheduler, PrefillGroup,
                         ServeRequest)
+
+#: families whose serving fills a K/V cache from the prompt
+ATTN_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass
@@ -87,31 +96,43 @@ class ServingEngine:
 
     Build via `Engine.serving(...)`. The decode slot count and cache
     capacity are bucketed through the cluster ladder
-    (`ClusterSpec.decode_shape`). Dense attention families only: the
-    exact-length prefill that MoE routing and sliding-window caches need
-    is not ported.
+    (`ClusterSpec.decode_shape`). Serves the dense family (full or
+    sliding-window attention), the SSM family and the hybrid family.
+    `strategy` names the prefill planner (`get_strategy`: "dhp",
+    "static"); the plan only groups prefill chunks, so it never changes a
+    stream.
     """
 
     def __init__(self, cfg: ModelConfig, params, cluster, cost_model, *,
                  slots: int = 4, cache_len: Optional[int] = None,
                  block_size: int = 16, n_blocks: Optional[int] = None,
-                 prefill_chunk: int = 128, seed: int = 0):
-        from ..api.strategies import DHPStrategy
-        if cfg.family != "dense" or cfg.sliding_window:
+                 prefill_chunk: int = 128, strategy: str = "dhp",
+                 seed: int = 0):
+        from ..api.strategies import get_strategy
+        if cfg.family == "moe":
             raise NotImplementedError(
-                "the serving runtime runs dense full-attention models")
+                "the MoE family is not ported yet (ROADMAP.md Queue 1, "
+                "item 4); it will prefill through the exact-length path")
         self.cfg = cfg
         self.params = params
         self.cluster = cluster
         self.device = cluster.primary
         self.pool = cluster.pool()
         self.block_size = block_size
-        self.prefill_chunk = prefill_chunk
+        # sliding-window caches rotate on prefill: such a prompt prefills
+        # whole at its exact length, and its first token comes from the
+        # prefill logits (see _run_prefill_group)
+        self.exact_prefill = cfg.sliding_window is not None
+        self.prefill_chunk = (10 ** 9 if self.exact_prefill
+                              else prefill_chunk)
         self.seed = seed
         self._cache_len = cache_len
         self._n_blocks = n_blocks
         self.n_slots, _ = cluster.decode_shape(slots, 1)
-        self.planner = DHPStrategy().bind(
+        self.attention_family = cfg.family in ATTN_FAMILIES
+        # its own planner: serving plans must not evict training plans,
+        # and the salt keeps the two key spaces apart
+        self.planner = get_strategy(strategy).bind(
             cost_model, cluster.n_replicas, cluster.mem_budget)
         self.planner.plan_cache.salt = "serve-prefill"
         #: counters/gauges/histograms (queue depth, KV occupancy,
@@ -133,7 +154,7 @@ class ServingEngine:
         from .serve_step import write_slot
         return self._exe(
             ("slot_write", self.cfg.arch_id, self.cfg.family, n_slots, T),
-            lambda: write_slot)
+            lambda: functools.partial(write_slot, self.cfg))
 
     def _group_prefill(self, rows: int, Sb: int, T: int):
         from ..models.model import prefill
@@ -171,13 +192,14 @@ class ServingEngine:
 
     # -- prefill execution -----------------------------------------------
     def _run_prefill_group(self, group: PrefillGroup, sched, staging,
-                           T: int) -> int:
+                           pending_first, T: int) -> int:
         """Execute one planner group; returns chunk count executed."""
         tr = get_tracer()
         one_shot, chunked = [], []
         for c in group.chunks:
             st = sched.states[c.request_id]
             if (c.start == 0 and c.length == st.prefill_target
+                    and not self.exact_prefill
                     and st.request.spans is None):
                 # span-bearing prompts always take the chunked path so
                 # their bidirectional blocks are masked (the co-batched
@@ -212,6 +234,10 @@ class ServingEngine:
 
         for c in chunked:
             st = sched.states[c.request_id]
+            if self.exact_prefill:
+                self._exact_prefill(c, st, staging, pending_first, T)
+                sched.mark_prefilled(c.request_id, c.length)
+                continue
             Cb = pow2_bucket(c.length, minimum=16)
             toks = np.zeros((1, Cb), np.int64)
             toks[0, :c.length] = \
@@ -236,6 +262,27 @@ class ServingEngine:
             staging[c.request_id] = cache
             sched.mark_prefilled(c.request_id, c.length)
         return len(group.chunks)
+
+    def _exact_prefill(self, c, st, staging, pending_first, T: int):
+        """The whole prompt through `prefill` at its exact length against
+        the ring the slot holds (min(window, T) rows, rotated so that
+        position p sits in row p % window), staged at pos = L; the first
+        token comes from the prefill logits."""
+        if not (c.start == 0 and c.length == st.prefill_target):
+            raise AssertionError(
+                f"request {c.request_id}: an exact-length prefill takes "
+                f"the whole prompt in one chunk")
+        Tring = min(self.cfg.sliding_window, T)
+        L = st.request.prompt_len
+        with get_tracer().span("prefill_exact", "serve",
+                               args={"request": c.request_id,
+                                     "length": L}):
+            logits, cache = self._group_prefill(1, L, Tring)(
+                self.params, self._tensor(st.request.tokens[None, :]))
+        pending_first[c.request_id] = int(torch.argmax(logits[0, 0]))
+        staging[c.request_id] = {
+            "k": cache["k"], "v": cache["v"],
+            "pos": torch.tensor(L, device=self.device)}
 
     # -- the loop ---------------------------------------------------------
     def run(self, requests: Seq[ServeRequest], *,
@@ -284,7 +331,8 @@ class ServingEngine:
             1, (self.n_slots * T) // self.block_size)
         kv = KVCacheManager(self.n_slots, n_blocks, self.block_size)
         sched = ContinuousBatchingScheduler(
-            kv, self.planner, prefill_chunk=self.prefill_chunk)
+            kv, self.planner, prefill_chunk=self.prefill_chunk,
+            prefill_needed=self.attention_family)
 
         exe_misses0 = self.pool.stats.exe_misses
         slots = make_slot_cache(self.cfg, self.n_slots, T,
@@ -292,6 +340,7 @@ class ServingEngine:
         decode = self._decode_step(self.n_slots, T)
         writer = self._writer(self.n_slots, T)
         staging: Dict[int, Any] = {}
+        pending_first: Dict[int, int] = {}
         next_token: Dict[int, int] = {}
         slot_of: Dict[int, int] = {}
         queue_depth: List[int] = []
@@ -341,18 +390,33 @@ class ServingEngine:
                              args={"iter": n_iters,
                                    "chunks": len(group.chunks)}):
                     n_chunks += self._run_prefill_group(
-                        group, sched, staging, T)
+                        group, sched, staging, pending_first, T)
 
-            # prefill-complete requests move into their decode slot; the
-            # staged cache carries pos = L-1 (the last prompt token is
-            # the first decode input; a 1-token prompt starts from the
-            # empty cache staged at admission).
+            # prefill-complete requests move into their decode slot. The
+            # staged cache carries the pos of its path: L-1 after chunked
+            # or co-batched prefill (the last prompt token is the first
+            # decode input), L after an exact-length prefill (the first
+            # token came from its logits), 0 for a fresh cache (a state
+            # cache, or a 1-token prompt), as Engine.serve starts them.
             for rid in list(sched.states):
                 st = sched.states[rid]
                 if not (st.status == DECODE and rid in staging):
                     continue
                 slots = writer(slots, staging.pop(rid), st.slot)
                 slot_of[rid] = st.slot
+                if rid in pending_first:
+                    tok = pending_first.pop(rid)
+                    t_tok = now()
+                    st.generated.append(tok)
+                    next_token[rid] = tok
+                    token_times[rid].append(t_tok)
+                    st.first_token_s = t_tok
+                    req = st.request
+                    if (len(st.generated) >= req.max_new_tokens
+                            or (req.eos_id is not None
+                                and tok == req.eos_id)):
+                        sched.finish(rid, t_tok)
+                        del slot_of[rid]
 
             # decode set derived AFTER the insert pass, not from the
             # schedule: the step advances every slot, so a slot whose

@@ -2,10 +2,12 @@
 continuous-batching runtime.
 
 The JAX package `vmap`s the B=1 decode over a leading slot axis. Here the
-slot axis is the cache's batch axis: a slot cache is one
-`[L, n_slots, T, Hkv, D]` cache whose `pos` is a `[n_slots]` tensor, so
-every slot keeps its own depth, ring-write row `pos % T` and valid
-length, and one `decode_step` advances all of them.
+slot axis is the cache's batch axis (`models.model.cache_batch_axes`:
+axis 1 of a dense `[L, n_slots, T, Hkv, D]` K/V or an SSM state, axis 2
+of the hybrid's `[unit, layer, n_slots, ...]` leaves) and `pos` is a
+`[n_slots]` tensor, so every slot keeps its own depth, ring-write row
+`pos % T`, valid length and recurrent state, and one `decode_step`
+advances all of them.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..models.model import decode_step, init_cache
+from ..models.model import cache_batch_axes, decode_step, init_cache
 
 
 def make_serve_step(cfg: ModelConfig):
@@ -39,7 +41,7 @@ def make_slot_decode_step(cfg: ModelConfig):
     and ring writes batch into one step whose shape depends only on
     (n_slots, cache_len). Returns (next_tokens [n_slots], slots), greedy
     argmax applied. Empty slots decode a pad token harmlessly: inserting
-    a request resets its slot's rows and pos."""
+    a request resets every leaf of its slot."""
     step = make_serve_step(cfg)
 
     def slot_step(params, slots, tokens):
@@ -48,11 +50,12 @@ def make_slot_decode_step(cfg: ModelConfig):
     return slot_step
 
 
-def write_slot(slots, cache, idx: int):
+def write_slot(cfg: ModelConfig, slots, cache, idx: int):
     """Copy one B=1 request cache (same capacity T) into slot `idx`, in
-    place: its K/V rows and its pos."""
-    slots["k"][:, idx] = cache["k"][:, 0]
-    slots["v"][:, idx] = cache["v"][:, 0]
+    place: every leaf, as the JAX package's tree-mapped `write_slot`
+    does, so a recycled slot keeps nothing of its last request."""
+    for name, axis in cache_batch_axes(cfg).items():
+        slots[name].select(axis, idx).copy_(cache[name].select(axis, 0))
     slots["pos"][idx] = cache["pos"]
     return slots
 

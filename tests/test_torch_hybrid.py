@@ -378,6 +378,14 @@ def test_loss_pieces_sum_what_the_whole_batch_sums(reference, monkeypatch):
                                    rtol=1e-5)
 
 
-def test_hybrid_family_does_not_serve_yet():
+def test_hybrid_init_cache_builds_and_prefill_refuses():
+    """The hybrid serves from a fresh state cache (its decode is held in
+    tests/test_torch_hybrid_serving.py); like the JAX package's, its
+    `prefill` takes the attention families only."""
+    cache = tm.init_cache(TCFG, 1, 16, device="cpu")
+    assert cache["k"].shape[:4] == (1, 1, 1, 16)
+    assert cache["tail_h"].shape == (2, 1, TCFG.d_model)
+    params = tm.init_params(TCFG, device="cpu")
     with pytest.raises(NotImplementedError, match="hybrid serving"):
-        tm.init_cache(TCFG, 1, 16, device="cpu")
+        tm.prefill(params, TCFG,
+                   {"tokens": torch.zeros(1, 4, dtype=torch.long)})

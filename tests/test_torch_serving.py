@@ -79,6 +79,20 @@ def test_serving_streams_match_jax(engines, chunk, with_span):
     assert rep.n_decode_steps == jrep.n_decode_steps
 
 
+def test_static_strategy_serves_the_same_streams(engines):
+    """The prefill plan only groups chunks: `strategy="static"` gives the
+    streams `dhp` gives, as the JAX runtime's `strategy=` does."""
+    _, eng = engines
+    reps = {name: eng.serving(slots=2, prefill_chunk=8, strategy=name).run(
+        _trace(ServeRequest, ModalitySpan, True))
+        for name in ("dhp", "static")}
+    assert [m.tokens for m in reps["static"].requests] == \
+        [m.tokens for m in reps["dhp"].requests]
+    assert reps["static"].plan_cache != {}
+    with pytest.raises(KeyError, match="unknown strategy"):
+        eng.serving(strategy="megatron")
+
+
 def _plan_hashes(sched_cls, kv_cls, planner, reqs, chunk=32):
     """Host-only lifecycle run; the structural hash of every plan."""
     kv = kv_cls(2, 64, 16)
