@@ -4,8 +4,10 @@ drives the port's main paths — continuous-batching serving and DHP
 training of internvl3-2b, DHP training of mamba2-370m and of
 recurrentgemma-2b, at full width, internvl3-2b's groups of degree > 1
 as rings on the one card, the serving of mamba2-370m and
-recurrentgemma-2b at full width, and the exact-length prefill of
-sliding-window caches — and checks what comes out.
+recurrentgemma-2b at full width, the exact-length prefill of
+sliding-window caches, and the MoE family (granite-moe-1b-a400m's DHP
+training, granite-moe-1b-a400m's and olmoe-1b-7b's serving, at full
+width) — and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -207,8 +209,47 @@ Phases:
                 gen_tokens=32)'s ms a token; the largest relative error
                 of 64 decode logits against forward, printed and not
                 held (bf16), both finite
+ 23. moe parity — reduced granite-moe-1b-a400m, fp32, attn_impl="cuda":
+                the ServingEngine's streams (slots=2, a slot reused)
+                equal the exact-length prefill + greedy_generate's (the
+                reference prefills MoE whole: capacity routing depends on
+                the routed set), K2's launches on that path == layers x
+                prompts of more than one token; then phase 8's two
+                training steps through K1 vs the plain attention
+ 24. moe train  — full-width granite-moe-1b-a400m (24 layers, 32 experts
+                of 512, top-8, 16:8 heads of 64), bf16, through
+                Engine(..., ClusterSpec.auto(mem_budget=4096)).train(
+                steps=3, dataset="openvid", global_batch=8,
+                max_tokens=4096, tokens_per_frame=256, trace=True),
+                packed, no remat: per step loss, time, tokens/s; peak
+                memory; K1 launches at D=64 == layers x groups each way;
+                losses and parameters finite; one more step under
+                torch.profiler (busy share, K1, the dispatch's sort,
+                search, gather and scatter kernels, the GEMMs); one MoE
+                layer at the run's largest bucket, forward and backward,
+                against its expert GEMMs alone (events and device time)
+ 25. moe serving — full-width granite-moe-1b-a400m, then olmoe-1b-7b (16
+                layers, 64 experts of 1024, 16:16 heads of 128), bf16:
+                init's peak above the weights; full_width_trace through
+                Engine(arch, ClusterSpec.auto(mem_budget=4096)).serving(
+                slots=4).run() (a prompt prefills whole on one rank, so
+                the budget holds the longest, 1500 tokens), traced: every
+                request finishes with 32 in-vocab tokens, each prompt
+                prefilled once at its exact length (no chunk, no
+                co-batch), K2 launches == layers x prompts; tokens/s,
+                TTFT, wall, peak memory; one slot decode step's device
+                ops and times; Engine.serve(batch=4, prompt_len=96,
+                gen_tokens=32)'s ms a token
+ 26. moe kernels — K1 (bf16, 16:8 heads of 64) forward and backward vs
+                plain with phase 7's limits on a synthetic 4096-token
+                row with frames and at every (bucket, spans) shape of
+                phase 24's run; K2 (bf16, causal, B = 1) vs plain at each
+                exact length phase 25 prefilled, at each arch's heads;
+                with times, bounds and SDPA; these feed the kernels line
+                (`flash_attention_packed_d64*`; K2's
+                `moe_exact_prefill_*`). Then the run's wall
 
-Each full-width training phase (9, 13, 18) first collects what the
+Each full-width training phase (9, 13, 18, 24) first collects what the
 earlier phases left in reference cycles (the profiler's event trees
 among it) and prints what that took: left to the garbage collector, its
 full pass over that heap lands inside one of the run's timed steps.
@@ -313,18 +354,21 @@ def attention_bound(B, Sq, Sk, H, Hkv, D, dtype, mode, window, kv_offset):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_ms(q, k, v, mode):
+def library_ms(q, k, v, mode, window=None):
     """(events ms, device ms) of one PyTorch call computing the same
     function (a yardstick only; the port never calls it): SDPA in [B, H,
-    S, D] layout; (None, None) where it has no such mode."""
+    S, D] layout, `is_causal` for the causal mode and a boolean mask
+    (built outside the timing) for the sliding one."""
     import torch.nn.functional as F
-    if mode not in ("causal", "full"):
-        return None, None
+    from repro_torch.kernels.flash_attention import _valid_mask
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = (_valid_mask(q.shape[1], k.shape[1], mode, window, 0, q.device)
+            if mode == "sliding" else None)
 
     def call():
         return F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=(mode == "causal"), enable_gqa=True)
+            qt, kt, vt, attn_mask=mask, is_causal=(mode == "causal"),
+            enable_gqa=True)
     return cuda_ms(call), device_ms(call)[0]
 
 
@@ -365,7 +409,7 @@ def check_kernel(dev, card, gen, B, S, dtype, mode="causal", window=None,
     dev_ms, _ = device_ms(lambda: flash_attention(q, k, v, **kw))
     plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
                     iters=5, warmup=1)
-    lib, lib_dev = (library_ms(q, k, v, mode) if off == 0
+    lib, lib_dev = (library_ms(q, k, v, mode, window) if off == 0
                     else (None, None))
     bound, bound_by = attention_bound(B, S, S, H, HKV, D, dtype, mode,
                                       window, off)
@@ -754,10 +798,10 @@ def phase_packed(dev, card):
     return rows
 
 
-def phase_train_parity(dev):
-    """Reduced internvl3-2b, fp32: the first batch's loss and gradient,
-    two training steps, and the gradient at the parameters they reach,
-    through the kernels vs through the plain attention."""
+def phase_train_parity(dev, arch="internvl3-2b"):
+    """Reduced `arch` (a packed family), fp32: the first batch's loss and
+    gradient, two training steps, and the gradient at the parameters
+    they reach, through the kernels vs through the plain attention."""
     from repro_torch.api import Engine
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed, flash_attention_packed_bwd)
@@ -770,7 +814,7 @@ def phase_train_parity(dev):
     out = {}
     params0 = None
     for impl in ("cuda", "reference"):
-        eng = Engine("internvl3-2b", reduced=True, seed=0)
+        eng = Engine(arch, reduced=True, seed=0)
         eng.cfg = eng.cfg.with_(attn_impl=impl)
         if params0 is None:
             params0 = eng.state.params
@@ -804,9 +848,9 @@ def phase_train_parity(dev):
             for g, rg in zip(gs, rgs)]
     perr = max((a - b).abs().max().item()
                for a, b in zip(tree_leaves(p), tree_leaves(rp)))
-    print(f"  losses kernel {ls} plain {rls}: max diff {lerr}; grads max "
-          f"diff {gerr[0]} (first batch), {gerr[1]} (after 2 steps); "
-          f"params after 2 steps max diff {perr}")
+    print(f"  {arch} losses kernel {ls} plain {rls}: max diff {lerr}; "
+          f"grads max diff {gerr[0]} (first batch), {gerr[1]} (after 2 "
+          f"steps); params after 2 steps max diff {perr}")
     if not (lerr <= 1e-4 and max(gerr) <= 1e-4):
         raise AssertionError("training through the kernels differs from "
                              "the plain path by more than 1e-4")
@@ -817,12 +861,41 @@ def phase_train_parity(dev):
     # parameters the two steps reach is what tells the paths apart.
 
 
+def packed_tables(eng, plans, run, groups):
+    """{(bucket, spans): [(segment table, span table or None)]} of every
+    packed group of a training run, rebuilt from its plans and batches,
+    held to the run's own `execute` spans' (bucket, spans) `groups`."""
+    from repro_torch.core.packing import flatten_group
+    from repro_torch.data.pipeline import HeterogeneousLoader
+    loader = HeterogeneousLoader(run["dataset"], run["global_batch"],
+                                 eng.cfg.vocab, seed=eng.seed,
+                                 max_tokens=run["max_tokens"],
+                                 tokens_per_frame=run["tokens_per_frame"])
+    tables = {}
+    for plan in plans:
+        data = next(loader)
+        spans_by_id = data.spans_by_id()
+        for mb in plan.micro_batches:
+            for g in mb.groups:
+                seqs = [data.by_id(i) for i in g.seq_ids]
+                bucket = eng.cluster.pool().bucket(sum(map(len, seqs)))
+                b, _ = flatten_group(seqs, bucket, spans=[
+                    spans_by_id.get(i) for i in g.seq_ids])
+                key = (bucket, "modality_ids" in b)
+                tables.setdefault(key, []).append(
+                    (b["segment_ids"][0], b.get("modality_ids",
+                                                [None])[0]))
+    if sorted(tables) != sorted(set(groups)) or \
+            sum(map(len, tables.values())) != len(groups):
+        raise AssertionError(f"rebuilt groups {sorted(tables)} differ from "
+                             f"the run's {sorted(set(groups))}")
+    return tables
+
+
 def phase_training(dev, card):
     """Full-width DHP training; returns (launches fwd, bwd, group tables
     by (bucket, spans), n_layers)."""
     from repro_torch.api import ClusterSpec, Engine
-    from repro_torch.core.packing import flatten_group
-    from repro_torch.data.pipeline import HeterogeneousLoader
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed, flash_attention_packed_bwd)
 
@@ -876,29 +949,7 @@ def phase_training(dev, card):
     print(f"  train max_memory_allocated_bytes = {peak} ({card})")
     print(f"  train group shapes (bucket, spans): {groups}")
 
-    # the tables of every group, rebuilt from the run's plans and batches
-    loader = HeterogeneousLoader(run["dataset"], run["global_batch"],
-                                 eng.cfg.vocab, seed=eng.seed,
-                                 max_tokens=run["max_tokens"],
-                                 tokens_per_frame=run["tokens_per_frame"])
-    tables = {}
-    for plan in plans:
-        data = next(loader)
-        spans_by_id = data.spans_by_id()
-        for mb in plan.micro_batches:
-            for g in mb.groups:
-                seqs = [data.by_id(i) for i in g.seq_ids]
-                bucket = eng.cluster.pool().bucket(sum(map(len, seqs)))
-                b, _ = flatten_group(seqs, bucket, spans=[
-                    spans_by_id.get(i) for i in g.seq_ids])
-                key = (bucket, "modality_ids" in b)
-                tables.setdefault(key, []).append(
-                    (b["segment_ids"][0], b.get("modality_ids",
-                                                [None])[0]))
-    if sorted(tables) != sorted(set(groups)) or \
-            sum(map(len, tables.values())) != len(groups):
-        raise AssertionError(f"rebuilt groups {sorted(tables)} differ from "
-                             f"the run's {sorted(set(groups))}")
+    tables = packed_tables(eng, plans, run, groups)
 
     # one more step under the profiler: the device's busy share
     profile_step(eng, run, card, "train",
@@ -2258,6 +2309,339 @@ def phase_state_serving(dev, card):
     return out
 
 
+# ------------------------------------------------ the MoE family
+MOE_ARCHS = ("granite-moe-1b-a400m", "olmoe-1b-7b")
+MOE_TRAIN_ARCH = "granite-moe-1b-a400m"
+#: granite-moe-1b-a400m's attention heads: 16 query heads over 8 KV heads
+#: of 64
+MOE_HEADS = (16, 8, 64)
+
+
+def _moe_reference_stream(params, cfg, prompt, n_new, T, dev):
+    """The reference's stream of one request: `prefill` of the whole
+    prompt (B=1) against a T-row cache, the first token from its logits,
+    then greedy_generate; a 1-token prompt decodes from a fresh cache."""
+    from repro_torch.models import model as tm
+    from repro_torch.serving.serve_step import greedy_generate
+    toks = torch.as_tensor(prompt, device=dev)[None].long()
+    if len(prompt) == 1:
+        cache = tm.init_cache(cfg, 1, T, device=dev)
+        out, _ = greedy_generate(params, cfg, cache, toks[:, 0], n_new)
+        return out[0].tolist()
+    logits, cache = tm.prefill(params, cfg, {"tokens": toks}, cache_len=T)
+    first = torch.argmax(logits[:, 0], dim=-1)
+    out, _ = greedy_generate(params, cfg, cache, first, n_new - 1)
+    return [int(first[0])] + out[0].tolist()
+
+
+def phase_moe_parity(dev, card):
+    """Reduced granite-moe-1b-a400m, fp32, kernels on: the ServingEngine's
+    streams (slots=2, a slot reused) equal the exact-length prefill +
+    greedy_generate's, and K2 ran layers x prompts of more than one
+    token on that path; then phase 8's two training steps through K1
+    against the plain attention."""
+    from repro_torch.api import Engine
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    cfg = get_config(MOE_TRAIN_ARCH).reduced().with_(attn_impl="cuda")
+    eng = Engine(cfg, seed=0)
+    trace = _parity_trace(cfg.vocab, np.random.default_rng(1))
+    flash_attention.launches = 0
+    rep = eng.serving(slots=2).run(trace)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    for m in rep.requests:
+        r = trace[m.request_id]
+        want = _moe_reference_stream(eng.state.params, eng.cfg, r.tokens,
+                                     r.max_new_tokens, rep.cache_len, dev)
+        if m.tokens != want:
+            raise AssertionError(
+                f"MoE request {m.request_id}: serving stream {m.tokens} "
+                f"!= exact prefill + greedy_generate {want}")
+    n_exact = sum(r.prompt_len > 1 for r in trace)
+    print(f"  {MOE_TRAIN_ARCH} reduced parity: streams "
+          f"{[m.tokens for m in rep.requests]} == exact prefill + "
+          f"greedy_generate; K2 launches {launches} ({card})")
+    if launches != cfg.n_layers * n_exact:
+        raise AssertionError(f"{launches} K2 launches on the exact-length "
+                             f"path, but {n_exact} prompts of "
+                             f"{cfg.n_layers} layers")
+    phase_train_parity(dev, MOE_TRAIN_ARCH)
+
+
+def moe_layer_breakdown(dev, card, cfg, T):
+    """One MoE layer at a T-token bucket in bf16 (cfg's widths): moe_ffn
+    forward and backward against its expert GEMMs alone on the buffers'
+    shape, by events and device time; the difference is the routing, the
+    dispatch (sort, gathers) and the combine."""
+    from repro_torch.models.moe import (_capacity, _expert_mlps, init_moe,
+                                        moe_ffn)
+    from repro_torch.models.transformer import moe_kwargs
+    m, D = cfg.moe, cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p = {k: v.requires_grad_(True) for k, v in init_moe(
+        gen, D, m.n_experts, m.expert_ff, torch.bfloat16, dev).items()}
+    x = torch.randn(1, T, D, generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    dy = torch.randn_like(x)
+    cap = _capacity(m.capacity_factor, min(T, m.dispatch_group), m.top_k,
+                    m.n_experts)
+    ex = torch.randn(m.n_experts, cap, D, generator=gen, device=dev).to(
+        torch.bfloat16).requires_grad_(True)
+    dex = torch.randn_like(ex)
+    experts = [p["gate"], p["up"], p["down"]]
+
+    def layer():
+        out, _ = moe_ffn(p, x, **moe_kwargs(cfg))
+        torch.autograd.grad(out, [x, *p.values()], dy)
+
+    def gemms():
+        torch.autograd.grad(_expert_mlps(p, ex), [ex, *experts], dex)
+
+    def layer_fwd():
+        with torch.no_grad():
+            moe_ffn(p, x, **moe_kwargs(cfg))
+
+    def gemms_fwd():
+        with torch.no_grad():
+            _expert_mlps(p, ex)
+    row = dict(T=T, cap=cap, experts=m.n_experts, top_k=m.top_k)
+    for name, fn in (("layer_fwd_bwd", layer), ("gemms_fwd_bwd", gemms),
+                     ("layer_fwd", layer_fwd), ("gemms_fwd", gemms_fwd)):
+        row[f"{name}_ms"] = cuda_ms(fn, iters=10, warmup=2)
+        row[f"{name}_device_ms"], row[f"{name}_kernels"] = device_ms(
+            fn, iters=5, warmup=1)
+    for what in ("fwd_bwd", "fwd"):
+        row[f"dispatch_{what}_device_ms"] = (
+            row[f"layer_{what}_device_ms"] - row[f"gemms_{what}_device_ms"])
+    flops = 6.0 * m.n_experts * cap * D * m.expert_ff      # 3 GEMMs fwd
+    row["gemms_bound_fwd_bwd_ms"] = 3 * flops / PEAK_FLOPS[
+        torch.bfloat16] * 1e3
+    print(f"  MoE layer {json.dumps(row)} ({card})")
+    return row
+
+
+def phase_moe_training(dev, card):
+    """Full-width granite-moe-1b-a400m DHP training, bf16, packed through
+    K1 at head_dim 64; returns (launches fwd, bwd, group tables by
+    (bucket, spans), n_layers, the MoE layer's breakdown)."""
+    from repro_torch.api import ClusterSpec, Engine
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd)
+
+    run = dict(dataset="openvid", global_batch=8, max_tokens=4096,
+               tokens_per_frame=256)
+    t0 = time.perf_counter()
+    eng = Engine(MOE_TRAIN_ARCH, ClusterSpec.auto(mem_budget=4096), seed=0)
+    cfg, params = eng.cfg, eng.state.params
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  {MOE_TRAIN_ARCH} as {cfg.family}: {cfg.n_layers} layers "
+          f"d_model {cfg.d_model}, {cfg.moe.n_experts} experts of "
+          f"{cfg.moe.expert_ff} top-{cfg.moe.top_k}, {n_params / 1e9:.3f} B "
+          f"params {cfg.param_dtype} ({_tree_bytes(params)} bytes), init "
+          f"{time.perf_counter() - t0:.1f} s")
+    plans = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention_packed.launches = 0
+    flash_attention_packed_bwd.launches = 0
+    hist = eng.train(steps=3, lookahead=True, plan_log=plans, trace=True,
+                     **run)
+    torch.cuda.synchronize()
+    n_fwd = flash_attention_packed.launches
+    n_bwd = flash_attention_packed_bwd.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    tracer = eng.last_tracer
+    if tracer.dropped:
+        raise AssertionError(f"the tracer dropped {tracer.dropped} events")
+    groups = [(e["args"]["bucket"], e["args"]["spans"])
+              for e in tracer.to_json()["traceEvents"]
+              if e.get("name") == "execute"]
+    want = cfg.n_layers * len(groups)
+    if cfg.remat or not (n_fwd == n_bwd == want and want > 0):
+        raise AssertionError(f"K1 launches fwd {n_fwd} bwd {n_bwd}, want "
+                             f"{want} each for {cfg.n_layers} layers x "
+                             f"{len(groups)} groups (remat {cfg.remat})")
+    for m in hist:
+        if not math.isfinite(m.loss):
+            raise AssertionError(f"step {m.step}: loss {m.loss}")
+        print(f"  moe train step {m.step}: loss={m.loss} "
+              f"step_time_s={m.step_time_s} tokens={m.tokens} "
+              f"tokens_per_s={m.tokens / m.step_time_s} "
+              f"padding_efficiency={m.padding_efficiency} "
+              f"degrees={m.degree_histogram} "
+              f"groups={sum(m.degree_histogram.values())} ({card})")
+    if len(hist) != 3:
+        raise AssertionError(f"{len(hist)} training steps, want 3")
+    if not all(torch.isfinite(t).all() for t in _leaves(
+            eng.state.params)):
+        raise AssertionError("parameters are not finite after 3 steps")
+    print(f"  moe train max_memory_allocated_bytes = {peak} ({card})")
+    print(f"  moe train group shapes (bucket, spans): {groups}")
+    tables = packed_tables(eng, plans, run, groups)
+    # one more step under the profiler: the busy share; K1; the
+    # dispatch's sorts, searches, gathers and scatters; every GEMM
+    profile_step(eng, run, card, "moe train",
+                 {"k1_fwd": "packed_fwd", "k1_bwd": "packed_bwd",
+                  "k1_bwd_sum": "bwd_kv_reduce", "sort_cub": "Sort",
+                  "sort_aten": "sort", "searchsorted": "searchsorted",
+                  "scatter_gather": "scatter_gather",
+                  "index_select": "indexSelect", "index_add": "indexFunc",
+                  "gemm": "gemm", "nvjet": "nvjet"})
+    eng.close()
+    del eng, params
+    torch.cuda.empty_cache()
+    breakdown = moe_layer_breakdown(dev, card, cfg, max(b for b, _ in
+                                                         groups))
+    return n_fwd, n_bwd, tables, cfg.n_layers, breakdown
+
+
+def decode_step_ops(srv, n_slots, T):
+    """(device ms, kernels, host ms) of one slot decode step at the
+    runtime's shapes on a zero slot cache (4 steps, the first dropped)."""
+    from repro_torch.serving.serve_step import (make_slot_cache,
+                                                make_slot_decode_step)
+    slots = make_slot_cache(srv.cfg, n_slots, T, device=srv.device)
+    step = make_slot_decode_step(srv.cfg)
+    toks = torch.zeros(n_slots, 1, dtype=torch.long, device=srv.device)
+    ms, kernels = device_ms(lambda: step(srv.params, slots, toks), iters=3,
+                            warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(srv.params, slots, toks)
+    torch.cuda.synchronize()
+    del slots
+    return ms, kernels, (time.perf_counter() - t0) / 3 * 1e3
+
+
+def phase_moe_serving(dev, card):
+    """Full-width granite-moe-1b-a400m, then olmoe-1b-7b, bf16: init's
+    peak; full_width_trace through Engine(arch).serving(slots=4).run(),
+    traced: every request finishes with 32 in-vocab tokens, every
+    prompt prefilled once at its exact length through K2 (launches ==
+    layers x prompts); tokens/s, TTFT, wall, peak memory; one slot decode
+    step's device ops, device and host time; Engine.serve(batch=4,
+    prompt_len=96, gen_tokens=32)'s ms a token. Returns {arch: (exact
+    lengths, K2 launches, n_layers, heads)}."""
+    from repro_torch.api import ClusterSpec, Engine
+    from repro_torch.obs.trace import Tracer
+
+    out = {}
+    for arch in MOE_ARCHS:
+        torch.cuda.empty_cache()
+        collect_garbage(f"{arch} serving")
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        # a prompt prefills whole on one rank, so the per-rank budget
+        # must hold the trace's longest (1500 tokens), as in the reference
+        eng = Engine(arch, ClusterSpec.auto(mem_budget=4096), seed=0)
+        cfg, params = eng.cfg, eng.state.params
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated(dev) - base
+        pbytes = _tree_bytes(params)
+        print(f"  {arch} as {cfg.family}: {cfg.n_layers} layers d_model "
+              f"{cfg.d_model}, {cfg.moe.n_experts} experts of "
+              f"{cfg.moe.expert_ff} top-{cfg.moe.top_k}, "
+              f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B "
+              f"params {cfg.param_dtype} ({pbytes} bytes), init {init_s:.1f}"
+              f" s, init peak above the weights {init_peak - pbytes} bytes "
+              f"({card})")
+        trace = full_width_trace(cfg.vocab)
+        srv = eng.serving(slots=4)
+        tracer = Tracer()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_all_kernel_counts()
+        rep = srv.run(trace, trace=tracer)
+        torch.cuda.synchronize()
+        counts = _all_kernel_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        if tracer.dropped:
+            raise AssertionError(f"the tracer dropped {tracer.dropped} "
+                                 f"events")
+        events = tracer.to_json()["traceEvents"]
+        exact = sorted(ev["args"]["length"] for ev in events
+                       if ev["name"] == "prefill_exact")
+        if exact != sorted(r.prompt_len for r in trace if r.prompt_len > 1):
+            raise AssertionError(f"{arch}: exact-length prefills {exact}")
+        if any(ev["name"] in ("prefill_batch", "prefill_chunk")
+               for ev in events):
+            raise AssertionError(f"{arch}: a prompt was chunked or padded")
+        if counts["k2"] != cfg.n_layers * len(exact):
+            raise AssertionError(f"{arch}: {counts['k2']} K2 launches, "
+                                 f"want {cfg.n_layers} x {len(exact)}")
+        by_id = {m.request_id: m for m in rep.requests}
+        for r in trace:
+            m = by_id.get(r.request_id)
+            if m is None or m.n_generated != r.max_new_tokens:
+                raise AssertionError(f"{arch} request {r.request_id} did "
+                                     f"not finish with {r.max_new_tokens} "
+                                     f"tokens")
+            if not all(0 <= t < cfg.vocab for t in m.tokens):
+                raise AssertionError(f"{arch} request {r.request_id}: "
+                                     f"token out of vocab: {m.tokens}")
+        step_ms, step_kernels, step_host_ms = decode_step_ops(
+            srv, rep.n_slots, rep.cache_len)
+        _, served = eng.serve(batch=4, prompt_len=96, gen_tokens=32)
+        stats = dict(requests=len(rep.requests), tokens=rep.total_tokens,
+                     tokens_per_s=rep.tokens_per_s,
+                     mean_ttft_s=rep.mean_ttft_s,
+                     max_ttft_s=rep.max_ttft_s, wall_s=rep.wall_s,
+                     decode_steps=rep.n_decode_steps,
+                     exact_prefills=len(exact), n_slots=rep.n_slots,
+                     cache_len=rep.cache_len,
+                     max_memory_allocated_bytes=peak,
+                     kernel_launches=counts,
+                     decode_step_device_ms=step_ms,
+                     decode_step_device_ops=step_kernels,
+                     decode_step_host_ms=step_host_ms,
+                     serve_ms_per_token=served["ms_per_token"],
+                     serve_prefill_s=served["prefill_s"],
+                     serve_batch=served["batch"],
+                     serve_prompt_len=served["prompt_len"])
+        for key, val in stats.items():
+            print(f"  {arch} serving {key} = {val} ({card})")
+        out[arch] = (exact, counts["k2"], cfg.n_layers,
+                     (cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim))
+        del eng, params, srv
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_kernels(dev, card, tables, n_layers, served):
+    """K1 at granite's heads (16:8, D = 64), bf16, forward and backward
+    vs plain: one synthetic 4096-token row with 256-token frames, then
+    each (bucket, spans) shape of the MoE training run on its own tables;
+    K2 (bf16, causal, B = 1) vs plain at each exact length the MoE
+    serving runs prefilled, at each arch's heads. Returns (K1 rows, the
+    training path's K1 rows, K2 rows)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf16 = torch.bfloat16
+    seg, span = packed_layout(4096, [1500, 900, 1200, 400], 256)
+    synth = [check_packed(dev, card, gen, 4096, bf16, seg, span,
+                          tag="d64", heads=MOE_HEADS)]
+    path = []
+    for (bucket, spans), groups in sorted(tables.items()):
+        seg, span = groups[0]
+        row = check_packed(dev, card, gen, bucket, bf16, seg, span,
+                           tag="moe train", heads=MOE_HEADS)
+        row["launches"] = n_layers * len(groups)
+        path.append(row)
+    k2 = []
+    for arch, (lengths, _, layers, heads) in served.items():
+        for L in sorted(set(lengths)):
+            row = check_kernel(dev, card, gen, 1, L, bf16, "causal",
+                               heads=heads)
+            row["launches"] = layers * lengths.count(L)
+            row["arch"] = arch
+            k2.append(row)
+    return synth, path, k2
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2279,29 +2663,30 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 parity phases
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/22] device: {name}; torch {torch.__version__} cuda "
+    print(f"[1/26] device: {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(card)
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"[2/22] build: {time.perf_counter() - t0:.1f} s for "
+    print(f"[2/26] build: {time.perf_counter() - t0:.1f} s for "
           f"{build.sources()}")
     for src, log in build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    print("[3/22] kernels vs plain versions")
+    print("[3/26] kernels vs plain versions")
     rows = phase_kernels(dev, card)
-    print("[4/22] parity at reduced size (fp32)")
+    print("[4/26] parity at reduced size (fp32)")
     phase_parity(dev)
-    print("[5/22] full-width serving (bf16)")
+    print("[5/26] full-width serving (bf16)")
     launches, shapes, n_layers = phase_serving(dev, card)
-    print("[6/22] kernels vs plain versions at the serving run's shapes")
+    print("[6/26] kernels vs plain versions at the serving run's shapes")
     path = phase_path(dev, card, shapes, n_layers)
 
     # the shape launched most often stands for the kernel; every shape
@@ -2333,15 +2718,15 @@ def main() -> int:
                              **{k: r[k] for k in keys}) for r in path],
     }]
 
-    print("[7/22] packed kernel K1 vs plain versions")
+    print("[7/26] packed kernel K1 vs plain versions")
     packed_rows = phase_packed(dev, card)
-    print("[8/22] training parity at reduced size (fp32)")
+    print("[8/26] training parity at reduced size (fp32)")
     phase_train_parity(dev)
-    print("[9/22] full-width DHP training (bf16)")
+    print("[9/26] full-width DHP training (bf16)")
     collect_garbage("train")
     n_fwd, n_bwd, tables, n_layers = phase_training(dev, card)
     torch.cuda.empty_cache()
-    print("[10/22] K1 vs plain versions at the training run's shapes")
+    print("[10/26] K1 vs plain versions at the training run's shapes")
     train_rows = phase_train_path(dev, card, tables, n_layers)
 
     # the shape launched most often stands for each K1 kernel; every
@@ -2379,17 +2764,17 @@ def main() -> int:
                 library_ms=r[f"library_{which}_ms"]) for r in train_rows],
         })
 
-    print("[11/22] SSD chunk kernel K3 vs plain versions")
+    print("[11/26] SSD chunk kernel K3 vs plain versions")
     ssd_rows = phase_ssd(dev, card)
-    print("[12/22] SSM training parity at reduced size (fp32)")
+    print("[12/26] SSM training parity at reduced size (fp32)")
     phase_ssm_parity(dev)
-    print("[13/22] full-width mamba2-370m DHP training (bf16)")
+    print("[13/26] full-width mamba2-370m DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("ssm train")
     s_fwd, s_bwd, ssm_shapes, ssm_layers, chunk = phase_ssm_training(dev,
                                                                      card)
     torch.cuda.empty_cache()
-    print("[14/22] K3 vs plain versions at the SSM training run's shapes")
+    print("[14/26] K3 vs plain versions at the SSM training run's shapes")
     ssd_path = phase_ssd_path(dev, card, ssm_shapes, ssm_layers, chunk)
 
     # the shape launched most often stands for each K3 kernel; every
@@ -2427,18 +2812,18 @@ def main() -> int:
                 inter_chunk_fwd_bwd_ms=r["inter_chunk_fwd_bwd_ms"])
                 for r in ssd_path],
         })
-    print("[15/22] RG-LRU scan kernel K4 vs plain versions")
+    print("[15/26] RG-LRU scan kernel K4 vs plain versions")
     rg_rows = phase_rglru(dev, card)
-    print("[16/22] K1 at head_dim 256 vs plain versions")
+    print("[16/26] K1 at head_dim 256 vs plain versions")
     wide_rows = phase_packed_wide(dev, card)
-    print("[17/22] hybrid training parity at reduced size (fp32)")
+    print("[17/26] hybrid training parity at reduced size (fp32)")
     phase_hybrid_parity(dev)
-    print("[18/22] full-width recurrentgemma-2b DHP training (bf16)")
+    print("[18/26] full-width recurrentgemma-2b DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("hybrid train")
     counts, hy_tables, per_group = phase_hybrid_training(dev, card)
     torch.cuda.empty_cache()
-    print("[19/22] K4 and K1 vs plain versions at the hybrid run's shapes")
+    print("[19/26] K4 and K1 vs plain versions at the hybrid run's shapes")
     k4_path, k1_path = phase_hybrid_path(dev, card, hy_tables, per_group)
 
     # the shape launched most often stands for each kernel; every shape
@@ -2501,7 +2886,7 @@ def main() -> int:
                 bound_by=r[f"bound_{which}_by"],
                 library_ms=r[f"library_{which}_ms"]) for r in k1_path],
         })
-    print("[20/22] ring context parallelism (bf16): LocalRing vs K1 "
+    print("[20/26] ring context parallelism (bf16): LocalRing vs K1 "
           "unsharded and vs the plain ring; full-width internvl3-2b at "
           f"{RING_RANKS} ranks on the one card")
     ring_rows = phase_ring(dev, card, tables)
@@ -2525,7 +2910,7 @@ def main() -> int:
                 k1_unsharded_fwd_bwd_device_ms=r[
                     "k1_unsharded_fwd_bwd_device_ms"])
                 for r in ring_rows if (r["D"] == 256) == wide]
-    print("[21/22] state-cache and sliding-window serving parity at "
+    print("[21/26] state-cache and sliding-window serving parity at "
           "reduced size (fp32)")
     torch.cuda.empty_cache()
     exact_launches, exact_rows = phase_state_parity(dev, card)
@@ -2536,9 +2921,62 @@ def main() -> int:
         **{k: r[k] for k in keys}) for r in exact_rows]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     *(r["max_abs_err"] for r in exact_rows))
-    print("[22/22] full-width state-cache serving (bf16): "
+    print("[22/26] full-width state-cache serving (bf16): "
           f"{', '.join(STATE_ARCHS)}")
     phase_state_serving(dev, card)
+
+    print("[23/26] MoE serving and training parity at reduced size (fp32)")
+    torch.cuda.empty_cache()
+    phase_moe_parity(dev, card)
+    print(f"[24/26] full-width {MOE_TRAIN_ARCH} DHP training (bf16)")
+    torch.cuda.empty_cache()
+    collect_garbage("moe train")
+    m_fwd, m_bwd, moe_tables, moe_layers, moe_layer = phase_moe_training(
+        dev, card)
+    print(f"[25/26] full-width MoE serving (bf16): {', '.join(MOE_ARCHS)}")
+    moe_served = phase_moe_serving(dev, card)
+    print("[26/26] K1 at head_dim 64 and K2 at the MoE exact lengths vs "
+          "plain versions")
+    d64_rows, d64_path, moe_k2 = phase_moe_kernels(dev, card, moe_tables,
+                                                   moe_layers, moe_served)
+    main_d64 = max(d64_path, key=lambda r: (r["launches"], r["S"]))
+    for which, launches in (("fwd", m_fwd), ("bwd", m_bwd)):
+        kernels.append({
+            "name": "flash_attention_packed_d64" + (
+                "_bwd" if which == "bwd" else ""),
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/"
+                      "flash_attention_packed.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:208",
+            "launches": launches,
+            "max_abs_err": max(r[f"max_abs_err_{which}"]
+                               for r in d64_rows + d64_path),
+            "ms": main_d64[f"{which}_ms"],
+            "plain_ms": main_d64[f"plain_{which}_ms"],
+            "bound_ms": main_d64[f"bound_{which}_ms"],
+            "bound_by": main_d64[f"bound_{which}_by"],
+            "library_ms": main_d64[f"library_{which}_ms"],
+            "shape": f"B=1 S={main_d64['S']} H=16 Hkv=8 D=64 bf16 causal "
+                     f"spans={main_d64['spans']} ({MOE_TRAIN_ARCH})",
+            "moe_layer": moe_layer,
+            "path_shapes": [dict(
+                bucket=r["S"], spans=r["spans"], launches=r["launches"],
+                pairs=r["pairs"], err=r["err"], rel_err=r["rel_err"],
+                ms=r[f"{which}_ms"], plain_ms=r[f"plain_{which}_ms"],
+                bound_ms=r[f"bound_{which}_ms"],
+                bound_by=r[f"bound_{which}_by"],
+                library_ms=r[f"library_{which}_ms"]) for r in d64_path],
+        })
+    kernels[0]["moe_exact_prefill_launches"] = {
+        arch: k2 for arch, (_, k2, _, _) in moe_served.items()}
+    kernels[0]["moe_exact_prefill_shapes"] = [dict(
+        arch=r["arch"], rows=r["B"], length=r["S"],
+        heads=f"{r['H']}:{r['Hkv']}", D=r["D"], dtype=r["dtype"],
+        **{k: r[k] for k in keys}) for r in moe_k2]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
+                                    *(r["max_abs_err"] for r in moe_k2))
+    print(f"  chip_smoke wall {time.perf_counter() - t_start:.1f} s "
+          f"({card})")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -149,8 +149,9 @@ class Engine:
     >>> history = eng.train(steps=3, dataset="openvid", global_batch=8)
     >>> rep = eng.serving(slots=4).run(trace)
 
-    `model` is an arch id or a ModelConfig: internvl3-2b, mamba2-370m or
-    recurrentgemma-2b, each of which trains and serves. VLM
+    `model` is an arch id or a ModelConfig: internvl3-2b,
+    granite-moe-1b-a400m, olmoe-1b-7b, mamba2-370m or recurrentgemma-2b,
+    each of which trains and serves. VLM
     configs run in token-stream mode (the LM decoder over pre-counted
     tokens), as in the JAX package. `device=None` places the model on
     the card and raises when there is none; `device="cpu"` runs on the
@@ -365,11 +366,13 @@ class Engine:
               gen_tokens: int = 32, cache_len: Optional[int] = None):
         """Batched prefill + greedy decode (the one-shot fixed-batch
         path). `prompts`: [B, S] token ids (drawn from the seed when
-        None). The dense family prefills a K/V cache; the SSM and hybrid
-        families start from a fresh state cache with the prompts' last
-        token as the first decode input, as the JAX package does.
+        None). The dense and MoE families prefill a K/V cache (MoE
+        routing the batch's tokens jointly, as the reference does); the
+        SSM and hybrid families start from a fresh state cache with the
+        prompts' last token as the first decode input, as the JAX
+        package does.
         Returns (decoded [B, gen_tokens], dict of timings)."""
-        from ..models.model import init_cache, prefill
+        from ..models.model import PREFILL_FAMILIES, init_cache, prefill
         from ..serving.serve_step import greedy_generate, make_serve_step
 
         if prompts is None:
@@ -382,7 +385,7 @@ class Engine:
         cache_len = cache_len or prompt_len + gen_tokens
 
         t0 = time.perf_counter()
-        if self.cfg.family == "dense":
+        if self.cfg.family in PREFILL_FAMILIES:
             logits, cache = prefill(self.state.params, self.cfg,
                                     {"tokens": prompts},
                                     cache_len=cache_len)

@@ -3,11 +3,13 @@ from __future__ import annotations
 
 import importlib
 
-from .base import HybridCfg, ModelConfig, SSMCfg, VLMCfg
+from .base import HybridCfg, ModelConfig, MoECfg, SSMCfg, VLMCfg
 
 _MODULES = {
     # the paper's own workload; further archs join with their families
     "internvl3-2b": "internvl3_2b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "mamba2-370m": "mamba2_370m",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
@@ -22,5 +24,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["HybridCfg", "ModelConfig", "SSMCfg", "VLMCfg", "get_config",
-           "ALL_ARCHS"]
+__all__ = ["HybridCfg", "ModelConfig", "MoECfg", "SSMCfg", "VLMCfg",
+           "get_config", "ALL_ARCHS"]

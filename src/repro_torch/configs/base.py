@@ -2,14 +2,26 @@
 
 One frozen dataclass describes an architecture; `ModelConfig.reduced()`
 derives the CPU smoke-test variant (2 layers, 3 for the hybrid family,
-d_model <= 256). This copy carries the fields of the families the port
-runs (dense, VLM as dense, SSM, hybrid); the other sub-configs (MoE,
-encoder-decoder) come with the slices that port those families.
+d_model <= 256, <= 4 experts). This copy carries the fields of the
+families the port runs (dense, VLM as dense, MoE, SSM, hybrid); the
+encoder-decoder sub-config comes with the slice that ports its family.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    expert_ff: int            # d_ff of each expert
+    capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.01
+    dispatch: str = "einsum"  # einsum (one-hot baseline) | sort (O(T·k·D))
+    dispatch_group: int = 8192  # sort: tokens per shard-local dispatch
+                                # group (0 = one global group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +54,7 @@ class VLMCfg:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str               # dense | vlm | ssm | hybrid
+    family: str               # dense | vlm | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -59,6 +71,7 @@ class ModelConfig:
     activation: str = "swiglu"          # swiglu | gelu
     tie_embeddings: bool = False
 
+    moe: Optional[MoECfg] = None
     ssm: Optional[SSMCfg] = None
     hybrid: Optional[HybridCfg] = None
     vlm: Optional[VLMCfg] = None
@@ -82,7 +95,8 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant: 2 layers (3 hybrid), d_model<=256."""
+        """Smoke-test variant: 2 layers (3 hybrid), d_model<=256, <=4
+        experts."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         kv = max(1, min(self.kv_heads, n_heads))
@@ -100,6 +114,10 @@ class ModelConfig:
             attn_impl="reference",
             remat=False,
         )
+        if self.moe:
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=4, top_k=min(self.moe.top_k, 2),
+                expert_ff=min(self.moe.expert_ff, 256))
         if self.ssm:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=32, chunk=32)

@@ -43,7 +43,9 @@ on several devices need an executor with one process a card over NCCL
 (`DistRing`), which is not written yet. The padded families refuse a
 degree > 1: the reference's scan and conv restart from zero at every
 shard's first token, so its result at degree d is not the result at
-degree 1.
+degree 1. The MoE family packs but refuses a degree > 1 too
+(`models.model.forward_hidden` says why): the reference routes each
+shard alone, and cannot run the family under `shard_map` at all.
 """
 from __future__ import annotations
 
@@ -66,9 +68,9 @@ from .scheduler import ExecutionPlan
 
 #: families whose attention layers take block-diagonal segment masks;
 #: recurrent state (ssm, hybrid) crosses segment boundaries
-PACKABLE_FAMILIES = ("dense",)
+PACKABLE_FAMILIES = ("dense", "moe")
 #: families the executor runs
-EXECUTABLE_FAMILIES = ("dense", "ssm", "hybrid")
+EXECUTABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _token_nll(logits, labels):

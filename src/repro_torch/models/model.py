@@ -1,5 +1,5 @@
-"""Top-level model API: the dense, SSM and hybrid families, training and
-serving.
+"""Top-level model API: the dense, MoE, SSM and hybrid families, training
+and serving.
 
   init_params(cfg, seed=, device=)               -> params dict
   forward(params, cfg, batch)                    -> (logits [B,S,V], aux)
@@ -14,7 +14,7 @@ for the serving slot cache, where every row is its own request at its
 own depth. Their other leaves, by family (`cache_batch_axes` names each
 one's batch axis):
 
-  dense  — k, v [L,B,T,Hkv,D], T = min(sliding_window, cache_len)
+  dense, moe — k, v [L,B,T,Hkv,D], T = min(sliding_window, cache_len)
   ssm    — h [L,B,H,N,P] fp32, conv_buf [L,B,conv_width-1,d_inner+2N]
   hybrid — rec_h [U,R,B,W] fp32, rec_conv [U,R,B,conv_width-1,W],
            k, v [U,A,B,T,Hkv,D] (a ring of T = min(window, cache_len)),
@@ -24,9 +24,10 @@ one's batch axis):
 layers in the tail.) Unlike the JAX package, which returns new caches,
 `prefill_chunk` and `decode_step` write into the cache they are given
 (no second copy of a cache in device memory) and return it with `pos`
-advanced. `prefill` and `prefill_chunk` take the dense family only, as
-the JAX package's do: the SSM and hybrid families serve from a fresh
-`init_cache` and the prompt's last token, through `decode_step`.
+advanced. `prefill` and `prefill_chunk` take the attention families
+(dense, moe) only, as the JAX package's do: the SSM and hybrid families
+serve from a fresh `init_cache` and the prompt's last token, through
+`decode_step`.
 """
 from __future__ import annotations
 
@@ -44,11 +45,13 @@ from .rglru import rglru_decode_step
 from .ssm import ssm_decode_step
 from .transformer import (_BLOCK, _LAYER_INIT, _attn_kwargs,
                           _dense_block, _init_dense_layer, _init_rec_layer,
-                          _rec_block, _rope_frac, hybrid_layout, init_stack,
-                          unstack)
+                          _rec_block, _rope_frac, ffn, hybrid_layout,
+                          init_stack, unstack)
 
 #: families `forward` runs
 FAMILIES = (*_BLOCK, "hybrid")
+#: families that fill a K/V cache from the prompt (`prefill`)
+PREFILL_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig, *, prefill: bool = False) -> None:
@@ -56,7 +59,7 @@ def _check_family(cfg: ModelConfig, *, prefill: bool = False) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ported: "
             f"{sorted(FAMILIES)}; Engine runs VLM configs as dense)")
-    if prefill and cfg.family != "dense":
+    if prefill and cfg.family not in PREFILL_FAMILIES:
         name = "SSM" if cfg.family == "ssm" else cfg.family
         raise NotImplementedError(
             f"family {cfg.family!r} has no prefill: {name} serving starts "
@@ -152,6 +155,14 @@ def forward_hidden(params, cfg: ModelConfig, batch,
     buffer and every attention layer runs ring context parallelism, as
     the JAX package's `cp_axis` does; the other layers are per token."""
     _check_family(cfg)
+    if ring is not None and cfg.family == "moe":
+        raise NotImplementedError(
+            "the MoE family does not run on a ring yet: the reference "
+            "routes each CP shard's rows as their own set, with a capacity "
+            "a shard, and its own executor cannot run the family under "
+            "shard_map (the aux loss in its layer scan's carry varies over "
+            "the shards where the carry's initial zero does not), so there "
+            "is no reference to hold a degree > 1 to")
     if ring is not None and cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} does not run on a ring: its recurrent "
@@ -224,7 +235,7 @@ def prefill(params, cfg: ModelConfig, batch,
                               return_kv=True, **kw)
         x = x + o
         g = rms_norm(p["ln2"], x, cfg.norm_eps)
-        x = x + mlp(p["mlp"], g, cfg.activation)
+        x = x + ffn(p, g, cfg)[0]
         ks.append(k)
         vs.append(v)
     logits = _head(params, cfg, x[:, -1:])
@@ -288,7 +299,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any],
                                cache_span_ids=cache_span_ids)
         x = x + o.reshape(B, C, -1) @ p["attn"]["wo"]
         g = rms_norm(p["ln2"], x, cfg.norm_eps)
-        x = x + mlp(p["mlp"], g, cfg.activation)
+        x = x + ffn(p, g, cfg)[0]
     pos = torch.tensor(start_pos + C, dtype=torch.long, device=x.device)
     return {**cache, "pos": pos}
 
@@ -307,7 +318,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     kw = dict(dtype=dt, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     cache = {"pos": torch.zeros((), dtype=torch.long, device=device)}
-    if cfg.family == "dense":
+    if cfg.family in PREFILL_FAMILIES:
         T = min(cfg.sliding_window or cache_len, cache_len)
         shape = (cfg.n_layers, batch, T, cfg.kv_heads,
                  cfg.resolved_head_dim)
@@ -357,8 +368,10 @@ def cache_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
 # ==========================================================================
 # Decode step
 # ==========================================================================
-def _dense_decode_layer(p, x1, ck, cv, pos, cfg: ModelConfig):
-    """x1 [B,d]; ck/cv [B,T,Hkv,D] (written in place); pos [B]."""
+def _dense_decode_layer(p, x1, ck, cv, pos, cfg: ModelConfig,
+                        per_row: bool = False):
+    """x1 [B,d]; ck/cv [B,T,Hkv,D] (written in place); pos [B]. A MoE
+    layer routes the B tokens jointly, or each alone with `per_row`."""
     B = x1.shape[0]
     h = rms_norm(p["ln1"], x1, cfg.norm_eps)
     q, k1, v1 = project_qkv_decode(
@@ -373,7 +386,7 @@ def _dense_decode_layer(p, x1, ck, cv, pos, cfg: ModelConfig):
     o = attn_decode(q, ck, cv, torch.clamp(pos + 1, max=T))
     x1 = x1 + o.reshape(B, -1) @ p["attn"]["wo"]
     h = rms_norm(p["ln2"], x1, cfg.norm_eps)
-    return x1 + mlp(p["mlp"], h, cfg.activation)
+    return x1 + ffn(p, h[:, None], cfg, per_row)[0][:, 0]
 
 
 def _rec_decode_layer(p, x1, h, conv_buf, cfg: ModelConfig):
@@ -413,9 +426,12 @@ def _hybrid_decode(params, cfg: ModelConfig, cache, x1, pos):
 
 @torch.no_grad()
 def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
-                tokens) -> Tuple[torch.Tensor, Dict[str, Any]]:
+                tokens, per_row: bool = False
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """tokens: [B] -> (logits [B,V], cache with pos + 1); the cache's
-    K/V rows and recurrent state are written in place."""
+    K/V rows and recurrent state are written in place. `per_row` routes
+    each row's token through a MoE layer alone, as the serving slots do
+    (`moe_ffn`); by default the B tokens route jointly."""
     _check_family(cfg)
     tokens = torch.as_tensor(tokens,
                              device=params["embed"].device).long()
@@ -423,10 +439,10 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
     pos = cache["pos"]
     pos_b = pos.expand(B) if pos.dim() == 0 else pos
     x1 = embed(params["embed"], tokens)
-    if cfg.family == "dense":
+    if cfg.family in PREFILL_FAMILIES:
         for i, p in enumerate(unstack(params["layers"])):
             x1 = _dense_decode_layer(p, x1, cache["k"][i], cache["v"][i],
-                                     pos_b, cfg)
+                                     pos_b, cfg, per_row)
     elif cfg.family == "ssm":
         s = cfg.ssm
         for i, p in enumerate(unstack(params["layers"])):

@@ -6,6 +6,7 @@ layers and `unstack(stack)` gives each layer's leaves as views.
 
 Families:
   dense  — [attn + MLP] x L                   (internvl3-2b's LM, as dense)
+  moe    — [attn + MoE-FFN] x L               (granite, olmoe)
   ssm    — [mamba2 SSD] x L                   (mamba2-370m)
   hybrid — [(rec, rec, attn) + MLP each] x .. (recurrentgemma-2b)
 """
@@ -18,20 +19,27 @@ import torch
 from ..configs.base import ModelConfig
 from .attention import attention, init_attention
 from .layers import _dtype, init_mlp, init_rmsnorm, mlp, rms_norm
+from .moe import init_moe, moe_ffn
 from .rglru import init_rglru_block, rglru_block
 from .ssm import init_ssm, ssm_forward
 
 
 def _init_dense_layer(gen, cfg: ModelConfig, device, stack: tuple = ()):
+    """An attention layer: the MoE family's FFN is its experts."""
     dt = _dtype(cfg.param_dtype)
-    return {
+    layer = {
         "ln1": init_rmsnorm(cfg.d_model, dt, device, stack),
         "attn": init_attention(gen, cfg.d_model, cfg.n_heads, cfg.kv_heads,
                                cfg.resolved_head_dim, dt, device, stack),
         "ln2": init_rmsnorm(cfg.d_model, dt, device, stack),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt,
-                        device, stack),
     }
+    if cfg.family == "moe":
+        layer["moe"] = init_moe(gen, cfg.d_model, cfg.moe.n_experts,
+                                cfg.moe.expert_ff, dt, device, stack)
+    else:
+        layer["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                                dt, device, stack)
+    return layer
 
 
 def _init_ssm_layer(gen, cfg: ModelConfig, device, stack: tuple = ()):
@@ -94,19 +102,37 @@ def _attn_kwargs(cfg: ModelConfig, mode: str, window=None):
                 window=window)
 
 
+def moe_kwargs(cfg: ModelConfig) -> dict:
+    m = cfg.moe
+    return dict(top_k=m.top_k, capacity_factor=m.capacity_factor,
+                dispatch=m.dispatch, dispatch_group=m.dispatch_group)
+
+
+def ffn(p, h, cfg: ModelConfig, per_row: bool = False):
+    """An attention layer's FFN on h [B,S,d] -> (out, aux loss): the MLP
+    (aux None), or the MoE FFN where the layer has one (`per_row` as
+    `moe_ffn` takes it)."""
+    if "moe" in p:
+        return moe_ffn(p["moe"], h, per_row=per_row, **moe_kwargs(cfg))
+    return mlp(p["mlp"], h, cfg.activation), None
+
+
 def _dense_block(p, x, cfg: ModelConfig, mode="causal", window=None,
                  positions=None, segment_ids=None, span_ids=None,
                  ring=None):
-    """One dense layer (pre-norm attention + MLP) -> (x, aux loss 0).
-    With a `ring`, attention runs ring context parallelism over x's rows
-    (the ring's shards); every other op is per token."""
+    """One attention layer (pre-norm attention, then the MLP, or the MoE
+    FFN where the layer has one) -> (x, aux loss: the MoE FFN's, else
+    0). With a `ring`, attention runs ring context parallelism over x's
+    rows (the ring's shards); every other op is per token. The router
+    takes every row of x as one routing set."""
     h = rms_norm(p["ln1"], x, cfg.norm_eps)
     x = x + attention(p["attn"], h, positions=positions,
                       segment_ids=segment_ids, span_ids=span_ids,
                       ring=ring, **_attn_kwargs(cfg, mode, window))
-    h = rms_norm(p["ln2"], x, cfg.norm_eps)
-    x = x + mlp(p["mlp"], h, cfg.activation)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    out, aux = ffn(p, rms_norm(p["ln2"], x, cfg.norm_eps), cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + out, aux
 
 
 def _ssm_block(p, x, cfg: ModelConfig, **_):
@@ -141,5 +167,6 @@ def hybrid_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
     return n_units, unit[:tail]
 
 
-_LAYER_INIT = {"dense": _init_dense_layer, "ssm": _init_ssm_layer}
-_BLOCK = {"dense": _dense_block, "ssm": _ssm_block}
+_LAYER_INIT = {"dense": _init_dense_layer, "moe": _init_dense_layer,
+               "ssm": _init_ssm_layer}
+_BLOCK = {"dense": _dense_block, "moe": _dense_block, "ssm": _ssm_block}

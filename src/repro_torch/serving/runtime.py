@@ -13,9 +13,10 @@ cluster's shared GroupPool keyed on bucketed shapes.
 
 Request streams are greedy and deterministic: a request decoded here
 yields exactly the token ids `greedy_generate` produces for the same
-prompt. Co-batched one-shot prefill and the exact-length prefill of
-sliding-window caches run the flash-attention kernel
-(`cfg.attn_impl="cuda"`); chunked prefill and decode are plain PyTorch.
+prompt. Co-batched one-shot prefill and the exact-length prefill (of
+sliding-window caches and of the MoE family) run the flash-attention
+kernel (`cfg.attn_impl="cuda"`); chunked prefill and decode are plain
+PyTorch.
 
 State-cache families (ssm, hybrid) are never prefilled, as in the JAX
 package: a request starts from a fresh `init_cache` and decodes from
@@ -35,14 +36,12 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.group_pool import pow2_bucket
 from ..core.packing import fill_modality_row
+from ..models.model import PREFILL_FAMILIES
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import Tracer, get_tracer, tracing
 from .kv_cache import KVCacheManager
 from .scheduler import (DECODE, ContinuousBatchingScheduler, PrefillGroup,
                         ServeRequest)
-
-#: families whose serving fills a K/V cache from the prompt
-ATTN_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass
@@ -97,7 +96,8 @@ class ServingEngine:
     Build via `Engine.serving(...)`. The decode slot count and cache
     capacity are bucketed through the cluster ladder
     (`ClusterSpec.decode_shape`). Serves the dense family (full or
-    sliding-window attention), the SSM family and the hybrid family.
+    sliding-window attention), the MoE family, the SSM family and the
+    hybrid family.
     `strategy` names the prefill planner (`get_strategy`: "dhp",
     "static"); the plan only groups prefill chunks, so it never changes a
     stream.
@@ -109,27 +109,26 @@ class ServingEngine:
                  prefill_chunk: int = 128, strategy: str = "dhp",
                  seed: int = 0):
         from ..api.strategies import get_strategy
-        if cfg.family == "moe":
-            raise NotImplementedError(
-                "the MoE family is not ported yet (ROADMAP.md Queue 1, "
-                "item 4); it will prefill through the exact-length path")
         self.cfg = cfg
         self.params = params
         self.cluster = cluster
         self.device = cluster.primary
         self.pool = cluster.pool()
         self.block_size = block_size
+        # MoE capacity routing runs over the routed token set (padding or
+        # chunking a prompt changes which tokens an expert drops) and
         # sliding-window caches rotate on prefill: such a prompt prefills
         # whole at its exact length, and its first token comes from the
         # prefill logits (see _run_prefill_group)
-        self.exact_prefill = cfg.sliding_window is not None
+        self.exact_prefill = (cfg.family == "moe"
+                              or cfg.sliding_window is not None)
         self.prefill_chunk = (10 ** 9 if self.exact_prefill
                               else prefill_chunk)
         self.seed = seed
         self._cache_len = cache_len
         self._n_blocks = n_blocks
         self.n_slots, _ = cluster.decode_shape(slots, 1)
-        self.attention_family = cfg.family in ATTN_FAMILIES
+        self.attention_family = cfg.family in PREFILL_FAMILIES
         # its own planner: serving plans must not evict training plans,
         # and the salt keeps the two key spaces apart
         self.planner = get_strategy(strategy).bind(
@@ -265,14 +264,15 @@ class ServingEngine:
 
     def _exact_prefill(self, c, st, staging, pending_first, T: int):
         """The whole prompt through `prefill` at its exact length against
-        the ring the slot holds (min(window, T) rows, rotated so that
-        position p sits in row p % window), staged at pos = L; the first
-        token comes from the prefill logits."""
+        the cache the slot holds (T rows, or a ring of min(window, T),
+        rotated so that position p sits in row p % window), staged at
+        pos = L; the first token comes from the prefill logits."""
         if not (c.start == 0 and c.length == st.prefill_target):
             raise AssertionError(
                 f"request {c.request_id}: an exact-length prefill takes "
                 f"the whole prompt in one chunk")
-        Tring = min(self.cfg.sliding_window, T)
+        W = self.cfg.sliding_window
+        Tring = T if W is None else min(W, T)
         L = st.request.prompt_len
         with get_tracer().span("prefill_exact", "serve",
                                args={"request": c.request_id,

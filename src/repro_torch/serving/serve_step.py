@@ -7,7 +7,9 @@ axis 1 of a dense `[L, n_slots, T, Hkv, D]` K/V or an SSM state, axis 2
 of the hybrid's `[unit, layer, n_slots, ...]` leaves) and `pos` is a
 `[n_slots]` tensor, so every slot keeps its own depth, ring-write row
 `pos % T`, valid length and recurrent state, and one `decode_step`
-advances all of them.
+advances all of them. A MoE layer routes each slot's token alone
+(`per_row`), as the reference's `vmap` of B=1 decodes does; the batched
+`make_serve_step` routes its rows jointly, as the reference's does.
 """
 from __future__ import annotations
 
@@ -19,10 +21,11 @@ from ..configs.base import ModelConfig
 from ..models.model import cache_batch_axes, decode_step, init_cache
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, per_row: bool = False):
     def serve_step(params, cache: Dict[str, Any], tokens: torch.Tensor
                    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        logits, cache = decode_step(params, cfg, cache, tokens)
+        logits, cache = decode_step(params, cfg, cache, tokens,
+                                    per_row=per_row)
         return torch.argmax(logits, dim=-1), cache
     return serve_step
 
@@ -41,8 +44,10 @@ def make_slot_decode_step(cfg: ModelConfig):
     and ring writes batch into one step whose shape depends only on
     (n_slots, cache_len). Returns (next_tokens [n_slots], slots), greedy
     argmax applied. Empty slots decode a pad token harmlessly: inserting
-    a request resets every leaf of its slot."""
-    step = make_serve_step(cfg)
+    a request resets every leaf of its slot, and a MoE layer routes every
+    slot alone (`per_row`), so a slot's stream never depends on what the
+    others hold."""
+    step = make_serve_step(cfg, per_row=True)
 
     def slot_step(params, slots, tokens):
         # tokens: [n_slots, 1] (one token per slot)

@@ -1446,3 +1446,55 @@ def test_ring_limit_catches_planted_fault(card, fault):
     assert caught, errs
     if fault == "short_home":
         assert set(caught) <= {"dk", "dv"} and caught, errs
+
+
+# ------------------------------------------------------------------ MoE
+def _moe_layer(device, D=256, E=32, F=128):
+    from repro_torch.models.moe import init_moe
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    p = init_moe(gen, D, E, F, torch.float32, "cpu")
+    return {k: v.to(device) for k, v in p.items()}
+
+
+@pytest.mark.cuda
+def test_moe_router_product_is_ieee_fp32_on_the_card(card):
+    """The router's product runs in IEEE fp32 whatever the caller set:
+    under TF32 (the caller's "high") it stays within fp32's rounding of
+    the fp64 product, and the caller's setting comes back."""
+    from repro_torch.models.moe import route
+    p = _moe_layer(card)
+    x = torch.randn(4096, 256, generator=torch.Generator().manual_seed(1))
+    want = torch.softmax(x.double() @ p["router"].cpu().double(), dim=-1)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        probs, _, _ = route(p, x.to(card), 8)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    err = (probs.cpu().double() - want).abs().max().item()
+    print(f"router probs vs fp64: {err:.3e}")
+    assert err <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch,per_row", [("sort", False),
+                                              ("sort", True),
+                                              ("einsum", False)])
+def test_moe_ffn_on_the_card_equals_the_cpu(card, dispatch, per_row):
+    """fp32 (TF32 off): the card's routing and values are the CPU's,
+    dropping tokens (capacity factor 1.0) and in groups."""
+    from repro_torch.models.moe import moe_ffn
+    p = _moe_layer(card)
+    x = torch.randn(4, 64, 256, generator=torch.Generator().manual_seed(2))
+    kw = dict(top_k=8, capacity_factor=1.0, dispatch=dispatch,
+              dispatch_group=128, per_row=per_row)
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        out, aux = moe_ffn(p, x.to(card), **kw)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    want, want_aux = moe_ffn({k: v.cpu() for k, v in p.items()}, x, **kw)
+    torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-5)
