@@ -5,9 +5,13 @@ training of internvl3-2b, DHP training of mamba2-370m and of
 recurrentgemma-2b, at full width, internvl3-2b's groups of degree > 1
 as rings on the one card, the serving of mamba2-370m and
 recurrentgemma-2b at full width, the exact-length prefill of
-sliding-window caches, and the MoE family (granite-moe-1b-a400m's DHP
+sliding-window caches, the MoE family (granite-moe-1b-a400m's DHP
 training, granite-moe-1b-a400m's and olmoe-1b-7b's serving, at full
-width) — and checks what comes out.
+width), and the remaining dense and VLM configs (pixtral-12b's and
+qwen3vl-8b's DHP training at full width, depth cut, and their serving
+whole; chatglm3-6b, glm4-9b, minitron-4b and llama3-405b, 2 layers,
+through Engine.serve; pixtral-12b's forward with patch embeddings) —
+and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -247,7 +251,47 @@ Phases:
                 exact length phase 25 prefilled, at each arch's heads;
                 with times, bounds and SDPA; these feed the kernels line
                 (`flash_attention_packed_d64*`; K2's
-                `moe_exact_prefill_*`). Then the run's wall
+                `moe_exact_prefill_*`)
+ 27. dense kernels — K1 (bf16) forward and backward on one 4096-token
+                row, causal, with and without 256-token frames, and K2
+                (bf16, causal) at 4x2048 and at exact lengths 1x96-1x1500,
+                vs plain with phase 7's and phase 3's limits, at each new
+                head grouping: 32:2, 24:8, 32:8, 128:8 at D = 128 and
+                32:8 at D = 160 (128 query heads run the plain versions a
+                KV head at a time); ms, device_ms, plain, SDPA, bound and
+                each launch beside the SMs (`dense_rows_4096`,
+                `dense_shapes`)
+ 28. dense parity — phase 8 for reduced chatglm3-6b (2D RoPE) and for
+                reduced pixtral-12b at head_dim 160 over 4:2 heads (K1's
+                fp32 kernels at D = 160)
+ 29-30. dense train — phase 9 for pixtral-12b (7 of 40 layers: 32:8
+                heads of 160, K1 at D = 160) and qwen3vl-8b (10 of 36
+                layers: 32:8 heads of 128) at full width, bf16, the card
+                emptied between; parameters finite after 3 steps
+ 31. train path — phase 10 for the pixtral-12b run: K1 at D = 160 vs
+                plain at each (bucket, spans) shape it launched; these
+                feed `flash_attention_packed_d160*`
+ 32. dense serving — phases 5 and 6 for pixtral-12b (40 layers, K2 at
+                D = 160) and qwen3vl-8b (36 layers) whole, bf16
+                (`flash_attention_d160`; K2's `qwen3vl_*`)
+ 33. short serves — Engine(arch).serve(batch=2, prompt_len=96,
+                gen_tokens=8) at full width for chatglm3-6b, glm4-9b,
+                minitron-4b (whole) and llama3-405b (2 of 126 layers):
+                in-vocab tokens, K2 once a layer, finite prefill logits,
+                init, prefill and decode times, peak memory
+ 34. vlm forward — pixtral-12b at full width and 2 layers through
+                `forward` with synthetic_batch's patch embeddings, against
+                the same weights in fp32 (plain attention): finite logits
+                through K2 at D = 160, elementwise at most 1.25 times as
+                far from fp32 as the plain attention path's bf16 logits,
+                three faults of the D = 160 layout planted around K2
+                farther; the patches reach the logits. Then the run's wall
+
+Phases 27-34 run in a process of their own (`--late-phases`), started
+by the first on the same card after it has released its memory:
+after some 400 profiler sessions in one process torch.profiler drops
+kernels' events and then traces none, so their device times are read
+from a fresh one.
 
 Each full-width training phase (9, 13, 18, 24) first collects what the
 earlier phases left in reference cycles (the profiler's event trees
@@ -303,8 +347,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, each_once=False):
     card. Beside `cuda_ms` (the time between two events around the
     calls, the host's enqueue included where it is the slower), it
     splits a call's time into the host's and the device's. A session
-    that traces no kernel at all (seen once, some 50 sessions into a
-    process) is run again, up to three times.
+    that traces no kernel at all (seen some 50 and some 400 sessions into
+    a process) is run again, up to three times; after three the device
+    time is not measured: (None, None), said so on a line of its own.
 
     `each_once`: every call launches each of its kernels once, on the
     same inputs, so a call's device time is the sum over kernel names of
@@ -335,8 +380,9 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, each_once=False):
         else:
             ms = sum(ev.time_range.elapsed_us() for ev in evs) / 1e3 / iters
         return ms, len(evs) / iters
-    raise AssertionError("torch.profiler traced no device time in three "
-                         "sessions")
+    print("  device_ms: torch.profiler traced no device time in three "
+          "sessions; device time not measured (null)")
+    return None, None
 
 
 def attention_bound(B, Sq, Sk, H, Hkv, D, dtype, mode, window, kv_offset):
@@ -436,13 +482,15 @@ def phase_kernels(dev, card):
     return [check_kernel(dev, card, gen, *c) for c in cases]
 
 
-def phase_path(dev, card, shapes, n_layers):
+def phase_path(dev, card, shapes, n_layers, heads=(H, HKV, D)):
     """The kernel vs its plain version at every (rows, bucket) shape the
-    serving run launched it with (bf16, causal, as on the path)."""
+    serving run launched it with (bf16, causal, as on the path), at the
+    model's `heads` (internvl3-2b's by default)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     out = []
     for (rows, bucket), n_batches in sorted(shapes.items()):
-        row = check_kernel(dev, card, gen, rows, bucket, torch.bfloat16)
+        row = check_kernel(dev, card, gen, rows, bucket, torch.bfloat16,
+                           heads=heads)
         row["launches"] = n_batches * n_layers
         out.append(row)
     return out
@@ -517,22 +565,25 @@ def full_width_trace(vocab: int, seed: int = 0):
     return reqs
 
 
-def phase_serving(dev, card):
-    """Returns the kernel's launches in the run and the number of
-    co-batched prefills at each (rows, bucket) shape."""
+def phase_serving(dev, card, arch="internvl3-2b"):
+    """Full-width serving of `arch`; returns the kernel's launches in the
+    run, the number of co-batched prefills at each (rows, bucket) shape,
+    the model's layers and its heads (query, KV, head_dim)."""
     from repro_torch.api import Engine
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models.model import prefill
     from repro_torch.obs.trace import Tracer
 
     t0 = time.perf_counter()
-    eng = Engine("internvl3-2b", seed=0)
+    eng = Engine(arch, seed=0)
     params = eng.state.params
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"  internvl3-2b as {eng.cfg.family}: {eng.cfg.n_layers} layers "
-          f"d_model {eng.cfg.d_model}, {n_params / 1e9:.3f} B params "
-          f"{eng.cfg.param_dtype}, init {time.perf_counter() - t0:.1f} s")
+    print(f"  {arch} as {eng.cfg.family}: {eng.cfg.n_layers} layers "
+          f"d_model {eng.cfg.d_model}, {eng.cfg.n_heads}:{eng.cfg.kv_heads}"
+          f" heads of {eng.cfg.resolved_head_dim}, {n_params / 1e9:.3f} B "
+          f"params {eng.cfg.param_dtype}, init "
+          f"{time.perf_counter() - t0:.1f} s")
     trace = full_width_trace(eng.cfg.vocab)
     srv = eng.serving(slots=4, prefill_chunk=256)
 
@@ -582,9 +633,11 @@ def phase_serving(dev, card):
                  flash_attention_launches=launches,
                  prefill_batch_shapes={f"{r}x{b}": n for (r, b), n
                                        in sorted(shapes.items())})
+    label = "serving" if arch == "internvl3-2b" else f"{arch} serving"
     for key, val in stats.items():
-        print(f"  serving {key} = {val} ({card})")
-    return launches, shapes, eng.cfg.n_layers
+        print(f"  {label} {key} = {val} ({card})")
+    return launches, shapes, eng.cfg.n_layers, (
+        eng.cfg.n_heads, eng.cfg.kv_heads, eng.cfg.resolved_head_dim)
 
 
 # ------------------------------------------------------------ kernel K1
@@ -646,19 +699,49 @@ def packed_bound(B, Sq, Sk, H, Hkv, D, dtype, pairs, backward, n_tables):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _by_kv_heads(fn, n, q, k, v, *rest, **kw):
+    """`fn` (a plain version of K1, forward or backward) over `n` equal
+    slices of the KV heads, each with its query heads, joined: the same
+    function at 1/n of its fp32 score matrices' memory (128 query heads
+    over a 4096-token row need 8.6 GB a matrix whole). `rest`: o, lse,
+    dO of the backward."""
+    if n == 1:
+        return fn(q, k, v, *rest, **kw)
+    hq, hk = q.shape[2] // n, k.shape[2] // n
+    outs = []
+    for i in range(n):
+        qs, ks = slice(i * hq, (i + 1) * hq), slice(i * hk, (i + 1) * hk)
+        r = rest if len(rest) == 1 else (
+            rest[0][:, :, qs], rest[1][:, qs], rest[2][:, :, qs], *rest[3:])
+        outs.append(fn(q[:, :, qs], k[:, :, ks], v[:, :, ks], *r, **kw))
+    if len(outs[0]) == 2:                          # forward: o, lse
+        return torch.cat([o[0] for o in outs], 2), torch.cat(
+            [o[1] for o in outs], 1)
+    return tuple(torch.cat([o[j] for o in outs], 2) for j in range(3))
+
+
 def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
                  window=None, off=0, kseg=None, kspan=None, Sk=None,
-                 tag="", heads=(H, HKV, D)):
+                 tag="", heads=(H, HKV, D), detail=False):
     """K1 forward and backward vs plain on one random input with the
     given tables ([S], one row, or [B, S]) at `heads` = (query heads, KV
     heads, head_dim), internvl3-2b's by default; times kernel, plain and
-    SDPA (boolean mask from the tables, built outside the timing)."""
+    SDPA (boolean mask from the tables, built outside the timing). Above
+    32 query heads the plain versions run a KV head at a time
+    (`_by_kv_heads`). `detail`: also each direction's device time
+    (torch.profiler) and launch (grid, threads, shared memory) beside
+    the card's SMs."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention_packed import (
         _tables, flash_attention_packed, flash_attention_packed_bwd,
         flash_attention_packed_bwd_ref, flash_attention_packed_ref,
-        pair_mask)
+        last_bwd_kv_launch, last_fwd_launch, pair_mask)
     H, HKV, D = heads
+    split = HKV if H > 32 else 1
+    plain_fwd_fn = (lambda *a, **k: _by_kv_heads(  # noqa: E731
+        flash_attention_packed_ref, split, *a, **k))
+    plain_bwd_fn = (lambda *a, **k: _by_kv_heads(  # noqa: E731
+        flash_attention_packed_bwd_ref, split, *a, **k))
     Sk = Sk or S
     B = 1 if np.ndim(seg) == 1 else len(seg)
     q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
@@ -670,10 +753,12 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
     kw = dict(mode=mode, window=window, span_ids=t(span),
               kv_segment_ids=t(kseg), kv_span_ids=t(kspan), kv_offset=off)
     o, lse = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
+    launch = dict(fwd=last_fwd_launch()) if dtype == torch.bfloat16 else {}
     grads = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
-    ro, rlse = flash_attention_packed_ref(q, k, v, segt, **kw)
-    rgrads = flash_attention_packed_bwd_ref(q, k, v, ro, rlse, do, segt,
-                                            **kw)
+    if launch:
+        launch["bwd"] = last_bwd_kv_launch()
+    ro, rlse = plain_fwd_fn(q, k, v, segt, **kw)
+    rgrads = plain_bwd_fn(q, k, v, ro, rlse, do, segt, **kw)
     torch.cuda.synchronize()
     errs = {"o": _scaled_err(o, ro)}
     for name, a, r in zip(("dq", "dk", "dv"), grads, rgrads):
@@ -702,10 +787,10 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
                      iters=10, warmup=2)
     bwd_ms = cuda_ms(lambda: flash_attention_packed_bwd(
         q, k, v, o, lse, do, segt, **kw), iters=10, warmup=2)
-    plain_fwd = cuda_ms(lambda: flash_attention_packed_ref(
-        q, k, v, segt, **kw), iters=3, warmup=1)
-    plain_bwd = cuda_ms(lambda: flash_attention_packed_bwd_ref(
-        q, k, v, ro, rlse, do, segt, **kw), iters=3, warmup=1)
+    plain_fwd = cuda_ms(lambda: plain_fwd_fn(q, k, v, segt, **kw), iters=3,
+                        warmup=1)
+    plain_bwd = cuda_ms(lambda: plain_bwd_fn(q, k, v, ro, rlse, do, segt,
+                                             **kw), iters=3, warmup=1)
     # yardstick: SDPA with the tables' boolean mask, GQA in place
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
@@ -736,6 +821,14 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
                library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
                bound_fwd_ms=bf, bound_fwd_by=bf_by, bound_bwd_ms=bb,
                bound_bwd_by=bb_by)
+    if detail:
+        row["fwd_device_ms"] = device_ms(lambda: flash_attention_packed(
+            q, k, v, segt, **kw), iters=5, warmup=1)[0]
+        row["bwd_device_ms"] = device_ms(lambda: flash_attention_packed_bwd(
+            q, k, v, o, lse, do, segt, **kw), iters=5, warmup=1)[0]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(f"  K1 launch {tag} S={S} H={H} Hkv={HKV} D={D} "
+              f"{json.dumps(dict(**launch, sms=sms))} ({card})")
     print(f"  K1 {json.dumps(row)} ({card})")
     return row
 
@@ -798,10 +891,11 @@ def phase_packed(dev, card):
     return rows
 
 
-def phase_train_parity(dev, arch="internvl3-2b"):
-    """Reduced `arch` (a packed family), fp32: the first batch's loss and
-    gradient, two training steps, and the gradient at the parameters
-    they reach, through the kernels vs through the plain attention."""
+def phase_train_parity(dev, arch="internvl3-2b", cfg=None):
+    """Reduced `arch` (a packed family), fp32, or the reduced config
+    `cfg` under that name: the first batch's loss and gradient, two
+    training steps, and the gradient at the parameters they reach,
+    through the kernels vs through the plain attention."""
     from repro_torch.api import Engine
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed, flash_attention_packed_bwd)
@@ -814,7 +908,8 @@ def phase_train_parity(dev, arch="internvl3-2b"):
     out = {}
     params0 = None
     for impl in ("cuda", "reference"):
-        eng = Engine(arch, reduced=True, seed=0)
+        eng = (Engine(arch, reduced=True, seed=0) if cfg is None
+               else Engine(cfg, seed=0))
         eng.cfg = eng.cfg.with_(attn_impl=impl)
         if params0 is None:
             params0 = eng.state.params
@@ -892,23 +987,31 @@ def packed_tables(eng, plans, run, groups):
     return tables
 
 
-def phase_training(dev, card):
-    """Full-width DHP training; returns (launches fwd, bwd, group tables
-    by (bucket, spans), n_layers)."""
+def phase_training(dev, card, arch="internvl3-2b", depth=None):
+    """Full-width DHP training of `arch`, its layers cut to `depth` where
+    given; returns (launches fwd, bwd, group tables by (bucket, spans),
+    n_layers)."""
     from repro_torch.api import ClusterSpec, Engine
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed, flash_attention_packed_bwd)
 
     run = dict(dataset="openvid", global_batch=8, max_tokens=4096,
                tokens_per_frame=256)
+    label = "train" if arch == "internvl3-2b" else f"{arch} train"
     t0 = time.perf_counter()
-    eng = Engine("internvl3-2b", ClusterSpec.auto(mem_budget=4096), seed=0)
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = cfg.with_(n_layers=depth)
+    eng = Engine(cfg, ClusterSpec.auto(mem_budget=4096), seed=0)
     params = eng.state.params
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"  internvl3-2b as {eng.cfg.family}: {eng.cfg.n_layers} layers "
-          f"d_model {eng.cfg.d_model}, {n_params / 1e9:.3f} B params "
-          f"{eng.cfg.param_dtype}, init {time.perf_counter() - t0:.1f} s")
+    print(f"  {arch} as {eng.cfg.family}: {eng.cfg.n_layers} layers "
+          f"d_model {eng.cfg.d_model}, {eng.cfg.n_heads}:{eng.cfg.kv_heads}"
+          f" heads of {eng.cfg.resolved_head_dim}, {n_params / 1e9:.3f} B "
+          f"params {eng.cfg.param_dtype}, init "
+          f"{time.perf_counter() - t0:.1f} s")
     plans = []
     torch.cuda.reset_peak_memory_stats(dev)
     flash_attention_packed.launches = 0
@@ -937,7 +1040,7 @@ def phase_training(dev, card):
         if not math.isfinite(m.loss):
             raise AssertionError(f"step {m.step}: loss {m.loss}")
         tok_s = m.tokens / m.step_time_s
-        print(f"  train step {m.step}: loss={m.loss} "
+        print(f"  {label} step {m.step}: loss={m.loss} "
               f"step_time_s={m.step_time_s} tokens={m.tokens} "
               f"tokens_per_s={tok_s} padding_efficiency="
               f"{m.padding_efficiency} degrees={m.degree_histogram} "
@@ -946,28 +1049,33 @@ def phase_training(dev, card):
               f"{m.plan_overlap_ms} ({card})")
     if len(hist) != 3:
         raise AssertionError(f"{len(hist)} training steps, want 3")
-    print(f"  train max_memory_allocated_bytes = {peak} ({card})")
-    print(f"  train group shapes (bucket, spans): {groups}")
+    if not all(torch.isfinite(t).all() for t in _leaves(
+            eng.state.params)):
+        raise AssertionError("parameters are not finite after 3 steps")
+    print(f"  {label} max_memory_allocated_bytes = {peak} ({card})")
+    print(f"  {label} group shapes (bucket, spans): {groups}")
 
     tables = packed_tables(eng, plans, run, groups)
 
     # one more step under the profiler: the device's busy share
-    profile_step(eng, run, card, "train",
+    profile_step(eng, run, card, label,
                  {"k1": "packed_", "k1_fwd": "packed_fwd",
                   "k1_bwd": "packed_bwd", "k1_bwd_sum": "bwd_kv_reduce"})
     eng.close()
     return n_fwd, n_bwd, tables, eng.cfg.n_layers
 
 
-def phase_train_path(dev, card, tables, n_layers):
+def phase_train_path(dev, card, tables, n_layers, heads=(H, HKV, D),
+                     tag="train"):
     """K1 forward and backward vs plain at each (bucket, spans) shape of
-    the training run, on the first group's own tables of that shape."""
+    the training run, on the first group's own tables of that shape, at
+    the model's `heads` (internvl3-2b's by default)."""
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = []
     for (bucket, spans), groups in sorted(tables.items()):
         seg, span = groups[0]
         row = check_packed(dev, card, gen, bucket, torch.bfloat16, seg,
-                           span, tag="train")
+                           span, tag=tag, heads=heads)
         row["launches"] = n_layers * len(groups)
         rows.append(row)
     return rows
@@ -2413,8 +2521,10 @@ def moe_layer_breakdown(dev, card, cfg, T):
         row[f"{name}_device_ms"], row[f"{name}_kernels"] = device_ms(
             fn, iters=5, warmup=1)
     for what in ("fwd_bwd", "fwd"):
+        layer_ms, gemms_ms = (row[f"{part}_{what}_device_ms"]
+                              for part in ("layer", "gemms"))
         row[f"dispatch_{what}_device_ms"] = (
-            row[f"layer_{what}_device_ms"] - row[f"gemms_{what}_device_ms"])
+            None if None in (layer_ms, gemms_ms) else layer_ms - gemms_ms)
     flops = 6.0 * m.n_experts * cap * D * m.expert_ff      # 3 GEMMs fwd
     row["gemms_bound_fwd_bwd_ms"] = 3 * flops / PEAK_FLOPS[
         torch.bfloat16] * 1e3
@@ -2642,12 +2752,349 @@ def phase_moe_kernels(dev, card, tables, n_layers, served):
     return synth, path, k2
 
 
+# ------------------------------------------ the dense and VLM configs
+#: the head groupings the six dense and VLM configs bring, (label, (query
+#: heads, KV heads, head_dim)): chatglm3-6b and glm4-9b 32:2, minitron-4b
+#: 24:8 (an odd group of 3), qwen3vl-8b 32:8, llama3-405b 128:8 at
+#: head_dim 128; pixtral-12b 32:8 at 160 (5120 / 32 in the reference's
+#: config, where the published model sets 128)
+DENSE_HEADS = (("chatglm3/glm4", (32, 2, 128)), ("minitron", (24, 8, 128)),
+               ("qwen3vl", (32, 8, 128)), ("llama3-405b", (128, 8, 128)),
+               ("pixtral", (32, 8, 160)))
+PIXTRAL_HEADS = (32, 8, 160)
+#: K2's exact lengths held at every grouping (one row, causal)
+DENSE_EXACT_LENGTHS = (96, 200, 600, 1500)
+#: (arch, layers) of the full-width training runs: the whole models'
+#: training state (14 bytes a parameter) would be 179 GB and 115 GB, so
+#: the depth is cut to what one card holds beside a 4096-token group
+#: with headroom (8 and 12 layers peaked at 77.1 and 79.5 GB on an H100
+#: 80GB HBM3: some 5.3 and 3.7 GB a layer)
+DENSE_TRAIN = (("pixtral-12b", 7), ("qwen3vl-8b", 10))
+VLM_SERVE_ARCHS = ("pixtral-12b", "qwen3vl-8b")
+#: (arch, layers or None for whole) of the short Engine.serve runs:
+#: llama3-405b's 126 layers would be 810 GB in bf16
+SHORT_SERVES = (("chatglm3-6b", None), ("glm4-9b", None),
+                ("minitron-4b", None), ("llama3-405b", 2))
+#: the VLM forward's logits through the kernels lie at most VLM_MARGIN
+#: times as far (elementwise, max |err| / max(1, |ref|)) from the same
+#: weights in fp32 as the plain attention path's bf16 logits do: two bf16
+#: paths part by roundings that the head's 131072-wide product amplifies
+#: (0.077 and 0.075 from fp32 on an H100 80GB HBM3, 700 W), beyond any
+#: fixed limit near 2e-2; each of VLM_FAULTS must lie beyond the margin
+VLM_MARGIN = 1.25
+#: phases 27-34 took 80-140 s on an H100 80GB HBM3, 700 W
+LATE_TIMEOUT_S = 600
+VLM_FAULTS = ("scale_at_192", "third_block_unwritten",
+              "third_block_from_second")
+
+
+def phase_dense_kernels(dev, card):
+    """K1 (bf16, forward and backward) on one 4096-token row, causal,
+    with and without 256-token frames, and K2 (bf16, causal) at 4x2048
+    and at the exact lengths DENSE_EXACT_LENGTHS, vs their plain
+    versions at every grouping of DENSE_HEADS, phase 7's and phase 3's
+    limits; with ms, device_ms, plain, SDPA, the bound and the launch
+    beside the SMs. 128 query heads run the plain versions a KV head at
+    a time. Returns (K1 rows, K2 rows), each tagged with its grouping."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bf16 = torch.bfloat16
+    k1, k2 = [], []
+    for label, heads in DENSE_HEADS:
+        for frame in (256, None):
+            seg, span = packed_layout(4096, [4096], frame)
+            row = check_packed(dev, card, gen, 4096, bf16, seg, span,
+                               tag=f"dense {label}", heads=heads,
+                               detail=True)
+            k1.append(dict(row, group=label))
+            torch.cuda.empty_cache()
+        for B, L in [(4, 2048)] + [(1, n) for n in DENSE_EXACT_LENGTHS]:
+            row = check_kernel(dev, card, gen, B, L, bf16, heads=heads)
+            k2.append(dict(row, group=label))
+            torch.cuda.empty_cache()
+    return k1, k2
+
+
+def phase_dense_parity(dev):
+    """Phase 8 for reduced chatglm3-6b (its 2D RoPE) and for reduced
+    pixtral-12b at head_dim 160 over 4:2 heads (K1's fp32 kernels at
+    D = 160)."""
+    from repro_torch.configs import get_config
+    phase_train_parity(dev, "chatglm3-6b")
+    phase_train_parity(dev, "pixtral-12b at head_dim 160",
+                       cfg=get_config("pixtral-12b").reduced().with_(
+                           head_dim=160, kv_heads=2))
+
+
+def phase_dense_training(dev, card):
+    """Phase 9 for each (arch, depth) of DENSE_TRAIN, one after the
+    other, the card emptied between; returns {arch: (launches fwd, bwd,
+    group tables, n_layers)}."""
+    out = {}
+    for arch, depth in DENSE_TRAIN:
+        torch.cuda.empty_cache()
+        collect_garbage(f"{arch} train")
+        out[arch] = phase_training(dev, card, arch, depth)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense_serving(dev, card):
+    """Phase 5 and phase 6 for each arch of VLM_SERVE_ARCHS, whole;
+    returns {arch: (K2 launches, path rows, n_layers)}."""
+    out = {}
+    for arch in VLM_SERVE_ARCHS:
+        torch.cuda.empty_cache()
+        collect_garbage(f"{arch} serving")
+        torch.cuda.reset_peak_memory_stats(dev)
+        launches, shapes, n_layers, heads = phase_serving(dev, card, arch)
+        print(f"  {arch} serving max_memory_allocated_bytes (init "
+              f"included) = {torch.cuda.max_memory_allocated(dev)} "
+              f"({card})")
+        torch.cuda.empty_cache()
+        out[arch] = (launches, phase_path(dev, card, shapes, n_layers,
+                                          heads), n_layers)
+    return out
+
+
+def phase_short_serves(dev, card):
+    """Engine(arch).serve(batch=2, prompt_len=96, gen_tokens=8) for each
+    (arch, depth) of SHORT_SERVES at full width: 8 in-vocab tokens a
+    row, K2 launched once a layer (one batched prefill of both prompts),
+    the prompts' last logits finite; parameters, init time, prefill
+    time, ms a token and peak memory. Returns {arch: K2 launches}."""
+    from repro_torch.api import Engine
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model import prefill
+    out = {}
+    for arch, depth in SHORT_SERVES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg = get_config(arch)
+        if depth is not None:
+            cfg = cfg.with_(n_layers=depth)
+        t0 = time.perf_counter()
+        eng = Engine(cfg, seed=0)
+        params = eng.state.params
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(7)
+        prompts = torch.randint(0, cfg.vocab, (2, 96), generator=gen,
+                                device=dev)
+        flash_attention.launches = 0
+        toks, rep = eng.serve(prompts, gen_tokens=8)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        logits, _ = prefill(params, eng.cfg, {"tokens": prompts})
+        peak = torch.cuda.max_memory_allocated(dev)
+        if launches != cfg.n_layers:
+            raise AssertionError(f"{arch}: {launches} K2 launches, want "
+                                 f"{cfg.n_layers} (a layer, one batched "
+                                 f"prefill of 2 prompts)")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{arch}: prefill logits are not finite")
+        if toks.shape != (2, 8) or not ((toks >= 0) & (toks < cfg.vocab)
+                                        ).all():
+            raise AssertionError(f"{arch}: decoded {toks}")
+        stats = dict(layers=cfg.n_layers, d_model=cfg.d_model,
+                     heads=f"{cfg.n_heads}:{cfg.kv_heads}",
+                     head_dim=cfg.resolved_head_dim,
+                     rope_frac=0.5 if cfg.rope_2d else 1.0,
+                     params=sum(t.numel() for t in _leaves(params)),
+                     param_bytes=_tree_bytes(params), init_s=init_s,
+                     prefill_s=rep["prefill_s"],
+                     ms_per_token=rep["ms_per_token"], k2_launches=launches,
+                     logits_finite=True, tokens=toks.tolist(),
+                     max_memory_allocated_bytes=peak)
+        print(f"  {arch} serve {json.dumps(stats)} ({card})")
+        out[arch] = launches
+        del eng, params, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _planted_k2(fault):
+    """K2 with one fault of the head_dim-160 layout planted around the
+    sound kernel, as the model calls it: `scale_at_192` (the softmax
+    scale taken at the tile's 192 columns: q times sqrt(160 / 192)),
+    `third_block_unwritten` (output columns 128-159 zero) and
+    `third_block_from_second` (columns 128-159 a copy of 64-95)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def call(q, k, v, **kw):
+        if fault == "scale_at_192":
+            q = q * math.sqrt(160 / 192)
+        o = flash_attention(q, k, v, **kw).clone()
+        if fault == "third_block_unwritten":
+            o[..., 128:160] = 0
+        elif fault == "third_block_from_second":
+            o[..., 128:160] = o[..., 64:96]
+        return o
+    return call
+
+
+def phase_vlm_forward(dev, card):
+    """pixtral-12b at full width and 2 layers, bf16, through `forward`
+    with synthetic_batch's patches (2 rows of 1024 tokens, 256 patch
+    embeddings a row through the connector), and the same weights in
+    fp32 through the plain attention as the reference. The logits
+    through the kernels (K2 at head_dim 160, a launch a layer) must be
+    finite and lie, elementwise (max |err| / max(1, |fp32|)), at most
+    VLM_MARGIN times as far from the reference as the plain attention
+    path's bf16 logits do; each fault of VLM_FAULTS planted around K2
+    must lie farther; the patches reach the logits. Returns K2's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention
+    from repro_torch.models import model as tm
+    from repro_torch.training.optimizer import tree_map
+    torch.cuda.empty_cache()
+    cfg = get_config("pixtral-12b").with_(n_layers=2)
+    params = tm.init_params(cfg, seed=0, device=dev)
+    batch = synthetic_batch(cfg, 2, 1024, seed=0)
+    flash_attention.launches = 0
+    with torch.no_grad():
+        got, _ = tm.forward(params, cfg, batch)
+        torch.cuda.synchronize()
+        launches = flash_attention.launches
+        ref, _ = tm.forward(params, cfg.with_(attn_impl="reference"), batch)
+        text, _ = tm.forward(params, cfg.with_(family="dense"),
+                             {"tokens": batch["tokens"]})
+        fp32 = cfg.with_(param_dtype="float32", attn_impl="reference")
+        truth, _ = tm.forward(tree_map(lambda t: t.float(), params), fp32,
+                              batch)
+        faulty = {}
+        for fault in VLM_FAULTS:
+            attention.flash_attention = _planted_k2(fault)
+            try:
+                logits, _ = tm.forward(params, cfg, batch)
+            finally:
+                attention.flash_attention = flash_attention
+            faulty[fault] = _scaled_max(logits, truth)
+            del logits
+    plain_err = _scaled_max(ref, truth)
+    ratio = _scaled_max(got, truth) / plain_err
+    fault_ratio = {f: e / plain_err for f, e in faulty.items()}
+    moved = (text - got).float().abs()[:, :batch["patch_pos"].shape[1]]
+    row = dict(layers=cfg.n_layers, d_model=cfg.d_model,
+               heads=f"{cfg.n_heads}:{cfg.kv_heads}",
+               head_dim=cfg.resolved_head_dim,
+               vision_dim=cfg.vlm.vision_dim,
+               patches=int(batch["patch_pos"].shape[1]),
+               connector=list(params["connector"].shape),
+               k2_launches=launches,
+               kernel_vs_fp32_scaled=_scaled_max(got, truth),
+               plain_vs_fp32_scaled=plain_err, ratio=ratio,
+               margin=VLM_MARGIN, fault_vs_fp32_scaled=faulty,
+               fault_ratio=fault_ratio,
+               kernel_vs_plain_scaled=_scaled_max(got, ref),
+               logits_max_abs=ref.float().abs().max().item(),
+               patch_rows_moved=moved.max().item())
+    print(f"  pixtral-12b VLM forward {json.dumps(row)} ({card})")
+    if not torch.isfinite(got).all():
+        raise AssertionError("VLM forward logits are not finite")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"{launches} K2 launches, want {cfg.n_layers}")
+    if not ratio <= VLM_MARGIN:
+        raise AssertionError(
+            f"VLM forward through the kernels {ratio} times as far from "
+            f"the fp32 reference as the plain attention path (> "
+            f"{VLM_MARGIN})")
+    caught = {f: r for f, r in fault_ratio.items() if r > VLM_MARGIN}
+    if caught != fault_ratio:
+        raise AssertionError(f"planted K2 faults within the VLM check: "
+                             f"{fault_ratio} (margin {VLM_MARGIN})")
+    if not row["patch_rows_moved"] > 0:
+        raise AssertionError("the patches did not reach the logits")
+    del params, got, ref, text, truth
+    torch.cuda.empty_cache()
+    return launches
+
+
+class PhaseClock:
+    """`phase(header)` prints a phase's header line and, first, how long
+    the phase before it took; `end()` closes the last."""
+
+    def __init__(self):
+        self.label, self.t0 = None, None
+
+    def __call__(self, header: str) -> None:
+        self.end()
+        print(header)
+        self.label, self.t0 = header.split("]")[0] + "]", time.perf_counter()
+
+    def end(self) -> None:
+        if self.label is not None:
+            print(f"  {self.label} {time.perf_counter() - self.t0:.1f} s")
+            self.label = None
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
     else:
         yield tree
+
+
+def late_phases(dev, card) -> dict:
+    """Phases 27-34; returns what the kernels line takes from them."""
+    phase = PhaseClock()
+    phase("[27/34] K1 and K2 vs plain versions at the dense and VLM "
+          "configs' head groupings (32:2, 24:8, 32:8, 128:8 at D=128; 32:8 "
+          "at D=160)")
+    dense_k1, dense_k2 = phase_dense_kernels(dev, card)
+    phase("[28/34] dense and VLM training parity at reduced size (fp32): "
+          "chatglm3-6b, pixtral-12b at head_dim 160")
+    phase_dense_parity(dev)
+    phase("[29-30/34] full-width DHP training (bf16), depth cut: "
+          + ", ".join(f"{a} {n} layers" for a, n in DENSE_TRAIN))
+    dense_train = phase_dense_training(dev, card)
+    phase("[31/34] K1 at head_dim 160 vs plain versions at the pixtral-12b "
+          "run's shapes")
+    _, _, p_tables, p_layers = dense_train["pixtral-12b"]
+    d160_path = phase_train_path(dev, card, p_tables, p_layers,
+                                 heads=PIXTRAL_HEADS, tag="pixtral train")
+    phase(f"[32/34] full-width serving (bf16): {', '.join(VLM_SERVE_ARCHS)}"
+          f", K2 vs plain at each shape the runs launched")
+    dense_served = phase_dense_serving(dev, card)
+    phase("[33/34] Engine.serve at full width (bf16): "
+          + ", ".join(a if n is None else f"{a} ({n} layers)"
+                      for a, n in SHORT_SERVES))
+    short_served = phase_short_serves(dev, card)
+    phase("[34/34] the VLM forward with patches: pixtral-12b at full width, "
+          "2 layers (bf16)")
+    vlm_launches = phase_vlm_forward(dev, card)
+    phase.end()
+    return dict(dense_k1=dense_k1, dense_k2=dense_k2, d160_path=d160_path,
+                train_launches={a: t[:2] for a, t in dense_train.items()},
+                served={a: t[:2] for a, t in dense_served.items()},
+                short_served=short_served, vlm_launches=vlm_launches)
+
+
+LATE_FLAG = "--late-phases"
+
+
+def run_late_phases() -> dict:
+    """Phases 27-34 in a process of their own on the same card (see the
+    module docstring), after this one has released its cached memory;
+    they print to this process's streams, and what they return comes
+    back as JSON through the checkout's git-ignored build directory."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = os.path.join(ROOT, "build", "chip_smoke_late_phases.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    subprocess.run([sys.executable, os.path.abspath(__file__), LATE_FLAG,
+                    out], check=True, timeout=LATE_TIMEOUT_S)
+    with open(out) as f:
+        return json.load(f)
 
 
 def main() -> int:
@@ -2667,26 +3114,33 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = card_line()
-    print(f"[1/26] device: {name}; torch {torch.__version__} cuda "
+    if sys.argv[1:2] == [LATE_FLAG]:
+        build.build_all()           # the first process built them all
+        late = late_phases(dev, card)
+        with open(sys.argv[2], "w") as f:
+            json.dump(late, f)
+        return 0
+    print(f"[1/34] device: {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(card)
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"[2/26] build: {time.perf_counter() - t0:.1f} s for "
+    print(f"[2/34] build: {time.perf_counter() - t0:.1f} s for "
           f"{build.sources()}")
     for src, log in build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  {src}: {line.strip()}")
 
-    print("[3/26] kernels vs plain versions")
+    phase = PhaseClock()
+    phase("[3/34] kernels vs plain versions")
     rows = phase_kernels(dev, card)
-    print("[4/26] parity at reduced size (fp32)")
+    phase("[4/34] parity at reduced size (fp32)")
     phase_parity(dev)
-    print("[5/26] full-width serving (bf16)")
-    launches, shapes, n_layers = phase_serving(dev, card)
-    print("[6/26] kernels vs plain versions at the serving run's shapes")
+    phase("[5/34] full-width serving (bf16)")
+    launches, shapes, n_layers, _ = phase_serving(dev, card)
+    phase("[6/34] kernels vs plain versions at the serving run's shapes")
     path = phase_path(dev, card, shapes, n_layers)
 
     # the shape launched most often stands for the kernel; every shape
@@ -2718,15 +3172,15 @@ def main() -> int:
                              **{k: r[k] for k in keys}) for r in path],
     }]
 
-    print("[7/26] packed kernel K1 vs plain versions")
+    phase("[7/34] packed kernel K1 vs plain versions")
     packed_rows = phase_packed(dev, card)
-    print("[8/26] training parity at reduced size (fp32)")
+    phase("[8/34] training parity at reduced size (fp32)")
     phase_train_parity(dev)
-    print("[9/26] full-width DHP training (bf16)")
+    phase("[9/34] full-width DHP training (bf16)")
     collect_garbage("train")
     n_fwd, n_bwd, tables, n_layers = phase_training(dev, card)
     torch.cuda.empty_cache()
-    print("[10/26] K1 vs plain versions at the training run's shapes")
+    phase("[10/34] K1 vs plain versions at the training run's shapes")
     train_rows = phase_train_path(dev, card, tables, n_layers)
 
     # the shape launched most often stands for each K1 kernel; every
@@ -2764,17 +3218,17 @@ def main() -> int:
                 library_ms=r[f"library_{which}_ms"]) for r in train_rows],
         })
 
-    print("[11/26] SSD chunk kernel K3 vs plain versions")
+    phase("[11/34] SSD chunk kernel K3 vs plain versions")
     ssd_rows = phase_ssd(dev, card)
-    print("[12/26] SSM training parity at reduced size (fp32)")
+    phase("[12/34] SSM training parity at reduced size (fp32)")
     phase_ssm_parity(dev)
-    print("[13/26] full-width mamba2-370m DHP training (bf16)")
+    phase("[13/34] full-width mamba2-370m DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("ssm train")
     s_fwd, s_bwd, ssm_shapes, ssm_layers, chunk = phase_ssm_training(dev,
                                                                      card)
     torch.cuda.empty_cache()
-    print("[14/26] K3 vs plain versions at the SSM training run's shapes")
+    phase("[14/34] K3 vs plain versions at the SSM training run's shapes")
     ssd_path = phase_ssd_path(dev, card, ssm_shapes, ssm_layers, chunk)
 
     # the shape launched most often stands for each K3 kernel; every
@@ -2812,18 +3266,18 @@ def main() -> int:
                 inter_chunk_fwd_bwd_ms=r["inter_chunk_fwd_bwd_ms"])
                 for r in ssd_path],
         })
-    print("[15/26] RG-LRU scan kernel K4 vs plain versions")
+    phase("[15/34] RG-LRU scan kernel K4 vs plain versions")
     rg_rows = phase_rglru(dev, card)
-    print("[16/26] K1 at head_dim 256 vs plain versions")
+    phase("[16/34] K1 at head_dim 256 vs plain versions")
     wide_rows = phase_packed_wide(dev, card)
-    print("[17/26] hybrid training parity at reduced size (fp32)")
+    phase("[17/34] hybrid training parity at reduced size (fp32)")
     phase_hybrid_parity(dev)
-    print("[18/26] full-width recurrentgemma-2b DHP training (bf16)")
+    phase("[18/34] full-width recurrentgemma-2b DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("hybrid train")
     counts, hy_tables, per_group = phase_hybrid_training(dev, card)
     torch.cuda.empty_cache()
-    print("[19/26] K4 and K1 vs plain versions at the hybrid run's shapes")
+    phase("[19/34] K4 and K1 vs plain versions at the hybrid run's shapes")
     k4_path, k1_path = phase_hybrid_path(dev, card, hy_tables, per_group)
 
     # the shape launched most often stands for each kernel; every shape
@@ -2886,7 +3340,7 @@ def main() -> int:
                 bound_by=r[f"bound_{which}_by"],
                 library_ms=r[f"library_{which}_ms"]) for r in k1_path],
         })
-    print("[20/26] ring context parallelism (bf16): LocalRing vs K1 "
+    phase("[20/34] ring context parallelism (bf16): LocalRing vs K1 "
           "unsharded and vs the plain ring; full-width internvl3-2b at "
           f"{RING_RANKS} ranks on the one card")
     ring_rows = phase_ring(dev, card, tables)
@@ -2910,7 +3364,7 @@ def main() -> int:
                 k1_unsharded_fwd_bwd_device_ms=r[
                     "k1_unsharded_fwd_bwd_device_ms"])
                 for r in ring_rows if (r["D"] == 256) == wide]
-    print("[21/26] state-cache and sliding-window serving parity at "
+    phase("[21/34] state-cache and sliding-window serving parity at "
           "reduced size (fp32)")
     torch.cuda.empty_cache()
     exact_launches, exact_rows = phase_state_parity(dev, card)
@@ -2921,21 +3375,21 @@ def main() -> int:
         **{k: r[k] for k in keys}) for r in exact_rows]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     *(r["max_abs_err"] for r in exact_rows))
-    print("[22/26] full-width state-cache serving (bf16): "
+    phase("[22/34] full-width state-cache serving (bf16): "
           f"{', '.join(STATE_ARCHS)}")
     phase_state_serving(dev, card)
 
-    print("[23/26] MoE serving and training parity at reduced size (fp32)")
+    phase("[23/34] MoE serving and training parity at reduced size (fp32)")
     torch.cuda.empty_cache()
     phase_moe_parity(dev, card)
-    print(f"[24/26] full-width {MOE_TRAIN_ARCH} DHP training (bf16)")
+    phase(f"[24/34] full-width {MOE_TRAIN_ARCH} DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("moe train")
     m_fwd, m_bwd, moe_tables, moe_layers, moe_layer = phase_moe_training(
         dev, card)
-    print(f"[25/26] full-width MoE serving (bf16): {', '.join(MOE_ARCHS)}")
+    phase(f"[25/34] full-width MoE serving (bf16): {', '.join(MOE_ARCHS)}")
     moe_served = phase_moe_serving(dev, card)
-    print("[26/26] K1 at head_dim 64 and K2 at the MoE exact lengths vs "
+    phase("[26/34] K1 at head_dim 64 and K2 at the MoE exact lengths vs "
           "plain versions")
     d64_rows, d64_path, moe_k2 = phase_moe_kernels(dev, card, moe_tables,
                                                    moe_layers, moe_served)
@@ -2975,6 +3429,107 @@ def main() -> int:
         **{k: r[k] for k in keys}) for r in moe_k2]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     *(r["max_abs_err"] for r in moe_k2))
+    phase.end()
+    late = run_late_phases()
+    dense_k1, dense_k2 = late["dense_k1"], late["dense_k2"]
+    d160_path, dense_served = late["d160_path"], late["served"]
+    p_fwd, p_bwd = late["train_launches"]["pixtral-12b"]
+
+    # K1 at head_dim 160: pixtral-12b's training run; the shape launched
+    # most often stands for each direction
+    main_160 = max(d160_path, key=lambda r: (r["launches"], r["S"]))
+    d160_rows = [r for r in dense_k1 if r["D"] == 160]
+    for which, launches in (("fwd", p_fwd), ("bwd", p_bwd)):
+        kernels.append({
+            "name": "flash_attention_packed_d160" + (
+                "_bwd" if which == "bwd" else ""),
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/"
+                      "flash_attention_packed.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:208",
+            "launches": launches,
+            "max_abs_err": max(r[f"max_abs_err_{which}"]
+                               for r in d160_rows + d160_path),
+            "ms": main_160[f"{which}_ms"],
+            "plain_ms": main_160[f"plain_{which}_ms"],
+            "bound_ms": main_160[f"bound_{which}_ms"],
+            "bound_by": main_160[f"bound_{which}_by"],
+            "library_ms": main_160[f"library_{which}_ms"],
+            "shape": f"B=1 S={main_160['S']} H=32 Hkv=8 D=160 bf16 causal "
+                     f"spans={main_160['spans']} (pixtral-12b)",
+            "path_shapes": [dict(
+                bucket=r["S"], spans=r["spans"], launches=r["launches"],
+                pairs=r["pairs"], err=r["err"], rel_err=r["rel_err"],
+                ms=r[f"{which}_ms"], plain_ms=r[f"plain_{which}_ms"],
+                bound_ms=r[f"bound_{which}_ms"],
+                bound_by=r[f"bound_{which}_by"],
+                library_ms=r[f"library_{which}_ms"]) for r in d160_path],
+            "row_4096": [dict(
+                spans=r["spans"], ms=r[f"{which}_ms"],
+                device_ms=r[f"{which}_device_ms"],
+                bound_ms=r[f"bound_{which}_ms"],
+                library_ms=r[f"library_{which}_ms"]) for r in d160_rows],
+        })
+    # K1 at head_dim 128 over the new groupings: qwen3vl-8b's training
+    # launches and the 4096-token rows, beside internvl3-2b's entries
+    q_fwd, q_bwd = late["train_launches"]["qwen3vl-8b"]
+    for entry in kernels:
+        if entry["name"] in ("flash_attention_packed",
+                             "flash_attention_packed_bwd"):
+            which = "bwd" if entry["name"].endswith("_bwd") else "fwd"
+            entry["qwen3vl_train_launches"] = q_fwd if which == "fwd" \
+                else q_bwd
+            entry["dense_rows_4096"] = [dict(
+                group=r["group"], heads=f"{r['H']}:{r['Hkv']}",
+                spans=r["spans"], err=r["err"], rel_err=r["rel_err"],
+                ms=r[f"{which}_ms"], device_ms=r[f"{which}_device_ms"],
+                plain_ms=r[f"plain_{which}_ms"],
+                bound_ms=r[f"bound_{which}_ms"],
+                library_ms=r[f"library_{which}_ms"])
+                for r in dense_k1 if r["D"] == 128]
+            entry["max_abs_err"] = max(
+                entry["max_abs_err"], *(r[f"max_abs_err_{which}"]
+                                        for r in dense_k1 if r["D"] == 128))
+    # K2 at head_dim 160: pixtral-12b's serving run and VLM forward
+    p_k2, p_path = dense_served["pixtral-12b"]
+    main_k2 = max(p_path, key=lambda r: (r["launches"], r["B"] * r["S"]))
+    k2_160 = [r for r in dense_k2 if r["D"] == 160]
+    kernels.append({
+        "name": "flash_attention_d160",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:295",
+        "launches": p_k2,
+        "vlm_forward_launches": late["vlm_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in p_path + k2_160),
+        "ms": main_k2["ms"],
+        "device_ms": main_k2["device_ms"],
+        "plain_ms": main_k2["plain_ms"],
+        "bound_ms": main_k2["bound_ms"],
+        "bound_by": main_k2["bound_by"],
+        "library_ms": main_k2["library_ms"],
+        "library_device_ms": main_k2["library_device_ms"],
+        "shape": f"B={main_k2['B']} S={main_k2['S']} H=32 Hkv=8 D=160 bf16 "
+                 f"causal (pixtral-12b)",
+        "path_shapes": [dict(rows=r["B"], bucket=r["S"],
+                             **{k: r[k] for k in keys}) for r in p_path],
+        "dense_shapes": [dict(rows=r["B"], length=r["S"],
+                              **{k: r[k] for k in keys if k != "launches"})
+                         for r in k2_160],
+    })
+    q_k2, q_path = dense_served["qwen3vl-8b"]
+    kernels[0]["qwen3vl_launches"] = q_k2
+    kernels[0]["qwen3vl_path_shapes"] = [dict(
+        rows=r["B"], bucket=r["S"], **{k: r[k] for k in keys})
+        for r in q_path]
+    kernels[0]["short_serve_launches"] = late["short_served"]
+    kernels[0]["dense_shapes"] = [dict(
+        group=r["group"], heads=f"{r['H']}:{r['Hkv']}", rows=r["B"],
+        length=r["S"], **{k: r[k] for k in keys if k != "launches"})
+        for r in dense_k2 if r["D"] == 128]
+    kernels[0]["max_abs_err"] = max(
+        kernels[0]["max_abs_err"],
+        *(r["max_abs_err"] for r in q_path + dense_k2 if r["D"] == 128))
     print(f"  chip_smoke wall {time.perf_counter() - t_start:.1f} s "
           f"({card})")
     print(json.dumps({"kernels": kernels}))

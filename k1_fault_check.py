@@ -1,19 +1,23 @@
 """K1's bf16 limits against planted faults, and K1's bf16 forward and
 backward timed against other source trees, on one card.
 
-    python3 k1_fault_check.py [--shape internvl|rg ...] [--out FILE]
+    python3 k1_fault_check.py [--shape internvl|rg|pixtral ...]
+                              [--out FILE]
     python3 k1_fault_check.py --time [--direction fwd|bwd|both]
-                              [--shape internvl|rg ...]
+                              [--shape internvl|rg|pixtral ...]
                               [--tree LABEL=DIR ...]
                               [--variant LABEL=TREE:EDIT[+EDIT...] ...]
                               [--rounds N] [--out FILE]
 
-Two shapes, the main path's attention of two models (`--shape`, given
-once or more; internvl by default):
+Three shapes, the main path's attention of three models (`--shape`,
+given once or more; internvl by default):
   * internvl: internvl3-2b, 12 query heads over 2 KV heads of 128,
     causal with 256-token frames;
   * rg: recurrentgemma-2b, 10 query heads over one KV head of 256,
-    sliding at window 2048 with 256-token frames after 32 text tokens.
+    sliding at window 2048 with 256-token frames after 32 text tokens;
+  * pixtral: pixtral-12b, 32 query heads over 8 KV heads of 160 (tiles
+    of 192 columns in shared memory, the upper 32 zero-filled), causal
+    with 256-token frames.
 
 Both modes build edited copies of `flash_attention_packed.cu` with nvcc
 in a temporary directory, one nvcc per copy, all at once, each with `-I`
@@ -26,7 +30,8 @@ port's K1 wrappers run on that copy's library, forward and backward,
 against the plain versions at the shape's heads over the packed layouts
 of `cases(shape)` (internvl: 1024 and 4096 tokens in several segments;
 rg: one 4096-token row with and without frames, and a two-row padded
-group of 2048). For each of o, dq, dk, dv it prints, per case, max|err|
+group of 2048; pixtral: 1024 and 4096 tokens in several segments, every
+mode). For each of o, dq, dk, dv it prints, per case, max|err|
 / max(1, |plain|) (`elementwise`, the form `chip_smoke.py` holds to 2e-2
 for o and 4e-2 for the gradients) and max|err| / max|plain| (`whole`,
 held to 2e-2 in bf16). The whole-tensor limit is sound when every
@@ -76,6 +81,8 @@ SHAPES = {
                      vocab=151674),
     "rg": dict(H=10, HKV=1, D=256, mode="sliding", window=2048,
                vocab=256000),
+    "pixtral": dict(H=32, HKV=8, D=160, mode="causal", window=None,
+                    vocab=131072),
 }
 
 #: fault name -> (the tensors it must show in, the tags of the cases it
@@ -130,20 +137,61 @@ _COMMON = {
         "  const uint32_t qa = smem_u32(Qs + wg * TB);",
         "  const uint32_t qa = smem_u32(Qs);")]),
 }
+_CAUSAL = {
+    # the unmasked path taken one query tile too far: the diagonal tile
+    # (keys after some of its queries)
+    "unmasked_causal_edge": (("dq", "dk", "dv"), ("causal",), [(
+        "                     (kpos_w + 15 <= q0 &&",
+        "                     (kpos_w + 15 <= q0 + K_BQ &&")]),
+    # the forward's unmasked path one key tile past the diagonal: the tile
+    # whose keys start at the rows' first (later keys than some rows)
+    "fwd_unmasked_causal_edge": (("o",), ("causal",), [(
+        "                    (kpos0 + W_BK - 1 <= r0 &&",
+        "                    (kpos0 - 1 <= r0 &&")]),
+}
 FAULTS = {
-    "internvl": {
+    "internvl": {**_COMMON, **_CAUSAL},
+    # D = 160 alone: the third, half-used 64-column block of the tiles
+    "pixtral": {
         **_COMMON,
-        # the unmasked path taken one query tile too far: the diagonal
-        # tile (keys after some of its queries)
-        "unmasked_causal_edge": (("dq", "dk", "dv"), ("causal",), [(
-            "                     (kpos_w + 15 <= q0 &&",
-            "                     (kpos_w + 15 <= q0 + K_BQ &&")]),
-        # the forward's unmasked path one key tile past the diagonal: the
-        # tile whose keys start at the rows' first (later keys than some
-        # rows)
-        "fwd_unmasked_causal_edge": (("o",), ("causal",), [(
-            "                    (kpos0 + W_BK - 1 <= r0 &&",
-            "                    (kpos0 - 1 <= r0 &&")]),
+        **_CAUSAL,
+        # O's columns 128-159 formed from V's second block, not its third
+        "fwd_v_third_block": (("o",), None, [(
+            "          const uint32_t v3 = va + 2 * SW_BLOCK + kk * 2048;",
+            "          const uint32_t v3 = va + SW_BLOCK + kk * 2048;")]),
+        # dK / dV's columns 128-159 formed from the second block of Q /
+        # dO, not the third
+        "bwd_third_block": (("dk", "dv"), None, [(
+            "          const uint32_t hi3 = c0 + 2 * SW_BLOCK + kk * 2048;",
+            "          const uint32_t hi3 = c0 + SW_BLOCK + kk * 2048;")]),
+        # dQ's third chunk (columns 128-159) never formed
+        "dq_third_chunk_dropped": (("dq",), None, [(
+            "      if (chunk >= DP / 64) break;",
+            "      if (chunk >= DP / 64 || chunk == 2) break;")]),
+        # the forward's zero-fill left out: Q's and K's upper 32 columns
+        # read their first 8 again (the scores gain their product)
+        "fwd_zero_fill_left_out": (("o",), None, [
+            ("               qp < Sq && c < CH);",
+             "               qp < Sq);"),
+            ("      cp_async16(Ks + sw128<W_BK>(r, c), kb + off, "
+             "kp < Sk && c < CH);",
+             "      cp_async16(Ks + sw128<W_BK>(r, c), kb + off, "
+             "kp < Sk);")]),
+        # the backward's: K's, V's, Q's and dO's upper 32 columns
+        "bwd_zero_fill_left_out": (("dq", "dk", "dv"), None, [
+            ("    const bool in = kp < Sk && c < CH;",
+             "    const bool in = kp < Sk;"),
+            ("      const bool in = qp < Sq && c < CH;",
+             "      const bool in = qp < Sq;")]),
+        # the softmax scale taken at the tiles' 192 columns, not 160
+        "fwd_scale_at_192": (("o",), None, [(
+            "  const float sl2 = scale * 1.4426950408889634f;",
+            "  const float sl2 = rsqrtf((float)DP) * 1.4426950408889634f;")]),
+        "bwd_scale_at_192": (("dq", "dk", "dv"), None, [(
+            "  const float scale = 1.f / sqrtf((float)D);\n"
+            "  const int rows = p.B * p.Sq * p.H;",
+            "  const float scale = 1.f / sqrtf((float)BwdKvTile<D>::DP);\n"
+            "  const int rows = p.B * p.Sq * p.H;")]),
     },
     "rg": {
         **_COMMON,
@@ -160,8 +208,8 @@ FAULTS = {
         # D = 256 alone: each warpgroup's second 64-column chunk of dQ
         # (columns 128-255) never formed
         "dq_drops_second_chunk": (("dq",), None, [(
-            "      if (chunk >= D / 64) break;",
-            "      if (chunk >= D / 64 || j2 > 0) break;")]),
+            "      if (chunk >= DP / 64) break;",
+            "      if (chunk >= DP / 64 || j2 > 0) break;")]),
     },
 }
 
@@ -171,16 +219,16 @@ FAULTS = {
 EDITS = {
     "no_dq_adds": [("        if (row < Sq) red_add_v4(",
                     "        if (row < -1) red_add_v4(")],
-    "no_dq": [("    for (int j2 = 0; j2 < (D / 64 + 1) / 2; ++j2) {",
+    "no_dq": [("    for (int j2 = 0; j2 < (DP / 64 + 1) / 2; ++j2) {",
                "    for (int j2 = 0; j2 < 0; ++j2) {")],
     "unmasked": [(
         "      all_ok = __all_sync(FULL, all_ok && segq_s[lane] == seg_w &&\n"
         "                                    segq_s[lane + 32] == seg_w);",
         "      all_ok = p.B > 0;")],
     # as many blocks an SM as a two-stage ring of query tiles would allow
-    # at D = 128 (D = 256 has one an SM whatever)
+    # at D = 128 (D = 160 and 256 have one an SM whatever)
     "one_block_per_sm": [
-        ("  static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;",
+        ("  static constexpr int MIN_BLOCKS = D > 128 ? 1 : 2;",
          "  static constexpr int MIN_BLOCKS = 1;"),
         ("      1024 + 4 * TB + K_BK * K_BQ * 2 +",
          "      1024 + 6 * TB + K_BK * K_BQ * 2 +")],
@@ -216,14 +264,13 @@ EDITS = {
         ("  const int q1 = min(q0 + W_BQ, Sq);",
          "  const int q1 = min(q0 + 64, Sq);"),
         ("  const int r0 = q0 + 64 * wg;", "  const int r0 = q0;"),
-        ("    const int r = i / CH, c = i % CH, qp = q0 + r;\n"
+        ("    const int r = i / CHP, c = i % CHP, qp = q0 + r;\n"
          "    cp_async16(Qs + (r / 64) * TB",
-         "    const int r = i / CH, c = i % CH, qp = q0 + r % 64;\n"
+         "    const int r = i / CHP, c = i % CHP, qp = q0 + r % 64;\n"
          "    cp_async16(Qs + (r / 64) * TB"),
-        ("               qb + (int64_t)(qp < Sq ? qp : q0) * q_stride + "
-         "c * 8,",
+        ("               qb + (int64_t)(qp < Sq ? qp : q0) * q_stride +\n",
          "               qb + (r / 64 - wg) * D + (int64_t)(qp < Sq ? qp : "
-         "q0) * q_stride + c * 8,"),
+         "q0) * q_stride +\n"),
         ("tile_live<SPANS>(p, b, q0 + 64, min(q0 + 128, Sq),",
          "tile_live<SPANS>(p, b, q0, min(q0 + 64, Sq),"),
         ("const dim3 grid(p.H, (p.Sq + W_BQ - 1) / W_BQ, p.B);",
@@ -294,14 +341,28 @@ def ptxas_report(log, keys=("packed_bwd", "packed_fwd_wg")):
 def cases(shape):
     """(name, tags, segment table, span table or None, mode, window): for
     internvl the layouts of chip_smoke.py phase 7 plus a long and a
-    single segment, and sliding at 4096 tokens; for rg a 4096-token row
+    single segment, and sliding at 4096 tokens; for pixtral phase 7's
+    1024- and 4096-token layouts with frames, 1024 without, full and
+    sliding at a window of 256; for rg a 4096-token row
     with and without frames and a two-row padded group (one segment a
     row, as the padded hybrid batch has) at the model's window, and a
     4096-token row with frames at a window of 256. The tags are the mode
     and, where a row is longer than the window, "past_window"."""
     from chip_smoke import hybrid_tables, packed_layout
     out = []
-    if shape == "rg":
+    if shape == "pixtral":
+        for n, lens in ((1024, [400, 300, 250]),
+                        (4096, [1500, 900, 1200, 400])):
+            out.append((f"S{n}_spansTrue",
+                        *packed_layout(n, lens, 256, 32), "causal", None))
+        out.append(("S1024_spansFalse",
+                    *packed_layout(1024, [400, 300, 250]), "causal", None))
+        out.append(("full1024", *packed_layout(1024, [400, 300, 250], 128),
+                    "full", None))
+        out.append(("sliding1024",
+                    *packed_layout(1024, [400, 300, 250], 128), "sliding",
+                    256))
+    elif shape == "rg":
         window = SHAPES["rg"]["window"]
         for name, rows, n, frame, w in (
                 ("rg4096_frames", 1, 4096, 256, window),
@@ -646,7 +707,7 @@ def time_mode(torch, libs, shape, rounds, directions):
         if direction == "fwd":
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             out["fwd"]["waves"] = waves(mask, H,
-                                        sms * (1 if D == 256 else 2))
+                                        sms * (1 if D > 128 else 2))
             print(f"{shape:8s} fwd waves {out['fwd']['waves']}")
     return out
 
@@ -658,7 +719,8 @@ def main() -> int:
     ap.add_argument("--direction", choices=("fwd", "bwd", "both"),
                     default="both", help="what --time times")
     ap.add_argument("--shape", action="append", choices=sorted(SHAPES),
-                    help="internvl (the default) or rg; repeatable")
+                    help="internvl (the default), rg or pixtral; "
+                         "repeatable")
     ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--rounds", type=int, default=1)

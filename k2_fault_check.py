@@ -7,7 +7,9 @@ against other source trees, on one card.
                               [--rounds N] [--out FILE]
 
 The shape is internvl3-2b's attention on the serving path: 12 query
-heads over 2 KV heads of 128, bf16, in the model layout [B, S, H, D].
+heads over 2 KV heads of 128, bf16, in the model layout [B, S, H, D];
+the fault mode adds pixtral-12b's, 32 over 8 heads of 160 (tiles of 192
+columns in shared memory, the upper 32 zero-filled).
 Both modes build copies of `flash_attention.cu` with nvcc in a temporary
 directory, one nvcc per copy, all at once, each with `-I` at its tree's
 `csrc` for the headers it includes. The checkout itself is never edited.
@@ -16,7 +18,8 @@ Needs one NVIDIA GPU and nvcc; prints the card's name and power limit.
 Fault mode (the default): for each planted fault of FAULTS, the port's
 K2 wrapper runs on that copy's library against the plain version over
 the cases of CASES (chip_smoke.py phase 3's 4x2048 causal, 4x256 causal
-at kv_offset 96 and 2x512 sliding at window 128). Per case it prints
+at kv_offset 96 and 2x512 sliding at window 128; at D = 160 4x2048
+causal, 1x1500 causal and 2x512 sliding). Per case it prints
 max|err| / max(1, |plain|) (`elementwise`, the form phase 3 holds to
 2e-2 in bf16) and max|err| / max|plain| (`whole`). The limit is sound
 when every "sound" reading lies below it and each fault reads above it
@@ -54,12 +57,20 @@ REL_TOL_BF16 = 2e-2     # chip_smoke.py phase 3's bf16 limit
 H, HKV, D = 12, 2, 128  # internvl3-2b's attention heads
 KEYS = ("flash_fwd",)   # ptxas lines of K2's kernels
 
-#: case -> B, S, mode, window, kv_offset, tags
+#: case -> B, S, mode, window, kv_offset, tags; the cases tagged "d160"
+#: run at pixtral-12b's heads (CASE_HEADS), the others at internvl3-2b's
 CASES = {
     "4x2048_causal": (4, 2048, "causal", None, 0, {"causal"}),
     "4x256_causal_offset96": (4, 256, "causal", None, 96, {"causal"}),
     "2x512_sliding128": (2, 512, "sliding", 128, 0, {"sliding"}),
+    "4x2048_causal_d160": (4, 2048, "causal", None, 0, {"causal", "d160"}),
+    "1x1500_causal_d160": (1, 1500, "causal", None, 0, {"causal", "d160"}),
+    "2x512_sliding128_d160": (2, 512, "sliding", 128, 0,
+                              {"sliding", "d160"}),
 }
+#: (query heads, KV heads, head_dim) of a case: pixtral-12b's for "d160"
+CASE_HEADS = {name: (32, 8, 160) if "d160" in case[5] else (H, HKV, D)
+              for name, case in CASES.items()}
 
 #: fault -> (the tags of the cases it must show in (None: every case),
 #: [(text, replacement)]), planted in flash_fwd_wg_kernel
@@ -95,6 +106,22 @@ FAULTS = {
         "  const int hk = h / (H / Hkv);",
         "  const int h = blockIdx.x, b = blockIdx.z;\n"
         "  const int hk = (h / (H / Hkv) + 1) % Hkv;")]),
+    # D = 160 alone, the tiles' third, half-used 64-column block: O's
+    # columns 128-159 formed from V's second block
+    "d160_v_third_block": ({"d160"}, [(
+        "        const uint32_t v3 = va + 2 * SW_BLOCK + kk * 2048;",
+        "        const uint32_t v3 = va + SW_BLOCK + kk * 2048;")]),
+    # Q's and K's upper 32 columns not zero-filled: they read their first
+    # 8 again, and the scores gain their product
+    "d160_zero_fill_left_out": ({"d160"}, [
+        ("               qp < Sq && c < CH);", "               qp < Sq);"),
+        ("      cp_async16(Ks + sw128<W_BK>(r, c), kb + off, "
+         "kp < Sk && c < CH);",
+         "      cp_async16(Ks + sw128<W_BK>(r, c), kb + off, kp < Sk);")]),
+    # the softmax scale taken at the tiles' 192 columns, not 160
+    "d160_scale_at_192": ({"d160"}, [(
+        "  const float sl2 = scale * 1.4426950408889634f;",
+        "  const float sl2 = rsqrtf((float)DP) * 1.4426950408889634f;")]),
 }
 
 #: measurement-only edits of this tree's kernel for `--time --variant`
@@ -119,8 +146,9 @@ EDITS = {
     "no_pv": [("        wgmma_rs_n128<1>(&acc[0][0], a[kk], dsc);",
                "        if (Sq < 0) wgmma_rs_n128<1>(&acc[0][0], a[kk], dsc);")],
     # one block an SM: up to 255 registers a thread, no spill
-    "one_block_per_sm": [("__launch_bounds__(W_THREADS, 2)",
-                          "__launch_bounds__(W_THREADS, 1)")],
+    "one_block_per_sm": [
+        ("__launch_bounds__(W_THREADS, WgTile<D>::MIN_BLOCKS)",
+         "__launch_bounds__(W_THREADS, 1)")],
     # what the order bought: the first query tiles issued first
     "light_first": [(
         "  const int q0 = ((Sq + W_BQ - 1) / W_BQ - 1 - (int)blockIdx.y) * "
@@ -132,11 +160,12 @@ EDITS = {
 TIME_SHAPES = [(1, 64), (1, 128), (4, 256), (4, 2048)]
 
 
-def _inputs(torch, B, S, seed):
+def _inputs(torch, B, S, seed, heads=(H, HKV, D)):
+    h, hkv, d = heads
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn(B, S, H, D, generator=gen, device=dev).bfloat16()
-    k, v = (torch.randn(B, S, HKV, D, generator=gen, device=dev).bfloat16()
+    q = torch.randn(B, S, h, d, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, S, hkv, d, generator=gen, device=dev).bfloat16()
             for _ in range(2))
     return q, k, v
 
@@ -159,7 +188,7 @@ def readings(torch):
     rows = []
     for i, (name, (B, S, mode, window, off, tags)) in enumerate(
             CASES.items()):
-        q, k, v = _inputs(torch, B, S, 10 + i)
+        q, k, v = _inputs(torch, B, S, 10 + i, CASE_HEADS[name])
         kw = dict(mode=mode, window=window, kv_offset=off)
         out = flash_attention(q, k, v, **kw)
         ref = flash_attention_ref(q, k, v, **kw)

@@ -6,12 +6,19 @@ import importlib
 from .base import HybridCfg, ModelConfig, MoECfg, SSMCfg, VLMCfg
 
 _MODULES = {
-    # the paper's own workload; further archs join with their families
+    # the paper's own workloads
     "internvl3-2b": "internvl3_2b",
+    "qwen3vl-8b": "qwen3vl_8b",
+    "chatglm3-6b": "chatglm3_6b",
+    "glm4-9b": "glm4_9b",
+    "minitron-4b": "minitron_4b",
+    "pixtral-12b": "pixtral_12b",
+    "llama3-405b": "llama3_405b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "mamba2-370m": "mamba2_370m",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    # whisper-small (the audio family) joins with its slice
 }
 
 ALL_ARCHS = list(_MODULES)

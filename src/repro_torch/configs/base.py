@@ -3,8 +3,9 @@
 One frozen dataclass describes an architecture; `ModelConfig.reduced()`
 derives the CPU smoke-test variant (2 layers, 3 for the hybrid family,
 d_model <= 256, <= 4 experts). This copy carries the fields of the
-families the port runs (dense, VLM as dense, MoE, SSM, hybrid); the
-encoder-decoder sub-config comes with the slice that ports its family.
+families the port runs (dense, VLM, MoE, SSM, hybrid; every architecture
+of the JAX package but whisper-small); the encoder-decoder sub-config
+comes with the slice that ports its family.
 """
 from __future__ import annotations
 
@@ -54,7 +55,10 @@ class VLMCfg:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str               # dense | vlm | moe | ssm | hybrid
+    # dense | vlm | moe | ssm | hybrid; vlm is dense with a connector
+    # that writes projected patch embeddings into the token stream (the
+    # model's forward and prefill), and Engine runs it as dense
+    family: str
     n_layers: int
     d_model: int
     n_heads: int

@@ -7,6 +7,9 @@ stream is the JAX package's draw for draw, so a seed yields the same
 batches, bit for bit, in both packages. `padded_batch` pads one group's
 sequences to a bucket, one per row (the SSM family's path: its state
 crosses segment boundaries, so its sequences cannot be packed).
+`synthetic_batch` is the JAX package's fixed-shape batch (tokens,
+labels and, for the VLM family, patch embeddings and their positions),
+draw for draw; the audio family's frames come with its slice.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Dict, Iterator, List, Optional, Sequence as Seq
 
 import numpy as np
 
+from ..configs.base import ModelConfig
 from ..core.cost_model import SeqInfo
 from ..core.distributions import sample_batch
 from ..core.packing import fill_loss_row, fill_modality_row
@@ -118,4 +122,29 @@ def padded_batch(seqs: Seq[np.ndarray], bucket: int,
         batch["modality_ids"] = modality_ids
         batch["loss_mask"] = loss_mask
         batch["modality_classes"] = classes
+    return batch
+
+
+def synthetic_batch(cfg: ModelConfig, global_batch: int, seq_len: int,
+                    seed: int = 0) -> Dict[str, np.ndarray]:
+    """Fixed-shape (global_batch, seq_len) batch from `seed` (numpy): the
+    JAX package's `synthetic_batch` of an `InputShape` of that batch and
+    length, array for array. A VLM batch adds
+    `patch_embeds` [B, P, vision_dim] (standard normal) and `patch_pos`
+    [B, P] = 0..P-1 in every row, P = max(1, int(S *
+    patches_per_seq_frac))."""
+    if cfg.family == "audio":
+        raise NotImplementedError("the audio family's frames come with "
+                                  "its slice of the port")
+    rng = np.random.default_rng(seed)
+    B, S = global_batch, seq_len
+    batch = {
+        "tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+        "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+    }
+    if cfg.family == "vlm":
+        P = max(1, int(S * cfg.vlm.patches_per_seq_frac))
+        batch["patch_embeds"] = rng.normal(
+            0, 1, (B, P, cfg.vlm.vision_dim)).astype(np.float32)
+        batch["patch_pos"] = np.tile(np.arange(P, dtype=np.int32), (B, 1))
     return batch

@@ -25,7 +25,7 @@
 // probabilities, the running max and sum) stays on chip, each K/V tile
 // is read once per block of 128 query rows, and the bf16 path is built
 // for Hopper's tensor cores:
-//   * bf16: flash_fwd_wg_kernel, D = 32, 64 and 128.
+//   * bf16: flash_fwd_wg_kernel, D = 32, 64, 128 and 160.
 //     1. Grid. A block is two warpgroups (256 threads) over 128 query
 //        rows of one (query head, batch), 64 rows each; the grid is
 //        (H, ceil(Sq / 128), B), and y is issued in reverse, so the last
@@ -46,13 +46,19 @@
 //        its last row's window) skips the pair mask.
 //     6. Online softmax in fp32, in log2 units (ex2.approx).
 //     7. Two blocks an SM (97 KB of shared memory at D = 128, at most
-//        128 registers a thread: 32 bytes spill at D = 128).
+//        128 registers a thread: 32 bytes spill at D = 128); one at D =
+//        160 (145 KB; O's share alone is 96 fp32 registers a thread).
 //     What still holds it back at 4 x 2048 (3x its bound): each
 //     warpgroup waits on its own products and softmax in turn; only the
 //     SM's other warpgroups fill the tensor cores meanwhile.
 //     D = 32 (no main path) runs as D = 64 with Q's, K's and V's upper
 //     32 columns zero-filled in shared memory: exact, at twice the
-//     products.
+//     products. D = 160 (pixtral-12b: 5120 / 32 heads) runs the same
+//     way as DP = 192, three 64-column blocks, the third half used:
+//     S = Q K^T over all 192 columns (the zeros add nothing, 1.2x the
+//     products), O += P V as m64n128 over blocks 0-1 and m64n64 over
+//     block 2, whose upper 32 columns are formed and never written.
+//     HBM traffic stays at 160 columns; the scale stays 1/sqrt(160).
 //   * fp32: flash_fwd_f32_kernel, fp32 FMAs on the CUDA cores (the tensor
 //     cores would round the inputs to TF32): two threads per query row,
 //     each holding half of the row's scores and of its accumulator in
@@ -227,17 +233,21 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int W_BQ = 128, W_BK = 64, W_THREADS = 256;
 constexpr int W_STAGES = 2;  // K/V tiles: one in use, one landing
 
+// Per-head-dim traits of flash_fwd_wg_kernel: tiles of whole 64-column
+// blocks (D = 32 as one, D = 160 as three, the upper columns zeros), and
+// the blocks an SM their shared memory and O's registers allow
 template <int D>
 struct WgTile {
-  static constexpr int DP = D < 64 ? 64 : D;  // D = 32 as one 64-wide block
+  static constexpr int DP = (D + 63) / 64 * 64;
   static constexpr int TB = 64 * DP * 2;      // bytes of one [64][DP] tile
+  static constexpr int MIN_BLOCKS = DP <= 128 ? 2 : 1;
   // Q of both warpgroups, the ring's K and V, and room to align the
   // tiles to 1024 bytes
   static constexpr size_t smem = 1024 + 2 * TB + W_STAGES * 2 * TB;
 };
 
 template <int D>
-__global__ void __launch_bounds__(W_THREADS, 2)
+__global__ void __launch_bounds__(W_THREADS, WgTile<D>::MIN_BLOCKS)
 flash_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     int Sq, int Sk, int H, int Hkv, int mode, int window,
@@ -410,7 +420,8 @@ flash_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       acc[nd][3] *= corr[1];
     }
     // O += P V: P from registers (rounded to bf16), V N-major straight
-    // from its row-major tile, 16 keys a step
+    // from its row-major tile, 16 keys a step; at D = 160 the third
+    // 64-wide block of V as its own m64n64 product
     uint32_t a[W_BK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < W_BK / 16; ++kk) {
@@ -427,6 +438,10 @@ flash_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         wgmma_rs_n64<1>(&acc[0][0], a[kk], dsc);
       } else {
         wgmma_rs_n128<1>(&acc[0][0], a[kk], dsc);
+      }
+      if constexpr (DP == 192) {
+        const uint32_t v3 = va + 2 * SW_BLOCK + kk * 2048;
+        wgmma_rs_n64<1>(&acc[16][0], a[kk], wg_desc(v3, SW_BLOCK, SW_GROUP));
       }
     }
     wgmma_commit();
@@ -503,6 +518,11 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
     case 128:
       return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, mode, window,
                             kv_offset, stream);
+    case 160:  // pixtral-12b, bfloat16 only
+      if constexpr (std::is_same<T, bf16>::value)
+        return launch<T, 160>(q, k, v, o, B, Sq, Sk, H, Hkv, mode, window,
+                              kv_offset, stream);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }

@@ -50,15 +50,24 @@
 //     (recurrentgemma-2b, bf16 only): the O share alone is 128 fp32 a
 //     thread, so one block an SM (194 KB, up to 255 registers), and
 //     O += P V runs as two m64n128 products, V's 64-wide blocks 0-1 and
-//     2-3.
+//     2-3. D = 160 (pixtral-12b: 5120 / 32 heads): tiles of DP = 192
+//     columns, three 64-wide blocks, whose upper 32 columns are
+//     zero-filled on the load (HBM traffic stays at 160 columns): S =
+//     Q K^T over all 192 (the zeros add nothing; 1.2x the products), O
+//     += P V as m64n128 over blocks 0-1 and m64n64 over block 2, the
+//     upper 32 columns of O formed and never written; one block an SM
+//     (146 KB, O's share 96 registers a thread); the scale stays
+//     1/sqrt(160).
 //   * bf16 backward, every head dim: wgmma, one block per (query head,
 //     64-key tile, batch), a group sum of the heads' dK / dV after it and
 //     16-byte vector atomics for dQ (P and dS rounded to bf16 before
 //     their products; see packed_bwd_kv_kernel). At head_dim 256 each
-//     thread's share of dK or dV is 128 registers, so one block an SM.
+//     thread's share of dK or dV is 128 registers, so one block an SM;
+//     at 160 the tiles are 192 columns wide as in the forward (the
+//     upper 32 zeros), dK / dV 96 registers, one block an SM.
 //   * fp32: the CUDA cores (TF32 tensor cores would break the 1e-4
 //     parity tolerance), same tiling idea with fp32 tiles in shared
-//     memory.
+//     memory; D = 64, 128 and 160 (no config runs 256 in fp32).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -398,14 +407,17 @@ __device__ __forceinline__ void red_add_v4(float* dst, float4 v) {
   atomicAdd(reinterpret_cast<float4*>(dst), v);
 }
 
-// Per-head-dim traits of packed_bwd_kv_kernel. D = 64 / 128: two blocks
-// an SM (94 KB of shared memory at D = 128, at most 128 registers a
-// thread). D = 256: the 64 x 256 share of dK or dV alone is 128 fp32
-// registers a thread, so one block an SM (158 KB, up to 255 registers).
+// Per-head-dim traits of packed_bwd_kv_kernel. Tiles are DP columns
+// wide, D rounded up to whole 64-column blocks (D = 160: 192, the upper
+// 32 zeros). D = 64 / 128: two blocks an SM (94 KB of shared memory at
+// D = 128, at most 128 registers a thread). D = 160 / 256: the 64 x DP
+// share of dK or dV alone is 96 / 128 fp32 registers a thread, so one
+// block an SM (123 / 158 KB, up to 255 registers).
 template <int D>
 struct BwdKvTile {
-  static constexpr int TB = K_BK * D * 2;  // bytes of one [64][D] tile
-  static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;
+  static constexpr int DP = (D + 63) / 64 * 64;
+  static constexpr int TB = K_BK * DP * 2;  // bytes of one [64][DP] tile
+  static constexpr int MIN_BLOCKS = D > 128 ? 1 : 2;
   // K, V, Q, dO, dS^T, P^T (fp32), the query tables, the key tables, and
   // room to align the tiles to 1024 bytes
   static constexpr size_t smem =
@@ -425,14 +437,15 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      float* __restrict__ dk_part,
                      float* __restrict__ dv_part, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, Params p, float scale) {
-  constexpr int TB = BwdKvTile<D>::TB, CH = D / 8, NQ = K_BQ / 8;
+  constexpr int DP = BwdKvTile<D>::DP, TB = BwdKvTile<D>::TB;
+  constexpr int CH = D / 8, CHP = DP / 8, NQ = K_BQ / 8;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
-  unsigned char* Ks = sm;             // [64][D], swizzled
-  unsigned char* Vs = Ks + TB;        // [64][D]
-  unsigned char* Qs = Vs + TB;        // [64][D]
-  unsigned char* dOs = Qs + TB;       // [64][D]
+  unsigned char* Ks = sm;             // [64][DP], swizzled
+  unsigned char* Vs = Ks + TB;        // [64][DP]
+  unsigned char* Qs = Vs + TB;        // [64][DP]
+  unsigned char* dOs = Qs + TB;       // [64][DP]
   unsigned char* dSt = dOs + TB;      // [64 keys][64 queries]
   float* Px = reinterpret_cast<float*>(dSt + K_BK * K_BQ * 2);
   float* lse_s = Px + K_BK * K_BQ;                // [K_BQ]
@@ -464,11 +477,15 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int* spanqb = SPANS ? p.spanq + (int64_t)b * Sq : p.segq;
   float* dqb = dq_acc + (int64_t)b * Sq * q_stride + (int64_t)h * D;
 
-  for (int i = tid; i < K_BK * CH; i += K_THREADS) {
-    const int r = i / CH, c = i % CH, kp = k0 + r;
-    const int64_t off = (int64_t)(kp < Sk ? kp : k0) * kv_stride + c * 8;
-    cp_async16(Ks + sw128<K_BK>(r, c), kb + off, kp < Sk);
-    cp_async16(Vs + sw128<K_BK>(r, c), vb + off, kp < Sk);
+  // keys past Sk and columns past D (the upper 32 of DP = 192) read as
+  // zeros
+  for (int i = tid; i < K_BK * CHP; i += K_THREADS) {
+    const int r = i / CHP, c = i % CHP, kp = k0 + r;
+    const bool in = kp < Sk && c < CH;
+    const int64_t off =
+        (int64_t)(kp < Sk ? kp : k0) * kv_stride + (c < CH ? c : 0) * 8;
+    cp_async16(Ks + sw128<K_BK>(r, c), kb + off, in);
+    cp_async16(Vs + sw128<K_BK>(r, c), vb + off, in);
   }
   cp_async_commit();
   if (tid < K_BK) {
@@ -480,11 +497,13 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the query tile at q0: rows past Sq read as zeros and are masked by
   // position below
   auto load_q = [&](int q0) {
-    for (int i = tid; i < K_BQ * CH; i += K_THREADS) {
-      const int r = i / CH, c = i % CH, qp = q0 + r;
-      const int64_t off = (int64_t)(qp < Sq ? qp : q0) * q_stride + c * 8;
-      cp_async16(Qs + sw128<K_BQ>(r, c), qb + off, qp < Sq);
-      cp_async16(dOs + sw128<K_BQ>(r, c), db + off, qp < Sq);
+    for (int i = tid; i < K_BQ * CHP; i += K_THREADS) {
+      const int r = i / CHP, c = i % CHP, qp = q0 + r;
+      const bool in = qp < Sq && c < CH;
+      const int64_t off =
+          (int64_t)(qp < Sq ? qp : q0) * q_stride + (c < CH ? c : 0) * 8;
+      cp_async16(Qs + sw128<K_BQ>(r, c), qb + off, in);
+      cp_async16(dOs + sw128<K_BQ>(r, c), db + off, in);
     }
     for (int i = tid; i < 4 * K_BQ; i += K_THREADS) {
       const int which = i / K_BQ, r = i % K_BQ, qp = q0 + r;
@@ -543,9 +562,9 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kpos_w = p.kv_offset + k0 + kw * 16;  // the warp's first key
   float* px = Px + kw * (NQ * 4 * 32);
 
-  float acc[D / 8][4];  // dV (warpgroup 0) or dK (warpgroup 1), 64 keys
+  float acc[DP / 8][4];  // dV (warpgroup 0) or dK (warpgroup 1), 64 keys
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
+  for (int nd = 0; nd < DP / 8; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
 
@@ -565,7 +584,7 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const uint32_t a0 = dk_warp ? vs_a : ks_a, b0 = dk_warp ? dos_a : qs_a;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DP / 16; ++kk) {
         const uint32_t off = (kk >> 2) * SW_BLOCK + (kk & 3) * 32;
         wgmma_ss_n64<0, 0>(&sc[0][0], wg_desc(a0 + off, 16, SW_GROUP),
                            wg_desc(b0 + off, 16, SW_GROUP), 1);
@@ -625,7 +644,8 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     // dV += P^T dO (warpgroup 0) or dK += dS^T Q (warpgroup 1): A from
     // registers, B (dO or Q) N-major: 16 queries a step, 64-wide d blocks,
-    // at D = 256 as two products of 128 columns
+    // at D = 256 as two products of 128 columns, at D = 160 as one of 128
+    // and one of 64 (the third block)
     {
       uint32_t a[K_BQ / 16][4];
 #pragma unroll
@@ -650,6 +670,11 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           wgmma_rs_n128<1>(&acc[16][0], a[kk],
                            wg_desc(hi, SW_BLOCK, SW_GROUP));
         }
+        if constexpr (DP == 192) {
+          const uint32_t hi3 = c0 + 2 * SW_BLOCK + kk * 2048;
+          wgmma_rs_n64<1>(&acc[16][0], a[kk],
+                          wg_desc(hi3, SW_BLOCK, SW_GROUP));
+        }
       }
       wgmma_commit();
       wgmma_wait0();
@@ -661,11 +686,12 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // dQ [64 queries x D] = dS K in 64-column chunks: warpgroup w takes
     // chunks w, w + 2, ... (at D = 64 warpgroup 0 the only one), each
     // added before the next is formed; A = dS^T's tile read M-major, B =
-    // K N-major
+    // K N-major. At D = 160 the third chunk's upper 32 columns are formed
+    // and not added.
 #pragma unroll
-    for (int j2 = 0; j2 < (D / 64 + 1) / 2; ++j2) {
+    for (int j2 = 0; j2 < (DP / 64 + 1) / 2; ++j2) {
       const int chunk = 2 * j2 + (dk_warp ? 1 : 0);
-      if (chunk >= D / 64) break;
+      if (chunk >= DP / 64) break;
       float dqa[8][4];
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -684,6 +710,7 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const int col0 = chunk * 64;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
+        if (col0 + j * 8 >= D) break;  // warp-uniform
         const float* c = dqa[j];
         const float r0 = __shfl_xor_sync(FULL, odd ? c[0] : c[2], 1);
         const float r1 = __shfl_xor_sync(FULL, odd ? c[1] : c[3], 1);
@@ -761,13 +788,16 @@ __global__ void bwd_kv_reduce_kernel(const float* __restrict__ dk_part,
 constexpr int W_BQ = 128, W_BK = 64, W_THREADS = 256;
 constexpr int W_STAGES = 2;  // K/V tiles: one in use, one landing
 
-// Per-head-dim traits of packed_fwd_wg_kernel. D = 64 / 128: two blocks
-// an SM (98 KB of shared memory at D = 128, at most 128 registers a
-// thread). D = 256: the 64 x 256 share of O alone is 128 fp32 registers a
-// thread, so one block an SM (194 KB, up to 255 registers).
+// Per-head-dim traits of packed_fwd_wg_kernel. Tiles are DP columns
+// wide, D rounded up to whole 64-column blocks (D = 160: 192, the upper
+// 32 zeros). D = 64 / 128: two blocks an SM (98 KB of shared memory at
+// D = 128, at most 128 registers a thread). D = 160 / 256: the 64 x DP
+// share of O alone is 96 / 128 fp32 registers a thread, so one block an
+// SM (146 / 194 KB, up to 255 registers).
 template <int D>
 struct FwdWgTile {
-  static constexpr int TB = 64 * D * 2;  // bytes of one [64][D] tile
+  static constexpr int DP = (D + 63) / 64 * 64;
+  static constexpr int TB = 64 * DP * 2;  // bytes of one [64][DP] tile
   static constexpr int MIN_BLOCKS = D <= 128 ? 2 : 1;
   // Q of both warpgroups, the ring's K, V and key tables, and room to
   // align the tiles to 1024 bytes
@@ -780,12 +810,13 @@ __global__ void __launch_bounds__(W_THREADS, FwdWgTile<D>::MIN_BLOCKS)
 packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o,
                      float* __restrict__ lse, Params p, float scale) {
-  constexpr int TB = FwdWgTile<D>::TB, CH = D / 8, NK = W_BK / 8;
+  constexpr int DP = FwdWgTile<D>::DP, TB = FwdWgTile<D>::TB;
+  constexpr int CH = D / 8, CHP = DP / 8, NK = W_BK / 8;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
-  unsigned char* Qs = sm;             // [2][64][D], one tile a warpgroup
-  unsigned char* ring = Qs + 2 * TB;  // W_STAGES x K, V [64][D]
+  unsigned char* Qs = sm;             // [2][64][DP], one tile a warpgroup
+  unsigned char* ring = Qs + 2 * TB;  // W_STAGES x K, V [64][DP]
   // W_STAGES x the stage's key segments and spans [2][64]
   int* ktab = reinterpret_cast<int*>(ring + W_STAGES * 2 * TB);
 
@@ -805,26 +836,30 @@ packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int* segkb = p.segk + (int64_t)b * Sk;
   const int* spankb = SPANS ? p.spank + (int64_t)b * Sk : segkb;
 
-  // Q, 64 rows a warpgroup; rows past Sq read as zeros (and are masked)
+  // Q, 64 rows a warpgroup; rows past Sq read as zeros (and are
+  // masked), and so do columns past D (the upper 32 of DP = 192)
   const bf16* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-  for (int i = tid; i < W_BQ * CH; i += W_THREADS) {
-    const int r = i / CH, c = i % CH, qp = q0 + r;
+  for (int i = tid; i < W_BQ * CHP; i += W_THREADS) {
+    const int r = i / CHP, c = i % CHP, qp = q0 + r;
     cp_async16(Qs + (r / 64) * TB + sw128<64>(r % 64, c),
-               qb + (int64_t)(qp < Sq ? qp : q0) * q_stride + c * 8,
-               qp < Sq);
+               qb + (int64_t)(qp < Sq ? qp : q0) * q_stride +
+                   (c < CH ? c : 0) * 8,
+               qp < Sq && c < CH);
   }
   cp_async_commit();
 
   // key tile j into ring stage st: K and V in the swizzled layout wgmma
-  // reads, the tables beside them (-2 past Sk, as kv padding)
+  // reads (columns past D as zeros), the tables beside them (-2 past Sk,
+  // as kv padding)
   auto load_kv = [&](int j, int st) {
     const int j0 = j * W_BK;
     unsigned char* Ks = ring + st * 2 * TB;
-    for (int i = tid; i < W_BK * CH; i += W_THREADS) {
-      const int r = i / CH, c = i % CH, kp = j0 + r;
-      const int64_t off = (int64_t)(kp < Sk ? kp : j0) * kv_stride + c * 8;
-      cp_async16(Ks + sw128<W_BK>(r, c), kb + off, kp < Sk);
-      cp_async16(Ks + TB + sw128<W_BK>(r, c), vb + off, kp < Sk);
+    for (int i = tid; i < W_BK * CHP; i += W_THREADS) {
+      const int r = i / CHP, c = i % CHP, kp = j0 + r;
+      const int64_t off =
+          (int64_t)(kp < Sk ? kp : j0) * kv_stride + (c < CH ? c : 0) * 8;
+      cp_async16(Ks + sw128<W_BK>(r, c), kb + off, kp < Sk && c < CH);
+      cp_async16(Ks + TB + sw128<W_BK>(r, c), vb + off, kp < Sk && c < CH);
     }
     if (tid < (SPANS ? 2 : 1) * W_BK) {
       const int kp = j0 + tid % W_BK;
@@ -889,9 +924,9 @@ packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[DP / 8][4];
 #pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
+  for (int nd = 0; nd < DP / 8; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
   const uint32_t qa = smem_u32(Qs + wg * TB);
@@ -920,7 +955,7 @@ packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < DP / 16; ++kk) {
         const uint32_t off = (kk >> 2) * SW_BLOCK + (kk & 3) * 32;
         wgmma_ss_n64<0, 0>(&s[0][0], wg_desc(qa + off, 16, SW_GROUP),
                            wg_desc(ka + off, 16, SW_GROUP), 1);
@@ -987,7 +1022,7 @@ packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
 #pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
+      for (int nd = 0; nd < DP / 8; ++nd) {
         acc[nd][0] *= corr[0];
         acc[nd][1] *= corr[0];
         acc[nd][2] *= corr[1];
@@ -995,7 +1030,8 @@ packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
       // O += P V: P from registers (rounded to bf16), V N-major straight
       // from its row-major tile, 16 keys a step; at D = 256 as two
-      // products of 128 columns
+      // products of 128 columns, at D = 160 as one of 128 and one of 64
+      // (V's third block)
       uint32_t a[W_BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < W_BK / 16; ++kk) {
@@ -1017,6 +1053,11 @@ packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const uint32_t vhi = va + 2 * SW_BLOCK + kk * 2048;
           wgmma_rs_n128<1>(&acc[16][0], a[kk],
                            wg_desc(vhi, SW_BLOCK, SW_GROUP));
+        }
+        if constexpr (DP == 192) {
+          const uint32_t v3 = va + 2 * SW_BLOCK + kk * 2048;
+          wgmma_rs_n64<1>(&acc[16][0], a[kk],
+                          wg_desc(v3, SW_BLOCK, SW_GROUP));
         }
       }
       wgmma_commit();
@@ -1337,13 +1378,14 @@ Params make_params(int B, int Sq, int Sk, int H, int Hkv, int mode,
   return p;
 }
 
-// head_dim 64 and 128 in fp32 and bf16; 256 (recurrentgemma-2b) in bf16
-// only, the one type a config runs it in
+// head_dim 64, 128 and 160 (pixtral-12b) in fp32 and bf16; 256
+// (recurrentgemma-2b) in bf16 only, the one type a config runs it in
 bool bad_args(int B, int Sq, int Sk, int H, int Hkv, int D, int dtype,
               int mode, int window) {
   return B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || Hkv <= 0 ||
          H % Hkv != 0 || (dtype != 0 && dtype != 1) ||
-         !(D == 64 || D == 128 || (D == 256 && dtype == 1)) || mode < 0 ||
+         !(D == 64 || D == 128 || D == 160 || (D == 256 && dtype == 1)) ||
+         mode < 0 ||
          mode > 2 || (mode == kSliding && window < 1);
 }
 
@@ -1351,7 +1393,8 @@ bool bad_args(int B, int Sq, int Sk, int H, int Hkv, int D, int dtype,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. D: 64 or 128, or 256 in bfloat16.
+// dtype: 0 = float32, 1 = bfloat16. D: 64, 128 or 160, or 256 in
+// bfloat16.
 // mode: 0 full, 1 causal, 2 sliding.
 // Tables are int32 [B, S]; spanq/spank are both null (no span table) or
 // both set. sumq/sumk are int32 scratch of 4 * B * ceil(S/32) entries.
@@ -1378,10 +1421,12 @@ int k1_forward(const void* q, const void* k, const void* v, void* o,
                      : launch_fwd<T, DD, false>(q, k, v, o, l, p, s))
   if (dtype == 0) {
     if (D == 64) K1_FWD(float, 64);
+    if (D == 160) K1_FWD(float, 160);
     K1_FWD(float, 128);
   }
   if (dtype == 1) {
     if (D == 64) K1_FWD(bf16, 64);
+    if (D == 160) K1_FWD(bf16, 160);
     if (D == 256) K1_FWD(bf16, 256);
     K1_FWD(bf16, 128);
   }
@@ -1423,10 +1468,12 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
                                                 dqa, dk, dv, w, p, s))
   if (dtype == 0) {
     if (D == 64) K1_BWD(float, 64);
+    if (D == 160) K1_BWD(float, 160);
     K1_BWD(float, 128);
   }
   if (dtype == 1) {
     if (D == 64) K1_BWD(bf16, 64);
+    if (D == 160) K1_BWD(bf16, 160);
     if (D == 256) K1_BWD(bf16, 256);
     K1_BWD(bf16, 128);
   }

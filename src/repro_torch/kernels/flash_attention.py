@@ -16,7 +16,8 @@ a gradient (training attends through the packed kernel K1).
 bf16 inputs run on the tensor cores (`wgmma`, fp32 accumulation,
 probabilities rounded to bf16 before the product with V; two
 warpgroups over 128 query rows a block, whose launch `last_launch`
-reads back); fp32 inputs run in fp32 on the CUDA cores.
+reads back); fp32 inputs run in fp32 on the CUDA cores. Head dims 32,
+64 and 128 run in both types, 160 (pixtral-12b) in bf16 only.
 """
 from __future__ import annotations
 
@@ -30,7 +31,10 @@ from . import build
 
 MODES = {"full": 0, "causal": 1, "sliding": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 128, 160)
+#: head dims the kernel takes in bf16 only (pixtral-12b's 160, which no
+#: config runs in fp32 through K2)
+_BF16_ONLY = (160,)
 
 
 def _valid_mask(Sq: int, Sk: int, mode: str, window: Optional[int],
@@ -118,6 +122,9 @@ def _launch(q, k, v, mode, window, kv_offset) -> torch.Tensor:
     B, Sq, H, D = q.shape
     if D not in _HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {_HEAD_DIMS}, not {D}")
+    if D in _BF16_ONLY and q.dtype != torch.bfloat16:
+        raise ValueError(f"kernel takes head_dim {D} in bfloat16 only, "
+                         f"not {q.dtype}")
     if not (q.is_contiguous() and k.is_contiguous()
             and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")

@@ -26,10 +26,13 @@ on CUDA tensors they launch
 on the tensor cores with fp32 accumulation, P and dS rounded to bf16
 before their products: the forward by `wgmma`, two warpgroups over 128
 query rows sharing a ring of K/V tiles (two blocks an SM at head_dim 64
-/ 128, one at 256), the backward by `wgmma` with one block per (query
-head, 64-key tile), each query head's fp32 dK and dV summed over its KV
-head's group afterwards. fp32 runs on the CUDA cores. Head dims 64 and 128 run
-in both types, 256 (recurrentgemma-2b) in bf16 only.
+/ 128, one at 160 and 256), the backward by `wgmma` with one block per
+(query head, 64-key tile), each query head's fp32 dK and dV summed over
+its KV head's group afterwards. Head dim 160 (pixtral-12b) runs as 192
+columns in shared memory, the upper 32 zero-filled on the load: the
+tensors cross device memory at 160. fp32 runs on the CUDA cores. Head
+dims 64, 128 and 160 run in both types, 256 (recurrentgemma-2b) in bf16
+only.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ from . import build
 from .flash_attention import MODES
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIMS = (64, 128, 160, 256)
 #: head dims the kernels take in bf16 only (recurrentgemma-2b's 256: no
 #: config runs it in fp32)
 _BF16_ONLY = (256,)

@@ -1,5 +1,5 @@
-"""Top-level model API: the dense, MoE, SSM and hybrid families, training
-and serving.
+"""Top-level model API: the dense, VLM, MoE, SSM and hybrid families,
+training and serving.
 
   init_params(cfg, seed=, device=)               -> params dict
   forward(params, cfg, batch)                    -> (logits [B,S,V], aux)
@@ -9,12 +9,20 @@ and serving.
   init_cache(cfg, batch_size, cache_len, device) -> decode cache
   decode_step(params, cfg, cache, tokens [B])    -> (logits [B,V], cache)
 
+A VLM batch holds `patch_embeds` [B,P,vision_dim] and `patch_pos`
+[B,P] beside its tokens: `connector` projects the patches, which take
+the place of the token embeddings at those rows (`forward`, `prefill`);
+otherwise the VLM family is the dense one. `prefill_chunk` and `decode_step` take tokens
+only, as the JAX package's do (its `prefill_chunk` then fails on a VLM
+config for want of patches; the port's embeds the tokens alone).
+
 Caches hold `pos`, an int64 tensor: 0-d for a batch at one depth, or [B]
 for the serving slot cache, where every row is its own request at its
 own depth. Their other leaves, by family (`cache_batch_axes` names each
 one's batch axis):
 
-  dense, moe — k, v [L,B,T,Hkv,D], T = min(sliding_window, cache_len)
+  dense, vlm, moe — k, v [L,B,T,Hkv,D], T = min(sliding_window,
+                    cache_len)
   ssm    — h [L,B,H,N,P] fp32, conv_buf [L,B,conv_width-1,d_inner+2N]
   hybrid — rec_h [U,R,B,W] fp32, rec_conv [U,R,B,conv_width-1,W],
            k, v [U,A,B,T,Hkv,D] (a ring of T = min(window, cache_len)),
@@ -25,7 +33,7 @@ layers in the tail.) Unlike the JAX package, which returns new caches,
 `prefill_chunk` and `decode_step` write into the cache they are given
 (no second copy of a cache in device memory) and return it with `pos`
 advanced. `prefill` and `prefill_chunk` take the attention families
-(dense, moe) only, as the JAX package's do: the SSM and hybrid families
+(dense, vlm, moe) only, as the JAX package's do: the SSM and hybrid families
 serve from a fresh `init_cache` and the prompt's last token, through
 `decode_step`.
 """
@@ -51,14 +59,14 @@ from .transformer import (_BLOCK, _LAYER_INIT, _attn_kwargs,
 #: families `forward` runs
 FAMILIES = (*_BLOCK, "hybrid")
 #: families that fill a K/V cache from the prompt (`prefill`)
-PREFILL_FAMILIES = ("dense", "moe")
+PREFILL_FAMILIES = ("dense", "vlm", "moe")
 
 
 def _check_family(cfg: ModelConfig, *, prefill: bool = False) -> None:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ported: "
-            f"{sorted(FAMILIES)}; Engine runs VLM configs as dense)")
+            f"{sorted(FAMILIES)})")
     if prefill and cfg.family not in PREFILL_FAMILIES:
         name = "SSM" if cfg.family == "ssm" else cfg.family
         raise NotImplementedError(
@@ -89,6 +97,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if cfg.family != "hybrid":
         params["layers"] = init_stack(gen, cfg, cfg.n_layers,
                                       _LAYER_INIT[cfg.family], device)
+        if cfg.family == "vlm":
+            params["connector"] = dense_init(gen, cfg.vlm.vision_dim,
+                                             cfg.d_model, dt, device)
         return params
     # hybrid: stacked [n_units] pattern units, then an unstacked tail
     n_units, tail = hybrid_layout(cfg)
@@ -104,11 +115,26 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 # ==========================================================================
 # Embedding / head
 # ==========================================================================
+def _token_embeddings(params, tokens) -> torch.Tensor:
+    dev = params["embed"].device
+    return embed(params["embed"], torch.as_tensor(tokens, device=dev).long())
+
+
 def _input_embeddings(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    """Token embeddings (the dense family's text stream)."""
-    tokens = torch.as_tensor(batch["tokens"],
-                             device=params["embed"].device).long()
-    return embed(params["embed"], tokens)
+    """Token embeddings; for the VLM family `patch_embeds` [B,P,
+    vision_dim] (required, as in the JAX package) through `connector`,
+    written over rows `patch_pos` [B,P] of each sequence (the JAX
+    package's `vmap` of `.at[pos].set`; out of place, so gradients reach
+    both)."""
+    dev = params["embed"].device
+    x = _token_embeddings(params, batch["tokens"])
+    if cfg.family == "vlm":
+        patches = torch.as_tensor(batch["patch_embeds"], device=dev)
+        proj = patches.to(x.dtype) @ params["connector"]
+        pos = torch.as_tensor(batch["patch_pos"], device=dev).long()
+        rows = torch.arange(x.shape[0], device=dev)[:, None]
+        x = x.index_put((rows, pos), proj)
+    return x
 
 
 def _head(params, cfg: ModelConfig, x) -> torch.Tensor:
@@ -163,7 +189,7 @@ def forward_hidden(params, cfg: ModelConfig, batch,
             "shard_map (the aux loss in its layer scan's carry varies over "
             "the shards where the carry's initial zero does not), so there "
             "is no reference to hold a degree > 1 to")
-    if ring is not None and cfg.family != "dense":
+    if ring is not None and cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} does not run on a ring: its recurrent "
             f"state crosses shard borders, and the JAX reference restarts "
@@ -277,7 +303,7 @@ def prefill_chunk(params, cfg: ModelConfig, cache: Dict[str, Any],
     if cfg.sliding_window is not None:
         raise ValueError("chunked prefill needs a non-rotating cache")
     start_pos = int(start_pos)
-    x = _input_embeddings(params, cfg, {"tokens": tokens})
+    x = _token_embeddings(params, tokens)      # a chunk holds no patches
     B, C, _ = x.shape
     hd = cfg.resolved_head_dim
     rope_frac = _rope_frac(cfg)

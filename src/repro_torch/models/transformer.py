@@ -5,7 +5,11 @@ package (whose `lax.scan` consumes them); here a Python loop walks the
 layers and `unstack(stack)` gives each layer's leaves as views.
 
 Families:
-  dense  — [attn + MLP] x L                   (internvl3-2b's LM, as dense)
+  dense  — [attn + MLP] x L                   (chatglm3, glm4, minitron,
+                                               llama3)
+  vlm    — dense, patch embeddings written into the token stream by a
+           connector (model._input_embeddings)   (internvl3, qwen3vl,
+                                               pixtral)
   moe    — [attn + MoE-FFN] x L               (granite, olmoe)
   ssm    — [mamba2 SSD] x L                   (mamba2-370m)
   hybrid — [(rec, rec, attn) + MLP each] x .. (recurrentgemma-2b)
@@ -167,6 +171,7 @@ def hybrid_layout(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
     return n_units, unit[:tail]
 
 
-_LAYER_INIT = {"dense": _init_dense_layer, "moe": _init_dense_layer,
-               "ssm": _init_ssm_layer}
-_BLOCK = {"dense": _dense_block, "moe": _dense_block, "ssm": _ssm_block}
+_LAYER_INIT = {"dense": _init_dense_layer, "vlm": _init_dense_layer,
+               "moe": _init_dense_layer, "ssm": _init_ssm_layer}
+_BLOCK = {"dense": _dense_block, "vlm": _dense_block, "moe": _dense_block,
+          "ssm": _ssm_block}

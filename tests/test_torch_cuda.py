@@ -161,6 +161,48 @@ def test_k2_is_deterministic(card):
         assert torch.equal(a, b), (B, S, mode)
 
 
+# K2 at head_dim 160 (pixtral-12b, 32:8, bf16 only): tiles of 192
+# columns in shared memory, the upper 32 zero-filled, O's third block by
+# its own m64n64 product
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_k2_head_dim_160(card, case):
+    """4 rows of 2048 at 32:8 heads of 160 (the co-batched prefill's
+    largest shape), every mode and offset of CASES, then exact lengths
+    (one row, causal) as the exact-length prefill runs them; one block
+    an SM of shared memory."""
+    from repro_torch.kernels.flash_attention import last_launch
+    mode, window, off = CASES[case]
+    _k2_close(card, "4x2048 D=160", 4, 2048, 2048, 32, 8, 160, 100 + case,
+              mode=mode, window=window, kv_offset=off)
+    launch = last_launch()
+    assert launch["grid"] == (32, 2048 // 128, 4), launch
+    assert launch["smem_bytes"] > 232448 // 2, launch
+    if case == 0:
+        for L in (1, 96, 200, 1500):
+            _k2_close(card, f"1x{L} D=160", 1, L, L, 32, 8, 160, L,
+                      mode="causal")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,window", [("causal", None),
+                                         ("sliding", 64)])
+def test_k2_head_dim_160_rows_without_keys_are_zero(card, mode, window):
+    """As test_k2_rows_without_keys_are_zero at 32:8 heads of 160."""
+    out, _ = _k2_close(card, "no keys D=160", 2, 300, 300, 32, 8, 160, 91,
+                       mode=mode, window=window, kv_offset=150)
+    assert (out[:, :150] == 0).all()
+    assert out[:, 150:].abs().amax(dim=(0, 2, 3)).min() > 0
+
+
+@pytest.mark.cuda
+def test_k2_head_dim_160_refuses_fp32(card):
+    q = torch.zeros(1, 64, 32, 160, device=card)
+    k = torch.zeros(1, 64, 8, 160, device=card)
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        flash_attention(q, k, k)
+
+
 # ------------------------------------------------- packed attention (K1)
 def _packed_tables(B, S, lens, with_spans, frame=8):
     """Segments of `lens` tokens then tail padding (-1); with spans,
@@ -192,7 +234,7 @@ K1_CASES = [  # mode, window, spans, kv_offset, Sk - Sq
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 160])
 def test_packed_kernel_forward_and_backward_match_plain(card, dtype, D):
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed, flash_attention_packed_bwd,
@@ -251,8 +293,8 @@ def test_packed_kernel_forward_and_backward_match_plain(card, dtype, D):
 # tile), each head's dK / dV summed over its KV head's group after the
 # kernel, dQ added with 16-byte vector atomics
 #: query and KV heads by head_dim: internvl3-2b's 12:2 at 64 / 128,
-#: recurrentgemma-2b's 10:1 (MQA) at 256
-K1_HEADS = {64: (12, 2), 128: (12, 2), 256: (10, 1)}
+#: pixtral-12b's 32:8 at 160, recurrentgemma-2b's 10:1 (MQA) at 256
+K1_HEADS = {64: (12, 2), 128: (12, 2), 160: (32, 8), 256: (10, 1)}
 
 
 def _k1_bf16(card, rng, B, Sq, Sk, H, Hkv, D):
@@ -306,11 +348,12 @@ def _frames(S, frame=256, text=32):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
 def test_packed_backward_at_the_training_shape(card, D):
     """The training path's shape: one 4096-token row with 256-token
     frames; at D = 64 / 128 12 query heads over 2 KV heads, causal
-    (internvl3-2b's heads at 128), at D = 256 recurrentgemma-2b's 10
+    (internvl3-2b's heads at 128), at D = 160 pixtral-12b's 32 over 8,
+    causal, at D = 256 recurrentgemma-2b's 10
     over one KV head, sliding at its window of 2048. Most tiles take the
     unmasked path; the launch count moves once per call, and the library
     records a launch of one block per (query head, 64-key tile) with
@@ -333,7 +376,7 @@ def test_packed_backward_at_the_training_shape(card, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
 @pytest.mark.parametrize("mode,window,spans", [("causal", None, True),
                                                ("full", None, False),
                                                ("sliding", 100, True)])
@@ -356,7 +399,7 @@ def test_packed_backward_one_query_head_per_kv_head(card, D, mode, window,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
 def test_packed_backward_rows_without_keys_are_zero(card, D):
     """A ring hop whose keys hold no token of some query segments (their
     rows have LSE -inf) and padding on both sides: those rows of dq, and
@@ -380,12 +423,13 @@ def test_packed_backward_rows_without_keys_are_zero(card, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
 def test_packed_backward_dk_dv_are_deterministic(card, D):
     """dK and dV are written once per (query head, key) and summed over
     the group in a fixed order: two calls give the same bits. (dQ is
     added with atomics in an order that varies, so it is not.) At D =
-    256 over recurrentgemma-2b's ten query heads of one KV head."""
+    256 over recurrentgemma-2b's ten query heads of one KV head, at D =
+    160 over pixtral-12b's groups of four."""
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed_bwd)
     rng = np.random.default_rng(33)
@@ -435,11 +479,12 @@ def _k1_fwd_close(tag, got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
 def test_packed_forward_at_the_training_shape(card, D):
     """The training path's row: one 4096-token row with 256-token
     frames; at D = 64 / 128 12 query heads over 2 KV heads, causal
-    (internvl3-2b's heads at 128), at D = 256 recurrentgemma-2b's 10
+    (internvl3-2b's heads at 128), at D = 160 pixtral-12b's 32 over 8,
+    causal, at D = 256 recurrentgemma-2b's 10
     over one KV head, sliding at its window of 2048. Most key tiles take
     the unmasked path. The library records the launch: two warpgroups a
     block over 128 rows of one query head."""
@@ -469,7 +514,7 @@ K1_FWD_CASES = [  # mode, window, spans, H == Hkv, ring hop
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
 @pytest.mark.parametrize("case", range(len(K1_FWD_CASES)))
 def test_packed_forward_modes(card, D, case):
     """Every mode, with and without spans, over segments long enough for
@@ -504,7 +549,7 @@ def test_packed_forward_modes(card, D, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
 def test_packed_forward_rows_without_keys(card, D):
     """A ring hop whose keys hold no token of one query segment, and
     padding on both sides: those rows' o is exactly 0 and their LSE
@@ -526,7 +571,7 @@ def test_packed_forward_rows_without_keys(card, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
 def test_packed_forward_is_deterministic(card, D):
     """Each row's sums run in one fixed order: two calls give the same
     bits of o and the LSE."""

@@ -74,3 +74,24 @@ def test_wave_model_places_blocks_in_issue_order():
     assert (w["heavy_first_tiles"], w["light_first_tiles"]) == (4, 6)
     assert w["heavy_first_tail"] == 0.0
     assert w["light_first_tail"] == pytest.approx(0.5)
+
+
+def test_pixtral_shape_is_the_configs_heads():
+    """The pixtral shape is pixtral-12b's attention: 32 query heads over
+    8 KV heads of 5120 / 32 = 160, causal."""
+    from repro_torch.configs import get_config
+    cfg = get_config("pixtral-12b")
+    shape = K1.SHAPES["pixtral"]
+    assert (shape["H"], shape["HKV"], shape["D"]) == (
+        cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim) == (32, 8, 160)
+    assert shape["mode"] == "causal" and shape["vocab"] == cfg.vocab
+
+
+@pytest.mark.parametrize("fault", ["fwd_v_third_block", "bwd_third_block"])
+def test_third_block_faults_edit_the_head_dim_160_products(fault):
+    """The third 64-column block's products exist only where the tiles
+    are 192 columns wide (D = 160): the planted text is the first line
+    of an `if constexpr (DP == 192)` block."""
+    (text, _), = K1.FAULTS["pixtral"][fault][2]
+    before = SOURCE[:SOURCE.index(text)].rstrip().splitlines()[-1]
+    assert before.strip() == "if constexpr (DP == 192) {", fault

@@ -80,3 +80,20 @@ def test_a_value_that_is_not_finite_reads_as_an_infinite_error(bad):
     assert errs["elementwise"] > K2.REL_TOL_BF16
     assert errs["whole"] > K2.REL_TOL_BF16
     assert K2._errs(ref, ref) == {"elementwise": 0.0, "whole": 0.0}
+
+
+def test_head_dim_160_cases_run_at_pixtral_heads():
+    """The cases tagged d160 run at pixtral-12b's 32:8 heads of 160, the
+    others at internvl3-2b's; each d160 fault must show in d160 cases
+    only (the others run no D = 160 code)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("pixtral-12b")
+    pix = (cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim)
+    assert pix == (32, 8, 160)
+    for name, case in K2.CASES.items():
+        want = pix if "d160" in case[5] else (K2.H, K2.HKV, K2.D)
+        assert K2.CASE_HEADS[name] == want, name
+    d160 = [f for f in PLANTED if f.startswith("d160_")]
+    assert len(d160) == 3
+    for fault in d160:
+        assert K2.FAULTS[fault][0] == {"d160"}, fault
