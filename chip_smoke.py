@@ -10,8 +10,9 @@ training, granite-moe-1b-a400m's and olmoe-1b-7b's serving, at full
 width), and the remaining dense and VLM configs (pixtral-12b's and
 qwen3vl-8b's DHP training at full width, depth cut, and their serving
 whole; chatglm3-6b, glm4-9b, minitron-4b and llama3-405b, 2 layers,
-through Engine.serve; pixtral-12b's forward with patch embeddings) —
-and checks what comes out.
+through Engine.serve; pixtral-12b's forward with patch embeddings), and
+the audio family (whisper-small's serving and forward, whole) — and
+checks what comes out.
 
     python3 chip_smoke.py
 
@@ -285,9 +286,39 @@ Phases:
                 through K2 at D = 160, elementwise at most 1.25 times as
                 far from fp32 as the plain attention path's bf16 logits,
                 three faults of the D = 160 layout planted around K2
-                farther; the patches reach the logits. Then the run's wall
-
-Phases 27-34 run in a process of their own (`--late-phases`), started
+                farther; the patches reach the logits
+ 35. audio kernels — K2 in full mode (fp32 and bf16) vs plain with phase
+                3's limits at whisper-small's 12:12 heads of 64 over 1500
+                keys: the encoder at 1x1500, 2x1500 and 4x1500, the
+                cross-attention at 1, 96 and 448 queries and 2 x 448; K2
+                causal at 2x448 in bf16 (the decoder); ms, device_ms,
+                plain, SDPA, bound and each launch
+                (`flash_attention_full_d64`, `_bf16`)
+ 36. audio parity — reduced whisper-small (fp32, kernels on): serving
+                streams (slots=2, a slot reused) vs greedy_generate from
+                init_cache + prefill_cross_kv and the last prompt token,
+                K2 once an encoder layer a request; 12 decode_step logits
+                vs forward through K2 (2e-3)
+ 37. audio serving — whisper-small whole at full width, bf16:
+                full_width_trace through Engine.serving(slots=4).run(),
+                traced: 32 in-vocab tokens a request, no prefill, one
+                encoder pass an admission (K2's fp32 kernel once an
+                encoder layer, no other kernel); tokens/s, TTFT, wall,
+                peak memory, the slot cache's bytes, an encoder pass's
+                time, one slot decode step's device ops, finite logits;
+                Engine.serve(batch=4, prompt_len=96, gen_tokens=32)'s ms
+                a token, K2's fp32 kernel once an encoder layer
+ 38. audio forward — whisper-small whole, `forward` with synthetic_batch
+                (2 x 448 tokens, 1500 frames), frames in fp32 and then
+                bf16: K2's launches counted by kernel and mode (24 full
+                of the frames' dtype's kernel, 12 causal bf16), every
+                shape launched one that phase 35 held; elementwise at
+                most 1.25 times as far from the same weights in fp32 as
+                the plain attention path; two faults planted around the
+                fp32 kernel (the last key tile dropped, the scale at
+                D = 128) farther; other frames move the logits. Then the
+                run's wall
+Phases 27-38 run in a process of their own (`--late-phases`), started
 by the first on the same card after it has released its memory:
 after some 400 profiler sessions in one process torch.profiler drops
 kernels' events and then traces none, so their device times are read
@@ -422,19 +453,21 @@ H, HKV, D = 12, 2, 128     # internvl3-2b's attention heads
 
 
 def check_kernel(dev, card, gen, B, S, dtype, mode="causal", window=None,
-                 off=0, heads=(H, HKV, D)):
+                 off=0, heads=(H, HKV, D), Sk=None):
     """Hold the kernel against its plain version on one random input at
-    [B, S, H, D] / [B, S, HKV, D] (`heads` = (H, HKV, D), internvl3-2b's
-    by default); time both and the library call, the kernel and the
-    library call also by device time (torch.profiler), and print the
-    bf16 kernel's launch beside the card's SMs."""
+    [B, S, H, D] / [B, Sk, HKV, D] (`heads` = (H, HKV, D), internvl3-2b's
+    by default; Sk = S unless given); time both and the library call,
+    the kernel and the library call also by device time
+    (torch.profiler), and print the kernel's launch beside the card's
+    SMs."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref,
                                                      last_launch)
     H, HKV, D = heads
+    Sk = Sk or S
     q = torch.randn(B, S, H, D, generator=gen, device=dev).to(dtype)
-    k = torch.randn(B, S, HKV, D, generator=gen, device=dev).to(dtype)
-    v = torch.randn(B, S, HKV, D, generator=gen, device=dev).to(dtype)
+    k = torch.randn(B, Sk, HKV, D, generator=gen, device=dev).to(dtype)
+    v = torch.randn(B, Sk, HKV, D, generator=gen, device=dev).to(dtype)
     kw = dict(mode=mode, window=window, kv_offset=off)
     out = flash_attention(q, k, v, **kw).float()
     ref = flash_attention_ref(q, k, v, **kw).float()
@@ -444,22 +477,21 @@ def check_kernel(dev, card, gen, B, S, dtype, mode="causal", window=None,
     scaled = (diff / ref.abs().clamp_min(1.0)).max().item()
     if not (math.isfinite(scaled) and scaled <= TOL[dtype]):
         raise AssertionError(
-            f"kernel disagrees with its plain version: B={B} S={S} "
+            f"kernel disagrees with its plain version: B={B} S={S} Sk={Sk} "
             f"{dtype} {mode} kv_offset={off}: max|err|/max(1,|ref|) "
             f"{scaled} > {TOL[dtype]} (max|err| {err})")
-    if dtype == torch.bfloat16:
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        print(f"  kernel launch B={B} S={S} "
-              f"{json.dumps(dict(**last_launch(), sms=sms))} ({card})")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"  kernel launch B={B} S={S} Sk={Sk} {dtype} "
+          f"{json.dumps(dict(**last_launch(), sms=sms))} ({card})")
     ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
     dev_ms, _ = device_ms(lambda: flash_attention(q, k, v, **kw))
     plain = cuda_ms(lambda: flash_attention_ref(q, k, v, **kw),
                     iters=5, warmup=1)
     lib, lib_dev = (library_ms(q, k, v, mode, window) if off == 0
                     else (None, None))
-    bound, bound_by = attention_bound(B, S, S, H, HKV, D, dtype, mode,
+    bound, bound_by = attention_bound(B, S, Sk, H, HKV, D, dtype, mode,
                                       window, off)
-    row = dict(B=B, S=S, H=H, Hkv=HKV, D=D,
+    row = dict(B=B, S=S, Sk=Sk, H=H, Hkv=HKV, D=D,
                dtype=str(dtype).split(".")[-1], mode=mode, window=window,
                kv_offset=off, max_abs_err=err, max_scaled_err=scaled,
                tol=TOL[dtype], ms=ms, device_ms=dev_ms, plain_ms=plain,
@@ -2195,6 +2227,7 @@ def _zero_all_kernel_counts():
     from repro_torch.kernels.ssd_chunk import ssd_chunk, ssd_chunk_bwd
     for fn in (flash_attention, ssd_chunk, ssd_chunk_bwd):
         fn.launches = 0
+    flash_attention.launches_by = {}
     _zero_k4_k1_counts()
 
 
@@ -2782,7 +2815,7 @@ SHORT_SERVES = (("chatglm3-6b", None), ("glm4-9b", None),
 #: (0.077 and 0.075 from fp32 on an H100 80GB HBM3, 700 W), beyond any
 #: fixed limit near 2e-2; each of VLM_FAULTS must lie beyond the margin
 VLM_MARGIN = 1.25
-#: phases 27-34 took 80-140 s on an H100 80GB HBM3, 700 W
+#: phases 27-38 took 80-150 s on an H100 80GB HBM3, 700 W
 LATE_TIMEOUT_S = 600
 VLM_FAULTS = ("scale_at_192", "third_block_unwritten",
               "third_block_from_second")
@@ -3013,6 +3046,376 @@ def phase_vlm_forward(dev, card):
     return launches
 
 
+# ------------------------------------------------------ the audio family
+#: whisper-small's attention heads: 12:12 of 64
+WHISPER_HEADS = (12, 12, 64)
+WHISPER_FRAMES = 1500
+#: (rows, query length) of K2 in full mode over WHISPER_FRAMES keys: the
+#: encoder (one request's admission; forward's 2 rows; Engine.serve's
+#: batch of 4) and the decoder's cross-attention (forward's 2 x 448; 1,
+#: 96 and 448 a row beside)
+AUDIO_SHAPES = ((1, 1500), (2, 1500), (4, 1500), (1, 1), (1, 96), (1, 448),
+                (2, 448))
+#: (rows, length) of K2 in causal mode at whisper's heads, bf16: the
+#: decoder's self-attention in forward
+AUDIO_CAUSAL = ((2, 448),)
+#: faults planted around K2's fp32 kernel (the encoder's and the
+#: cross-attention's from fp32 frames) in phase 38: the last key tile of
+#: 32 never read (over 1500 frames the partial one of 28), and the
+#: softmax scale taken at head_dim 128, not 64
+AUDIO_FAULTS = ("last_key_tile_dropped", "scale_at_d128")
+AUDIO_PARITY_PROMPTS = (21, 5, 1)
+#: the audio forward's logits through the kernels lie at most this many
+#: times as far (elementwise) from the same weights in fp32 as the plain
+#: attention path's do, as VLM_MARGIN holds the VLM forward
+AUDIO_MARGIN = 1.25
+
+
+def phase_audio_kernels(dev, card):
+    """K2 vs its plain version at whisper-small's heads: full mode at
+    AUDIO_SHAPES over 1500 keys, fp32 (the kernel the encoder and the
+    cross-attention run from fp32 frames) and bf16, and causal at
+    AUDIO_CAUSAL in bf16 (the decoder's self-attention), phase 3's
+    limits; ms, device_ms, plain, SDPA, the bound and each launch."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rows = [check_kernel(dev, card, gen, B, Sq, dtype, "full",
+                         heads=WHISPER_HEADS, Sk=WHISPER_FRAMES)
+            for dtype in (torch.float32, torch.bfloat16)
+            for B, Sq in AUDIO_SHAPES]
+    return rows + [check_kernel(dev, card, gen, B, S, torch.bfloat16,
+                                heads=WHISPER_HEADS)
+                   for B, S in AUDIO_CAUSAL]
+
+
+def phase_audio_parity(dev, card):
+    """Reduced whisper-small in fp32, kernels on: the ServingEngine's
+    streams (slots=2, a slot reused) against greedy_generate from
+    init_cache + prefill_cross_kv of serving_frames and each prompt's
+    last token, as phase 4 holds the dense family; K2 launched once an
+    encoder layer a request; 12 decode_step logits against forward
+    through K2 (2e-3). Returns the run's K2 launches."""
+    from repro_torch.api import Engine
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model as tm
+    from repro_torch.serving.scheduler import ServeRequest
+    from repro_torch.serving.serve_step import greedy_generate
+
+    cfg = get_config("whisper-small").reduced().with_(attn_impl="cuda")
+    eng = Engine(cfg, seed=0)
+    params = eng.state.params
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, size=L, dtype=np.int32)
+               for L in AUDIO_PARITY_PROMPTS]
+    n_new = 4
+    frames = tm.serving_frames(cfg, 1, eng.seed, dev)
+
+    def reference(prompt):
+        cache = tm.prefill_cross_kv(
+            params, cfg, frames,
+            tm.init_cache(cfg, 1, len(prompt) + n_new + 1, device=dev))
+        first = torch.as_tensor(prompt[-1:], device=dev).long()
+        out, _ = greedy_generate(params, cfg, cache, first, n_new)
+        return [int(t) for t in out[0].cpu()]
+
+    trace = [ServeRequest(request_id=i, tokens=p, max_new_tokens=n_new)
+             for i, p in enumerate(prompts)]
+    flash_attention.launches = 0
+    rep = eng.serving(slots=2).run(trace)
+    torch.cuda.synchronize()
+    launches = flash_attention.launches
+    if launches != len(prompts) * cfg.encdec.n_enc_layers:
+        raise AssertionError(f"{launches} K2 launches, want "
+                             f"{cfg.encdec.n_enc_layers} a request")
+    for m in rep.requests:
+        want = reference(prompts[m.request_id])
+        if m.tokens != want:
+            raise AssertionError(f"request {m.request_id}: serving stream "
+                                 f"{m.tokens} != greedy_generate {want}")
+    print(f"  audio parity: {[m.tokens for m in rep.requests]} == "
+          f"greedy_generate; K2 launches {launches}")
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic_batch(cfg, 2, 12, seed=0).items()}
+    with torch.no_grad():
+        full, _ = tm.forward(params, cfg, batch)
+    cache = tm.prefill_cross_kv(params, cfg, batch["frames"],
+                                tm.init_cache(cfg, 2, 16, device=dev))
+    out = []
+    for t in range(12):
+        logits, cache = tm.decode_step(params, cfg, cache,
+                                       batch["tokens"][:, t])
+        out.append(logits)
+    err = _scaled_max(torch.stack(out, dim=1), full)
+    print(f"  audio decode vs forward: max|err|/max(1,|forward|) {err} "
+          f"(limit 2e-3) ({card})")
+    if not err <= 2e-3:
+        raise AssertionError(f"audio decode vs forward {err} > 2e-3")
+    eng.close()
+    return launches
+
+
+def phase_audio_serving(dev, card):
+    """Full-width whisper-small, bf16, whole: full_width_trace through
+    Engine.serving(slots=4).run(), traced: every request finishes with
+    32 in-vocab tokens, none prefilled, each admission one encoder pass
+    (an `encode` span; K2 launched once an encoder layer, no other
+    kernel); tokens/s, TTFT, wall, peak memory, the slot cache's bytes,
+    one encoder pass's time, one slot decode step's device ops; a decode
+    step's logits finite; Engine.serve(batch=4, prompt_len=96,
+    gen_tokens=32)'s ms a token and K2 launches (one encoder pass of 4
+    rows). Every launch is of the fp32 kernel in full mode (serving
+    draws fp32 frames). Returns (the run's K2 launches by kernel and
+    mode, serve's)."""
+    from repro_torch.api import Engine
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model as tm
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serving.serve_step import make_slot_cache
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = Engine("whisper-small", seed=0)
+    cfg, params = eng.cfg, eng.state.params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    enc_layers = cfg.encdec.n_enc_layers
+    print(f"  whisper-small: {enc_layers} encoder and {cfg.n_layers} "
+          f"decoder layers, d_model {cfg.d_model}, {cfg.n_heads}:"
+          f"{cfg.kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"{cfg.encdec.n_audio_frames} frames, "
+          f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params "
+          f"{cfg.param_dtype} ({_tree_bytes(params)} bytes), init "
+          f"{init_s:.1f} s ({card})")
+    trace = full_width_trace(cfg.vocab)
+    srv = eng.serving(slots=4)
+    tracer = Tracer()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_all_kernel_counts()
+    rep = srv.run(trace, trace=tracer)
+    torch.cuda.synchronize()
+    counts = _all_kernel_counts()
+    run_by = dict(flash_attention.launches_by)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if tracer.dropped:
+        raise AssertionError(f"the tracer dropped {tracer.dropped} events")
+    events = tracer.to_json()["traceEvents"]
+    encodes = sum(ev["name"] == "encode" for ev in events)
+    if encodes != len(trace):
+        raise AssertionError(f"{encodes} encoder passes for {len(trace)} "
+                             f"requests")
+    if any(ev["name"].startswith("prefill_") for ev in events):
+        raise AssertionError("an audio prompt was prefilled")
+    others = {k: v for k, v in counts.items() if k != "k2"}
+    if counts["k2"] != enc_layers * len(trace) or any(
+            n for v in others.values() for n in np.atleast_1d(v)):
+        raise AssertionError(f"kernel launches {counts}, want K2 "
+                             f"{enc_layers} x {len(trace)} alone")
+    want_by = {"flash_fwd_f32_kernel full": enc_layers * len(trace)}
+    if run_by != want_by:
+        raise AssertionError(f"K2 launches by kernel {run_by}, want "
+                             f"{want_by}")
+    by_id = {m.request_id: m for m in rep.requests}
+    for r in trace:
+        m = by_id.get(r.request_id)
+        if m is None or m.n_generated != r.max_new_tokens:
+            raise AssertionError(f"request {r.request_id} did not finish "
+                                 f"with {r.max_new_tokens} tokens")
+        if not all(0 <= t < cfg.vocab for t in m.tokens):
+            raise AssertionError(f"request {r.request_id}: token out of "
+                                 f"vocab: {m.tokens}")
+    slots = make_slot_cache(cfg, rep.n_slots, rep.cache_len, device=dev)
+    slot_bytes = _tree_bytes({k: v for k, v in slots.items()
+                              if k != "pos"})
+    cross_bytes = _tree_bytes({k: slots[k] for k in ("cross_k",
+                                                     "cross_v")})
+    del slots
+    frames = tm.serving_frames(cfg, 1, eng.seed, dev)
+    cache = tm.init_cache(cfg, 1, 8, device=dev)
+    encode_ms = cuda_ms(lambda: tm.prefill_cross_kv(params, cfg, frames,
+                                                    cache), iters=5)
+    encode_device_ms, _ = device_ms(
+        lambda: tm.prefill_cross_kv(params, cfg, frames, cache), iters=5)
+    cache = tm.prefill_cross_kv(params, cfg, frames, cache)
+    logits, _ = tm.decode_step(params, cfg, cache, torch.as_tensor(
+        trace[0].tokens[-1:], device=dev).long())
+    if not torch.isfinite(logits).all():
+        raise AssertionError("whisper-small decode logits are not finite")
+    step_ms, step_kernels, step_host_ms = decode_step_ops(
+        srv, rep.n_slots, rep.cache_len)
+    flash_attention.launches = 0
+    flash_attention.launches_by = {}
+    toks, served = eng.serve(batch=4, prompt_len=96, gen_tokens=32)
+    torch.cuda.synchronize()
+    serve_launches = flash_attention.launches
+    serve_by = dict(flash_attention.launches_by)
+    if serve_by != {"flash_fwd_f32_kernel full": enc_layers}:
+        raise AssertionError(f"Engine.serve: K2 launches {serve_by}, want "
+                             f"{enc_layers} of the fp32 kernel (one "
+                             f"encoder pass)")
+    if not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"Engine.serve decoded {toks}")
+    stats = dict(requests=len(rep.requests), tokens=rep.total_tokens,
+                 tokens_per_s=rep.tokens_per_s, mean_ttft_s=rep.mean_ttft_s,
+                 max_ttft_s=rep.max_ttft_s, wall_s=rep.wall_s,
+                 decode_steps=rep.n_decode_steps, encoder_passes=encodes,
+                 n_slots=rep.n_slots, cache_len=rep.cache_len,
+                 max_memory_allocated_bytes=peak,
+                 slot_cache_bytes=slot_bytes,
+                 slot_cross_kv_bytes=cross_bytes,
+                 kernel_launches=counts, k2_launches_by=run_by,
+                 encode_ms=encode_ms,
+                 encode_device_ms=encode_device_ms,
+                 decode_step_device_ms=step_ms,
+                 decode_step_device_ops=step_kernels,
+                 decode_step_host_ms=step_host_ms,
+                 serve_ms_per_token=served["ms_per_token"],
+                 serve_prefill_s=served["prefill_s"],
+                 serve_k2_launches=serve_launches,
+                 serve_k2_launches_by=serve_by,
+                 logits_finite=True)
+    for key, val in stats.items():
+        print(f"  whisper-small serving {key} = {val} ({card})")
+    eng.close()
+    del eng, params, srv, cache, logits
+    torch.cuda.empty_cache()
+    return run_by, serve_by
+
+
+def _recording_k2(seen):
+    """K2 as the model calls it, each call's (B, Sq, Sk, H, Hkv, D, mode,
+    dtype) added to `seen`."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def call(q, k, v, **kw):
+        seen.add((*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                  q.shape[3], kw.get("mode", "causal"),
+                  str(q.dtype).split(".")[-1]))
+        return flash_attention(q, k, v, **kw)
+    return call
+
+
+def _planted_k2_f32(fault):
+    """K2 with one fault of AUDIO_FAULTS planted around the sound fp32
+    kernel, as the model calls it (bf16 calls run sound):
+    `last_key_tile_dropped` (the keys past the last whole tile of 32,
+    or the last tile where all are whole, never read) and
+    `scale_at_d128` (q times sqrt(D / 128))."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def call(q, k, v, **kw):
+        if q.dtype == torch.float32:
+            if fault == "last_key_tile_dropped":
+                keep = (k.shape[1] - 1) // 32 * 32
+                k, v = k[:, :keep].contiguous(), v[:, :keep].contiguous()
+            elif fault == "scale_at_d128":
+                q = q * math.sqrt(q.shape[-1] / 128)
+        return flash_attention(q, k, v, **kw)
+    return call
+
+
+def phase_audio_forward(dev, card, held):
+    """whisper-small at full width, bf16, through `forward` with
+    synthetic_batch (2 rows of 448 tokens and 1500 frames): its frames
+    in fp32 (the encoder and the cross-attention through K2's fp32
+    kernel, the decoder's self-attention through the bf16 one), then
+    in bf16 (every attention through the bf16 kernel); each held
+    elementwise to at most AUDIO_MARGIN times the plain attention path's
+    distance from the same weights and frames in fp32; K2's launches
+    counted by kernel and mode (2 x 12 full and 12 causal a forward);
+    every shape K2 was launched at one that phase 35 held against the
+    plain version (`held`, its rows); each fault of AUDIO_FAULTS planted
+    around the fp32 kernel beyond the margin; other frames move the
+    logits. Returns {frames dtype: K2 launches by kernel and mode}."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import attention
+    from repro_torch.models import model as tm
+    from repro_torch.training.optimizer import tree_map
+    torch.cuda.empty_cache()
+    cfg = get_config("whisper-small")
+    params = tm.init_params(cfg, seed=0, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic_batch(cfg, 2, 448, seed=0).items()}
+    n_enc, n_dec = cfg.encdec.n_enc_layers, cfg.n_layers
+    want = {"float32": {"flash_fwd_f32_kernel full": n_enc + n_dec,
+                        "flash_fwd_wg_kernel causal": n_dec},
+            "bfloat16": {"flash_fwd_wg_kernel full": n_enc + n_dec,
+                         "flash_fwd_wg_kernel causal": n_dec}}
+    launches, rows, seen = {}, {}, set()
+    with torch.no_grad():
+        fp32 = cfg.with_(param_dtype="float32", attn_impl="reference")
+        truth, _ = tm.forward(tree_map(lambda t: t.float(), params), fp32,
+                              batch)
+        for dt in (torch.float32, torch.bfloat16):
+            b = dict(batch, frames=batch["frames"].to(dt))
+            flash_attention.launches = 0
+            flash_attention.launches_by = {}
+            attention.flash_attention = _recording_k2(seen)
+            try:
+                got, _ = tm.forward(params, cfg, b)
+                torch.cuda.synchronize()
+            finally:
+                attention.flash_attention = flash_attention
+            name = str(dt).split(".")[-1]
+            launches[name] = dict(flash_attention.launches_by)
+            ref, _ = tm.forward(params, cfg.with_(attn_impl="reference"), b)
+            plain_err = _scaled_max(ref, truth)
+            rows[name] = dict(
+                frames=name, k2_launches=flash_attention.launches,
+                k2_launches_by=launches[name],
+                kernel_vs_fp32_scaled=_scaled_max(got, truth),
+                plain_vs_fp32_scaled=plain_err,
+                ratio=_scaled_max(got, truth) / plain_err,
+                kernel_vs_plain_scaled=_scaled_max(got, ref),
+                finite=bool(torch.isfinite(got).all()))
+            if dt == torch.float32:
+                other = dict(batch, frames=batch["frames"].flip(0))
+                moved, _ = tm.forward(params, cfg, other)
+                rows[name]["frames_moved"] = (
+                    moved - got).float().abs().max().item()
+                faulty = {}
+                for fault in AUDIO_FAULTS:
+                    attention.flash_attention = _planted_k2_f32(fault)
+                    try:
+                        logits, _ = tm.forward(params, cfg, b)
+                    finally:
+                        attention.flash_attention = flash_attention
+                    faulty[fault] = _scaled_max(logits, truth) / plain_err
+                    del logits
+                rows[name]["fault_ratio"] = faulty
+            del got, ref
+    held_at = {(r["B"], r["S"], r["Sk"], r["H"], r["Hkv"], r["D"],
+                r["mode"], r["dtype"]) for r in held}
+    for row in rows.values():
+        print(f"  whisper-small forward {json.dumps(row)} ({card})")
+        if not row["finite"]:
+            raise AssertionError("audio forward logits are not finite")
+        if row["k2_launches_by"] != want[row["frames"]]:
+            raise AssertionError(f"K2 launches {row['k2_launches_by']}, "
+                                 f"want {want[row['frames']]}")
+        if not row["ratio"] <= AUDIO_MARGIN:
+            raise AssertionError(
+                f"audio forward ({row['frames']} frames) through the "
+                f"kernels {row['ratio']} times as far from fp32 as the "
+                f"plain attention path (> {AUDIO_MARGIN})")
+    print(f"  whisper-small forward K2 shapes {sorted(seen)} ({card})")
+    if not seen <= held_at:
+        raise AssertionError(f"K2 launched at shapes phase 35 did not hold "
+                             f"against plain: {sorted(seen - held_at)}")
+    faulty = rows["float32"]["fault_ratio"]
+    if not all(r > AUDIO_MARGIN for r in faulty.values()):
+        raise AssertionError(f"planted fp32 K2 faults within the audio "
+                             f"check: {faulty} (margin {AUDIO_MARGIN})")
+    if not rows["float32"]["frames_moved"] > 0:
+        raise AssertionError("the frames did not reach the logits")
+    del params, truth
+    torch.cuda.empty_cache()
+    return launches
+
+
 class PhaseClock:
     """`phase(header)` prints a phase's header line and, first, how long
     the phase before it took; `end()` closes the last."""
@@ -3040,45 +3443,57 @@ def _leaves(tree):
 
 
 def late_phases(dev, card) -> dict:
-    """Phases 27-34; returns what the kernels line takes from them."""
+    """Phases 27-38; returns what the kernels line takes from them."""
     phase = PhaseClock()
-    phase("[27/34] K1 and K2 vs plain versions at the dense and VLM "
+    phase("[27/38] K1 and K2 vs plain versions at the dense and VLM "
           "configs' head groupings (32:2, 24:8, 32:8, 128:8 at D=128; 32:8 "
           "at D=160)")
     dense_k1, dense_k2 = phase_dense_kernels(dev, card)
-    phase("[28/34] dense and VLM training parity at reduced size (fp32): "
+    phase("[28/38] dense and VLM training parity at reduced size (fp32): "
           "chatglm3-6b, pixtral-12b at head_dim 160")
     phase_dense_parity(dev)
-    phase("[29-30/34] full-width DHP training (bf16), depth cut: "
+    phase("[29-30/38] full-width DHP training (bf16), depth cut: "
           + ", ".join(f"{a} {n} layers" for a, n in DENSE_TRAIN))
     dense_train = phase_dense_training(dev, card)
-    phase("[31/34] K1 at head_dim 160 vs plain versions at the pixtral-12b "
+    phase("[31/38] K1 at head_dim 160 vs plain versions at the pixtral-12b "
           "run's shapes")
     _, _, p_tables, p_layers = dense_train["pixtral-12b"]
     d160_path = phase_train_path(dev, card, p_tables, p_layers,
                                  heads=PIXTRAL_HEADS, tag="pixtral train")
-    phase(f"[32/34] full-width serving (bf16): {', '.join(VLM_SERVE_ARCHS)}"
+    phase(f"[32/38] full-width serving (bf16): {', '.join(VLM_SERVE_ARCHS)}"
           f", K2 vs plain at each shape the runs launched")
     dense_served = phase_dense_serving(dev, card)
-    phase("[33/34] Engine.serve at full width (bf16): "
+    phase("[33/38] Engine.serve at full width (bf16): "
           + ", ".join(a if n is None else f"{a} ({n} layers)"
                       for a, n in SHORT_SERVES))
     short_served = phase_short_serves(dev, card)
-    phase("[34/34] the VLM forward with patches: pixtral-12b at full width, "
+    phase("[34/38] the VLM forward with patches: pixtral-12b at full width, "
           "2 layers (bf16)")
     vlm_launches = phase_vlm_forward(dev, card)
+    phase("[35/38] K2 vs plain versions at whisper-small's shapes (12:12 "
+          "heads of 64; full over 1500 keys in fp32 and bf16, causal bf16)")
+    audio_k2 = phase_audio_kernels(dev, card)
+    phase("[36/38] audio serving parity at reduced size (fp32)")
+    phase_audio_parity(dev, card)
+    phase("[37/38] full-width whisper-small serving (bf16)")
+    audio_served = phase_audio_serving(dev, card)
+    phase("[38/38] the audio forward: whisper-small at full width (bf16; "
+          "fp32 and bf16 frames)")
+    audio_forward = phase_audio_forward(dev, card, audio_k2)
     phase.end()
     return dict(dense_k1=dense_k1, dense_k2=dense_k2, d160_path=d160_path,
                 train_launches={a: t[:2] for a, t in dense_train.items()},
                 served={a: t[:2] for a, t in dense_served.items()},
-                short_served=short_served, vlm_launches=vlm_launches)
+                short_served=short_served, vlm_launches=vlm_launches,
+                audio_k2=audio_k2, audio_served=audio_served,
+                audio_forward=audio_forward)
 
 
 LATE_FLAG = "--late-phases"
 
 
 def run_late_phases() -> dict:
-    """Phases 27-34 in a process of their own on the same card (see the
+    """Phases 27-38 in a process of their own on the same card (see the
     module docstring), after this one has released its cached memory;
     they print to this process's streams, and what they return comes
     back as JSON through the checkout's git-ignored build directory."""
@@ -3120,13 +3535,13 @@ def main() -> int:
         with open(sys.argv[2], "w") as f:
             json.dump(late, f)
         return 0
-    print(f"[1/34] device: {name}; torch {torch.__version__} cuda "
+    print(f"[1/38] device: {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(card)
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"[2/34] build: {time.perf_counter() - t0:.1f} s for "
+    print(f"[2/38] build: {time.perf_counter() - t0:.1f} s for "
           f"{build.sources()}")
     for src, log in build.build_logs.items():
         for line in log.splitlines():
@@ -3134,13 +3549,13 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
 
     phase = PhaseClock()
-    phase("[3/34] kernels vs plain versions")
+    phase("[3/38] kernels vs plain versions")
     rows = phase_kernels(dev, card)
-    phase("[4/34] parity at reduced size (fp32)")
+    phase("[4/38] parity at reduced size (fp32)")
     phase_parity(dev)
-    phase("[5/34] full-width serving (bf16)")
+    phase("[5/38] full-width serving (bf16)")
     launches, shapes, n_layers, _ = phase_serving(dev, card)
-    phase("[6/34] kernels vs plain versions at the serving run's shapes")
+    phase("[6/38] kernels vs plain versions at the serving run's shapes")
     path = phase_path(dev, card, shapes, n_layers)
 
     # the shape launched most often stands for the kernel; every shape
@@ -3172,15 +3587,15 @@ def main() -> int:
                              **{k: r[k] for k in keys}) for r in path],
     }]
 
-    phase("[7/34] packed kernel K1 vs plain versions")
+    phase("[7/38] packed kernel K1 vs plain versions")
     packed_rows = phase_packed(dev, card)
-    phase("[8/34] training parity at reduced size (fp32)")
+    phase("[8/38] training parity at reduced size (fp32)")
     phase_train_parity(dev)
-    phase("[9/34] full-width DHP training (bf16)")
+    phase("[9/38] full-width DHP training (bf16)")
     collect_garbage("train")
     n_fwd, n_bwd, tables, n_layers = phase_training(dev, card)
     torch.cuda.empty_cache()
-    phase("[10/34] K1 vs plain versions at the training run's shapes")
+    phase("[10/38] K1 vs plain versions at the training run's shapes")
     train_rows = phase_train_path(dev, card, tables, n_layers)
 
     # the shape launched most often stands for each K1 kernel; every
@@ -3218,17 +3633,17 @@ def main() -> int:
                 library_ms=r[f"library_{which}_ms"]) for r in train_rows],
         })
 
-    phase("[11/34] SSD chunk kernel K3 vs plain versions")
+    phase("[11/38] SSD chunk kernel K3 vs plain versions")
     ssd_rows = phase_ssd(dev, card)
-    phase("[12/34] SSM training parity at reduced size (fp32)")
+    phase("[12/38] SSM training parity at reduced size (fp32)")
     phase_ssm_parity(dev)
-    phase("[13/34] full-width mamba2-370m DHP training (bf16)")
+    phase("[13/38] full-width mamba2-370m DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("ssm train")
     s_fwd, s_bwd, ssm_shapes, ssm_layers, chunk = phase_ssm_training(dev,
                                                                      card)
     torch.cuda.empty_cache()
-    phase("[14/34] K3 vs plain versions at the SSM training run's shapes")
+    phase("[14/38] K3 vs plain versions at the SSM training run's shapes")
     ssd_path = phase_ssd_path(dev, card, ssm_shapes, ssm_layers, chunk)
 
     # the shape launched most often stands for each K3 kernel; every
@@ -3266,18 +3681,18 @@ def main() -> int:
                 inter_chunk_fwd_bwd_ms=r["inter_chunk_fwd_bwd_ms"])
                 for r in ssd_path],
         })
-    phase("[15/34] RG-LRU scan kernel K4 vs plain versions")
+    phase("[15/38] RG-LRU scan kernel K4 vs plain versions")
     rg_rows = phase_rglru(dev, card)
-    phase("[16/34] K1 at head_dim 256 vs plain versions")
+    phase("[16/38] K1 at head_dim 256 vs plain versions")
     wide_rows = phase_packed_wide(dev, card)
-    phase("[17/34] hybrid training parity at reduced size (fp32)")
+    phase("[17/38] hybrid training parity at reduced size (fp32)")
     phase_hybrid_parity(dev)
-    phase("[18/34] full-width recurrentgemma-2b DHP training (bf16)")
+    phase("[18/38] full-width recurrentgemma-2b DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("hybrid train")
     counts, hy_tables, per_group = phase_hybrid_training(dev, card)
     torch.cuda.empty_cache()
-    phase("[19/34] K4 and K1 vs plain versions at the hybrid run's shapes")
+    phase("[19/38] K4 and K1 vs plain versions at the hybrid run's shapes")
     k4_path, k1_path = phase_hybrid_path(dev, card, hy_tables, per_group)
 
     # the shape launched most often stands for each kernel; every shape
@@ -3340,7 +3755,7 @@ def main() -> int:
                 bound_by=r[f"bound_{which}_by"],
                 library_ms=r[f"library_{which}_ms"]) for r in k1_path],
         })
-    phase("[20/34] ring context parallelism (bf16): LocalRing vs K1 "
+    phase("[20/38] ring context parallelism (bf16): LocalRing vs K1 "
           "unsharded and vs the plain ring; full-width internvl3-2b at "
           f"{RING_RANKS} ranks on the one card")
     ring_rows = phase_ring(dev, card, tables)
@@ -3364,7 +3779,7 @@ def main() -> int:
                 k1_unsharded_fwd_bwd_device_ms=r[
                     "k1_unsharded_fwd_bwd_device_ms"])
                 for r in ring_rows if (r["D"] == 256) == wide]
-    phase("[21/34] state-cache and sliding-window serving parity at "
+    phase("[21/38] state-cache and sliding-window serving parity at "
           "reduced size (fp32)")
     torch.cuda.empty_cache()
     exact_launches, exact_rows = phase_state_parity(dev, card)
@@ -3375,21 +3790,21 @@ def main() -> int:
         **{k: r[k] for k in keys}) for r in exact_rows]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     *(r["max_abs_err"] for r in exact_rows))
-    phase("[22/34] full-width state-cache serving (bf16): "
+    phase("[22/38] full-width state-cache serving (bf16): "
           f"{', '.join(STATE_ARCHS)}")
     phase_state_serving(dev, card)
 
-    phase("[23/34] MoE serving and training parity at reduced size (fp32)")
+    phase("[23/38] MoE serving and training parity at reduced size (fp32)")
     torch.cuda.empty_cache()
     phase_moe_parity(dev, card)
-    phase(f"[24/34] full-width {MOE_TRAIN_ARCH} DHP training (bf16)")
+    phase(f"[24/38] full-width {MOE_TRAIN_ARCH} DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("moe train")
     m_fwd, m_bwd, moe_tables, moe_layers, moe_layer = phase_moe_training(
         dev, card)
-    phase(f"[25/34] full-width MoE serving (bf16): {', '.join(MOE_ARCHS)}")
+    phase(f"[25/38] full-width MoE serving (bf16): {', '.join(MOE_ARCHS)}")
     moe_served = phase_moe_serving(dev, card)
-    phase("[26/34] K1 at head_dim 64 and K2 at the MoE exact lengths vs "
+    phase("[26/38] K1 at head_dim 64 and K2 at the MoE exact lengths vs "
           "plain versions")
     d64_rows, d64_path, moe_k2 = phase_moe_kernels(dev, card, moe_tables,
                                                    moe_layers, moe_served)
@@ -3530,6 +3945,51 @@ def main() -> int:
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"],
         *(r["max_abs_err"] for r in q_path + dense_k2 if r["D"] == 128))
+    # K2 at head_dim 64, whisper-small's: each launch count is the one
+    # its kernel and mode had in phases 37-38. fp32 frames (what serving
+    # draws) run the fp32 kernel in full mode; bf16 frames (phase 38's
+    # second forward) the bf16 one; the decoder's causal self-attention
+    # runs the bf16 kernel in both forwards
+    serve_by, serve_once_by = late["audio_served"]
+    fwd_by = late["audio_forward"].values()
+
+    def fwd_launches(key):
+        return sum(by.get(key, 0) for by in fwd_by)
+    for dtype, suffix, kname in (
+            ("float32", "", "flash_fwd_f32_kernel"),
+            ("bfloat16", "_bf16", "flash_fwd_wg_kernel")):
+        rows = [r for r in late["audio_k2"]
+                if r["dtype"] == dtype and r["mode"] == "full"]
+        enc = next(r for r in rows if r["B"] == 1 and r["S"] == 1500)
+        entry = {
+            "name": "flash_attention_full_d64" + suffix,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:295",
+            **{k: enc[k] for k in keys if k != "launches"},
+            "forward_launches": fwd_launches(f"{kname} full"),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "shape": f"B=1 Sq=1500 Sk=1500 H=12 Hkv=12 D=64 {dtype} full "
+                     f"(whisper-small's encoder)",
+            "path_shapes": [dict(rows=r["B"], Sq=r["S"], Sk=r["Sk"],
+                                 **{k: r[k] for k in keys
+                                    if k != "launches"}) for r in rows],
+        }
+        if dtype == "float32":
+            # serving's encoder passes: one a request, one for serve()
+            entry["launches"] = serve_by.get(f"{kname} full", 0)
+            entry["serve_launches"] = serve_once_by.get(f"{kname} full", 0)
+        else:
+            entry["launches"] = entry["forward_launches"]
+        kernels.append(entry)
+    causal = [r for r in late["audio_k2"] if r["mode"] == "causal"]
+    kernels[0]["whisper_forward_launches"] = fwd_launches(
+        "flash_fwd_wg_kernel causal")
+    kernels[0]["whisper_shapes"] = [dict(
+        rows=r["B"], length=r["S"], heads=f"{r['H']}:{r['Hkv']}", D=r["D"],
+        **{k: r[k] for k in keys if k != "launches"}) for r in causal]
+    kernels[0]["max_abs_err"] = max(
+        kernels[0]["max_abs_err"], *(r["max_abs_err"] for r in causal))
     print(f"  chip_smoke wall {time.perf_counter() - t_start:.1f} s "
           f"({card})")
     print(json.dumps({"kernels": kernels}))

@@ -149,13 +149,13 @@ class Engine:
     >>> history = eng.train(steps=3, dataset="openvid", global_batch=8)
     >>> rep = eng.serving(slots=4).run(trace)
 
-    `model` is an arch id or a ModelConfig: internvl3-2b,
-    granite-moe-1b-a400m, olmoe-1b-7b, mamba2-370m or recurrentgemma-2b,
-    each of which trains and serves. VLM
-    configs run in token-stream mode (the LM decoder over pre-counted
-    tokens), as in the JAX package. `device=None` places the model on
-    the card and raises when there is none; `device="cpu"` runs on the
-    host.
+    `model` is an arch id or a ModelConfig: every arch of the JAX
+    package. Each trains and serves but whisper-small (the audio
+    family), which serves only: the reference's `Engine.train` cannot
+    run it either. VLM configs run in token-stream mode (the LM decoder
+    over pre-counted tokens), as in the JAX package. `device=None`
+    places the model on the card and raises when there is none;
+    `device="cpu"` runs on the host.
     `state` is a `TrainState`; its optimizer moments are allocated at
     the first training step, so a serving-only engine holds none.
     """
@@ -318,6 +318,7 @@ class Engine:
         planner thread, scheduler stages, one span per group on its
         rank's track) and run every group synchronously so each span
         holds its device time."""
+        self.executor      # refuses a family it cannot run, before planning
         tracer = Tracer() if trace else None
         self.last_tracer = tracer
         self.loader = HeterogeneousLoader(
@@ -368,11 +369,14 @@ class Engine:
         path). `prompts`: [B, S] token ids (drawn from the seed when
         None). The dense and MoE families prefill a K/V cache (MoE
         routing the batch's tokens jointly, as the reference does); the
-        SSM and hybrid families start from a fresh state cache with the
+        SSM, hybrid and audio families start from a fresh cache with the
         prompts' last token as the first decode input, as the JAX
-        package does.
+        package does; the audio family's cache first takes the cross K/V
+        of `serving_frames` (a row of frames a prompt) through the
+        encoder.
         Returns (decoded [B, gen_tokens], dict of timings)."""
-        from ..models.model import PREFILL_FAMILIES, init_cache, prefill
+        from ..models.model import (PREFILL_FAMILIES, init_cache, prefill,
+                                    prefill_cross_kv, serving_frames)
         from ..serving.serve_step import greedy_generate, make_serve_step
 
         if prompts is None:
@@ -393,6 +397,11 @@ class Engine:
         else:
             cache = init_cache(self.cfg, batch, cache_len,
                                device=self.device)
+            if self.cfg.family == "audio":
+                frames = serving_frames(self.cfg, batch, self.seed,
+                                        self.device)
+                cache = prefill_cross_kv(self.state.params, self.cfg,
+                                         frames, cache)
             first = prompts[:, -1]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

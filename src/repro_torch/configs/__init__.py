@@ -3,7 +3,8 @@ from __future__ import annotations
 
 import importlib
 
-from .base import HybridCfg, ModelConfig, MoECfg, SSMCfg, VLMCfg
+from .base import (EncDecCfg, HybridCfg, ModelConfig, MoECfg, SSMCfg,
+                   VLMCfg)
 
 _MODULES = {
     # the paper's own workloads
@@ -18,7 +19,7 @@ _MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "mamba2-370m": "mamba2_370m",
     "recurrentgemma-2b": "recurrentgemma_2b",
-    # whisper-small (the audio family) joins with its slice
+    "whisper-small": "whisper_small",
 }
 
 ALL_ARCHS = list(_MODULES)
@@ -31,5 +32,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["HybridCfg", "ModelConfig", "MoECfg", "SSMCfg", "VLMCfg",
-           "get_config", "ALL_ARCHS"]
+__all__ = ["EncDecCfg", "HybridCfg", "ModelConfig", "MoECfg", "SSMCfg",
+           "VLMCfg", "get_config", "ALL_ARCHS"]

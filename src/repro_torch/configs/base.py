@@ -2,10 +2,10 @@
 
 One frozen dataclass describes an architecture; `ModelConfig.reduced()`
 derives the CPU smoke-test variant (2 layers, 3 for the hybrid family,
-d_model <= 256, <= 4 experts). This copy carries the fields of the
-families the port runs (dense, VLM, MoE, SSM, hybrid; every architecture
-of the JAX package but whisper-small); the encoder-decoder sub-config
-comes with the slice that ports its family.
+d_model <= 256, <= 4 experts, 2 encoder layers over 16 audio frames).
+This copy carries the fields of the families the port runs (dense, VLM,
+MoE, SSM, hybrid and the audio encoder-decoder: every architecture of
+the JAX package).
 """
 from __future__ import annotations
 
@@ -46,6 +46,13 @@ class HybridCfg:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncDecCfg:
+    """Whisper-style encoder-decoder; encoder consumes stub frame embeds."""
+    n_enc_layers: int = 12
+    n_audio_frames: int = 1500        # conv-frontend output length (stub)
+
+
+@dataclasses.dataclass(frozen=True)
 class VLMCfg:
     """Pixtral-style VLM; ViT frontend is a stub providing patch embeds."""
     vision_dim: int = 1024            # stub patch-embedding dim
@@ -55,9 +62,10 @@ class VLMCfg:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    # dense | vlm | moe | ssm | hybrid; vlm is dense with a connector
-    # that writes projected patch embeddings into the token stream (the
-    # model's forward and prefill), and Engine runs it as dense
+    # dense | vlm | moe | ssm | hybrid | audio; vlm is dense with a
+    # connector that writes projected patch embeddings into the token
+    # stream (the model's forward and prefill), and Engine runs it as
+    # dense; audio is whisper's encoder-decoder
     family: str
     n_layers: int
     d_model: int
@@ -78,6 +86,7 @@ class ModelConfig:
     moe: Optional[MoECfg] = None
     ssm: Optional[SSMCfg] = None
     hybrid: Optional[HybridCfg] = None
+    encdec: Optional[EncDecCfg] = None
     vlm: Optional[VLMCfg] = None
 
     # attention behaviour
@@ -100,7 +109,7 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers (3 hybrid), d_model<=256, <=4
-        experts."""
+        experts, 2 encoder layers over 16 frames."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         kv = max(1, min(self.kv_heads, n_heads))
@@ -128,6 +137,9 @@ class ModelConfig:
         if self.hybrid:
             kw["hybrid"] = dataclasses.replace(
                 self.hybrid, lru_width=d_model, window=64)
+        if self.encdec:
+            kw["encdec"] = dataclasses.replace(
+                self.encdec, n_enc_layers=2, n_audio_frames=16)
         if self.vlm:
             kw["vlm"] = dataclasses.replace(self.vlm, vision_dim=64)
         return self.with_(**kw)

@@ -8,8 +8,8 @@ batches, bit for bit, in both packages. `padded_batch` pads one group's
 sequences to a bucket, one per row (the SSM family's path: its state
 crosses segment boundaries, so its sequences cannot be packed).
 `synthetic_batch` is the JAX package's fixed-shape batch (tokens,
-labels and, for the VLM family, patch embeddings and their positions),
-draw for draw; the audio family's frames come with its slice.
+labels and, for the VLM family, patch embeddings and their positions;
+for the audio family, encoder frames), draw for draw.
 """
 from __future__ import annotations
 
@@ -132,10 +132,8 @@ def synthetic_batch(cfg: ModelConfig, global_batch: int, seq_len: int,
     length, array for array. A VLM batch adds
     `patch_embeds` [B, P, vision_dim] (standard normal) and `patch_pos`
     [B, P] = 0..P-1 in every row, P = max(1, int(S *
-    patches_per_seq_frac))."""
-    if cfg.family == "audio":
-        raise NotImplementedError("the audio family's frames come with "
-                                  "its slice of the port")
+    patches_per_seq_frac)); an audio batch adds `frames` [B, F, d_model]
+    (standard normal, float32), F = n_audio_frames."""
     rng = np.random.default_rng(seed)
     B, S = global_batch, seq_len
     batch = {
@@ -147,4 +145,8 @@ def synthetic_batch(cfg: ModelConfig, global_batch: int, seq_len: int,
         batch["patch_embeds"] = rng.normal(
             0, 1, (B, P, cfg.vlm.vision_dim)).astype(np.float32)
         batch["patch_pos"] = np.tile(np.arange(P, dtype=np.int32), (B, 1))
+    if cfg.family == "audio":
+        F = cfg.encdec.n_audio_frames
+        batch["frames"] = rng.normal(0, 1, (B, F, cfg.d_model)).astype(
+            np.float32)
     return batch

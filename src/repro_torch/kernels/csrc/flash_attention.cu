@@ -468,9 +468,15 @@ flash_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// grid x, y, z, threads and shared memory of the last
-// flash_fwd_wg_kernel launch (k2_last_launch reads them)
+// grid x, y, z, threads and shared memory of the last launch of either
+// kernel (k2_last_launch reads them)
 static long long g_launch[5] = {0, 0, 0, 0, 0};
+
+static void record_launch(dim3 grid, int threads, size_t smem) {
+  const long long rec[5] = {grid.x, grid.y, grid.z, threads,
+                            (long long)smem};
+  for (int i = 0; i < 5; ++i) g_launch[i] = rec[i];
+}
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
@@ -483,9 +489,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     cudaError_t err = allow_smem(flash_fwd_wg_kernel<D>, smem, smem_set);
     if (err != cudaSuccess) return err;
     const dim3 grid(H, (Sq + W_BQ - 1) / W_BQ, B);
-    const long long rec[5] = {grid.x, grid.y, grid.z, W_THREADS,
-                              (long long)smem};
-    for (int i = 0; i < 5; ++i) g_launch[i] = rec[i];
+    record_launch(grid, W_THREADS, smem);
     flash_fwd_wg_kernel<D><<<grid, W_THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Hkv, mode,
@@ -495,6 +499,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem, smem_set);
     if (err != cudaSuccess) return err;
     const dim3 grid((Sq + BQ - 1) / BQ, H, B);
+    record_launch(grid, NTHREADS, smem);
     flash_fwd_f32_kernel<D><<<grid, NTHREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Hkv, mode,
@@ -550,10 +555,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The last launch of flash_fwd_wg_kernel (bfloat16, any head dim), as
-// launch made it: out[0..2] its grid, out[3] its threads per block,
-// out[4] its dynamic shared memory in bytes. All 0 before the first
-// such launch.
+// The last launch of either kernel (flash_fwd_wg_kernel for bfloat16,
+// flash_fwd_f32_kernel for float32), as launch made it: out[0..2] its
+// grid, out[3] its threads per block, out[4] its dynamic shared memory
+// in bytes. All 0 before the first launch.
 void k2_last_launch(long long* out) {
   for (int i = 0; i < 5; ++i) out[i] = g_launch[i];
 }

@@ -15,8 +15,10 @@ The kernel has no backward, so on the card it refuses inputs that need
 a gradient (training attends through the packed kernel K1).
 bf16 inputs run on the tensor cores (`wgmma`, fp32 accumulation,
 probabilities rounded to bf16 before the product with V; two
-warpgroups over 128 query rows a block, whose launch `last_launch`
-reads back); fp32 inputs run in fp32 on the CUDA cores. Head dims 32,
+warpgroups over 128 query rows a block); fp32 inputs run in fp32 on the
+CUDA cores (64 query rows a block). `last_launch` reads back either
+kernel's last launch; `flash_attention.launches_by` counts the launches
+by kernel and mode. Head dims 32,
 64 and 128 run in both types, 160 (pixtral-12b) in bf16 only.
 """
 from __future__ import annotations
@@ -31,6 +33,9 @@ from . import build
 
 MODES = {"full": 0, "causal": 1, "sliding": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel of `csrc/flash_attention.cu` each input dtype launches
+KERNELS = {torch.float32: "flash_fwd_f32_kernel",
+           torch.bfloat16: "flash_fwd_wg_kernel"}
 _HEAD_DIMS = (32, 64, 128, 160)
 #: head dims the kernel takes in bf16 only (pixtral-12b's 160, which no
 #: config runs in fp32 through K2)
@@ -106,9 +111,9 @@ def _library() -> ctypes.CDLL:
 
 
 def last_launch() -> dict:
-    """The last launch of the bf16 kernel (any head_dim), as the library
-    recorded it: `grid` (x, y, z), `threads` a block and `smem_bytes` of
-    dynamic shared memory; all 0 before the first."""
+    """The last launch of either kernel (bf16 or fp32, any head_dim), as
+    the library recorded it: `grid` (x, y, z), `threads` a block and
+    `smem_bytes` of dynamic shared memory; all 0 before the first."""
     out = (ctypes.c_longlong * 5)()
     _library().k2_last_launch(out)
     return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4])
@@ -143,6 +148,9 @@ def _launch(q, k, v, mode, window, kv_offset) -> torch.Tensor:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention kernel launch failed: {msg}")
     flash_attention.launches += 1
+    key = f"{KERNELS[q.dtype]} {mode}"
+    flash_attention.launches_by[key] = \
+        flash_attention.launches_by.get(key, 0) + 1
     return o
 
 
@@ -165,3 +173,6 @@ def flash_attention(q, k, v, *, mode: str = "causal",
 #: kernel launches since the count was last set to 0 (CPU calls and
 #: plain-version calls do not count)
 flash_attention.launches = 0
+#: the same launches by kernel and mode ("flash_fwd_f32_kernel full",
+#: ...), since the dict was last set to {}
+flash_attention.launches_by = {}

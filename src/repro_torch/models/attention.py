@@ -4,7 +4,8 @@ Implementations (`cfg.attn_impl`):
   * reference — full score matrix, with optional segment and span tables.
   * cuda      — the hand-written kernels: without tables and without a
                 gradient the flash-attention kernel K2
-                (kernels/flash_attention.py); with segment/span tables, or
+                (kernels/flash_attention.py), cross-attention included;
+                with segment/span tables, or
                 when a gradient is needed, the packed kernel K1
                 (kernels/flash_attention_packed.py, forward and backward;
                 one segment per row when no table is given); their plain
@@ -171,7 +172,7 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
               positions=None, mode: str = "causal",
               window: Optional[int] = None, impl: str = "cuda",
               rope_frac: float = 1.0, segment_ids=None, span_ids=None,
-              return_kv: bool = False, ring=None):
+              return_kv: bool = False, ring=None, cross_kv=None):
     """Self-attention block on x [B,S,d_model]. `segment_ids` ([B,S],
     -1 = padding) selects the packed varlen path: x is a packed buffer of
     concatenated sequences and attention is block-diagonal over segments;
@@ -180,17 +181,43 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
     when a table is given or a gradient is needed, and K2 otherwise;
     `impl="reference"` the full matrix. With a `ring`, x's rows are the
     ring's contiguous shards and the core is `ring_attention` (K1 a
-    hop), whatever `impl` says."""
+    hop), whatever `impl` says.
+
+    `cross_kv` = (k, v) [B,T,Hkv,D] makes it cross-attention (whisper's
+    decoder over its encoder): x gives only the queries, unrotated, and
+    the mode is "full". K/V computed from fp32 frames through bf16
+    weights stay fp32 beside bf16 queries, as in the reference; the core
+    then runs at the wider dtype and returns q's (the reference's plain
+    cores compute in fp32 and cast to q's dtype). The core is K2 at
+    Sq != Sk; it has no backward, so a cross-attention that needs a
+    gradient raises (audio training is not ported)."""
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
-    k = (x @ params["wk"]).reshape(B, S, kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(B, S, kv_heads, head_dim)
-    if positions is None:
-        positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    q = apply_rope(q, positions, rope_theta, rope_frac)
-    k = apply_rope(k, positions, rope_theta, rope_frac)
+    if cross_kv is None:
+        k = (x @ params["wk"]).reshape(B, S, kv_heads, head_dim)
+        v = (x @ params["wv"]).reshape(B, S, kv_heads, head_dim)
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :].expand(
+                B, S)
+        q = apply_rope(q, positions, rope_theta, rope_frac)
+        k = apply_rope(k, positions, rope_theta, rope_frac)
+    else:
+        k, v = cross_kv
+        mode = "full"
 
-    if ring is not None:
+    if cross_kv is not None and impl == "cuda":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "cross-attention has no gradient path: audio training (a "
+                "port of the reference's train_step.make_train_step, with "
+                "K1 at Sq != Sk) is a later slice")
+        wide = torch.promote_types(q.dtype, k.dtype)
+        o = flash_attention(q.to(wide).contiguous(),
+                            k.to(wide).contiguous(),
+                            v.to(wide).contiguous(),
+                            mode="full").to(q.dtype)
+    elif ring is not None:
         o = ring_attention(q, k, v, segment_ids, ring=ring, mode=mode,
                            window=window, span_ids=span_ids)
     elif impl == "cuda":

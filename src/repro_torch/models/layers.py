@@ -41,6 +41,23 @@ def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-5
     return (x * params["scale"].float()).to(orig)
 
 
+def init_layernorm(d: int, dtype, device, stack: tuple = ()) -> dict:
+    return {"scale": torch.ones(*stack, d, dtype=dtype, device=device),
+            "bias": torch.zeros(*stack, d, dtype=dtype, device=device)}
+
+
+def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5
+               ) -> torch.Tensor:
+    """LayerNorm in fp32 over the last axis, returned in x's dtype."""
+    orig = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    out = x * params["scale"].float() + params["bias"].float()
+    return out.to(orig)
+
+
 # --------------------------------------------------------------------------
 # MLP
 # --------------------------------------------------------------------------

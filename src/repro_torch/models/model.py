@@ -1,5 +1,5 @@
-"""Top-level model API: the dense, VLM, MoE, SSM and hybrid families,
-training and serving.
+"""Top-level model API: the dense, VLM, MoE, SSM, hybrid and audio
+families, training and serving (audio serves only).
 
   init_params(cfg, seed=, device=)               -> params dict
   forward(params, cfg, batch)                    -> (logits [B,S,V], aux)
@@ -7,14 +7,21 @@ training and serving.
   prefill(params, cfg, batch, cache_len)         -> (last logits, cache)
   prefill_chunk(params, cfg, cache, tokens, pos) -> cache
   init_cache(cfg, batch_size, cache_len, device) -> decode cache
+  prefill_cross_kv(params, cfg, frames, cache)   -> cache (audio)
   decode_step(params, cfg, cache, tokens [B])    -> (logits [B,V], cache)
 
 A VLM batch holds `patch_embeds` [B,P,vision_dim] and `patch_pos`
 [B,P] beside its tokens: `connector` projects the patches, which take
 the place of the token embeddings at those rows (`forward`, `prefill`);
-otherwise the VLM family is the dense one. `prefill_chunk` and `decode_step` take tokens
-only, as the JAX package's do (its `prefill_chunk` then fails on a VLM
-config for want of patches; the port's embeds the tokens alone).
+otherwise the VLM family is the dense one. An audio batch holds `frames`
+[B,F,d_model] (the conv frontend's output, stubbed) beside its tokens:
+whisper's encoder runs full attention over the frames, and each decoder
+layer attends causally over the tokens and fully over the encoder's
+output (`forward`; in serving, `prefill_cross_kv` runs the encoder once
+and stores each layer's cross K/V in the cache). `prefill_chunk` and
+`decode_step` take tokens only, as the JAX package's do (its
+`prefill_chunk` then fails on a VLM config for want of patches; the
+port's embeds the tokens alone).
 
 Caches hold `pos`, an int64 tensor: 0-d for a batch at one depth, or [B]
 for the serving slot cache, where every row is its own request at its
@@ -27,15 +34,25 @@ one's batch axis):
   hybrid — rec_h [U,R,B,W] fp32, rec_conv [U,R,B,conv_width-1,W],
            k, v [U,A,B,T,Hkv,D] (a ring of T = min(window, cache_len)),
            tail_h [max(Rt,1),B,W] fp32, tail_conv [max(Rt,1),B,cw-1,W]
+  audio  — k, v [L,B,T,Hkv,D] (the decoder's self-attention), cross_k,
+           cross_v [L,B,F,Hkv,D] (F frames; `prefill_cross_kv` replaces
+           them with the encoder's, in the dtype it computed in)
 
 (U pattern units of R recurrent and A attention layers, Rt recurrent
 layers in the tail.) Unlike the JAX package, which returns new caches,
 `prefill_chunk` and `decode_step` write into the cache they are given
 (no second copy of a cache in device memory) and return it with `pos`
 advanced. `prefill` and `prefill_chunk` take the attention families
-(dense, vlm, moe) only, as the JAX package's do: the SSM and hybrid families
-serve from a fresh `init_cache` and the prompt's last token, through
-`decode_step`.
+(dense, vlm, moe) only, as the JAX package's do: the SSM, hybrid and
+audio families serve from a fresh `init_cache` (audio's with its cross
+K/V) and the prompt's last token, through `decode_step`.
+
+The audio encoder runs in the frames' dtype where that is the wider
+one, as the reference promotes `frames.astype(param_dtype) +
+sinusoidal(...).astype(frames.dtype)`: fp32 frames make an fp32 encoder
+(its weights, and the cross projections', cast to fp32 a layer at a
+time, as the reference's matmuls promote them) and fp32 cross K/V,
+which the decoder's bf16 queries attend at fp32.
 """
 from __future__ import annotations
 
@@ -48,16 +65,18 @@ from ..configs.base import ModelConfig
 from .attention import (attention, attn_decode, attn_prefill_chunk,
                         project_qkv_decode)
 from .layers import (_dtype, apply_rope, dense_init, embed, init_embedding,
-                     init_rmsnorm, mlp, rms_norm, unembed)
+                     init_layernorm, init_rmsnorm, layer_norm, mlp, rms_norm,
+                     unembed)
 from .rglru import rglru_decode_step
 from .ssm import ssm_decode_step
 from .transformer import (_BLOCK, _LAYER_INIT, _attn_kwargs,
-                          _dense_block, _init_dense_layer, _init_rec_layer,
-                          _rec_block, _rope_frac, ffn, hybrid_layout,
-                          init_stack, unstack)
+                          _dense_block, _init_dense_layer, _init_enc_layer,
+                          _init_encdec_layer, _init_rec_layer, _rec_block,
+                          _rope_frac, ffn, hybrid_layout, init_stack,
+                          unstack)
 
 #: families `forward` runs
-FAMILIES = (*_BLOCK, "hybrid")
+FAMILIES = (*_BLOCK, "hybrid", "audio")
 #: families that fill a K/V cache from the prompt (`prefill`)
 PREFILL_FAMILIES = ("dense", "vlm", "moe")
 
@@ -69,11 +88,35 @@ def _check_family(cfg: ModelConfig, *, prefill: bool = False) -> None:
             f"{sorted(FAMILIES)})")
     if prefill and cfg.family not in PREFILL_FAMILIES:
         name = "SSM" if cfg.family == "ssm" else cfg.family
+        fresh = ("a fresh init_cache with the encoder's cross K/V "
+                 "(prefill_cross_kv)" if cfg.family == "audio"
+                 else "a fresh init_cache")
         raise NotImplementedError(
             f"family {cfg.family!r} has no prefill: {name} serving starts "
-            f"each request from a fresh init_cache and decodes from the "
-            f"prompt's last token, as the JAX package's runtime does (its "
-            f"prefill takes the attention families only)")
+            f"each request from {fresh} and decodes from the prompt's last "
+            f"token, as the JAX package's runtime does (its prefill takes "
+            f"the attention families only)")
+
+
+# ==========================================================================
+# Sinusoidal positions (whisper: no RoPE)
+# ==========================================================================
+def _sinusoidal_at(pos, dim: int) -> torch.Tensor:
+    """`sinusoidal`'s row at each position: a scalar `pos` gives [dim],
+    a [B] tensor (the slot cache's one depth a row) gives [B, dim]."""
+    pos = torch.as_tensor(pos)
+    # the reference's fp32 log(10000) / dim, formed on the host
+    scale = (torch.log(torch.tensor(10_000.0)) / dim).item()
+    inv = torch.exp(-torch.arange(0, dim, 2, dtype=torch.float32,
+                                  device=pos.device) * scale)
+    ang = pos.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[..., :dim]
+
+
+def sinusoidal(seq: int, dim: int, device=None) -> torch.Tensor:
+    """[seq, dim] fp32 absolute positions: sin of position x 10000^(-2i
+    / dim) in the first half, cos in the second."""
+    return _sinusoidal_at(torch.arange(seq, device=device), dim)
 
 
 # ==========================================================================
@@ -94,6 +137,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     }
     if not cfg.tie_embeddings:
         params["head"] = dense_init(gen, cfg.d_model, cfg.vocab, dt, device)
+    if cfg.family == "audio":
+        params["enc_layers"] = init_stack(gen, cfg, cfg.encdec.n_enc_layers,
+                                          _init_enc_layer, device)
+        params["ln_enc"] = init_layernorm(cfg.d_model, dt, device)
+        params["dec_layers"] = init_stack(gen, cfg, cfg.n_layers,
+                                          _init_encdec_layer, device)
+        return params
     if cfg.family != "hybrid":
         params["layers"] = init_stack(gen, cfg, cfg.n_layers,
                                       _LAYER_INIT[cfg.family], device)
@@ -189,11 +239,17 @@ def forward_hidden(params, cfg: ModelConfig, batch,
             "shard_map (the aux loss in its layer scan's carry varies over "
             "the shards where the carry's initial zero does not), so there "
             "is no reference to hold a degree > 1 to")
+    if ring is not None and cfg.family == "audio":
+        raise NotImplementedError(
+            "the audio family does not run on a ring: the reference's ring "
+            "takes self-attention only")
     if ring is not None and cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} does not run on a ring: its recurrent "
             f"state crosses shard borders, and the JAX reference restarts "
             f"it from zero on every shard")
+    if cfg.family == "audio":
+        return _forward_audio(params, cfg, batch)
     x = _input_embeddings(params, cfg, batch)
     attn_mode = mode or ("sliding" if cfg.sliding_window else "causal")
     tables = dict(positions=_table(batch, "positions", x.device),
@@ -235,6 +291,69 @@ def _hybrid_block(p_unit, x, cfg: ModelConfig, positions=None,
                                 segment_ids=segment_ids, span_ids=span_ids)
         aux = aux + a
     return x, aux
+
+
+def _enc_block(p, h, cfg: ModelConfig):
+    """One whisper encoder layer: full self-attention, GELU MLP."""
+    g = layer_norm(p["ln1"], h, cfg.norm_eps)
+    h = h + attention(p["attn"], g, **_attn_kwargs(cfg, "full"))
+    g = layer_norm(p["ln2"], h, cfg.norm_eps)
+    return h + mlp(p["mlp"], g, "gelu")
+
+
+def _encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
+    """The encoder over `frames` [B,F,d_model] -> [B,F,d_model], in the
+    wider of the frames' and the parameters' dtypes (see the module
+    docstring)."""
+    dev = params["embed"].device
+    frames = torch.as_tensor(frames, device=dev)
+    F = frames.shape[1]
+    enc = frames.to(_dtype(cfg.param_dtype)) \
+        + sinusoidal(F, cfg.d_model, dev).to(frames.dtype)
+    for p in unstack(params["enc_layers"]):
+        enc = _enc_block(_as_dtype(p, enc.dtype), enc, cfg)
+    return layer_norm(params["ln_enc"], enc, cfg.norm_eps)
+
+
+def _as_dtype(tree, dtype):
+    """`tree`'s tensors in `dtype` (the same tensors where they are in
+    it already)."""
+    if isinstance(tree, dict):
+        return {k: _as_dtype(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def _cross_kv(p_x, enc, cfg: ModelConfig):
+    """One decoder layer's cross K/V [B,F,Hkv,D] from the encoder's
+    output, in its dtype."""
+    B, F, _ = enc.shape
+    shape = (B, F, cfg.kv_heads, cfg.resolved_head_dim)
+    return ((enc @ p_x["wk"].to(enc.dtype)).reshape(shape),
+            (enc @ p_x["wv"].to(enc.dtype)).reshape(shape))
+
+
+def _dec_block(p, h, cfg: ModelConfig, enc):
+    """One whisper decoder layer: causal self-attention, cross-attention
+    over `enc`, GELU MLP."""
+    g = layer_norm(p["ln1"], h, cfg.norm_eps)
+    h = h + attention(p["attn"], g, **_attn_kwargs(cfg, "causal"))
+    g = layer_norm(p["ln_x"], h, cfg.norm_eps)
+    h = h + attention(p["xattn"], g, cross_kv=_cross_kv(p["xattn"], enc, cfg),
+                      **_attn_kwargs(cfg, "full"))
+    g = layer_norm(p["ln2"], h, cfg.norm_eps)
+    return h + mlp(p["mlp"], g, "gelu")
+
+
+def _forward_audio(params, cfg: ModelConfig, batch):
+    """Whisper: the encoder over `batch["frames"]`, then the decoder over
+    `batch["tokens"]` at sinusoidal positions -> (hidden, aux 0). No
+    remat: nothing trains the family (see attention's `cross_kv`)."""
+    enc = _encode(params, cfg, batch["frames"])
+    x = _token_embeddings(params, batch["tokens"])
+    x = x + sinusoidal(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    for p in unstack(params["dec_layers"]):
+        x = _dec_block(p, x, cfg, enc)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # ==========================================================================
@@ -344,12 +463,16 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype=None,
     kw = dict(dtype=dt, device=device)
     f32 = dict(dtype=torch.float32, device=device)
     cache = {"pos": torch.zeros((), dtype=torch.long, device=device)}
-    if cfg.family in PREFILL_FAMILIES:
+    if cfg.family in (*PREFILL_FAMILIES, "audio"):
         T = min(cfg.sliding_window or cache_len, cache_len)
         shape = (cfg.n_layers, batch, T, cfg.kv_heads,
                  cfg.resolved_head_dim)
         cache["k"] = torch.zeros(shape, **kw)
         cache["v"] = torch.zeros(shape, **kw)
+        if cfg.family == "audio":
+            shape = shape[:2] + (cfg.encdec.n_audio_frames,) + shape[3:]
+            cache["cross_k"] = torch.zeros(shape, **kw)
+            cache["cross_v"] = torch.zeros(shape, **kw)
     elif cfg.family == "ssm":
         s = cfg.ssm
         d_inner = s.expand * cfg.d_model
@@ -388,20 +511,48 @@ def cache_batch_axes(cfg: ModelConfig) -> Dict[str, int]:
                 "tail_conv": 1}
     if cfg.family == "ssm":
         return {"h": 1, "conv_buf": 1}
+    if cfg.family == "audio":
+        return {"k": 1, "v": 1, "cross_k": 1, "cross_v": 1}
     return {"k": 1, "v": 1}
+
+
+@torch.no_grad()
+def prefill_cross_kv(params, cfg: ModelConfig, frames,
+                     cache: Dict[str, Any]) -> Dict[str, Any]:
+    """Audio: run the encoder once over `frames` [B,F,d_model] and
+    return `cache` with every decoder layer's cross K/V in place of its
+    `cross_k` / `cross_v`, in the dtype the encoder computed in (fp32
+    for fp32 frames, as the reference's)."""
+    enc = _encode(params, cfg, frames)
+    ks, vs = zip(*(_cross_kv(p["xattn"], enc, cfg)
+                   for p in unstack(params["dec_layers"])))
+    return {**cache, "cross_k": torch.stack(ks), "cross_v": torch.stack(vs)}
+
+
+def serving_frames(cfg: ModelConfig, batch: int, seed: int,
+                   device) -> torch.Tensor:
+    """The frames audio serving encodes when a request brings none:
+    [batch, F, d_model] fp32 standard normal from a `torch.Generator`
+    on `device` seeded with `seed + 2`, as the reference draws them
+    from `PRNGKey(seed + 2)` (the numbers differ: the generators do).
+    `Engine.serve` draws one a row; the runtime one row, the same for
+    every request."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    return torch.randn(batch, cfg.encdec.n_audio_frames, cfg.d_model,
+                       generator=gen, device=device)
 
 
 # ==========================================================================
 # Decode step
 # ==========================================================================
-def _dense_decode_layer(p, x1, ck, cv, pos, cfg: ModelConfig,
-                        per_row: bool = False):
-    """x1 [B,d]; ck/cv [B,T,Hkv,D] (written in place); pos [B]. A MoE
-    layer routes the B tokens jointly, or each alone with `per_row`."""
+def _decode_self(p_attn, h, x1, ck, cv, pos, cfg: ModelConfig):
+    """x1 plus one token's self-attention over its cache: the normed h
+    [B,d] projects q, k, v at positions `pos` [B]; k and v go to ring row
+    pos % T of ck/cv [B,T,Hkv,D], in place."""
     B = x1.shape[0]
-    h = rms_norm(p["ln1"], x1, cfg.norm_eps)
     q, k1, v1 = project_qkv_decode(
-        p["attn"], h, n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
+        p_attn, h, n_heads=cfg.n_heads, kv_heads=cfg.kv_heads,
         head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
         position=pos, rope_frac=_rope_frac(cfg))
     T = ck.shape[1]
@@ -410,7 +561,15 @@ def _dense_decode_layer(p, x1, ck, cv, pos, cfg: ModelConfig,
     ck[rows, slot] = k1[:, 0].to(ck.dtype)
     cv[rows, slot] = v1[:, 0].to(cv.dtype)
     o = attn_decode(q, ck, cv, torch.clamp(pos + 1, max=T))
-    x1 = x1 + o.reshape(B, -1) @ p["attn"]["wo"]
+    return x1 + o.reshape(B, -1) @ p_attn["wo"]
+
+
+def _dense_decode_layer(p, x1, ck, cv, pos, cfg: ModelConfig,
+                        per_row: bool = False):
+    """x1 [B,d]; ck/cv [B,T,Hkv,D] (written in place); pos [B]. A MoE
+    layer routes the B tokens jointly, or each alone with `per_row`."""
+    x1 = _decode_self(p["attn"], rms_norm(p["ln1"], x1, cfg.norm_eps), x1,
+                      ck, cv, pos, cfg)
     h = rms_norm(p["ln2"], x1, cfg.norm_eps)
     return x1 + ffn(p, h[:, None], cfg, per_row)[0][:, 0]
 
@@ -425,6 +584,26 @@ def _rec_decode_layer(p, x1, h, conv_buf, cfg: ModelConfig):
     x1 = x1 + y
     g = rms_norm(p["ln2"], x1, cfg.norm_eps)
     return x1 + mlp(p["mlp"], g, cfg.activation)
+
+
+def _audio_decode(params, cfg: ModelConfig, cache, x1, pos):
+    """Whisper's decoder for one token: each layer's self-attention
+    writes row pos % T of its K/V in place, then attends over every
+    frame of its cross K/V (plain, as the reference's `attn_decode`)."""
+    B = x1.shape[0]
+    for i, p in enumerate(unstack(params["dec_layers"])):
+        x1 = _decode_self(p["attn"], layer_norm(p["ln1"], x1, cfg.norm_eps),
+                          x1, cache["k"][i], cache["v"][i], pos, cfg)
+        xk, xv = cache["cross_k"][i], cache["cross_v"][i]
+        g = layer_norm(p["ln_x"], x1, cfg.norm_eps)
+        q = (g @ p["xattn"]["wq"]).reshape(B, 1, cfg.n_heads,
+                                           cfg.resolved_head_dim)
+        o = attn_decode(q, xk, xv,
+                        torch.full((B,), xk.shape[1], device=x1.device))
+        x1 = x1 + o.reshape(B, -1) @ p["xattn"]["wo"]
+        x1 = x1 + mlp(p["mlp"], layer_norm(p["ln2"], x1, cfg.norm_eps),
+                      "gelu")
+    return x1
 
 
 def _hybrid_decode(params, cfg: ModelConfig, cache, x1, pos):
@@ -480,6 +659,9 @@ def decode_step(params, cfg: ModelConfig, cache: Dict[str, Any],
             h.copy_(st["h"])
             conv_buf.copy_(st["conv_buf"])
             x1 = x1 + y
+    elif cfg.family == "audio":
+        x1 = x1 + _sinusoidal_at(pos_b, cfg.d_model).to(x1.dtype)
+        x1 = _audio_decode(params, cfg, cache, x1, pos_b)
     else:
         x1 = _hybrid_decode(params, cfg, cache, x1, pos_b)
     logits = _head(params, cfg, x1)

@@ -13,6 +13,9 @@ Families:
   moe    — [attn + MoE-FFN] x L               (granite, olmoe)
   ssm    — [mamba2 SSD] x L                   (mamba2-370m)
   hybrid — [(rec, rec, attn) + MLP each] x .. (recurrentgemma-2b)
+  audio  — encoder [full attn + MLP] x E, decoder [causal attn + cross
+           attn + MLP] x L, LayerNorms    (whisper-small; the blocks
+                                               are in model.py)
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from .attention import attention, init_attention
-from .layers import _dtype, init_mlp, init_rmsnorm, mlp, rms_norm
+from .layers import (_dtype, init_layernorm, init_mlp, init_rmsnorm, mlp,
+                     rms_norm)
 from .moe import init_moe, moe_ffn
 from .rglru import init_rglru_block, rglru_block
 from .ssm import init_ssm, ssm_forward
@@ -68,6 +72,39 @@ def _init_rec_layer(gen, cfg: ModelConfig, device, stack: tuple = ()):
         "ln2": init_rmsnorm(cfg.d_model, dt, device, stack),
         "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.activation, dt,
                         device, stack),
+    }
+
+
+def _init_enc_layer(gen, cfg: ModelConfig, device, stack: tuple = ()):
+    """A whisper encoder layer: LayerNorms, full self-attention, GELU
+    MLP."""
+    dt = _dtype(cfg.param_dtype)
+    return {
+        "ln1": init_layernorm(cfg.d_model, dt, device, stack),
+        "attn": init_attention(gen, cfg.d_model, cfg.n_heads, cfg.kv_heads,
+                               cfg.resolved_head_dim, dt, device, stack),
+        "ln2": init_layernorm(cfg.d_model, dt, device, stack),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, "gelu", dt, device,
+                        stack),
+    }
+
+
+def _init_encdec_layer(gen, cfg: ModelConfig, device, stack: tuple = ()):
+    """A whisper decoder layer: causal self-attention, cross-attention
+    over the encoder's output (`xattn`, its own `ln_x`), GELU MLP."""
+    dt = _dtype(cfg.param_dtype)
+
+    def attn():
+        return init_attention(gen, cfg.d_model, cfg.n_heads, cfg.kv_heads,
+                              cfg.resolved_head_dim, dt, device, stack)
+    return {
+        "ln1": init_layernorm(cfg.d_model, dt, device, stack),
+        "attn": attn(),
+        "ln_x": init_layernorm(cfg.d_model, dt, device, stack),
+        "xattn": attn(),
+        "ln2": init_layernorm(cfg.d_model, dt, device, stack),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, "gelu", dt, device,
+                        stack),
     }
 
 

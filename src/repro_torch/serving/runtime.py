@@ -18,10 +18,14 @@ sliding-window caches and of the MoE family) run the flash-attention
 kernel (`cfg.attn_impl="cuda"`); chunked prefill and decode are plain
 PyTorch.
 
-State-cache families (ssm, hybrid) are never prefilled, as in the JAX
-package: a request starts from a fresh `init_cache` and decodes from
-its prompt's last token, so the earlier prompt tokens do not reach its
-stream.
+State-cache families (ssm, hybrid) and the audio family are never
+prefilled, as in the JAX package: a request starts from a fresh
+`init_cache` and decodes from its prompt's last token, so the earlier
+prompt tokens do not reach its stream. An audio request's cache first
+takes the cross K/V of its frames (`ServeRequest.frames`, or
+`serving_frames`) at admission: the encoder runs once a request, its
+full attention through K2; the slot cache holds the cross K/V in the
+parameters' dtype, as the reference's `write_slot` casts them.
 """
 from __future__ import annotations
 
@@ -96,8 +100,8 @@ class ServingEngine:
     Build via `Engine.serving(...)`. The decode slot count and cache
     capacity are bucketed through the cluster ladder
     (`ClusterSpec.decode_shape`). Serves the dense family (full or
-    sliding-window attention), the MoE family, the SSM family and the
-    hybrid family.
+    sliding-window attention), the MoE family, the SSM family, the
+    hybrid family and the audio family.
     `strategy` names the prefill planner (`get_strategy`: "dhp",
     "static"); the plan only groups prefill chunks, so it never changes a
     stream.
@@ -188,6 +192,25 @@ class ServingEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    def _fresh_cache(self, request: ServeRequest, T: int):
+        """B=1 starting cache of one admitted request; an audio request's
+        holds the cross K/V of its frames, or of `serving_frames` (the
+        same for every request), as Engine.serve's do."""
+        from ..models.model import (init_cache, prefill_cross_kv,
+                                    serving_frames)
+        cache = init_cache(self.cfg, 1, T, device=self.device)
+        if self.cfg.family != "audio":
+            return cache
+        if request.frames is not None:
+            frames = self._tensor(request.frames)[None]
+            if frames.dtype == torch.float64:     # as JAX without x64
+                frames = frames.float()
+        else:
+            frames = serving_frames(self.cfg, 1, self.seed, self.device)
+        with get_tracer().span("encode", "serve",
+                               args={"request": request.request_id}):
+            return prefill_cross_kv(self.params, self.cfg, frames, cache)
 
     # -- prefill execution -----------------------------------------------
     def _run_prefill_group(self, group: PrefillGroup, sched, staging,
@@ -315,7 +338,6 @@ class ServingEngine:
     @torch.no_grad()
     def _run(self, requests: Seq[ServeRequest], *,
              log=None) -> ServeReport:
-        from ..models.model import init_cache
         from .serve_step import make_slot_cache
         tr = get_tracer()
 
@@ -380,8 +402,7 @@ class ServingEngine:
 
             for rid in it.admitted:
                 st = sched.states[rid]
-                staging[rid] = init_cache(self.cfg, 1, T,
-                                          device=self.device)
+                staging[rid] = self._fresh_cache(st.request, T)
                 next_token[rid] = int(st.request.tokens[-1])
                 token_times[rid] = []
 

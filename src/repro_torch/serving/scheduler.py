@@ -52,6 +52,10 @@ class ServeRequest:
     #: blocks are masked correctly, and the planner sees per-chunk
     #: derived eta instead of one scalar per request.
     spans: Optional[tuple] = None
+    #: audio family only: encoder frames [F, d_model] (drawn from the
+    #: engine seed when None: `models.model.serving_frames`, as
+    #: Engine.serve draws them)
+    frames: Optional[np.ndarray] = None
 
     @property
     def prompt_len(self) -> int:

@@ -58,7 +58,9 @@ def make_slot_decode_step(cfg: ModelConfig):
 def write_slot(cfg: ModelConfig, slots, cache, idx: int):
     """Copy one B=1 request cache (same capacity T) into slot `idx`, in
     place: every leaf, as the JAX package's tree-mapped `write_slot`
-    does, so a recycled slot keeps nothing of its last request."""
+    does, so a recycled slot keeps nothing of its last request; each in
+    the slot's dtype, as that one casts (an audio request's fp32 cross
+    K/V go into bf16 slots)."""
     for name, axis in cache_batch_axes(cfg).items():
         slots[name].select(axis, idx).copy_(cache[name].select(axis, 0))
     slots["pos"][idx] = cache["pos"]

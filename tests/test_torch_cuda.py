@@ -65,12 +65,13 @@ def test_flash_attention_kernel_matches_plain(card, dtype, B, Sq, Sk, D):
 # The bf16 kernel (D = 32, 64, 128): two warpgroups over 128 query rows
 # of one (head, batch), every product by wgmma, a ring of K/V tiles, the
 # live key range by arithmetic and an unmasked path
-def _k2_close(card, tag, B, Sq, Sk, H, Hkv, D, seed, **kw):
-    """K2 in bf16 on random inputs vs its plain version (phase 3's
-    elementwise limit); returns (kernel output, plain output)."""
+def _k2_close(card, tag, B, Sq, Sk, H, Hkv, D, seed,
+              dtype=torch.bfloat16, **kw):
+    """K2 (bf16 by default) on random inputs vs its plain version (phase
+    3's elementwise limit); returns (kernel output, plain output)."""
     rng = np.random.default_rng(seed)
     q, k, v = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-               .to(card, torch.bfloat16)
+               .to(card, dtype)
                for s in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D))]
     before = flash_attention.launches
     out = flash_attention(q, k, v, **kw)
@@ -80,7 +81,7 @@ def _k2_close(card, tag, B, Sq, Sk, H, Hkv, D, seed, **kw):
     diff = (out.float() - ref.float()).abs()
     err = (diff / ref.float().abs().clamp_min(1.0)).max().item()
     print(f"K2 {tag} {kw}: elementwise {err:.4g}")
-    assert err <= TOL[torch.bfloat16], (tag, kw, err)
+    assert err <= TOL[dtype], (tag, kw, err)
     return out, ref
 
 
@@ -1543,3 +1544,103 @@ def test_moe_ffn_on_the_card_equals_the_cpu(card, dispatch, per_row):
     want, want_aux = moe_ffn({k: v.cpu() for k, v in p.items()}, x, **kw)
     torch.testing.assert_close(out.cpu(), want, atol=1e-4, rtol=0)
     torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-5)
+
+
+# --------------------------------------------------- the audio family
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq", [1500, 1, 448])
+def test_k2_full_at_whisper_shapes(card, dtype, Sq):
+    """whisper-small's attention in full mode at 12:12 heads of 64:
+    its encoder over 1500 frames (Sq = Sk; 1500 = 23 key tiles of 64 and
+    one of 28), and its decoder's cross-attention of one token and of
+    448 tokens over the frames (Sq != Sk)."""
+    _k2_close(card, f"whisper {Sq}x1500", 1, Sq, 1500, 12, 12, 64, 90 + Sq,
+              dtype=dtype, mode="full")
+
+
+def _whisper(card):
+    """Reduced whisper-small (fp32, attn_impl="cuda"), its parameters
+    on the CPU and on the card, and frames from a numpy seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tm
+    cfg = get_config("whisper-small").reduced().with_(attn_impl="cuda")
+    params = tm.init_params(cfg, seed=0, device="cpu")
+    on_card = _to(params, card)
+    frames = np.random.default_rng(4).standard_normal(
+        (2, cfg.encdec.n_audio_frames, cfg.d_model)).astype(np.float32)
+    return cfg, params, on_card, torch.from_numpy(frames)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.cuda
+def test_prefill_cross_kv_on_the_card_equals_the_cpu(card):
+    """The encoder's full attention through K2 (fp32, a launch an
+    encoder layer), TF32 off: the cross K/V are the CPU's within K2's
+    fp32 limit."""
+    from repro_torch.models import model as tm
+    cfg, params, on_card, frames = _whisper(card)
+    want = tm.prefill_cross_kv(params, cfg, frames,
+                               tm.init_cache(cfg, 2, 8, device="cpu"))
+    prev = torch.get_float32_matmul_precision()
+    before = flash_attention.launches
+    try:
+        torch.set_float32_matmul_precision("highest")
+        got = tm.prefill_cross_kv(on_card, cfg, frames.to(card),
+                                  tm.init_cache(cfg, 2, 8, device=card))
+        torch.cuda.synchronize()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert flash_attention.launches == before + cfg.encdec.n_enc_layers
+    for name in ("cross_k", "cross_v"):
+        assert got[name].dtype == torch.float32
+        err = ((got[name].cpu() - want[name]).abs()
+               / want[name].abs().clamp_min(1.0)).max().item()
+        assert err <= TOL[torch.float32], (name, err)
+
+
+@pytest.mark.cuda
+def test_cross_attention_gradient_raises_on_the_card(card):
+    """K2 has no backward and audio training is not ported: a forward on
+    the card that needs a gradient through the cross-attention raises,
+    and runs no other kernel in its place."""
+    from repro_torch.models import model as tm
+    cfg, _, on_card, frames = _whisper(card)
+    on_card["dec_layers"]["xattn"]["wq"].requires_grad_(True)
+    tokens = torch.zeros(2, 5, dtype=torch.long, device=card)
+    with pytest.raises(NotImplementedError, match="audio training"):
+        tm.forward(on_card, cfg, {"tokens": tokens,
+                                  "frames": frames.to(card)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames_dtype,full_kernel", [
+    (torch.float32, "flash_fwd_f32_kernel"),
+    (torch.bfloat16, "flash_fwd_wg_kernel")])
+def test_audio_forward_launches_by_kernel_and_mode(card, frames_dtype,
+                                                   full_kernel):
+    """Reduced whisper-small with bf16 parameters: fp32 frames run the
+    encoder and the cross-attention through K2's fp32 kernel (the
+    reference promotes them), bf16 frames through the bf16 one; the
+    decoder's causal self-attention runs the bf16 kernel either way.
+    The wrapper counts each launch under its kernel and mode."""
+    from repro_torch.models import model as tm
+    cfg, _, on_card, frames = _whisper(card)
+    cfg = cfg.with_(param_dtype="bfloat16")
+    on_card = _to(on_card, torch.bfloat16)
+    tokens = torch.zeros(2, 5, dtype=torch.long, device=card)
+    flash_attention.launches_by = {}
+    with torch.no_grad():
+        logits, _ = tm.forward(on_card, cfg, {
+            "tokens": tokens, "frames": frames.to(card, frames_dtype)})
+    torch.cuda.synchronize()
+    n_enc, n_dec = cfg.encdec.n_enc_layers, cfg.n_layers
+    assert flash_attention.launches_by == {
+        f"{full_kernel} full": n_enc + n_dec,
+        "flash_fwd_wg_kernel causal": n_dec}
+    assert torch.isfinite(logits).all()

@@ -1,8 +1,8 @@
 """The remaining dense and VLM configs against the JAX package, on the CPU.
 
   * every config of the port equals the JAX package's field by field, and
-    `ALL_ARCHS` holds every JAX arch but whisper-small (the audio family
-    comes with its own slice);
+    `ALL_ARCHS` holds every JAX arch, whisper-small's encoder-decoder
+    sub-config included;
   * head_dim 160 (pixtral-12b: 5120 / 32 heads): the plain K1 forward and
     its gradient, and the plain K2, at 4 query heads over one KV head
     (pixtral's 32:8 narrowed), against the Pallas kernels in interpret
@@ -77,11 +77,15 @@ def test_config_matches_jax(arch, which):
     assert ours.resolved_head_dim == theirs.resolved_head_dim
 
 
-def test_every_jax_arch_but_audio_is_ported():
-    assert sorted(ALL_ARCHS) == sorted(set(JAX_ARCHS) - {"whisper-small"})
-    assert len(ALL_ARCHS) == 11
+def test_every_jax_arch_is_ported():
+    assert sorted(ALL_ARCHS) == sorted(JAX_ARCHS)
+    assert len(ALL_ARCHS) == 12
+    enc = get_config("whisper-small").encdec
+    assert dataclasses.asdict(enc) == dataclasses.asdict(
+        jax_get_config("whisper-small").encdec)
+    assert (enc.n_enc_layers, enc.n_audio_frames) == (12, 1500)
     with pytest.raises(KeyError, match="unknown arch"):
-        get_config("whisper-small")
+        get_config("whisper-large")
     # the reference keeps pixtral-12b at 5120 / 32 = 160 (the published
     # model sets 128): the port copies the reference
     assert get_config("pixtral-12b").resolved_head_dim == 160
