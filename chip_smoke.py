@@ -419,7 +419,10 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, each_once=False):
 def attention_bound(B, Sq, Sk, H, Hkv, D, dtype, mode, window, kv_offset):
     """Least time the card could take for the same work: each input read
     once and the output written once at HBM rate, vs 4*D flops per valid
-    (query, key) pair per head at the peak rate for the input type."""
+    (query, key) pair per head at the peak rate for the input type:
+    (ms, "bytes" or "operations", split-TF32 ms). The last is fp32's
+    bound on the tensor cores, where K2's fp32 kernel forms each product
+    three times (hi hi', hi lo', lo hi') at PEAK_TF32 (None for bf16)."""
     from repro_torch.kernels.flash_attention import _valid_mask
     pairs = int(_valid_mask(Sq, Sk, mode, window, kv_offset,
                             "cpu").sum())
@@ -427,8 +430,10 @@ def attention_bound(B, Sq, Sk, H, Hkv, D, dtype, mode, window, kv_offset):
     nbytes = elt * D * (2 * B * Sq * H + 2 * B * Sk * Hkv)
     flops = 4.0 * D * pairs * B * H
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    split = (max(t_bytes, 3 * flops / PEAK_TF32) * 1e3
+             if dtype == torch.float32 else None)
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", split)
 
 
 def library_ms(q, k, v, mode, window=None):
@@ -489,14 +494,14 @@ def check_kernel(dev, card, gen, B, S, dtype, mode="causal", window=None,
                     iters=5, warmup=1)
     lib, lib_dev = (library_ms(q, k, v, mode, window) if off == 0
                     else (None, None))
-    bound, bound_by = attention_bound(B, S, Sk, H, HKV, D, dtype, mode,
-                                      window, off)
+    bound, bound_by, bound_tf32 = attention_bound(B, S, Sk, H, HKV, D, dtype,
+                                                  mode, window, off)
     row = dict(B=B, S=S, Sk=Sk, H=H, Hkv=HKV, D=D,
                dtype=str(dtype).split(".")[-1], mode=mode, window=window,
                kv_offset=off, max_abs_err=err, max_scaled_err=scaled,
                tol=TOL[dtype], ms=ms, device_ms=dev_ms, plain_ms=plain,
                library_ms=lib, library_device_ms=lib_dev, bound_ms=bound,
-               bound_by=bound_by)
+               bound_by=bound_by, bound_split_tf32_ms=bound_tf32)
     print(f"  kernel {json.dumps(row)} ({card})")
     return row
 
@@ -3061,7 +3066,7 @@ AUDIO_SHAPES = ((1, 1500), (2, 1500), (4, 1500), (1, 1), (1, 96), (1, 448),
 AUDIO_CAUSAL = ((2, 448),)
 #: faults planted around K2's fp32 kernel (the encoder's and the
 #: cross-attention's from fp32 frames) in phase 38: the last key tile of
-#: 32 never read (over 1500 frames the partial one of 28), and the
+#: 64 never read (over 1500 frames the partial one of 28), and the
 #: softmax scale taken at head_dim 128, not 64
 AUDIO_FAULTS = ("last_key_tile_dropped", "scale_at_d128")
 AUDIO_PARITY_PROMPTS = (21, 5, 1)
@@ -3076,7 +3081,8 @@ def phase_audio_kernels(dev, card):
     AUDIO_SHAPES over 1500 keys, fp32 (the kernel the encoder and the
     cross-attention run from fp32 frames) and bf16, and causal at
     AUDIO_CAUSAL in bf16 (the decoder's self-attention), phase 3's
-    limits; ms, device_ms, plain, SDPA, the bound and each launch."""
+    limits; ms, device_ms, plain, SDPA, the bound (for fp32 also the
+    split-TF32 bound its kernel works against) and each launch."""
     gen = torch.Generator(device=dev).manual_seed(8)
     rows = [check_kernel(dev, card, gen, B, Sq, dtype, "full",
                          heads=WHISPER_HEADS, Sk=WHISPER_FRAMES)
@@ -3299,7 +3305,7 @@ def _recording_k2(seen):
 def _planted_k2_f32(fault):
     """K2 with one fault of AUDIO_FAULTS planted around the sound fp32
     kernel, as the model calls it (bf16 calls run sound):
-    `last_key_tile_dropped` (the keys past the last whole tile of 32,
+    `last_key_tile_dropped` (the keys past the last whole tile of 64,
     or the last tile where all are whole, never read) and
     `scale_at_d128` (q times sqrt(D / 128))."""
     from repro_torch.kernels.flash_attention import flash_attention
@@ -3307,7 +3313,7 @@ def _planted_k2_f32(fault):
     def call(q, k, v, **kw):
         if q.dtype == torch.float32:
             if fault == "last_key_tile_dropped":
-                keep = (k.shape[1] - 1) // 32 * 32
+                keep = (k.shape[1] - 1) // 64 * 64
                 k, v = k[:, :keep].contiguous(), v[:, :keep].contiguous()
             elif fault == "scale_at_d128":
                 q = q * math.sqrt(q.shape[-1] / 128)
@@ -3976,6 +3982,10 @@ def main() -> int:
                                     if k != "launches"}) for r in rows],
         }
         if dtype == "float32":
+            # the split-TF32 bound beside the CUDA-core one (bound_ms)
+            entry["bound_split_tf32_ms"] = enc["bound_split_tf32_ms"]
+            for shape, r in zip(entry["path_shapes"], rows):
+                shape["bound_split_tf32_ms"] = r["bound_split_tf32_ms"]
             # serving's encoder passes: one a request, one for serve()
             entry["launches"] = serve_by.get(f"{kname} full", 0)
             entry["serve_launches"] = serve_once_by.get(f"{kname} full", 0)

@@ -59,11 +59,48 @@
 //     products), O += P V as m64n128 over blocks 0-1 and m64n64 over
 //     block 2, whose upper 32 columns are formed and never written.
 //     HBM traffic stays at 160 columns; the scale stays 1/sqrt(160).
-//   * fp32: flash_fwd_f32_kernel, fp32 FMAs on the CUDA cores (the tensor
-//     cores would round the inputs to TF32): two threads per query row,
-//     each holding half of the row's scores and of its accumulator in
-//     registers; K/V tiles of 32 rows staged in shared memory as fp32
-//     (row stride D+1 so the per-row reads do not conflict on banks).
+//   * fp32: flash_fwd_f32_kernel, D = 32, 64 and 128, split TF32 on the
+//     tensor cores. What bounds it at whisper-small's encoder (1 x 1500,
+//     full, 12:12 heads of 64): 6.91 GFLOP, 0.103 ms at the fp32
+//     CUDA-core peak (67 TFLOP/s) and 0.0419 ms as three TF32 products
+//     at 495 TFLOP/s; its 1.9 MB of bytes take 0.0006 ms. Plain TF32
+//     keeps some three decimal digits and misses the 1e-4 limit (2e-4
+//     to 4e-4 at that shape), so each fp32 operand x is carried as hi =
+//     tf32(x) and lo = tf32(x - hi), and each product is formed as
+//     hi hi' + hi lo' + lo hi' (lo lo' lies below fp32's precision).
+//     1. Grid. A block is one warpgroup (128 threads) over 64 query rows
+//        of one (query head, batch); the grid is (H, ceil(Sq / 64), B),
+//        y issued in reverse as above. Two blocks an SM at D <= 64.
+//     2. Products. Both by wgmma m64nNk8 in TF32, A from registers, fp32
+//        sums: S = Q K^T with Q's hi and lo split once a block into
+//        registers; O += P V with P split in registers. tf32 wgmma reads
+//        only K-major operands from shared memory, so V is stored
+//        transposed, [D][keys], its keys permuted within each group of
+//        8 so that S's accumulator is P's A operand as it lies (key 2i
+//        at position i, key 2i + 1 at position i + 4): P never leaves
+//        the registers.
+//     3. Split once. Each K/V tile is split once a block by the threads
+//        that stage it: K's hi in place of the landed tile, its lo
+//        beside it; V's hi and lo transposed into tiles of their own.
+//     4. Loads. 64-key tiles arrive by 16-byte cp.async in the 128-byte
+//        swizzle, K into a two-stage ring, V into one landing tile that
+//        is free once split: the next tile lands while this one is
+//        formed. Six [64][D] fp32 tiles of shared memory (97 KB at D =
+//        64, 255 registers a thread and no spill; 193 KB at D = 128, one
+//        block an SM, 148 bytes spilled and its products serialized).
+//     5. Live keys, masks and the online softmax as the bf16 kernel's
+//        steps 4-6, over the block's 64 rows.
+//     What still holds it back (H100 SXM at 700 W, 1 x 1500: 0.205 ms,
+//     4.9x its split-TF32 bound, under SDPA's fp32 0.29): every block
+//     splits each K/V tile it walks again, 24 blocks a head, and the
+//     split passes take some 38% (0.128 ms without them); 288 blocks
+//     fill 264 slots and leave a tail of 24; at the cross shapes (1 to
+//     448 query rows, 12 to 84 blocks) each block walks all 24 tiles,
+//     so 1 x 1 and 1 x 448 both take 0.086 ms.
+//     Q's split stays in registers across the key loop. One edited build
+//     (P V from P's hi alone, nvcc 12.9) gave P's A operands registers
+//     that held Q's lo and never reloaded them: hold any edit of the
+//     products against the plain version over more than one key tile.
 // Both keep the online softmax in fp32 and write the output in the
 // input's type.
 #include <cuda_bf16.h>
@@ -77,150 +114,7 @@
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 32;         // key rows per KV tile
-constexpr int NTHREADS = 128;  // two threads per query row
-
 enum Mode { kFull = 0, kCausal = 1, kSliding = 2 };
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-}
-
-// ---------------------------------------------------------------------
-// fp32 path on the CUDA cores.
-// ---------------------------------------------------------------------
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_f32_kernel(const float* __restrict__ q,
-                     const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     int Sq, int Sk, int H, int Hkv, int mode, int window,
-                     int kv_offset, float scale) {
-  constexpr int QS = D + 1;   // padded row stride of the Q and K tiles
-  constexpr int PS = BK + 1;  // padded row stride of the P tile
-  extern __shared__ float smem[];
-  float* Qs = smem;            // [BQ][QS]
-  float* Ks = Qs + BQ * QS;    // [BK][QS]
-  float* Vs = Ks + BK * QS;    // [BK][D]
-  float* Ps = Vs + BK * D;     // [BQ][PS]
-
-  const int tid = threadIdx.x;
-  const int r = tid >> 1;      // query row within the tile
-  const int half = tid & 1;    // this thread's interleaved half
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-
-  const int64_t q_stride = (int64_t)H * D;     // between positions
-  const int64_t kv_stride = (int64_t)Hkv * D;
-  const float* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-  const float* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
-  const float* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
-  float* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-
-  for (int i = tid; i < BQ * D; i += NTHREADS) {
-    const int rr = i / D, d = i % D;
-    const int qp = q0 + rr;
-    Qs[rr * QS + d] = qp < Sq ? qb[(int64_t)qp * q_stride + d] : 0.f;
-  }
-
-  // Key indices j in [j_lo, j_hi) can be valid for some row of this
-  // tile; tiles outside are never loaded.
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  int j_lo = 0, j_hi = Sk;
-  if (mode != kFull) {
-    j_hi = min(Sk, q_last - kv_offset + 1);
-    if (mode == kSliding) j_lo = max(0, q0 - window - kv_offset + 1);
-  }
-  j_lo = (j_lo / BK) * BK;
-
-  const int qpos = q0 + r;
-  float m = -INFINITY;   // running row max over valid scores
-  float l = 0.f;         // running row sum of exp(s - m)
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-
-  for (int j0 = j_lo; j0 < j_hi; j0 += BK) {
-    __syncthreads();  // the previous tile is consumed; Q is staged
-    for (int i = tid; i < BK * D; i += NTHREADS) {
-      const int c = i / D, d = i % D;
-      const int kp = j0 + c;
-      const bool in = kp < Sk;
-      Ks[c * QS + d] = in ? kb[(int64_t)kp * kv_stride + d] : 0.f;
-      Vs[c * D + d] = in ? vb[(int64_t)kp * kv_stride + d] : 0.f;
-    }
-    __syncthreads();
-
-    // scores of this thread's columns c = half + 2*jj
-    float s[BK / 2];
-    float row_max = -INFINITY;
-    const float* qr = Qs + r * QS;
-#pragma unroll
-    for (int jj = 0; jj < BK / 2; ++jj) {
-      const int c = half + 2 * jj;
-      const int j = j0 + c;
-      const int kpos = kv_offset + j;
-      bool ok = j < Sk;
-      if (mode != kFull) {
-        ok = ok && kpos <= qpos;
-        if (mode == kSliding) ok = ok && kpos > qpos - window;
-      }
-      float dot = 0.f;
-      if (ok) {
-        const float* kr = Ks + c * QS;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        dot *= scale;
-        row_max = fmaxf(row_max, dot);
-      }
-      s[jj] = ok ? dot : -INFINITY;
-    }
-    row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, 1));
-    const float m_new = fmaxf(m, row_max);
-
-    float corr = 1.f, psum = 0.f;
-    float* pr = Ps + r * PS;
-    if (m_new == -INFINITY) {
-      // nothing valid for this row yet: contributes nothing
-#pragma unroll
-      for (int jj = 0; jj < BK / 2; ++jj) pr[half + 2 * jj] = 0.f;
-    } else {
-      corr = expf(m - m_new);  // m = -inf gives 0
-#pragma unroll
-      for (int jj = 0; jj < BK / 2; ++jj) {
-        const float p = s[jj] == -INFINITY ? 0.f : expf(s[jj] - m_new);
-        psum += p;
-        pr[half + 2 * jj] = p;
-      }
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * corr + psum;
-    m = m_new;
-    __syncwarp();  // both threads of a row live in one warp
-
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= corr;
-    for (int c = 0; c < BK; ++c) {
-      const float p = pr[c];
-      const float* vr = Vs + c * D + half;
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] = fmaf(p, vr[2 * i], acc[i]);
-    }
-  }
-
-  if (qpos < Sq) {
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-    float* orow = ob + (int64_t)qpos * q_stride + half;
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) orow[2 * i] = acc[i] * inv;
-  }
-}
-
 
 // ---------------------------------------------------------------------
 // bf16 path on the tensor cores, designed for the H100 (the source note
@@ -468,6 +362,377 @@ flash_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------
+// fp32 path: split TF32 on the tensor cores (the source note says what
+// bounds it and what the design does about it). A block is one
+// warpgroup over F_BQ query rows of one query head; K/V tiles of F_BK
+// keys.
+// ---------------------------------------------------------------------
+constexpr int F_BQ = 64, F_BK = 64, F_THREADS = 128;
+
+// Shared memory of flash_fwd_f32_kernel<D>, and the blocks an SM it is
+// built for
+template <int D>
+struct F32Tile {
+  static constexpr int TB = F_BK * D * 4;  // bytes of one [64][D] tile
+  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
+  // K's two ring stages (as landed, then its hi in place), V as landed,
+  // K's lo, V^T's hi and lo, and room to align the tiles to 1024 bytes
+  static constexpr size_t smem = 1024 + 6 * TB;
+};
+
+// x rounded to TF32 (nearest, ties away from zero), as the tensor cores
+// take it
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// D[64 x N] += A B on the tensor cores in TF32, fp32 sums. A from
+// registers: lane l of warp w holds rows 16 w + l/4 (+8), columns l%4
+// (+4), as a[0] (row, col), a[1] (row + 8, col), a[2] (row, col + 4),
+// a[3] (row + 8, col + 4); B from shared memory, K-major (tf32 wgmma
+// takes no transposed operand)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t (&a)[4],
+                                           uint64_t db) {
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
+
+// A register array pinned where it stands: the compiler moves no write of
+// it below this point and no read above (CUTLASS's
+// warpgroup_fence_operand). Before wgmma.fence it keeps the writes of a
+// wgmma's A operands and accumulators above the fence (PTX leaves a
+// register a wgmma reads undefined when it is written after it); after
+// wgmma.wait, the reads of the accumulators below it
+template <typename T, int M>
+__device__ __forceinline__ void pin(T (&x)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if constexpr (std::is_same<T, float>::value)
+        asm volatile("" : "+f"(x[i][e])::"memory");
+      else
+        asm volatile("" : "+r"(x[i][e])::"memory");
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F_THREADS, F32Tile<D>::MIN_BLOCKS)
+flash_fwd_f32_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int Sq, int Sk, int H, int Hkv, int mode, int window,
+                     int kv_offset, float scale) {
+  constexpr int TB = F32Tile<D>::TB;
+  constexpr int CH = D / 4;       // 16-byte chunks of a row of K or V
+  constexpr int KD = D / 8;       // k-steps of S = Q K^T, and O's groups
+  constexpr int NK = F_BK / 8;    // k-steps of O += P V, and S's groups
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  unsigned char* Kring = sm;        // 2 stages of K [64][D]
+  unsigned char* Vin = sm + 2 * TB; // V [64][D] as it lands
+  unsigned char* Klo = sm + 3 * TB; // K's lo [64][D]
+  unsigned char* Vhi = sm + 4 * TB; // V^T's hi [D][64], keys permuted
+  unsigned char* Vlo = sm + 5 * TB; // V^T's lo
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, hk = h / (H / Hkv), b = blockIdx.z;
+  const int q0 = ((Sq + F_BQ - 1) / F_BQ - 1 - (int)blockIdx.y) * F_BQ;
+  const int q1 = min(q0 + F_BQ, Sq);
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
+  const float* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+  const float* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const float* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+
+  // key tile j of `src` into `dst` in the 128-byte swizzle; keys past Sk
+  // read as zeros
+  auto load = [&](const float* src, unsigned char* dst, int j) {
+    const int j0 = j * F_BK;
+    for (int i = tid; i < F_BK * CH; i += F_THREADS) {
+      const int r = i / CH, c = i % CH, kp = j0 + r;
+      cp_async16(dst + sw128<F_BK>(r, c),
+                 src + (int64_t)(kp < Sk ? kp : j0) * kv_stride + c * 4,
+                 kp < Sk);
+    }
+    cp_async_commit();
+  };
+
+  // x's lo beside its hi = tf32(x): x - hi rounded to TF32; hi + lo
+  // carries x to some 2^-22 of itself
+  auto lo_of = [&](float x, uint32_t hi) {
+    return tf32(x - __uint_as_float(hi));
+  };
+
+  // the thread's two rows, qrow and qrow + 8, and Q's A operands for
+  // the D / 8 k-steps of S, split once; rows past Sq read as zeros (they
+  // are never written)
+  const int qrow = q0 + warp * 16 + g;
+  uint32_t qh[KD][4], ql[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = qrow + 8 * (e & 1), d = kk * 8 + t + 4 * (e >> 1);
+      const float x = row < Sq ? qb[(int64_t)row * q_stride + d] : 0.f;
+      qh[kk][e] = tf32(x);
+      ql[kk][e] = lo_of(x, qh[kk][e]);
+    }
+
+  // the key tiles some row of the block sees: [j_lo / F_BK, jt_hi)
+  int j_lo = 0, j_hi = Sk;
+  if (mode != kFull) {
+    j_hi = max(0, min(Sk, q1 - kv_offset));
+    if (mode == kSliding) j_lo = max(0, q0 - window - kv_offset + 1);
+  }
+  const int jt_hi = (j_hi + F_BK - 1) / F_BK;
+  // every key of tile j is valid for all 64 rows: no pair mask
+  auto unmasked = [&](int j) {
+    const int kp0 = kv_offset + j * F_BK;
+    return (j + 1) * F_BK <= Sk &&
+           (mode == kFull ||
+            (kp0 + F_BK - 1 <= q0 &&
+             (mode != kSliding || kp0 > q0 + F_BQ - 1 - window)));
+  };
+
+  const float sl2 = 1.4426950408889634f * scale;  // scores in log2 units
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[KD][4];
+#pragma unroll
+  for (int nd = 0; nd < KD; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  int j = j_lo / F_BK, ks = 0;  // ks: tile j's stage of the K ring
+  if (j < jt_hi) {
+    load(kb, Kring, j);
+    load(vb, Vin, j);
+  }
+  for (; j < jt_hi; ++j, ks ^= 1) {
+    cp_async_wait<0>();  // tile j's K and V have landed
+    __syncthreads();     // and every warp is done with tile j - 1
+    unsigned char* Ks = Kring + ks * TB;
+    if (j + 1 < jt_hi) load(kb, Kring + (ks ^ 1) * TB, j + 1);
+
+    // split K: hi in place, lo beside it, in the same swizzled layout
+    for (int i = tid; i < F_BK * CH; i += F_THREADS) {
+      const uint32_t off = sw128<F_BK>(i / CH, i % CH);
+      const float4 x = *reinterpret_cast<const float4*>(Ks + off);
+      const uint4 hi = make_uint4(tf32(x.x), tf32(x.y), tf32(x.z), tf32(x.w));
+      *reinterpret_cast<uint4*>(Klo + off) =
+          make_uint4(lo_of(x.x, hi.x), lo_of(x.y, hi.y), lo_of(x.z, hi.z),
+                     lo_of(x.w, hi.w));
+      *reinterpret_cast<uint4*>(Ks + off) = hi;
+    }
+    // split V transposed: key r of the tile to position kap of row d of
+    // V^T (a warp's 32 keys to one row, no bank conflict)
+    for (int i = tid; i < F_BK * CH; i += F_THREADS) {
+      const int r = i % F_BK, c = i / F_BK, w = r & 7;
+      const int kap = (r & ~7) + ((w & 1) ? 4 + (w >> 1) : (w >> 1));
+      const float4 x =
+          *reinterpret_cast<const float4*>(Vin + sw128<F_BK>(r, c));
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t off = sw128<D>(4 * c + e, kap >> 2) + (kap & 3) * 4;
+        const uint32_t xh = tf32(xs[e]);
+        *reinterpret_cast<uint32_t*>(Vhi + off) = xh;
+        *reinterpret_cast<uint32_t*>(Vlo + off) = lo_of(xs[e], xh);
+      }
+    }
+    fence_proxy_async();  // the split tiles are seen by wgmma's reads
+    __syncthreads();
+    if (j + 1 < jt_hi) load(vb, Vin, j + 1);  // V's landing tile is free
+
+    // S = Q K^T: 64 rows x 64 keys, the small products first
+    const uint32_t ka = smem_u32(Ks), kl = smem_u32(Klo);
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    pin(s);
+    pin(qh);
+    pin(ql);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const uint32_t off = (kk >> 2) * SW_BLOCK + (kk & 3) * 32;
+      wgmma_tf32<F_BK>(&s[0][0], ql[kk], wg_desc(ka + off, 16, SW_GROUP));
+      wgmma_tf32<F_BK>(&s[0][0], qh[kk], wg_desc(kl + off, 16, SW_GROUP));
+      wgmma_tf32<F_BK>(&s[0][0], qh[kk], wg_desc(ka + off, 16, SW_GROUP));
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    pin(s);
+
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (unmasked(j)) {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] *= sl2;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = qrow + 8 * (e >> 1);
+          const int kj = j * F_BK + n * 8 + t * 2 + (e & 1);
+          const int kpos = kv_offset + kj;
+          bool ok = kj < Sk;
+          if (mode != kFull) {
+            ok = ok && kpos <= row;
+            if (mode == kSliding) ok = ok && kpos > row - window;
+          }
+          s[n][e] = ok ? s[n][e] * sl2 : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+    }
+    // online softmax; a row with no valid key so far keeps m = -inf and
+    // subtracts 0, so its probabilities are exactly 0
+    float corr[2], m0[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      m0[i] = m_new == -INFINITY ? 0.f : m_new;
+      corr[i] = ex2(m[i] - m0[i]);
+      m[i] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = ex2(s[n][e] - m0[e >> 1]);
+        psum[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
+#pragma unroll
+    for (int nd = 0; nd < KD; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nd][e] *= corr[e >> 1];
+
+    // O += P V: P's A operand of k-step kk is S's group kk as it lies
+    // (the keys of V^T are permuted to match), split in registers
+    uint32_t ph[NK][4], pl[NK][4];
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const float p[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ph[kk][e] = tf32(p[e]);
+        pl[kk][e] = lo_of(p[e], ph[kk][e]);
+      }
+    }
+    const uint32_t vh = smem_u32(Vhi), vl = smem_u32(Vlo);
+    pin(ph);
+    pin(pl);
+    pin(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const uint32_t off = (kk >> 2) * (D * 128) + (kk & 3) * 32;
+      wgmma_tf32<D>(&acc[0][0], pl[kk], wg_desc(vh + off, 16, SW_GROUP));
+      wgmma_tf32<D>(&acc[0][0], ph[kk], wg_desc(vl + off, 16, SW_GROUP));
+      wgmma_tf32<D>(&acc[0][0], ph[kk], wg_desc(vh + off, 16, SW_GROUP));
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    pin(acc);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+  }
+  float* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = qrow + 8 * i;
+    if (qp >= Sq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    float* orow = ob + (int64_t)qp * q_stride + t * 2;
+#pragma unroll
+    for (int nd = 0; nd < KD; ++nd)
+      *reinterpret_cast<float2*>(orow + nd * 8) =
+          make_float2(acc[nd][2 * i] * inv, acc[nd][2 * i + 1] * inv);
+  }
+}
+
 // grid x, y, z, threads and shared memory of the last launch of either
 // kernel (k2_last_launch reads them)
 static long long g_launch[5] = {0, 0, 0, 0, 0};
@@ -495,12 +760,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
         static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Hkv, mode,
         window, kv_offset, scale);
   } else {
-    constexpr size_t smem = smem_bytes<D>();
+    constexpr size_t smem = F32Tile<D>::smem;
     cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem, smem_set);
     if (err != cudaSuccess) return err;
-    const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-    record_launch(grid, NTHREADS, smem);
-    flash_fwd_f32_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+    const dim3 grid(H, (Sq + F_BQ - 1) / F_BQ, B);
+    record_launch(grid, F_THREADS, smem);
+    flash_fwd_f32_kernel<D><<<grid, F_THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, Hkv, mode,
         window, kv_offset, scale);

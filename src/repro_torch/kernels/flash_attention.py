@@ -15,11 +15,13 @@ The kernel has no backward, so on the card it refuses inputs that need
 a gradient (training attends through the packed kernel K1).
 bf16 inputs run on the tensor cores (`wgmma`, fp32 accumulation,
 probabilities rounded to bf16 before the product with V; two
-warpgroups over 128 query rows a block); fp32 inputs run in fp32 on the
-CUDA cores (64 query rows a block). `last_launch` reads back either
-kernel's last launch; `flash_attention.launches_by` counts the launches
-by kernel and mode. Head dims 32,
-64 and 128 run in both types, 160 (pixtral-12b) in bf16 only.
+warpgroups over 128 query rows a block); fp32 inputs run on the tensor
+cores in split TF32 (`wgmma`: each operand as a TF32 hi and lo, each
+product as three, which keeps fp32's accuracy; one warpgroup over 64
+query rows a block). `last_launch` reads back either kernel's last
+launch; `flash_attention.launches_by` counts the launches by kernel and
+mode. Head dims 32, 64 and 128 run in both types, 160 (pixtral-12b) in
+bf16 only.
 """
 from __future__ import annotations
 

@@ -1559,6 +1559,44 @@ def test_k2_full_at_whisper_shapes(card, dtype, Sq):
               dtype=dtype, mode="full")
 
 
+# K2's fp32 kernel: split TF32 on the tensor cores, one warpgroup over 64
+# query rows a block, two blocks an SM at D = 64
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq", [(1, 1500), (2, 448)])
+def test_k2_f32_split_tf32_at_whisper_shapes(card, B, Sq):
+    """whisper-small's encoder (1x1500) and forward's cross-attention
+    (2x448) over 1500 frames at 12:12 heads of 64, fp32: within 1e-4 of
+    the plain version (plain TF32 reads 2e-4 to 4e-4 there); the launch
+    is (H, ceil(Sq / 64), B) blocks of 128 threads in at most half an
+    SM's shared memory; a second call gives the same bits (no atomics)."""
+    from repro_torch.kernels.flash_attention import last_launch
+    out, _ = _k2_close(card, f"fp32 {B}x{Sq}x1500", B, Sq, 1500, 12, 12, 64,
+                       110 + B, dtype=torch.float32, mode="full")
+    launch = last_launch()
+    assert launch["grid"] == (12, -(-Sq // 64), B), launch
+    assert launch["threads"] == 128, launch
+    assert launch["smem_bytes"] <= 232448 // 2, launch
+    rng = np.random.default_rng(110 + B)
+    q, k, v = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(card) for s in ((B, Sq, 12, 64), (B, 1500, 12, 64),
+                                   (B, 1500, 12, 64))]
+    assert torch.equal(out, flash_attention(q, k, v, mode="full"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("mode,window", [("causal", None),
+                                         ("sliding", 64)])
+def test_k2_f32_rows_without_keys_are_zero(card, mode, window, D):
+    """As test_k2_rows_without_keys_are_zero in fp32 (kv_offset 150, GQA
+    12:2): queries 0-149 come out exactly 0, the rest within 1e-4."""
+    out, _ = _k2_close(card, "fp32 no keys", 2, 300, 300, 12, 2, D, 92,
+                       dtype=torch.float32, mode=mode, window=window,
+                       kv_offset=150)
+    assert (out[:, :150] == 0).all()
+    assert out[:, 150:].abs().amax(dim=(0, 2, 3)).min() > 0
+
+
 def _whisper(card):
     """Reduced whisper-small (fp32, attn_impl="cuda"), its parameters
     on the CPU and on the card, and frames from a numpy seed."""
