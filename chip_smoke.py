@@ -11,8 +11,9 @@ width), and the remaining dense and VLM configs (pixtral-12b's and
 qwen3vl-8b's DHP training at full width, depth cut, and their serving
 whole; chatglm3-6b, glm4-9b, minitron-4b and llama3-405b, 2 layers,
 through Engine.serve; pixtral-12b's forward with patch embeddings), and
-the audio family (whisper-small's serving and forward, whole) — and
-checks what comes out.
+the audio family (whisper-small's serving, forward and training through
+make_train_step, whole, and a checkpoint resume) — and checks what comes
+out.
 
     python3 chip_smoke.py
 
@@ -316,19 +317,53 @@ Phases:
                 most 1.25 times as far from the same weights in fp32 as
                 the plain attention path; two faults planted around the
                 fp32 kernel (the last key tile dropped, the scale at
-                D = 128) farther; other frames move the logits. Then the
-                run's wall
-Phases 27-38 run in a process of their own (`--late-phases`), started
-by the first on the same card after it has released its memory:
-after some 400 profiler sessions in one process torch.profiler drops
-kernels' events and then traces none, so their device times are read
-from a fresh one.
+                D = 128) farther; other frames move the logits
+ 39. audio train kernels — K1 forward and backward vs plain with phase
+                7's limits at whisper-small's training shapes, 12:12 heads
+                of 64, 1 and 8 rows: fp32 full 1500 x 1500 (the encoder),
+                fp32 full 448 over 1500 with the frames' own segment
+                table (the cross-attention, Sq != Sk), bf16 causal 448
+                (the decoder); ms, device_ms, plain, SDPA (forward, and
+                backward through autograd), bound (fp32's split-TF32
+                bound beside), each launch
+ 40. audio train parity — reduced whisper-small, fp32, one set of
+                weights: loss and every gradient leaf through the kernels
+                vs the plain attention within 1e-4; one make_train_step
+                each (loss, grad_norm); K1's launches by kernel and mode
+ 41. audio training — whisper-small whole at full width, bf16 parameters,
+                fp32 frames: make_train_step, 3 steps on 8 x 448 tokens
+                over 1500 frames and a profiled fourth: loss finite and
+                falling, step time, tokens/s (frames beside), peak
+                memory, busy share, K1's launches by kernel and mode (2 x
+                12 fp32 full and 12 bf16 causal a step, each way; no K2)
+                and by shape, each shape one phase 39 held; then at 2 + 2
+                layers on 2 rows the gradient through the kernels at
+                most 1.25 times as far (per leaf, max|err| / max|fp32|)
+                from the same weights in fp32 as the plain attention
+                path's, a planted fault (the last partial key tile left
+                out of K1) beyond that
+ 42. audio resume — whisper-small at 2 + 2 layers, bf16, 2 rows: 2 steps,
+                checkpoint.save, restore (bit for bit what was saved), 2
+                more, against 2 more from the state saved: losses within
+                2e-4 relative and at most 2% of the parameters differing
+                at all (K1's dQ atomics); two faults planted in copies of
+                the restored state (moments zeroed, step counter reset)
+                beyond the share, the first beyond the loss limit too;
+                the file's bytes and the ms to save and to restore. Then
+                the run's wall
+Phases 27-38 run in a process of their own (`--late-phases`), and
+phases 39-42 in another (`--audio-train-phases`), each started by the
+first on the same card after it has released its memory: after some
+400 profiler sessions in one process torch.profiler drops kernels'
+events and then traces none, so their device times are read from a
+fresh one.
 
 Each full-width training phase (9, 13, 18, 24) first collects what the
 earlier phases left in reference cycles (the profiler's event trees
 among it) and prints what that took: left to the garbage collector, its
 full pass over that heap lands inside one of the run's timed steps.
 """
+import dataclasses
 import json
 import math
 import os
@@ -722,7 +757,9 @@ def packed_bound(B, Sq, Sk, H, Hkv, D, dtype, pairs, backward, n_tables):
     written), the fp32 LSE and the int32 tables (`n_tables` per side:
     segments, and spans when given) cross HBM once, against 4*D
     (forward) or 10*D (backward) flops per valid (query, key) pair per
-    head."""
+    head: (ms, "bytes" or "operations", split-TF32 ms), the last fp32's
+    bound on the tensor cores, each product formed three times at
+    PEAK_TF32 as `attention_bound` has it (None for bf16)."""
     elt = torch.finfo(dtype).bits // 8
     qo = B * Sq * H * D
     kv = B * Sk * Hkv * D
@@ -732,8 +769,10 @@ def packed_bound(B, Sq, Sk, H, Hkv, D, dtype, pairs, backward, n_tables):
         nbytes += elt * (2 * qo + 2 * kv)          # dO read; dq, dk, dv
     flops = (10.0 if backward else 4.0) * D * pairs * H
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    split = (max(t_bytes, 3 * flops / PEAK_TF32) * 1e3
+             if dtype == torch.float32 else None)
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", split)
 
 
 def _by_kv_heads(fn, n, q, k, v, *rest, **kw):
@@ -790,10 +829,9 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
     kw = dict(mode=mode, window=window, span_ids=t(span),
               kv_segment_ids=t(kseg), kv_span_ids=t(kspan), kv_offset=off)
     o, lse = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
-    launch = dict(fwd=last_fwd_launch()) if dtype == torch.bfloat16 else {}
+    launch = dict(fwd=last_fwd_launch())
     grads = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
-    if launch:
-        launch["bwd"] = last_bwd_kv_launch()
+    launch["bwd"] = last_bwd_kv_launch()
     ro, rlse = plain_fwd_fn(q, k, v, segt, **kw)
     rgrads = plain_bwd_fn(q, k, v, ro, rlse, do, segt, **kw)
     torch.cuda.synchronize()
@@ -842,10 +880,10 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
         warmup=2)
     del lib_out
     n_tables = 1 if span is None else 2
-    bf, bf_by = packed_bound(B, S, Sk, H, HKV, D, dtype, pairs, False,
-                             n_tables)
-    bb, bb_by = packed_bound(B, S, Sk, H, HKV, D, dtype, pairs, True,
-                             n_tables)
+    bf, bf_by, bf_tf32 = packed_bound(B, S, Sk, H, HKV, D, dtype, pairs,
+                                      False, n_tables)
+    bb, bb_by, bb_tf32 = packed_bound(B, S, Sk, H, HKV, D, dtype, pairs,
+                                      True, n_tables)
     row = dict(tag=tag, B=B, S=S, Sk=Sk, H=H, Hkv=HKV, D=D,
                dtype=str(dtype).split(".")[-1], mode=mode, window=window,
                spans=span is not None, kv_offset=off, pairs=pairs,
@@ -857,15 +895,17 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
                plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
                library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
                bound_fwd_ms=bf, bound_fwd_by=bf_by, bound_bwd_ms=bb,
-               bound_bwd_by=bb_by)
+               bound_bwd_by=bb_by, bound_fwd_split_tf32_ms=bf_tf32,
+               bound_bwd_split_tf32_ms=bb_tf32)
     if detail:
         row["fwd_device_ms"] = device_ms(lambda: flash_attention_packed(
             q, k, v, segt, **kw), iters=5, warmup=1)[0]
         row["bwd_device_ms"] = device_ms(lambda: flash_attention_packed_bwd(
             q, k, v, o, lse, do, segt, **kw), iters=5, warmup=1)[0]
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        row["launch"] = dict(**launch, sms=torch.cuda.get_device_properties(
+            0).multi_processor_count)
         print(f"  K1 launch {tag} S={S} H={H} Hkv={HKV} D={D} "
-              f"{json.dumps(dict(**launch, sms=sms))} ({card})")
+              f"{json.dumps(row['launch'])} ({card})")
     print(f"  K1 {json.dumps(row)} ({card})")
     return row
 
@@ -1357,10 +1397,17 @@ def collect_garbage(label):
 
 
 def profile_step(eng, run, card, label, kernel_keys, ranges=()):
-    """One more training step under torch.profiler: wall, device busy
-    share, the 15 kernels with the most device time, and for each name
-    -> key of `kernel_keys` the device time and the launches of kernels
-    whose name holds the key (printed as `<name>_device_ms` and
+    """One more training step of `eng` under torch.profiler; see
+    `profile_call`."""
+    return profile_call(lambda: eng.train(steps=1, lookahead=False, **run),
+                        card, label, kernel_keys, ranges)
+
+
+def profile_call(step, card, label, kernel_keys, ranges=()):
+    """`step()` (one training step) under torch.profiler: wall, device
+    busy share, the 15 kernels with the most device time, and for each
+    name -> key of `kernel_keys` the device time and the launches of
+    kernels whose name holds the key (printed as `<name>_device_ms` and
     `<name>_launches`). `ranges` names profiler
     ranges of the code: each appears on the device's timeline as a span
     over its kernels, which is reported apart and kept out of the busy
@@ -1370,7 +1417,7 @@ def profile_step(eng, run, card, label, kernel_keys, ranges=()):
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t1 = time.perf_counter()
-        eng.train(steps=1, lookahead=False, **run)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
     dev_evs = [ev for ev in prof.events()
@@ -2822,6 +2869,8 @@ SHORT_SERVES = (("chatglm3-6b", None), ("glm4-9b", None),
 VLM_MARGIN = 1.25
 #: phases 27-38 took 80-150 s on an H100 80GB HBM3, 700 W
 LATE_TIMEOUT_S = 600
+#: the time limit of phases 39-42's process
+AUDIO_TRAIN_TIMEOUT_S = 600
 VLM_FAULTS = ("scale_at_192", "third_block_unwritten",
               "third_block_from_second")
 
@@ -3422,6 +3471,400 @@ def phase_audio_forward(dev, card, held):
     return launches
 
 
+#: whisper-small's training batch: rows of WHISPER_TOKENS decoder tokens
+#: over WHISPER_FRAMES frames; its K1 shapes are held against plain at
+#: 1 row and at the batch's 8
+WHISPER_TRAIN_ROWS = 8
+WHISPER_TOKENS = 448
+#: the depth of the full-width parity check and of the resume
+AUDIO_TRAIN_DEPTH = 2
+#: the audio training gradient through the kernels lies at most this
+#: many times as far (per leaf, max|err| / max|fp32|) from the same
+#: weights in fp32 as the plain attention path's, as AUDIO_MARGIN holds
+#: the forward
+AUDIO_GRAD_MARGIN = 1.25
+#: the resumed run against the unbroken one: K1's dQ is summed by
+#: atomics in an order that varies between calls, so from the break on
+#: the two runs' gradients differ in their last bits. Their losses may
+#: stand this far apart (relative), and this share of the parameters may
+#: differ at all. A resume with the moments zeroed on restore must go
+#: beyond both, one with the step counter reset beyond the share (it
+#: moves the losses about 1.3e-4, too close to the sound runs' 2.4e-5 to
+#: set a limit between them) (phase_audio_resume)
+RESUME_LOSS_RTOL = 2e-4
+RESUME_DIFFER_SHARE = 0.02
+
+
+def _k1_shape_key(row, which) -> str:
+    """The key of `flash_attention_packed.launches_by_shape` under which
+    the kernel of a `check_packed` row's dtype (`which` 0 the forward, 1
+    the backward) counts its launches at the row's shape."""
+    from repro_torch.kernels.flash_attention_packed import KERNELS
+    kernel = KERNELS[getattr(torch, row["dtype"])][which]
+    return f"{kernel} {row['mode']} {row['S']}x{row['Sk']}"
+
+
+def _planted_k1_tail(q, k, v, segment_ids, **kw):
+    """K1 with the last 28 of 1500 keys (the partial 32-key tile) left
+    out of every full-mode call over the frames: a fault planted around
+    the sound kernel, for the gradient check to find."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed)
+    if kw.get("mode") == "full" and k.shape[1] == WHISPER_FRAMES:
+        kseg = kw.get("kv_segment_ids")
+        kseg = (segment_ids if kseg is None else kseg).clone()
+        kseg[:, 1472:] = -2
+        kw = dict(kw, kv_segment_ids=kseg)
+    return flash_attention_packed(q, k, v, segment_ids, **kw)
+
+
+def phase_audio_train_kernels(dev, card):
+    """K1 forward and backward vs plain (phase 7's limits, `check_packed`
+    with device times and launches) at whisper-small's training shapes,
+    12:12 heads of 64, for 1 row and WHISPER_TRAIN_ROWS: fp32 full at
+    1500 x 1500 (the encoder), fp32 full at 448 over 1500 with the
+    frames' own segment table (the cross-attention, Sq != Sk), bf16
+    causal at 448 (the decoder)."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    F, T = WHISPER_FRAMES, WHISPER_TOKENS
+    for B in (1, WHISPER_TRAIN_ROWS):
+        z = lambda n: np.zeros((B, n), np.int32)  # noqa: E731
+        rows.append(check_packed(dev, card, gen, F, torch.float32, z(F),
+                                 mode="full", tag="whisper encoder",
+                                 heads=WHISPER_HEADS, detail=True))
+        rows.append(check_packed(dev, card, gen, T, torch.float32, z(T),
+                                 mode="full", kseg=z(F), Sk=F,
+                                 tag="whisper cross", heads=WHISPER_HEADS,
+                                 detail=True))
+        rows.append(check_packed(dev, card, gen, T, torch.bfloat16, z(T),
+                                 tag="whisper decoder", heads=WHISPER_HEADS,
+                                 detail=True))
+    return rows
+
+
+def _grad_tree(params, cfg, batch):
+    """(loss, gradient leaves) of `loss_fn` at `params`."""
+    from repro_torch.training import value_and_grad
+    from repro_torch.training.optimizer import tree_leaves
+    _, loss, _, grads = value_and_grad(params, cfg, batch)
+    return loss.item(), list(tree_leaves(grads))
+
+
+def _leaf_dist(got, want) -> float:
+    """Largest per-leaf max|got - want| / max|want| over the leaves."""
+    return max(((a.double() - b.double()).abs().max()
+                / b.double().abs().max().clamp_min(1e-30)).item()
+               for a, b in zip(got, want))
+
+
+def phase_audio_train_parity(dev, card):
+    """Reduced whisper-small, fp32, one set of weights: the loss and
+    every gradient leaf through the kernels (K1: fp32 full for the
+    encoder and the cross-attention, fp32 causal for the decoder) vs
+    through the plain attention (attn_impl="reference") within 1e-4,
+    and one `make_train_step` step each (loss, grad_norm); K1's launches
+    by kernel and mode."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed)
+    from repro_torch.models import model as tm
+    from repro_torch.training import AdamW, TrainState, make_train_step
+    cfg = get_config("whisper-small").reduced().with_(attn_impl="cuda")
+    params = tm.init_params(cfg, seed=0, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic_batch(cfg, 4, 12, seed=1).items()}
+    out = {}
+    for impl in ("cuda", "reference"):
+        c = cfg.with_(attn_impl=impl)
+        flash_attention_packed.launches_by = {}
+        loss, grads = _grad_tree(params, c, batch)
+        by = dict(flash_attention_packed.launches_by)
+        _, m = make_train_step(c, AdamW())(TrainState(params), batch)
+        out[impl] = (loss, grads, {k: v.item() for k, v in m.items()}, by)
+    (loss, g, m, by), (rloss, rg, rm, rby) = out["cuda"], out["reference"]
+    n_enc, L = cfg.encdec.n_enc_layers, cfg.n_layers
+    want = {"packed_fwd_f32_kernel full": n_enc + L,
+            "packed_bwd_f32_kernel full": n_enc + L,
+            "packed_fwd_f32_kernel causal": L,
+            "packed_bwd_f32_kernel causal": L}
+    gerr = max((a - b).abs().max().item() for a, b in zip(g, rg))
+    row = dict(loss=loss, plain_loss=rloss, grad_max_diff=gerr,
+               step=m, plain_step=rm, k1_launches_by=by)
+    print(f"  whisper-small reduced training parity {json.dumps(row)} "
+          f"({card})")
+    if by != want or rby:
+        raise AssertionError(f"K1 launches {by} (plain path {rby}), want "
+                             f"{want}")
+    if not (abs(loss - rloss) <= 1e-4 and gerr <= 1e-4
+            and abs(m["grad_norm"] - rm["grad_norm"])
+            <= 1e-4 * rm["grad_norm"]):
+        raise AssertionError("audio training through the kernels differs "
+                             "from the plain path by more than 1e-4")
+
+
+def phase_audio_training(dev, card, held):
+    """whisper-small at full width (12 + 12 layers), bf16 parameters,
+    fp32 frames: 3 steps of `make_train_step` on one synthetic batch of
+    WHISPER_TRAIN_ROWS x 448 tokens over 1500 frames, and a profiled
+    fourth: step time, tokens/s (decoder tokens, frames beside), peak
+    memory, busy share; K1's launches by kernel and mode and by shape,
+    every shape one phase 39 held (`held`); the loss finite and falling.
+    Then, depth cut to AUDIO_TRAIN_DEPTH + AUDIO_TRAIN_DEPTH layers on 2
+    rows, the gradient through the kernels held to AUDIO_GRAD_MARGIN
+    times the plain attention path's distance from the same weights in
+    fp32, with the last partial key tile planted out of K1 beyond it.
+    Returns (K1's launches by kernel and mode, by kernel, mode and
+    shape), as the wrapper counted them in the 3 steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed)
+    from repro_torch.models import attention
+    from repro_torch.models import model as tm
+    from repro_torch.training import AdamW, TrainState, make_train_step
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    torch.cuda.empty_cache()
+    collect_garbage("audio train")
+    cfg = get_config("whisper-small")
+    n_enc, L = cfg.encdec.n_enc_layers, cfg.n_layers
+    t0 = time.perf_counter()
+    params = tm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"  whisper-small: {n_enc} + {L} layers d_model {cfg.d_model}, "
+          f"{cfg.n_heads}:{cfg.kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"vocab {cfg.vocab}, {n_params / 1e9:.3f} B params "
+          f"{cfg.param_dtype}, init {time.perf_counter() - t0:.1f} s")
+    B, T = WHISPER_TRAIN_ROWS, WHISPER_TOKENS
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic_batch(cfg, B, T, seed=0).items()}
+    step = make_train_step(cfg, AdamW())
+    state = TrainState(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    flash_attention.launches = 0
+    flash_attention_packed.launches_by = {}
+    flash_attention_packed.launches_by_shape = {}
+    losses = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = m["loss"].item()                    # waits for the card
+        dt = time.perf_counter() - t1
+        losses.append(loss)
+        print(f"  whisper-small train step {i}: loss={loss} "
+              f"grad_norm={m['grad_norm'].item()} step_time_s={dt} "
+              f"tokens={B * T} tokens_per_s={B * T / dt} "
+              f"frames={B * WHISPER_FRAMES} frames_per_s="
+              f"{B * WHISPER_FRAMES / dt} ({card})")
+    peak = torch.cuda.max_memory_allocated(dev)
+    by = dict(flash_attention_packed.launches_by)
+    shapes = dict(flash_attention_packed.launches_by_shape)
+    print(f"  whisper-small train max_memory_allocated_bytes = {peak} "
+          f"({card})")
+    print(f"  whisper-small train K1 launches {json.dumps(by)}; by shape "
+          f"{json.dumps(shapes)}; K2 launches {flash_attention.launches}")
+    # a step: the encoder's and the cross-attention's fp32 (from fp32
+    # frames) in full mode, the decoder's bf16 causal, each way
+    want = {"packed_fwd_f32_kernel full": 3 * (n_enc + L),
+            "packed_bwd_f32_kernel full": 3 * (n_enc + L),
+            "packed_fwd_wg_kernel causal": 3 * L,
+            "packed_bwd_kv_kernel causal": 3 * L}
+    if by != want or flash_attention.launches:
+        raise AssertionError(f"K1 launches {by}, want {want}; K2 "
+                             f"{flash_attention.launches}, want 0")
+    held_at = {_k1_shape_key(r, i) for r in held if r["B"] == B
+               for i in (0, 1)}
+    if not set(shapes) <= held_at:
+        raise AssertionError(f"K1 launched at shapes phase 39 did not "
+                             f"hold: {sorted(set(shapes) - held_at)}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"losses {losses}: not finite and falling")
+    if not all(torch.isfinite(t).all() for t in tree_leaves(state.params)):
+        raise AssertionError("parameters are not finite after 3 steps")
+
+    def one_more():
+        nonlocal state
+        state, _ = step(state, batch)
+    profile_call(one_more, card, "whisper-small train",
+                 {"k1_f32": "packed_fwd_f32", "k1_f32_bwd": "packed_bwd_f32",
+                  "k1_bf16": "packed_fwd_wg", "k1_bf16_bwd": "packed_bwd_kv"})
+    del state, params, batch, m
+    torch.cuda.empty_cache()
+
+    # the depth cut: the gradient through the kernels against fp32
+    cut = cfg.with_(n_layers=AUDIO_TRAIN_DEPTH,
+                    encdec=dataclasses.replace(
+                        cfg.encdec, n_enc_layers=AUDIO_TRAIN_DEPTH))
+    params = tm.init_params(cut, seed=0, device=dev)
+    small = {k: torch.as_tensor(v, device=dev)
+             for k, v in synthetic_batch(cut, 2, T, seed=1).items()}
+    fp32 = cut.with_(param_dtype="float32", attn_impl="reference")
+    _, truth = _grad_tree(tree_map(lambda t: t.float(), params), fp32, small)
+    _, ref = _grad_tree(params, cut.with_(attn_impl="reference"), small)
+    _, got = _grad_tree(params, cut, small)
+    plain = _leaf_dist(ref, truth)
+    row = dict(layers=f"{AUDIO_TRAIN_DEPTH} + {AUDIO_TRAIN_DEPTH}",
+               rows=2, kernel_vs_fp32=_leaf_dist(got, truth),
+               plain_vs_fp32=plain, kernel_vs_plain=_leaf_dist(got, ref),
+               dtypes_as_params=all(
+                   a.dtype == p.dtype
+                   for a, p in zip(got, tree_leaves(params))))
+    row["ratio"] = row["kernel_vs_fp32"] / plain
+    attention.flash_attention_packed = _planted_k1_tail
+    try:
+        _, bad = _grad_tree(params, cut, small)
+    finally:
+        attention.flash_attention_packed = flash_attention_packed
+    row["fault_last_tile_ratio"] = _leaf_dist(bad, truth) / plain
+    print(f"  whisper-small depth-cut gradient {json.dumps(row)} ({card})")
+    if not (row["ratio"] <= AUDIO_GRAD_MARGIN and row["dtypes_as_params"]):
+        raise AssertionError(f"audio gradient through the kernels "
+                             f"{row['ratio']} times as far from fp32 as "
+                             f"the plain path (> {AUDIO_GRAD_MARGIN})")
+    if not row["fault_last_tile_ratio"] > AUDIO_GRAD_MARGIN:
+        raise AssertionError("a gradient without the last key tile passes "
+                             "the audio gradient check")
+    del params, truth, ref, got, bad
+    torch.cuda.empty_cache()
+    return by, shapes
+
+
+def _resume_faults(state):
+    """Two faults planted in a restored train state, each on its own
+    copy: the moments zeroed, and the step counter reset to 0 (so the
+    bias corrections start again)."""
+    from repro_torch.training import AdamWState, TrainState
+    from repro_torch.training.optimizer import tree_map
+
+    def copy(fn, step):
+        return TrainState(tree_map(torch.clone, state.params), AdamWState(
+            step, tree_map(fn, state.opt.m), tree_map(fn, state.opt.v)))
+    return {"moments_zeroed": copy(torch.zeros_like,
+                                   state.opt.step.clone()),
+            "step_reset": copy(torch.clone,
+                               torch.zeros_like(state.opt.step))}
+
+
+def phase_audio_resume(dev, card):
+    """A checkpoint resume on the card: whisper-small at full width, depth
+    cut to AUDIO_TRAIN_DEPTH + AUDIO_TRAIN_DEPTH layers, bf16, 2 rows:
+    two `make_train_step` steps, `checkpoint.save`, `restore` into a new
+    tree (bit for bit the state saved), then two more steps from the
+    restored tree and two from the state that was saved (the unbroken
+    run). K1's dQ is summed by atomics in an order that varies between
+    calls, so the two runs' gradients differ in their last bits from the
+    break on: the losses are held within RESUME_LOSS_RTOL and the share
+    of parameters that differ at all within RESUME_DIFFER_SHARE. Two
+    faults planted in copies of the restored state (`_resume_faults`)
+    must go beyond them as RESUME_LOSS_RTOL says. Prints the file's size and the ms to save and
+    to restore; returns the row."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models import model as tm
+    from repro_torch.training import AdamW, TrainState, make_train_step
+    from repro_torch.training import checkpoint
+    from repro_torch.training.optimizer import tree_leaves
+    cfg = get_config("whisper-small")
+    cfg = cfg.with_(n_layers=AUDIO_TRAIN_DEPTH, encdec=dataclasses.replace(
+        cfg.encdec, n_enc_layers=AUDIO_TRAIN_DEPTH))
+    step = make_train_step(cfg, AdamW())
+    params = tm.init_params(cfg, seed=0, device=dev)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in
+                synthetic_batch(cfg, 2, WHISPER_TOKENS, seed=s).items()}
+               for s in range(4)]
+
+    def run(state, bs):
+        losses = []
+        for b in bs:
+            state, m = step(state, b)
+            losses.append(m["loss"].item())
+        return state, losses
+
+    def flat(state):
+        return [*tree_leaves(state.params), state.opt.step,
+                *tree_leaves(state.opt.m), *tree_leaves(state.opt.v)]
+    saved, l_first = run(TrainState(params), batches[:2])
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "whisper.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save(path, {"params": saved.params, "opt": saved.opt},
+                        meta={"format": 2, "step": 2})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        tree = checkpoint.restore(path, {"params": saved.params,
+                                         "opt": saved.opt})
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    resumed = TrainState(tree["params"], tree["opt"])
+    # before the unbroken run's next step updates the moments in place
+    exact = all(torch.equal(a, b) for a, b in zip(flat(resumed),
+                                                  flat(saved)))
+    faults = _resume_faults(resumed)
+    straight, l_straight = run(saved, batches[2:])
+    n_total = sum(t.numel() for t in tree_leaves(params))
+
+    def against_unbroken(state):
+        state, losses = run(state, batches[2:])
+        differ = sum(int((a != b).sum()) for a, b in zip(
+            tree_leaves(state.params), tree_leaves(straight.params)))
+        return dict(losses=losses, loss_max_rel_diff=max(
+            abs(a - b) / abs(b) for a, b in zip(losses, l_straight)),
+            params_differing=differ, params_differing_share=differ / n_total)
+    sound = against_unbroken(resumed)
+    planted = {name: against_unbroken(st) for name, st in faults.items()}
+    row = dict(layers=f"{AUDIO_TRAIN_DEPTH} + {AUDIO_TRAIN_DEPTH}",
+               file_bytes=size, save_ms=save_ms, restore_ms=restore_ms,
+               restored_bit_for_bit=exact, losses_before=l_first,
+               losses_unbroken=l_straight, resumed=sound, params_total=n_total,
+               loss_rtol=RESUME_LOSS_RTOL, differ_share=RESUME_DIFFER_SHARE,
+               planted=planted)
+    print(f"  whisper-small resume {json.dumps(row)} ({card})")
+
+    def within(r):
+        return (r["loss_max_rel_diff"] <= RESUME_LOSS_RTOL
+                and r["params_differing_share"] <= RESUME_DIFFER_SHARE)
+    if not (exact and within(sound)):
+        raise AssertionError("the resumed run differs from the unbroken "
+                             "one beyond the stated tolerance")
+    caught = {name: r["params_differing_share"] > RESUME_DIFFER_SHARE
+              for name, r in planted.items()}
+    caught["moments_zeroed_loss"] = (
+        planted["moments_zeroed"]["loss_max_rel_diff"] > RESUME_LOSS_RTOL)
+    if not all(caught.values()):
+        raise AssertionError(f"a planted resume fault passes the resume "
+                             f"check: {caught}")
+    del params, straight, saved, resumed, tree, faults
+    torch.cuda.empty_cache()
+    return row
+
+
+def audio_train_phases(dev, card) -> dict:
+    """Phases 39-42; returns what the kernels line takes from them."""
+    phase = PhaseClock()
+    phase("[39/42] K1 vs plain versions at whisper-small's training shapes "
+          "(12:12 heads of 64: fp32 full 1500 x 1500 and 448 over 1500, "
+          "bf16 causal 448; 1 and 8 rows)")
+    rows = phase_audio_train_kernels(dev, card)
+    phase("[40/42] audio training parity at reduced size (fp32)")
+    phase_audio_train_parity(dev, card)
+    phase("[41/42] full-width whisper-small training (bf16 parameters, "
+          "fp32 frames) through make_train_step")
+    by, shapes = phase_audio_training(dev, card, rows)
+    phase("[42/42] a checkpoint resume on the card (whisper-small, "
+          f"{AUDIO_TRAIN_DEPTH} + {AUDIO_TRAIN_DEPTH} layers)")
+    resume = phase_audio_resume(dev, card)
+    phase.end()
+    return dict(rows=rows, launches_by=by, launches_by_shape=shapes,
+                resume=resume)
+
+
 class PhaseClock:
     """`phase(header)` prints a phase's header line and, first, how long
     the phase before it took; `end()` closes the last."""
@@ -3451,39 +3894,39 @@ def _leaves(tree):
 def late_phases(dev, card) -> dict:
     """Phases 27-38; returns what the kernels line takes from them."""
     phase = PhaseClock()
-    phase("[27/38] K1 and K2 vs plain versions at the dense and VLM "
+    phase("[27/42] K1 and K2 vs plain versions at the dense and VLM "
           "configs' head groupings (32:2, 24:8, 32:8, 128:8 at D=128; 32:8 "
           "at D=160)")
     dense_k1, dense_k2 = phase_dense_kernels(dev, card)
-    phase("[28/38] dense and VLM training parity at reduced size (fp32): "
+    phase("[28/42] dense and VLM training parity at reduced size (fp32): "
           "chatglm3-6b, pixtral-12b at head_dim 160")
     phase_dense_parity(dev)
-    phase("[29-30/38] full-width DHP training (bf16), depth cut: "
+    phase("[29-30/42] full-width DHP training (bf16), depth cut: "
           + ", ".join(f"{a} {n} layers" for a, n in DENSE_TRAIN))
     dense_train = phase_dense_training(dev, card)
-    phase("[31/38] K1 at head_dim 160 vs plain versions at the pixtral-12b "
+    phase("[31/42] K1 at head_dim 160 vs plain versions at the pixtral-12b "
           "run's shapes")
     _, _, p_tables, p_layers = dense_train["pixtral-12b"]
     d160_path = phase_train_path(dev, card, p_tables, p_layers,
                                  heads=PIXTRAL_HEADS, tag="pixtral train")
-    phase(f"[32/38] full-width serving (bf16): {', '.join(VLM_SERVE_ARCHS)}"
+    phase(f"[32/42] full-width serving (bf16): {', '.join(VLM_SERVE_ARCHS)}"
           f", K2 vs plain at each shape the runs launched")
     dense_served = phase_dense_serving(dev, card)
-    phase("[33/38] Engine.serve at full width (bf16): "
+    phase("[33/42] Engine.serve at full width (bf16): "
           + ", ".join(a if n is None else f"{a} ({n} layers)"
                       for a, n in SHORT_SERVES))
     short_served = phase_short_serves(dev, card)
-    phase("[34/38] the VLM forward with patches: pixtral-12b at full width, "
+    phase("[34/42] the VLM forward with patches: pixtral-12b at full width, "
           "2 layers (bf16)")
     vlm_launches = phase_vlm_forward(dev, card)
-    phase("[35/38] K2 vs plain versions at whisper-small's shapes (12:12 "
+    phase("[35/42] K2 vs plain versions at whisper-small's shapes (12:12 "
           "heads of 64; full over 1500 keys in fp32 and bf16, causal bf16)")
     audio_k2 = phase_audio_kernels(dev, card)
-    phase("[36/38] audio serving parity at reduced size (fp32)")
+    phase("[36/42] audio serving parity at reduced size (fp32)")
     phase_audio_parity(dev, card)
-    phase("[37/38] full-width whisper-small serving (bf16)")
+    phase("[37/42] full-width whisper-small serving (bf16)")
     audio_served = phase_audio_serving(dev, card)
-    phase("[38/38] the audio forward: whisper-small at full width (bf16; "
+    phase("[38/42] the audio forward: whisper-small at full width (bf16; "
           "fp32 and bf16 frames)")
     audio_forward = phase_audio_forward(dev, card, audio_k2)
     phase.end()
@@ -3496,24 +3939,30 @@ def late_phases(dev, card) -> dict:
 
 
 LATE_FLAG = "--late-phases"
+AUDIO_TRAIN_FLAG = "--audio-train-phases"
+#: the phases each flag runs in a process of its own, and its time limit
+APART = {LATE_FLAG: (late_phases, LATE_TIMEOUT_S),
+         AUDIO_TRAIN_FLAG: (audio_train_phases, AUDIO_TRAIN_TIMEOUT_S)}
 
 
-def run_late_phases() -> dict:
-    """Phases 27-38 in a process of their own on the same card (see the
-    module docstring), after this one has released its cached memory;
-    they print to this process's streams, and what they return comes
-    back as JSON through the checkout's git-ignored build directory."""
+def run_apart(flag: str) -> dict:
+    """The phases `flag` names (APART) in a process of their own on the
+    same card (see the module docstring), after this one has released
+    its cached memory; they print to this process's streams, and what
+    they return comes back as JSON through the checkout's git-ignored
+    build directory."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
-    out = os.path.join(ROOT, "build", "chip_smoke_late_phases.json")
+    out = os.path.join(ROOT, "build", "chip_smoke_"
+                       + flag.lstrip("-").replace("-", "_") + ".json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     if os.path.exists(out):
         os.remove(out)
     sys.stdout.flush()
     sys.stderr.flush()
-    subprocess.run([sys.executable, os.path.abspath(__file__), LATE_FLAG,
-                    out], check=True, timeout=LATE_TIMEOUT_S)
+    subprocess.run([sys.executable, os.path.abspath(__file__), flag, out],
+                   check=True, timeout=APART[flag][1])
     with open(out) as f:
         return json.load(f)
 
@@ -3535,19 +3984,19 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     card = card_line()
-    if sys.argv[1:2] == [LATE_FLAG]:
+    if sys.argv[1:2] and sys.argv[1] in APART:
         build.build_all()           # the first process built them all
-        late = late_phases(dev, card)
+        result = APART[sys.argv[1]][0](dev, card)
         with open(sys.argv[2], "w") as f:
-            json.dump(late, f)
+            json.dump(result, f)
         return 0
-    print(f"[1/38] device: {name}; torch {torch.__version__} cuda "
+    print(f"[1/42] device: {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(card)
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"[2/38] build: {time.perf_counter() - t0:.1f} s for "
+    print(f"[2/42] build: {time.perf_counter() - t0:.1f} s for "
           f"{build.sources()}")
     for src, log in build.build_logs.items():
         for line in log.splitlines():
@@ -3555,13 +4004,13 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
 
     phase = PhaseClock()
-    phase("[3/38] kernels vs plain versions")
+    phase("[3/42] kernels vs plain versions")
     rows = phase_kernels(dev, card)
-    phase("[4/38] parity at reduced size (fp32)")
+    phase("[4/42] parity at reduced size (fp32)")
     phase_parity(dev)
-    phase("[5/38] full-width serving (bf16)")
+    phase("[5/42] full-width serving (bf16)")
     launches, shapes, n_layers, _ = phase_serving(dev, card)
-    phase("[6/38] kernels vs plain versions at the serving run's shapes")
+    phase("[6/42] kernels vs plain versions at the serving run's shapes")
     path = phase_path(dev, card, shapes, n_layers)
 
     # the shape launched most often stands for the kernel; every shape
@@ -3593,15 +4042,15 @@ def main() -> int:
                              **{k: r[k] for k in keys}) for r in path],
     }]
 
-    phase("[7/38] packed kernel K1 vs plain versions")
+    phase("[7/42] packed kernel K1 vs plain versions")
     packed_rows = phase_packed(dev, card)
-    phase("[8/38] training parity at reduced size (fp32)")
+    phase("[8/42] training parity at reduced size (fp32)")
     phase_train_parity(dev)
-    phase("[9/38] full-width DHP training (bf16)")
+    phase("[9/42] full-width DHP training (bf16)")
     collect_garbage("train")
     n_fwd, n_bwd, tables, n_layers = phase_training(dev, card)
     torch.cuda.empty_cache()
-    phase("[10/38] K1 vs plain versions at the training run's shapes")
+    phase("[10/42] K1 vs plain versions at the training run's shapes")
     train_rows = phase_train_path(dev, card, tables, n_layers)
 
     # the shape launched most often stands for each K1 kernel; every
@@ -3639,17 +4088,17 @@ def main() -> int:
                 library_ms=r[f"library_{which}_ms"]) for r in train_rows],
         })
 
-    phase("[11/38] SSD chunk kernel K3 vs plain versions")
+    phase("[11/42] SSD chunk kernel K3 vs plain versions")
     ssd_rows = phase_ssd(dev, card)
-    phase("[12/38] SSM training parity at reduced size (fp32)")
+    phase("[12/42] SSM training parity at reduced size (fp32)")
     phase_ssm_parity(dev)
-    phase("[13/38] full-width mamba2-370m DHP training (bf16)")
+    phase("[13/42] full-width mamba2-370m DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("ssm train")
     s_fwd, s_bwd, ssm_shapes, ssm_layers, chunk = phase_ssm_training(dev,
                                                                      card)
     torch.cuda.empty_cache()
-    phase("[14/38] K3 vs plain versions at the SSM training run's shapes")
+    phase("[14/42] K3 vs plain versions at the SSM training run's shapes")
     ssd_path = phase_ssd_path(dev, card, ssm_shapes, ssm_layers, chunk)
 
     # the shape launched most often stands for each K3 kernel; every
@@ -3687,18 +4136,18 @@ def main() -> int:
                 inter_chunk_fwd_bwd_ms=r["inter_chunk_fwd_bwd_ms"])
                 for r in ssd_path],
         })
-    phase("[15/38] RG-LRU scan kernel K4 vs plain versions")
+    phase("[15/42] RG-LRU scan kernel K4 vs plain versions")
     rg_rows = phase_rglru(dev, card)
-    phase("[16/38] K1 at head_dim 256 vs plain versions")
+    phase("[16/42] K1 at head_dim 256 vs plain versions")
     wide_rows = phase_packed_wide(dev, card)
-    phase("[17/38] hybrid training parity at reduced size (fp32)")
+    phase("[17/42] hybrid training parity at reduced size (fp32)")
     phase_hybrid_parity(dev)
-    phase("[18/38] full-width recurrentgemma-2b DHP training (bf16)")
+    phase("[18/42] full-width recurrentgemma-2b DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("hybrid train")
     counts, hy_tables, per_group = phase_hybrid_training(dev, card)
     torch.cuda.empty_cache()
-    phase("[19/38] K4 and K1 vs plain versions at the hybrid run's shapes")
+    phase("[19/42] K4 and K1 vs plain versions at the hybrid run's shapes")
     k4_path, k1_path = phase_hybrid_path(dev, card, hy_tables, per_group)
 
     # the shape launched most often stands for each kernel; every shape
@@ -3761,7 +4210,7 @@ def main() -> int:
                 bound_by=r[f"bound_{which}_by"],
                 library_ms=r[f"library_{which}_ms"]) for r in k1_path],
         })
-    phase("[20/38] ring context parallelism (bf16): LocalRing vs K1 "
+    phase("[20/42] ring context parallelism (bf16): LocalRing vs K1 "
           "unsharded and vs the plain ring; full-width internvl3-2b at "
           f"{RING_RANKS} ranks on the one card")
     ring_rows = phase_ring(dev, card, tables)
@@ -3785,7 +4234,7 @@ def main() -> int:
                 k1_unsharded_fwd_bwd_device_ms=r[
                     "k1_unsharded_fwd_bwd_device_ms"])
                 for r in ring_rows if (r["D"] == 256) == wide]
-    phase("[21/38] state-cache and sliding-window serving parity at "
+    phase("[21/42] state-cache and sliding-window serving parity at "
           "reduced size (fp32)")
     torch.cuda.empty_cache()
     exact_launches, exact_rows = phase_state_parity(dev, card)
@@ -3796,21 +4245,21 @@ def main() -> int:
         **{k: r[k] for k in keys}) for r in exact_rows]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     *(r["max_abs_err"] for r in exact_rows))
-    phase("[22/38] full-width state-cache serving (bf16): "
+    phase("[22/42] full-width state-cache serving (bf16): "
           f"{', '.join(STATE_ARCHS)}")
     phase_state_serving(dev, card)
 
-    phase("[23/38] MoE serving and training parity at reduced size (fp32)")
+    phase("[23/42] MoE serving and training parity at reduced size (fp32)")
     torch.cuda.empty_cache()
     phase_moe_parity(dev, card)
-    phase(f"[24/38] full-width {MOE_TRAIN_ARCH} DHP training (bf16)")
+    phase(f"[24/42] full-width {MOE_TRAIN_ARCH} DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("moe train")
     m_fwd, m_bwd, moe_tables, moe_layers, moe_layer = phase_moe_training(
         dev, card)
-    phase(f"[25/38] full-width MoE serving (bf16): {', '.join(MOE_ARCHS)}")
+    phase(f"[25/42] full-width MoE serving (bf16): {', '.join(MOE_ARCHS)}")
     moe_served = phase_moe_serving(dev, card)
-    phase("[26/38] K1 at head_dim 64 and K2 at the MoE exact lengths vs "
+    phase("[26/42] K1 at head_dim 64 and K2 at the MoE exact lengths vs "
           "plain versions")
     d64_rows, d64_path, moe_k2 = phase_moe_kernels(dev, card, moe_tables,
                                                    moe_layers, moe_served)
@@ -3851,7 +4300,7 @@ def main() -> int:
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     *(r["max_abs_err"] for r in moe_k2))
     phase.end()
-    late = run_late_phases()
+    late = run_apart(LATE_FLAG)
     dense_k1, dense_k2 = late["dense_k1"], late["dense_k2"]
     d160_path, dense_served = late["d160_path"], late["served"]
     p_fwd, p_bwd = late["train_launches"]["pixtral-12b"]
@@ -4000,6 +4449,55 @@ def main() -> int:
         **{k: r[k] for k in keys if k != "launches"}) for r in causal]
     kernels[0]["max_abs_err"] = max(
         kernels[0]["max_abs_err"], *(r["max_abs_err"] for r in causal))
+    # K1 at whisper-small's training shapes (phases 39-42): each shape
+    # launched in the 3-step run stands for itself, its launches as the
+    # wrapper counted them at that shape, its numbers taken at the run's
+    # 8 rows
+    audio = run_apart(AUDIO_TRAIN_FLAG)
+    for tag, suffix, desc in (
+            ("whisper encoder", "_f32_encoder",
+             "fp32 full 1500 x 1500 (whisper-small's encoder)"),
+            ("whisper cross", "_f32_cross",
+             "fp32 full 448 over 1500 (whisper-small's cross-attention)"),
+            ("whisper decoder", "_decoder",
+             "bf16 causal 448 (whisper-small's decoder)")):
+        rows = [r for r in audio["rows"] if r["tag"] == tag]
+        main_r = max(rows, key=lambda r: r["B"])
+        for i, which in enumerate(("fwd", "bwd")):
+            entry = {
+                "name": "flash_attention_packed_d64" + suffix + (
+                    "_bwd" if which == "bwd" else ""),
+                "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/"
+                          "flash_attention_packed.cu",
+                "replaces": "src/repro/kernels/flash_attention.py:208",
+                "launches": audio["launches_by_shape"].get(
+                    _k1_shape_key(main_r, i), 0),
+                "max_abs_err": max(r[f"max_abs_err_{which}"] for r in rows),
+                "ms": main_r[f"{which}_ms"],
+                "device_ms": main_r[f"{which}_device_ms"],
+                "plain_ms": main_r[f"plain_{which}_ms"],
+                "bound_ms": main_r[f"bound_{which}_ms"],
+                "bound_by": main_r[f"bound_{which}_by"],
+                "library_ms": main_r[f"library_{which}_ms"],
+                "launch": dict(**main_r["launch"][which],
+                               sms=main_r["launch"]["sms"]),
+                "shape": f"B={main_r['B']} H=12 Hkv=12 D=64 {desc}",
+                "path_shapes": [dict(
+                    rows=r["B"], Sq=r["S"], Sk=r["Sk"], err=r["err"],
+                    ms=r[f"{which}_ms"], device_ms=r[f"{which}_device_ms"],
+                    plain_ms=r[f"plain_{which}_ms"],
+                    bound_ms=r[f"bound_{which}_ms"],
+                    library_ms=r[f"library_{which}_ms"]) for r in rows],
+            }
+            if main_r["dtype"] == "float32":
+                # the split-TF32 bound beside the CUDA-core one
+                entry["bound_split_tf32_ms"] = main_r[
+                    f"bound_{which}_split_tf32_ms"]
+                for shape, r in zip(entry["path_shapes"], rows):
+                    shape["bound_split_tf32_ms"] = r[
+                        f"bound_{which}_split_tf32_ms"]
+            kernels.append(entry)
     print(f"  chip_smoke wall {time.perf_counter() - t_start:.1f} s "
           f"({card})")
     print(json.dumps({"kernels": kernels}))

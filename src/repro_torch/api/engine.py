@@ -12,7 +12,9 @@
 `train()` is the one training loop: heterogeneous batches -> strategy
 plan -> executor -> AdamW, with the next batch planned on a host thread
 while the card runs the current one (paper §5 Implementation (2)).
-Checkpoints, the run report (`report=`) and the CLI are not ported yet.
+`save_checkpoint` / `load_checkpoint` keep the full train state in the
+JAX package's file format. The run report (`report=`) and the CLI are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -150,9 +152,10 @@ class Engine:
     >>> rep = eng.serving(slots=4).run(trace)
 
     `model` is an arch id or a ModelConfig: every arch of the JAX
-    package. Each trains and serves but whisper-small (the audio
-    family), which serves only: the reference's `Engine.train` cannot
-    run it either. VLM configs run in token-stream mode (the LM decoder
+    package. Each trains and serves; whisper-small (the audio family)
+    trains through `training.train_step.make_train_step` on fixed-shape
+    batches with frames, not `train`, which the reference's `Engine.train`
+    cannot run either. VLM configs run in token-stream mode (the LM decoder
     over pre-counted tokens), as in the JAX package. `device=None`
     places the model on the card and raises when there is none;
     `device="cpu"` runs on the host.
@@ -189,6 +192,8 @@ class Engine:
         #: session-lifetime counters/gauges/histograms (obs.metrics)
         self.metrics = MetricsRegistry()
         self.loader: Optional[HeterogeneousLoader] = None
+        #: the stream position a checkpoint left for the next train()
+        self._loader_state: Optional[dict] = None
         self.last_tracer: Optional[Tracer] = None
 
     @property
@@ -324,6 +329,10 @@ class Engine:
         self.loader = HeterogeneousLoader(
             dataset, global_batch, self.cfg.vocab, seed=self.seed,
             max_tokens=max_tokens, tokens_per_frame=tokens_per_frame)
+        if self._loader_state is not None:
+            # a checkpoint restore left a stream position to resume from
+            self.loader.set_state(self._loader_state)
+            self._loader_state = None
         history: List[StepMetrics] = []
         self._observing = trace
         try:
@@ -439,6 +448,45 @@ class Engine:
             slots=slots, cache_len=cache_len, block_size=block_size,
             n_blocks=n_blocks, prefill_chunk=prefill_chunk,
             strategy=strategy, seed=self.seed)
+
+    # -- checkpointing ---------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """Full train-state snapshot (format 2): params, optimizer state,
+        the step counter and, once train() ran, the loader's stream
+        position: what a resume that equals an unbroken run needs. The
+        file is written before this returns, so later in-place updates
+        of the moments do not reach it. Before the first update the
+        state has no optimizer state (`opt` is None): the file then
+        holds the parameters alone beside the meta blob, and
+        `load_checkpoint` leaves `opt` None, so the first step after the
+        resume allocates fresh moments, as it would have without the
+        break."""
+        from ..training.checkpoint import save
+        meta = {"format": 2, "step": self._step}
+        if self.loader is not None:
+            meta["loader"] = self.loader.state()
+        save(path, {"params": self.state.params, "opt": self.state.opt},
+             meta=meta)
+
+    def load_checkpoint(self, path: str) -> None:
+        """Restore a `save_checkpoint` file (or the JAX package's) into
+        this engine: new tensors on its device in its dtypes. A file
+        without a meta blob is the old params-only format."""
+        from ..training.checkpoint import SEP, entries, load_meta, restore
+        meta = load_meta(path)
+        params = self.state.params
+        if meta is None:
+            self.state = TrainState(params=restore(path, params),
+                                    opt=self.state.opt)
+            return
+        opt = None
+        if f"opt{SEP}step" in entries(path):
+            opt = (self.state.opt if self.state.opt is not None
+                   else self.optimizer.init(params))
+        tree = restore(path, {"params": params, "opt": opt})
+        self.state = TrainState(params=tree["params"], opt=tree["opt"])
+        self._step = int(meta.get("step", self._step))
+        self._loader_state = meta.get("loader")
 
     def close(self) -> None:
         self.strategy.close()

@@ -58,7 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..data.pipeline import RaggedBatch, padded_batch
-from ..models.model import _head, forward_hidden
+from ..models.model import _head, forward_hidden, position_nll
 from ..obs.trace import get_tracer
 from ..parallel.ring_attention import LocalRing
 from ..training.optimizer import tree_leaves, tree_map
@@ -71,17 +71,6 @@ from .scheduler import ExecutionPlan
 PACKABLE_FAMILIES = ("dense", "moe")
 #: families the executor runs
 EXECUTABLE_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def _token_nll(logits, labels):
-    """Per-position next-token NLL in fp32 over the whole vocabulary (no
-    masking applied), as the JAX package computes it. At full width a
-    4096-token pack makes 4096 x 151674 fp32 logits (2.5 GB) plus their
-    gradient; the card holds it (peak 53.7 GB a step on an H100)."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return logz - gold
 
 
 #: fp32 logits of one piece of a padded batch's loss (see `token_nll`)
@@ -102,10 +91,10 @@ def token_nll(params, cfg: ModelConfig, batch, pieces: bool = False,
     labels = batch["labels"]
     B, S = labels.shape
     if not pieces:
-        return _token_nll(_head(params, cfg, x), labels)
+        return position_nll(_head(params, cfg, x), labels)
 
     def piece_nll(xp, lp):
-        return _token_nll(_head(params, cfg, xp), lp)
+        return position_nll(_head(params, cfg, xp), lp)
     n = max(1, LOSS_PIECE_BYTES // (4 * cfg.vocab))
     xs, ls = x.reshape(B * S, -1), labels.reshape(B * S)
     return torch.cat([checkpoint(piece_nll, xs[i:i + n], ls[i:i + n],
@@ -126,11 +115,11 @@ class DHPExecutor:
         others padded."""
         if cfg.family == "audio":
             raise NotImplementedError(
-                "the audio family does not train yet: the reference's "
-                "Engine.train fails on it (KeyError: 'frames'; its padded "
-                "groups carry no encoder frames), and audio training, a "
-                "port of the reference's train_step.make_train_step, comes "
-                "later")
+                "the audio family does not run in the executor: the "
+                "reference's Engine.train fails on it (KeyError: 'frames'; "
+                "its padded groups carry no encoder frames); train it on "
+                "fixed-shape batches with training.train_step."
+                "make_train_step, as the reference does")
         if cfg.family not in EXECUTABLE_FAMILIES:
             raise NotImplementedError(
                 f"execution of family {cfg.family!r} is not ported")

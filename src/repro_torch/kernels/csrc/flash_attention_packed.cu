@@ -1260,8 +1260,9 @@ cudaError_t summarize(const Params& p, int4* sumq, int4* sumk,
   return cudaGetLastError();
 }
 
-// grid x, y, z, threads and shared memory of the last
-// packed_fwd_wg_kernel launch (k1_last_fwd_launch reads them)
+// grid x, y, z, threads and shared memory of the last forward launch,
+// packed_fwd_wg_kernel or packed_fwd_f32_kernel (k1_last_fwd_launch
+// reads them)
 static long long g_fwd_launch[5] = {0, 0, 0, 0, 0};
 
 template <typename T, int D, bool SPANS>
@@ -1288,6 +1289,9 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.Sq + S_BQ - 1) / S_BQ, p.H, p.B);
+    const long long launch[5] = {grid.x, grid.y, grid.z, S_THREADS,
+                                 (long long)smem};
+    for (int i = 0; i < 5; ++i) g_fwd_launch[i] = launch[i];
     packed_fwd_f32_kernel<D, SPANS><<<grid, S_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, p, scale);
@@ -1296,7 +1300,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // grid x, y, z, threads, shared memory and scratch bytes of the last
-// packed_bwd_kv_kernel launch (k1_last_bwd_kv_launch reads them)
+// backward launch, packed_bwd_kv_kernel or packed_bwd_f32_kernel
+// (k1_last_bwd_kv_launch reads them)
 static long long g_bwd_kv_launch[6] = {0, 0, 0, 0, 0, 0};
 
 template <typename T, int D, bool SPANS>
@@ -1345,6 +1350,9 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                                (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.Sk + BS_BK - 1) / BS_BK, p.Hkv, p.B);
+    const long long launch[6] = {grid.x, grid.y, grid.z, BS_THREADS,
+                                 (long long)smem, 0};
+    for (int i = 0; i < 6; ++i) g_bwd_kv_launch[i] = launch[i];
     packed_bwd_f32_kernel<D, SPANS><<<grid, BS_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
@@ -1481,15 +1489,18 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-// The last launch of packed_bwd_kv_kernel (bfloat16, any head dim), as
+// The last launch of the backward kernel (packed_bwd_kv_kernel in
+// bfloat16, packed_bwd_f32_kernel in float32; any head dim), as
 // launch_bwd made it: out[0..2] its grid, out[3] its threads per block,
 // out[4] its dynamic shared memory in bytes, out[5] the bytes of `work`
-// it addressed (0 when H == Hkv). All 0 before the first such launch.
+// it addressed (0 when H == Hkv, and in float32). All 0 before the first
+// such launch.
 void k1_last_bwd_kv_launch(long long* out) {
   for (int i = 0; i < 6; ++i) out[i] = g_bwd_kv_launch[i];
 }
 
-// The last launch of packed_fwd_wg_kernel (bfloat16, any head dim), as
+// The last launch of the forward kernel (packed_fwd_wg_kernel in
+// bfloat16, packed_fwd_f32_kernel in float32; any head dim), as
 // launch_fwd made it: out[0..2] its grid, out[3] its threads per
 // block, out[4] its dynamic shared memory in bytes. All 0 before the
 // first such launch.

@@ -22,7 +22,9 @@ LSE -inf.
 On CPU tensors the wrappers run the plain versions (the backward forms
 P from the `lse` and delta from the `o` it is given, as the kernel does);
 on CUDA tensors they launch
-`csrc/flash_attention_packed.cu` or raise, never falling back. bf16 runs
+`csrc/flash_attention_packed.cu` or raise, never falling back
+(`flash_attention_packed.launches_by` counts the launches by kernel and
+mode, `launches_by_shape` by kernel, mode and shape). bf16 runs
 on the tensor cores with fp32 accumulation, P and dS rounded to bf16
 before their products: the forward by `wgmma`, two warpgroups over 128
 query rows sharing a ring of K/V tiles (two blocks an SM at head_dim 64
@@ -46,6 +48,10 @@ from . import build
 from .flash_attention import MODES
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the forward and backward kernels of `csrc/flash_attention_packed.cu`
+#: each input dtype launches
+KERNELS = {torch.float32: ("packed_fwd_f32_kernel", "packed_bwd_f32_kernel"),
+           torch.bfloat16: ("packed_fwd_wg_kernel", "packed_bwd_kv_kernel")}
 _HEAD_DIMS = (64, 128, 160, 256)
 #: head dims the kernels take in bf16 only (recurrentgemma-2b's 256: no
 #: config runs it in fp32)
@@ -270,6 +276,7 @@ def _launch_fwd(q, k, v, tables, mode, window, kv_offset):
                  MODES[mode], int(window or 0), int(kv_offset), stream)
     _raise_on(lib, err, "forward")
     flash_attention_packed.launches += 1
+    _count_by(KERNELS[q.dtype][0], mode, q.shape[1], k.shape[1])
     return o, lse
 
 
@@ -283,18 +290,18 @@ def _last_launch(fn: str, n: int) -> list:
 
 
 def last_fwd_launch() -> dict:
-    """The last launch of the bf16 forward kernel (any head_dim),
-    as the library recorded it: `grid` (x, y, z), `threads` a block and
+    """The last launch of the forward kernel (either dtype, any
+    head_dim), as the library recorded it: `grid` (x, y, z), `threads` a block and
     `smem_bytes` of dynamic shared memory."""
     out = _last_launch("k1_last_fwd_launch", 5)
     return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4])
 
 
 def last_bwd_kv_launch() -> dict:
-    """The last launch of the bf16 backward kernel (any head_dim), as
-    the library recorded it: `grid` (x, y, z), `threads` a block,
-    `smem_bytes` of dynamic shared memory and `work_bytes` of the fp32
-    scratch (each query head's dK and dV) it addressed."""
+    """The last launch of the backward kernel (either dtype, any
+    head_dim), as the library recorded it: `grid` (x, y, z), `threads` a
+    block, `smem_bytes` of dynamic shared memory and `work_bytes` of the
+    fp32 scratch (each query head's dK and dV; 0 in fp32) it addressed."""
     out = _last_launch("k1_last_bwd_kv_launch", 6)
     return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4],
                 work_bytes=out[5])
@@ -333,7 +340,15 @@ def _launch_bwd(q, k, v, o, lse, do, tables, mode, window, kv_offset):
                  int(window or 0), int(kv_offset), stream)
     _raise_on(lib, err, "backward")
     flash_attention_packed_bwd.launches += 1
+    _count_by(KERNELS[q.dtype][1], mode, q.shape[1], k.shape[1])
     return dq_acc.to(q.dtype), dk, dv
+
+
+def _count_by(kernel: str, mode: str, sq: int, sk: int) -> None:
+    for by, key in ((flash_attention_packed.launches_by, f"{kernel} {mode}"),
+                    (flash_attention_packed.launches_by_shape,
+                     f"{kernel} {mode} {sq}x{sk}")):
+        by[key] = by.get(key, 0) + 1
 
 
 def _on_card(q) -> bool:
@@ -411,3 +426,10 @@ def flash_attention_packed_bwd(q, k, v, o, lse, do, segment_ids, *,
 #: 0 (CPU calls and plain-version calls do not count)
 flash_attention_packed.launches = 0
 flash_attention_packed_bwd.launches = 0
+#: the launches of both directions by kernel and mode
+#: ("packed_fwd_f32_kernel full", "packed_bwd_kv_kernel causal", ...),
+#: since the dict was last set to {}
+flash_attention_packed.launches_by = {}
+#: the same by kernel, mode and shape (query rows x key rows a batch
+#: row: "packed_bwd_f32_kernel full 448x1500", ...)
+flash_attention_packed.launches_by_shape = {}

@@ -8,7 +8,8 @@ Implementations (`cfg.attn_impl`):
                 with segment/span tables, or
                 when a gradient is needed, the packed kernel K1
                 (kernels/flash_attention_packed.py, forward and backward;
-                one segment per row when no table is given); their plain
+                one segment per row when no table is given, the
+                cross-attention at Sq != Sk included); their plain
                 versions on CPU tensors.
 
 The serving-only cores `attn_prefill_chunk` (chunked prefill against a
@@ -188,9 +189,11 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
     the mode is "full". K/V computed from fp32 frames through bf16
     weights stay fp32 beside bf16 queries, as in the reference; the core
     then runs at the wider dtype and returns q's (the reference's plain
-    cores compute in fp32 and cast to q's dtype). The core is K2 at
-    Sq != Sk; it has no backward, so a cross-attention that needs a
-    gradient raises (audio training is not ported)."""
+    cores compute in fp32 and cast to q's dtype; the cast's backward
+    returns dq in q's dtype, as the reference's convert transposes). The
+    core runs at Sq != Sk: K2 without a gradient (serving, `forward`
+    under no_grad), K1 in full mode, one segment a row on each side,
+    when one is needed (training)."""
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
     if cross_kv is None:
@@ -205,26 +208,27 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
         k, v = cross_kv
         mode = "full"
 
+    # K2 has no backward: a table-free call that needs a gradient (a
+    # padded text-only group, whisper's encoder and cross-attention in
+    # training) runs K1 with one segment per row
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     if cross_kv is not None and impl == "cuda":
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "cross-attention has no gradient path: audio training (a "
-                "port of the reference's train_step.make_train_step, with "
-                "K1 at Sq != Sk) is a later slice")
         wide = torch.promote_types(q.dtype, k.dtype)
-        o = flash_attention(q.to(wide).contiguous(),
-                            k.to(wide).contiguous(),
-                            v.to(wide).contiguous(),
-                            mode="full").to(q.dtype)
+        qc, kc, vc = (t.to(wide).contiguous() for t in (q, k, v))
+        if needs_grad:
+            o = flash_attention_packed(
+                qc, kc, vc, torch.zeros(B, S, dtype=torch.int32,
+                                        device=x.device),
+                kv_segment_ids=torch.zeros(B, k.shape[1], dtype=torch.int32,
+                                           device=x.device), mode="full")
+        else:
+            o = flash_attention(qc, kc, vc, mode="full")
+        o = o.to(q.dtype)
     elif ring is not None:
         o = ring_attention(q, k, v, segment_ids, ring=ring, mode=mode,
                            window=window, span_ids=span_ids)
     elif impl == "cuda":
-        # K2 has no backward: a table-free call that needs a gradient
-        # (a padded text-only group) runs K1 with one segment per row
-        needs_grad = torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v))
         if segment_ids is not None or span_ids is not None or needs_grad:
             seg = (segment_ids if segment_ids is not None
                    else torch.zeros(B, S, dtype=torch.int32,

@@ -1,5 +1,6 @@
 """Top-level model API: the dense, VLM, MoE, SSM, hybrid and audio
-families, training and serving (audio serves only).
+families, training and serving (audio trains through
+`training.train_step.make_train_step`, not the DHP executor).
 
   init_params(cfg, seed=, device=)               -> params dict
   forward(params, cfg, batch)                    -> (logits [B,S,V], aux)
@@ -194,6 +195,19 @@ def _head(params, cfg: ModelConfig, x) -> torch.Tensor:
     return unembed(params["head"], x, tied=False)
 
 
+def position_nll(logits, labels) -> torch.Tensor:
+    """Per-position next-token NLL in fp32 over the whole vocabulary (no
+    mask): the logsumexp minus the gold logit. A gather gives the gold
+    logit the reference takes with a one-hot multiply-reduce (which
+    exists there for GSPMD); the number is the same, and at whisper-
+    small's [8, 448, 51865] logits a one-hot would be 743 MB more."""
+    logits = logits.float()
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return logz - gold
+
+
 # ==========================================================================
 # Forward (train)
 # ==========================================================================
@@ -346,8 +360,13 @@ def _dec_block(p, h, cfg: ModelConfig, enc):
 
 def _forward_audio(params, cfg: ModelConfig, batch):
     """Whisper: the encoder over `batch["frames"]`, then the decoder over
-    `batch["tokens"]` at sinusoidal positions -> (hidden, aux 0). No
-    remat: nothing trains the family (see attention's `cross_kv`)."""
+    `batch["tokens"]` at sinusoidal positions -> (hidden, aux 0).
+    Differentiable: under autograd the encoder's full self-attention and
+    the cross-attention run K1 (fp32 from fp32 frames), the decoder's
+    causal self-attention K1 in the parameters' dtype; gradients reach
+    bf16 leaves through the encoder's per-layer casts. No remat:
+    whisper-small's step at 8 x 448 tokens over 1500 frames fits the card
+    without it."""
     enc = _encode(params, cfg, batch["frames"])
     x = _token_embeddings(params, batch["tokens"])
     x = x + sinusoidal(x.shape[1], cfg.d_model, x.device).to(x.dtype)

@@ -22,8 +22,10 @@ heads of 64, 16 frames) on the JAX package's weights converted through
     fp32 frames (an fp32 encoder, fp32 cross K/V) and for bf16 frames;
     `forward` and decode logits lie within twice the reference's own
     distance from its fp32 run of the JAX package's;
-  * what does not run: a gradient through the cross-attention,
-    `prefill` and `Engine.train` raise, each with its reason.
+  * the gradient through the cross-attention alone (K1 at Sq != Sk)
+    equals `jax.grad`'s;
+  * what does not run: `prefill` and `Engine.train` raise, each with its
+    reason.
 
 The JAX side runs its attention through the Pallas kernel in interpret
 mode; the port through the kernels' plain versions (`attn_impl="cuda"`
@@ -325,20 +327,37 @@ def test_bf16_forward_and_decode_near_jax(bf16):
         assert _scaled(got, want) <= 2 * own, (i, _scaled(got, want), own)
 
 
+# ------------------------------------- the cross-attention's gradient
+def test_cross_attention_gradient_matches_jax(fp32):
+    """A forward that needs a gradient through the cross-attention alone
+    (the encoder's weights need none, so it runs K2) runs K1 in full
+    mode at Sq != Sk, one segment a row on each side: the gradient of a
+    fixed projection of the logits in the cross-attention's weights
+    equals `jax.grad`'s (1e-4) on the JAX package's reference
+    attention."""
+    w = np.random.default_rng(3).normal(
+        0, 1, fp32["logits"].shape).astype(np.float32)
+    jcfg = JCFG.with_(attn_impl="reference")
+
+    def jloss(xattn, jp, batch):
+        jp = {**jp, "dec_layers": {**jp["dec_layers"], "xattn": xattn}}
+        return jnp.sum(jm.forward(jp, jcfg, batch)[0] * w)
+    want = jax.grad(jloss)(fp32["jp"]["dec_layers"]["xattn"], fp32["jp"],
+                           _j(fp32["batch"]))
+    xattn = {k: v.clone().requires_grad_(True)
+             for k, v in fp32["tp"]["dec_layers"]["xattn"].items()}
+    tp = {**fp32["tp"], "dec_layers": {**fp32["tp"]["dec_layers"],
+                                       "xattn": xattn}}
+    logits, _ = tm.forward(tp, TCFG, _t(fp32["batch"]))
+    got = torch.autograd.grad((logits * torch.from_numpy(w)).sum(),
+                              list(xattn.values()))
+    assert sorted(xattn) == sorted(want)
+    for name, g in zip(xattn, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(want[name]),
+                                   atol=ATOL, err_msg=name)
+
+
 # ----------------------------------------------------- what raises
-def test_cross_attention_gradient_raises(fp32):
-    """K2 has no backward, and audio training is not ported: a forward
-    that needs a gradient through the cross-attention raises instead of
-    running another kernel."""
-    tp = {k: v for k, v in fp32["tp"].items()}
-    tp["dec_layers"] = dict(tp["dec_layers"])
-    tp["dec_layers"]["xattn"] = {
-        k: v.clone().requires_grad_(True)
-        for k, v in tp["dec_layers"]["xattn"].items()}
-    with pytest.raises(NotImplementedError, match="audio training"):
-        tm.forward(tp, TCFG, _t(fp32["batch"]))
-
-
 def test_prefill_and_train_refuse_audio(fp32):
     with pytest.raises(NotImplementedError, match="prefill_cross_kv"):
         tm.prefill(fp32["tp"], TCFG,

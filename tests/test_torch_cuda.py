@@ -1371,8 +1371,8 @@ def test_recurrentgemma_full_width_training_memory(card, monkeypatch):
 
     token_nll = ex.token_nll
 
-    def whole_batch_nll(params, cfg, batch, pieces=False):
-        return token_nll(params, cfg, batch)
+    def whole_batch_nll(params, cfg, batch, pieces=False, ring=None):
+        return token_nll(params, cfg, batch, ring=ring)
 
     cfg = get_config("recurrentgemma-2b")
     assert cfg.remat
@@ -1643,17 +1643,98 @@ def test_prefill_cross_kv_on_the_card_equals_the_cpu(card):
 
 
 @pytest.mark.cuda
-def test_cross_attention_gradient_raises_on_the_card(card):
-    """K2 has no backward and audio training is not ported: a forward on
-    the card that needs a gradient through the cross-attention raises,
-    and runs no other kernel in its place."""
-    from repro_torch.models import model as tm
-    cfg, _, on_card, frames = _whisper(card)
-    on_card["dec_layers"]["xattn"]["wq"].requires_grad_(True)
-    tokens = torch.zeros(2, 5, dtype=torch.long, device=card)
-    with pytest.raises(NotImplementedError, match="audio training"):
-        tm.forward(on_card, cfg, {"tokens": tokens,
-                                  "frames": frames.to(card)})
+@pytest.mark.parametrize("B,Sq,Sk", [(2, 448, 1500), (1, 1, 1500),
+                                     (2, 40, 48), (1, 1500, 1500)])
+def test_k1_f32_full_at_sq_ne_sk(card, B, Sq, Sk):
+    """K1's fp32 kernels in full mode at whisper-small's heads (12:12,
+    D=64), one segment a row on each side: the cross-attention's Sq !=
+    Sk (448 and 1 queries over 1500 frames, whose last 32-key tile holds
+    28; 40 over 48) and the encoder's 1500 x 1500, forward and backward
+    against the plain versions within the fp32 limits, each launch
+    counted under its kernel and mode and under its shape, and recorded
+    by the library (64 query rows a forward block, 32 keys a backward
+    block, 128 threads)."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd,
+        flash_attention_packed_bwd_ref, flash_attention_packed_ref,
+        last_bwd_kv_launch, last_fwd_launch)
+    rng = np.random.default_rng(Sq + Sk)
+    q, do = (torch.from_numpy(rng.standard_normal((B, Sq, 12, 64)).astype(
+        np.float32)).to(card) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Sk, 12, 64)).astype(
+        np.float32)).to(card) for _ in range(2))
+    seg = torch.zeros(B, Sq, dtype=torch.int32, device=card)
+    kw = dict(mode="full", kv_segment_ids=torch.zeros(
+        B, Sk, dtype=torch.int32, device=card))
+    flash_attention_packed.launches_by = {}
+    flash_attention_packed.launches_by_shape = {}
+    o, lse = flash_attention_packed(q, k, v, seg, return_lse=True, **kw)
+    fwd_launch = last_fwd_launch()
+    got = flash_attention_packed_bwd(q, k, v, o, lse, do, seg, **kw)
+    bwd_launch = last_bwd_kv_launch()
+    ro, rlse = flash_attention_packed_ref(q, k, v, seg, **kw)
+    want = flash_attention_packed_bwd_ref(q, k, v, ro, rlse, do, seg, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_packed.launches_by == {
+        "packed_fwd_f32_kernel full": 1, "packed_bwd_f32_kernel full": 1}
+    assert flash_attention_packed.launches_by_shape == {
+        f"packed_fwd_f32_kernel full {Sq}x{Sk}": 1,
+        f"packed_bwd_f32_kernel full {Sq}x{Sk}": 1}
+    assert fwd_launch["grid"] == (-(-Sq // 64), 12, B), fwd_launch
+    assert bwd_launch["grid"] == (-(-Sk // 32), 12, B), bwd_launch
+    assert fwd_launch["threads"] == bwd_launch["threads"] == 128
+    assert bwd_launch["work_bytes"] == 0
+    assert (lse - rlse).abs().max().item() <= 1e-4
+    for name, a, r in zip(("o", "dq", "dk", "dv"), (o, *got), (ro, *want)):
+        err = ((a - r).abs() / r.abs().clamp_min(1.0)).max().item()
+        print(f"K1 fp32 full B={B} Sq={Sq} Sk={Sk} {name}: {err:.3g}")
+        assert err <= TOL[torch.float32], (name, err)
+
+
+@pytest.mark.cuda
+def test_audio_train_step_on_the_card_equals_the_cpu(card):
+    """One reduced whisper-small step of `make_train_step` (fp32, TF32
+    off) on the card, through K1's kernels (the encoder and the cross-
+    attention fp32 full, the decoder fp32 causal), against the same step
+    on the CPU through their plain versions: loss and grad_norm within
+    1e-4 relative; every parameter after AdamW within 2 lr of the CPU's,
+    and at most 10 elements more than 1e-4 apart (the first step is lr
+    times the gradient's sign, which a gradient near 0 may flip)."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed)
+    from repro_torch.training import AdamW, TrainState, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+    cfg, params, on_card, _ = _whisper(card)
+    batch = {k: torch.from_numpy(v)
+             for k, v in synthetic_batch(cfg, 4, 12, seed=1).items()}
+    step = make_train_step(cfg, AdamW())
+    want_state, want = step(TrainState(params), batch)
+    prev = torch.get_float32_matmul_precision()
+    flash_attention_packed.launches_by = {}
+    try:
+        torch.set_float32_matmul_precision("highest")
+        got_state, got = step(TrainState(on_card),
+                              {k: v.to(card) for k, v in batch.items()})
+        torch.cuda.synchronize()
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    L = cfg.n_layers
+    assert flash_attention_packed.launches_by == {
+        "packed_fwd_f32_kernel full": cfg.encdec.n_enc_layers + L,
+        "packed_bwd_f32_kernel full": cfg.encdec.n_enc_layers + L,
+        "packed_fwd_f32_kernel causal": L,
+        "packed_bwd_f32_kernel causal": L}
+    for name in ("loss", "grad_norm"):
+        a, b = float(got[name]), float(want[name])
+        assert abs(a - b) <= 1e-4 * abs(b), (name, a, b)
+    loose = 0
+    for a, b in zip(tree_leaves(got_state.params),
+                    tree_leaves(want_state.params)):
+        diff = (a.cpu() - b).abs()
+        assert diff.max().item() <= 2 * 3e-4 + 1e-6
+        loose += int((diff > 1e-4).sum())
+    assert loose <= 10, loose
 
 
 @pytest.mark.cuda
