@@ -325,17 +325,21 @@ Phases:
                 table (the cross-attention, Sq != Sk), bf16 causal 448
                 (the decoder); ms, device_ms, plain, SDPA (forward, and
                 backward through autograd), bound (fp32's split-TF32
-                bound beside), each launch
+                bound beside), each launch; fp32's split-TF32 backward
+                also its dQ kernel's launch, each kernel's device time,
+                SDPA's backward on the device clock and dQ's own bound
  40. audio train parity — reduced whisper-small, fp32, one set of
                 weights: loss and every gradient leaf through the kernels
                 vs the plain attention within 1e-4; one make_train_step
                 each (loss, grad_norm); K1's launches by kernel and mode
+                (fp32's backward: its dK / dV and its dQ kernel)
  41. audio training — whisper-small whole at full width, bf16 parameters,
                 fp32 frames: make_train_step, 3 steps on 8 x 448 tokens
                 over 1500 frames and a profiled fourth: loss finite and
                 falling, step time, tokens/s (frames beside), peak
                 memory, busy share, K1's launches by kernel and mode (2 x
-                12 fp32 full and 12 bf16 causal a step, each way; no K2)
+                12 fp32 full and 12 bf16 causal a step, each way, fp32's
+                backward as its two kernels; no K2)
                 and by shape, each shape one phase 39 held; then at 2 + 2
                 layers on 2 rows the gradient through the kernels at
                 most 1.25 times as far (per leaf, max|err| / max|fp32|)
@@ -346,7 +350,7 @@ Phases:
                 checkpoint.save, restore (bit for bit what was saved), 2
                 more, against 2 more from the state saved: losses within
                 2e-4 relative and at most 2% of the parameters differing
-                at all (K1's dQ atomics); two faults planted in copies of
+                at all (the bf16 decoder's dQ atomics); two faults planted in copies of
                 the restored state (moments zeroed, step counter reset)
                 beyond the share, the first beyond the loss limit too;
                 the file's bytes and the ms to save and to restore. Then
@@ -449,6 +453,28 @@ def device_ms(fn, iters: int = 20, warmup: int = 3, each_once=False):
     print("  device_ms: torch.profiler traced no device time in three "
           "sessions; device time not measured (null)")
     return None, None
+
+
+def device_ms_by_kernel(fn, iters: int = 5, warmup: int = 1) -> dict:
+    """Device time per call of each kernel `fn` launches, by name (its
+    first 60 characters), from one torch.profiler session over `iters`
+    calls after `warmup`; {} when the profiler traced no device time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.name[:60]
+            out[name] = out.get(name, 0.0) + \
+                ev.time_range.elapsed_us() / 1e3 / iters
+    return out
 
 
 def attention_bound(B, Sq, Sk, H, Hkv, D, dtype, mode, window, kv_offset):
@@ -775,6 +801,22 @@ def packed_bound(B, Sq, Sk, H, Hkv, D, dtype, pairs, backward, n_tables):
             "bytes" if t_bytes >= t_ops else "operations", split)
 
 
+def packed_dq_bound(B, Sq, Sk, H, Hkv, D, pairs, n_tables):
+    """Least time for dQ alone in fp32 (what fp32's dQ kernel computes):
+    q, k, v, dO, the LSE, delta and the tables read once, dq written once,
+    against 6*D flops per valid pair per head (S, dP, dQ): (ms, "bytes"
+    or "operations", split-TF32 ms, each product formed three times at
+    PEAK_TF32)."""
+    qo, kv = B * Sq * H * D, B * Sk * Hkv * D
+    nbytes = 4 * (3 * qo + 2 * kv) + 8 * B * H * Sq \
+        + 4 * n_tables * B * (Sq + Sk)
+    flops = 6.0 * D * pairs * H
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.float32]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            max(t_bytes, 3 * flops / PEAK_TF32) * 1e3)
+
+
 def _by_kv_heads(fn, n, q, k, v, *rest, **kw):
     """`fn` (a plain version of K1, forward or backward) over `n` equal
     slices of the KV heads, each with its query heads, joined: the same
@@ -806,12 +848,15 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
     32 query heads the plain versions run a KV head at a time
     (`_by_kv_heads`). `detail`: also each direction's device time
     (torch.profiler) and launch (grid, threads, shared memory) beside
-    the card's SMs."""
+    the card's SMs; for fp32's split-TF32 backward (head_dim 64) also
+    the dQ kernel's launch (`bwd_dq`) and each kernel's device time
+    (`bwd_device_ms_by_kernel`)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention_packed import (
-        _tables, flash_attention_packed, flash_attention_packed_bwd,
-        flash_attention_packed_bwd_ref, flash_attention_packed_ref,
-        last_bwd_kv_launch, last_fwd_launch, pair_mask)
+        F32_TC_HEAD_DIM, _tables, flash_attention_packed,
+        flash_attention_packed_bwd, flash_attention_packed_bwd_ref,
+        flash_attention_packed_ref, last_bwd_dq_launch, last_bwd_kv_launch,
+        last_fwd_launch, pair_mask)
     H, HKV, D = heads
     split = HKV if H > 32 else 1
     plain_fwd_fn = (lambda *a, **k: _by_kv_heads(  # noqa: E731
@@ -832,6 +877,9 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
     launch = dict(fwd=last_fwd_launch())
     grads = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
     launch["bwd"] = last_bwd_kv_launch()
+    split_bwd = dtype == torch.float32 and D == F32_TC_HEAD_DIM
+    if split_bwd:
+        launch["bwd_dq"] = last_bwd_dq_launch()
     ro, rlse = plain_fwd_fn(q, k, v, segt, **kw)
     rgrads = plain_bwd_fn(q, k, v, ro, rlse, do, segt, **kw)
     torch.cuda.synchronize()
@@ -889,6 +937,7 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
                spans=span is not None, kv_offset=off, pairs=pairs,
                err={n: e[1] for n, e in errs.items()},
                rel_err={n: e[2] for n, e in errs.items()},
+               err_abs={n: e[0] for n, e in errs.items()},
                max_abs_err_fwd=errs["o"][0],
                max_abs_err_bwd=max(errs[n][0] for n in ("dq", "dk", "dv")),
                lse_err=lse_err, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
@@ -902,6 +951,22 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
             q, k, v, segt, **kw), iters=5, warmup=1)[0]
         row["bwd_device_ms"] = device_ms(lambda: flash_attention_packed_bwd(
             q, k, v, o, lse, do, segt, **kw), iters=5, warmup=1)[0]
+        if split_bwd:
+            (row["bound_dq_ms"], row["bound_dq_by"],
+             row["bound_dq_split_tf32_ms"]) = packed_dq_bound(
+                B, S, Sk, H, HKV, D, pairs, n_tables)
+            # each of the backward's kernels apart, and SDPA's backward
+            # on the card's own clock beside them
+            row["bwd_device_ms_by_kernel"] = device_ms_by_kernel(
+                lambda: flash_attention_packed_bwd(q, k, v, o, lse, do, segt,
+                                                   **kw))
+            lib_out = F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=am, enable_gqa=True)
+            row["library_bwd_device_ms"] = device_ms(lambda: (
+                torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                    retain_graph=True)), iters=5,
+                warmup=1)[0]
+            del lib_out
         row["launch"] = dict(**launch, sms=torch.cuda.get_device_properties(
             0).multi_processor_count)
         print(f"  K1 launch {tag} S={S} H={H} Hkv={HKV} D={D} "
@@ -3483,8 +3548,8 @@ AUDIO_TRAIN_DEPTH = 2
 #: weights in fp32 as the plain attention path's, as AUDIO_MARGIN holds
 #: the forward
 AUDIO_GRAD_MARGIN = 1.25
-#: the resumed run against the unbroken one: K1's dQ is summed by
-#: atomics in an order that varies between calls, so from the break on
+#: the resumed run against the unbroken one: K1's bf16 dQ (the
+#: decoder's) is summed by atomics in an order that varies between calls, so from the break on
 #: the two runs' gradients differ in their last bits. Their losses may
 #: stand this far apart (relative), and this share of the parameters may
 #: differ at all. A resume with the moments zeroed on restore must go
@@ -3495,13 +3560,18 @@ RESUME_LOSS_RTOL = 2e-4
 RESUME_DIFFER_SHARE = 0.02
 
 
-def _k1_shape_key(row, which) -> str:
-    """The key of `flash_attention_packed.launches_by_shape` under which
-    the kernel of a `check_packed` row's dtype (`which` 0 the forward, 1
-    the backward) counts its launches at the row's shape."""
-    from repro_torch.kernels.flash_attention_packed import KERNELS
-    kernel = KERNELS[getattr(torch, row["dtype"])][which]
-    return f"{kernel} {row['mode']} {row['S']}x{row['Sk']}"
+def _k1_shape_keys(row, which) -> list:
+    """The keys of `flash_attention_packed.launches_by_shape` under which
+    the kernels of a `check_packed` row's dtype and head dim (`which` 0
+    the forward, 1 the backward: fp32's at head_dim 64 its dK / dV
+    kernel, then its dQ kernel) count their launches at the row's
+    shape."""
+    from repro_torch.kernels.flash_attention_packed import (KERNELS,
+                                                            bwd_kernels)
+    dtype = getattr(torch, row["dtype"])
+    kernels = ((KERNELS[dtype][0],) if which == 0
+               else bwd_kernels(dtype, row["D"]))
+    return [f"{k} {row['mode']} {row['S']}x{row['Sk']}" for k in kernels]
 
 
 def _planted_k1_tail(q, k, v, segment_ids, **kw):
@@ -3587,8 +3657,10 @@ def phase_audio_train_parity(dev, card):
     n_enc, L = cfg.encdec.n_enc_layers, cfg.n_layers
     want = {"packed_fwd_f32_kernel full": n_enc + L,
             "packed_bwd_f32_kernel full": n_enc + L,
+            "packed_bwd_f32_dq_kernel full": n_enc + L,
             "packed_fwd_f32_kernel causal": L,
-            "packed_bwd_f32_kernel causal": L}
+            "packed_bwd_f32_kernel causal": L,
+            "packed_bwd_f32_dq_kernel causal": L}
     gerr = max((a - b).abs().max().item() for a, b in zip(g, rg))
     row = dict(loss=loss, plain_loss=rloss, grad_max_diff=gerr,
                step=m, plain_step=rm, k1_launches_by=by)
@@ -3671,13 +3743,14 @@ def phase_audio_training(dev, card, held):
     # frames) in full mode, the decoder's bf16 causal, each way
     want = {"packed_fwd_f32_kernel full": 3 * (n_enc + L),
             "packed_bwd_f32_kernel full": 3 * (n_enc + L),
+            "packed_bwd_f32_dq_kernel full": 3 * (n_enc + L),
             "packed_fwd_wg_kernel causal": 3 * L,
             "packed_bwd_kv_kernel causal": 3 * L}
     if by != want or flash_attention.launches:
         raise AssertionError(f"K1 launches {by}, want {want}; K2 "
                              f"{flash_attention.launches}, want 0")
-    held_at = {_k1_shape_key(r, i) for r in held if r["B"] == B
-               for i in (0, 1)}
+    held_at = {key for r in held if r["B"] == B for i in (0, 1)
+               for key in _k1_shape_keys(r, i)}
     if not set(shapes) <= held_at:
         raise AssertionError(f"K1 launched at shapes phase 39 did not "
                              f"hold: {sorted(set(shapes) - held_at)}")
@@ -3863,6 +3936,46 @@ def audio_train_phases(dev, card) -> dict:
     phase.end()
     return dict(rows=rows, launches_by=by, launches_by_shape=shapes,
                 resume=resume)
+
+
+def _dq_ms(row):
+    """The device time per call of fp32's dQ kernel in a `check_packed`
+    row (None where the profiler traced none)."""
+    return next((ms for name, ms in row.get(
+        "bwd_device_ms_by_kernel", {}).items()
+        if "packed_bwd_f32_dq_kernel" in name), None)
+
+
+def dq_entry(bwd, main_r, rows, launches):
+    """The kernels line's entry of fp32's dQ kernel beside `bwd`, the
+    whole backward's entry at the same shapes: its device time alone,
+    the bound of dQ alone, the plain backward (which forms dq with dk and
+    dv: there is no plain dQ apart)."""
+    return {
+        "name": bwd["name"] + "_dq",
+        "route": "cuda",
+        "source": bwd["source"],
+        "replaces": bwd["replaces"],
+        "launches": launches,
+        "max_abs_err": max(r["err_abs"]["dq"] for r in rows),
+        "ms": _dq_ms(main_r),
+        "device_ms": _dq_ms(main_r),
+        "plain_ms": main_r["plain_bwd_ms"],
+        "plain_note": "the plain backward, dq with dk and dv",
+        "bound_ms": main_r["bound_dq_ms"],
+        "bound_by": main_r["bound_dq_by"],
+        "bound_split_tf32_ms": main_r["bound_dq_split_tf32_ms"],
+        "library_ms": None,
+        "launch": dict(**main_r["launch"]["bwd_dq"],
+                       sms=main_r["launch"]["sms"]),
+        "shape": bwd["shape"],
+        "path_shapes": [dict(rows=r["B"], Sq=r["S"], Sk=r["Sk"],
+                             err=r["err"]["dq"], device_ms=_dq_ms(r),
+                             bound_ms=r["bound_dq_ms"],
+                             bound_split_tf32_ms=r[
+                                 "bound_dq_split_tf32_ms"])
+                        for r in rows],
+    }
 
 
 class PhaseClock:
@@ -4472,7 +4585,7 @@ def main() -> int:
                           "flash_attention_packed.cu",
                 "replaces": "src/repro/kernels/flash_attention.py:208",
                 "launches": audio["launches_by_shape"].get(
-                    _k1_shape_key(main_r, i), 0),
+                    _k1_shape_keys(main_r, i)[0], 0),
                 "max_abs_err": max(r[f"max_abs_err_{which}"] for r in rows),
                 "ms": main_r[f"{which}_ms"],
                 "device_ms": main_r[f"{which}_device_ms"],
@@ -4498,6 +4611,16 @@ def main() -> int:
                     shape["bound_split_tf32_ms"] = r[
                         f"bound_{which}_split_tf32_ms"]
             kernels.append(entry)
+            if "bwd_device_ms_by_kernel" in main_r and which == "bwd":
+                # fp32's split-TF32 backward: the entry above is the
+                # whole backward (its dK / dV kernel's launches); its dQ
+                # kernel stands here on its own clock
+                entry["device_ms_by_kernel"] = main_r[
+                    "bwd_device_ms_by_kernel"]
+                entry["library_device_ms"] = main_r["library_bwd_device_ms"]
+                kernels.append(dq_entry(
+                    entry, main_r, rows, audio["launches_by_shape"].get(
+                        _k1_shape_keys(main_r, 1)[1], 0)))
     print(f"  chip_smoke wall {time.perf_counter() - t_start:.1f} s "
           f"({card})")
     print(json.dumps({"kernels": kernels}))

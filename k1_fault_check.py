@@ -1,15 +1,16 @@
-"""K1's bf16 limits against planted faults, and K1's bf16 forward and
-backward timed against other source trees, on one card.
+"""K1's limits against planted faults (bf16, and fp32 at whisper-small's
+shapes), and K1's forward and backward timed against other source
+trees, on one card.
 
-    python3 k1_fault_check.py [--shape internvl|rg|pixtral ...]
+    python3 k1_fault_check.py [--shape internvl|rg|pixtral|whisper ...]
                               [--out FILE]
     python3 k1_fault_check.py --time [--direction fwd|bwd|both]
-                              [--shape internvl|rg|pixtral ...]
+                              [--shape internvl|rg|pixtral|whisper ...]
                               [--tree LABEL=DIR ...]
                               [--variant LABEL=TREE:EDIT[+EDIT...] ...]
                               [--rounds N] [--out FILE]
 
-Three shapes, the main path's attention of three models (`--shape`,
+Four shapes, the main path's attention of four models (`--shape`,
 given once or more; internvl by default):
   * internvl: internvl3-2b, 12 query heads over 2 KV heads of 128,
     causal with 256-token frames;
@@ -17,7 +18,16 @@ given once or more; internvl by default):
     sliding at window 2048 with 256-token frames after 32 text tokens;
   * pixtral: pixtral-12b, 32 query heads over 8 KV heads of 160 (tiles
     of 192 columns in shared memory, the upper 32 zero-filled), causal
-    with 256-token frames.
+    with 256-token frames;
+  * whisper: whisper-small in training, fp32, 12:12 heads of 64, full
+    mode: its encoder (1500 frames over 1500) and cross-attention (448
+    tokens over 1500 frames). Its faults (`f32_*`) are planted in the
+    fp32 backward at head_dim 64 (split TF32: packed_bwd_f32_kernel for
+    dK and dV, packed_bwd_f32_dq_kernel for dQ) and read at the fp32
+    limit, max|err| / max(1, |plain|) <= 1e-4 (chip_smoke.py's
+    GRAD_TOL), in the two whisper cases and in cases that reach the
+    same kernels through other tables: causal with spans, sliding,
+    GQA at 12:2, and a ring hop with its own key tables and kv_offset.
 
 Both modes build edited copies of `flash_attention_packed.cu` with nvcc
 in a temporary directory, one nvcc per copy, all at once, each with `-I`
@@ -31,10 +41,12 @@ against the plain versions at the shape's heads over the packed layouts
 of `cases(shape)` (internvl: 1024 and 4096 tokens in several segments;
 rg: one 4096-token row with and without frames, and a two-row padded
 group of 2048; pixtral: 1024 and 4096 tokens in several segments, every
-mode). For each of o, dq, dk, dv it prints, per case, max|err|
-/ max(1, |plain|) (`elementwise`, the form `chip_smoke.py` holds to 2e-2
-for o and 4e-2 for the gradients) and max|err| / max|plain| (`whole`,
-held to 2e-2 in bf16). The whole-tensor limit is sound when every
+mode; whisper: the cases of `cases`). For each of o, dq, dk, dv it
+prints, per case, max|err| / max(1, |plain|) (`elementwise`, the form
+`chip_smoke.py` holds to 2e-2 for o and 4e-2 for the gradients in bf16,
+1e-4 in fp32) and max|err| / max|plain| (`whole`, held to 2e-2 in
+bf16); a value that is not finite counts as an infinite error. The
+limit (bf16: whole, 2e-2; fp32: elementwise, 1e-4) is sound when every
 "sound" reading lies below it and each fault reads above it, on a
 tensor it must show in, in every case it must show in. Exits non-zero
 otherwise.
@@ -45,16 +57,22 @@ archive`), and `--variant` a tree's source with the named EDITS applied
 (measurements only: some drop work on purpose, and their errors show
 it). Each is called through its C interface, `k1_forward` and / or
 `k1_backward` (`--direction`, both by default), on the shape's main-path
-row, one 4096-token openvid sequence with its 256-token frames in bf16,
-held to the plain version (forward: max|err| / max|plain| of o, the
-LSE's largest error on rows with keys, and whether two calls give the
-same o and LSE bits; backward: max|err| / max|plain| of dq, dk, dv, and
-whether two calls give the same dk and dv bits), and timed in turns,
-forwards then backwards, `--rounds` times (CUDA events, 10 calls after
-2), beside SDPA with the tables' boolean mask and `chip_smoke.py`'s
-bound (`packed_bound`, forward or backward). The forward also prints
-`waves`: how far the last wave of its blocks runs past a perfect
-balance over the card's SMs, modelled from the row's live key tiles.
+row, one 4096-token openvid sequence with its 256-token frames in bf16
+(whisper: WHISPER_TIMES, 1 and 8 rows of the encoder's 1500 x 1500 and
+of the cross-attention's 448 over 1500, fp32, full), held to the plain
+version (forward: max|err| / max|plain| of o, the LSE's largest error
+on rows with keys, and whether two calls give the same o and LSE bits;
+backward: max|err| / max|plain| of dq, dk, dv (fp32 also max|err| /
+max(1, |plain|)), and whether two calls give the same bits: dk and dv,
+in fp32 dq too), and timed in turns, forwards then backwards,
+`--rounds` times (CUDA events, 10 calls after 2; fp32 also the
+kernels' own time from torch.profiler, `device_ms`, and by kernel),
+beside SDPA with the tables' boolean mask (fp32: SDPA in fp32 with TF32
+off, without a mask in full mode) and `chip_smoke.py`'s bound
+(`packed_bound`, forward or backward; fp32 also its split-TF32 bound).
+The bf16 forward also prints `waves`: how far the last wave of its
+blocks runs past a perfect balance over the card's SMs, modelled from
+the row's live key tiles.
 """
 import argparse
 import ctypes
@@ -72,18 +90,34 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 CU = os.path.join("src", "repro_torch", "kernels", "csrc",
                   "flash_attention_packed.cu")
 REL_TOL_BF16 = 2e-2     # as in chip_smoke.py
+TOL_F32 = 1e-4          # chip_smoke.py's fp32 limit (TOL, GRAD_TOL)
 S = 4096                # the main path's row
 
 #: shape -> query heads, KV heads, head_dim, the mode and window of the
-#: model's attention, and its vocabulary (for the data loader)
+#: model's attention, its vocabulary (for the data loader) and the dtype
+#: it runs K1 in
 SHAPES = {
     "internvl": dict(H=12, HKV=2, D=128, mode="causal", window=None,
-                     vocab=151674),
+                     vocab=151674, dtype="bfloat16"),
     "rg": dict(H=10, HKV=1, D=256, mode="sliding", window=2048,
-               vocab=256000),
+               vocab=256000, dtype="bfloat16"),
     "pixtral": dict(H=32, HKV=8, D=160, mode="causal", window=None,
-                    vocab=131072),
+                    vocab=131072, dtype="bfloat16"),
+    "whisper": dict(H=12, HKV=12, D=64, mode="full", window=None,
+                    vocab=51865, dtype="float32"),
 }
+#: whisper's timed shapes: (rows, query rows) over its 1500 frames, the
+#: encoder's and the cross-attention's at 1 row and at the training
+#: batch's 8
+WHISPER_TIMES = ((1, 1500), (8, 1500), (1, 448), (8, 448))
+WHISPER_FRAMES = 1500
+
+
+def limit(shape):
+    """(reading, limit) a shape's faults are held to: fp32's elementwise
+    1e-4, bf16's whole-tensor 2e-2."""
+    return (("elementwise", TOL_F32) if SHAPES[shape]["dtype"] == "float32"
+            else ("whole", REL_TOL_BF16))
 
 #: fault name -> (the tensors it must show in, the tags of the cases it
 #: must show in (None: every case), [(text, replacement)]); the backward
@@ -193,6 +227,65 @@ FAULTS = {
             "  const float scale = 1.f / sqrtf((float)BwdKvTile<D>::DP);\n"
             "  const int rows = p.B * p.Sq * p.H;")]),
     },
+    # fp32 at head_dim 64 (whisper-small): the split-TF32 backward
+    "whisper": {
+        "sound": ((), None, []),
+        # dK += dS^T Q in plain TF32: dS^T's lo (registers) and Q^T's
+        # lo (shared memory, between two barriers) zeroed by tests the
+        # compiler cannot fold, so the build keeps the sound one's
+        # products; the CPU replay (tests/test_torch_k1_f32_split.py)
+        # reads 2.0e-4 in dk at the encoder's shape
+        "f32_lo_dropped": (("dk",), ("enc",), [
+            ("    split_acc(dp, dh, dl);\n    float tv[KD][4], tk[KD][4];",
+             "    split_acc(dp, dh, dl);\n"
+             "    for (int kk = 0; kk < NQ; ++kk)\n"
+             "      for (int e = 0; e < 4; ++e)\n"
+             "        dl[kk][e] = Sq < 0 ? dl[kk][e] : 0u;\n"
+             "    float tv[KD][4], tk[KD][4];"),
+            ("    fence_proxy_async();  // the split tiles are seen by "
+             "wgmma's reads\n    __syncthreads();\n"
+             "    // the next live tile, of this head or the next, lands "
+             "meanwhile\n",
+             "    __syncthreads();\n"
+             "    for (int i = tid; i < TS / 4; i += T_THREADS)\n"
+             "      reinterpret_cast<uint32_t*>(QTlo)[i] = Sq < 0 ? 1u : 0u;\n"
+             "    fence_proxy_async();\n    __syncthreads();\n")]),
+        # the dK / dV kernel's last query tile never formed (the partial
+        # one over 1500 rows, the 14th of 448)
+        "f32_last_query_tile_skipped": (("dk", "dv"), ("full",), [(
+            "        const bool live = qt < Sq && tile_live<SPANS>(",
+            "        const bool live = qt + T_STEP < Sq && tile_live<SPANS>(")]),
+        # the dK / dV kernel's grid a block of 128 keys short: the last
+        # keys' dk and dv never written
+        "f32_last_key_tile_skipped": (("dk", "dv"), ("full",), [(
+            "    const dim3 grid((p.Sk + T_BLOCK - 1) / T_BLOCK, p.Hkv, p.B);",
+            "    const dim3 grid((p.Sk - 1) / T_BLOCK, p.Hkv, p.B);")]),
+        # dO^T's queries in their own order, not in the order of P^T's A
+        # operand (a query's probability meets another query's dO)
+        "f32_dot_queries_unpermuted": (("dv",), None, [
+            ("                                           unsigned char* "
+             "tlo, int tid) {",
+             "                                           unsigned char* "
+             "tlo, int tid, bool perm = true) {"),
+            ("      const int p = kap(r);",
+             "      const int p = perm ? kap(r) : r;"),
+            ("    split_step<true>(Ld, dOhi, dOlo, dOThi, dOTlo, tid);",
+             "    split_step<true>(Ld, dOhi, dOlo, dOThi, dOTlo, tid, "
+             "false);")]),
+        # dS^T = P^T dP^T scale: delta = rowsum(dO o) never subtracted
+        "f32_delta_skipped": (("dk",), None, [(
+            "        dp[n][e] = pv * (dp[n][e] - c_delta[c]) * scale;",
+            "        dp[n][e] = pv * dp[n][e] * scale;")]),
+        # dS^T without the softmax scale 1/sqrt(64)
+        "f32_ds_scale_dropped": (("dk",), None, [(
+            "        dp[n][e] = pv * (dp[n][e] - c_delta[c]) * scale;",
+            "        dp[n][e] = pv * (dp[n][e] - c_delta[c]);")]),
+        # the dQ kernel's last live key tile adds nothing to dQ
+        "f32_dq_last_key_tile_dropped": (("dq",), ("full",), [(
+            "    acc_product(tq, dh, dl, smem_u32(KThi), smem_u32(KTlo));",
+            "    if (jn < jt_hi)\n"
+            "      acc_product(tq, dh, dl, smem_u32(KThi), smem_u32(KTlo));")]),
+    },
     "rg": {
         **_COMMON,
         # D = 256 alone: O's upper 128 columns formed from the wrong
@@ -280,6 +373,23 @@ EDITS = {
         "  const int q0 = ((Sq + W_BQ - 1) / W_BQ - 1 - (int)blockIdx.y) * "
         "W_BQ;",
         "  const int q0 = (int)blockIdx.y * W_BQ;")],
+    # fp32 at head_dim 64: what splitting the walked tiles costs (both
+    # kernels; the gradients are wrong)
+    "f32_no_split_pass": [(
+        "  for (int i = tid; i < T_STEP * T_D / 4; i += T_THREADS) {",
+        "  for (int i = tid; i < 0; i += T_THREADS) {")],
+    # fp32 at head_dim 64: what the lo products cost: each product as hi
+    # hi' alone, the lo products deleted (plain TF32; measurements only)
+    "f32_hi_products_only": [
+        (f"    wgmma_tf32_ss<T_STEP>(&{acc}[0][0], wg_desc({a} + fo, 16, "
+         f"SW_GROUP),\n                          wg_desc({b} + wo, 16, "
+         f"SW_GROUP));\n", "")
+        for acc, a, b in (("s", "al", "b"), ("s", "a", "bl"),
+                          ("dp", "cl", "e"), ("dp", "c", "el"))] + [
+        ("    wgmma_tf32<T_D>(&acc[0][0], l[kk], wg_desc(b + off, 16, "
+         "SW_GROUP));\n", ""),
+        ("    wgmma_tf32<T_D>(&acc[0][0], h[kk], wg_desc(bl + off, 16, "
+         "SW_GROUP));\n", "")],
 }
 
 def plant(src: str, edits, what: str) -> str:
@@ -339,17 +449,41 @@ def ptxas_report(log, keys=("packed_bwd", "packed_fwd_wg")):
 
 # ------------------------------------------------------------ fault mode
 def cases(shape):
-    """(name, tags, segment table, span table or None, mode, window): for
-    internvl the layouts of chip_smoke.py phase 7 plus a long and a
-    single segment, and sliding at 4096 tokens; for pixtral phase 7's
-    1024- and 4096-token layouts with frames, 1024 without, full and
-    sliding at a window of 256; for rg a 4096-token row
-    with and without frames and a two-row padded group (one segment a
-    row, as the padded hybrid batch has) at the model's window, and a
-    4096-token row with frames at a window of 256. The tags are the mode
-    and, where a row is longer than the window, "past_window"."""
+    """(name, tags, segment table, span table or None, mode, window,
+    extra): for internvl the layouts of chip_smoke.py phase 7 plus a
+    long and a single segment, and sliding at 4096 tokens; for pixtral
+    phase 7's 1024- and 4096-token layouts with frames, 1024 without,
+    full and sliding at a window of 256; for rg a 4096-token row with
+    and without frames and a two-row padded group (one segment a row, as
+    the padded hybrid batch has) at the model's window, and a 4096-token
+    row with frames at a window of 256; for whisper the encoder (1 x
+    1500, "enc") and the cross-attention (2 x 448 over 1500 frames,
+    "cross"), phase 7's 1024-token layout with spans causal, sliding at
+    a window of 256 and causal at 12:2 heads ("gqa"), and its ring hop
+    at 12:2 (the second half's queries over the first half's keys, their
+    own tables, kv_offset -512; "hop"). `extra`: what a case sets beside
+    the shape's heads (HKV; Sk, kseg, kspan, off: the key side's length
+    and tables and kv_offset). The tags are the mode, those above and,
+    where a row is longer than the window, "past_window"."""
     from chip_smoke import hybrid_tables, packed_layout
     out = []
+    if shape == "whisper":
+        F, z = WHISPER_FRAMES, lambda B, n: np.zeros((B, n), np.int32)
+        seg, span = packed_layout(1024, [400, 300, 250], 128)
+        kseg = seg[:512].copy()
+        kseg[kseg < 0] = -2
+        return [
+            ("enc1500", {"full", "enc"}, z(1, F), None, "full", None, {}),
+            ("cross2x448", {"full", "cross"}, z(2, 448), None, "full", None,
+             dict(Sk=F, kseg=z(2, F))),
+            ("causal1024_spans", {"causal"}, seg, span, "causal", None, {}),
+            ("sliding1024_w256", {"sliding"}, seg, span, "sliding", 256,
+             {}),
+            ("gqa1024_causal", {"causal", "gqa"}, seg, span, "causal", None,
+             dict(HKV=2)),
+            ("hop512_gqa", {"causal", "gqa", "hop"}, seg[512:], span[512:],
+             "causal", None, dict(HKV=2, Sk=512, kseg=kseg,
+                                  kspan=span[:512], off=-512))]
     if shape == "pixtral":
         for n, lens in ((1024, [400, 300, 250]),
                         (4096, [1500, 900, 1200, 400])):
@@ -391,7 +525,7 @@ def cases(shape):
                     "causal", None))
     return [(name, {mode} | ({"past_window"} if window and
                               np.shape(seg)[-1] > window else set()),
-             seg, span, mode, window)
+             seg, span, mode, window, {})
             for name, seg, span, mode, window in out]
 
 
@@ -401,20 +535,25 @@ def readings(torch, shape):
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed, flash_attention_packed_bwd,
         flash_attention_packed_bwd_ref, flash_attention_packed_ref)
-    H, HKV, D = (SHAPES[shape][k] for k in ("H", "HKV", "D"))
+    D = SHAPES[shape]["D"]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    bf16 = torch.bfloat16
+    dt = getattr(torch, SHAPES[shape]["dtype"])
+    t = lambda a: None if a is None else torch.as_tensor(a, device=dev)  # noqa: E731
     rows = []
-    for name, tags, seg, span, mode, window in cases(shape):
+    for name, tags, seg, span, mode, window, extra in cases(shape):
+        H, HKV = SHAPES[shape]["H"], extra.get("HKV", SHAPES[shape]["HKV"])
         B, n = (1, len(seg)) if np.ndim(seg) == 1 else np.shape(seg)
-        q, do = (torch.randn(B, n, H, D, generator=gen, device=dev).to(bf16)
+        Sk = extra.get("Sk", n)
+        q, do = (torch.randn(B, n, H, D, generator=gen, device=dev).to(dt)
                  for _ in range(2))
-        k, v = (torch.randn(B, n, HKV, D, generator=gen, device=dev)
-                .to(bf16) for _ in range(2))
-        segt = torch.as_tensor(seg, device=dev)
-        kw = dict(mode=mode, window=window, span_ids=None if span is None
-                  else torch.as_tensor(span, device=dev))
+        k, v = (torch.randn(B, Sk, HKV, D, generator=gen, device=dev)
+                .to(dt) for _ in range(2))
+        segt = t(seg)
+        kw = dict(mode=mode, window=window, span_ids=t(span),
+                  kv_segment_ids=t(extra.get("kseg")),
+                  kv_span_ids=t(extra.get("kspan")),
+                  kv_offset=extra.get("off", 0))
         o, lse = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
         got = (o,) + tuple(flash_attention_packed_bwd(q, k, v, o, lse, do,
                                                       segt, **kw))
@@ -422,16 +561,22 @@ def readings(torch, shape):
         want = (ro,) + tuple(flash_attention_packed_bwd_ref(
             q, k, v, ro, rlse, do, segt, **kw))
         row = {"case": name, "tags": sorted(tags)}
-        for t, a, r in zip(("o", "dq", "dk", "dv"), got, want):
-            r = r.float()
-            d = (a.float() - r).abs()
-            row[t] = {
-                "elementwise": (d / r.abs().clamp_min(1.0)).max().item(),
-                "whole": d.max().item() / r.abs().max().item()}
+        for name_t, a, r in zip(("o", "dq", "dk", "dv"), got, want):
+            row[name_t] = errs(a, r)
         rows.append(row)
         del q, do, k, v, o, lse, got, want
         torch.cuda.empty_cache()
     return rows
+
+
+def errs(a, r):
+    """max|err| / max(1, |plain|) (`elementwise`) and max|err| /
+    max|plain| (`whole`); a value that is not finite (a gradient never
+    written) counts as an infinite error."""
+    r = r.float()
+    d = (a.float() - r).abs().nan_to_num(nan=float("inf"))
+    return {"elementwise": (d / r.abs().clamp_min(1.0)).max().item(),
+            "whole": d.max().item() / r.abs().max().item()}
 
 
 def fault_mode(torch, tmp, shapes):
@@ -450,6 +595,7 @@ def fault_mode(torch, tmp, shapes):
     libs = build(sources, tmp)
     result, ok = {}, True
     for shape in shapes:
+        form, tol = limit(shape)
         for fault, (shows, tags, _) in FAULTS[shape].items():
             # the wrappers load "flash_attention_packed" through build.load
             kbuild._libs["flash_attention_packed"] = libs[
@@ -465,20 +611,21 @@ def fault_mode(torch, tmp, shapes):
                 whole = [r[t]["whole"] for r in must]
                 elt = [r[t]["elementwise"] for r in must]
                 print(f"{shape:8s} {fault:26s} {t:2s} whole "
-                      f"{min(whole):.4f}-{max(whole):.4f}  elementwise "
-                      f"{min(elt):.4f}-{max(elt):.4f}  ({len(must)} cases)")
+                      f"{min(whole):.4g}-{max(whole):.4g}  elementwise "
+                      f"{min(elt):.4g}-{max(elt):.4g}  ({len(must)} cases)")
             if fault == "sound":
                 caught = [False]
-                ok &= all(r[t]["whole"] <= REL_TOL_BF16 for r in rows
+                ok &= all(r[t][form] <= tol for r in rows
                           for t in ("o", "dq", "dk", "dv"))
             else:
-                caught = [max(r[t]["whole"] for t in shows) > REL_TOL_BF16
+                caught = [max(r[t][form] for t in shows) > tol
                           for r in must]
                 ok &= all(caught)
             result[f"{shape}:{fault}"] = {"rows": rows,
                                           "caught_in": sum(caught),
                                           "cases": len(must)}
-    return {"ok": ok, "rel_tol_bf16": REL_TOL_BF16, "faults": result}
+    return {"ok": ok, "rel_tol_bf16": REL_TOL_BF16, "tol_f32": TOL_F32,
+            "faults": result}
 
 
 # ------------------------------------------------------------- time mode
@@ -510,20 +657,46 @@ def inputs(torch, shape):
     o, lse = flash_attention_packed(q, k, v, seg, span_ids=span,
                                     return_lse=True, **kw)
     return dict(q=q, k=k, v=v, o=o, lse=lse, do=do, seg=seg, span=span,
-                kw=kw, shape=shape)
+                kseg=None, kw=kw, shape=shape)
+
+
+def whisper_inputs(torch, B, Sq):
+    """`B` rows of `Sq` queries over whisper-small's 1500 frames, one
+    segment a row on each side (the encoder at Sq = 1500, the
+    cross-attention at 448), random fp32 q, k, v, dO (seed 0), o and
+    LSE from K1."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed)
+    cfg = SHAPES["whisper"]
+    H, HKV, D, F = cfg["H"], cfg["HKV"], cfg["D"], WHISPER_FRAMES
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, do = (torch.randn(B, Sq, H, D, generator=gen, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn(B, F, HKV, D, generator=gen, device=dev)
+            for _ in range(2))
+    seg = torch.zeros(B, Sq, dtype=torch.int32, device=dev)
+    kseg = torch.zeros(B, F, dtype=torch.int32, device=dev)
+    kw = dict(mode="full", window=None)
+    o, lse = flash_attention_packed(q, k, v, seg, kv_segment_ids=kseg,
+                                    return_lse=True, **kw)
+    return dict(q=q, k=k, v=v, o=o, lse=lse, do=do, seg=seg, span=None,
+                kseg=kseg, kw=kw, shape="whisper")
 
 
 def _call_args(torch, x):
-    """The tables and summaries of the row, and its sizes and mode as
-    k1_forward and k1_backward take them."""
+    """The tables and summaries of the rows, and their sizes, dtype and
+    mode as k1_forward and k1_backward take them."""
     from repro_torch.kernels.flash_attention import MODES
     from repro_torch.kernels.flash_attention_packed import (_summaries,
                                                             _tables)
     cfg = SHAPES[x["shape"]]
-    q = x["q"]
-    tables = [*_tables(q, x["k"], x["seg"], x["span"], None, None),
-              _summaries(1, S, q.device), _summaries(1, S, q.device)]
-    ints = [1, S, S, cfg["H"], cfg["HKV"], cfg["D"], 1, MODES[cfg["mode"]],
+    q, k = x["q"], x["k"]
+    B, Sq, Sk = q.shape[0], q.shape[1], k.shape[1]
+    tables = [*_tables(q, k, x["seg"], x["span"], x["kseg"], None),
+              _summaries(B, Sq, q.device), _summaries(B, Sk, q.device)]
+    ints = [B, Sq, Sk, cfg["H"], cfg["HKV"], cfg["D"],
+            int(q.dtype == torch.bfloat16), MODES[cfg["mode"]],
             int(cfg["window"] or 0), 0]
     return tables, ints
 
@@ -532,7 +705,7 @@ def _call(torch, fn, ptrs, ints, what):
     fn.argtypes = [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(*[t.data_ptr() for t in ptrs], *ints,
+    err = fn(*[None if t is None else t.data_ptr() for t in ptrs], *ints,
              torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{what} returned {err}")
@@ -543,7 +716,8 @@ def forward(torch, lib, x):
     q = x["q"]
     tables, ints = _call_args(torch, x)
     o = torch.empty_like(q)
-    lse = torch.empty(1, ints[3], S, dtype=torch.float32, device=q.device)
+    lse = torch.empty(ints[0], ints[3], ints[1], dtype=torch.float32,
+                      device=q.device)
     _call(torch, lib.k1_forward, [q, x["k"], x["v"], o, lse, *tables], ints,
           "k1_forward")
     return o, lse
@@ -554,16 +728,16 @@ def backward(torch, lib, x):
     scratch pointer `work` (no k1_last_bwd_kv_launch) take none."""
     q, k = x["q"], x["k"]
     tables, ints = _call_args(torch, x)
-    H, D = ints[3], ints[5]
+    B, Sq, Sk, H, D = ints[0], ints[1], ints[2], ints[3], ints[5]
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(x["v"])
-    delta = torch.empty(1, H, S, dtype=torch.float32, device=q.device)
+    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     ptrs = [q, k, x["v"], x["o"], x["do"], x["lse"], delta, dq, dk, dv]
     if hasattr(lib, "k1_last_bwd_kv_launch"):
-        ptrs.append(torch.empty(2 * S * H * D, dtype=torch.float32,
-                                device=q.device))
+        work = 2 * B * Sk * H * D if q.dtype == torch.bfloat16 else 1
+        ptrs.append(torch.empty(work, dtype=torch.float32, device=q.device))
     _call(torch, lib.k1_backward, ptrs + tables, ints, "k1_backward")
-    return dq.bfloat16(), dk, dv
+    return dq.to(q.dtype), dk, dv
 
 
 def build_trees(tmp, trees, variants, cu=CU, edits=EDITS,
@@ -606,17 +780,20 @@ def _readings_fwd(torch, libs, x, ref):
 
 
 def _readings_bwd(torch, libs, x, ref):
-    """label -> whole errors of dq, dk, dv and whether two calls give the
-    same dk and dv bits."""
+    """label -> whole (and elementwise) errors of dq, dk, dv and whether
+    two calls give the same dk and dv bits (`same_bits`) and dq's
+    (`same_bits_dq`)."""
     rows = {}
     for label, lib in libs.items():
         got, again = backward(torch, lib, x), backward(torch, lib, x)
         torch.cuda.synchronize()
+        e = {n: errs(a, r) for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
         rows[label] = {
-            "whole_err": {n: _whole(a, r)
-                          for n, a, r in zip(("dq", "dk", "dv"), got, ref)},
+            "whole_err": {n: v["whole"] for n, v in e.items()},
+            "elementwise_err": {n: v["elementwise"] for n, v in e.items()},
             "same_bits": bool(torch.equal(got[1], again[1])
                               and torch.equal(got[2], again[2])),
+            "same_bits_dq": bool(torch.equal(got[0], again[0])),
             "ms": []}
     return rows
 
@@ -712,6 +889,78 @@ def time_mode(torch, libs, shape, rounds, directions):
     return out
 
 
+def time_whisper(torch, libs, rounds):
+    """The backward at WHISPER_TIMES: every library held to the plain
+    version and timed in turns (change, ..., ..., change), by events
+    and by torch.profiler (each kernel apart), beside the plain version,
+    SDPA in fp32 (TF32 off) and chip_smoke.py's bounds."""
+    import torch.nn.functional as F
+    from chip_smoke import (PEAK_TF32, cuda_ms, device_ms,
+                            device_ms_by_kernel, packed_bound)
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed_bwd_ref)
+    cfg = SHAPES["whisper"]
+    H, HKV, D = cfg["H"], cfg["HKV"], cfg["D"]
+    out = []
+    for B, Sq in WHISPER_TIMES:
+        x = whisper_inputs(torch, B, Sq)
+        args = [x[n] for n in ("q", "k", "v", "o", "lse", "do")]
+        ref = flash_attention_packed_bwd_ref(*args, x["seg"],
+                                             kv_segment_ids=x["kseg"],
+                                             **x["kw"])
+        rows = _readings_bwd(torch, libs, x, ref)
+        plain_ms = cuda_ms(lambda: flash_attention_packed_bwd_ref(
+            *args, x["seg"], kv_segment_ids=x["kseg"], **x["kw"]),
+            iters=3, warmup=1)
+        del ref
+        for row in rows.values():
+            row["device_ms"], row["by_kernel"] = [], []
+        order = list(libs) + list(libs)[::-1]
+        for _ in range(rounds):
+            for label in order:
+                fn = (lambda lib=libs[label]: backward(torch, lib, x))
+                rows[label]["ms"].append(cuda_ms(fn, iters=10, warmup=2))
+                rows[label]["device_ms"].append(
+                    device_ms(fn, iters=5, warmup=1)[0])
+                rows[label]["by_kernel"].append(
+                    device_ms_by_kernel(fn, iters=5, warmup=1))
+        qt, kt, vt = (x[n].transpose(1, 2).contiguous().requires_grad_(True)
+                      for n in ("q", "k", "v"))
+        o = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = x["do"].transpose(1, 2)
+
+        def sdpa():
+            return torch.autograd.grad(o, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        sdpa_ms = cuda_ms(sdpa, iters=10, warmup=2)
+        sdpa_device_ms = device_ms(sdpa, iters=5, warmup=1)[0]
+        del o, qt, kt, vt
+        pairs = B * Sq * WHISPER_FRAMES
+        bound, bound_by, split = packed_bound(
+            B, Sq, WHISPER_FRAMES, H, HKV, D, torch.float32, pairs, True, 1)
+        r = {"shape": f"B={B} Sq={Sq} Sk={WHISPER_FRAMES} H={H} Hkv={HKV} "
+                      f"D={D} fp32 full",
+             "bound_ms": bound, "bound_by": bound_by,
+             "bound_split_tf32_ms": split,
+             # the two kernels' own products: S and dP in each, 21 TF32
+             # products a pair for the function's 15
+             "bound_two_kernel_split_tf32_ms":
+                 3 * 14.0 * D * pairs * H / PEAK_TF32 * 1e3,
+             "plain_ms": plain_ms, "sdpa_fp32_ms": sdpa_ms,
+             "sdpa_fp32_device_ms": sdpa_device_ms, "kernels": rows}
+        for label, row in rows.items():
+            print(f"whisper bwd {B}x{Sq} {label:20s} ms {row['ms']} "
+                  f"device_ms {row['device_ms']} by_kernel "
+                  f"{row['by_kernel'][-1]} err {row['elementwise_err']} "
+                  f"same_bits {row['same_bits']} dq {row['same_bits_dq']}")
+        print(f"whisper bwd {B}x{Sq} " + json.dumps(
+            {k: v for k, v in r.items() if k != "kernels"}))
+        out.append(r)
+        del x, args
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--time", action="store_true",
@@ -719,8 +968,8 @@ def main() -> int:
     ap.add_argument("--direction", choices=("fwd", "bwd", "both"),
                     default="both", help="what --time times")
     ap.add_argument("--shape", action="append", choices=sorted(SHAPES),
-                    help="internvl (the default), rg or pixtral; "
-                         "repeatable")
+                    help="internvl (the default), rg, pixtral or "
+                         "whisper; repeatable")
     ap.add_argument("--tree", action="append", default=[])
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--rounds", type=int, default=1)
@@ -733,6 +982,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k1_fault_check: no CUDA device visible", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False   # the fp32 references
+    torch.backends.cudnn.allow_tf32 = False
     from chip_smoke import card_line
     card = card_line()
     print(card)
@@ -746,9 +997,15 @@ def main() -> int:
             # the inputs' forward runs this tree's library too
             from repro_torch.kernels import build as kbuild
             kbuild._libs["flash_attention_packed"] = libs["change"]
-            result = {"times": {shape: time_mode(torch, libs, shape,
-                                                 args.rounds, directions)
-                                for shape in shapes}}
+            if "whisper" in shapes and directions != ("bwd",):
+                raise SystemExit("--shape whisper times the backward "
+                                 "alone: add --direction bwd")
+            result = {"times": {
+                shape: (time_whisper(torch, libs, args.rounds)
+                        if shape == "whisper" else
+                        time_mode(torch, libs, shape, args.rounds,
+                                  directions))
+                for shape in shapes}}
         else:
             result = fault_mode(torch, tmp, shapes)
     finally:
@@ -759,8 +1016,10 @@ def main() -> int:
             json.dump(result, f)
     if "times" in result:
         summary = {"card": card, "times": {
-            shape: {d: ({k: v for k, v in r[d].items() if k != "kernels"}
-                        if d in directions else r[d]) for d in r}
+            shape: ([{k: v for k, v in row.items() if k != "kernels"}
+                     for row in r] if shape == "whisper" else
+                    {d: ({k: v for k, v in r[d].items() if k != "kernels"}
+                         if d in directions else r[d]) for d in r})
             for shape, r in result["times"].items()}}
     else:
         summary = {k: v for k, v in result.items() if k != "faults"}

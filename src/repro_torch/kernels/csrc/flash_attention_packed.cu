@@ -65,9 +65,17 @@
 //     thread's share of dK or dV is 128 registers, so one block an SM;
 //     at 160 the tiles are 192 columns wide as in the forward (the
 //     upper 32 zeros), dK / dV 96 registers, one block an SM.
-//   * fp32: the CUDA cores (TF32 tensor cores would break the 1e-4
-//     parity tolerance), same tiling idea with fp32 tiles in shared
-//     memory; D = 64, 128 and 160 (no config runs 256 in fp32).
+//   * fp32 forward (packed_fwd_f32_kernel), D = 64, 128 and 160 (no
+//     config runs 256 in fp32): the CUDA cores, fp32 tiles in shared
+//     memory; not redesigned.
+//   * fp32 backward at D = 64 (whisper-small's encoder and
+//     cross-attention in training): split TF32 on the tensor cores by
+//     wgmma, as two kernels that each write their gradients once
+//     (packed_bwd_f32_kernel: dK, dV; packed_bwd_f32_dq_kernel: dQ); its
+//     section says what bounds it and what the design does about it.
+//   * fp32 backward at D = 128 and 160 (packed_bwd_f32_cc_kernel): the
+//     CUDA cores, dQ by scalar atomics; no main path runs it, not
+//     redesigned.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -1092,12 +1100,13 @@ packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------
-// Backward, fp32, CUDA cores. Block = (32-key tile, KV head, batch);
-// thread = (key, quarter of D: d = part + 4*i). Per live 32-row query
-// tile, each thread forms its key's scores and dP over the tile (a
-// 4-lane shuffle reduction), accumulates dK/dV in registers, and writes
-// dS to shared memory; then thread (query, quarter) sums dQ over the
-// tile's keys and adds it to dq with atomicAdd.
+// Backward, fp32, CUDA cores, D = 128 and 160 (no main path runs them;
+// not redesigned). Block = (32-key tile, KV head, batch); thread = (key,
+// quarter of D: d = part + 4*i). Per live 32-row query tile, each thread
+// forms its key's scores and dP over the tile (a 4-lane shuffle
+// reduction), accumulates dK/dV in registers, and writes dS to shared
+// memory; then thread (query, quarter) sums dQ over the tile's keys and
+// adds it to dq with atomicAdd.
 // ---------------------------------------------------------------------
 constexpr int BS_BK = 32, BS_BQ = 32, BS_THREADS = 128;
 
@@ -1110,14 +1119,14 @@ constexpr size_t bwd_f32_smem() {
 
 template <int D, bool SPANS>
 __global__ void __launch_bounds__(BS_THREADS)
-packed_bwd_f32_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      float* __restrict__ dq, float* __restrict__ dk,
-                      float* __restrict__ dv, Params p, float scale) {
+packed_bwd_f32_cc_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, float* __restrict__ dk,
+                         float* __restrict__ dv, Params p, float scale) {
   constexpr int RS = D + 1, SS = BS_BK + 1, NI = D / 4;
   extern __shared__ float smem[];
   float* Ks = smem;                 // [BS_BK][RS]
@@ -1249,6 +1258,719 @@ packed_bwd_f32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------
+// Backward, fp32, D = 64: split TF32 on the tensor cores, designed for
+// the H100. The gradient of K1's function, as the other backwards: dq,
+// dk, dv from q, k, v, dO, the forward's LSE and delta = rowsum(dO * O)
+// (bwd_delta_kernel); every mode, span tables, the ring hop's key tables
+// and kv_offset, Sq != Sk, GQA; a row with no valid key gives zeros, a
+// masked pair weighs exactly 0.
+//
+// What bounds it: 10*D flops per valid (query, key) pair per query head
+// (S, dP, dV, dK, dQ) against q, k, v, o, dO in and dq, dk, dv out once.
+// At whisper-small's training shape (8 x 1500 frames, 12:12 heads, full)
+// that is 138 GFLOP against 295 MB: 2.06 ms at the fp32 CUDA-core peak,
+// 0.088 ms for the bytes, so operations bound it. Plain TF32 keeps some
+// three decimal digits and misses the 1e-4 limit (dK's product alone
+// reads 2e-4 at 1 x 1500; tests/test_torch_k1_f32_split.py), so each
+// fp32 operand x is carried as hi = tf32(x) and lo = tf32(x - hi) and
+// each product formed as hi hi' + hi lo' + lo hi', as K2's fp32 kernel
+// does: 15 TF32 products a pair, 0.838 ms at 495 TFLOP/s.
+//
+// TF32 wgmma reads only K-major operands from shared memory, so dV += P^T
+// dO and dK += dS^T Q need dO and Q transposed, dQ = dS K needs K
+// transposed, each as hi and lo: one kernel doing all five products over
+// 64-row tiles would need 256 KB of shared memory. So two kernels, each
+// writing its gradients once (no atomics: the same bits on every call):
+//  1. packed_bwd_f32_kernel: dK and dV, a block per (128 keys, KV head,
+//     batch), key blocks issued first to last (the heaviest under causal
+//     order first). It walks the live query tiles of T_STEP = 32 rows of
+//     every query head of its KV head's group and forms S^T = K Q^T, dP^T
+//     = V dO^T, P^T, dS^T, dV += P^T dO and dK += dS^T Q.
+//  2. packed_bwd_f32_dq_kernel: dQ, a block per (query head, 128
+//     queries, batch), the last query rows first. It walks the live key
+//     tiles of 32 and forms S = Q K^T, dP = dO V^T, P, dS and dQ += dS K.
+// S and dP are formed in both: 21 TF32 products a pair, 1.17 ms at 8 x
+// 1500. In each, a block is two warpgroups, each owning 64 rows of its
+// fixed side (keys, or queries), split once into shared memory as the A
+// operands of S and dP; the walked tiles arrive by 16-byte cp.async into
+// a landing tile while the last one is formed, and all 256 threads split
+// them: row-major as the B operands of S and dP, and (the queries for dK
+// / dV, the keys for dQ) transposed, [64][32] with the rows permuted
+// within each group of 8 (kap), the B operand of the second product,
+// whose A operand is the first product's accumulator as it lies (K2's
+// V^T trick): P and dS never leave the registers. A warpgroup skips the
+// pair mask for a tile wholly in its warp's one segment and position
+// range. Budget: dK / dV 216,064 bytes of shared memory (K, V hi and lo
+// 128 KB; Q, dO hi and lo, row-major and transposed, 64 KB; the landing
+// tiles 16 KB; the rows' tables), dQ 200,192 (Q, dO hi and lo 128 KB; K,
+// V and K^T's hi and lo 48 KB; the landing tiles 16 KB): one block an SM
+// each, 256 threads at up to 255 registers (ptxas: 238-242 and 169-172,
+// no spill; k1_fault_check.py prints them). Each walked tile's
+// second product goes to a fresh accumulator, added to the running dK,
+// dV or dQ in fp32 registers: the tensor cores add into their
+// accumulator less exactly than fp32 rounding, and over a walk of 6
+// heads x 32 tiles (1024 causal, 12:2) the summed error had reached
+// 6.7e-5 of the 1e-4 limit; tile by tile it reads 7.4e-6 at most
+// (k1_fault_check.py --shape whisper, H100 80GB HBM3 at 700 W).
+// What still holds it back (same card, 8 x 1500: 3.51 ms, 4.2x the
+// split-TF32 bound and 3.0x the two kernels' own 1.17, under SDPA
+// fp32's 4.20; the dK / dV kernel 1.96, dQ 1.50): the tensor cores
+// work a third of the time. One block an SM (shared memory), so a
+// warpgroup's products wait on the block's split pass (3.00 ms without
+// the walked tiles' splits) and on its own softmax; the lo products
+// take a third (2.30 ms with hi hi' alone).
+// ---------------------------------------------------------------------
+constexpr int T_ROWS = 64;                 // rows a warpgroup owns
+constexpr int T_BLOCK = 2 * T_ROWS;        // two warpgroups a block
+constexpr int T_STEP = 32;                 // rows of a walked tile
+constexpr int T_THREADS = 256;
+constexpr int T_D = 64;                    // the head dim it is built for
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Shared memory of the split-TF32 backward: TF bytes of a warpgroup's
+// [64][64] fp32 tile, TS of a walked [32][64] tile (or its transpose)
+template <int D>
+struct F32BwdTile {
+  static constexpr int TF = T_ROWS * D * 4;
+  static constexpr int TS = T_STEP * D * 4;
+  // dK / dV: K's and V's hi and lo (2 tiles each), Q's and dO's hi and
+  // lo row-major and transposed (8 walked tiles), Q and dO as they land
+  // (2), the landing and current query rows' LSE, delta, segments and
+  // spans (8 x T_STEP), the keys' segments and spans, and room to align
+  // the tiles to 1024 bytes
+  static constexpr size_t kv_smem =
+      1024 + 8 * TF + 10 * TS + 4 * (8 * T_STEP + 2 * T_BLOCK);
+  // dQ: Q's and dO's hi and lo (2 tiles each), K's and V's hi and lo
+  // row-major and K's transposed (6 walked tiles), K and V as they land
+  // (2), the landing and current keys' segments and spans (4 x T_STEP),
+  // the query rows' LSE, delta, segments and spans (4 x T_BLOCK)
+  static constexpr size_t dq_smem =
+      1024 + 8 * TF + 8 * TS + 4 * (4 * T_STEP + 4 * T_BLOCK);
+};
+
+// The position of row r of a walked tile in its transposed copy: within
+// each group of 8, row 2i at i and row 2i + 1 at i + 4, the order in
+// which an accumulator's columns serve as a wgmma A operand
+__device__ __forceinline__ int kap(int r) {
+  const int w = r & 7;
+  return (r & ~7) + ((w & 1) ? 4 + (w >> 1) : (w >> 1));
+}
+
+// x's lo beside its hi = tf32(x): x - hi rounded to TF32; hi + lo carries
+// x to some 2^-22 of itself
+__device__ __forceinline__ uint32_t lo_of(float x, uint32_t hi) {
+  return tf32(x - __uint_as_float(hi));
+}
+
+// A landed walked tile `in` ([T_STEP][64], sw128) split by the block:
+// hi and lo row-major into `hi` / `lo` (the same layout), and with TR
+// also transposed, [64][T_STEP] rows of 128 bytes, row r of the tile at
+// column kap(r), into `thi` / `tlo`. A warp takes 32 consecutive rows of
+// one 16-byte column: no bank conflict either way.
+template <bool TR>
+__device__ __forceinline__ void split_step(const unsigned char* in,
+                                           unsigned char* hi,
+                                           unsigned char* lo,
+                                           unsigned char* thi,
+                                           unsigned char* tlo, int tid) {
+  for (int i = tid; i < T_STEP * T_D / 4; i += T_THREADS) {
+    const int r = i % T_STEP, c = i / T_STEP;
+    const uint32_t off = sw128<T_STEP>(r, c);
+    const float4 x = *reinterpret_cast<const float4*>(in + off);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[e] = tf32(xs[e]);
+      l[e] = lo_of(xs[e], h[e]);
+    }
+    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+    if constexpr (TR) {
+      const int p = kap(r);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t to = sw128<T_D>(4 * c + e, p >> 2) + (p & 3) * 4;
+        *reinterpret_cast<uint32_t*>(thi + to) = h[e];
+        *reinterpret_cast<uint32_t*>(tlo + to) = l[e];
+      }
+    }
+  }
+}
+
+// `n` bytes of fixed-side tiles split in place by the block: each fp32 x
+// of `hi` becomes tf32(x), its lo goes to the same offset of `lo`
+__device__ __forceinline__ void split_fixed(unsigned char* hi,
+                                            unsigned char* lo, int n,
+                                            int tid) {
+  for (int i = tid * 16; i < n; i += T_THREADS * 16) {
+    const float4 x = *reinterpret_cast<const float4*>(hi + i);
+    const uint4 h = make_uint4(tf32(x.x), tf32(x.y), tf32(x.z), tf32(x.w));
+    *reinterpret_cast<uint4*>(lo + i) = make_uint4(
+        lo_of(x.x, h.x), lo_of(x.y, h.y), lo_of(x.z, h.z), lo_of(x.w, h.w));
+    *reinterpret_cast<uint4*>(hi + i) = h;
+  }
+}
+
+// An accumulator [64][T_STEP] (T_STEP / 8 groups of 4) as the A operands
+// of the T_STEP / 8 k-steps of the product that follows, split: column
+// group kk's values in the order kap pairs them with the B operand's rows
+template <int NQ>
+__device__ __forceinline__ void split_acc(const float (&s)[NQ][4],
+                                          uint32_t (&h)[NQ][4],
+                                          uint32_t (&l)[NQ][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NQ; ++kk) {
+    const float a[4] = {s[kk][0], s[kk][2], s[kk][1], s[kk][3]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      h[kk][e] = tf32(a[e]);
+      l[kk][e] = lo_of(a[e], h[kk][e]);
+    }
+  }
+}
+
+// S (+)= A B^T and P (+)= C E^T in split TF32 over D = 64 (8 k-steps):
+// A, C the warpgroup's [64][64] fixed tiles (hi `a`, lo `al`; `c`, `cl`),
+// B, E walked [T_STEP][64] tiles (hi `b`, lo `bl`; `e`, `el`); the small
+// products first
+__device__ __forceinline__ void two_products(
+    float (&s)[T_STEP / 8][4], float (&dp)[T_STEP / 8][4], uint32_t a,
+    uint32_t al, uint32_t b, uint32_t bl, uint32_t c, uint32_t cl,
+    uint32_t e, uint32_t el) {
+#pragma unroll
+  for (int n = 0; n < T_STEP / 8; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) s[n][x] = dp[n][x] = 0.f;
+  pin(s);
+  pin(dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < T_D / 8; ++kk) {
+    const uint32_t fo = (kk >> 2) * SW_BLOCK + (kk & 3) * 32;
+    const uint32_t wo = (kk >> 2) * (T_STEP * 128) + (kk & 3) * 32;
+    wgmma_tf32_ss<T_STEP>(&s[0][0], wg_desc(al + fo, 16, SW_GROUP),
+                          wg_desc(b + wo, 16, SW_GROUP));
+    wgmma_tf32_ss<T_STEP>(&s[0][0], wg_desc(a + fo, 16, SW_GROUP),
+                          wg_desc(bl + wo, 16, SW_GROUP));
+    wgmma_tf32_ss<T_STEP>(&s[0][0], wg_desc(a + fo, 16, SW_GROUP),
+                          wg_desc(b + wo, 16, SW_GROUP));
+    wgmma_tf32_ss<T_STEP>(&dp[0][0], wg_desc(cl + fo, 16, SW_GROUP),
+                          wg_desc(e + wo, 16, SW_GROUP));
+    wgmma_tf32_ss<T_STEP>(&dp[0][0], wg_desc(c + fo, 16, SW_GROUP),
+                          wg_desc(el + wo, 16, SW_GROUP));
+    wgmma_tf32_ss<T_STEP>(&dp[0][0], wg_desc(c + fo, 16, SW_GROUP),
+                          wg_desc(e + wo, 16, SW_GROUP));
+  }
+  wgmma_commit();
+  wgmma_wait0();
+  pin(s);
+  pin(dp);
+}
+
+// acc += A B over the T_STEP rows of a walked tile (T_STEP / 8 k-steps):
+// A from registers (split_acc), B a transposed walked tile [64][T_STEP]
+// (hi `b`, lo `bl`), issued without waiting
+__device__ __forceinline__ void acc_product(float (&acc)[T_D / 8][4],
+                                            const uint32_t (&h)[T_STEP / 8][4],
+                                            const uint32_t (&l)[T_STEP / 8][4],
+                                            uint32_t b, uint32_t bl) {
+#pragma unroll
+  for (int kk = 0; kk < T_STEP / 8; ++kk) {
+    const uint32_t off = (kk >> 2) * (T_D * 128) + (kk & 3) * 32;
+    wgmma_tf32<T_D>(&acc[0][0], l[kk], wg_desc(b + off, 16, SW_GROUP));
+    wgmma_tf32<T_D>(&acc[0][0], h[kk], wg_desc(bl + off, 16, SW_GROUP));
+    wgmma_tf32<T_D>(&acc[0][0], h[kk], wg_desc(b + off, 16, SW_GROUP));
+  }
+}
+
+// dK, dV of one (128 keys, KV head, batch): S^T = K Q^T, dP^T = V dO^T,
+// P^T, dS^T, dV += P^T dO and dK += dS^T Q over every live query tile of
+// every query head of the group, written once
+template <int D, bool SPANS>
+__global__ void __launch_bounds__(T_THREADS, 1)
+packed_bwd_f32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv,
+                      Params p, float scale) {
+  static_assert(D == T_D, "the split-TF32 backward is built for D = 64");
+  constexpr int TF = F32BwdTile<D>::TF, TS = F32BwdTile<D>::TS;
+  constexpr int CH = D / 4, NQ = T_STEP / 8, KD = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  unsigned char* Khi = sm;             // [2][64][64], a tile a warpgroup
+  unsigned char* Klo = sm + 2 * TF;
+  unsigned char* Vhi = sm + 4 * TF;
+  unsigned char* Vlo = sm + 6 * TF;
+  unsigned char* Qhi = sm + 8 * TF;    // [T_STEP][64] each
+  unsigned char* Qlo = Qhi + TS;
+  unsigned char* dOhi = Qhi + 2 * TS;
+  unsigned char* dOlo = Qhi + 3 * TS;
+  unsigned char* QThi = Qhi + 4 * TS;  // [64][T_STEP] each, rows kap'd
+  unsigned char* QTlo = Qhi + 5 * TS;
+  unsigned char* dOThi = Qhi + 6 * TS;
+  unsigned char* dOTlo = Qhi + 7 * TS;
+  unsigned char* Lq = Qhi + 8 * TS;    // Q and dO as they land
+  unsigned char* Ld = Qhi + 9 * TS;
+  float* l_lse = reinterpret_cast<float*>(Qhi + 10 * TS);  // landing rows
+  float* l_delta = l_lse + T_STEP;
+  int* l_segq = reinterpret_cast<int*>(l_delta + T_STEP);
+  int* l_spanq = l_segq + T_STEP;
+  float* c_lse = reinterpret_cast<float*>(l_spanq + T_STEP);  // current
+  float* c_delta = c_lse + T_STEP;
+  int* c_segq = reinterpret_cast<int*>(c_delta + T_STEP);
+  int* c_spanq = c_segq + T_STEP;
+  int* segk_s = c_spanq + T_STEP;      // [T_BLOCK]
+  int* spank_s = segk_s + T_BLOCK;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2, w4 = warp & 3;
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const int H = p.H, Hkv = p.Hkv, Sq = p.Sq, Sk = p.Sk, G = H / Hkv;
+  const int k0 = blockIdx.x * T_BLOCK, k1 = min(k0 + T_BLOCK, Sk);
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
+  const float* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const float* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+
+  // K and V, 64 keys a warpgroup; keys past Sk read as zeros
+  for (int i = tid; i < T_BLOCK * CH; i += T_THREADS) {
+    const int r = i / CH, c = i % CH, kp = k0 + r;
+    const uint32_t off = (r / T_ROWS) * TF + sw128<T_ROWS>(r % T_ROWS, c);
+    const int64_t src = (int64_t)(kp < Sk ? kp : k0) * kv_stride + c * 4;
+    cp_async16(Khi + off, kb + src, kp < Sk);
+    cp_async16(Vhi + off, vb + src, kp < Sk);
+  }
+  cp_async_commit();
+  if (tid < T_BLOCK) {
+    const int kp = k0 + tid;
+    segk_s[tid] = kp < Sk ? p.segk[(int64_t)b * Sk + kp] : -2;
+    spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
+  }
+
+  // query tile q0 of head hk * G + hh into the landing tiles; rows past
+  // Sq read as zeros (their tables too: the mask tests the row itself)
+  auto load_q = [&](int hh, int q0) {
+    const int h = hk * G + hh;
+    const float* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+    const float* db = dout + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+    for (int i = tid; i < T_STEP * CH; i += T_THREADS) {
+      const int r = i / CH, c = i % CH, qp = q0 + r;
+      const uint32_t off = sw128<T_STEP>(r, c);
+      const int64_t src = (int64_t)(qp < Sq ? qp : q0) * q_stride + c * 4;
+      cp_async16(Lq + off, qb + src, qp < Sq);
+      cp_async16(Ld + off, db + src, qp < Sq);
+    }
+    if (tid < 4 * T_STEP) {
+      const int which = tid / T_STEP, r = tid % T_STEP, qp = q0 + r;
+      const int qc = qp < Sq ? qp : q0;
+      const int64_t row = ((int64_t)b * H + h) * Sq + qc;
+      if (which == 0) cp_async4(l_lse + r, lse + row, qp < Sq);
+      if (which == 1) cp_async4(l_delta + r, delta + row, qp < Sq);
+      if (which == 2)
+        cp_async4(l_segq + r, p.segq + (int64_t)b * Sq + qc, qp < Sq);
+      if (which == 3 && SPANS)
+        cp_async4(l_spanq + r, p.spanq + (int64_t)b * Sq + qc, qp < Sq);
+    }
+    cp_async_commit();
+  };
+  // the first live query tile at or after q0 (Sq if none), uniform: each
+  // warp tests 32 tiles at once (lane j tile base + j) and keeps the
+  // ballot, so the tables' summaries are read once per 32 tiles
+  const int n_qt = (Sq + T_STEP - 1) / T_STEP;
+  int live_base = -32;
+  uint32_t live_bits = 0;
+  auto next_live = [&](int q0) {
+    for (int j = q0 / T_STEP; j < n_qt;) {
+      if (j < live_base || j >= live_base + 32) {
+        live_base = j;
+        const int qt = (j + lane) * T_STEP;
+        const bool live = qt < Sq && tile_live<SPANS>(
+                                         p, b, qt, min(qt + T_STEP, Sq), k0, k1);
+        live_bits = __ballot_sync(FULL, live);
+      }
+      const uint32_t ahead = live_bits >> (j - live_base);
+      if (ahead) return (j + __ffs(ahead) - 1) * T_STEP;
+      j = live_base + 32;
+    }
+    return Sq;
+  };
+
+  int i_lo = 0;
+  if (!SPANS && p.mode != kFull) i_lo = max(0, p.kv_offset + k0);
+  const int first = next_live((i_lo / T_STEP) * T_STEP);
+  int hh = first < Sq ? 0 : G, q0 = first;
+  if (hh < G) load_q(0, first);
+
+  cp_async_wait<0>();  // K, V (and the first query tile) have landed
+  __syncthreads();
+  split_fixed(Khi, Klo, 2 * TF, tid);
+  split_fixed(Vhi, Vlo, 2 * TF, tid);
+
+  // the thread's keys: kl and kl + 8 of its warpgroup's 64
+  const int kl = wg * T_ROWS + w4 * 16 + g;
+  int kpos[2], segk_r[2], spank_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kpos[i] = p.kv_offset + k0 + kl + 8 * i;
+    segk_r[i] = segk_s[kl + 8 * i];
+    spank_r[i] = spank_s[kl + 8 * i];
+  }
+  // the warp's 16 keys lie in one segment (seg_w >= 0): a query tile all
+  // in that segment and after (and, sliding, within a window of) the
+  // keys then needs no mask
+  const int kw0 = wg * T_ROWS + w4 * 16;
+  const int seg_w = segk_s[kw0];
+  const bool one_seg =
+      __all_sync(FULL, segk_s[kw0 + (lane & 15)] == seg_w) && seg_w >= 0;
+  const int kpos_w = p.kv_offset + k0 + kw0;
+  const float sl2 = scale * LOG2E;  // scores in log2 units
+  const uint32_t ka = smem_u32(Khi + wg * TF), kla = smem_u32(Klo + wg * TF);
+  const uint32_t va = smem_u32(Vhi + wg * TF), vla = smem_u32(Vlo + wg * TF);
+
+  float dka[KD][4], dva[KD][4];  // dK and dV of the thread's two keys
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  while (hh < G) {
+    cp_async_wait<0>();  // this query tile has landed
+    __syncthreads();     // and the last one's products are done
+    split_step<true>(Lq, Qhi, Qlo, QThi, QTlo, tid);
+    split_step<true>(Ld, dOhi, dOlo, dOThi, dOTlo, tid);
+    if (tid < T_STEP) {
+      c_lse[tid] = l_lse[tid] * LOG2E;
+      c_delta[tid] = l_delta[tid];
+      c_segq[tid] = l_segq[tid];
+      c_spanq[tid] = SPANS ? l_spanq[tid] : -1;
+    }
+    fence_proxy_async();  // the split tiles are seen by wgmma's reads
+    __syncthreads();
+    // the next live tile, of this head or the next, lands meanwhile
+    int hn = hh, qn = next_live(q0 + T_STEP);
+    if (qn >= Sq) {
+      hn = hh + 1;
+      qn = first;
+    }
+    if (hn < G) load_q(hn, qn);
+
+    float s[NQ][4], dp[NQ][4];  // S^T, dP^T: 64 keys x T_STEP queries
+    two_products(s, dp, ka, kla, smem_u32(Qhi), smem_u32(Qlo), va, vla,
+                 smem_u32(dOhi), smem_u32(dOlo));
+
+    bool all_ok = one_seg && q0 + T_STEP <= Sq &&
+                  (p.mode == kFull ||
+                   (kpos_w + 15 <= q0 &&
+                    (p.mode != kSliding ||
+                     kpos_w > q0 + T_STEP - 1 - p.window)));
+    all_ok = __all_sync(FULL, all_ok && c_segq[lane] == seg_w);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
+        const bool ok =
+            all_ok ||
+            (q0 + c < Sq && c_lse[c] != -INFINITY &&
+             pair_ok<SPANS>(p.mode, p.window, q0 + c, kpos[i], c_segq[c],
+                            segk_r[i], c_spanq[c], spank_r[i]));
+        const float pv = ok ? ex2(s[n][e] * sl2 - c_lse[c]) : 0.f;
+        s[n][e] = pv;
+        dp[n][e] = pv * (dp[n][e] - c_delta[c]) * scale;
+      }
+    // this tile's P^T dO and dS^T Q (P^T and dS^T from registers) into
+    // fresh accumulators, added to dV and dK in fp32 registers
+    uint32_t ph[NQ][4], pl[NQ][4], dh[NQ][4], dl[NQ][4];
+    split_acc(s, ph, pl);
+    split_acc(dp, dh, dl);
+    float tv[KD][4], tk[KD][4];
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tv[n][e] = tk[n][e] = 0.f;
+    pin(ph);
+    pin(pl);
+    pin(dh);
+    pin(dl);
+    pin(tv);
+    pin(tk);
+    wgmma_fence();
+    acc_product(tv, ph, pl, smem_u32(dOThi), smem_u32(dOTlo));
+    acc_product(tk, dh, dl, smem_u32(QThi), smem_u32(QTlo));
+    wgmma_commit();
+    wgmma_wait0();
+    pin(tv);
+    pin(tk);
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dva[n][e] += tv[n][e];
+        dka[n][e] += tk[n][e];
+      }
+    hh = hn;
+    q0 = qn;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + kl + 8 * i;
+    if (key >= Sk) continue;
+    const int64_t row = ((int64_t)b * Sk + key) * kv_stride + (int64_t)hk * D;
+#pragma unroll
+    for (int n = 0; n < KD; ++n) {
+      *reinterpret_cast<float2*>(dk + row + n * 8 + t * 2) =
+          make_float2(dka[n][2 * i], dka[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(dv + row + n * 8 + t * 2) =
+          make_float2(dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+}
+
+// dQ of one (query head, 128 queries, batch): S = Q K^T, dP = dO V^T, P,
+// dS and dQ += dS K over every live key tile, written once
+template <int D, bool SPANS>
+__global__ void __launch_bounds__(T_THREADS, 1)
+packed_bwd_f32_dq_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, Params p, float scale) {
+  static_assert(D == T_D, "the split-TF32 backward is built for D = 64");
+  constexpr int TF = F32BwdTile<D>::TF, TS = F32BwdTile<D>::TS;
+  constexpr int CH = D / 4, NK = T_STEP / 8, KD = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  unsigned char* Qhi = sm;             // [2][64][64], a tile a warpgroup
+  unsigned char* Qlo = sm + 2 * TF;
+  unsigned char* dOhi = sm + 4 * TF;
+  unsigned char* dOlo = sm + 6 * TF;
+  unsigned char* Khi = sm + 8 * TF;    // [T_STEP][64] each
+  unsigned char* Klo = Khi + TS;
+  unsigned char* Vhi = Khi + 2 * TS;
+  unsigned char* Vlo = Khi + 3 * TS;
+  unsigned char* KThi = Khi + 4 * TS;  // [64][T_STEP] each, rows kap'd
+  unsigned char* KTlo = Khi + 5 * TS;
+  unsigned char* Lk = Khi + 6 * TS;    // K and V as they land
+  unsigned char* Lv = Khi + 7 * TS;
+  int* l_segk = reinterpret_cast<int*>(Khi + 8 * TS);  // landing keys
+  int* l_spank = l_segk + T_STEP;
+  int* c_segk = l_spank + T_STEP;                      // current keys
+  int* c_spank = c_segk + T_STEP;
+  float* lse_s = reinterpret_cast<float*>(c_spank + T_STEP);  // [T_BLOCK]
+  float* delta_s = lse_s + T_BLOCK;
+  int* segq_s = reinterpret_cast<int*>(delta_s + T_BLOCK);
+  int* spanq_s = segq_s + T_BLOCK;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2, w4 = warp & 3;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int H = p.H, Hkv = p.Hkv, Sq = p.Sq, Sk = p.Sk;
+  const int hk = h / (H / Hkv);
+  // blocks are issued y by y: the last query rows, the heaviest under
+  // causal order, first
+  const int q0 = ((Sq + T_BLOCK - 1) / T_BLOCK - 1 - (int)blockIdx.y) *
+                 T_BLOCK;
+  const int q1 = min(q0 + T_BLOCK, Sq);
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
+  const float* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+  const float* db = dout + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+  const float* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const float* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+
+  // Q and dO, 64 rows a warpgroup, and the rows' LSE, delta and tables;
+  // rows past Sq read as zeros (and are masked)
+  for (int i = tid; i < T_BLOCK * CH; i += T_THREADS) {
+    const int r = i / CH, c = i % CH, qp = q0 + r;
+    const uint32_t off = (r / T_ROWS) * TF + sw128<T_ROWS>(r % T_ROWS, c);
+    const int64_t src = (int64_t)(qp < Sq ? qp : q0) * q_stride + c * 4;
+    cp_async16(Qhi + off, qb + src, qp < Sq);
+    cp_async16(dOhi + off, db + src, qp < Sq);
+  }
+  for (int i = tid; i < 4 * T_BLOCK; i += T_THREADS) {
+    const int which = i / T_BLOCK, r = i % T_BLOCK, qp = q0 + r;
+    const int qc = qp < Sq ? qp : q0;
+    const int64_t row = ((int64_t)b * H + h) * Sq + qc;
+    if (which == 0) cp_async4(lse_s + r, lse + row, qp < Sq);
+    if (which == 1) cp_async4(delta_s + r, delta + row, qp < Sq);
+    if (which == 2)
+      cp_async4(segq_s + r, p.segq + (int64_t)b * Sq + qc, qp < Sq);
+    if (which == 3 && SPANS)
+      cp_async4(spanq_s + r, p.spanq + (int64_t)b * Sq + qc, qp < Sq);
+  }
+  cp_async_commit();
+
+  // key tile j into the landing tiles; keys past Sk read as zeros, their
+  // segments as kv padding (-2)
+  auto load_k = [&](int j) {
+    const int j0 = j * T_STEP;
+    for (int i = tid; i < T_STEP * CH; i += T_THREADS) {
+      const int r = i / CH, c = i % CH, kp = j0 + r;
+      const uint32_t off = sw128<T_STEP>(r, c);
+      const int64_t src = (int64_t)(kp < Sk ? kp : j0) * kv_stride + c * 4;
+      cp_async16(Lk + off, kb + src, kp < Sk);
+      cp_async16(Lv + off, vb + src, kp < Sk);
+    }
+    if (tid < (SPANS ? 2 : 1) * T_STEP) {
+      const int r = tid % T_STEP, kp = j0 + r;
+      int* dst = (tid < T_STEP ? l_segk : l_spank) + r;
+      if (kp < Sk)
+        cp_async4(dst, (tid < T_STEP ? p.segk : p.spank) +
+                           (int64_t)b * Sk + kp, true);
+      else
+        *dst = -2;
+    }
+    cp_async_commit();
+  };
+  // the key tiles some row of the block can see by position: [jt_lo,
+  // jt_hi); of them the first live one at or after j (jt_hi if none),
+  // uniform, found 32 at a time by one ballot
+  int j_lo = 0, j_hi = Sk;
+  if (!SPANS && p.mode != kFull) {
+    j_hi = max(0, min(Sk, q1 - p.kv_offset));
+    if (p.mode == kSliding) j_lo = max(0, q0 - p.window - p.kv_offset + 1);
+  }
+  const int jt_hi = (j_hi + T_STEP - 1) / T_STEP;
+  int live_base = -32;
+  uint32_t live_bits = 0;
+  auto next_live = [&](int j) {
+    while (j < jt_hi) {
+      if (j >= live_base + 32) {
+        live_base = j;
+        const int kt = (j + lane) * T_STEP;
+        live_bits = __ballot_sync(
+            FULL, j + lane < jt_hi &&
+                      tile_live<SPANS>(p, b, q0, q1, kt,
+                                       min(kt + T_STEP, Sk)));
+      }
+      const uint32_t ahead = live_bits >> (j - live_base);
+      if (ahead) return j + __ffs(ahead) - 1;
+      j = live_base + 32;
+    }
+    return jt_hi;
+  };
+
+  int j = next_live(j_lo / T_STEP);
+  if (j < jt_hi) load_k(j);
+  cp_async_wait<0>();  // Q, dO, the rows' tables (and the first key tile)
+  __syncthreads();
+  split_fixed(Qhi, Qlo, 2 * TF, tid);
+  split_fixed(dOhi, dOlo, 2 * TF, tid);
+
+  // the thread's rows: ql and ql + 8 of the block's 128
+  const int ql = wg * T_ROWS + w4 * 16 + g;
+  int segq_r[2], spanq_r[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = q0 + ql + 8 * i < Sq;
+    segq_r[i] = in ? segq_s[ql + 8 * i] : -1;
+    spanq_r[i] = (SPANS && in) ? spanq_s[ql + 8 * i] : -1;
+    lse_r[i] = lse_s[ql + 8 * i] * LOG2E;
+    delta_r[i] = delta_s[ql + 8 * i];
+  }
+  // the warp's 16 rows lie in one segment (seg_w >= 0): a key tile all
+  // in that segment, at or before the first row (and, sliding, within
+  // the last row's window) then needs no mask
+  const int qw0 = wg * T_ROWS + w4 * 16, rw = q0 + qw0;
+  const int seg_w = rw < Sq ? segq_s[qw0] : -1;
+  const bool one_seg =
+      __all_sync(FULL, rw + 16 <= Sq && segq_s[qw0 + (lane & 15)] == seg_w) &&
+      seg_w >= 0;
+  const float sl2 = scale * LOG2E;  // scores in log2 units
+  const uint32_t qa = smem_u32(Qhi + wg * TF), qla = smem_u32(Qlo + wg * TF);
+  const uint32_t da = smem_u32(dOhi + wg * TF),
+                 dla = smem_u32(dOlo + wg * TF);
+
+  float dqa[KD][4];  // dQ of the thread's two rows
+#pragma unroll
+  for (int n = 0; n < KD; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  while (j < jt_hi) {
+    cp_async_wait<0>();  // key tile j has landed
+    __syncthreads();     // and the last one's products are done
+    split_step<true>(Lk, Khi, Klo, KThi, KTlo, tid);
+    split_step<false>(Lv, Vhi, Vlo, nullptr, nullptr, tid);
+    if (tid < T_STEP) {
+      c_segk[tid] = l_segk[tid];
+      c_spank[tid] = SPANS ? l_spank[tid] : -2;
+    }
+    fence_proxy_async();  // the split tiles are seen by wgmma's reads
+    __syncthreads();
+    const int jn = next_live(j + 1);
+    if (jn < jt_hi) load_k(jn);  // lands while tile j is formed
+
+    float s[NK][4], dp[NK][4];  // S, dP: 64 rows x T_STEP keys
+    two_products(s, dp, qa, qla, smem_u32(Khi), smem_u32(Klo), da, dla,
+                 smem_u32(Vhi), smem_u32(Vlo));
+
+    const int kpos0 = p.kv_offset + j * T_STEP;
+    bool all_ok = one_seg && (j + 1) * T_STEP <= Sk &&
+                  (p.mode == kFull ||
+                   (kpos0 + T_STEP - 1 <= rw &&
+                    (p.mode != kSliding || kpos0 > rw + 15 - p.window)));
+    all_ok = __all_sync(FULL, all_ok && c_segk[lane] == seg_w);
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
+        const bool ok =
+            all_ok ||
+            (lse_r[i] != -INFINITY &&
+             pair_ok<SPANS>(p.mode, p.window, q0 + ql + 8 * i, kpos0 + c,
+                            segq_r[i], c_segk[c], spanq_r[i], c_spank[c]));
+        const float pv = ok ? ex2(s[n][e] * sl2 - lse_r[i]) : 0.f;
+        dp[n][e] = pv * (dp[n][e] - delta_r[i]) * scale;
+      }
+    // this tile's dS K (dS from registers, K^T's keys permuted to
+    // match) into a fresh accumulator, added to dQ in fp32 registers
+    uint32_t dh[NK][4], dl[NK][4];
+    split_acc(dp, dh, dl);
+    float tq[KD][4];
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tq[n][e] = 0.f;
+    pin(dh);
+    pin(dl);
+    pin(tq);
+    wgmma_fence();
+    acc_product(tq, dh, dl, smem_u32(KThi), smem_u32(KTlo));
+    wgmma_commit();
+    wgmma_wait0();
+    pin(tq);
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[n][e] += tq[n][e];
+    j = jn;
+  }
+
+  float* dqb = dq + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + ql + 8 * i;
+    if (qp >= Sq) continue;
+#pragma unroll
+    for (int n = 0; n < KD; ++n)
+      *reinterpret_cast<float2*>(dqb + (int64_t)qp * q_stride + n * 8 +
+                                 t * 2) =
+          make_float2(dqa[n][2 * i], dqa[n][2 * i + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------
 cudaError_t summarize(const Params& p, int4* sumq, int4* sumk,
@@ -1300,9 +2022,12 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 // grid x, y, z, threads, shared memory and scratch bytes of the last
-// backward launch, packed_bwd_kv_kernel or packed_bwd_f32_kernel
-// (k1_last_bwd_kv_launch reads them)
+// backward launch, packed_bwd_kv_kernel (bf16), packed_bwd_f32_kernel
+// (fp32, D = 64: dK and dV) or packed_bwd_f32_cc_kernel (fp32, D = 128 /
+// 160) (k1_last_bwd_kv_launch reads them); grid, threads and shared
+// memory of the last packed_bwd_f32_dq_kernel (k1_last_bwd_dq_launch)
 static long long g_bwd_kv_launch[6] = {0, 0, 0, 0, 0, 0};
+static long long g_bwd_dq_launch[5] = {0, 0, 0, 0, 0};
 
 template <typename T, int D, bool SPANS>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
@@ -1343,9 +2068,38 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     bwd_kv_reduce_kernel<D><<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
         dk_part, dv_part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n4,
         p.H / p.Hkv);
+  } else if constexpr (D == T_D) {
+    // split TF32: dK and dV, then dQ, each written once
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    const float* df = static_cast<const float*>(dout);
+    static bool kv_set[MAX_DEVICES], dq_set[MAX_DEVICES];
+    constexpr size_t kv_smem = F32BwdTile<D>::kv_smem;
+    err = allow_smem(packed_bwd_f32_kernel<D, SPANS>, kv_smem, kv_set);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.Sk + T_BLOCK - 1) / T_BLOCK, p.Hkv, p.B);
+    const long long launch[6] = {grid.x, grid.y, grid.z, T_THREADS,
+                                 (long long)kv_smem, 0};
+    for (int i = 0; i < 6; ++i) g_bwd_kv_launch[i] = launch[i];
+    packed_bwd_f32_kernel<D, SPANS><<<grid, T_THREADS, kv_smem, stream>>>(
+        qf, kf, vf, df, lse, delta, static_cast<float*>(dk),
+        static_cast<float*>(dv), p, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    constexpr size_t dq_smem = F32BwdTile<D>::dq_smem;
+    err = allow_smem(packed_bwd_f32_dq_kernel<D, SPANS>, dq_smem, dq_set);
+    if (err != cudaSuccess) return err;
+    const dim3 dq_grid(p.H, (p.Sq + T_BLOCK - 1) / T_BLOCK, p.B);
+    const long long dq_launch[5] = {dq_grid.x, dq_grid.y, dq_grid.z,
+                                    T_THREADS, (long long)dq_smem};
+    for (int i = 0; i < 5; ++i) g_bwd_dq_launch[i] = dq_launch[i];
+    packed_bwd_f32_dq_kernel<D, SPANS>
+        <<<dq_grid, T_THREADS, dq_smem, stream>>>(qf, kf, vf, df, lse, delta,
+                                                  dq_acc, p, scale);
   } else {
     constexpr size_t smem = bwd_f32_smem<D>();
-    err = cudaFuncSetAttribute(packed_bwd_f32_kernel<D, SPANS>,
+    err = cudaFuncSetAttribute(packed_bwd_f32_cc_kernel<D, SPANS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
@@ -1353,7 +2107,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     const long long launch[6] = {grid.x, grid.y, grid.z, BS_THREADS,
                                  (long long)smem, 0};
     for (int i = 0; i < 6; ++i) g_bwd_kv_launch[i] = launch[i];
-    packed_bwd_f32_kernel<D, SPANS><<<grid, BS_THREADS, smem, stream>>>(
+    packed_bwd_f32_cc_kernel<D, SPANS><<<grid, BS_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(dout), lse,
         delta, dq_acc, static_cast<float*>(dk), static_cast<float*>(dv), p,
@@ -1443,7 +2197,8 @@ int k1_forward(const void* q, const void* k, const void* v, void* o,
 }
 
 // dq_acc: fp32 [B, Sq, H, D], zeroed by the caller (for fp32 inputs it
-// is dq itself); delta: fp32 scratch [B, H, Sq]; dk/dv in k's type
+// is dq itself; at head_dim 64 the dQ kernel writes every row of it);
+// delta: fp32 scratch [B, H, Sq]; dk/dv in k's type
 // [B, Sk, Hkv, D], written in full. work: fp32 scratch [2, B, Sk, H, D]
 // (the per-query-head dK and dV) for bfloat16 when H > Hkv, else unused
 // and may be null.
@@ -1489,14 +2244,22 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-// The last launch of the backward kernel (packed_bwd_kv_kernel in
-// bfloat16, packed_bwd_f32_kernel in float32; any head dim), as
-// launch_bwd made it: out[0..2] its grid, out[3] its threads per block,
-// out[4] its dynamic shared memory in bytes, out[5] the bytes of `work`
-// it addressed (0 when H == Hkv, and in float32). All 0 before the first
-// such launch.
+// The last launch of the backward's key-side kernel (packed_bwd_kv_kernel
+// in bfloat16; in float32 packed_bwd_f32_kernel, dK and dV, at head_dim
+// 64, packed_bwd_f32_cc_kernel at 128 and 160), as launch_bwd made it:
+// out[0..2] its grid, out[3] its threads per block, out[4] its dynamic
+// shared memory in bytes, out[5] the bytes of `work` it addressed (0 when
+// H == Hkv, and in float32). All 0 before the first such launch.
 void k1_last_bwd_kv_launch(long long* out) {
   for (int i = 0; i < 6; ++i) out[i] = g_bwd_kv_launch[i];
+}
+
+// The last launch of packed_bwd_f32_dq_kernel (float32, head_dim 64: dQ),
+// as launch_bwd made it: out[0..2] its grid, out[3] its threads per
+// block, out[4] its dynamic shared memory in bytes. All 0 before the
+// first such launch.
+void k1_last_bwd_dq_launch(long long* out) {
+  for (int i = 0; i < 5; ++i) out[i] = g_bwd_dq_launch[i];
 }
 
 // The last launch of the forward kernel (packed_fwd_wg_kernel in

@@ -207,14 +207,6 @@ __device__ __forceinline__ void mm(float (&acc)[RM][RN], int K, const TA* A,
   }
 }
 
-// x rounded to TF32 (nearest, ties away from zero), as the tensor cores
-// take it
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
 // d[16 x 8] += a[16 x 8] b[8 x 8] on the tensor cores: TF32 operands,
 // fp32 sums. Lane l holds a at rows l/4 (+8), cols l%4 (+4); b at rows
 // l%4 (+4), col l/4; d at rows l/4 (+8), cols 2 (l%4) (+1)

@@ -32,9 +32,12 @@ query rows sharing a ring of K/V tiles (two blocks an SM at head_dim 64
 (query head, 64-key tile), each query head's fp32 dK and dV summed over
 its KV head's group afterwards. Head dim 160 (pixtral-12b) runs as 192
 columns in shared memory, the upper 32 zero-filled on the load: the
-tensors cross device memory at 160. fp32 runs on the CUDA cores. Head
-dims 64, 128 and 160 run in both types, 256 (recurrentgemma-2b) in bf16
-only.
+tensors cross device memory at 160. The fp32 forward runs on the CUDA
+cores; the fp32 backward at head_dim 64 (whisper-small's) in split TF32
+by `wgmma`, as two kernels that each write their gradients once (dK and
+dV, then dQ: the same bits on every call), at 128 and 160 on the CUDA
+cores. Head dims 64, 128 and 160 run in both types, 256
+(recurrentgemma-2b) in bf16 only.
 """
 from __future__ import annotations
 
@@ -49,9 +52,15 @@ from .flash_attention import MODES
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the forward and backward kernels of `csrc/flash_attention_packed.cu`
-#: each input dtype launches
+#: each input dtype launches (fp32's backward at head_dim 64: dK and dV,
+#: with F32_DQ_KERNEL after it; see `bwd_kernels`)
 KERNELS = {torch.float32: ("packed_fwd_f32_kernel", "packed_bwd_f32_kernel"),
            torch.bfloat16: ("packed_fwd_wg_kernel", "packed_bwd_kv_kernel")}
+#: fp32's dQ kernel at head_dim 64, and its CUDA-core backward at 128 / 160
+F32_DQ_KERNEL = "packed_bwd_f32_dq_kernel"
+F32_CC_KERNEL = "packed_bwd_f32_cc_kernel"
+#: the head dim of fp32's split-TF32 backward
+F32_TC_HEAD_DIM = 64
 _HEAD_DIMS = (64, 128, 160, 256)
 #: head dims the kernels take in bf16 only (recurrentgemma-2b's 256: no
 #: config runs it in fp32)
@@ -298,13 +307,31 @@ def last_fwd_launch() -> dict:
 
 
 def last_bwd_kv_launch() -> dict:
-    """The last launch of the backward kernel (either dtype, any
-    head_dim), as the library recorded it: `grid` (x, y, z), `threads` a
-    block, `smem_bytes` of dynamic shared memory and `work_bytes` of the
-    fp32 scratch (each query head's dK and dV; 0 in fp32) it addressed."""
+    """The last launch of the backward's key-side kernel (either dtype,
+    any head_dim; fp32 at head_dim 64 its dK / dV kernel), as the
+    library recorded it: `grid` (x, y, z), `threads` a block,
+    `smem_bytes` of dynamic shared memory and `work_bytes` of the fp32
+    scratch (each query head's dK and dV; 0 in fp32) it addressed."""
     out = _last_launch("k1_last_bwd_kv_launch", 6)
     return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4],
                 work_bytes=out[5])
+
+
+def last_bwd_dq_launch() -> dict:
+    """The last launch of fp32's dQ kernel (head_dim 64), as the library
+    recorded it: `grid` (x, y, z), `threads` a block and `smem_bytes` of
+    dynamic shared memory."""
+    out = _last_launch("k1_last_bwd_dq_launch", 5)
+    return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4])
+
+
+def bwd_kernels(dtype, D: int) -> tuple:
+    """The kernels one backward launches in `dtype` at head_dim `D`, in
+    launch order (the summaries and delta aside)."""
+    if dtype == torch.float32:
+        return ((KERNELS[dtype][1], F32_DQ_KERNEL) if D == F32_TC_HEAD_DIM
+                else (F32_CC_KERNEL,))
+    return (KERNELS[dtype][1],)
 
 
 def _launch_bwd(q, k, v, o, lse, do, tables, mode, window, kv_offset):
@@ -340,7 +367,8 @@ def _launch_bwd(q, k, v, o, lse, do, tables, mode, window, kv_offset):
                  int(window or 0), int(kv_offset), stream)
     _raise_on(lib, err, "backward")
     flash_attention_packed_bwd.launches += 1
-    _count_by(KERNELS[q.dtype][1], mode, q.shape[1], k.shape[1])
+    for kernel in bwd_kernels(q.dtype, D):
+        _count_by(kernel, mode, q.shape[1], k.shape[1])
     return dq_acc.to(q.dtype), dk, dv
 
 
@@ -427,8 +455,9 @@ def flash_attention_packed_bwd(q, k, v, o, lse, do, segment_ids, *,
 flash_attention_packed.launches = 0
 flash_attention_packed_bwd.launches = 0
 #: the launches of both directions by kernel and mode
-#: ("packed_fwd_f32_kernel full", "packed_bwd_kv_kernel causal", ...),
-#: since the dict was last set to {}
+#: ("packed_fwd_f32_kernel full", "packed_bwd_kv_kernel causal", ...;
+#: fp32's backward at head_dim 64 counts both its kernels), since the
+#: dict was last set to {}
 flash_attention_packed.launches_by = {}
 #: the same by kernel, mode and shape (query rows x key rows a batch
 #: row: "packed_bwd_f32_kernel full 448x1500", ...)

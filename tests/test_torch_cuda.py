@@ -1652,12 +1652,14 @@ def test_k1_f32_full_at_sq_ne_sk(card, B, Sq, Sk):
     28; 40 over 48) and the encoder's 1500 x 1500, forward and backward
     against the plain versions within the fp32 limits, each launch
     counted under its kernel and mode and under its shape, and recorded
-    by the library (64 query rows a forward block, 32 keys a backward
-    block, 128 threads)."""
+    by the library: 64 query rows a forward block of 128 threads; the
+    split-TF32 backward's dK / dV kernel a block per (128 keys, KV
+    head, row), its dQ kernel per (query head, 128 queries, row), 256
+    threads each."""
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed, flash_attention_packed_bwd,
         flash_attention_packed_bwd_ref, flash_attention_packed_ref,
-        last_bwd_kv_launch, last_fwd_launch)
+        last_bwd_dq_launch, last_bwd_kv_launch, last_fwd_launch)
     rng = np.random.default_rng(Sq + Sk)
     q, do = (torch.from_numpy(rng.standard_normal((B, Sq, 12, 64)).astype(
         np.float32)).to(card) for _ in range(2))
@@ -1671,24 +1673,94 @@ def test_k1_f32_full_at_sq_ne_sk(card, B, Sq, Sk):
     o, lse = flash_attention_packed(q, k, v, seg, return_lse=True, **kw)
     fwd_launch = last_fwd_launch()
     got = flash_attention_packed_bwd(q, k, v, o, lse, do, seg, **kw)
-    bwd_launch = last_bwd_kv_launch()
+    bwd_launch, dq_launch = last_bwd_kv_launch(), last_bwd_dq_launch()
     ro, rlse = flash_attention_packed_ref(q, k, v, seg, **kw)
     want = flash_attention_packed_bwd_ref(q, k, v, ro, rlse, do, seg, **kw)
     torch.cuda.synchronize()
     assert flash_attention_packed.launches_by == {
-        "packed_fwd_f32_kernel full": 1, "packed_bwd_f32_kernel full": 1}
+        "packed_fwd_f32_kernel full": 1, "packed_bwd_f32_kernel full": 1,
+        "packed_bwd_f32_dq_kernel full": 1}
     assert flash_attention_packed.launches_by_shape == {
         f"packed_fwd_f32_kernel full {Sq}x{Sk}": 1,
-        f"packed_bwd_f32_kernel full {Sq}x{Sk}": 1}
+        f"packed_bwd_f32_kernel full {Sq}x{Sk}": 1,
+        f"packed_bwd_f32_dq_kernel full {Sq}x{Sk}": 1}
     assert fwd_launch["grid"] == (-(-Sq // 64), 12, B), fwd_launch
-    assert bwd_launch["grid"] == (-(-Sk // 32), 12, B), bwd_launch
-    assert fwd_launch["threads"] == bwd_launch["threads"] == 128
+    assert fwd_launch["threads"] == 128
+    assert bwd_launch["grid"] == (-(-Sk // 128), 12, B), bwd_launch
+    assert dq_launch["grid"] == (12, -(-Sq // 128), B), dq_launch
+    assert bwd_launch["threads"] == dq_launch["threads"] == 256
     assert bwd_launch["work_bytes"] == 0
+    print(f"K1 fp32 bwd launches: dK/dV {bwd_launch}, dQ {dq_launch}")
     assert (lse - rlse).abs().max().item() <= 1e-4
     for name, a, r in zip(("o", "dq", "dk", "dv"), (o, *got), (ro, *want)):
         err = ((a - r).abs() / r.abs().clamp_min(1.0)).max().item()
         print(f"K1 fp32 full B={B} Sq={Sq} Sk={Sk} {name}: {err:.3g}")
         assert err <= TOL[torch.float32], (name, err)
+
+
+def _k1_f32(card, rng, B, Sq, Sk, H, Hkv, D=64):
+    q, do = (torch.from_numpy(rng.standard_normal((B, Sq, H, D)).astype(
+        np.float32)).to(card) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Sk, Hkv, D)).astype(
+        np.float32)).to(card) for _ in range(2))
+    return q, k, v, do
+
+
+def _k1_f32_close(tag, got, want):
+    """fp32's gradient limit, elementwise."""
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        err = ((a - r).abs() / r.abs().clamp_min(1.0)).max().item()
+        print(f"K1 fp32 bwd {tag} {name}: {err:.3g}")
+        assert err <= GRAD_TOL[torch.float32], (tag, name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hkv,spans", [(12, False), (2, True)])
+def test_k1_f32_backward_gives_the_same_bits_on_every_call(card, Hkv, spans):
+    """fp32's split-TF32 backward at head_dim 64 writes dK and dV once a
+    (key, KV head), summed over the group's heads in order, and dQ once
+    a (query, head) from its own kernel: two calls give the same bits
+    in all three, at whisper-small's 12:12 heads and at 12:2 with spans
+    and several segments."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed_bwd)
+    rng = np.random.default_rng(34)
+    B, S = 2, 700
+    seg, span = _packed_tables(B, S, [300, 37, 250, 1], spans, frame=40)
+    q, k, v, do = _k1_f32(card, rng, B, S, S, 12, Hkv)
+    kw = dict(mode="causal")
+    if spans:
+        kw["span_ids"] = torch.from_numpy(span).to(card)
+    got, want, (o, lse, segt) = _k1_grads(card, q, k, v, do, seg, **kw)
+    _k1_f32_close(f"determinism 12:{Hkv}", got, want)
+    again = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hkv", [12, 2])
+def test_k1_f32_backward_rows_without_keys_are_zero(card, Hkv):
+    """fp32 at head_dim 64: a ring hop whose keys hold no token of one
+    query segment (its rows have LSE -inf) and padding on both sides:
+    those rows of dq, and the rows of dk / dv no query sees, are exactly
+    0; the rest match the plain version."""
+    rng = np.random.default_rng(35)
+    B, Sq, Sk = 1, 300, 200
+    seg = np.full((B, Sq), -1, np.int32)
+    seg[0, :120], seg[0, 120:250] = 0, 1          # segment 1: no keys
+    kseg = np.full((B, Sk), -2, np.int32)
+    kseg[0, :150] = 0                             # kv padding after 150
+    q, k, v, do = _k1_f32(card, rng, B, Sq, Sk, 12, Hkv)
+    kw = dict(kv_segment_ids=torch.from_numpy(kseg).to(card),
+              kv_offset=-Sk)
+    got, want, (_, lse, _) = _k1_grads(card, q, k, v, do, seg, **kw)
+    _k1_f32_close(f"no keys 12:{Hkv}", got, want)
+    assert torch.isinf(lse[0, :, 120:]).all()
+    assert torch.isfinite(lse[0, :, :120]).all()
+    assert (got[0][0, 120:] == 0).all()
+    assert (got[1][0, 150:] == 0).all() and (got[2][0, 150:] == 0).all()
 
 
 @pytest.mark.cuda
@@ -1719,12 +1791,13 @@ def test_audio_train_step_on_the_card_equals_the_cpu(card):
         torch.cuda.synchronize()
     finally:
         torch.set_float32_matmul_precision(prev)
-    L = cfg.n_layers
+    L, n = cfg.n_layers, cfg.encdec.n_enc_layers + cfg.n_layers
     assert flash_attention_packed.launches_by == {
-        "packed_fwd_f32_kernel full": cfg.encdec.n_enc_layers + L,
-        "packed_bwd_f32_kernel full": cfg.encdec.n_enc_layers + L,
+        "packed_fwd_f32_kernel full": n, "packed_bwd_f32_kernel full": n,
+        "packed_bwd_f32_dq_kernel full": n,
         "packed_fwd_f32_kernel causal": L,
-        "packed_bwd_f32_kernel causal": L}
+        "packed_bwd_f32_kernel causal": L,
+        "packed_bwd_f32_dq_kernel causal": L}
     for name in ("loss", "grad_norm"):
         a, b = float(got[name]), float(want[name])
         assert abs(a - b) <= 1e-4 * abs(b), (name, a, b)

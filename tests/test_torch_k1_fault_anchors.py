@@ -5,7 +5,7 @@ The script plants each fault by replacing a piece of text of
 `csrc/flash_attention_packed.cu` (its first match) and builds the copy
 on the card. An edit whose text has gone from the source, or occurs
 twice, would plant nothing or plant it in the wrong place; these tests
-catch that here, without a card, for both shapes the script checks.
+catch that here, without a card, for every shape the script checks.
 """
 import importlib.util
 import os
@@ -60,7 +60,11 @@ def test_each_fault_must_show_in_some_case(shape, fault):
     assert must, (shape, fault)
     if fault == "unmasked_window_edge":
         assert all(seg.shape[-1] > window
-                   for _, _, seg, _, _, window in must)
+                   for _, _, seg, _, _, window, _ in must)
+    if fault == "f32_lo_dropped":
+        # plain TF32 in dK's product misses 1e-4 at the encoder's shape
+        # (tests/test_torch_k1_f32_split.py), not necessarily elsewhere
+        assert [c[0] for c in must] == ["enc1500"]
 
 
 def test_wave_model_places_blocks_in_issue_order():
@@ -95,3 +99,53 @@ def test_third_block_faults_edit_the_head_dim_160_products(fault):
     (text, _), = K1.FAULTS["pixtral"][fault][2]
     before = SOURCE[:SOURCE.index(text)].rstrip().splitlines()[-1]
     assert before.strip() == "if constexpr (DP == 192) {", fault
+
+
+def test_fp32_cases_run_at_whisper_heads_and_gqa():
+    """The whisper shape is whisper-small's attention in training (fp32,
+    12:12 heads of 64, full), its cases the encoder's 1 x 1500 and the
+    cross-attention's 448 over 1500 frames, causal with spans, sliding,
+    GQA at 12:2 and a ring hop at 12:2 with its own key tables and a
+    kv_offset; every fault planted there is an `f32_*` fault, held to
+    fp32's elementwise 1e-4, and the other shapes' to bf16's whole-tensor
+    2e-2."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-small")
+    shape = K1.SHAPES["whisper"]
+    assert (shape["H"], shape["HKV"], shape["D"]) == (
+        cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim) == (12, 12, 64)
+    assert shape["dtype"] == "float32" and shape["mode"] == "full"
+    got = {}
+    for name, tags, seg, span, mode, window, extra in K1.cases("whisper"):
+        B, Sq = (1, len(seg)) if seg.ndim == 1 else seg.shape
+        got[name] = (B, Sq, extra.get("Sk", Sq), extra.get("HKV", 12),
+                     mode, window, span is not None, extra.get("off", 0))
+    assert got == {
+        "enc1500": (1, 1500, 1500, 12, "full", None, False, 0),
+        "cross2x448": (2, 448, 1500, 12, "full", None, False, 0),
+        "causal1024_spans": (1, 1024, 1024, 12, "causal", None, True, 0),
+        "sliding1024_w256": (1, 1024, 1024, 12, "sliding", 256, True, 0),
+        "gqa1024_causal": (1, 1024, 1024, 2, "causal", None, True, 0),
+        "hop512_gqa": (1, 512, 512, 2, "causal", None, True, -512)}
+    faults = [f for f in K1.FAULTS["whisper"] if f != "sound"]
+    assert len(faults) == 7 and all(f.startswith("f32_") for f in faults)
+    assert K1.limit("whisper") == ("elementwise", 1e-4)
+    assert {K1.limit(s) for s in K1.SHAPES if s != "whisper"} == {
+        ("whole", 2e-2)}
+
+
+def test_fp32_faults_sit_in_the_split_tf32_backward():
+    """Every `f32_*` fault's text lies in the split-TF32 backward: its
+    section of the source (the two kernels and their helpers) or its
+    launch, never in the CUDA-core kernel that head dims 128 and 160
+    still run."""
+    start = SOURCE.index("// Backward, fp32, D = 64: split TF32")
+    end = SOURCE.index("// Launchers")
+    launch = SOURCE.index("  } else if constexpr (D == T_D) {")
+    launch_end = SOURCE.index("    constexpr size_t smem = bwd_f32_smem<D>();")
+    cc = SOURCE.index("packed_bwd_f32_cc_kernel(const float*")
+    assert cc < start
+    for fault, (_, _, edits) in K1.FAULTS["whisper"].items():
+        for text, _ in edits:
+            at = SOURCE.index(text)
+            assert start < at < end or launch < at < launch_end, fault
