@@ -382,6 +382,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # H100 SXM dense tensor-core bf16
               torch.float32: 67e12}     # H100 SXM fp32 (CUDA cores)
 PEAK_TF32 = 495e12                      # H100 SXM dense tensor-core TF32
+#: fp32 as split TF32 on the tensor cores: each product formed three
+#: times (hi hi', hi lo', lo hi') at PEAK_TF32
+SPLIT_TF32 = PEAK_TF32 / 3
+SPLIT_TF32_AT = "split TF32: 3 TF32 products at 495 TFLOP/s"
 PEAK_BYTES = 3.35e12                    # H100 SXM HBM3
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
@@ -477,24 +481,28 @@ def device_ms_by_kernel(fn, iters: int = 5, warmup: int = 1) -> dict:
     return out
 
 
-def attention_bound(B, Sq, Sk, H, Hkv, D, dtype, mode, window, kv_offset):
+def roofline(nbytes, flops, rate):
+    """(ms, "bytes" or "operations"): the larger of `nbytes` at HBM rate
+    and `flops` at `rate` (flop/s)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / rate
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_bound(B, Sq, Sk, H, Hkv, D, dtype, mode, window, kv_offset,
+                    rate=None):
     """Least time the card could take for the same work: each input read
     once and the output written once at HBM rate, vs 4*D flops per valid
-    (query, key) pair per head at the peak rate for the input type:
-    (ms, "bytes" or "operations", split-TF32 ms). The last is fp32's
-    bound on the tensor cores, where K2's fp32 kernel forms each product
-    three times (hi hi', hi lo', lo hi') at PEAK_TF32 (None for bf16)."""
+    (query, key) pair per head at `rate`, the peak rate for the input
+    type by default: (ms, "bytes" or "operations"). K2's fp32 kernel
+    does its products in split TF32 (rate=SPLIT_TF32)."""
     from repro_torch.kernels.flash_attention import _valid_mask
     pairs = int(_valid_mask(Sq, Sk, mode, window, kv_offset,
                             "cpu").sum())
     elt = torch.finfo(dtype).bits // 8
     nbytes = elt * D * (2 * B * Sq * H + 2 * B * Sk * Hkv)
-    flops = 4.0 * D * pairs * B * H
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
-    split = (max(t_bytes, 3 * flops / PEAK_TF32) * 1e3
-             if dtype == torch.float32 else None)
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", split)
+    return roofline(nbytes, 4.0 * D * pairs * B * H,
+                    rate or PEAK_FLOPS[dtype])
 
 
 def library_ms(q, k, v, mode, window=None):
@@ -555,14 +563,20 @@ def check_kernel(dev, card, gen, B, S, dtype, mode="causal", window=None,
                     iters=5, warmup=1)
     lib, lib_dev = (library_ms(q, k, v, mode, window) if off == 0
                     else (None, None))
-    bound, bound_by, bound_tf32 = attention_bound(B, S, Sk, H, HKV, D, dtype,
-                                                  mode, window, off)
+    # fp32: split TF32 (the kernel's own arithmetic), the CUDA-core
+    # figure beside it
+    fp32 = dtype == torch.float32
+    bound, bound_by = attention_bound(B, S, Sk, H, HKV, D, dtype, mode,
+                                      window, off,
+                                      SPLIT_TF32 if fp32 else None)
+    bound_cc = (attention_bound(B, S, Sk, H, HKV, D, dtype, mode, window,
+                                off)[0] if fp32 else None)
     row = dict(B=B, S=S, Sk=Sk, H=H, Hkv=HKV, D=D,
                dtype=str(dtype).split(".")[-1], mode=mode, window=window,
                kv_offset=off, max_abs_err=err, max_scaled_err=scaled,
                tol=TOL[dtype], ms=ms, device_ms=dev_ms, plain_ms=plain,
                library_ms=lib, library_device_ms=lib_dev, bound_ms=bound,
-               bound_by=bound_by, bound_split_tf32_ms=bound_tf32)
+               bound_by=bound_by, bound_cuda_core_ms=bound_cc)
     print(f"  kernel {json.dumps(row)} ({card})")
     return row
 
@@ -778,14 +792,15 @@ def packed_layout(S, lens, frame=None, text=32):
     return seg, (span if frame else None)
 
 
-def packed_bound(B, Sq, Sk, H, Hkv, D, dtype, pairs, backward, n_tables):
+def packed_bound(B, Sq, Sk, H, Hkv, D, dtype, pairs, backward, n_tables,
+                 rate=None):
     """Least time for the same work: q, k, v, o (+ dO, and dq, dk, dv
     written), the fp32 LSE and the int32 tables (`n_tables` per side:
     segments, and spans when given) cross HBM once, against 4*D
     (forward) or 10*D (backward) flops per valid (query, key) pair per
-    head: (ms, "bytes" or "operations", split-TF32 ms), the last fp32's
-    bound on the tensor cores, each product formed three times at
-    PEAK_TF32 as `attention_bound` has it (None for bf16)."""
+    head at `rate`, the peak rate for the input type by default: (ms,
+    "bytes" or "operations"). fp32's kernels at head_dim 64 do their
+    products in split TF32 (rate=SPLIT_TF32)."""
     elt = torch.finfo(dtype).bits // 8
     qo = B * Sq * H * D
     kv = B * Sk * Hkv * D
@@ -794,27 +809,20 @@ def packed_bound(B, Sq, Sk, H, Hkv, D, dtype, pairs, backward, n_tables):
     if backward:
         nbytes += elt * (2 * qo + 2 * kv)          # dO read; dq, dk, dv
     flops = (10.0 if backward else 4.0) * D * pairs * H
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
-    split = (max(t_bytes, 3 * flops / PEAK_TF32) * 1e3
-             if dtype == torch.float32 else None)
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", split)
+    return roofline(nbytes, flops, rate or PEAK_FLOPS[dtype])
 
 
-def packed_dq_bound(B, Sq, Sk, H, Hkv, D, pairs, n_tables):
+def packed_dq_bound(B, Sq, Sk, H, Hkv, D, pairs, n_tables,
+                    rate=SPLIT_TF32):
     """Least time for dQ alone in fp32 (what fp32's dQ kernel computes):
     q, k, v, dO, the LSE, delta and the tables read once, dq written once,
-    against 6*D flops per valid pair per head (S, dP, dQ): (ms, "bytes"
-    or "operations", split-TF32 ms, each product formed three times at
-    PEAK_TF32)."""
+    against 6*D flops per valid pair per head (S, dP, dQ) at `rate`,
+    split TF32 (the kernel's own arithmetic) by default: (ms, "bytes" or
+    "operations")."""
     qo, kv = B * Sq * H * D, B * Sk * Hkv * D
     nbytes = 4 * (3 * qo + 2 * kv) + 8 * B * H * Sq \
         + 4 * n_tables * B * (Sq + Sk)
-    flops = 6.0 * D * pairs * H
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.float32]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations",
-            max(t_bytes, 3 * flops / PEAK_TF32) * 1e3)
+    return roofline(nbytes, 6.0 * D * pairs * H, rate)
 
 
 def _by_kv_heads(fn, n, q, k, v, *rest, **kw):
@@ -848,8 +856,9 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
     32 query heads the plain versions run a KV head at a time
     (`_by_kv_heads`). `detail`: also each direction's device time
     (torch.profiler) and launch (grid, threads, shared memory) beside
-    the card's SMs; for fp32's split-TF32 backward (head_dim 64) also
-    the dQ kernel's launch (`bwd_dq`) and each kernel's device time
+    the card's SMs, and SDPA's device time each way; for fp32's
+    split-TF32 backward (head_dim 64) also the dQ kernel's launch
+    (`bwd_dq`) and each kernel's device time
     (`bwd_device_ms_by_kernel`)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention_packed import (
@@ -877,8 +886,10 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
     launch = dict(fwd=last_fwd_launch())
     grads = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
     launch["bwd"] = last_bwd_kv_launch()
-    split_bwd = dtype == torch.float32 and D == F32_TC_HEAD_DIM
-    if split_bwd:
+    # fp32 at head_dim 64: both ways split TF32, the backward in two
+    # kernels
+    tc = dtype == torch.float32 and D == F32_TC_HEAD_DIM
+    if tc:
         launch["bwd_dq"] = last_bwd_dq_launch()
     ro, rlse = plain_fwd_fn(q, k, v, segt, **kw)
     rgrads = plain_bwd_fn(q, k, v, ro, rlse, do, segt, **kw)
@@ -928,10 +939,13 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
         warmup=2)
     del lib_out
     n_tables = 1 if span is None else 2
-    bf, bf_by, bf_tf32 = packed_bound(B, S, Sk, H, HKV, D, dtype, pairs,
-                                      False, n_tables)
-    bb, bb_by, bb_tf32 = packed_bound(B, S, Sk, H, HKV, D, dtype, pairs,
-                                      True, n_tables)
+    # at the rate of the kernels' own arithmetic: split TF32 (the
+    # CUDA-core figure beside it), else the input type's peak
+    shape = (B, S, Sk, H, HKV, D, dtype, pairs)
+    bf, bf_by = packed_bound(*shape, False, n_tables,
+                             SPLIT_TF32 if tc else None)
+    bb, bb_by = packed_bound(*shape, True, n_tables,
+                             SPLIT_TF32 if tc else None)
     row = dict(tag=tag, B=B, S=S, Sk=Sk, H=H, Hkv=HKV, D=D,
                dtype=str(dtype).split(".")[-1], mode=mode, window=window,
                spans=span is not None, kv_offset=off, pairs=pairs,
@@ -944,29 +958,38 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
                plain_fwd_ms=plain_fwd, plain_bwd_ms=plain_bwd,
                library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
                bound_fwd_ms=bf, bound_fwd_by=bf_by, bound_bwd_ms=bb,
-               bound_bwd_by=bb_by, bound_fwd_split_tf32_ms=bf_tf32,
-               bound_bwd_split_tf32_ms=bb_tf32)
+               bound_bwd_by=bb_by)
+    if tc:
+        row["bound_fwd_cuda_core_ms"] = packed_bound(*shape, False,
+                                                     n_tables)[0]
+        row["bound_bwd_cuda_core_ms"] = packed_bound(*shape, True,
+                                                     n_tables)[0]
     if detail:
         row["fwd_device_ms"] = device_ms(lambda: flash_attention_packed(
             q, k, v, segt, **kw), iters=5, warmup=1)[0]
         row["bwd_device_ms"] = device_ms(lambda: flash_attention_packed_bwd(
             q, k, v, o, lse, do, segt, **kw), iters=5, warmup=1)[0]
-        if split_bwd:
-            (row["bound_dq_ms"], row["bound_dq_by"],
-             row["bound_dq_split_tf32_ms"]) = packed_dq_bound(
+        # SDPA on the card's own clock beside the kernels'
+        row["library_fwd_device_ms"] = device_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=am, enable_gqa=True), iters=5,
+            warmup=1)[0]
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=am, enable_gqa=True)
+        row["library_bwd_device_ms"] = device_ms(lambda: (
+            torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                retain_graph=True)), iters=5, warmup=1)[0]
+        del lib_out
+        if tc:
+            row["bound_dq_ms"], row["bound_dq_by"] = packed_dq_bound(
                 B, S, Sk, H, HKV, D, pairs, n_tables)
-            # each of the backward's kernels apart, and SDPA's backward
-            # on the card's own clock beside them
+            row["bound_dq_cuda_core_ms"] = packed_dq_bound(
+                B, S, Sk, H, HKV, D, pairs, n_tables,
+                PEAK_FLOPS[torch.float32])[0]
+            # each of the backward's kernels apart
             row["bwd_device_ms_by_kernel"] = device_ms_by_kernel(
                 lambda: flash_attention_packed_bwd(q, k, v, o, lse, do, segt,
                                                    **kw))
-            lib_out = F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=am, enable_gqa=True)
-            row["library_bwd_device_ms"] = device_ms(lambda: (
-                torch.autograd.grad(lib_out, (qt, kt, vt), dot,
-                                    retain_graph=True)), iters=5,
-                warmup=1)[0]
-            del lib_out
         row["launch"] = dict(**launch, sms=torch.cuda.get_device_properties(
             0).multi_processor_count)
         print(f"  K1 launch {tag} S={S} H={H} Hkv={HKV} D={D} "
@@ -3566,10 +3589,10 @@ def _k1_shape_keys(row, which) -> list:
     the forward, 1 the backward: fp32's at head_dim 64 its dK / dV
     kernel, then its dQ kernel) count their launches at the row's
     shape."""
-    from repro_torch.kernels.flash_attention_packed import (KERNELS,
-                                                            bwd_kernels)
+    from repro_torch.kernels.flash_attention_packed import (bwd_kernels,
+                                                            fwd_kernel)
     dtype = getattr(torch, row["dtype"])
-    kernels = ((KERNELS[dtype][0],) if which == 0
+    kernels = ((fwd_kernel(dtype, row["D"]),) if which == 0
                else bwd_kernels(dtype, row["D"]))
     return [f"{k} {row['mode']} {row['S']}x{row['Sk']}" for k in kernels]
 
@@ -3594,7 +3617,11 @@ def phase_audio_train_kernels(dev, card):
     12:12 heads of 64, for 1 row and WHISPER_TRAIN_ROWS: fp32 full at
     1500 x 1500 (the encoder), fp32 full at 448 over 1500 with the
     frames' own segment table (the cross-attention, Sq != Sk), bf16
-    causal at 448 (the decoder)."""
+    causal at 448 (the decoder). Each row's forward and backward stand
+    side by side on one line: the kernels that ran, their device time
+    (the backward's by kernel too) and launches."""
+    from repro_torch.kernels.flash_attention_packed import (bwd_kernels,
+                                                            fwd_kernel)
     gen = torch.Generator(device=dev).manual_seed(9)
     rows = []
     F, T = WHISPER_FRAMES, WHISPER_TOKENS
@@ -3610,6 +3637,16 @@ def phase_audio_train_kernels(dev, card):
         rows.append(check_packed(dev, card, gen, T, torch.bfloat16, z(T),
                                  tag="whisper decoder", heads=WHISPER_HEADS,
                                  detail=True))
+    for r in rows:
+        dt = getattr(torch, r["dtype"])
+        print(f"  K1 {r['tag']} {r['B']}x{r['S']} over {r['Sk']} "
+              f"{r['dtype']}: fwd {fwd_kernel(dt, r['D'])} device_ms="
+              f"{r['fwd_device_ms']} (SDPA {r['library_fwd_device_ms']}) "
+              f"launch {json.dumps(r['launch']['fwd'])}; bwd "
+              f"{'+'.join(bwd_kernels(dt, r['D']))} device_ms="
+              f"{r['bwd_device_ms']} (SDPA {r['library_bwd_device_ms']}) by "
+              f"kernel {json.dumps(r.get('bwd_device_ms_by_kernel'))} launch "
+              f"{json.dumps(r['launch']['bwd'])} ({card})")
     return rows
 
 
@@ -3762,8 +3799,12 @@ def phase_audio_training(dev, card, held):
     def one_more():
         nonlocal state
         state, _ = step(state, batch)
+    # the split-TF32 forward named apart from the CUDA-core one (head
+    # dims 128 and 160; none launched here)
     profile_call(one_more, card, "whisper-small train",
-                 {"k1_f32": "packed_fwd_f32", "k1_f32_bwd": "packed_bwd_f32",
+                 {"k1_f32": "packed_fwd_f32_kernel",
+                  "k1_f32_cc": "packed_fwd_f32_cc_kernel",
+                  "k1_f32_bwd": "packed_bwd_f32",
                   "k1_bf16": "packed_fwd_wg", "k1_bf16_bwd": "packed_bwd_kv"})
     del state, params, batch, m
     torch.cuda.empty_cache()
@@ -3964,7 +4005,8 @@ def dq_entry(bwd, main_r, rows, launches):
         "plain_note": "the plain backward, dq with dk and dv",
         "bound_ms": main_r["bound_dq_ms"],
         "bound_by": main_r["bound_dq_by"],
-        "bound_split_tf32_ms": main_r["bound_dq_split_tf32_ms"],
+        "bound_at": bwd["bound_at"],
+        "bound_cuda_core_ms": main_r["bound_dq_cuda_core_ms"],
         "library_ms": None,
         "launch": dict(**main_r["launch"]["bwd_dq"],
                        sms=main_r["launch"]["sms"]),
@@ -3972,8 +4014,8 @@ def dq_entry(bwd, main_r, rows, launches):
         "path_shapes": [dict(rows=r["B"], Sq=r["S"], Sk=r["Sk"],
                              err=r["err"]["dq"], device_ms=_dq_ms(r),
                              bound_ms=r["bound_dq_ms"],
-                             bound_split_tf32_ms=r[
-                                 "bound_dq_split_tf32_ms"])
+                             bound_cuda_core_ms=r[
+                                 "bound_dq_cuda_core_ms"])
                         for r in rows],
     }
 
@@ -4013,7 +4055,12 @@ def late_phases(dev, card) -> dict:
     dense_k1, dense_k2 = phase_dense_kernels(dev, card)
     phase("[28/42] dense and VLM training parity at reduced size (fp32): "
           "chatglm3-6b, pixtral-12b at head_dim 160")
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed)
+    flash_attention_packed.launches_by = {}
+    flash_attention_packed.launches_by_shape = {}
     phase_dense_parity(dev)
+    parity_by = dict(flash_attention_packed.launches_by_shape)
     phase("[29-30/42] full-width DHP training (bf16), depth cut: "
           + ", ".join(f"{a} {n} layers" for a, n in DENSE_TRAIN))
     dense_train = phase_dense_training(dev, card)
@@ -4048,7 +4095,8 @@ def late_phases(dev, card) -> dict:
                 served={a: t[:2] for a, t in dense_served.items()},
                 short_served=short_served, vlm_launches=vlm_launches,
                 audio_k2=audio_k2, audio_served=audio_served,
-                audio_forward=audio_forward)
+                audio_forward=audio_forward,
+                dense_parity_launches_by_shape=parity_by)
 
 
 LATE_FLAG = "--late-phases"
@@ -4544,10 +4592,11 @@ def main() -> int:
                                     if k != "launches"}) for r in rows],
         }
         if dtype == "float32":
-            # the split-TF32 bound beside the CUDA-core one (bound_ms)
-            entry["bound_split_tf32_ms"] = enc["bound_split_tf32_ms"]
+            # bound_ms at the kernel's split TF32, the CUDA-core one beside
+            entry["bound_at"] = SPLIT_TF32_AT
+            entry["bound_cuda_core_ms"] = enc["bound_cuda_core_ms"]
             for shape, r in zip(entry["path_shapes"], rows):
-                shape["bound_split_tf32_ms"] = r["bound_split_tf32_ms"]
+                shape["bound_cuda_core_ms"] = r["bound_cuda_core_ms"]
             # serving's encoder passes: one a request, one for serve()
             entry["launches"] = serve_by.get(f"{kname} full", 0)
             entry["serve_launches"] = serve_once_by.get(f"{kname} full", 0)
@@ -4580,6 +4629,8 @@ def main() -> int:
             entry = {
                 "name": "flash_attention_packed_d64" + suffix + (
                     "_bwd" if which == "bwd" else ""),
+                # the CUDA kernel (the backward's first) that ran
+                "kernel": _k1_shape_keys(main_r, i)[0].split()[0],
                 "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/"
                           "flash_attention_packed.cu",
@@ -4593,6 +4644,7 @@ def main() -> int:
                 "bound_ms": main_r[f"bound_{which}_ms"],
                 "bound_by": main_r[f"bound_{which}_by"],
                 "library_ms": main_r[f"library_{which}_ms"],
+                "library_device_ms": main_r[f"library_{which}_device_ms"],
                 "launch": dict(**main_r["launch"][which],
                                sms=main_r["launch"]["sms"]),
                 "shape": f"B={main_r['B']} H=12 Hkv=12 D=64 {desc}",
@@ -4604,12 +4656,14 @@ def main() -> int:
                     library_ms=r[f"library_{which}_ms"]) for r in rows],
             }
             if main_r["dtype"] == "float32":
-                # the split-TF32 bound beside the CUDA-core one
-                entry["bound_split_tf32_ms"] = main_r[
-                    f"bound_{which}_split_tf32_ms"]
+                # bound_ms at the kernels' split TF32, the CUDA-core one
+                # beside it
+                entry["bound_at"] = SPLIT_TF32_AT
+                entry["bound_cuda_core_ms"] = main_r[
+                    f"bound_{which}_cuda_core_ms"]
                 for shape, r in zip(entry["path_shapes"], rows):
-                    shape["bound_split_tf32_ms"] = r[
-                        f"bound_{which}_split_tf32_ms"]
+                    shape["bound_cuda_core_ms"] = r[
+                        f"bound_{which}_cuda_core_ms"]
             kernels.append(entry)
             if "bwd_device_ms_by_kernel" in main_r and which == "bwd":
                 # fp32's split-TF32 backward: the entry above is the
@@ -4617,10 +4671,45 @@ def main() -> int:
                 # kernel stands here on its own clock
                 entry["device_ms_by_kernel"] = main_r[
                     "bwd_device_ms_by_kernel"]
-                entry["library_device_ms"] = main_r["library_bwd_device_ms"]
                 kernels.append(dq_entry(
                     entry, main_r, rows, audio["launches_by_shape"].get(
                         _k1_shape_keys(main_r, 1)[1], 0)))
+    # fp32's CUDA-core forward (head dims 128 and 160, where no
+    # full-width path runs fp32) beside the split-TF32 one above. Its
+    # launches are phase 28's, reduced pixtral-12b at head_dim 160, each
+    # shape apart; its errors and times phase 7's fp32 rows (12:2 heads
+    # of 128), the only ones timed
+    from repro_torch.kernels.flash_attention_packed import F32_FWD_CC_KERNEL
+    cc_rows = [r for r in packed_rows if r["dtype"] == "float32"]
+    cc_r = max(cc_rows, key=lambda r: r["pairs"])
+    cc_launches = {key.split(" ", 1)[1]: n for key, n in late[
+        "dense_parity_launches_by_shape"].items()
+        if key.split()[0] == F32_FWD_CC_KERNEL}
+    kernels.append({
+        "name": "flash_attention_packed_f32_cc",
+        "kernel": F32_FWD_CC_KERNEL,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_packed.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:208",
+        "launches": sum(cc_launches.values()),
+        "launches_at": "phase 28, reduced pixtral-12b's fp32 training "
+                       "parity at D=160, not the timed shape",
+        "launches_by_shape_d160": cc_launches,
+        "max_abs_err": max(r["max_abs_err_fwd"] for r in cc_rows),
+        "ms": cc_r["fwd_ms"],
+        "plain_ms": cc_r["plain_fwd_ms"],
+        "bound_ms": cc_r["bound_fwd_ms"],
+        "bound_by": cc_r["bound_fwd_by"],
+        "bound_at": "fp32 on the CUDA cores, 67 TFLOP/s",
+        "library_ms": cc_r["library_fwd_ms"],
+        "shape": f"B=1 S={cc_r['S']} H={H} Hkv={HKV} D={D} fp32 "
+                 f"{cc_r['mode']} spans={cc_r['spans']} (phase 7)",
+        "timed_shapes": [dict(
+            S=r["S"], mode=r["mode"], spans=r["spans"], err=r["err"]["o"],
+            ms=r["fwd_ms"], plain_ms=r["plain_fwd_ms"],
+            bound_ms=r["bound_fwd_ms"], library_ms=r["library_fwd_ms"])
+            for r in cc_rows],
+    })
     print(f"  chip_smoke wall {time.perf_counter() - t_start:.1f} s "
           f"({card})")
     print(json.dumps({"kernels": kernels}))

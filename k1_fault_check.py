@@ -21,13 +21,15 @@ given once or more; internvl by default):
     with 256-token frames;
   * whisper: whisper-small in training, fp32, 12:12 heads of 64, full
     mode: its encoder (1500 frames over 1500) and cross-attention (448
-    tokens over 1500 frames). Its faults (`f32_*`) are planted in the
-    fp32 backward at head_dim 64 (split TF32: packed_bwd_f32_kernel for
-    dK and dV, packed_bwd_f32_dq_kernel for dQ) and read at the fp32
-    limit, max|err| / max(1, |plain|) <= 1e-4 (chip_smoke.py's
-    GRAD_TOL), in the two whisper cases and in cases that reach the
-    same kernels through other tables: causal with spans, sliding,
-    GQA at 12:2, and a ring hop with its own key tables and kv_offset.
+    tokens over 1500 frames). Its faults are planted in the fp32
+    kernels at head_dim 64, all split TF32: `f32_fwd_*` in the forward
+    (packed_fwd_f32_kernel), the other `f32_*` in the backward
+    (packed_bwd_f32_kernel for dK and dV, packed_bwd_f32_dq_kernel for
+    dQ); they are read at the fp32 limit, max|err| / max(1, |plain|) <=
+    1e-4 (chip_smoke.py's TOL and GRAD_TOL), in the two whisper cases
+    and in cases that reach the same kernels through other tables:
+    causal with spans, sliding, GQA at 12:2, and a ring hop with its
+    own key tables and kv_offset.
 
 Both modes build edited copies of `flash_attention_packed.cu` with nvcc
 in a temporary directory, one nvcc per copy, all at once, each with `-I`
@@ -41,8 +43,9 @@ against the plain versions at the shape's heads over the packed layouts
 of `cases(shape)` (internvl: 1024 and 4096 tokens in several segments;
 rg: one 4096-token row with and without frames, and a two-row padded
 group of 2048; pixtral: 1024 and 4096 tokens in several segments, every
-mode; whisper: the cases of `cases`). For each of o, dq, dk, dv it
-prints, per case, max|err| / max(1, |plain|) (`elementwise`, the form
+mode; whisper: the cases of `cases`). For each of o, the LSE (on the
+rows with a valid key; rows that disagree on having one count as an
+infinite error), dq, dk, dv it prints, per case, max|err| / max(1, |plain|) (`elementwise`, the form
 `chip_smoke.py` holds to 2e-2 for o and 4e-2 for the gradients in bf16,
 1e-4 in fp32) and max|err| / max|plain| (`whole`, held to 2e-2 in
 bf16); a value that is not finite counts as an infinite error. The
@@ -59,7 +62,9 @@ it). Each is called through its C interface, `k1_forward` and / or
 `k1_backward` (`--direction`, both by default), on the shape's main-path
 row, one 4096-token openvid sequence with its 256-token frames in bf16
 (whisper: WHISPER_TIMES, 1 and 8 rows of the encoder's 1500 x 1500 and
-of the cross-attention's 448 over 1500, fp32, full), held to the plain
+of the cross-attention's 448 over 1500, fp32, full, either direction;
+the forward also at LONG_ROW, the longest packed row in fp32 at head_dim
+64, 4096 tokens with frames at 12:2 causal), held to the plain
 version (forward: max|err| / max|plain| of o, the LSE's largest error
 on rows with keys, and whether two calls give the same o and LSE bits;
 backward: max|err| / max|plain| of dq, dk, dv (fp32 also max|err| /
@@ -69,7 +74,8 @@ in fp32 dq too), and timed in turns, forwards then backwards,
 kernels' own time from torch.profiler, `device_ms`, and by kernel),
 beside SDPA with the tables' boolean mask (fp32: SDPA in fp32 with TF32
 off, without a mask in full mode) and `chip_smoke.py`'s bound
-(`packed_bound`, forward or backward; fp32 also its split-TF32 bound).
+(`packed_bound`, forward or backward; fp32 at split TF32, the
+kernels' own arithmetic, with the CUDA-core bound beside it).
 The bf16 forward also prints `waves`: how far the last wave of its
 blocks runs past a perfect balance over the card's SMs, modelled from
 the row's live key tiles.
@@ -183,6 +189,71 @@ _CAUSAL = {
         "                    (kpos0 + W_BK - 1 <= r0 &&",
         "                    (kpos0 - 1 <= r0 &&")]),
 }
+#: faults of the fp32 forward at head_dim 64 (split TF32:
+#: packed_fwd_f32_kernel), planted in its body; each must show in o or
+#: the LSE (the backward, given that LSE, may show it too)
+F32_FWD_FAULTS = {
+    # S and P V in plain TF32: Q's and P's lo (registers) and K's and
+    # V^T's lo (shared memory, once the block has split them) zeroed by
+    # tests the compiler cannot fold,
+    # so the build keeps the sound one's products and registers (K2's
+    # deleted lo products gave a build whose P operands overwrote Q's lo
+    # registers); the CPU replay (tests/test_torch_k1_f32_fwd_split.py)
+    # reads 2.8e-4 in o at the encoder's shape
+    "f32_fwd_lo_zeroed": (("o",), ("enc",), [
+        ("      ql[kk][e] = lo_of(x, qh[kk][e]);",
+         "      ql[kk][e] = Sq < 0 ? lo_of(x, qh[kk][e]) : 0u;"),
+        ("                                    Kh + 3 * TF, tid);\n",
+         "                                    Kh + 3 * TF, tid);\n"
+         "    __syncthreads();\n"
+         "    for (int i = tid; i < TF / 4; i += T_THREADS) {\n"
+         "      reinterpret_cast<uint32_t*>(Kh + TF)[i] = Sq < 0 ? 1u : 0u;\n"
+         "      reinterpret_cast<uint32_t*>(Kh + 3 * TF)[i] = "
+         "Sq < 0 ? 1u : 0u;\n"
+         "    }\n"),
+        ("      split_acc(s, ph, pl);\n",
+         "      split_acc(s, ph, pl);\n"
+         "      for (int kk = 0; kk < NK; ++kk)\n"
+         "        for (int e = 0; e < 4; ++e)\n"
+         "          pl[kk][e] = Sq < 0 ? pl[kk][e] : 0u;\n")]),
+    # the last key tile of each block's walk never formed (over 1500
+    # frames the partial one of 28 keys)
+    "f32_fwd_last_key_tile_skipped": (("o", "lse"), ("full",), [(
+        "  const int jt_hi = (j_hi + T_KEYS - 1) / T_KEYS;",
+        "  const int jt_hi = (j_hi + T_KEYS - 1) / T_KEYS - 1;")]),
+    # V^T's keys in their own order, not in the order of P's A operand
+    # (a key's probability meets another key's values): the shared split
+    # helper takes the order as a parameter that only the forward's call
+    # turns off
+    "f32_fwd_v_keys_unpermuted": (("o",), None, [
+        ("                                           unsigned char* "
+         "tlo, int tid) {",
+         "                                           unsigned char* "
+         "tlo, int tid, bool perm = true) {"),
+        ("      const int p = kap(r);",
+         "      const int p = perm ? kap(r) : r;"),
+        ("                                    Kh + 3 * TF, tid);",
+         "                                    Kh + 3 * TF, tid, false);")]),
+    # the LSE written in log2 units (the backward multiplies it by
+    # log2(e) and would read it wrong)
+    "f32_fwd_lse_log2": (("lse",), None, [(
+        "          l[i] > 0.f ? m[i] * LN2 + logf(l[i]) : -INFINITY;",
+        "          l[i] > 0.f ? m[i] + log2f(l[i]) : -INFINITY;")]),
+    # query head h reads KV head h (clamped to the KV heads, so that
+    # every read stays in the tensor), not h / (H / Hkv): shows where H
+    # > Hkv
+    "f32_fwd_gqa_head_map": (("o",), ("gqa",), [(
+        "  const int hk = h / (p.H / p.Hkv);",
+        "  const int hk = min(h, p.Hkv - 1);")]),
+    # the pair mask skipped in a live tile whose keys are not all in the
+    # rows' segment (a segment's edge; past Sk, the kv padding of the
+    # last partial tile)
+    "f32_fwd_unmasked_across_segments": (("o",), None, [(
+        "      whole = __all_sync(FULL, one_seg && whole && kseg[lane] == "
+        "seg_w &&\n                                   kseg[lane + 32] == "
+        "seg_w);",
+        "      whole = __all_sync(FULL, one_seg && whole);")]),
+}
 FAULTS = {
     "internvl": {**_COMMON, **_CAUSAL},
     # D = 160 alone: the third, half-used 64-column block of the tiles
@@ -269,9 +340,10 @@ FAULTS = {
              "tlo, int tid, bool perm = true) {"),
             ("      const int p = kap(r);",
              "      const int p = perm ? kap(r) : r;"),
-            ("    split_step<true>(Ld, dOhi, dOlo, dOThi, dOTlo, tid);",
-             "    split_step<true>(Ld, dOhi, dOlo, dOThi, dOTlo, tid, "
-             "false);")]),
+            ("    split_step<T_STEP, true, true>(Ld, dOhi, dOlo, dOThi, dOTlo, "
+             "tid);",
+             "    split_step<T_STEP, true, true>(Ld, dOhi, dOlo, dOThi, dOTlo, "
+             "tid, false);")]),
         # dS^T = P^T dP^T scale: delta = rowsum(dO o) never subtracted
         "f32_delta_skipped": (("dk",), None, [(
             "        dp[n][e] = pv * (dp[n][e] - c_delta[c]) * scale;",
@@ -285,6 +357,7 @@ FAULTS = {
             "    acc_product(tq, dh, dl, smem_u32(KThi), smem_u32(KTlo));",
             "    if (jn < jt_hi)\n"
             "      acc_product(tq, dh, dl, smem_u32(KThi), smem_u32(KTlo));")]),
+        **F32_FWD_FAULTS,
     },
     "rg": {
         **_COMMON,
@@ -373,13 +446,41 @@ EDITS = {
         "  const int q0 = ((Sq + W_BQ - 1) / W_BQ - 1 - (int)blockIdx.y) * "
         "W_BQ;",
         "  const int q0 = (int)blockIdx.y * W_BQ;")],
-    # fp32 at head_dim 64: what splitting the walked tiles costs (both
-    # kernels; the gradients are wrong)
+    # fp32 at head_dim 64: what splitting the walked tiles costs (the
+    # shared split helper: the backward's two kernels and the forward;
+    # the results are wrong)
     "f32_no_split_pass": [(
-        "  for (int i = tid; i < T_STEP * T_D / 4; i += T_THREADS) {",
+        "  for (int i = tid; i < ROWS * T_D / 4; i += T_THREADS) {",
         "  for (int i = tid; i < 0; i += T_THREADS) {")],
+    # fp32 forward at head_dim 64: each tile's P V into a fresh
+    # accumulator, added to O in fp32 registers, not into O on the
+    # tensor cores
+    "f32_fwd_fresh_accumulator": [
+        ("        for (int e = 0; e < 4; ++e) acc[nd][e] *= corr[e >> 1];\n"
+         "      pin(ph);\n      pin(pl);\n      pin(acc);",
+         "        for (int e = 0; e < 4; ++e) tacc[nd][e] = 0.f;\n"
+         "      pin(ph);\n      pin(pl);\n      pin(tacc);"),
+        ("      uint32_t ph[NK][4], pl[NK][4];\n",
+         "      uint32_t ph[NK][4], pl[NK][4];\n      float tacc[KD][4];\n"),
+        ("      acc_product(acc, ph, pl, va, vla);",
+         "      acc_product(tacc, ph, pl, va, vla);"),
+        ("      wgmma_wait0();\n      pin(acc);\n    }",
+         "      wgmma_wait0();\n      pin(tacc);\n"
+         "      for (int nd = 0; nd < KD; ++nd)\n"
+         "        for (int e = 0; e < 4; ++e)\n"
+         "          acc[nd][e] = fmaf(acc[nd][e], corr[e >> 1], "
+         "tacc[nd][e]);\n    }")],
+    # fp32 forward: what splitting the K and V tiles costs: neither
+    # split pass runs (o is wrong)
+    "f32_fwd_no_split_pass": [(
+        "    split_step<T_KEYS, true, false>(L, Kh, Kh + TF, nullptr, nullptr, "
+        "tid);\n    split_step<T_KEYS, false, true>(L + TF, nullptr, nullptr, "
+        "Kh + 2 * TF,\n                                    Kh + 3 * TF, "
+        "tid);\n", "")],
     # fp32 at head_dim 64: what the lo products cost: each product as hi
-    # hi' alone, the lo products deleted (plain TF32; measurements only)
+    # hi' alone, the lo products deleted (plain TF32; measurements only):
+    # the backward's products and, through the shared acc_product, the
+    # forward's P V
     "f32_hi_products_only": [
         (f"    wgmma_tf32_ss<T_STEP>(&{acc}[0][0], wg_desc({a} + fo, 16, "
          f"SW_GROUP),\n                          wg_desc({b} + wo, 16, "
@@ -406,8 +507,12 @@ def csrc(root: str) -> str:
     return os.path.join(root, os.path.dirname(CU))
 
 
+#: the kernels whose ptxas report (registers, spills) a build prints
+PTXAS_KEYS = ("packed_bwd", "packed_fwd_wg", "packed_fwd_f32_kernel")
+
+
 def build(sources: dict, tmp: str, roots: dict = None,
-          keys=("packed_bwd", "packed_fwd_wg")) -> dict:
+          keys=PTXAS_KEYS) -> dict:
     """label -> source text, built at once (one nvcc each), each copy
     including the headers of its tree's `csrc` (`roots`: label ->
     checkout root, this one by default); label -> loaded library."""
@@ -432,7 +537,7 @@ def build(sources: dict, tmp: str, roots: dict = None,
     return libs
 
 
-def ptxas_report(log, keys=("packed_bwd", "packed_fwd_wg")):
+def ptxas_report(log, keys=PTXAS_KEYS):
     """ptxas's registers, stack and spills of the entry functions whose
     (mangled) name holds one of `keys`, one line each."""
     out, name = [], None
@@ -560,7 +665,7 @@ def readings(torch, shape):
         ro, rlse = flash_attention_packed_ref(q, k, v, segt, **kw)
         want = (ro,) + tuple(flash_attention_packed_bwd_ref(
             q, k, v, ro, rlse, do, segt, **kw))
-        row = {"case": name, "tags": sorted(tags)}
+        row = {"case": name, "tags": sorted(tags), "lse": lse_errs(lse, rlse)}
         for name_t, a, r in zip(("o", "dq", "dk", "dv"), got, want):
             row[name_t] = errs(a, r)
         rows.append(row)
@@ -577,6 +682,24 @@ def errs(a, r):
     d = (a.float() - r).abs().nan_to_num(nan=float("inf"))
     return {"elementwise": (d / r.abs().clamp_min(1.0)).max().item(),
             "whole": d.max().item() / r.abs().max().item()}
+
+
+def lse_errs(a, r):
+    """`errs` of an LSE over the rows with a valid key; where the kernel
+    and the plain version disagree on which rows have one (-inf), an
+    infinite error."""
+    import torch
+    fin = torch.isfinite(r)
+    if not torch.equal(torch.isfinite(a), fin):
+        return {"elementwise": float("inf"), "whole": float("inf")}
+    if not fin.any():
+        return {"elementwise": 0.0, "whole": 0.0}
+    return errs(a[fin], r[fin])
+
+
+#: what fault mode reads, each case: the forward's o and LSE, the
+#: backward's gradients (given that LSE)
+READ = ("o", "lse", "dq", "dk", "dv")
 
 
 def fault_mode(torch, tmp, shapes):
@@ -607,7 +730,7 @@ def fault_mode(torch, tmp, shapes):
             for r in rows:
                 print(json.dumps({"shape": shape, "fault": fault, **r}),
                       flush=True)
-            for t in ("o", "dq", "dk", "dv"):
+            for t in READ:
                 whole = [r[t]["whole"] for r in must]
                 elt = [r[t]["elementwise"] for r in must]
                 print(f"{shape:8s} {fault:26s} {t:2s} whole "
@@ -615,8 +738,7 @@ def fault_mode(torch, tmp, shapes):
                       f"{min(elt):.4g}-{max(elt):.4g}  ({len(must)} cases)")
             if fault == "sound":
                 caught = [False]
-                ok &= all(r[t][form] <= tol for r in rows
-                          for t in ("o", "dq", "dk", "dv"))
+                ok &= all(r[t][form] <= tol for r in rows for t in READ)
             else:
                 caught = [max(r[t][form] for t in shows) > tol
                           for r in must]
@@ -684,13 +806,36 @@ def whisper_inputs(torch, B, Sq):
                 kseg=kseg, kw=kw, shape="whisper")
 
 
+#: the longest row the main paths build, in fp32 at head_dim 64: one
+#: 4096-token packed bucket with 256-token frames, 12:2 causal (the
+#: forward's walk over up to 64 key tiles)
+LONG_ROW = dict(H=12, HKV=2, D=64, mode="causal", window=None)
+
+
+def long_row_inputs(torch):
+    """LONG_ROW's row: random fp32 q, k, v (seed 0), one segment with
+    256-token frames after every 32 text tokens."""
+    from chip_smoke import packed_layout
+    cfg = LONG_ROW
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(1, S, cfg["H"], cfg["D"], generator=gen, device=dev)
+    k, v = (torch.randn(1, S, cfg["HKV"], cfg["D"], generator=gen,
+                        device=dev) for _ in range(2))
+    seg, span = packed_layout(S, [S], 256, 32)
+    return dict(q=q, k=k, v=v, seg=torch.as_tensor(seg, device=dev),
+                span=torch.as_tensor(span, device=dev), kseg=None,
+                kw=dict(mode="causal", window=None), shape="whisper",
+                cfg=cfg)
+
+
 def _call_args(torch, x):
     """The tables and summaries of the rows, and their sizes, dtype and
     mode as k1_forward and k1_backward take them."""
     from repro_torch.kernels.flash_attention import MODES
     from repro_torch.kernels.flash_attention_packed import (_summaries,
                                                             _tables)
-    cfg = SHAPES[x["shape"]]
+    cfg = x.get("cfg") or SHAPES[x["shape"]]
     q, k = x["q"], x["k"]
     B, Sq, Sk = q.shape[0], q.shape[1], k.shape[1]
     tables = [*_tables(q, k, x["seg"], x["span"], x["kseg"], None),
@@ -740,8 +885,7 @@ def backward(torch, lib, x):
     return dq.to(q.dtype), dk, dv
 
 
-def build_trees(tmp, trees, variants, cu=CU, edits=EDITS,
-                keys=("packed_bwd", "packed_fwd_wg")):
+def build_trees(tmp, trees, variants, cu=CU, edits=EDITS, keys=PTXAS_KEYS):
     """label -> library of each tree's source `cu` and of each variant (a
     tree's source with `edits` applied), built at once."""
     srcs = {label: open(os.path.join(root, cu)).read()
@@ -889,76 +1033,159 @@ def time_mode(torch, libs, shape, rounds, directions):
     return out
 
 
-def time_whisper(torch, libs, rounds):
-    """The backward at WHISPER_TIMES: every library held to the plain
+def time_whisper(torch, libs, rounds, directions):
+    """Each direction at WHISPER_TIMES: every library held to the plain
     version and timed in turns (change, ..., ..., change), by events
     and by torch.profiler (each kernel apart), beside the plain version,
-    SDPA in fp32 (TF32 off) and chip_smoke.py's bounds."""
+    SDPA in fp32 (TF32 off, full mode without a mask; events and
+    device time) and chip_smoke.py's bounds (split TF32, and the fp32
+    CUDA cores beside it). One row a shape and direction."""
     import torch.nn.functional as F
-    from chip_smoke import (PEAK_TF32, cuda_ms, device_ms,
+    from chip_smoke import (PEAK_TF32, SPLIT_TF32, cuda_ms, device_ms,
                             device_ms_by_kernel, packed_bound)
     from repro_torch.kernels.flash_attention_packed import (
-        flash_attention_packed_bwd_ref)
+        flash_attention_packed_bwd_ref, flash_attention_packed_ref)
     cfg = SHAPES["whisper"]
     H, HKV, D = cfg["H"], cfg["HKV"], cfg["D"]
     out = []
     for B, Sq in WHISPER_TIMES:
         x = whisper_inputs(torch, B, Sq)
-        args = [x[n] for n in ("q", "k", "v", "o", "lse", "do")]
-        ref = flash_attention_packed_bwd_ref(*args, x["seg"],
-                                             kv_segment_ids=x["kseg"],
-                                             **x["kw"])
-        rows = _readings_bwd(torch, libs, x, ref)
-        plain_ms = cuda_ms(lambda: flash_attention_packed_bwd_ref(
-            *args, x["seg"], kv_segment_ids=x["kseg"], **x["kw"]),
-            iters=3, warmup=1)
-        del ref
-        for row in rows.values():
-            row["device_ms"], row["by_kernel"] = [], []
-        order = list(libs) + list(libs)[::-1]
-        for _ in range(rounds):
-            for label in order:
-                fn = (lambda lib=libs[label]: backward(torch, lib, x))
-                rows[label]["ms"].append(cuda_ms(fn, iters=10, warmup=2))
-                rows[label]["device_ms"].append(
-                    device_ms(fn, iters=5, warmup=1)[0])
-                rows[label]["by_kernel"].append(
-                    device_ms_by_kernel(fn, iters=5, warmup=1))
+        kw = dict(kv_segment_ids=x["kseg"], **x["kw"])
         qt, kt, vt = (x[n].transpose(1, 2).contiguous().requires_grad_(True)
                       for n in ("q", "k", "v"))
-        o = F.scaled_dot_product_attention(qt, kt, vt)
-        dot = x["do"].transpose(1, 2)
-
-        def sdpa():
-            return torch.autograd.grad(o, (qt, kt, vt), dot,
-                                       retain_graph=True)
-        sdpa_ms = cuda_ms(sdpa, iters=10, warmup=2)
-        sdpa_device_ms = device_ms(sdpa, iters=5, warmup=1)[0]
-        del o, qt, kt, vt
         pairs = B * Sq * WHISPER_FRAMES
-        bound, bound_by, split = packed_bound(
-            B, Sq, WHISPER_FRAMES, H, HKV, D, torch.float32, pairs, True, 1)
-        r = {"shape": f"B={B} Sq={Sq} Sk={WHISPER_FRAMES} H={H} Hkv={HKV} "
-                      f"D={D} fp32 full",
-             "bound_ms": bound, "bound_by": bound_by,
-             "bound_split_tf32_ms": split,
-             # the two kernels' own products: S and dP in each, 21 TF32
-             # products a pair for the function's 15
-             "bound_two_kernel_split_tf32_ms":
-                 3 * 14.0 * D * pairs * H / PEAK_TF32 * 1e3,
-             "plain_ms": plain_ms, "sdpa_fp32_ms": sdpa_ms,
-             "sdpa_fp32_device_ms": sdpa_device_ms, "kernels": rows}
-        for label, row in rows.items():
-            print(f"whisper bwd {B}x{Sq} {label:20s} ms {row['ms']} "
-                  f"device_ms {row['device_ms']} by_kernel "
-                  f"{row['by_kernel'][-1]} err {row['elementwise_err']} "
-                  f"same_bits {row['same_bits']} dq {row['same_bits_dq']}")
-        print(f"whisper bwd {B}x{Sq} " + json.dumps(
-            {k: v for k, v in r.items() if k != "kernels"}))
-        out.append(r)
-        del x, args
+        for direction in directions:
+            bwd = direction == "bwd"
+            args = [x[n] for n in ("q", "k", "v")]
+            if bwd:
+                args += [x[n] for n in ("o", "lse", "do")]
+            ref_fn = (flash_attention_packed_bwd_ref if bwd
+                      else flash_attention_packed_ref)
+            call = backward if bwd else forward
+            ref = ref_fn(*args, x["seg"], **kw)
+            if bwd:
+                rows = _readings_bwd(torch, libs, x, ref)
+            else:
+                rows = _readings_fwd(torch, libs, x, ref)
+                for label, lib in libs.items():
+                    rows[label]["elementwise_err"] = {
+                        "o": errs(forward(torch, lib, x)[0], ref[0])[
+                            "elementwise"]}
+            plain_ms = cuda_ms(lambda: ref_fn(*args, x["seg"], **kw),
+                               iters=3, warmup=1)
+            del ref
+            for row in rows.values():
+                row["device_ms"], row["by_kernel"] = [], []
+            order = list(libs) + list(libs)[::-1]
+            for _ in range(rounds):
+                for label in order:
+                    fn = (lambda lib=libs[label]: call(torch, lib, x))
+                    rows[label]["ms"].append(cuda_ms(fn, iters=10, warmup=2))
+                    rows[label]["device_ms"].append(
+                        device_ms(fn, iters=5, warmup=1)[0])
+                    rows[label]["by_kernel"].append(
+                        device_ms_by_kernel(fn, iters=5, warmup=1))
+            if bwd:
+                o = F.scaled_dot_product_attention(qt, kt, vt)
+                dot = x["do"].transpose(1, 2)
+
+                def sdpa():
+                    return torch.autograd.grad(o, (qt, kt, vt), dot,
+                                               retain_graph=True)
+            else:
+                def sdpa():
+                    return F.scaled_dot_product_attention(qt, kt, vt)
+            sdpa_ms = cuda_ms(sdpa, iters=10, warmup=2)
+            sdpa_device_ms = device_ms(sdpa, iters=5, warmup=1)[0]
+            shape = (B, Sq, WHISPER_FRAMES, H, HKV, D, torch.float32,
+                     pairs, bwd, 1)
+            bound, bound_by = packed_bound(*shape, SPLIT_TF32)
+            r = {"direction": direction,
+                 "shape": f"B={B} Sq={Sq} Sk={WHISPER_FRAMES} H={H} "
+                          f"Hkv={HKV} D={D} fp32 full",
+                 "bound_ms": bound, "bound_by": bound_by,
+                 "bound_cuda_core_ms": packed_bound(*shape)[0],
+                 "plain_ms": plain_ms, "sdpa_fp32_ms": sdpa_ms,
+                 "sdpa_fp32_device_ms": sdpa_device_ms, "kernels": rows}
+            if bwd:
+                # the two kernels' own products: S and dP in each, 21
+                # TF32 products a pair for the function's 15
+                r["bound_two_kernel_split_tf32_ms"] = (
+                    3 * 14.0 * D * pairs * H / PEAK_TF32 * 1e3)
+            for label, row in rows.items():
+                print(f"whisper {direction} {B}x{Sq} {label:20s} ms "
+                      f"{row['ms']} device_ms {row['device_ms']} by_kernel "
+                      f"{row['by_kernel'][-1]} err {row['elementwise_err']} "
+                      f"same_bits {row['same_bits']}"
+                      + (f" dq {row['same_bits_dq']}" if bwd else
+                         f" lse_err {row['lse_err']}"))
+            print(f"whisper {direction} {B}x{Sq} " + json.dumps(
+                {k: v for k, v in r.items() if k != "kernels"}))
+            out.append(r)
+        del x, args, qt, kt, vt
         torch.cuda.empty_cache()
+    if "fwd" in directions:
+        out.append(time_long_row(torch, libs, rounds))
     return out
+
+
+def time_long_row(torch, libs, rounds):
+    """The forward at LONG_ROW: every library's o (elementwise) and LSE
+    against the plain version, the same bits twice, and its time in
+    turns (events and device time), beside the plain version, SDPA with
+    the tables' boolean mask (fp32, TF32 off) and the bounds."""
+    import torch.nn.functional as F
+    from chip_smoke import SPLIT_TF32, cuda_ms, device_ms, packed_bound
+    from repro_torch.kernels.flash_attention_packed import (
+        _tables, flash_attention_packed_ref, pair_mask)
+    cfg = LONG_ROW
+    x = long_row_inputs(torch)
+    kw = dict(span_ids=x["span"], **x["kw"])
+    ref = flash_attention_packed_ref(x["q"], x["k"], x["v"], x["seg"], **kw)
+    rows = _readings_fwd(torch, libs, x, ref)
+    for label, lib in libs.items():
+        rows[label]["elementwise_err"] = {
+            "o": errs(forward(torch, lib, x)[0], ref[0])["elementwise"]}
+        rows[label]["device_ms"] = []
+    plain_ms = cuda_ms(lambda: flash_attention_packed_ref(
+        x["q"], x["k"], x["v"], x["seg"], **kw), iters=3, warmup=1)
+    del ref
+    order = list(libs) + list(libs)[::-1]
+    for _ in range(rounds):
+        for label in order:
+            fn = (lambda lib=libs[label]: forward(torch, lib, x))
+            rows[label]["ms"].append(cuda_ms(fn, iters=10, warmup=2))
+            rows[label]["device_ms"].append(device_ms(fn, iters=5,
+                                                      warmup=1)[0])
+    tabs = _tables(x["q"], x["k"], x["seg"], x["span"], None, None)
+    mask = pair_mask(S, S, *tabs, mode="causal")
+    qt, kt, vt = (x[n].transpose(1, 2).contiguous() for n in ("q", "k", "v"))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
+    pairs = int(mask.sum())
+    shape = (1, S, S, cfg["H"], cfg["HKV"], cfg["D"], torch.float32, pairs,
+             False, 2)
+    bound, bound_by = packed_bound(*shape, SPLIT_TF32)
+    r = {"direction": "fwd",
+         "shape": f"B=1 S={S} H={cfg['H']} Hkv={cfg['HKV']} D={cfg['D']} "
+                  f"fp32 causal spans",
+         "pairs": pairs, "bound_ms": bound, "bound_by": bound_by,
+         "bound_cuda_core_ms": packed_bound(*shape)[0],
+         "plain_ms": plain_ms,
+         "sdpa_fp32_ms": cuda_ms(sdpa, iters=10, warmup=2),
+         "sdpa_fp32_device_ms": device_ms(sdpa, iters=5, warmup=1)[0],
+         "kernels": rows}
+    for label, row in rows.items():
+        print(f"long row fwd {label:20s} ms {row['ms']} device_ms "
+              f"{row['device_ms']} err {row['elementwise_err']} lse_err "
+              f"{row['lse_err']} same_bits {row['same_bits']}")
+    print("long row fwd " + json.dumps(
+        {k: v for k, v in r.items() if k != "kernels"}))
+    del x, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return r
 
 
 def main() -> int:
@@ -997,11 +1224,8 @@ def main() -> int:
             # the inputs' forward runs this tree's library too
             from repro_torch.kernels import build as kbuild
             kbuild._libs["flash_attention_packed"] = libs["change"]
-            if "whisper" in shapes and directions != ("bwd",):
-                raise SystemExit("--shape whisper times the backward "
-                                 "alone: add --direction bwd")
             result = {"times": {
-                shape: (time_whisper(torch, libs, args.rounds)
+                shape: (time_whisper(torch, libs, args.rounds, directions)
                         if shape == "whisper" else
                         time_mode(torch, libs, shape, args.rounds,
                                   directions))

@@ -44,8 +44,8 @@ and timed in turns, `--rounds` times: `ms` by CUDA events around 20
 back-to-back calls (after 3), `device_ms` the kernels' own time per
 call from torch.profiler. Beside them: the port's wrapper around the
 change's library (`wrapper_ms`: the host's cost of a call from Python),
-SDPA both ways, and chip_smoke.py's bound (for fp32 also the split-TF32
-bound).
+SDPA both ways, and chip_smoke.py's bound (for fp32 at split TF32, the
+kernel's own arithmetic, with the CUDA-core bound beside it).
 """
 import argparse
 import ctypes
@@ -359,7 +359,7 @@ def call(torch, lib, q, k, v, o, mode):
 
 def time_shape(torch, libs, B, Sq, Sk, heads, dtype, mode, rounds):
     import torch.nn.functional as F
-    from chip_smoke import attention_bound, cuda_ms, device_ms
+    from chip_smoke import SPLIT_TF32, attention_bound, cuda_ms, device_ms
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     q, k, v = _inputs(torch, B, Sq, 0, heads, dtype, Sk)
@@ -385,13 +385,16 @@ def time_shape(torch, libs, B, Sq, Sk, heads, dtype, mode, rounds):
         return F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=(mode == "causal"), enable_gqa=True)
     wrap = (lambda: flash_attention(q, k, v, mode=mode))
-    bound, bound_by, bound_tf32 = attention_bound(
-        B, Sq, Sk, *heads, q.dtype, mode, None, 0)
+    fp32 = q.dtype == torch.float32
+    bound, bound_by = attention_bound(B, Sq, Sk, *heads, q.dtype, mode,
+                                      None, 0, SPLIT_TF32 if fp32 else None)
     tag = f"{B}x{Sq}" + (f"x{Sk}" if Sk != Sq else "") + f" {dtype}"
     out = {"shape": f"B={B} Sq={Sq} Sk={Sk} H={heads[0]} Hkv={heads[1]} "
                     f"D={heads[2]} {dtype} {mode}",
-           "bound_ms": bound, "bound_by": bound_by,
-           "bound_split_tf32_ms": bound_tf32}
+           "bound_ms": bound, "bound_by": bound_by}
+    if fp32:
+        out["bound_cuda_core_ms"] = attention_bound(
+            B, Sq, Sk, *heads, q.dtype, mode, None, 0)[0]
     for name, fn in (("wrapper", wrap), ("sdpa", sdpa)):
         out[f"{name}_ms"] = cuda_ms(fn)
         out[f"{name}_device_ms"], out[f"{name}_kernels_per_call"] = \

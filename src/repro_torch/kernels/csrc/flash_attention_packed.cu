@@ -65,9 +65,23 @@
 //     thread's share of dK or dV is 128 registers, so one block an SM;
 //     at 160 the tiles are 192 columns wide as in the forward (the
 //     upper 32 zeros), dK / dV 96 registers, one block an SM.
-//   * fp32 forward (packed_fwd_f32_kernel), D = 64, 128 and 160 (no
+//   * fp32 forward at D = 64 (packed_fwd_f32_kernel: whisper-small's
+//     encoder and cross-attention in training). What bounds it: at 8 x
+//     1500 frames, 12:12 heads, full, 6.91 GFLOP a row (4*D flops a
+//     valid pair a head), 0.335 ms for the 8 rows as split TF32 (three
+//     TF32 products each, 495 TFLOP/s; the bytes 0.044 ms). The design:
+//     split TF32 by wgmma, Q split once into registers, V^T's keys
+//     permuted so that P never leaves the registers, two warpgroups over
+//     128 query rows sharing every split 64-key tile (half the split
+//     work a row of K2's fp32 kernel), a two-stage ring of split tiles.
+//     What still holds it back (H100 80GB HBM3 at 700 W: 0.91-0.93 ms at
+//     8 x 1500, 2.7x that bound, against the CUDA-core kernel's 5.7 and
+//     SDPA fp32's 1.72): the split pass (~20%) and each warpgroup's
+//     waits on its own products and softmax, one block an SM; its
+//     section says more.
+//   * fp32 forward at D = 128 and 160 (packed_fwd_f32_cc_kernel; no
 //     config runs 256 in fp32): the CUDA cores, fp32 tiles in shared
-//     memory; not redesigned.
+//     memory; no main path runs it, not redesigned.
 //   * fp32 backward at D = 64 (whisper-small's encoder and
 //     cross-attention in training): split TF32 on the tensor cores by
 //     wgmma, as two kernels that each write their gradients once
@@ -176,8 +190,9 @@ __device__ __forceinline__ bool pair_ok(int mode, int window, int qpos,
 }
 
 // ---------------------------------------------------------------------
-// Forward, fp32, CUDA cores: block = (64 query rows, head, batch), two
-// threads per row each holding half of the row's scores and output.
+// Forward, fp32, CUDA cores, D = 128 and 160 (no main path runs them;
+// not redesigned): block = (64 query rows, head, batch), two threads
+// per row each holding half of the row's scores and output.
 // ---------------------------------------------------------------------
 constexpr int S_BQ = 64, S_BK = 32, S_THREADS = 128;
 
@@ -190,10 +205,10 @@ constexpr size_t fwd_f32_smem() {
 
 template <int D, bool SPANS>
 __global__ void __launch_bounds__(S_THREADS)
-packed_fwd_f32_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, Params p, float scale) {
+packed_fwd_f32_cc_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, Params p, float scale) {
   constexpr int QS = D + 1, PS = S_BK + 1;
   extern __shared__ float smem[];
   float* Qs = smem;            // [S_BQ][QS]
@@ -1362,20 +1377,22 @@ __device__ __forceinline__ uint32_t lo_of(float x, uint32_t hi) {
   return tf32(x - __uint_as_float(hi));
 }
 
-// A landed walked tile `in` ([T_STEP][64], sw128) split by the block:
-// hi and lo row-major into `hi` / `lo` (the same layout), and with TR
-// also transposed, [64][T_STEP] rows of 128 bytes, row r of the tile at
-// column kap(r), into `thi` / `tlo`. A warp takes 32 consecutive rows of
-// one 16-byte column: no bank conflict either way.
-template <bool TR>
+// A landed walked tile `in` ([ROWS][64], sw128) split by the block: with
+// RM hi and lo row-major into `hi` / `lo` (the same layout); with TR
+// transposed, [64][ROWS] in 128-byte swizzle blocks of 32 rows of the
+// tile, row r of the tile at column kap(r), into `thi` / `tlo`. A warp
+// takes 32 consecutive rows of one 16-byte column: no bank conflict
+// either way. The backward walks tiles of T_STEP rows, the forward of
+// T_KEYS.
+template <int ROWS, bool RM, bool TR>
 __device__ __forceinline__ void split_step(const unsigned char* in,
                                            unsigned char* hi,
                                            unsigned char* lo,
                                            unsigned char* thi,
                                            unsigned char* tlo, int tid) {
-  for (int i = tid; i < T_STEP * T_D / 4; i += T_THREADS) {
-    const int r = i % T_STEP, c = i / T_STEP;
-    const uint32_t off = sw128<T_STEP>(r, c);
+  for (int i = tid; i < ROWS * T_D / 4; i += T_THREADS) {
+    const int r = i % ROWS, c = i / ROWS;
+    const uint32_t off = sw128<ROWS>(r, c);
     const float4 x = *reinterpret_cast<const float4*>(in + off);
     const float xs[4] = {x.x, x.y, x.z, x.w};
     uint32_t h[4], l[4];
@@ -1384,8 +1401,12 @@ __device__ __forceinline__ void split_step(const unsigned char* in,
       h[e] = tf32(xs[e]);
       l[e] = lo_of(xs[e], h[e]);
     }
-    *reinterpret_cast<uint4*>(hi + off) = make_uint4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<uint4*>(lo + off) = make_uint4(l[0], l[1], l[2], l[3]);
+    if constexpr (RM) {
+      *reinterpret_cast<uint4*>(hi + off) =
+          make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(lo + off) =
+          make_uint4(l[0], l[1], l[2], l[3]);
+    }
     if constexpr (TR) {
       const int p = kap(r);
 #pragma unroll
@@ -1468,15 +1489,16 @@ __device__ __forceinline__ void two_products(
   pin(dp);
 }
 
-// acc += A B over the T_STEP rows of a walked tile (T_STEP / 8 k-steps):
-// A from registers (split_acc), B a transposed walked tile [64][T_STEP]
-// (hi `b`, lo `bl`), issued without waiting
+// acc += A B over the 8 NK rows of a walked tile (NK k-steps): A from
+// registers (split_acc), B a transposed walked tile [64][8 NK] (hi `b`,
+// lo `bl`), issued without waiting
+template <int NK>
 __device__ __forceinline__ void acc_product(float (&acc)[T_D / 8][4],
-                                            const uint32_t (&h)[T_STEP / 8][4],
-                                            const uint32_t (&l)[T_STEP / 8][4],
+                                            const uint32_t (&h)[NK][4],
+                                            const uint32_t (&l)[NK][4],
                                             uint32_t b, uint32_t bl) {
 #pragma unroll
-  for (int kk = 0; kk < T_STEP / 8; ++kk) {
+  for (int kk = 0; kk < NK; ++kk) {
     const uint32_t off = (kk >> 2) * (T_D * 128) + (kk & 3) * 32;
     wgmma_tf32<T_D>(&acc[0][0], l[kk], wg_desc(b + off, 16, SW_GROUP));
     wgmma_tf32<T_D>(&acc[0][0], h[kk], wg_desc(bl + off, 16, SW_GROUP));
@@ -1641,8 +1663,8 @@ packed_bwd_f32_kernel(const float* __restrict__ q,
   while (hh < G) {
     cp_async_wait<0>();  // this query tile has landed
     __syncthreads();     // and the last one's products are done
-    split_step<true>(Lq, Qhi, Qlo, QThi, QTlo, tid);
-    split_step<true>(Ld, dOhi, dOlo, dOThi, dOTlo, tid);
+    split_step<T_STEP, true, true>(Lq, Qhi, Qlo, QThi, QTlo, tid);
+    split_step<T_STEP, true, true>(Ld, dOhi, dOlo, dOThi, dOTlo, tid);
     if (tid < T_STEP) {
       c_lse[tid] = l_lse[tid] * LOG2E;
       c_delta[tid] = l_delta[tid];
@@ -1899,8 +1921,9 @@ packed_bwd_f32_dq_kernel(const float* __restrict__ q,
   while (j < jt_hi) {
     cp_async_wait<0>();  // key tile j has landed
     __syncthreads();     // and the last one's products are done
-    split_step<true>(Lk, Khi, Klo, KThi, KTlo, tid);
-    split_step<false>(Lv, Vhi, Vlo, nullptr, nullptr, tid);
+    split_step<T_STEP, true, true>(Lk, Khi, Klo, KThi, KTlo, tid);
+    split_step<T_STEP, true, false>(Lv, Vhi, Vlo, nullptr, nullptr,
+                                     tid);
     if (tid < T_STEP) {
       c_segk[tid] = l_segk[tid];
       c_spank[tid] = SPANS ? l_spank[tid] : -2;
@@ -1971,6 +1994,381 @@ packed_bwd_f32_dq_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------
+// Forward, fp32, D = 64: split TF32 on the tensor cores, designed for
+// the H100 (whisper-small's encoder and cross-attention in training,
+// and every fp32 model at head_dim 64). K1's function as the CUDA-core
+// kernel computes it: every mode, span tables, a ring hop's key tables
+// and kv_offset, Sq != Sk, GQA; o in fp32 and the LSE in natural-log
+// units (-inf for a row with no valid key, whose o is exact zeros).
+//
+// What bounds it: 4*D flops per valid (query, key) pair per query head
+// (S = Q K^T, O = P V) against q, k, v read and o, the LSE written once.
+// At whisper-small's encoder in training (8 x 1500 frames, 12:12 heads,
+// full) that is 6.91 GFLOP a row against 18.5 MB: for the 8 rows 0.825
+// ms at the fp32 CUDA-core peak, 0.044 ms for the bytes, so operations
+// bound it. Plain
+// TF32 misses the 1e-4 limit, so each operand is carried as hi = tf32(x)
+// and lo = tf32(x - hi) and each product formed as hi hi' + hi lo' + lo
+// hi', as K2's fp32 kernel and the backward above do: 0.335 ms at 495
+// TFLOP/s.
+//
+// What the design does about it:
+//  1. Products. S = Q K^T and O += P V by wgmma m64n64k8 in TF32, fp32
+//     sums. Q's hi and lo are split once a block into registers (the A
+//     operands of S); V^T is stored with its keys in kap order, so S's
+//     accumulator, split in registers, is P's A operand as it lies: P
+//     never leaves the registers.
+//  2. Split once a block. A block is two warpgroups over 128 query rows
+//     of one query head (the last query tiles first), 64 rows each,
+//     sharing every split 64-key tile: all 256 threads split K (hi and
+//     lo, row-major) and V (hi and lo, transposed) as they land, half
+//     the split work a row of K2's one-warpgroup blocks. The split and
+//     O += P V are the backward's helpers (split_step, acc_product) at
+//     tiles of 64 keys.
+//  3. A ring. Split tiles form a ring of two stages and landing tiles
+//     another: a warpgroup forms tile j from one stage, then the block
+//     splits tile j + 1 into the other (the other warpgroup's products
+//     may still read the first) while tile j + 2 lands by 16-byte
+//     cp.async. One barrier a tile. Splitting tile j + 1 between a
+//     warpgroup's own products instead measured 5% slower. Shared
+//     memory 199,680 bytes (split 128 KB, landing 64 KB), so one block
+//     an SM with up to 255 registers a thread: Q's split alone is 64 of
+//     them.
+//  4. Live tiles and masks as the bf16 kernel's: live key tiles found
+//     32 at a time by one ballot over the tables' summaries (a dead
+//     tile costs no products); a tile wholly in the warpgroup's one
+//     segment and position range skips the pair mask.
+//  5. Softmax online in fp32, in log2 units; the LSE written as m ln 2 +
+//     log(l) in natural-log units (the backward multiplies it by
+//     log2(e)). O is one accumulator over the walk, rescaled in
+//     registers before each tile's P V adds into it on the tensor
+//     cores: over the longest row the main paths build (4096 tokens
+//     with frames, 12:2 causal, up to 64 tiles) o reads 5.5e-6 against
+//     the 1e-4 limit (a fresh accumulator a tile: 1.7e-6, but 3.5%
+//     slower, its 32 more registers making ptxas spill).
+// What still holds it back (H100 80GB HBM3 at 700 W, 8 x 1500: 0.91-0.93
+// ms, 2.7x the split-TF32 bound of 0.335 ms, against the CUDA-core
+// kernel's 5.7 and SDPA fp32's 1.72; 8 x 448 over 1500: 0.31 against
+// 2.3 and 0.59): the split pass takes some 20% (the walk
+// without it 0.76 at 8 x 1500); the rest leaves the tensor cores idle
+// over half the time: a warpgroup waits on its own two products in
+// turn and forms the softmax between them, both warpgroups in step
+// after each tile's barrier, and one block an SM (shared memory; ptxas
+// 255 registers, 0 / 70 bytes of spill with / without spans) leaves no
+// other block to fill the gaps.
+// ---------------------------------------------------------------------
+constexpr int T_KEYS = 64;                 // keys of a forward tile
+constexpr float LN2 = 0.6931471805599453f;
+
+// Shared memory of the split-TF32 forward: TF bytes of a [64][64] fp32
+// tile; two stages of split tiles (K's hi and lo, V^T's hi and lo), two
+// of landing tiles (K, V), each stage's key segments and spans as they
+// land and as split, and room to align the tiles to 1024 bytes
+template <int D>
+struct F32FwdTile {
+  static constexpr int TF = T_KEYS * D * 4;
+  static constexpr size_t smem = 1024 + 12 * TF + 4 * (8 * T_KEYS);
+};
+
+template <int D, bool SPANS>
+__global__ void __launch_bounds__(T_THREADS, 1)
+packed_fwd_f32_kernel(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, Params p, float scale) {
+  static_assert(D == T_D, "the split-TF32 forward is built for D = 64");
+  constexpr int TF = F32FwdTile<D>::TF;
+  constexpr int CH = D / 4;        // 16-byte chunks of a row of K or V
+  constexpr int KD = D / 8;        // k-steps of S = Q K^T, and O's groups
+  constexpr int NK = T_KEYS / 8;   // k-steps of O += P V, and S's groups
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+  // split stage st at sm + st * 4 * TF: K's hi, K's lo [64 keys][64],
+  // V^T's hi, V^T's lo [64][64 keys, kap'd]
+  unsigned char* land = sm + 8 * TF;  // stage st: K, V as they land
+  int* ltab = reinterpret_cast<int*>(sm + 12 * TF);  // [2][2][T_KEYS]
+  int* ctab = ltab + 4 * T_KEYS;      // the split stages' tables
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2;
+  const int h = blockIdx.x, b = blockIdx.z, Sq = p.Sq, Sk = p.Sk;
+  const int hk = h / (p.H / p.Hkv);
+  // blocks are issued y by y: the last query tiles, the heaviest under
+  // causal order, first
+  const int q0 = ((Sq + T_BLOCK - 1) / T_BLOCK - 1 - (int)blockIdx.y) *
+                 T_BLOCK;
+  const int q1 = min(q0 + T_BLOCK, Sq);
+  const int r0 = q0 + T_ROWS * wg;  // the warpgroup's first row
+  const int64_t q_stride = (int64_t)p.H * D, kv_stride = (int64_t)p.Hkv * D;
+  const float* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const float* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const int* segqb = p.segq + (int64_t)b * Sq;
+  const int* segkb = p.segk + (int64_t)b * Sk;
+  const int* spanqb = SPANS ? p.spanq + (int64_t)b * Sq : segqb;
+  const int* spankb = SPANS ? p.spank + (int64_t)b * Sk : segkb;
+
+  // key tile j into landing stage st: K and V in the 128-byte swizzle
+  // (keys past Sk as zeros), the tables beside them (-2 past Sk, as kv
+  // padding)
+  auto load_kv = [&](int j, int st) {
+    const int j0 = j * T_KEYS;
+    unsigned char* L = land + st * 2 * TF;
+    for (int i = tid; i < T_KEYS * CH; i += T_THREADS) {
+      const int r = i / CH, c = i % CH, kp = j0 + r;
+      const int64_t off = (int64_t)(kp < Sk ? kp : j0) * kv_stride + c * 4;
+      cp_async16(L + sw128<T_KEYS>(r, c), kb + off, kp < Sk);
+      cp_async16(L + TF + sw128<T_KEYS>(r, c), vb + off, kp < Sk);
+    }
+    if (tid < (SPANS ? 2 : 1) * T_KEYS) {
+      const int kp = j0 + tid % T_KEYS;
+      int* dst = ltab + st * 2 * T_KEYS + tid;
+      if (kp < Sk)
+        cp_async4(dst, (tid < T_KEYS ? segkb : spankb) + kp, true);
+      else
+        *dst = -2;
+    }
+    cp_async_commit();
+  };
+  // landing stage st split by the block into split stage st: K's hi and
+  // lo in K's layout; V's transposed, key r of the tile to column kap(r)
+  // of row d of V^T, the B operand of O += P V; the tables beside them
+  auto split_kv = [&](int st) {
+    const unsigned char* L = land + st * 2 * TF;
+    unsigned char* Kh = sm + st * 4 * TF;
+    split_step<T_KEYS, true, false>(L, Kh, Kh + TF, nullptr, nullptr, tid);
+    split_step<T_KEYS, false, true>(L + TF, nullptr, nullptr, Kh + 2 * TF,
+                                    Kh + 3 * TF, tid);
+    if (tid < 2 * T_KEYS)
+      ctab[st * 2 * T_KEYS + tid] = ltab[st * 2 * T_KEYS + tid];
+  };
+
+  // the key tiles some row of the block can see by position: [j_lo /
+  // T_KEYS, jt_hi); of them the first live one at or after j (jt_hi if
+  // none), uniform: each warp tests 32 tiles at once (lane i tile base +
+  // i) against the rows of both warpgroups and keeps the ballots, so the
+  // tables' summaries are read once per 32 tiles; `mine`: the tile is
+  // live for this warpgroup's rows (the other's may be all it is live
+  // for)
+  int j_lo = 0, j_hi = Sk;
+  if (!SPANS && p.mode != kFull) {
+    j_hi = max(0, min(Sk, q1 - p.kv_offset));
+    if (p.mode == kSliding) j_lo = max(0, q0 - p.window - p.kv_offset + 1);
+  }
+  const int jt_hi = (j_hi + T_KEYS - 1) / T_KEYS;
+  int live_base = -32;
+  uint32_t live_any = 0, live_mine = 0;
+  auto next_live = [&](int j, bool& mine) {
+    while (j < jt_hi) {
+      if (j >= live_base + 32) {
+        live_base = j;
+        const int k0 = (j + lane) * T_KEYS, k1 = min(k0 + T_KEYS, Sk);
+        const bool in = j + lane < jt_hi;
+        const uint32_t b0 = __ballot_sync(
+            FULL, in && tile_live<SPANS>(p, b, q0, min(q0 + T_ROWS, Sq),
+                                         k0, k1));
+        const uint32_t b1 = __ballot_sync(
+            FULL, in && tile_live<SPANS>(p, b, q0 + T_ROWS,
+                                         min(q0 + T_BLOCK, Sq), k0, k1));
+        live_any = b0 | b1;
+        live_mine = wg ? b1 : b0;
+      }
+      const uint32_t ahead = live_any >> (j - live_base);
+      if (ahead) {
+        j += __ffs(ahead) - 1;
+        mine = ((live_mine >> (j - live_base)) & 1u) != 0;
+        return j;
+      }
+      j = live_base + 32;
+    }
+    mine = false;
+    return jt_hi;
+  };
+
+  // the thread's two rows, qrow and qrow + 8, and Q's A operands for
+  // the D / 8 k-steps of S, split once; rows past Sq read as zeros (they
+  // are masked and never written)
+  const int qrow = r0 + (warp & 3) * 16 + g;
+  const float* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+  uint32_t qh[KD][4], ql[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = qrow + 8 * (e & 1), d = kk * 8 + t + 4 * (e >> 1);
+      const float x = row < Sq ? qb[(int64_t)row * q_stride + d] : 0.f;
+      qh[kk][e] = tf32(x);
+      ql[kk][e] = lo_of(x, qh[kk][e]);
+    }
+  // the warpgroup's 64 rows lie in one segment (seg_w >= 0): a key tile
+  // all in that segment, at or before the first row (and, sliding,
+  // within the last row's window) then needs no mask
+  const int seg_w = r0 < Sq ? segqb[r0] : -1;
+  const bool one_seg = __all_sync(
+      FULL, r0 + T_ROWS <= Sq && seg_w >= 0 && segqb[r0 + lane] == seg_w &&
+                segqb[r0 + 32 + lane] == seg_w);
+  int segq_r[2], spanq_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = qrow + 8 * i < Sq;
+    segq_r[i] = in ? segqb[qrow + 8 * i] : -1;
+    spanq_r[i] = (SPANS && in) ? spanqb[qrow + 8 * i] : -1;
+  }
+
+  const float sl2 = scale * LOG2E;  // scores in log2 units
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[KD][4];
+#pragma unroll
+  for (int nd = 0; nd < KD; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  // the first live tile lands and is split; the second lands meanwhile
+  bool mine, mine_n, mine_nn;
+  int j = next_live(j_lo / T_KEYS, mine);
+  if (j < jt_hi) load_kv(j, 0);
+  int jn = next_live(j + 1, mine_n);
+  cp_async_wait<0>();
+  __syncthreads();
+  if (jn < jt_hi) load_kv(jn, 1);
+  if (j < jt_hi) split_kv(0);
+  fence_proxy_async();  // the split tiles are seen by wgmma's reads
+  for (int st = 0; j < jt_hi; st ^= 1) {
+    cp_async_wait<0>();  // tile jn has landed
+    __syncthreads();     // tile j is split, tile j - 1's products done
+    const int jnn = next_live(jn + 1, mine_nn);
+    if (jnn < jt_hi) load_kv(jnn, st);  // lands while tile j is formed
+    if (mine) {
+      const uint32_t ka = smem_u32(sm + st * 4 * TF), kla = ka + TF;
+      const uint32_t va = ka + 2 * TF, vla = ka + 3 * TF;
+      const int* kseg = ctab + st * 2 * T_KEYS;
+      const int* kspan = kseg + T_KEYS;
+
+      // S = Q K^T: 64 rows x 64 keys, the small products first
+      float s[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      pin(s);
+      pin(qh);
+      pin(ql);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const uint32_t off = (kk >> 2) * SW_BLOCK + (kk & 3) * 32;
+        wgmma_tf32<T_KEYS>(&s[0][0], ql[kk], wg_desc(ka + off, 16, SW_GROUP));
+        wgmma_tf32<T_KEYS>(&s[0][0], qh[kk], wg_desc(kla + off, 16, SW_GROUP));
+        wgmma_tf32<T_KEYS>(&s[0][0], qh[kk], wg_desc(ka + off, 16, SW_GROUP));
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      pin(s);
+
+      const int kpos0 = p.kv_offset + j * T_KEYS;
+      bool whole = p.mode == kFull ||
+                   (kpos0 + T_KEYS - 1 <= r0 &&
+                    (p.mode != kSliding ||
+                     kpos0 > r0 + T_ROWS - 1 - p.window));
+      whole = __all_sync(FULL, one_seg && whole && kseg[lane] == seg_w &&
+                                   kseg[lane + 32] == seg_w);
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (whole) {
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[n][e] *= sl2;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
+            const bool ok = pair_ok<SPANS>(p.mode, p.window, qrow + 8 * i,
+                                           kpos0 + c, segq_r[i], kseg[c],
+                                           spanq_r[i], kspan[c]);
+            s[n][e] = ok ? s[n][e] * sl2 : -INFINITY;
+            mx[i] = fmaxf(mx[i], s[n][e]);
+          }
+      }
+      // online softmax; a row with no valid key so far keeps m = -inf and
+      // subtracts 0, so its probabilities are exactly 0
+      float corr[2], mu[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        mu[i] = m_new == -INFINITY ? 0.f : m_new;
+        corr[i] = ex2(m[i] - mu[i]);
+        m[i] = m_new;
+      }
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = ex2(s[n][e] - mu[e >> 1]);
+          psum[e >> 1] += s[n][e];
+        }
+      // l is the thread's share of its rows' sums until the end
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + psum[i];
+
+      // O rescaled, then O += P V: P's A operand of k-step kk is S's
+      // group kk as it lies, split in registers (V^T's keys are permuted
+      // to match)
+      uint32_t ph[NK][4], pl[NK][4];
+      split_acc(s, ph, pl);
+#pragma unroll
+      for (int nd = 0; nd < KD; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nd][e] *= corr[e >> 1];
+      pin(ph);
+      pin(pl);
+      pin(acc);
+      wgmma_fence();
+      acc_product(acc, ph, pl, va, vla);
+      wgmma_commit();
+      wgmma_wait0();
+      pin(acc);
+    }
+    // tile jn split into the other stage, which no warp reads before the
+    // next barrier: the other warpgroup's products may still run
+    if (jn < jt_hi) split_kv(st ^ 1);
+    fence_proxy_async();  // tile jn's split is seen by wgmma's reads
+    j = jn;
+    mine = mine_n;
+    jn = jnn;
+    mine_n = mine_nn;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(FULL, l[i], 1);
+    l[i] += __shfl_xor_sync(FULL, l[i], 2);
+  }
+  float* ob = o + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = qrow + 8 * i;
+    if (qp >= Sq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    float* orow = ob + (int64_t)qp * q_stride + t * 2;
+#pragma unroll
+    for (int nd = 0; nd < KD; ++nd)
+      *reinterpret_cast<float2*>(orow + nd * 8) =
+          make_float2(acc[nd][2 * i] * inv, acc[nd][2 * i + 1] * inv);
+    if (t == 0)
+      lse[((int64_t)b * p.H + h) * Sq + qp] =
+          l[i] > 0.f ? m[i] * LN2 + logf(l[i]) : -INFINITY;
+  }
+}
+
+// ---------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------
 cudaError_t summarize(const Params& p, int4* sumq, int4* sumk,
@@ -1983,8 +2381,8 @@ cudaError_t summarize(const Params& p, int4* sumq, int4* sumk,
 }
 
 // grid x, y, z, threads and shared memory of the last forward launch,
-// packed_fwd_wg_kernel or packed_fwd_f32_kernel (k1_last_fwd_launch
-// reads them)
+// packed_fwd_wg_kernel, packed_fwd_f32_kernel or packed_fwd_f32_cc_kernel
+// (k1_last_fwd_launch reads them)
 static long long g_fwd_launch[5] = {0, 0, 0, 0, 0};
 
 template <typename T, int D, bool SPANS>
@@ -2004,17 +2402,31 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
     packed_fwd_wg_kernel<D, SPANS><<<grid, W_THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, p, scale);
+  } else if constexpr (D == T_D) {
+    // split TF32 on the tensor cores
+    static bool smem_set[MAX_DEVICES];
+    constexpr size_t smem = F32FwdTile<D>::smem;
+    cudaError_t err =
+        allow_smem(packed_fwd_f32_kernel<D, SPANS>, smem, smem_set);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.H, (p.Sq + T_BLOCK - 1) / T_BLOCK, p.B);
+    const long long launch[5] = {grid.x, grid.y, grid.z, T_THREADS,
+                                 (long long)smem};
+    for (int i = 0; i < 5; ++i) g_fwd_launch[i] = launch[i];
+    packed_fwd_f32_kernel<D, SPANS><<<grid, T_THREADS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), lse, p, scale);
   } else {
     constexpr size_t smem = fwd_f32_smem<D>();
     cudaError_t err = cudaFuncSetAttribute(
-        packed_fwd_f32_kernel<D, SPANS>,
+        packed_fwd_f32_cc_kernel<D, SPANS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.Sq + S_BQ - 1) / S_BQ, p.H, p.B);
     const long long launch[5] = {grid.x, grid.y, grid.z, S_THREADS,
                                  (long long)smem};
     for (int i = 0; i < 5; ++i) g_fwd_launch[i] = launch[i];
-    packed_fwd_f32_kernel<D, SPANS><<<grid, S_THREADS, smem, stream>>>(
+    packed_fwd_f32_cc_kernel<D, SPANS><<<grid, S_THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, p, scale);
   }
@@ -2263,7 +2675,8 @@ void k1_last_bwd_dq_launch(long long* out) {
 }
 
 // The last launch of the forward kernel (packed_fwd_wg_kernel in
-// bfloat16, packed_fwd_f32_kernel in float32; any head dim), as
+// bfloat16; in float32 packed_fwd_f32_kernel at head_dim 64,
+// packed_fwd_f32_cc_kernel at 128 and 160), as
 // launch_fwd made it: out[0..2] its grid, out[3] its threads per
 // block, out[4] its dynamic shared memory in bytes. All 0 before the
 // first such launch.

@@ -32,12 +32,13 @@ query rows sharing a ring of K/V tiles (two blocks an SM at head_dim 64
 (query head, 64-key tile), each query head's fp32 dK and dV summed over
 its KV head's group afterwards. Head dim 160 (pixtral-12b) runs as 192
 columns in shared memory, the upper 32 zero-filled on the load: the
-tensors cross device memory at 160. The fp32 forward runs on the CUDA
-cores; the fp32 backward at head_dim 64 (whisper-small's) in split TF32
-by `wgmma`, as two kernels that each write their gradients once (dK and
-dV, then dQ: the same bits on every call), at 128 and 160 on the CUDA
-cores. Head dims 64, 128 and 160 run in both types, 256
-(recurrentgemma-2b) in bf16 only.
+tensors cross device memory at 160. fp32 at head_dim 64 (whisper-small's)
+runs in split TF32 by `wgmma` both ways: the forward as two warpgroups
+over 128 query rows sharing each split K/V tile, the backward as two
+kernels that each write their gradients once (dK and dV, then dQ: the
+same bits on every call); fp32 at 128 and 160 runs on the CUDA cores.
+Head dims 64, 128 and 160 run in both types, 256 (recurrentgemma-2b) in
+bf16 only.
 """
 from __future__ import annotations
 
@@ -52,14 +53,16 @@ from .flash_attention import MODES
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the forward and backward kernels of `csrc/flash_attention_packed.cu`
-#: each input dtype launches (fp32's backward at head_dim 64: dK and dV,
-#: with F32_DQ_KERNEL after it; see `bwd_kernels`)
+#: each input dtype launches (fp32 at head_dim 64; its backward: dK and
+#: dV, with F32_DQ_KERNEL after it; see `fwd_kernel` and `bwd_kernels`)
 KERNELS = {torch.float32: ("packed_fwd_f32_kernel", "packed_bwd_f32_kernel"),
            torch.bfloat16: ("packed_fwd_wg_kernel", "packed_bwd_kv_kernel")}
-#: fp32's dQ kernel at head_dim 64, and its CUDA-core backward at 128 / 160
+#: fp32's dQ kernel at head_dim 64, and its CUDA-core kernels at 128 /
+#: 160, forward and backward
 F32_DQ_KERNEL = "packed_bwd_f32_dq_kernel"
+F32_FWD_CC_KERNEL = "packed_fwd_f32_cc_kernel"
 F32_CC_KERNEL = "packed_bwd_f32_cc_kernel"
-#: the head dim of fp32's split-TF32 backward
+#: the head dim of fp32's split-TF32 kernels
 F32_TC_HEAD_DIM = 64
 _HEAD_DIMS = (64, 128, 160, 256)
 #: head dims the kernels take in bf16 only (recurrentgemma-2b's 256: no
@@ -285,7 +288,7 @@ def _launch_fwd(q, k, v, tables, mode, window, kv_offset):
                  MODES[mode], int(window or 0), int(kv_offset), stream)
     _raise_on(lib, err, "forward")
     flash_attention_packed.launches += 1
-    _count_by(KERNELS[q.dtype][0], mode, q.shape[1], k.shape[1])
+    _count_by(fwd_kernel(q.dtype, D), mode, q.shape[1], k.shape[1])
     return o, lse
 
 
@@ -300,8 +303,9 @@ def _last_launch(fn: str, n: int) -> list:
 
 def last_fwd_launch() -> dict:
     """The last launch of the forward kernel (either dtype, any
-    head_dim), as the library recorded it: `grid` (x, y, z), `threads` a block and
-    `smem_bytes` of dynamic shared memory."""
+    head_dim: the one `fwd_kernel` names), as the library recorded it:
+    `grid` (x, y, z), `threads` a block and `smem_bytes` of dynamic
+    shared memory."""
     out = _last_launch("k1_last_fwd_launch", 5)
     return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4])
 
@@ -323,6 +327,14 @@ def last_bwd_dq_launch() -> dict:
     dynamic shared memory."""
     out = _last_launch("k1_last_bwd_dq_launch", 5)
     return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4])
+
+
+def fwd_kernel(dtype, D: int) -> str:
+    """The kernel one forward launches in `dtype` at head_dim `D` (the
+    summaries aside)."""
+    if dtype == torch.float32 and D != F32_TC_HEAD_DIM:
+        return F32_FWD_CC_KERNEL
+    return KERNELS[dtype][0]
 
 
 def bwd_kernels(dtype, D: int) -> tuple:
@@ -455,9 +467,10 @@ def flash_attention_packed_bwd(q, k, v, o, lse, do, segment_ids, *,
 flash_attention_packed.launches = 0
 flash_attention_packed_bwd.launches = 0
 #: the launches of both directions by kernel and mode
-#: ("packed_fwd_f32_kernel full", "packed_bwd_kv_kernel causal", ...;
-#: fp32's backward at head_dim 64 counts both its kernels), since the
-#: dict was last set to {}
+#: ("packed_fwd_f32_kernel full", "packed_bwd_kv_kernel causal", ...:
+#: the kernels that ran, `fwd_kernel` and `bwd_kernels`; fp32's backward
+#: at head_dim 64 counts both its kernels), since the dict was last set
+#: to {}
 flash_attention_packed.launches_by = {}
 #: the same by kernel, mode and shape (query rows x key rows a batch
 #: row: "packed_bwd_f32_kernel full 448x1500", ...)

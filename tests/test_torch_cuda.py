@@ -1652,10 +1652,10 @@ def test_k1_f32_full_at_sq_ne_sk(card, B, Sq, Sk):
     28; 40 over 48) and the encoder's 1500 x 1500, forward and backward
     against the plain versions within the fp32 limits, each launch
     counted under its kernel and mode and under its shape, and recorded
-    by the library: 64 query rows a forward block of 128 threads; the
-    split-TF32 backward's dK / dV kernel a block per (128 keys, KV
-    head, row), its dQ kernel per (query head, 128 queries, row), 256
-    threads each."""
+    by the library: the split-TF32 forward a block per (query head, 128
+    queries, row); the split-TF32 backward's dK / dV kernel a block per
+    (128 keys, KV head, row), its dQ kernel per (query head, 128
+    queries, row); 256 threads each."""
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed, flash_attention_packed_bwd,
         flash_attention_packed_bwd_ref, flash_attention_packed_ref,
@@ -1684,8 +1684,8 @@ def test_k1_f32_full_at_sq_ne_sk(card, B, Sq, Sk):
         f"packed_fwd_f32_kernel full {Sq}x{Sk}": 1,
         f"packed_bwd_f32_kernel full {Sq}x{Sk}": 1,
         f"packed_bwd_f32_dq_kernel full {Sq}x{Sk}": 1}
-    assert fwd_launch["grid"] == (-(-Sq // 64), 12, B), fwd_launch
-    assert fwd_launch["threads"] == 128
+    assert fwd_launch["grid"] == (12, -(-Sq // 128), B), fwd_launch
+    assert fwd_launch["threads"] == 256
     assert bwd_launch["grid"] == (-(-Sk // 128), 12, B), bwd_launch
     assert dq_launch["grid"] == (12, -(-Sq // 128), B), dq_launch
     assert bwd_launch["threads"] == dq_launch["threads"] == 256
@@ -1696,6 +1696,93 @@ def test_k1_f32_full_at_sq_ne_sk(card, B, Sq, Sk):
         err = ((a - r).abs() / r.abs().clamp_min(1.0)).max().item()
         print(f"K1 fp32 full B={B} Sq={Sq} Sk={Sk} {name}: {err:.3g}")
         assert err <= TOL[torch.float32], (name, err)
+
+
+#: shared memory of the split-TF32 forward's block: two stages of split
+#: 64-key tiles (K's hi and lo, V^T's hi and lo), two of landing tiles,
+#: the stages' key tables, 1024 bytes of alignment room
+K1_F32_FWD_SMEM = 1024 + 12 * 64 * 64 * 4 + 4 * 8 * 64
+
+
+def _k1_f32_fwd_check(card, tag, q, k, v, seg, **kw):
+    """The fp32 forward against its plain version: o within fp32's limit
+    elementwise, the LSE within 1e-5 on rows with keys (-inf on the same
+    rows), the launch counted under its kernel; two calls give the same
+    bits. Returns o's elementwise error and the launch."""
+    from repro_torch.kernels.flash_attention_packed import (
+        fwd_kernel, last_fwd_launch)
+    (o, lse), (ro, rlse) = _k1_forward(card, q, k, v, seg, **kw)
+    launch = last_fwd_launch()
+    err = ((o - ro).abs() / ro.abs().clamp_min(1.0)).max().item()
+    fin = torch.isfinite(rlse)
+    lse_err = (lse[fin] - rlse[fin]).abs().max().item() if fin.any() else 0.
+    print(f"K1 fp32 fwd {tag} ({fwd_kernel(q.dtype, q.shape[-1])}): o "
+          f"{err:.3g}, lse {lse_err:.3g}, launch {launch}")
+    assert err <= TOL[torch.float32], (tag, err)
+    assert torch.equal(fin, torch.isfinite(lse)), tag
+    assert lse_err <= 1e-5, (tag, lse_err)
+    (o2, lse2), _ = _k1_forward(card, q, k, v, seg, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2), tag
+    return err, launch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq", [(8, 1500), (8, 448)])
+def test_k1_f32_forward_at_whisper_training_shapes(card, B, Sq):
+    """The split-TF32 forward at whisper-small's training shapes (8 rows;
+    the encoder's 1500 x 1500 and the cross-attention's 448 over 1500
+    frames, 12:12 heads of 64, full): within 1e-4 of the plain version,
+    the same bits on every call, launched as a block of 256 threads per
+    (query head, 128 queries, row) with K1_F32_FWD_SMEM bytes of shared
+    memory, counted under packed_fwd_f32_kernel."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed)
+    rng = np.random.default_rng(B * Sq)
+    q, k, v, _ = _k1_f32(card, rng, B, Sq, 1500, 12, 12)
+    seg = np.zeros((B, Sq), np.int32)
+    flash_attention_packed.launches_by = {}
+    _, launch = _k1_f32_fwd_check(
+        card, f"whisper {B}x{Sq}", q, k, v, seg, mode="full",
+        kv_segment_ids=torch.zeros(B, 1500, dtype=torch.int32, device=card))
+    assert flash_attention_packed.launches_by == {
+        "packed_fwd_f32_kernel full": 2}
+    assert launch == dict(grid=(12, -(-Sq // 128), B), threads=256,
+                          smem_bytes=K1_F32_FWD_SMEM), launch
+
+
+@pytest.mark.cuda
+def test_k1_f32_forward_at_the_longest_packed_row(card):
+    """The longest row the main paths build, a 4096-token packed bucket
+    with 256-token frames at 12:2 causal (64 live key tiles for its last
+    rows), in fp32 at head_dim 64: O summed on the tensor cores over the
+    whole walk stays within 1e-4 of the plain version (the reading is
+    printed)."""
+    rng = np.random.default_rng(44)
+    q, k, v, _ = _k1_f32(card, rng, 1, 4096, 4096, 12, 2)
+    seg, span = _frames(4096)
+    _k1_f32_fwd_check(card, "4096 causal 12:2 spans", q, k, v, seg,
+                      span_ids=torch.from_numpy(span).to(card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 160])
+def test_k1_f32_forward_head_dims_128_160_run_the_cuda_core_kernel(card, D):
+    """fp32 at head_dim 128 and 160 keeps the CUDA-core forward: a block
+    of 128 threads per (64 queries, query head, row), counted under
+    packed_fwd_f32_cc_kernel; within 1e-4 of the plain version."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed)
+    rng = np.random.default_rng(45)
+    B, S = 2, 700
+    seg, span = _packed_tables(B, S, [300, 37, 250, 1], True, frame=40)
+    q, k, v, _ = _k1_f32(card, rng, B, S, S, *K1_HEADS[D], D)
+    flash_attention_packed.launches_by = {}
+    _, launch = _k1_f32_fwd_check(card, f"D={D}", q, k, v, seg,
+                                  span_ids=torch.from_numpy(span).to(card))
+    assert flash_attention_packed.launches_by == {
+        "packed_fwd_f32_cc_kernel causal": 2}
+    assert launch["grid"] == (-(-S // 64), K1_HEADS[D][0], B), launch
+    assert launch["threads"] == 128, launch
 
 
 def _k1_f32(card, rng, B, Sq, Sk, H, Hkv, D=64):

@@ -19,11 +19,12 @@ kernels round, and holds them:
   * at whisper-small's encoder shape (1 x 1500, 12:12 heads of 64, full)
     within fp32's 1e-4 limit, where plain TF32 (every lo term dropped),
     and the lo terms of dK's product alone, miss it;
-  * and the register layout the kernels rely on: an accumulator used as
-    a wgmma A operand as it lies meets the transposed walked tile's rows
-    in the permuted order the kernels write them (kap), and their
-    product is exact; the transposed stores hit every word of the tile
-    once, a warp's 32 stores in 32 banks.
+  * and the register layout the kernels rely on, at the backward's
+    walked tiles of 32 rows and the forward's of 64 keys: an
+    accumulator used as a wgmma A operand as it lies meets the
+    transposed walked tile's rows in the permuted order the kernels
+    write them (kap), and their product is exact; the transposed stores
+    hit every word of the tile once, a warp's 32 stores in 32 banks.
 """
 import math
 
@@ -34,6 +35,9 @@ import torch
 import jax
 import jax.numpy as jnp
 from repro.models.attention import attn_reference
+from _split_tf32 import (as_tensor as _t, kap, scaled as _scaled,
+                         seg as _seg, split_product, sw128 as _sw128,
+                         tf32)
 from repro_torch.kernels.flash_attention_packed import (
     _tables, flash_attention_packed_bwd_ref, flash_attention_packed_ref,
     pair_mask)
@@ -49,24 +53,6 @@ STEP = 32      # the rows of a walked tile
 LOG2E = 1.4426950408889634
 #: the backward's products, by what they form
 PRODUCTS = ("s", "dp", "dv", "dk", "dq")
-
-
-def tf32(x: torch.Tensor) -> torch.Tensor:
-    """fp32 -> TF32 as `cvt.rna.tf32.f32` rounds: the magnitude to 10
-    mantissa bits, nearest, ties away from zero."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def split_product(a, b, lo=True):
-    """a @ b as the kernels form it: hi hi' + hi lo' + lo hi', each a
-    product of TF32 values (exact in fp32), summed in fp32; `lo=False`
-    is plain TF32."""
-    ah, bh = tf32(a), tf32(b)
-    if not lo:
-        return ah @ bh
-    al, bl = tf32(a - ah), tf32(b - bh)
-    return al @ bh + ah @ bl + ah @ bh
 
 
 def _tiles(x, n):
@@ -155,36 +141,11 @@ def split_tf32_backward(q, k, v, o, lse, do, segment_ids, *, mode="causal",
     return untile(dq, Sq), untile(dk, Sk), untile(dv, Sk)
 
 
-def _scaled(got, want) -> float:
-    want = torch.as_tensor(np.array(want, np.float32))
-    return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
-
-
-def _seg(B, S, lens, frame=None):
-    """Segments of `lens` then tail padding; with `frame`, spans of
-    `frame` tokens after every `frame // 2` causal ones (ids unique)."""
-    seg = np.full((B, S), -1, np.int32)
-    span = np.full((B, S), -1, np.int32)
-    off, sid = 0, 0
-    for i, L in enumerate(lens):
-        seg[:, off:off + L] = i
-        p = (frame or 0) // 2
-        while frame and p < L:
-            span[:, off + p:off + min(p + frame, L)] = sid
-            sid, p = sid + 1, p + frame + frame // 2
-        off += L
-    return seg, (span if frame else None)
-
-
 def _inputs(B, Sq, Sk, H, Hkv, D, seed):
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             for s in ((B, Sq, H, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D),
                       (B, Sq, H, D))]
-
-
-def _t(a):
-    return None if a is None else torch.from_numpy(a)
 
 
 #: name -> (B, Sq, Sk, H, Hkv, mode, window, segments, span frame, ring
@@ -305,29 +266,29 @@ def test_dk_product_alone_in_plain_tf32_misses_the_limit(whisper_encoder):
     assert err["dq"] <= TOL_F32 / 10 and err["dv"] <= TOL_F32 / 10
 
 
-def kap(r: int) -> int:
-    """The kernels' position of walked row r in a transposed tile."""
-    w = r & 7
-    return (r & ~7) + (4 + (w >> 1) if w & 1 else w >> 1)
+#: the rows of a walked tile: the backward's (32), the forward's (64 keys)
+TILE_ROWS = (STEP, 64)
 
 
-def test_accumulator_operand_meets_transposed_rows_in_kap_order():
-    """One warp's 16 rows (keys) and a walked tile of 32 queries, as the
-    kernels lay them out. The accumulator gives lane l = 4 g + t the
-    values at rows g, g + 8 and columns 8 n + 2 t (+1); its A operand of
-    k-step kk is {s[kk][0], s[kk][2], s[kk][1], s[kk][3]} at (row g, k
-    t), (g + 8, t), (g, t + 4), (g + 8, t + 4); the transposed tile
-    holds walked row r at column kap(r). The products over those
-    operands are P^T dO, to the bit."""
+@pytest.mark.parametrize("rows", TILE_ROWS)
+def test_accumulator_operand_meets_transposed_rows_in_kap_order(rows):
+    """One warp's 16 rows of an accumulator over a walked tile of `rows`
+    (P^T over 32 queries in the backward, P over 64 keys in the
+    forward), as the kernels lay them out. The accumulator gives lane l
+    = 4 g + t the values at rows g, g + 8 and columns 8 n + 2 t (+1); its
+    A operand of k-step kk (split_acc) is {s[kk][0], s[kk][2], s[kk][1],
+    s[kk][3]} at (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4);
+    the transposed tile holds walked row r at column kap(r). The
+    products over those operands are P^T dO (P V), to the bit."""
     rng = np.random.default_rng(6)
-    P = rng.integers(-8, 8, (16, STEP)).astype(np.float64)
-    dO = rng.integers(-8, 8, (STEP, D)).astype(np.float64)
-    assert sorted(kap(r) for r in range(STEP)) == list(range(STEP))
-    dOt = np.zeros((D, STEP))
-    for r in range(STEP):
+    P = rng.integers(-8, 8, (16, rows)).astype(np.float64)
+    dO = rng.integers(-8, 8, (rows, D)).astype(np.float64)
+    assert sorted(kap(r) for r in range(rows)) == list(range(rows))
+    dOt = np.zeros((D, rows))
+    for r in range(rows):
         dOt[:, kap(r)] = dO[r]
     out = np.zeros((16, D))
-    for kk in range(STEP // 8):
+    for kk in range(rows // 8):
         A = np.zeros((16, 8))
         for lane in range(32):
             g, t = lane >> 2, lane & 3
@@ -340,25 +301,23 @@ def test_accumulator_operand_meets_transposed_rows_in_kap_order():
     np.testing.assert_array_equal(out, P @ dO)
 
 
-def _sw128(rows, r, c):
-    """`sw128<ROWS>(r, c)` of hopper.cuh: byte offset of 16-byte chunk c
-    of row r, rows of 128 bytes in blocks of ROWS, chunks swizzled by
-    r % 8."""
-    return (c >> 3) * (rows * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4)
-
-
-def test_transposed_stores_cover_the_tile_without_bank_conflicts():
+@pytest.mark.parametrize("rows", TILE_ROWS)
+def test_transposed_stores_cover_the_tile_without_bank_conflicts(rows):
     """split_step's transposed stores: element (walked row r, column d) of
-    a [32][64] tile goes to sw128<64>(d, kap(r) / 4) + (kap(r) % 4) * 4
-    of the [64][32] tile: every word once; a warp (32 consecutive rows,
-    one 16-byte column c, one of its 4 elements) in 32 banks."""
+    a [rows][64] tile goes to sw128<64>(d, kap(r) / 4) + (kap(r) % 4) * 4
+    of the [64][rows] tile: every word once; a warp (32 consecutive rows,
+    one 16-byte column c, one of its 4 elements) in 32 banks. Its loads,
+    16 bytes of 32 rows of the landed tile, cover 32 distinct chunks."""
     addr = {}
-    for r in range(STEP):
+    for r in range(rows):
         for d in range(D):
             p = kap(r)
             addr[r, d] = _sw128(D, d, p >> 2) + (p & 3) * 4
-    assert sorted(addr.values()) == list(range(0, STEP * D * 4, 4))
-    for c in range(D // 4):
-        for e in range(4):
-            banks = {addr[r, 4 * c + e] // 4 % 32 for r in range(STEP)}
-            assert len(banks) == 32
+    assert sorted(addr.values()) == list(range(0, rows * D * 4, 4))
+    for first in range(0, rows, 32):
+        warp = range(first, first + 32)
+        for c in range(D // 4):
+            assert len({_sw128(rows, r, c) for r in warp}) == 32
+            for e in range(4):
+                banks = {addr[r, 4 * c + e] // 4 % 32 for r in warp}
+                assert len(banks) == 32

@@ -61,10 +61,15 @@ def test_each_fault_must_show_in_some_case(shape, fault):
     if fault == "unmasked_window_edge":
         assert all(seg.shape[-1] > window
                    for _, _, seg, _, _, window, _ in must)
-    if fault == "f32_lo_dropped":
-        # plain TF32 in dK's product misses 1e-4 at the encoder's shape
-        # (tests/test_torch_k1_f32_split.py), not necessarily elsewhere
+    if fault in ("f32_lo_dropped", "f32_fwd_lo_zeroed"):
+        # plain TF32 in dK's product, or in the forward's, misses 1e-4 at
+        # the encoder's shape (tests/test_torch_k1_f32_split.py,
+        # tests/test_torch_k1_f32_fwd_split.py), not necessarily elsewhere
         assert [c[0] for c in must] == ["enc1500"]
+    if fault == "f32_fwd_gqa_head_map":
+        # a wrong head map shows only where query heads share a KV head
+        assert all(c[6].get("HKV", K1.SHAPES[shape]["HKV"])
+                   < K1.SHAPES[shape]["H"] for c in must)
 
 
 def test_wave_model_places_blocks_in_issue_order():
@@ -128,24 +133,69 @@ def test_fp32_cases_run_at_whisper_heads_and_gqa():
         "gqa1024_causal": (1, 1024, 1024, 2, "causal", None, True, 0),
         "hop512_gqa": (1, 512, 512, 2, "causal", None, True, -512)}
     faults = [f for f in K1.FAULTS["whisper"] if f != "sound"]
-    assert len(faults) == 7 and all(f.startswith("f32_") for f in faults)
+    assert all(f.startswith("f32_") for f in faults)
+    fwd = [f for f in faults if f.startswith("f32_fwd_")]
+    assert (len(faults) - len(fwd), len(fwd)) == (7, 6)
     assert K1.limit("whisper") == ("elementwise", 1e-4)
     assert {K1.limit(s) for s in K1.SHAPES if s != "whisper"} == {
         ("whole", 2e-2)}
 
 
 def test_fp32_faults_sit_in_the_split_tf32_backward():
-    """Every `f32_*` fault's text lies in the split-TF32 backward: its
-    section of the source (the two kernels and their helpers) or its
-    launch, never in the CUDA-core kernel that head dims 128 and 160
-    still run."""
+    """Every backward `f32_*` fault's text lies in the split-TF32
+    backward: its section of the source (the two kernels and their
+    helpers) or its launch, never in the CUDA-core kernel that head dims
+    128 and 160 still run."""
     start = SOURCE.index("// Backward, fp32, D = 64: split TF32")
-    end = SOURCE.index("// Launchers")
-    launch = SOURCE.index("  } else if constexpr (D == T_D) {")
+    end = SOURCE.index("// Forward, fp32, D = 64: split TF32")
+    launch = SOURCE.index("  } else if constexpr (D == T_D) {\n"
+                          "    // split TF32: dK and dV")
     launch_end = SOURCE.index("    constexpr size_t smem = bwd_f32_smem<D>();")
     cc = SOURCE.index("packed_bwd_f32_cc_kernel(const float*")
-    assert cc < start
+    assert cc < start < end
     for fault, (_, _, edits) in K1.FAULTS["whisper"].items():
+        if fault.startswith("f32_fwd_"):
+            continue
         for text, _ in edits:
             at = SOURCE.index(text)
             assert start < at < end or launch < at < launch_end, fault
+
+
+def _forward_body():
+    """[start, end) of the split-TF32 forward kernel's body in SOURCE."""
+    start = SOURCE.index("packed_fwd_f32_kernel(const float*")
+    end = SOURCE.index("// Launchers")
+    assert SOURCE.index("packed_fwd_f32_cc_kernel(const float*") < start
+    assert SOURCE.index("// Forward, fp32, D = 64: split TF32") < start
+    return start, end
+
+
+def test_fp32_forward_faults_sit_in_the_split_tf32_forward():
+    """Every `f32_fwd_*` fault is planted in the body of the split-TF32
+    forward (packed_fwd_f32_kernel), never in the CUDA-core forward that
+    head dims 128 and 160 still run nor in the backward's kernels: each
+    has an edit in that body, and any other edit lies in the split
+    helper the forward shares with the backward (`split_step`), which
+    the forward's own edit must then switch on. Each must show in o or
+    the LSE, the forward's outputs."""
+    start, end = _forward_body()
+    helper = SOURCE.index("__device__ __forceinline__ void split_step(")
+    helper_end = SOURCE.index("__device__ __forceinline__ void split_fixed(")
+    fwd = {f: v for f, v in K1.FAULTS["whisper"].items()
+           if f.startswith("f32_fwd_")}
+    assert fwd == K1.F32_FWD_FAULTS
+    for fault, (shows, _, edits) in fwd.items():
+        assert set(shows) & {"o", "lse"} and set(shows) <= set(K1.READ)
+        at = [SOURCE.index(text) for text, _ in edits]
+        assert any(start < a < end for a in at), fault
+        assert all(start < a < end or helper < a < helper_end
+                   for a in at), fault
+
+
+@pytest.mark.parametrize("edit", sorted(e for e in K1.EDITS
+                                        if e.startswith("f32_fwd_")))
+def test_fp32_forward_edits_sit_in_the_split_tf32_forward(edit):
+    """The forward's measurement edits change its body alone."""
+    start, end = _forward_body()
+    for text, _ in K1.EDITS[edit]:
+        assert start < SOURCE.index(text) < end, edit
