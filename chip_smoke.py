@@ -12,8 +12,10 @@ qwen3vl-8b's DHP training at full width, depth cut, and their serving
 whole; chatglm3-6b, glm4-9b, minitron-4b and llama3-405b, 2 layers,
 through Engine.serve; pixtral-12b's forward with patch embeddings), and
 the audio family (whisper-small's serving, forward and training through
-make_train_step, whole, and a checkpoint resume) — and checks what comes
-out.
+make_train_step, whole, and a checkpoint resume), and the front door
+(internvl3-2b trained under the paper's baselines and DHP's variants,
+and trained, replayed and served through `python -m
+repro_torch.api.cli`) — and checks what comes out.
 
     python3 chip_smoke.py
 
@@ -353,10 +355,35 @@ Phases:
                 at all (the bf16 decoder's dQ atomics); two faults planted in copies of
                 the restored state (moments zeroed, step counter reset)
                 beyond the share, the first beyond the loss limit too;
-                the file's bytes and the ms to save and to restore. Then
-                the run's wall
-Phases 27-38 run in a process of their own (`--late-phases`), and
-phases 39-42 in another (`--audio-train-phases`), each started by the
+                the file's bytes and the ms to save and to restore
+ 43. strategies — full-width internvl3-2b, bf16, at phase 20's 6 ranks on
+                the one card (one ClusterSpec: rings for degrees > 1),
+                Engine.train(report=True) 2 steps each under megatron,
+                deepspeed, dhp-faithful and oracle: losses finite, each
+                plan valid against its batch (ExecutionPlan.validate:
+                coverage, Eq. 6 at 6 ranks, Eq. 3 at the budget),
+                deepspeed's degrees powers of two, the oracle's measured
+                table one sample per group that paid no build; degrees,
+                step time, real tokens/s, peak memory, K1's launches and
+                the run report's summary for each
+ 44. CLI train — `python -m repro_torch.api.cli --strategy dhp --steps 3`
+                at full width (one rank; the CLI's default data, 8
+                openvid sequences of at most 512 tokens a step) with
+                --save-plans, --report and --metrics, then with
+                --replay-plans: the replay's structural hashes and rank
+                slots equal the saved ones, its first loss the same bits,
+                the later ones within 2e-4 relative; K1 launched in both
+ 45. CLI serve — `python -m repro_torch.api.cli serve --requests 8` at
+                full width, the CLI's defaults (span-bearing openvid
+                prompts, which take the chunked prefill: plain torch
+                ops, no kernel; K2's serving path is phases 5 and 32):
+                every sampled request finishes; tokens/s, TTFT and K2's
+                launches (0 on this traffic). Then the run's wall
+The CLI runs of phases 44-45 each run in a process of their own, as
+`python -m` runs the module (runpy), that then prints its kernels'
+launch counters. Phases 27-38 run in a process of their own
+(`--late-phases`), phases 39-42 in another (`--audio-train-phases`) and
+phases 43-45 in a third (`--front-door-phases`), each started by the
 first on the same card after it has released its memory: after some
 400 profiler sessions in one process torch.profiler drops kernels'
 events and then traces none, so their device times are read from a
@@ -3962,16 +3989,16 @@ def phase_audio_resume(dev, card):
 def audio_train_phases(dev, card) -> dict:
     """Phases 39-42; returns what the kernels line takes from them."""
     phase = PhaseClock()
-    phase("[39/42] K1 vs plain versions at whisper-small's training shapes "
+    phase("[39/45] K1 vs plain versions at whisper-small's training shapes "
           "(12:12 heads of 64: fp32 full 1500 x 1500 and 448 over 1500, "
           "bf16 causal 448; 1 and 8 rows)")
     rows = phase_audio_train_kernels(dev, card)
-    phase("[40/42] audio training parity at reduced size (fp32)")
+    phase("[40/45] audio training parity at reduced size (fp32)")
     phase_audio_train_parity(dev, card)
-    phase("[41/42] full-width whisper-small training (bf16 parameters, "
+    phase("[41/45] full-width whisper-small training (bf16 parameters, "
           "fp32 frames) through make_train_step")
     by, shapes = phase_audio_training(dev, card, rows)
-    phase("[42/42] a checkpoint resume on the card (whisper-small, "
+    phase("[42/45] a checkpoint resume on the card (whisper-small, "
           f"{AUDIO_TRAIN_DEPTH} + {AUDIO_TRAIN_DEPTH} layers)")
     resume = phase_audio_resume(dev, card)
     phase.end()
@@ -4038,6 +4065,278 @@ class PhaseClock:
             self.label = None
 
 
+# ------------------------------------------------ the front door
+#: phase 43: the paper's baselines and DHP's variants, each trained
+#: FRONT_STEPS steps at phase 20's ranks and budget (rings on the card)
+FRONT_STRATEGIES = ("megatron", "deepspeed", "dhp-faithful", "oracle")
+FRONT_STEPS = 2
+#: phase 44: the CLI's training run and its replay (one rank, the card,
+#: the CLI's own data defaults): its steps, and the replay's loss limit
+#: after the first
+#: step (bf16 dQ's atomics vary the later steps; the first is the same
+#: bits)
+CLI_STEPS = 3
+CLI_TRAIN = ["--arch", "internvl3-2b", "--strategy", "dhp", "--steps",
+             str(CLI_STEPS)]
+CLI_LOSS_RTOL = 2e-4
+#: phase 45: the CLI's serving run at its defaults. Its sampled prompts
+#: carry modality spans and take the chunked prefill, which runs no
+#: kernel
+CLI_SERVE = ["serve", "--arch", "internvl3-2b", "--requests", "8"]
+#: runs `python -m repro_torch.api.cli ARGS` as `-m` runs it (runpy, as
+#: `__main__`), then prints the kernels' launch counters and the peak
+#: memory of that process on one line
+CLI_PROBE = """\
+import json, runpy, sys
+import torch
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention_packed import (
+    flash_attention_packed, flash_attention_packed_bwd)
+kernels = {"k2": flash_attention, "k1_fwd": flash_attention_packed,
+           "k1_bwd": flash_attention_packed_bwd}
+for k in kernels.values():
+    k.launches = 0
+sys.argv = ["repro_torch.api.cli"] + sys.argv[1:]
+runpy.run_module("repro_torch.api.cli", run_name="__main__",
+                 alter_sys=True)
+torch.cuda.synchronize()
+print("CLI_PROBE " + json.dumps(dict(
+    {n: k.launches for n, k in kernels.items()},
+    peak_bytes=torch.cuda.max_memory_allocated())))
+"""
+FRONT_TIMEOUT_S = 600
+
+
+def _recording(loader, batches):
+    """Yields `loader`'s batches, keeping each in `batches`."""
+    for batch in loader:
+        batches.append(batch)
+        yield batch
+
+
+def phase_strategies(dev, card) -> dict:
+    """Full-width internvl3-2b through Engine.train under each of
+    FRONT_STRATEGIES at RING_RANKS ranks on the one card (one ClusterSpec,
+    so the engines share its pool of built steps), report=True. Holds
+    every loss finite, every plan valid against its batch (Eq. 3, 6 and
+    coverage), deepspeed's degrees powers of two and the oracle's
+    measured table one sample per group that paid no build; returns each
+    strategy's K1 launches and readings."""
+    import gc
+
+    from repro_torch.api import ClusterSpec, Engine
+    from repro_torch.data.pipeline import HeterogeneousLoader
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd)
+    from repro_torch.training.optimizer import tree_leaves
+
+    run = dict(dataset="openvid", global_batch=8, max_tokens=4096,
+               tokens_per_frame=256)
+    cluster = ClusterSpec(devices=[dev] * RING_RANKS,
+                          mem_budget=RING_BUDGET)
+    out = {}
+    for name in FRONT_STRATEGIES:
+        t0 = time.perf_counter()
+        eng = Engine("internvl3-2b", cluster, strategy=name, seed=0)
+        eng.state
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        loader = HeterogeneousLoader(
+            run["dataset"], run["global_batch"], eng.cfg.vocab,
+            seed=eng.seed, max_tokens=run["max_tokens"],
+            tokens_per_frame=run["tokens_per_frame"])
+        batches, plans, seen = [], [], []
+        observe = eng.strategy.observe
+
+        def observing(plan, timings, observe=observe, seen=seen):
+            seen.extend(timings)
+            observe(plan, timings)
+        eng.strategy.observe = observing
+        torch.cuda.reset_peak_memory_stats(dev)
+        flash_attention_packed.launches = 0
+        flash_attention_packed_bwd.launches = 0
+        hist = eng.train(_recording(loader, batches), steps=FRONT_STEPS,
+                         plan_log=plans, report=True)
+        torch.cuda.synchronize()
+        launches = (flash_attention_packed.launches,
+                    flash_attention_packed_bwd.launches)
+        peak = torch.cuda.max_memory_allocated(dev)
+        if len(hist) != FRONT_STEPS or len(batches) != FRONT_STEPS:
+            raise AssertionError(f"{name}: {len(hist)} steps over "
+                                 f"{len(batches)} batches, want "
+                                 f"{FRONT_STEPS}")
+        degrees = set()
+        for m, plan, data in zip(hist, plans, batches):
+            if not math.isfinite(m.loss):
+                raise AssertionError(f"{name} step {m.step}: loss {m.loss}")
+            plan.validate(data.infos, n_ranks=RING_RANKS,
+                          cost_model=eng.cost_model, mem_budget=RING_BUDGET)
+            degrees |= set(m.degree_histogram)
+            print(f"  {name} step {m.step}: loss={m.loss} step_time_s="
+                  f"{m.step_time_s} tokens={m.tokens} tokens_per_s="
+                  f"{m.tokens / m.step_time_s} padding_efficiency="
+                  f"{m.padding_efficiency} degrees={m.degree_histogram} "
+                  f"waves={len(plan.micro_batches)} schedule_ms="
+                  f"{m.schedule_ms} model_error_pct={m.model_error_pct} "
+                  f"({card})")
+        if name == "deepspeed" and any(d & (d - 1) for d in degrees):
+            raise AssertionError(f"deepspeed planned degrees "
+                                 f"{sorted(degrees)}, not powers of two")
+        n_groups = sum(p.n_groups for p in plans)
+        clean = sum(not t["compiled"] for t in seen)
+        if len(seen) != n_groups:
+            raise AssertionError(f"{name}: {len(seen)} timed groups, the "
+                                 f"plans hold {n_groups}")
+        if name == "oracle" and eng.strategy.measured.n_samples != clean:
+            raise AssertionError(
+                f"oracle: {eng.strategy.measured.n_samples} samples, "
+                f"{clean} groups paid no build")
+        if min(launches) <= 0:
+            raise AssertionError(f"{name}: K1 launches {launches}")
+        if not all(torch.isfinite(t).all() for t in tree_leaves(
+                eng.state.params)):
+            raise AssertionError(f"{name}: parameters are not finite")
+        print(f"  {name}: degrees {sorted(degrees)}, K1 launches (fwd, "
+              f"bwd) {launches}, max_memory_allocated_bytes {peak}, "
+              f"init {init_s:.1f} s, groups {n_groups} ({clean} without a "
+              f"build) ({card})")
+        for line in eng.last_report.summary().splitlines():
+            print(f"  {name} {line.strip()}")
+        out[name] = dict(launches=launches, degrees=sorted(degrees),
+                         peak_bytes=peak,
+                         step_time_s=[m.step_time_s for m in hist],
+                         tokens_per_s=[m.tokens / m.step_time_s
+                                       for m in hist])
+        eng.close()
+        del eng, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cli(args, card, label):
+    """CLI_PROBE with `args` in a process of its own; prints its output
+    (prefixed) and returns (stdout, the probe's counters, wall s)."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", CLI_PROBE, *args], env=env,
+                       capture_output=True, text=True,
+                       timeout=FRONT_TIMEOUT_S // 2)
+    wall = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        if not line.startswith("CLI_PROBE "):
+            print(f"  {label} | {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"{label}: exit {r.returncode}:\n"
+                             f"{r.stderr[-3000:]}")
+    probe = json.loads(r.stdout.rsplit("CLI_PROBE ", 1)[1])
+    print(f"  {label}: wall {wall:.1f} s, launches {probe} ({card})")
+    return r.stdout, probe, wall
+
+
+def phase_cli_train(dev, card) -> dict:
+    """`python -m repro_torch.api.cli` trains CLI_STEPS steps at full
+    width with --save-plans, --report and --metrics, then replays the
+    saved plans: the replay's hashes and rank slots equal the saved
+    ones, its first loss the same bits, the later ones within
+    CLI_LOSS_RTOL."""
+    from repro_torch.core.scheduler import load_plans
+
+    d = os.path.join(ROOT, "build", "chip_smoke_cli")
+    os.makedirs(d, exist_ok=True)
+    f = {k: os.path.join(d, k + ".json") for k in (
+        "plans", "report", "metrics", "replayed", "replay_metrics")}
+    for path in f.values():
+        if os.path.exists(path):
+            os.remove(path)
+    _, train, train_wall = _cli(
+        CLI_TRAIN + ["--save-plans", f["plans"], "--report", f["report"],
+                     "--metrics", f["metrics"]], card, "cli train")
+    _, replay, replay_wall = _cli(
+        CLI_TRAIN + ["--replay-plans", f["plans"], "--save-plans",
+                     f["replayed"], "--metrics", f["replay_metrics"]],
+        card, "cli replay")
+    with open(f["metrics"]) as fh:
+        steps = json.load(fh)["steps"]
+    with open(f["replay_metrics"]) as fh:
+        rsteps = json.load(fh)["steps"]
+    with open(f["report"]) as fh:
+        report = json.load(fh)
+    saved, replayed = load_plans(f["plans"]), load_plans(f["replayed"])
+    if len(steps) != CLI_STEPS or len(rsteps) != CLI_STEPS:
+        raise AssertionError(f"{len(steps)} and {len(rsteps)} steps, want "
+                             f"{CLI_STEPS}")
+    if report["n_steps"] != CLI_STEPS:
+        raise AssertionError(f"the report holds {report['n_steps']} steps")
+    if [p.structural_hash() for p in replayed] != \
+            [p.structural_hash() for p in saved]:
+        raise AssertionError("the replay's plans hash apart from the saved")
+    if [p.group_slots(1) for p in replayed] != \
+            [p.group_slots(1) for p in saved]:
+        raise AssertionError("the replay's rank slots differ")
+    for a, b in zip(steps, rsteps):
+        if not math.isfinite(a["loss"]):
+            raise AssertionError(f"cli step {a['step']}: loss {a['loss']}")
+        rel = abs(a["loss"] - b["loss"]) / abs(a["loss"])
+        print(f"  cli step {a['step']}: loss={a['loss']} replay "
+              f"{b['loss']} (relative {rel}) step_time_s="
+              f"{a['step_time_s']} tokens={a['tokens']} tokens_per_s="
+              f"{a['tokens'] / a['step_time_s']} degrees="
+              f"{a['degree_histogram']} ({card})")
+        if (a["step"] == 0 and a["loss"] != b["loss"]) or \
+                rel > CLI_LOSS_RTOL:
+            raise AssertionError(f"cli step {a['step']}: replay loss "
+                                 f"{b['loss']} against {a['loss']}")
+    for probe in (train, replay):
+        if min(probe["k1_fwd"], probe["k1_bwd"]) <= 0:
+            raise AssertionError(f"the CLI's K1 launches: {probe}")
+    print(f"  cli report: n_steps {report['n_steps']} imbalance "
+          f"{report['imbalance']} model_error mape_pct "
+          f"{report['model_error']['mape_pct']} ({card})")
+    return dict(train=train, replay=replay, train_wall_s=train_wall,
+                replay_wall_s=replay_wall)
+
+
+def phase_cli_serve(dev, card) -> dict:
+    """`python -m repro_torch.api.cli serve` at full width: every sampled
+    request finishes; tokens/s and TTFT from its summary line."""
+    import re
+
+    out, probe, wall = _cli(CLI_SERVE, card, "cli serve")
+    n = int(CLI_SERVE[CLI_SERVE.index("--requests") + 1])
+    done = sum(line.startswith("request ") and " finished: " in line
+               for line in out.splitlines())
+    m = re.search(r"(\d+) requests, (\d+) tokens in ([\d.]+)s "
+                  r"\(([\d.]+) tok/s\) ttft mean=(\d+)ms max=(\d+)ms", out)
+    if done != n or m is None or int(m.group(1)) != n:
+        raise AssertionError(f"cli serve: {done} of {n} requests finished")
+    stats = dict(requests=n, tokens=int(m.group(2)),
+                 wall_s=float(m.group(3)), tokens_per_s=float(m.group(4)),
+                 mean_ttft_ms=int(m.group(5)), max_ttft_ms=int(m.group(6)),
+                 peak_bytes=probe["peak_bytes"], k2_launches=probe["k2"])
+    print(f"  cli serve: {stats} ({card})")
+    return dict(probe=probe, stats=stats, process_wall_s=wall)
+
+
+def front_door_phases(dev, card) -> dict:
+    """Phases 43-45; returns what the kernels line takes from them."""
+    phase = PhaseClock()
+    phase(f"[43/45] the strategies: full-width internvl3-2b (bf16) at "
+          f"{RING_RANKS} ranks on the one card, {FRONT_STEPS} steps each "
+          f"of {', '.join(FRONT_STRATEGIES)}, report=True")
+    strategies = phase_strategies(dev, card)
+    phase(f"[44/45] python -m repro_torch.api.cli: {CLI_STEPS} full-width "
+          f"DHP steps (bf16) with saved plans, report and metrics, then "
+          f"their replay")
+    cli = phase_cli_train(dev, card)
+    phase("[45/45] python -m repro_torch.api.cli serve: full-width "
+          "internvl3-2b (bf16), 8 sampled requests")
+    serve = phase_cli_serve(dev, card)
+    phase.end()
+    return dict(strategies=strategies, cli=cli, serve=serve)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4049,11 +4348,11 @@ def _leaves(tree):
 def late_phases(dev, card) -> dict:
     """Phases 27-38; returns what the kernels line takes from them."""
     phase = PhaseClock()
-    phase("[27/42] K1 and K2 vs plain versions at the dense and VLM "
+    phase("[27/45] K1 and K2 vs plain versions at the dense and VLM "
           "configs' head groupings (32:2, 24:8, 32:8, 128:8 at D=128; 32:8 "
           "at D=160)")
     dense_k1, dense_k2 = phase_dense_kernels(dev, card)
-    phase("[28/42] dense and VLM training parity at reduced size (fp32): "
+    phase("[28/45] dense and VLM training parity at reduced size (fp32): "
           "chatglm3-6b, pixtral-12b at head_dim 160")
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed)
@@ -4061,32 +4360,32 @@ def late_phases(dev, card) -> dict:
     flash_attention_packed.launches_by_shape = {}
     phase_dense_parity(dev)
     parity_by = dict(flash_attention_packed.launches_by_shape)
-    phase("[29-30/42] full-width DHP training (bf16), depth cut: "
+    phase("[29-30/45] full-width DHP training (bf16), depth cut: "
           + ", ".join(f"{a} {n} layers" for a, n in DENSE_TRAIN))
     dense_train = phase_dense_training(dev, card)
-    phase("[31/42] K1 at head_dim 160 vs plain versions at the pixtral-12b "
+    phase("[31/45] K1 at head_dim 160 vs plain versions at the pixtral-12b "
           "run's shapes")
     _, _, p_tables, p_layers = dense_train["pixtral-12b"]
     d160_path = phase_train_path(dev, card, p_tables, p_layers,
                                  heads=PIXTRAL_HEADS, tag="pixtral train")
-    phase(f"[32/42] full-width serving (bf16): {', '.join(VLM_SERVE_ARCHS)}"
+    phase(f"[32/45] full-width serving (bf16): {', '.join(VLM_SERVE_ARCHS)}"
           f", K2 vs plain at each shape the runs launched")
     dense_served = phase_dense_serving(dev, card)
-    phase("[33/42] Engine.serve at full width (bf16): "
+    phase("[33/45] Engine.serve at full width (bf16): "
           + ", ".join(a if n is None else f"{a} ({n} layers)"
                       for a, n in SHORT_SERVES))
     short_served = phase_short_serves(dev, card)
-    phase("[34/42] the VLM forward with patches: pixtral-12b at full width, "
+    phase("[34/45] the VLM forward with patches: pixtral-12b at full width, "
           "2 layers (bf16)")
     vlm_launches = phase_vlm_forward(dev, card)
-    phase("[35/42] K2 vs plain versions at whisper-small's shapes (12:12 "
+    phase("[35/45] K2 vs plain versions at whisper-small's shapes (12:12 "
           "heads of 64; full over 1500 keys in fp32 and bf16, causal bf16)")
     audio_k2 = phase_audio_kernels(dev, card)
-    phase("[36/42] audio serving parity at reduced size (fp32)")
+    phase("[36/45] audio serving parity at reduced size (fp32)")
     phase_audio_parity(dev, card)
-    phase("[37/42] full-width whisper-small serving (bf16)")
+    phase("[37/45] full-width whisper-small serving (bf16)")
     audio_served = phase_audio_serving(dev, card)
-    phase("[38/42] the audio forward: whisper-small at full width (bf16; "
+    phase("[38/45] the audio forward: whisper-small at full width (bf16; "
           "fp32 and bf16 frames)")
     audio_forward = phase_audio_forward(dev, card, audio_k2)
     phase.end()
@@ -4101,9 +4400,11 @@ def late_phases(dev, card) -> dict:
 
 LATE_FLAG = "--late-phases"
 AUDIO_TRAIN_FLAG = "--audio-train-phases"
+FRONT_DOOR_FLAG = "--front-door-phases"
 #: the phases each flag runs in a process of its own, and its time limit
 APART = {LATE_FLAG: (late_phases, LATE_TIMEOUT_S),
-         AUDIO_TRAIN_FLAG: (audio_train_phases, AUDIO_TRAIN_TIMEOUT_S)}
+         AUDIO_TRAIN_FLAG: (audio_train_phases, AUDIO_TRAIN_TIMEOUT_S),
+         FRONT_DOOR_FLAG: (front_door_phases, FRONT_TIMEOUT_S)}
 
 
 def run_apart(flag: str) -> dict:
@@ -4151,13 +4452,13 @@ def main() -> int:
         with open(sys.argv[2], "w") as f:
             json.dump(result, f)
         return 0
-    print(f"[1/42] device: {name}; torch {torch.__version__} cuda "
+    print(f"[1/45] device: {name}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(card)
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"[2/42] build: {time.perf_counter() - t0:.1f} s for "
+    print(f"[2/45] build: {time.perf_counter() - t0:.1f} s for "
           f"{build.sources()}")
     for src, log in build.build_logs.items():
         for line in log.splitlines():
@@ -4165,13 +4466,13 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
 
     phase = PhaseClock()
-    phase("[3/42] kernels vs plain versions")
+    phase("[3/45] kernels vs plain versions")
     rows = phase_kernels(dev, card)
-    phase("[4/42] parity at reduced size (fp32)")
+    phase("[4/45] parity at reduced size (fp32)")
     phase_parity(dev)
-    phase("[5/42] full-width serving (bf16)")
+    phase("[5/45] full-width serving (bf16)")
     launches, shapes, n_layers, _ = phase_serving(dev, card)
-    phase("[6/42] kernels vs plain versions at the serving run's shapes")
+    phase("[6/45] kernels vs plain versions at the serving run's shapes")
     path = phase_path(dev, card, shapes, n_layers)
 
     # the shape launched most often stands for the kernel; every shape
@@ -4203,15 +4504,15 @@ def main() -> int:
                              **{k: r[k] for k in keys}) for r in path],
     }]
 
-    phase("[7/42] packed kernel K1 vs plain versions")
+    phase("[7/45] packed kernel K1 vs plain versions")
     packed_rows = phase_packed(dev, card)
-    phase("[8/42] training parity at reduced size (fp32)")
+    phase("[8/45] training parity at reduced size (fp32)")
     phase_train_parity(dev)
-    phase("[9/42] full-width DHP training (bf16)")
+    phase("[9/45] full-width DHP training (bf16)")
     collect_garbage("train")
     n_fwd, n_bwd, tables, n_layers = phase_training(dev, card)
     torch.cuda.empty_cache()
-    phase("[10/42] K1 vs plain versions at the training run's shapes")
+    phase("[10/45] K1 vs plain versions at the training run's shapes")
     train_rows = phase_train_path(dev, card, tables, n_layers)
 
     # the shape launched most often stands for each K1 kernel; every
@@ -4249,17 +4550,17 @@ def main() -> int:
                 library_ms=r[f"library_{which}_ms"]) for r in train_rows],
         })
 
-    phase("[11/42] SSD chunk kernel K3 vs plain versions")
+    phase("[11/45] SSD chunk kernel K3 vs plain versions")
     ssd_rows = phase_ssd(dev, card)
-    phase("[12/42] SSM training parity at reduced size (fp32)")
+    phase("[12/45] SSM training parity at reduced size (fp32)")
     phase_ssm_parity(dev)
-    phase("[13/42] full-width mamba2-370m DHP training (bf16)")
+    phase("[13/45] full-width mamba2-370m DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("ssm train")
     s_fwd, s_bwd, ssm_shapes, ssm_layers, chunk = phase_ssm_training(dev,
                                                                      card)
     torch.cuda.empty_cache()
-    phase("[14/42] K3 vs plain versions at the SSM training run's shapes")
+    phase("[14/45] K3 vs plain versions at the SSM training run's shapes")
     ssd_path = phase_ssd_path(dev, card, ssm_shapes, ssm_layers, chunk)
 
     # the shape launched most often stands for each K3 kernel; every
@@ -4297,18 +4598,18 @@ def main() -> int:
                 inter_chunk_fwd_bwd_ms=r["inter_chunk_fwd_bwd_ms"])
                 for r in ssd_path],
         })
-    phase("[15/42] RG-LRU scan kernel K4 vs plain versions")
+    phase("[15/45] RG-LRU scan kernel K4 vs plain versions")
     rg_rows = phase_rglru(dev, card)
-    phase("[16/42] K1 at head_dim 256 vs plain versions")
+    phase("[16/45] K1 at head_dim 256 vs plain versions")
     wide_rows = phase_packed_wide(dev, card)
-    phase("[17/42] hybrid training parity at reduced size (fp32)")
+    phase("[17/45] hybrid training parity at reduced size (fp32)")
     phase_hybrid_parity(dev)
-    phase("[18/42] full-width recurrentgemma-2b DHP training (bf16)")
+    phase("[18/45] full-width recurrentgemma-2b DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("hybrid train")
     counts, hy_tables, per_group = phase_hybrid_training(dev, card)
     torch.cuda.empty_cache()
-    phase("[19/42] K4 and K1 vs plain versions at the hybrid run's shapes")
+    phase("[19/45] K4 and K1 vs plain versions at the hybrid run's shapes")
     k4_path, k1_path = phase_hybrid_path(dev, card, hy_tables, per_group)
 
     # the shape launched most often stands for each kernel; every shape
@@ -4371,7 +4672,7 @@ def main() -> int:
                 bound_by=r[f"bound_{which}_by"],
                 library_ms=r[f"library_{which}_ms"]) for r in k1_path],
         })
-    phase("[20/42] ring context parallelism (bf16): LocalRing vs K1 "
+    phase("[20/45] ring context parallelism (bf16): LocalRing vs K1 "
           "unsharded and vs the plain ring; full-width internvl3-2b at "
           f"{RING_RANKS} ranks on the one card")
     ring_rows = phase_ring(dev, card, tables)
@@ -4395,7 +4696,7 @@ def main() -> int:
                 k1_unsharded_fwd_bwd_device_ms=r[
                     "k1_unsharded_fwd_bwd_device_ms"])
                 for r in ring_rows if (r["D"] == 256) == wide]
-    phase("[21/42] state-cache and sliding-window serving parity at "
+    phase("[21/45] state-cache and sliding-window serving parity at "
           "reduced size (fp32)")
     torch.cuda.empty_cache()
     exact_launches, exact_rows = phase_state_parity(dev, card)
@@ -4406,21 +4707,21 @@ def main() -> int:
         **{k: r[k] for k in keys}) for r in exact_rows]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
                                     *(r["max_abs_err"] for r in exact_rows))
-    phase("[22/42] full-width state-cache serving (bf16): "
+    phase("[22/45] full-width state-cache serving (bf16): "
           f"{', '.join(STATE_ARCHS)}")
     phase_state_serving(dev, card)
 
-    phase("[23/42] MoE serving and training parity at reduced size (fp32)")
+    phase("[23/45] MoE serving and training parity at reduced size (fp32)")
     torch.cuda.empty_cache()
     phase_moe_parity(dev, card)
-    phase(f"[24/42] full-width {MOE_TRAIN_ARCH} DHP training (bf16)")
+    phase(f"[24/45] full-width {MOE_TRAIN_ARCH} DHP training (bf16)")
     torch.cuda.empty_cache()
     collect_garbage("moe train")
     m_fwd, m_bwd, moe_tables, moe_layers, moe_layer = phase_moe_training(
         dev, card)
-    phase(f"[25/42] full-width MoE serving (bf16): {', '.join(MOE_ARCHS)}")
+    phase(f"[25/45] full-width MoE serving (bf16): {', '.join(MOE_ARCHS)}")
     moe_served = phase_moe_serving(dev, card)
-    phase("[26/42] K1 at head_dim 64 and K2 at the MoE exact lengths vs "
+    phase("[26/45] K1 at head_dim 64 and K2 at the MoE exact lengths vs "
           "plain versions")
     d64_rows, d64_path, moe_k2 = phase_moe_kernels(dev, card, moe_tables,
                                                    moe_layers, moe_served)
@@ -4710,6 +5011,20 @@ def main() -> int:
             bound_ms=r["bound_fwd_ms"], library_ms=r["library_fwd_ms"])
             for r in cc_rows],
     })
+    # the front door (phases 43-45): each run's own launches, counted
+    # from 0 just before it, beside the entries of the kernels it ran
+    front = run_apart(FRONT_DOOR_FLAG)
+    for entry in kernels:
+        if entry["name"] in ("flash_attention_packed",
+                             "flash_attention_packed_bwd"):
+            which = 1 if entry["name"].endswith("_bwd") else 0
+            key = "k1_bwd" if which else "k1_fwd"
+            entry["strategy_launches"] = {
+                name: r["launches"][which]
+                for name, r in front["strategies"].items()}
+            entry["cli_train_launches"] = front["cli"]["train"][key]
+            entry["cli_replay_launches"] = front["cli"]["replay"][key]
+    kernels[0]["cli_serve_launches"] = front["serve"]["probe"]["k2"]
     print(f"  chip_smoke wall {time.perf_counter() - t_start:.1f} s "
           f"({card})")
     print(json.dumps({"kernels": kernels}))

@@ -7,20 +7,24 @@
                          │ serve(...)      -> one-shot batched decode
                          │ serving(...)    -> continuous-batching runtime
                          ▼
-                      Strategy registry (dhp / static)
+                      Strategy registry (dhp / dhp-faithful / static /
+                      megatron / deepspeed / bruteforce / oracle)
 
-`train()` is the one training loop: heterogeneous batches -> strategy
-plan -> executor -> AdamW, with the next batch planned on a host thread
-while the card runs the current one (paper §5 Implementation (2)).
+`train()` is the one training loop every strategy runs through:
+heterogeneous batches -> strategy plan -> executor -> AdamW, with the
+next batches planned on a host thread while the card runs the current
+one (paper §5 Implementation (2)). `train(report=...)` builds the run
+report (obs/report: wave imbalance, rank stragglers, cost-model MAPE).
 `save_checkpoint` / `load_checkpoint` keep the full train state in the
-JAX package's file format. The run report (`report=`) and the CLI are
-not ported yet.
+JAX package's file format. `api/cli.py` drives all of it from the
+command line.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
-from typing import Dict, List, Optional, Union
+from typing import Dict, Iterable, Iterator, List, Optional, Union
 
 import torch
 
@@ -30,11 +34,12 @@ from ..core.cost_model import CostModel, SeqInfo, analytic_coeffs
 from ..core.executor import DHPExecutor
 from ..core.scheduler import ExecutionPlan, diff_plans
 from ..data.pipeline import HeterogeneousLoader, RaggedBatch
-from ..obs import MetricsRegistry, Tracer, tracing
+from ..obs import (MetricsRegistry, RunRecorder, RunReport, Tracer,
+                   build_report, step_model_error, tracing)
 from ..training.optimizer import AdamW
 from ..training.train_step import TrainState
 from .cluster import ClusterSpec
-from .strategies import get_strategy
+from .strategies import Strategy, get_strategy
 
 Batch = Union[RaggedBatch, List[SeqInfo]]
 
@@ -81,9 +86,9 @@ class StepMetrics:
     #: still report their NLL here for monitoring.
     modality_loss: Dict[str, float] = dataclasses.field(
         default_factory=dict)
-    #: cost-model MAPE of this step's predicted vs measured group times;
-    #: the run report that computes it (obs/report) is not ported, so
-    #: it stays 0.0
+    #: cost-model MAPE of this step's scaled predicted vs measured
+    #: group times (obs.report.step_model_error); 0.0 on unmeasured
+    #: steps and steps where every group paid its first build
     model_error_pct: float = 0.0
     #: the strategy's PlanCache.stats snapshot after this step (hits,
     #: misses, size, nearest_* reference counters); {} when caching off
@@ -165,10 +170,14 @@ class Engine:
 
     def __init__(self, model: Union[str, ModelConfig],
                  cluster: Optional[ClusterSpec] = None, *,
-                 strategy: str = "dhp",
+                 strategy: Union[str, Strategy] = "dhp",
+                 optimizer: Optional[AdamW] = None,
                  cost_model: Optional[CostModel] = None,
                  reduced: bool = False, seed: int = 0,
                  device: Optional[str] = None):
+        """`strategy` is a registry name or a Strategy instance (a
+        configured `get_strategy(name, **options)`, a ReplayStrategy).
+        `optimizer` defaults to AdamW at a constant 3e-4."""
         cfg = get_config(model) if isinstance(model, str) else model
         if reduced:
             cfg = cfg.reduced()
@@ -178,20 +187,25 @@ class Engine:
         self.cluster = cluster or ClusterSpec.auto(device=device)
         self.device = self.cluster.primary
         self.cost_model = cost_model or demo_cost_model(cfg)
-        self.strategy = get_strategy(strategy)
+        self.strategy = (get_strategy(strategy)
+                         if isinstance(strategy, str) else strategy)
         self.strategy.bind(self.cost_model, self.cluster.n_replicas,
                            self.cluster.mem_budget)
         self.seed = seed
-        self.optimizer = AdamW(lr=3e-4)
+        self.optimizer = optimizer or AdamW(lr=3e-4)
         self._state: Optional[TrainState] = None
         self._executor: Optional[DHPExecutor] = None
         self._step = 0
         self._prev_plan: Optional[ExecutionPlan] = None
-        #: train(trace=...) runs every group synchronously and timed
-        self._observing = False
         #: session-lifetime counters/gauges/histograms (obs.metrics)
         self.metrics = MetricsRegistry()
-        self.loader: Optional[HeterogeneousLoader] = None
+        #: per-group (predicted, measured, rank-slot) records feeding
+        #: the run report; installed by train(trace=/report=)
+        self._recorder: Optional[RunRecorder] = None
+        #: the RunReport of the last traced/reported train() call
+        self.last_report: Optional[RunReport] = None
+        #: the loader train() last built or was given
+        self.loader: Optional[Iterable[RaggedBatch]] = None
         #: the stream position a checkpoint left for the next train()
         self._loader_state: Optional[dict] = None
         self.last_tracer: Optional[Tracer] = None
@@ -230,9 +244,10 @@ class Engine:
     def execute(self, plan: ExecutionPlan,
                 data: RaggedBatch) -> StepMetrics:
         """Run a plan on the cluster and apply the AdamW update. Groups
-        are timed one by one when the strategy asks for measurements or
-        while train(trace=...) runs."""
-        measure = self.strategy.wants_measurement or self._observing
+        are timed one by one when the strategy asks for measurements
+        (the oracle) or while train(trace=/report=) records the run."""
+        measure = (self.strategy.wants_measurement
+                   or self._recorder is not None)
         # group-reconfiguration delta vs the previously executed plan:
         # the pool consumes it instead of re-deriving every group
         if plan.delta is None:
@@ -252,8 +267,12 @@ class Engine:
         del grads
         loss = float(loss)                  # waits for the device
         step_time = time.perf_counter() - t0
+        model_error = 0.0
         if timings:
             self.strategy.observe(plan, timings)
+            model_error = step_model_error(plan, timings)
+            if self._recorder is not None:
+                self._recorder.record_step(self._step, plan, timings)
         mod_tokens: Dict[str, int] = {}
         for s in data.infos:
             if s.spans:
@@ -282,13 +301,15 @@ class Engine:
             allocate_us=plan.stage_ms.get("allocate", 0.0) * 1e3,
             replan_mode=plan.replan_mode,
             modality_loss=dict(stats.get("modality_loss", {})),
-            plan_cache=dict(self.strategy.plan_cache.stats),
+            model_error_pct=model_error,
+            plan_cache=(dict(self.strategy.plan_cache.stats)
+                        if self.strategy.plan_cache is not None else {}),
         )
         self._step += 1
-        self._update_metrics(metrics)
+        self._update_metrics(metrics, measured=bool(timings))
         return metrics
 
-    def _update_metrics(self, m: StepMetrics) -> None:
+    def _update_metrics(self, m: StepMetrics, *, measured: bool) -> None:
         """Fold one step's signals into the session metrics registry."""
         reg = self.metrics
         reg.counter("train/steps").inc()
@@ -302,73 +323,135 @@ class Engine:
         reg.histogram("exec/step_time_s").observe(m.step_time_s)
         reg.histogram("exec/padding_efficiency").observe(
             m.padding_efficiency)
+        if measured:
+            reg.histogram("cost_model/error_pct").observe(
+                m.model_error_pct)
         reg.update_from(m.plan_cache, "plan/cache_")
         reg.update_from(vars(self.executor.pool.stats), "pool/total_")
 
     # -- train: THE loop ------------------------------------------------
-    def train(self, *, steps: int = 10, dataset: str = "openvid",
+    def train(self, loader: Optional[Iterable[RaggedBatch]] = None, *,
+              steps: int = 10, dataset: str = "openvid",
               global_batch: int = 8, max_tokens: int = 512,
               tokens_per_frame: int = 16,
-              lookahead: bool = True,
+              lookahead: Union[bool, int] = True,
               plan_log: Optional[List[ExecutionPlan]] = None,
-              trace: bool = False) -> List[StepMetrics]:
+              log=None,
+              trace: Union[None, bool, str, Tracer] = None,
+              report: Union[None, bool, str] = None
+              ) -> List[StepMetrics]:
         """The training loop: heterogeneous batches -> strategy plan ->
-        executor -> AdamW.
+        executor -> AdamW. Every strategy runs through it.
 
+        `loader`: an iterable of RaggedBatch (default: a
+        HeterogeneousLoader over `dataset` from the engine's seed).
         `lookahead=True` (default) plans batch t+1 on a background host
         thread while the card runs batch t (`StepMetrics.plan_overlap_ms`
-        reports the hidden planning time); `False` plans synchronously.
-        `plan_log`: a list that receives every executed plan. `trace`:
-        record the run's timeline in a Tracer (`self.last_tracer`:
-        planner thread, scheduler stages, one span per group on its
-        rank's track) and run every group synchronously so each span
-        holds its device time."""
+        reports the hidden planning time); an int k keeps the plans of
+        batches t+1..t+k in flight on that thread, solved back to back
+        on the scheduler's warm allocator state; `False` plans
+        synchronously. `plan_log`: a list that receives every executed
+        plan (the `--save-plans` trace). `log`: called with each step's
+        summary line.
+
+        `trace`: a path (Chrome trace-event JSON is saved there), True,
+        or a Tracer — records the run's timeline (planner thread,
+        scheduler stages, one span per group on its rank's track;
+        `self.last_tracer`). `report`: a path or True — builds the
+        RunReport (per-wave imbalance, per-rank straggler scores,
+        cost-model MAPE), kept on `self.last_report` and saved as JSON
+        when a path is given. Either option runs every group
+        synchronously and timed, so each span and record holds its
+        device time."""
         self.executor      # refuses a family it cannot run, before planning
-        tracer = Tracer() if trace else None
+        tracer: Optional[Tracer] = None
+        trace_path: Optional[str] = None
+        if trace is not None and trace is not False:
+            if isinstance(trace, str):
+                trace_path, tracer = trace, Tracer()
+            elif trace is True:
+                tracer = Tracer()
+            else:
+                tracer = trace
         self.last_tracer = tracer
-        self.loader = HeterogeneousLoader(
-            dataset, global_batch, self.cfg.vocab, seed=self.seed,
-            max_tokens=max_tokens, tokens_per_frame=tokens_per_frame)
-        if self._loader_state is not None:
+        observing = tracer is not None or bool(report)
+        if observing:
+            self._recorder = RunRecorder(self.cluster.n_replicas)
+        if loader is None:
+            loader = HeterogeneousLoader(
+                dataset, global_batch, self.cfg.vocab, seed=self.seed,
+                max_tokens=max_tokens, tokens_per_frame=tokens_per_frame)
+        if self._loader_state is not None and hasattr(loader, "set_state"):
             # a checkpoint restore left a stream position to resume from
-            self.loader.set_state(self._loader_state)
+            loader.set_state(self._loader_state)
             self._loader_state = None
+        self.loader = loader
         history: List[StepMetrics] = []
-        self._observing = trace
         try:
             if tracer is not None:
                 with tracing(tracer):
-                    self._train_loop(steps, lookahead, plan_log, history)
+                    self._train_loop(loader, steps, lookahead, plan_log,
+                                     log, history)
             else:
-                self._train_loop(steps, lookahead, plan_log, history)
+                self._train_loop(loader, steps, lookahead, plan_log, log,
+                                 history)
         finally:
-            self._observing = False
+            if observing:
+                self.last_report = build_report(
+                    self._recorder, history,
+                    metrics=self.metrics.snapshot())
+                self._recorder = None
+                if isinstance(report, str):
+                    self.last_report.save(report)
+            if trace_path is not None:
+                tracer.save(trace_path)
         return history
 
-    def _train_loop(self, steps, lookahead, plan_log,
+    def _train_loop(self, loader, steps, lookahead, plan_log, log,
                     history: List[StepMetrics]) -> None:
-        data = next(self.loader)
-        if lookahead:
+        it: Iterator[RaggedBatch] = iter(loader)
+        # lookahead depth: 0 = synchronous, k >= 1 = plans for batches
+        # t+1..t+k kept in flight on the planner thread
+        depth = (1 if lookahead is True
+                 else 0 if lookahead is False else max(0, int(lookahead)))
+        try:
+            data = next(it)
+        except StopIteration:
+            return
+        n_fetched = 1
+        if depth:
             self.strategy.prepare(data.infos)
-        for step in range(steps):
-            if lookahead:
+        queue: "collections.deque[RaggedBatch]" = collections.deque()
+        for _ in range(steps):
+            if depth:
                 plan = self.strategy.collect()
                 overlap = max(
                     0.0, plan.schedule_ms - self.strategy.last_wait_ms)
             else:
                 plan = self.strategy.plan(data.infos)
                 overlap = 0.0
-            # fetch only a batch that WILL run; with lookahead its plan
-            # is made while the card runs this one
-            nxt = next(self.loader) if step + 1 < steps else None
-            if lookahead and nxt is not None:
-                self.strategy.prepare(nxt.infos)
+            # top up the prefetch window only with batches that WILL run:
+            # a batch (or a replayed plan) fetched and never run would
+            # desync a resumable loader and ReplayStrategy's cursor
+            while n_fetched < steps and len(queue) < max(depth, 1):
+                try:
+                    nxt = next(it)
+                except StopIteration:
+                    break
+                queue.append(nxt)
+                n_fetched += 1
+                if depth:
+                    self.strategy.prepare(nxt.infos)
             metrics = self.execute(plan, data)
             metrics.plan_overlap_ms = overlap
             if plan_log is not None:
                 plan_log.append(plan)
             history.append(metrics)
-            data = nxt
+            if log is not None:
+                log(metrics.summary())
+            if not queue:
+                break
+            data = queue.popleft()
 
     # -- serve ----------------------------------------------------------
     @torch.no_grad()
@@ -463,7 +546,7 @@ class Engine:
         break."""
         from ..training.checkpoint import save
         meta = {"format": 2, "step": self._step}
-        if self.loader is not None:
+        if self.loader is not None and hasattr(self.loader, "state"):
             meta["loader"] = self.loader.state()
         save(path, {"params": self.state.params, "opt": self.state.opt},
              meta=meta)

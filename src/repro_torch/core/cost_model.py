@@ -168,9 +168,22 @@ class MMSequence:
         object.__setattr__(self, "spans", validate_spans(self.spans))
 
     @property
+    def length(self) -> int:
+        return spans_length(self.spans)
+
+    @property
+    def eta(self) -> float:
+        return spans_eta(self.spans)
+
+    @property
     def seq_info(self) -> SeqInfo:
         return SeqInfo(length=0, eta=0.0, seq_id=self.seq_id,
                        spans=self.spans)
+
+
+def as_seq_infos(seqs: Seq) -> list:
+    """Normalize a batch that may mix MMSequence and SeqInfo."""
+    return [s.seq_info if isinstance(s, MMSequence) else s for s in seqs]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,7 +23,7 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence as Seq,
                     Tuple)
 
 from ..obs.trace import get_tracer
-from .allocator import Allocation, IncrementalAllocator
+from .allocator import Allocation, IncrementalAllocator, allocate
 from .cost_model import CostModel, ModalitySpan, SeqInfo
 from .packing import AtomicGroup, pack_sequences
 
@@ -107,6 +107,12 @@ class GroupDelta:
         setup cost the pool amortises."""
         return len(self.created) + len(self.resized)
 
+    def summary(self) -> str:
+        return (f"groups: {len(self.reused)} reused, "
+                f"{len(self.created)} created, "
+                f"{len(self.resized)} resized, "
+                f"{len(self.released)} released")
+
     def to_json(self) -> dict:
         return {k: [list(s) for s in getattr(self, k)]
                 for k in ("created", "reused", "resized", "released")}
@@ -146,6 +152,10 @@ class ExecutionPlan:
     # diff_plans (the Engine does it before execution).
 
     @property
+    def n_groups(self) -> int:
+        return sum(len(mb.groups) for mb in self.micro_batches)
+
+    @property
     def degree_histogram(self) -> dict:
         """{degree: count} across all micro-batches — Table 4 case study."""
         h: dict = {}
@@ -160,7 +170,7 @@ class ExecutionPlan:
         the SAME cursor rule as the executor (including the defensive
         wrap for oversubscribed micro-batches) — the single source of
         truth for which rank slice a group runs on, shared by the
-        executor and diff_plans."""
+        executor, diff_plans and replay equality checks."""
         slots = []
         for mi, mb in enumerate(self.micro_batches):
             start = 0
@@ -262,8 +272,8 @@ class ExecutionPlan:
             "stage_ms": dict(self.stage_ms),
             "from_cache": self.from_cache,
             "replan_mode": self.replan_mode,
-            "delta": self.delta.to_json() if self.delta else None,
             "micro_batches": [mb.to_json() for mb in self.micro_batches],
+            "delta": self.delta.to_json() if self.delta else None,
             "seq_spans": (None if not self.seq_spans else {
                 str(sid): [sp.to_json() for sp in spans]
                 for sid, spans in self.seq_spans.items()}),
@@ -330,6 +340,31 @@ def diff_plans(prev: Optional[ExecutionPlan], cur: ExecutionPlan,
     return delta
 
 
+# -- persistence -------------------------------------------------------------
+def plans_to_json(plans: Seq[ExecutionPlan]) -> dict:
+    """A run's plan trace as one JSON document (the --save-plans file,
+    in the JAX package's format: either package loads the other's)."""
+    return {"version": PLAN_IR_VERSION,
+            "plans": [p.to_json() for p in plans]}
+
+
+def plans_from_json(obj: dict) -> List[ExecutionPlan]:
+    v = int(obj.get("version", 1))
+    if v > PLAN_IR_VERSION:
+        raise ValueError(f"plan file version {v} > {PLAN_IR_VERSION}")
+    return [ExecutionPlan.from_json(p) for p in obj["plans"]]
+
+
+def save_plans(path: str, plans: Seq[ExecutionPlan]) -> None:
+    with open(path, "w") as f:
+        json.dump(plans_to_json(plans), f, indent=1)
+
+
+def load_plans(path: str) -> List[ExecutionPlan]:
+    with open(path) as f:
+        return plans_from_json(json.load(f))
+
+
 # -- plan cache --------------------------------------------------------------
 def _default_cache_bucket(n: int) -> int:
     b = 64
@@ -366,6 +401,11 @@ class PlanCache:
         self._lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        # nearest() warm-reference accounting (separate from hit/miss:
+        # a reference is never served as a plan)
+        self.nearest_exact = 0
+        self.nearest_fallback = 0
+        self.nearest_none = 0
 
     # ------------------------------------------------------------------
     def _span_sig(self, s: SeqInfo) -> Any:
@@ -457,6 +497,35 @@ class PlanCache:
         self.hits += 1
         return plan
 
+    def nearest(self, seqs: Seq[SeqInfo]) -> Optional[ExecutionPlan]:
+        """The stored plan whose batch histogram is CLOSEST to `seqs`:
+        the exact-key entry when one exists, else the entry with the
+        largest multiset overlap of (length-bucket, eta, span-sig)
+        items. Unlike `lookup` this neither remaps seq_ids nor
+        validates — the result is a warm REFERENCE for incremental
+        replanning (which groups/degrees a near-identical batch used),
+        not an executable plan. Accounted separately from hit/miss
+        (`nearest_exact` / `nearest_fallback` / `nearest_none` in
+        `stats`): a reference is never served as a plan, so it must not
+        distort the cache's hit rate."""
+        k = self.key(seqs)
+        with self._lock:
+            entry = self._entries.get(k)
+            if entry is not None:
+                self.nearest_exact += 1
+                return entry[0]
+            if not self._entries:
+                self.nearest_none += 1
+                return None
+            want = dict(k[1])
+            best, score = None, -1
+            for (_, items), (plan, _) in self._entries.items():
+                ov = sum(min(c, want.get(kk, 0)) for kk, c in items)
+                if ov > score:
+                    best, score = plan, ov
+            self.nearest_fallback += 1
+            return best
+
     def store(self, seqs: Seq[SeqInfo], plan: ExecutionPlan) -> None:
         # Deep-copy through the IR so later telemetry mutations on the
         # live plan (delta, schedule_ms) never leak into the cache.
@@ -474,7 +543,10 @@ class PlanCache:
     @property
     def stats(self) -> Dict[str, int]:
         return {"hits": self.hits, "misses": self.misses,
-                "size": len(self._entries)}
+                "size": len(self._entries),
+                "nearest_exact": self.nearest_exact,
+                "nearest_fallback": self.nearest_fallback,
+                "nearest_none": self.nearest_none}
 
 
 class MicroBatchPlanner:
@@ -531,13 +603,29 @@ def _feasible_waves(groups, n_ranks):
 class DHPScheduler:
     """The paper's Scheduler class (§5): plans one global batch."""
 
-    def __init__(self, cost_model: CostModel, n_ranks: int,
-                 mem_budget: float):
-        """Packing balances groups over the ranks and each wave falls
-        back to serial full-degree groups when that is faster — the
-        BEYOND-PAPER refinements the JAX package turns on by default.
+    def __init__(
+        self,
+        cost_model: CostModel,
+        n_ranks: int,
+        mem_budget: float,
+        *,
+        use_all_ranks: bool = True,
+        balance_packing: bool = True,
+        serial_fallback: bool = True,
+        allocator: Optional[Callable] = None,
+        incremental: bool = True,
+    ):
+        """`balance_packing` (packing balances groups over the ranks)
+        and `serial_fallback` (a wave runs as serial full-degree groups
+        when that is faster) are BEYOND-PAPER refinements; disable both
+        for the paper-faithful scheduler.
 
-        One `IncrementalAllocator` per wave ordinal lets consecutive
+        `allocator` swaps the Stage-2 solver (default: the 2D-DP
+        `allocate`; pass `allocate_bruteforce` for the exact oracle —
+        only tractable on small waves).
+
+        `incremental` (default on, only with the default solver) keeps
+        one `IncrementalAllocator` per wave ordinal so consecutive
         batches warm-start each other's DP: only suffix rows whose
         atomic groups changed are re-solved. Plans are bit-equal to
         the cold solve; `ExecutionPlan.replan_mode` reports which path
@@ -545,8 +633,18 @@ class DHPScheduler:
         self.cm = cost_model
         self.n_ranks = n_ranks
         self.budget = mem_budget
+        self.use_all_ranks = use_all_ranks
+        self.balance_packing = balance_packing
+        self.serial_fallback = serial_fallback
+        self.incremental = incremental and allocator is None
         self._wave_solvers: Dict[int, IncrementalAllocator] = {}
+        self.allocator = allocator if allocator is not None else allocate
         self.planner = MicroBatchPlanner(cost_model, n_ranks, mem_budget)
+        import inspect
+        self._alloc_kwargs = (
+            {"use_all_ranks": use_all_ranks}
+            if "use_all_ranks" in inspect.signature(
+                self.allocator).parameters else {})
         # scheduler-level async surface (the Strategy carries its own
         # lookahead thread); created lazily on first prepare() so the
         # schedule()-only path allocates no thread pool.
@@ -576,7 +674,8 @@ class DHPScheduler:
             t_pack = time.perf_counter()
             all_groups = pack_sequences(
                 mb, self.cm, self.budget, max_degree=self.n_ranks,
-                balance_over=self.n_ranks)
+                balance_over=self.n_ranks if self.balance_packing
+                else None)
             t_packed = time.perf_counter()
             stage_ms["pack"] += (t_packed - t_pack) * 1e3
             if tr.enabled:
@@ -587,10 +686,16 @@ class DHPScheduler:
             # partition atomic groups into sequential feasible waves.
             for groups in _feasible_waves(all_groups, self.n_ranks):
                 t_alloc = time.perf_counter()
-                solver = self._wave_solvers.setdefault(
-                    wave_idx, IncrementalAllocator())
-                alloc: Allocation = solver(groups, self.n_ranks,
-                                           self.cm.group_time)
+                if self.incremental:
+                    solver = self._wave_solvers.setdefault(
+                        wave_idx, IncrementalAllocator())
+                    alloc: Allocation = solver(
+                        groups, self.n_ranks, self.cm.group_time,
+                        use_all_ranks=self.use_all_ranks)
+                else:
+                    alloc = self.allocator(
+                        groups, self.n_ranks, self.cm.group_time,
+                        **self._alloc_kwargs)
                 wave_idx += 1
                 rows_reused += alloc.rows_reused
                 stage_ms["allocate"] += (
@@ -619,7 +724,7 @@ class DHPScheduler:
                 # degree is faster (dominates at small N). Take the min.
                 serial = [self.cm.group_time(g.seqs, self.n_ranks)
                           for g in groups]
-                if sum(serial) < alloc.makespan:
+                if self.serial_fallback and sum(serial) < alloc.makespan:
                     for g, t in zip(groups, serial):
                         micro_plans.append(MicroBatchPlan(
                             groups=[GroupPlan(
@@ -678,11 +783,16 @@ def static_plan(
     cost_model: CostModel,
     n_ranks: int,
     mem_budget: float,
+    *,
+    degree: Optional[int] = None,
+    power_of_two: bool = False,
 ) -> ExecutionPlan:
     """Static-parallelism baseline (Megatron-LM / DeepSpeed style).
 
     One fixed CP degree for every group, sized for the LONGEST sequence
     in the batch (how a practitioner must configure a static system).
+    `power_of_two=True` additionally rounds the degree up to a power of
+    two (DeepSpeed-Ulysses head-divisibility restriction, §4.1).
 
     The cluster forms floor(N/d) concurrent DP x CP groups; sequences are
     dealt round-robin in arrival order (static systems are not
@@ -704,8 +814,14 @@ def static_plan(
     """
     t0 = time.perf_counter()
     cm = cost_model
-    degree = min(max(cm.min_degree([s], mem_budget) for s in seqs),
-                 n_ranks)
+    if degree is None:
+        degree = max(cm.min_degree([s], mem_budget) for s in seqs)
+    if power_of_two:
+        d = 1
+        while d < degree:
+            d *= 2
+        degree = d
+    degree = min(degree, n_ranks)
     cap = (mem_budget - cm.coeffs.m_ms) * degree
     n_groups = max(1, n_ranks // degree)
     t_alloc = time.perf_counter()

@@ -21,7 +21,7 @@ stretched a wave. `Tracer` records that timeline:
 The module-global default tracer is a `NullTracer` whose every method is
 a no-op (`get_tracer()` in a hot path costs one attribute read); callers
 opt in per run via `set_tracer` or the `tracing(...)` context manager —
-`ServingEngine.run(trace=...)` does this.
+`Engine.train(trace=...)` and `ServingEngine.run(trace=...)` do this.
 
 Everything here is stdlib-only: the obs package sits BELOW repro_torch.core
 in the import graph so any layer may instrument itself.
@@ -235,6 +235,50 @@ class Tracer:
     def save(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.to_json(), f)
+
+
+# -- schema validation --------------------------------------------------------
+_REQUIRED = {"X": ("ts", "dur"), "i": ("ts",), "C": ("ts", "args"),
+             "M": ("args",)}
+
+
+def validate_trace(obj: Any) -> int:
+    """Validate a Chrome trace-event document; returns the event count.
+
+    Checks the invariants Perfetto/chrome://tracing rely on — top-level
+    `traceEvents` list; every event carries `name`/`ph`/`pid`/`tid`;
+    per-phase required fields (`ts`+`dur` for complete events, `ts` for
+    instants/counters, `args` for metadata); numeric, non-negative
+    times. Raises ValueError on the first violation."""
+    if not isinstance(obj, dict) or "traceEvents" not in obj:
+        raise ValueError("trace must be a dict with a traceEvents list")
+    events = obj["traceEvents"]
+    if not isinstance(events, list):
+        raise ValueError("traceEvents must be a list")
+    for i, ev in enumerate(events):
+        if not isinstance(ev, dict):
+            raise ValueError(f"event {i} is not an object")
+        for field in ("name", "ph", "pid", "tid"):
+            if field not in ev:
+                raise ValueError(f"event {i} missing {field!r}: {ev}")
+        ph = ev["ph"]
+        if ph not in _REQUIRED:
+            raise ValueError(f"event {i} has unknown phase {ph!r}")
+        if not isinstance(ev["pid"], int) or not isinstance(ev["tid"],
+                                                            int):
+            raise ValueError(f"event {i}: pid/tid must be ints: {ev}")
+        for field in _REQUIRED[ph]:
+            if field not in ev:
+                raise ValueError(
+                    f"event {i} (ph={ph}) missing {field!r}: {ev}")
+        for field in ("ts", "dur"):
+            if field in ev:
+                v = ev[field]
+                if not isinstance(v, (int, float)) or v < 0:
+                    raise ValueError(
+                        f"event {i}: {field} must be a non-negative "
+                        f"number, got {v!r}")
+    return len(events)
 
 
 # -- the process-global default tracer ---------------------------------------

@@ -102,9 +102,8 @@ class ServingEngine:
     (`ClusterSpec.decode_shape`). Serves the dense family (full or
     sliding-window attention), the MoE family, the SSM family, the
     hybrid family and the audio family.
-    `strategy` names the prefill planner (`get_strategy`: "dhp",
-    "static"); the plan only groups prefill chunks, so it never changes a
-    stream.
+    `strategy` names the prefill planner (any `get_strategy` name);
+    the plan only groups prefill chunks, so it never changes a stream.
     """
 
     def __init__(self, cfg: ModelConfig, params, cluster, cost_model, *,
@@ -137,7 +136,9 @@ class ServingEngine:
         # and the salt keeps the two key spaces apart
         self.planner = get_strategy(strategy).bind(
             cost_model, cluster.n_replicas, cluster.mem_budget)
-        self.planner.plan_cache.salt = "serve-prefill"
+        cache = self.planner.plan_cache
+        if cache is not None:          # the measuring oracle keeps none
+            cache.salt = "serve-prefill"
         #: counters/gauges/histograms (queue depth, KV occupancy,
         #: decode/prefill volume), folded in at the end of run()
         self.metrics = MetricsRegistry()
@@ -520,7 +521,8 @@ class ServingEngine:
         for occ in kv_occ:
             reg.histogram("serve/kv_occupancy").observe(occ)
         reg.gauge("serve/peak_kv_blocks").set(kv.stats.peak_blocks)
-        reg.update_from(dict(cache.stats), "plan/cache_")
+        if cache is not None:
+            reg.update_from(dict(cache.stats), "plan/cache_")
         return ServeReport(
             requests=sorted(reqs, key=lambda m: m.request_id),
             wall_s=wall,
@@ -532,7 +534,7 @@ class ServingEngine:
             n_decode_steps=n_decode,
             n_prefill_chunks=n_chunks,
             schedule_ms=sched.schedule_ms_total,
-            plan_cache=dict(cache.stats),
+            plan_cache=dict(cache.stats) if cache is not None else {},
             exe_misses=exe_misses,
             queue_depth=queue_depth,
             kv_occupancy=kv_occ,

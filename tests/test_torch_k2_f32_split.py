@@ -18,6 +18,8 @@ replays that walk, rounding where the kernel rounds, and holds it:
     accumulator as it lies meets V^T's keys in the permuted order the
     kernel writes them, and their product is P V exactly.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -70,8 +72,11 @@ def split_tf32_attention(q, k, v, *, mode="causal", window=None,
     valid = _valid_mask(Sq, Sk, mode, window, kv_offset, "cpu")
     sl2 = (1.0 / D ** 0.5) * LOG2E
     out = torch.zeros(B, H, Sq, D)
-    for q0 in range(0, Sq, BQ):
-        q1 = min(q0 + BQ, Sq)
+    # in full mode every block of query rows walks the same key tiles
+    # with row-wise softmax state, so all blocks walk them at once
+    bq = Sq if mode == "full" else BQ
+    for q0 in range(0, Sq, bq):
+        q1 = min(q0 + bq, Sq)
         j_lo, j_hi = 0, Sk
         if mode != "full":
             j_hi = max(0, min(Sk, q1 - kv_offset))
@@ -95,6 +100,19 @@ def split_tf32_attention(q, k, v, *, mode="causal", window=None,
         out[:, :, q0:q1] = torch.where(l > 0, acc / l.clamp_min(1e-30),
                                        0.0)
     return out.permute(0, 2, 1, 3)
+
+
+@contextlib.contextmanager
+def _one_thread():
+    """torch on one thread, restored after: the suite's workers share the
+    machine's cores, and a walk of many small products slows down most
+    when every worker's threads contend for them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _inputs(B, Sq, Sk, H, Hkv, D, seed):
@@ -144,10 +162,12 @@ def test_plain_tf32_misses_the_limit_at_whisper_encoder():
     fp32 version; the same walk without the lo terms (plain TF32, the
     fault k2_fault_check.py plants as f32_lo_dropped) lies beyond it."""
     q, k, v = _inputs(1, 1500, 1500, 12, 12, 64, 90)
-    plain = flash_attention_ref(q, k, v, mode="full")
-    split_err = _scaled(split_tf32_attention(q, k, v, mode="full"), plain)
-    tf32_err = _scaled(split_tf32_attention(q, k, v, mode="full", lo=False),
-                       plain)
+    with _one_thread():
+        plain = flash_attention_ref(q, k, v, mode="full")
+        split_err = _scaled(split_tf32_attention(q, k, v, mode="full"),
+                            plain)
+        tf32_err = _scaled(split_tf32_attention(q, k, v, mode="full",
+                                                lo=False), plain)
     print(f"split TF32 {split_err:.3g}, plain TF32 {tf32_err:.3g}")
     assert split_err <= TOL_F32 / 10
     assert tf32_err > TOL_F32

@@ -90,7 +90,7 @@ def test_static_strategy_serves_the_same_streams(engines):
         [m.tokens for m in reps["dhp"].requests]
     assert reps["static"].plan_cache != {}
     with pytest.raises(KeyError, match="unknown strategy"):
-        eng.serving(strategy="megatron")
+        eng.serving(strategy="no-such-strategy")
 
 
 def _plan_hashes(sched_cls, kv_cls, planner, reqs, chunk=32):

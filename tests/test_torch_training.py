@@ -270,18 +270,21 @@ def test_scheduler_lookahead_plans_what_schedule_plans():
 
 def test_strategy_keeps_one_plan_in_flight():
     """Strategy.prepare/collect plans on the planner thread what plan()
-    plans; a second prepare() before collect() raises."""
+    plans; plans prepared before a collect() stay in flight, a FIFO (the
+    JAX package's lookahead window of k), and a collect() with none in
+    flight raises."""
     from repro_torch.api import demo_cost_model
     from repro_torch.api.strategies import get_strategy
     from repro_torch.configs import get_config
-    infos = next(_loader(HeterogeneousLoader, 1024)).infos
+    loader = _loader(HeterogeneousLoader, 1024)
+    first, second = next(loader).infos, next(loader).infos
     strat = get_strategy("dhp").bind(
         demo_cost_model(get_config("internvl3-2b")), 1, 4096)
-    want = strat.plan(infos).structural_hash()
-    strat.prepare(infos)
-    with pytest.raises(RuntimeError, match="in flight"):
-        strat.prepare(infos)
-    assert strat.collect().structural_hash() == want
+    want = [strat.plan(b).structural_hash() for b in (first, second)]
+    strat.prepare(first)
+    strat.prepare(second)
+    assert strat.n_pending == 2
+    assert [strat.collect().structural_hash() for _ in range(2)] == want
     with pytest.raises(RuntimeError):
         strat.collect()
     strat.close()
