@@ -201,10 +201,16 @@ class CostCoeffs:
 
 @dataclasses.dataclass(frozen=True)
 class Hardware:
-    """Bandwidth topology used for v_p in Eq. 9 (GB/s per link)."""
+    """Bandwidth topology used for v_p in Eq. 9 (GB/s per link).
 
-    intra_bw: float = 50.0    # ICI link bandwidth inside a pod / node
-    inter_bw: float = 6.0     # DCI bandwidth across pods / nodes
+    The defaults are the reference package's analytic ones, kept so the
+    port plans what it plans on the same coefficients; they are not the
+    rates of any card's links. Give a cluster's own (an HGX H100 node's
+    data sheet: NVLink 450 GB/s each way inside a node, InfiniBand NDR
+    50 GB/s a GPU across nodes) where its plans should be priced."""
+
+    intra_bw: float = 50.0    # link bandwidth inside a node
+    inter_bw: float = 6.0     # link bandwidth across nodes
     ranks_per_node: int = 8   # ring spanning more than this uses inter_bw
 
     def ring_bandwidth(self, degree: int) -> float:
@@ -324,16 +330,19 @@ def analytic_coeffs(
     ffn: int,
     vocab: int,
     dtype_bytes: int = 2,
-    peak_flops: float = 197e12,     # TPU v5e bf16
+    peak_flops: float = 197e12,     # the reference's analytic default
     mfu: float = 0.45,
     params: float | None = None,
     zero_shards: int = 64,
 ) -> CostCoeffs:
     """Roofline-derived coefficients for a transformer of the given shape.
 
-    Used when no measured profile is available (the Profiler refines these
-    by fitting measured samples, reproducing the paper's <8% error claim).
-    Training step FLOPs ~ 3x forward (fwd + 2x bwd).
+    Used when no measured profile is available. `peak_flops` and `mfu`
+    default to the reference package's analytic values, kept so that
+    plans match it on identical coefficients; they are not a rate of the
+    card. On the card the Profiler fits the compute terms (a1, a2, b1)
+    from timed training groups instead. Training step FLOPs ~ 3x forward
+    (fwd + 2x bwd).
     """
     head_dim = hidden // n_heads
     # attention: QK^T + AV = 2 * 2 * L^2 * hidden FLOPs per layer (causal

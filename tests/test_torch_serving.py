@@ -153,7 +153,11 @@ def test_port_imports_neither_jax_nor_repro():
         "assert not bad, bad\n"
         "assert {'repro_torch.models.rglru',\n"
         "        'repro_torch.kernels.rglru_scan',\n"
-        "        'repro_torch.configs.recurrentgemma_2b'} <= set(names)\n"
+        "        'repro_torch.configs.recurrentgemma_2b',\n"
+        "        'repro_torch.core.profiler',\n"
+        "        'repro_torch.core.simulator',\n"
+        "        'repro_torch.launch',\n"
+        "        'repro_torch.launch.train'} <= set(names)\n"
         "print(len(names))\n")
     r = subprocess.run([sys.executable, "-c", script],
                        env={**os.environ, "PYTHONPATH": SRC},
