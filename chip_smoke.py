@@ -172,28 +172,46 @@ Phases:
                 times too) and bounds; these feed the kernels line
  20. ring       — ring context parallelism (parallel/ring_attention.py),
                 bf16: ring_attention in a LocalRing on the card (K1 a
-                hop, at most two launches a hop), forward (o, lse) and
-                backward, on phase 9's full-width 4096-token openvid
-                layout (segments and spans; the bucket rounded up to a
-                multiple of d) at internvl3-2b's heads (12:2, D = 128,
-                causal) for d = 2, 3, 4 and recurrentgemma-2b's (10:1,
-                D = 256, sliding 2048) for d = 2, 3, held with phase 7's
-                limits against K1 unsharded on the same inputs and
-                against the same ring on the plain versions (CPU
-                tensors); one hop's K1 backward under the merged o and
-                lse against the plain backward; the ring's forward +
-                backward ms beside K1 unsharded's. Then full-width
-                internvl3-2b, bf16, through Engine("internvl3-2b",
-                ClusterSpec(devices=[cuda:0] * 6, mem_budget=1408)): the
-                stream's first batch's DHP plan (rings of degree 2, 3, 4,
-                6) against its static plan at degree 1 (run twice: the
-                spread of degree 1), loss within RING_LOSS_RTOL; then
-                3 steps of .train(dataset="openvid", global_batch=8,
-                max_tokens=4096, tokens_per_frame=256): per step loss,
-                time, tokens/s, degrees, peak memory, K1 launches ==
-                layers x the groups' hop launches each way; losses and
-                parameters finite. The ranks share one card: the ring's
-                shifts are device copies, no NCCL and no link is run
+                hop, at most two launches a hop), in the contiguous and
+                the striped layout (rank r holds tokens i d + r: the
+                inputs permuted, the results put back in token order),
+                forward (o, lse) and backward, on phase 9's full-width
+                4096-token openvid layout (segments and spans; the bucket
+                rounded up to a multiple of d) at internvl3-2b's heads
+                (12:2, D = 128, causal) for d = 2, 3, 4 and
+                recurrentgemma-2b's (10:1, D = 256, sliding 2048) for
+                d = 2, 3, held with phase 7's limits against K1 unsharded
+                on the same inputs and against the same ring on the plain
+                versions (CPU tensors); K1's launches 2d - 1 each way
+                (hop 0 once, then two a hop: with spans no striped hop
+                is skipped); one hop's K1 backward under the
+                merged o and lse against the plain backward; the ring's
+                forward + backward ms beside K1 unsharded's. Each case
+                and one unpacked 4096-token causal row (12:2, D = 128,
+                d = 2, 3, 4) also print each layout's balance: every
+                rank's hops alone through K1 forward + backward in device
+                ms, the sum over hops of the slowest rank's hop against
+                the mean rank's total (a reading, no limit). Then
+                full-width internvl3-2b, bf16, through
+                Engine("internvl3-2b", ClusterSpec(devices=[cuda:0] * 6,
+                mem_budget=1408)): the stream's first batch's DHP plan
+                (rings of degree 2, 3, 4, 6) against its static plan at
+                degree 1 (run twice: the spread of degree 1), loss within
+                RING_LOSS_RTOL; one 4096-token group of that batch (its
+                sequences first fit into 4096 tokens: segments, frame
+                spans, tail padding) through the model's ring path at
+                d = 3 on striped shards (the batch permuted, per-segment
+                positions and every table alike) against the group at
+                degree 1, loss within RING_LOSS_RTOL and gradient within
+                RING_GRAD_RTOL, K1's launches layers x 5 each way (the
+                contiguous ring printed beside); then 3 steps of
+                .train(dataset=
+                "openvid", global_batch=8, max_tokens=4096,
+                tokens_per_frame=256): per step loss, time, tokens/s,
+                degrees, peak memory, K1 launches == layers x the groups'
+                hop launches each way; losses and parameters finite. The
+                ranks share one card: the ring's shifts are device
+                copies, no NCCL and no link is run
 
  21. state parity — reduced mamba2-370m and recurrentgemma-2b, fp32,
                 attn_impl="cuda": the ServingEngine's streams (slots=2,
@@ -430,6 +448,7 @@ among it) and prints what that took: left to the garbage collector, its
 full pass over that heap lands inside one of the run's timed steps.
 """
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -2155,16 +2174,115 @@ def ring_device_ms(fn, iters: int = 5):
                 kernels=len(evs) / iters)
 
 
+def _ring_order(S, d, striped):
+    """The order in which a layout lays a buffer of S tokens over d ranks
+    (`_ring_rows` then cuts it): striped, place r S / d + i holds token
+    i d + r; contiguous, the tokens as they are."""
+    if not striped:
+        return torch.arange(S)
+    return torch.arange(S).reshape(S // d, d).T.reshape(-1)
+
+
+def _ring_layout_rows(t, d, striped):
+    """[1, S, ...] -> [d, S / d, ...] in the layout's order."""
+    return _ring_rows(t[:, _ring_order(t.shape[1], d, striped).to(t.device)],
+                      d)
+
+
+def hop_device_ms(fn, iters: int = 5):
+    """Device ms a call of `fn` (one ring hop's K1 forward and backward)
+    from one torch.profiler session of `iters` calls after one more: each
+    kernel's mean traced duration, summed over the kernels, as
+    `device_ms(each_once=True)` reads it (every call launches each of its
+    kernels once on the same inputs, and this process's profiler drops
+    some events after many sessions). The session stands when it traced
+    K1's forward and backward kernels both (one that lost every event of
+    either would read part of a hop); else it runs again, up to three
+    times. None after three."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_name.setdefault(ev.name, []).append(
+                    ev.time_range.elapsed_us())
+        if (any("packed_fwd" in n for n in by_name)
+                and any("packed_bwd" in n for n in by_name)):
+            return sum(sum(t) / len(t) for t in by_name.values()) / 1e3
+    print("  hop_device_ms: the profiler missed K1's forward or backward in "
+          "three sessions; device time not measured (null)")
+    return None
+
+
+def ring_balance(card, q, k, v, do, segt, spant, mode, window, d, striped,
+                 tag):
+    """Each rank's share of a ring's attention, in one layout: every
+    rank's hops alone through K1, forward + backward, in device ms
+    (`hop_device_ms`), each on the rank's own rows with that hop's tables,
+    offset and window (the ring's own `_hop_kw`). A ring of d cards runs
+    hop h on every rank at once and waits for the slowest: `lockstep_ms`
+    sums the slowest rank's hop over the hops, `mean_rank_ms` is the mean
+    rank's total, and their ratio is what the layout's imbalance costs
+    such a ring, links aside. A reading, not a limit, printed; null where
+    the profiler missed kernels."""
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd)
+    from repro_torch.parallel.ring_attention import _hop_kw
+    S_loc = q.shape[1] // d
+    rows = [None if t is None else _ring_layout_rows(t, d, striped)
+            for t in (q, k, v, do, segt, spant)]
+    qs, ks, vs, dos, segs, spans = rows
+    one = lambda t, r: None if t is None else t[r:r + 1]  # noqa: E731
+    ms = [[0.0] * d for _ in range(d)]          # [rank][hop]
+    for r, h in itertools.product(range(d), range(d)):
+        src = (r + h) % d
+        kw = _hop_kw(one(segs, r), one(spans, r), one(segs, src),
+                     one(spans, src), slice(None), src - r, S_loc, d,
+                     striped, mode, window)
+        if kw is None:
+            continue
+
+        def hop():
+            o, lse = flash_attention_packed(
+                qs[r:r + 1], ks[src:src + 1], vs[src:src + 1],
+                segs[r:r + 1], return_lse=True, **kw)
+            flash_attention_packed_bwd(qs[r:r + 1], ks[src:src + 1],
+                                       vs[src:src + 1], o, lse,
+                                       dos[r:r + 1], segs[r:r + 1], **kw)
+        ms[r][h] = hop_device_ms(hop)
+    if any(t is None for row in ms for t in row):
+        lockstep = mean = ratio = None
+    else:
+        lockstep = sum(max(ms[r][h] for r in range(d)) for h in range(d))
+        mean = sum(map(sum, ms)) / d
+        ratio = lockstep / mean
+    row = dict(tag=tag, layout="striped" if striped else "contiguous", d=d,
+               S=q.shape[1], mode=mode, window=window,
+               spans=spant is not None, hop_device_ms=ms,
+               rank_device_ms=[None if None in t else sum(t) for t in ms],
+               lockstep_ms=lockstep, mean_rank_ms=mean, ratio=ratio)
+    print(f"  ring balance {json.dumps(row)} ({card})")
+
+
 def check_ring(dev, card, gen, seg, span, heads, mode, window, d):
-    """ring_attention in a LocalRing of degree d on the card, forward (o,
-    lse) and backward (dq, dk, dv), against K1 unsharded on the same
-    inputs and against the same ring on the plain versions (CPU tensors);
-    one hop's K1 backward under the merged o and lse against the plain
-    backward; the ring's forward + backward ms beside K1 unsharded's."""
+    """ring_attention in a LocalRing of degree d on the card, in both
+    layouts on the same inputs, forward (o, lse) and backward (dq, dk,
+    dv), against K1 unsharded on those inputs and against the same ring
+    on the plain versions (CPU tensors); one hop's K1 backward under the
+    merged o and lse against the plain backward; the ring's forward +
+    backward ms beside K1 unsharded's; each rank's share (`ring_balance`).
+    Returns a row a layout."""
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed, flash_attention_packed_bwd,
         flash_attention_packed_bwd_ref)
-    from repro_torch.parallel import LocalRing, ring_attention
+    from repro_torch.parallel import LocalRing, ring_attention, striped_hop
     Hq, Hkv, Dh = heads
     pad = (-len(seg)) % d                # the bucket, a multiple of d
     seg = np.concatenate([seg, np.full(pad, -1, np.int32)])
@@ -2185,83 +2303,107 @@ def check_ring(dev, card, gen, seg, span, heads, mode, window, d):
         return (o, lse) + tuple(flash_attention_packed_bwd(
             q, k, v, o, lse, do, segt, span_ids=spant, **kw))
 
-    def ring(device):
-        x = [_ring_rows(t, d).to(device) for t in (q, k, v, do, segt,
-                                                   spant)]
-        qs, ks, vs = (t.detach().requires_grad_(True) for t in x[:3])
-        o, lse = ring_attention(qs, ks, vs, x[4], ring=LocalRing(d),
-                                span_ids=x[5], return_lse=True, **kw)
-        grads = torch.autograd.grad(o, (qs, ks, vs), x[3])
-        return (o.detach(), lse) + grads
-
-    def whole(out):
-        """The ring's rows back in the unsharded layout."""
-        o, lse, dq, dk, dv = (t.to(dev) for t in out)
-        flat = lambda t: t.reshape(1, S, *t.shape[2:])  # noqa: E731
-        return dict(o=flat(o), lse=lse.permute(1, 0, 2).reshape(1, Hq, S),
-                    dq=flat(dq), dk=flat(dk), dv=flat(dv))
-
     want = dict(zip(("o", "lse", "dq", "dk", "dv"), unsharded()))
-    n0 = (flash_attention_packed.launches,
-          flash_attention_packed_bwd.launches)
-    got = whole(ring(dev))
-    torch.cuda.synchronize()
-    launches = (flash_attention_packed.launches - n0[0],
-                flash_attention_packed_bwd.launches - n0[1])
-    if launches != (2 * d - 1,) * 2:     # hop 0 once, then two a hop
-        raise AssertionError(f"ring d={d}: K1 launches {launches}, want "
-                             f"{2 * d - 1} each way")
-    plain = whole(ring("cpu"))
-    names = ("o", "dq", "dk", "dv")
-    tag = f"ring d={d} H={Hq} Hkv={Hkv} D={Dh} {mode} window={window}"
-    errs = {"vs_k1": _ring_errs({n: got[n] for n in names}, want),
-            "vs_plain_ring": _ring_errs({n: got[n] for n in names}, plain)}
-    _ring_hold(f"{tag} against K1 unsharded", errs["vs_k1"])
-    _ring_hold(f"{tag} against the ring on the plain versions",
-               errs["vs_plain_ring"])
-    fin = torch.isfinite(want["lse"])
-    if not torch.equal(fin, torch.isfinite(got["lse"])):
-        raise AssertionError(f"{tag}: rows with keys differ (LSE)")
-    lse_err = (got["lse"][fin] - want["lse"][fin]).abs().max().item()
-    if not lse_err <= 1e-3:
-        raise AssertionError(f"{tag}: LSE off by {lse_err}")
+    rows = []
+    for striped in (False, True):
+        order = _ring_order(S, d, striped).to(dev)
+        back = torch.argsort(order)
 
-    # one hop under the merged o and lse: the last rank's queries against
-    # shard 0's keys (wrapped: offset -(d - 1) S_loc), kernel vs plain
-    r = d - 1
-    rows = lambda t: _ring_rows(t, d)    # noqa: E731
-    hop = (rows(q)[r:], rows(k)[:1], rows(v)[:1],
-           rows(got["o"])[r:].contiguous(),
-           got["lse"].reshape(1, Hq, d, S_loc)[:, :, r].contiguous(),
-           rows(do)[r:], rows(segt)[r:])
-    hkw = dict(span_ids=rows(spant)[r:], kv_segment_ids=rows(segt)[:1],
-               kv_span_ids=rows(spant)[:1], kv_offset=-r * S_loc, **kw)
-    hop_k = flash_attention_packed_bwd(*hop, **hkw)
-    hop_p = flash_attention_packed_bwd_ref(*hop, **hkw)
-    errs["hop_bwd_vs_plain"] = _ring_errs(dict(zip(names[1:], hop_k)),
-                                          dict(zip(names[1:], hop_p)))
-    _ring_hold(f"{tag}: one hop's K1 backward under the merged o and lse",
-               errs["hop_bwd_vs_plain"])
+        def ring(device):
+            x = [_ring_layout_rows(t, d, striped).to(device)
+                 for t in (q, k, v, do, segt, spant)]
+            qs, ks, vs = (t.detach().requires_grad_(True) for t in x[:3])
+            o, lse = ring_attention(qs, ks, vs, x[4],
+                                    ring=LocalRing(d, striped=striped),
+                                    span_ids=x[5], return_lse=True, **kw)
+            grads = torch.autograd.grad(o, (qs, ks, vs), x[3])
+            return (o.detach(), lse) + grads
 
-    ring_ms = cuda_ms(lambda: ring(dev), iters=5, warmup=1)
-    k1_ms = cuda_ms(unsharded, iters=5, warmup=1)
-    ring_dev = ring_device_ms(lambda: ring(dev))
-    k1_dev = ring_device_ms(unsharded)
-    row = dict(tag=tag, d=d, S=S, S_loc=S_loc, H=Hq, Hkv=Hkv, D=Dh,
-               mode=mode, window=window, launches_fwd_bwd=launches,
-               err=errs, lse_err=lse_err, ring_fwd_bwd_ms=ring_ms,
-               k1_unsharded_fwd_bwd_ms=k1_ms,
-               ring_fwd_bwd_device_ms=ring_dev,
-               k1_unsharded_fwd_bwd_device_ms=k1_dev,
-               max_abs_err=max(_scaled_err(got[n], want[n])[0]
-                               for n in names))
-    print(f"  ring {json.dumps(row)} ({card})")
-    return row
+        def whole(out):
+            """The ring's rows back in the unsharded layout."""
+            o, lse, dq, dk, dv = (t.to(dev) for t in out)
+            flat = lambda t: t.reshape(1, S, *t.shape[2:])[:, back]  # noqa
+            return dict(o=flat(o),
+                        lse=lse.permute(1, 0, 2).reshape(1, Hq, S)[..., back],
+                        dq=flat(dq), dk=flat(dk), dv=flat(dv))
+
+        n0 = (flash_attention_packed.launches,
+              flash_attention_packed_bwd.launches)
+        got = whole(ring(dev))
+        torch.cuda.synchronize()
+        launches = (flash_attention_packed.launches - n0[0],
+                    flash_attention_packed_bwd.launches - n0[1])
+        layout = "striped" if striped else "contiguous"
+        tag = (f"ring d={d} H={Hq} Hkv={Hkv} D={Dh} {mode} window={window}"
+               + (" striped" if striped else ""))
+        # hop 0 once, then two a hop: a span table keeps every striped
+        # hop, even one past the window, for its span pairs
+        if launches != (2 * d - 1,) * 2:
+            raise AssertionError(f"{tag}: K1 launches {launches}, want "
+                                 f"{2 * d - 1} each way")
+        plain = whole(ring("cpu"))
+        names = ("o", "dq", "dk", "dv")
+        errs = {"vs_k1": _ring_errs({n: got[n] for n in names}, want),
+                "vs_plain_ring": _ring_errs({n: got[n] for n in names},
+                                            plain)}
+        _ring_hold(f"{tag} against K1 unsharded", errs["vs_k1"])
+        _ring_hold(f"{tag} against the ring on the plain versions",
+                   errs["vs_plain_ring"])
+        fin = torch.isfinite(want["lse"])
+        if not torch.equal(fin, torch.isfinite(got["lse"])):
+            raise AssertionError(f"{tag}: rows with keys differ (LSE)")
+        lse_err = (got["lse"][fin] - want["lse"][fin]).abs().max().item()
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"{tag}: LSE off by {lse_err}")
+
+        # one hop under the merged o and lse: the last rank's queries
+        # against shard 0's keys (wrapped: contiguous offset -(d - 1)
+        # S_loc; striped, the keys' tokens before the queries': offset 0
+        # and the window W'), kernel vs plain
+        r = d - 1
+        lrows = lambda t: _ring_layout_rows(t, d, striped)  # noqa: E731
+        lse_rows = got["lse"][..., order].reshape(1, Hq, d, S_loc)
+        hop = (lrows(q)[r:], lrows(k)[:1], lrows(v)[:1],
+               lrows(got["o"])[r:].contiguous(),
+               lse_rows[:, :, r].contiguous(), lrows(do)[r:],
+               lrows(segt)[r:])
+        off, w = (striped_hop(-r, d, mode, window) if striped
+                  else (-r * S_loc, window))
+        hkw = dict(span_ids=lrows(spant)[r:],
+                   kv_segment_ids=lrows(segt)[:1],
+                   kv_span_ids=lrows(spant)[:1], kv_offset=off, mode=mode,
+                   window=w)
+        hop_k = flash_attention_packed_bwd(*hop, **hkw)
+        hop_p = flash_attention_packed_bwd_ref(*hop, **hkw)
+        errs["hop_bwd_vs_plain"] = _ring_errs(dict(zip(names[1:], hop_k)),
+                                              dict(zip(names[1:], hop_p)))
+        _ring_hold(f"{tag}: one hop's K1 backward under the merged o and "
+                   f"lse", errs["hop_bwd_vs_plain"])
+
+        ring_ms = cuda_ms(lambda: ring(dev), iters=5, warmup=1)
+        k1_ms = cuda_ms(unsharded, iters=5, warmup=1)
+        ring_dev = ring_device_ms(lambda: ring(dev))
+        k1_dev = ring_device_ms(unsharded)
+        row = dict(tag=tag, layout=layout, d=d, S=S, S_loc=S_loc, H=Hq,
+                   Hkv=Hkv, D=Dh, mode=mode, window=window,
+                   launches_fwd_bwd=launches, err=errs, lse_err=lse_err,
+                   ring_fwd_bwd_ms=ring_ms, k1_unsharded_fwd_bwd_ms=k1_ms,
+                   ring_fwd_bwd_device_ms=ring_dev,
+                   k1_unsharded_fwd_bwd_device_ms=k1_dev,
+                   max_abs_err=max(_scaled_err(got[n], want[n])[0]
+                                   for n in names))
+        print(f"  ring {json.dumps(row)} ({card})")
+        rows.append(row)
+        ring_balance(card, q, k, v, do, segt, spant, mode, window, d,
+                     striped, tag)
+    return rows
 
 
 def phase_ring(dev, card, tables):
     """Ring CP at function level, bf16, on one full-width openvid
-    4096-token packed layout (phase 9's, with segments and spans)."""
+    4096-token packed layout (phase 9's, with segments and spans), in both
+    layouts; then each layout's balance on one unpacked 4096-token causal
+    row. Returns the rows of check_ring."""
     if (4096, True) not in tables:
         raise AssertionError(f"no 4096-token group with spans in phase 9's "
                              f"run: {sorted(tables)}")
@@ -2270,9 +2412,23 @@ def phase_ring(dev, card, tables):
     rows = []
     for heads, mode, window, degrees in RING_SHAPES:
         for d in degrees:
-            rows.append(check_ring(dev, card, gen, seg, span, heads, mode,
-                                   window, d))
+            rows += check_ring(dev, card, gen, seg, span, heads, mode,
+                               window, d)
             torch.cuda.empty_cache()
+    # the unpacked row: one causal sequence, where the contiguous layout's
+    # slowest rank carries (2d - 1) / d of the mean rank's work
+    for d in RING_SHAPES[0][3]:
+        S = 4096 + (-4096) % d
+        q, do = (torch.randn(1, S, H, D, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(1, S, HKV, D, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        segt = torch.zeros(1, S, dtype=torch.int32, device=dev)
+        segt[:, 4096:] = -1
+        for striped in (False, True):
+            ring_balance(card, q, k, v, do, segt, None, "causal", None, d,
+                         striped,
+                         f"ring d={d} H={H} Hkv={HKV} D={D} causal unpacked")
     return rows
 
 
@@ -2283,11 +2439,108 @@ def _max_rel_diff(a, b):
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
+#: the ring degree of the striped model check
+STRIPED_DEGREE = 3
+
+
+def _group_loss(params, cfg, batch, ring):
+    """(loss, gradient leaves) of one span-bearing packed group, as the
+    executor forms them: the loss-masked mean NLL over every row."""
+    from repro_torch.core.executor import token_nll
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    it = iter(leaves)
+    p = tree_map(lambda _: next(it), params)
+    nll = token_nll(p, cfg, batch, ring=ring)
+    lm = batch["loss_mask"]
+    loss = (nll * lm).sum() / torch.clamp(lm.sum(), min=1.0)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), grads
+
+
+def check_striped_model(dev, card, eng, data):
+    """The model's ring path on striped shards at full width: one
+    4096-token group of `data`, its sequences taken in stream order as
+    they first fit into 4096 tokens (segments, frame spans, tail
+    padding; a sequence cut at 4096 tokens is one video with a single
+    label outside its frames, whose one-token loss no bf16 path holds
+    to 1e-3), packed into its bucket rounded up to a multiple of
+    STRIPED_DEGREE, its buffer permuted so that row r holds tokens
+    i d + r with every table (per-segment positions, segments, spans,
+    labels, masks) alike, through the model over LocalRing(d,
+    striped=True); against the same group at degree 1 (K1 on the whole
+    row) within RING_LOSS_RTOL / RING_GRAD_RTOL, the contiguous ring of
+    the same degree beside. Returns a row with the striped run's K1
+    launches, counted from 0 around it."""
+    from repro_torch.core.packing import flatten_group
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed, flash_attention_packed_bwd)
+    from repro_torch.parallel import LocalRing
+    d = STRIPED_DEGREE
+    spans = data.spans_by_id()
+    ids = []
+    for info in data.infos:
+        if sum(len(data.by_id(i)) for i in ids + [info.seq_id]) <= 4096:
+            ids.append(info.seq_id)
+    seqs = [data.by_id(i) for i in ids]
+    if len(ids) < 2 or not any(i in spans for i in ids):
+        raise AssertionError(f"no packed group with frames: {ids}")
+    bucket = eng.cluster.pool().bucket(sum(map(len, seqs)))
+    bucket += (-bucket) % d
+    np_batch, cu = flatten_group(seqs, bucket, spans=[
+        spans.get(i) for i in ids])
+    whole = {k: torch.as_tensor(a, device=dev) for k, a in np_batch.items()}
+    params, cfg = eng.state.params, eng.cfg
+    l1, g1 = _group_loss(params, cfg, whole, None)
+    out = {}
+    for striped in (True, False):
+        batch = {k: _ring_layout_rows(t, d, striped)
+                 for k, t in whole.items()}
+        _zero_k4_k1_counts()
+        loss, grads = _group_loss(params, cfg, batch,
+                                  LocalRing(d, striped=striped))
+        torch.cuda.synchronize()
+        launches = (flash_attention_packed.launches,
+                    flash_attention_packed_bwd.launches)
+        rel = abs(float(loss) - float(l1)) / abs(float(l1))
+        gdiff = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+                     ).item() for a, b in zip(grads, g1))
+        out["striped" if striped else "contiguous"] = dict(
+            loss=float(loss), loss_rel_diff=rel, grad_rel_diff=gdiff,
+            k1_launches_fwd_bwd=launches)
+        del grads
+    runs = 2 if cfg.remat else 1
+    want = (runs * cfg.n_layers * (2 * d - 1), cfg.n_layers * (2 * d - 1))
+    row = dict(arch="internvl3-2b", d=d, bucket=bucket,
+               tokens=int(cu[-1]), n_seqs=len(seqs),
+               spans=int((np_batch["modality_ids"] >= 0).sum()),
+               loss_tokens=int(np_batch["loss_mask"].sum()),
+               degree1_loss=float(l1), want_launches=want, **out)
+    print(f"  ring striped model {json.dumps(row)} ({card})")
+    st = out["striped"]
+    if st["k1_launches_fwd_bwd"] != want:
+        raise AssertionError(f"striped ring: K1 launches "
+                             f"{st['k1_launches_fwd_bwd']}, want {want}")
+    if not (math.isfinite(st["loss"]) and st["loss_rel_diff"]
+            <= RING_LOSS_RTOL):
+        raise AssertionError(f"striped ring loss {st['loss']} against "
+                             f"degree 1 {float(l1)}: relative "
+                             f"{st['loss_rel_diff']} > {RING_LOSS_RTOL}")
+    if not st["grad_rel_diff"] <= RING_GRAD_RTOL:
+        raise AssertionError(f"striped ring gradient against degree 1: "
+                             f"{st['grad_rel_diff']} > {RING_GRAD_RTOL}")
+    del g1
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_ring_training(dev, card):
     """Full-width internvl3-2b DHP training with RING_RANKS ranks on the
     one card, so that groups of degree > 1 run as rings: one batch's DHP
-    plan against its static plan at degree 1 (twice), then 3 steps.
-    Returns the K1 launches (forward, backward) of the 3 steps."""
+    plan against its static plan at degree 1 (twice); the striped model
+    check on a group of the same batch (`check_striped_model`); then 3
+    steps. Returns the K1 launches (forward, backward) of the 3 steps
+    and the striped check's row."""
     import gc
 
     from repro_torch.api import ClusterSpec, Engine
@@ -2341,6 +2594,7 @@ def phase_ring_training(dev, card):
     if not diff[1] <= RING_GRAD_RTOL:
         raise AssertionError(f"ring gradient against degree 1: "
                              f"{diff[1]} > {RING_GRAD_RTOL}")
+    striped = check_striped_model(dev, card, eng, data)
 
     plans, per_step = [], []
     execute = eng.execute
@@ -2400,7 +2654,7 @@ def phase_ring_training(dev, card):
     eng.close()
     del eng, params
     gc.collect()
-    return counts
+    return counts, striped
 
 
 # ------------------------------------------------ state-cache serving
@@ -5091,23 +5345,28 @@ def main() -> int:
                 bound_by=r[f"bound_{which}_by"],
                 library_ms=r[f"library_{which}_ms"]) for r in k1_path],
         })
-    phase("[20/48] ring context parallelism (bf16): LocalRing vs K1 "
-          "unsharded and vs the plain ring; full-width internvl3-2b at "
-          f"{RING_RANKS} ranks on the one card")
+    phase("[20/48] ring context parallelism (bf16): LocalRing in both "
+          "layouts vs K1 unsharded and vs the plain ring, each rank's "
+          "share; full-width internvl3-2b on striped shards vs degree 1, "
+          f"and at {RING_RANKS} ranks on the one card")
     ring_rows = phase_ring(dev, card, tables)
     torch.cuda.empty_cache()
     collect_garbage("ring train")
-    ring_counts = phase_ring_training(dev, card)
+    ring_counts, striped_model = phase_ring_training(dev, card)
     torch.cuda.empty_cache()
-    # the ring's own path: its launches (phase 20's engine run) and its
-    # function-level cases beside the K1 entries of their head dim
+    # the ring's own path: its launches (phase 20's engine run, and the
+    # striped model check's) and its function-level cases beside the K1
+    # entries of their head dim
     for entry in kernels:
         if entry["name"].startswith("flash_attention_packed"):
             wide = "d256" in entry["name"]
             which = 1 if entry["name"].endswith("_bwd") else 0
             entry["ring_launches"] = 0 if wide else ring_counts[which]
+            entry["striped_ring_launches"] = 0 if wide else striped_model[
+                "striped"]["k1_launches_fwd_bwd"][which]
             entry["ring_path_shapes"] = [dict(
-                d=r["d"], S=r["S"], mode=r["mode"], window=r["window"],
+                layout=r["layout"], d=r["d"], S=r["S"], mode=r["mode"],
+                window=r["window"],
                 launches=r["launches_fwd_bwd"][which],
                 err=r["err"], ring_fwd_bwd_ms=r["ring_fwd_bwd_ms"],
                 k1_unsharded_fwd_bwd_ms=r["k1_unsharded_fwd_bwd_ms"],

@@ -19,8 +19,10 @@ package. The chunked and banded cores are not ported.
 
 With a `ring` (parallel/ring_attention.Ring), `attention` runs ring
 context parallelism whatever `impl` says, as the JAX package's `cp_axis`
-does: x is the ring's local rows of a contiguously sharded packed buffer,
-and every hop runs K1 (its plain version on CPU tensors).
+does: x is the ring's local rows of a packed buffer sharded in the
+ring's layout (contiguous, or striped with `ring.striped`), `positions`
+are those rows' per-segment positions, and every hop runs K1 (its plain
+version on CPU tensors).
 """
 from __future__ import annotations
 
@@ -181,8 +183,9 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
     causal) adds the mixed modality mask. `impl="cuda"` runs kernel K1
     when a table is given or a gradient is needed, and K2 otherwise;
     `impl="reference"` the full matrix. With a `ring`, x's rows are the
-    ring's contiguous shards and the core is `ring_attention` (K1 a
-    hop), whatever `impl` says.
+    ring's shards in its layout (`ring.striped`), RoPE takes their
+    `positions` as given, and the core is `ring_attention` (K1 a hop),
+    whatever `impl` says.
 
     `cross_kv` = (k, v) [B,T,Hkv,D] makes it cross-attention (whisper's
     decoder over its encoder): x gives only the queries, unrotated, and

@@ -240,10 +240,12 @@ def forward_hidden(params, cfg: ModelConfig, batch,
     there (`torch.utils.checkpoint`), as the JAX package wraps each scan
     step in `jax.checkpoint`.
 
-    With a `ring` (parallel/ring_attention.Ring; the dense family only)
-    the batch's rows are the ring's contiguous shards of one packed
-    buffer and every attention layer runs ring context parallelism, as
-    the JAX package's `cp_axis` does; the other layers are per token."""
+    With a `ring` (parallel/ring_attention.Ring; the dense and VLM
+    families) the batch's rows are the ring's shards of one packed
+    buffer, in the ring's layout (contiguous, or striped with
+    `ring.striped`; the tables and `positions` laid out the same way),
+    and every attention layer runs ring context parallelism, as the JAX
+    package's `cp_axis` does; the other layers are per token."""
     _check_family(cfg)
     if ring is not None and cfg.family == "moe":
         raise NotImplementedError(

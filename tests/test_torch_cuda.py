@@ -6,10 +6,14 @@ only the port's requirements:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -m cuda
 """
+import functools
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
+import _ring_faults as hop_faults
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 
@@ -1404,15 +1408,25 @@ def test_recurrentgemma_full_width_training_memory(card, monkeypatch):
 
 
 # Ring context parallelism (parallel/ring_attention.py): a LocalRing of
-# degree 3 on the card, every hop through K1, against K1 unsharded on the
-# same bf16 inputs, with the K1 checks' limits (TOL / GRAD_TOL
-# elementwise, REL_TOL_BF16 as whole tensors); segments and spans cross
-# the shard borders. Two planted faults must break those limits: the
-# wrapped rows' shard distance with the wrong sign, and dK / dV left one
-# shift short of home.
+# degree 3 on the card, every hop through K1, in the contiguous and the
+# striped layout (rank r holds tokens i 3 + r: the inputs permuted, the
+# results put back), against K1 unsharded on the same bf16 inputs, with
+# the K1 checks' limits (TOL / GRAD_TOL elementwise, REL_TOL_BF16 as
+# whole tensors); segments and spans cross the shard borders. Four
+# planted faults must break those limits: the wrapped rows' shard
+# distance with the wrong sign, dK / dV left one shift short of home,
+# and in the striped layout's hop arithmetic (`striped_hop`) the offset
+# without its +1 and the window W where W' belongs.
 #: head_dim -> (query heads, KV heads, mode, window): internvl3-2b's
-#: attention and recurrentgemma-2b's (a window below S_loc)
+#: attention and recurrentgemma-2b's (a window below S_loc; striped at
+#: d = 3 each hop's window W' is 133 or 134)
 RING_SHAPES = {128: (12, 2, "causal", None), 256: (10, 1, "sliding", 400)}
+
+
+#: fault -> (head dim of its case, the planted striped_hop or None)
+RING_FAULT_CASES = {"wrong_sign": (128, None), "short_home": (128, None),
+                    "no_plus_one": (128, hop_faults.no_plus_one),
+                    "raw_window": (256, hop_faults.raw_window)}
 
 
 def _ring_faults():
@@ -1431,7 +1445,9 @@ def _ring_faults():
         def shift(self, *ts):
             return ts if len(ts) == 2 else super().shift(*ts)
 
-    return {"wrong_sign": WrongSign, "short_home": ShortHome}
+    striped = functools.partial(LocalRing, striped=True)
+    return {"wrong_sign": WrongSign, "short_home": ShortHome,
+            "no_plus_one": striped, "raw_window": striped}
 
 
 def _ring_errors(card, D, ring, d=3, S=1536):
@@ -1449,7 +1465,10 @@ def _ring_errors(card, D, ring, d=3, S=1536):
     o, lse = flash_attention_packed(q, k, v, segt, return_lse=True, **kw)
     want = (o,) + tuple(flash_attention_packed_bwd(q, k, v, o, lse, do, segt,
                                                    **kw))
-    rows = lambda t: t.reshape(d, S // d, *t.shape[2:])  # noqa: E731
+    order = (torch.arange(S).reshape(S // d, d).T.reshape(-1)
+             if ring.striped else torch.arange(S)).to(card)
+    rows = lambda t: t[:, order].reshape(d, S // d,  # noqa: E731
+                                         *t.shape[2:])
     qs, ks, vs = (rows(t).detach().requires_grad_(True) for t in (q, k, v))
     n = (flash_attention_packed.launches,
          flash_attention_packed_bwd.launches)
@@ -1460,8 +1479,9 @@ def _ring_errors(card, D, ring, d=3, S=1536):
     launches = (flash_attention_packed.launches - n[0],
                 flash_attention_packed_bwd.launches - n[1])
     errs = {}
+    back = torch.argsort(order)
     for name, a, r in zip(("o", "dq", "dk", "dv"), got, want):
-        a, r = a.reshape(r.shape).float(), r.float()
+        a, r = a.reshape(r.shape)[:, back].float(), r.float()
         diff = (a - r).abs()
         errs[name] = ((diff / r.abs().clamp_min(1.0)).max().item(),
                       diff.max().item() / r.abs().max().item())
@@ -1482,9 +1502,26 @@ def test_ring_matches_k1_unsharded(card, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fault", ["wrong_sign", "short_home"])
-def test_ring_limit_catches_planted_fault(card, fault):
-    errs, _ = _ring_errors(card, 128, _ring_faults()[fault](3))
+@pytest.mark.parametrize("D", [128, 256])
+def test_striped_ring_matches_k1_unsharded(card, D):
+    from repro_torch.parallel import LocalRing
+    errs, launches = _ring_errors(card, D, LocalRing(3, striped=True))
+    print(f"striped ring d=3 D={D}: {errs}")
+    assert launches == (5, 5)            # spans: no hop is skipped
+    for name, (err, rel) in errs.items():
+        tol = TOL[torch.bfloat16] if name == "o" else \
+            GRAD_TOL[torch.bfloat16]
+        assert err <= tol and rel <= REL_TOL_BF16, (name, errs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", list(RING_FAULT_CASES))
+def test_ring_limit_catches_planted_fault(card, monkeypatch, fault):
+    D, hop = RING_FAULT_CASES[fault]
+    if hop is not None:
+        monkeypatch.setattr(importlib.import_module(
+            "repro_torch.parallel.ring_attention"), "striped_hop", hop)
+    errs, _ = _ring_errors(card, D, _ring_faults()[fault](3))
     print(f"ring fault {fault}: {errs}")
     caught = [name for name, (err, rel) in errs.items()
               if err > (TOL if name == "o" else GRAD_TOL)[torch.bfloat16]

@@ -5,16 +5,26 @@ The same numpy-seeded fp32 inputs go through both. The JAX outputs and
 `jax.grad`s come from one module-scoped subprocess over 5 forced host
 devices (`tests/conftest.py::run_in_subprocess`), `ring_attention` under
 `shard_map` with the sequence axis split `P(None, "cp")`, written to an
-`.npz`. The port runs:
+`.npz`. Every case runs in both layouts: the striped one gives the JAX
+ring the global arrays permuted so that shard r holds tokens i d + r,
+with their per-segment positions permuted alike. The port runs:
 
   * `ring_attention` in a `LocalRing` (all ranks as blocks of rows of one
     tensor): causal at d = 3, 4, 5 (two batch rows a rank), sliding with
-    the window below and above S_loc at d = 3, packed segments with
-    bidirectional spans crossing shard borders and tail padding at d = 3;
-    GQA (4 query heads over 2 KV heads) throughout;
-  * the d = 3 cases again through `DistRing` over gloo, one process a
-    rank (`torch.multiprocessing` spawn, a file rendezvous under the
-    test's temp dir, timeouts on the group and the join);
+    the window below and above S_loc at d = 3, a window of 2 at d = 3
+    without tables and with them (striped: hops past the window, skipped
+    without spans, launched for the span pairs with them), packed
+    segments with bidirectional spans crossing shard borders and tail
+    padding at d = 3; GQA (4 query heads over 2 KV heads) throughout;
+    each striped output, put back in token order, also against the
+    contiguous JAX output;
+  * the d = 3 cases again through `DistRing` over gloo, both layouts,
+    one process a rank (`torch.multiprocessing` spawn, a file rendezvous
+    under the test's temp dir, timeouts on the group and the join);
+  * `striped_hop` against the position test of the JAX ring's
+    `_partial_update` at d = 1..6, and two faults planted in it (the
+    offset without its +1, the window W where W' belongs), each of which
+    must break that test and the ring's limits;
   * `ring_decode_attention` at d = 4 in both forms;
   * `make_positions` and `shard_sequence`, both layouts.
 
@@ -22,16 +32,27 @@ Limits are the JAX tests' (`tests/test_parallel.py`): forward 3e-5,
 gradients 5e-4. Each hop runs K1's plain version here (CPU tensors).
 """
 import datetime
+import functools
+import importlib
+import itertools
 import time
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from repro.parallel.ring_attention import _partial_update
 
+import _ring_faults as hop_faults
 from conftest import run_in_subprocess
+from repro_torch.kernels.flash_attention_packed import pair_mask
 from repro_torch.parallel import (DistRing, LocalRing, make_positions,
                                   ring_attention, ring_decode_attention,
-                                  shard_sequence)
+                                  shard_sequence, striped_hop)
+
+# the module itself: the package's `ring_attention` is the function
+ring_module = importlib.import_module("repro_torch.parallel.ring_attention")
 
 # torch's first multi-threaded CPU exp of a process can be 1.5e-4 off
 # under load (ROADMAP Queue 3): one single-element exp first avoids it
@@ -47,6 +68,8 @@ CASES = {
     "sliding_short_d3": (3, 1, 24, "sliding", 10, False),
     "sliding_long_d3": (3, 1, 24, "sliding", 40, False),
     "packed_spans_d3": (3, 1, 32, "causal", None, True),
+    "sliding_w2_d3": (3, 1, 24, "sliding", 2, False),
+    "sliding_w2_spans_d3": (3, 1, 32, "sliding", 2, True),
 }
 DIST_CASES = [n for n, c in CASES.items() if c[0] == 3]
 #: ring_decode_attention: degree, batch rows, cache entries a rank
@@ -71,25 +94,32 @@ out = {{}}
 devs = jax.devices()
 for name, (d, B, S_loc, mode, window, packed) in cases.items():
     mesh = Mesh(np.array(devs[:d]), ("cp",))
-    q, k, v, pos = (jnp.asarray(inp[name + "/" + t])
-                    for t in ("q", "k", "v", "pos"))
-    tables = ((jnp.asarray(inp[name + "/seg"]),
-               jnp.asarray(inp[name + "/span"])) if packed else ())
 
     def f(q, k, v, p, *t):
         kw = dict(q_seg=t[0], q_span=t[1]) if t else {{}}
         return ring_attention(q, k, v, p, axis_name="cp", mode=mode,
                               window=window, **kw)
     fm = jax.jit(shard_map(f, mesh=mesh,
-                           in_specs=(P(None, "cp"),) * (4 + len(tables)),
+                           in_specs=(P(None, "cp"),)
+                           * (4 + 2 * int(packed)),
                            out_specs=P(None, "cp")))
-    live = jnp.asarray(inp[name + "/live"])[:, :, None, None]
-    out[name + "/o"] = np.asarray(fm(q, k, v, pos, *tables))
-    grads = jax.jit(jax.grad(
-        lambda q, k, v: ((fm(q, k, v, pos, *tables) * live) ** 2).sum(),
-        argnums=(0, 1, 2)))(q, k, v)
-    for t, g in zip(("dq", "dk", "dv"), grads):
-        out[name + "/" + t] = np.asarray(g)
+    gm = jax.jit(jax.grad(
+        lambda q, k, v, pos, live, *t: ((fm(q, k, v, pos, *t)
+                                         * live) ** 2).sum(),
+        argnums=(0, 1, 2)))
+    # the striped layout: the global arrays permuted so that shard r
+    # holds tokens i d + r, positions (per segment) permuted alike
+    stripe = np.arange(d * S_loc).reshape(S_loc, d).T.reshape(-1)
+    for tag, idx in (("", slice(None)), ("/striped", stripe)):
+        q, k, v, pos = (jnp.asarray(inp[name + "/" + t][:, idx])
+                        for t in ("q", "k", "v", "pos"))
+        tables = tuple(jnp.asarray(inp[name + "/" + t][:, idx])
+                       for t in (("seg", "span") if packed else ()))
+        live = jnp.asarray(inp[name + "/live"][:, idx])[:, :, None, None]
+        out[name + tag + "/o"] = np.asarray(fm(q, k, v, pos, *tables))
+        grads = gm(q, k, v, pos, live, *tables)
+        for t, g in zip(("dq", "dk", "dv"), grads):
+            out[name + tag + "/" + t] = np.asarray(g)
 
 d = {decode_d}
 mesh = Mesh(np.array(devs[:d]), ("cp",))
@@ -185,9 +215,16 @@ def _from_rows(a, d):
     return np.swapaxes(a, 0, 1).reshape(R // d, d * S_loc, *a.shape[3:])
 
 
-def _shard(a, d, rank):
+def _shard(a, d, rank, striped=False):
+    if striped:                              # tokens i d + rank
+        return np.ascontiguousarray(a[:, rank::d])
     S_loc = a.shape[1] // d
     return np.ascontiguousarray(a[:, rank * S_loc:(rank + 1) * S_loc])
+
+
+def _stripe(d, S_loc):
+    """The striped order: place r S_loc + i holds token i d + r."""
+    return np.arange(d * S_loc).reshape(S_loc, d).T.reshape(-1)
 
 
 def _run_ring(ring, q, k, v, seg, span, live, mode, window):
@@ -230,9 +267,35 @@ def test_local_ring_matches_jax_ring_attention(reference, name):
            inp[f"{name}/live"])
 
 
+def _striped_local(reference, name):
+    """The LocalRing's striped (o, dq, dk, dv) of case `name`, in the
+    striped order, and the live table in that order."""
+    d, B, S_loc, mode, window, packed = CASES[name]
+    inp, idx = reference["inp"], _stripe(d, S_loc)
+    rows = {t: _to_rows(inp[f"{name}/{t}"][:, idx], d)
+            for t in ("q", "k", "v", "live")
+            + (("seg", "span") if packed else ())}
+    got = _run_ring(LocalRing(d, striped=True), rows["q"], rows["k"],
+                    rows["v"], rows.get("seg"), rows.get("span"),
+                    rows["live"], mode, window)
+    return [_from_rows(a, d) for a in got], inp[f"{name}/live"][:, idx]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_local_ring_striped_matches_jax_ring_attention(reference, name):
+    d, S_loc = CASES[name][0], CASES[name][2]
+    got, live = _striped_local(reference, name)
+    _check(f"{name}/striped", got, reference, live)
+    # back in token order: the contiguous layout's JAX outputs
+    back = np.argsort(_stripe(d, S_loc))
+    _check(name, [a[:, back] for a in got], reference,
+           reference["inp"][f"{name}/live"])
+
+
 def _dist_worker(rank, world, init_file, in_path, out_path):
     """One rank of the gloo run: ranks 0-2 form the d = 3 ring of every
-    DIST_CASES case; all four run ring_decode_attention."""
+    DIST_CASES case, in both layouts; all four run
+    ring_decode_attention."""
     import torch.distributed as dist
     torch.set_num_threads(2)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
@@ -242,18 +305,19 @@ def _dist_worker(rank, world, init_file, in_path, out_path):
         inp = dict(np.load(in_path))
         out = {}
         three = dist.new_group([0, 1, 2])
-        if rank < 3:
-            ring = DistRing(three)
+        for striped in (False, True) if rank < 3 else ():
+            ring = DistRing(three, striped=striped)
+            tag = "/striped" if striped else ""
             for name in DIST_CASES:
                 d, B, S_loc, mode, window, packed = CASES[name]
-                part = {t: _shard(inp[f"{name}/{t}"], d, rank)
+                part = {t: _shard(inp[f"{name}/{t}"], d, rank, striped)
                         for t in ("q", "k", "v", "live")
                         + (("seg", "span") if packed else ())}
                 got = _run_ring(ring, part["q"], part["k"], part["v"],
                                 part.get("seg"), part.get("span"),
                                 part["live"], mode, window)
                 for t, a in zip(("o", "dq", "dk", "dv"), got):
-                    out[f"{name}/{t}"] = a
+                    out[f"{name}{tag}/{t}"] = a
         d, B, T = DECODE
         kc, vc = (torch.from_numpy(_shard(inp[f"decode/{t}"], d, rank))
                   for t in ("kc", "vc"))
@@ -299,6 +363,17 @@ def test_dist_ring_over_gloo_matches_jax_ring_attention(reference,
     _check(name, got, reference, reference["inp"][f"{name}/live"])
 
 
+@pytest.mark.parametrize("name", DIST_CASES)
+def test_dist_ring_striped_over_gloo_matches_jax_ring_attention(
+        reference, dist_run, name):
+    d, S_loc = CASES[name][0], CASES[name][2]
+    got = [np.concatenate([dist_run[r][f"{name}/striped/{t}"]
+                           for r in range(d)], axis=1)
+           for t in ("o", "dq", "dk", "dv")]
+    live = reference["inp"][f"{name}/live"][:, _stripe(d, S_loc)]
+    _check(f"{name}/striped", got, reference, live)
+
+
 def test_ring_decode_matches_jax_in_both_forms(reference, dist_run):
     d, B, T = DECODE
     inp, want = reference["inp"], reference["out"]["decode/o"]
@@ -329,8 +404,93 @@ def test_positions_and_shards_match_jax(reference, striped):
             reference["out"]["shard/" + tag])
 
 
-def test_striped_layout_is_refused():
-    q = torch.zeros(3, 4, H, D)
-    k = torch.zeros(3, 4, HKV, D)
-    with pytest.raises(ValueError, match="contiguous"):
-        ring_attention(q, k, k, ring=LocalRing(3), striped=True)
+# --------------------------------------------- the striped hop's mask
+#: degrees, local shard lengths and sliding windows of the hop check
+#: (causal too)
+HOP_DEGREES = tuple(range(1, 7))
+HOP_S_LOC = (1, 2, 3, 5, 8)
+HOP_WINDOWS = tuple(range(1, 30))
+
+
+@functools.partial(jax.jit, static_argnums=2)
+def _jax_pair_mask(q_pos, k_pos, mode, window):
+    """[B, S, T]: 1 where `_partial_update`'s position test lets the pair
+    through, read out of one accumulation step from an empty carry (zero
+    scores; V the identity, so acc holds each key's weight; a row without
+    a pair keeps m at -1e30). `window` is [B, 1, 1] (sliding) or None."""
+    B, S = q_pos.shape
+    T = k_pos.shape[1]
+    carry = (jnp.full((B, S, 1, 1), ring_module.NEG_INF),
+             jnp.zeros((B, S, 1, 1)), jnp.zeros((B, S, 1, 1, T)))
+    v = jnp.broadcast_to(jnp.eye(T)[None, :, None, :], (B, T, 1, T))
+    m, _, acc = _partial_update(carry, jnp.zeros((B, S, 1, 1, 1)),
+                                jnp.zeros((B, T, 1, 1)), v, q_pos, k_pos,
+                                mode, window)
+    return (acc[:, :, 0, 0] > 0.5) \
+        & (m[:, :, 0, 0, None] > ring_module.NEG_INF / 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_hop_masks():
+    """{(d, S_loc, window, rank, src): [S_loc, S_loc] mask} of the JAX
+    position test on the tokens i d + rank (queries) and j d + src (keys)
+    of every striped hop of the check: one call a mode, every hop padded
+    to the longest shard with keys no query reaches."""
+    P = max(HOP_S_LOC)
+    out = {}
+    for windows in ((None,), HOP_WINDOWS):
+        hops = list(itertools.product(HOP_DEGREES, HOP_S_LOC, windows))
+        hops = [(d, S, w, r, src) for d, S, w in hops for r in range(d)
+                for src in range(d)]
+        q_pos = np.zeros((len(hops), P), np.int32)
+        k_pos = np.full((len(hops), P), 1 << 20, np.int32)
+        for b, (d, S, w, r, src) in enumerate(hops):
+            q_pos[b, :S] = np.arange(S) * d + r
+            k_pos[b, :S] = np.arange(S) * d + src
+        mode = "causal" if windows == (None,) else "sliding"
+        masks = np.asarray(_jax_pair_mask(
+            jnp.asarray(q_pos), jnp.asarray(k_pos), mode,
+            None if mode == "causal"
+            else jnp.asarray([h[2] for h in hops])[:, None, None]))
+        out.update((h, m[:h[1], :h[1]]) for h, m in zip(hops, masks))
+    return out
+
+
+def _hop_mismatches(hop, d):
+    """(S_loc, window, rank, src) of every striped hop of a degree-d ring
+    where `hop`'s (kv_offset, window) through K1's mask (`pair_mask`, no
+    pair where it gives None) differs from the JAX ring's position
+    test."""
+    bad = []
+    for (dd, S_loc, w, r, src), want in _jax_hop_masks().items():
+        if dd != d:
+            continue
+        mode = "causal" if w is None else "sliding"
+        kw = hop(src - r, d, mode, w)
+        one = torch.zeros(1, S_loc, dtype=torch.int32)
+        got = (np.zeros((S_loc, S_loc), bool) if kw is None
+               else pair_mask(S_loc, S_loc, one, one, mode=mode,
+                              window=kw[1], kv_offset=kw[0])[0].numpy())
+        if not np.array_equal(got, want):
+            bad.append((S_loc, w, r, src))
+    return bad
+
+
+@pytest.mark.parametrize("d", HOP_DEGREES)
+def test_striped_hop_matches_the_jax_position_test(d):
+    assert _hop_mismatches(striped_hop, d) == []
+
+
+#: fault -> (the planted striped_hop, the case whose limits it breaks)
+HOP_FAULTS = {"no_plus_one": (hop_faults.no_plus_one, "causal_d3"),
+              "raw_window": (hop_faults.raw_window, "sliding_short_d3")}
+
+
+@pytest.mark.parametrize("fault", sorted(HOP_FAULTS))
+def test_planted_hop_fault_breaks_the_limits(reference, monkeypatch, fault):
+    hop, name = HOP_FAULTS[fault]
+    assert _hop_mismatches(hop, 3)
+    monkeypatch.setattr(ring_module, "striped_hop", hop)
+    got, live = _striped_local(reference, name)
+    with pytest.raises(AssertionError):
+        _check(f"{name}/striped", got, reference, live)
