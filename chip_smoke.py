@@ -286,9 +286,12 @@ Phases:
                 KV head at a time); ms, device_ms, plain, SDPA, bound and
                 each launch beside the SMs (`dense_rows_4096`,
                 `dense_shapes`)
- 28. dense parity — phase 8 for reduced chatglm3-6b (2D RoPE) and for
-                reduced pixtral-12b at head_dim 160 over 4:2 heads (K1's
-                fp32 kernels at D = 160)
+ 28. dense parity — phase 8 for reduced chatglm3-6b (2D RoPE), for
+                reduced pixtral-12b at head_dim 160 over 4:2 heads and
+                for reduced internvl3-2b at head_dim 128 over 4:2 heads
+                (K1's fp32 kernels at D = 160 and 128: the CUDA-core
+                forward, the split-TF32 backward by mma.sync); each run's
+                K1 launches by kernel, mode and shape
  29-30. dense train — phase 9 for pixtral-12b (7 of 40 layers: 32:8
                 heads of 160, K1 at D = 160) and qwen3vl-8b (10 of 36
                 layers: 32:8 heads of 128) at full width, bf16, the card
@@ -938,8 +941,8 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
     (`_by_kv_heads`). `detail`: also each direction's device time
     (torch.profiler) and launch (grid, threads, shared memory) beside
     the card's SMs, and SDPA's device time each way; for fp32's
-    split-TF32 backward (head_dim 64) also the dQ kernel's launch
-    (`bwd_dq`) and each kernel's device time
+    split-TF32 backward (every head dim: two kernels) also the dQ
+    kernel's launch (`bwd_dq`) and each kernel's device time
     (`bwd_device_ms_by_kernel`)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention_packed import (
@@ -967,10 +970,11 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
     launch = dict(fwd=last_fwd_launch())
     grads = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
     launch["bwd"] = last_bwd_kv_launch()
-    # fp32 at head_dim 64: both ways split TF32, the backward in two
-    # kernels
-    tc = dtype == torch.float32 and D == F32_TC_HEAD_DIM
-    if tc:
+    # fp32: the backward split TF32 in two kernels (wgmma at head_dim
+    # 64, mma.sync at 128 / 160), the forward split TF32 at 64 alone
+    fp32 = dtype == torch.float32
+    tc = fp32 and D == F32_TC_HEAD_DIM
+    if fp32:
         launch["bwd_dq"] = last_bwd_dq_launch()
     ro, rlse = plain_fwd_fn(q, k, v, segt, **kw)
     rgrads = plain_bwd_fn(q, k, v, ro, rlse, do, segt, **kw)
@@ -1026,7 +1030,7 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
     bf, bf_by = packed_bound(*shape, False, n_tables,
                              SPLIT_TF32 if tc else None)
     bb, bb_by = packed_bound(*shape, True, n_tables,
-                             SPLIT_TF32 if tc else None)
+                             SPLIT_TF32 if fp32 else None)
     row = dict(tag=tag, B=B, S=S, Sk=Sk, H=H, Hkv=HKV, D=D,
                dtype=str(dtype).split(".")[-1], mode=mode, window=window,
                spans=span is not None, kv_offset=off, pairs=pairs,
@@ -1043,6 +1047,7 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
     if tc:
         row["bound_fwd_cuda_core_ms"] = packed_bound(*shape, False,
                                                      n_tables)[0]
+    if fp32:
         row["bound_bwd_cuda_core_ms"] = packed_bound(*shape, True,
                                                      n_tables)[0]
     if detail:
@@ -1061,7 +1066,7 @@ def check_packed(dev, card, gen, S, dtype, seg, span=None, mode="causal",
             torch.autograd.grad(lib_out, (qt, kt, vt), dot,
                                 retain_graph=True)), iters=5, warmup=1)[0]
         del lib_out
-        if tc:
+        if fp32:
             row["bound_dq_ms"], row["bound_dq_by"] = packed_dq_bound(
                 B, S, Sk, H, HKV, D, pairs, n_tables)
             row["bound_dq_cuda_core_ms"] = packed_dq_bound(
@@ -1117,14 +1122,14 @@ def phase_packed(dev, card):
     S, lens = 1024, [400, 300, 250]
     seg, span = packed_layout(S, lens, 128)
     rows.append(check_packed(dev, card, gen, S, fp32, seg, span,
-                             tag="synthetic"))
+                             tag="synthetic", detail=True))
     rows.append(check_packed(dev, card, gen, S, fp32, seg, None,
-                             tag="synthetic"))
+                             tag="synthetic", detail=True))
     for mode, window in (("full", None), ("sliding", 256)):
         for dt in (bf16, fp32):
             rows.append(check_packed(dev, card, gen, S, dt, seg, span,
                                      mode=mode, window=window,
-                                     tag="synthetic"))
+                                     tag="synthetic", detail=dt == fp32))
     # a ring hop: the second half of the buffer's queries against the
     # first half's keys, which bring their own tables (kv padding -2)
     half = S // 2
@@ -1133,7 +1138,14 @@ def phase_packed(dev, card):
     for dt in (bf16, fp32):
         rows.append(check_packed(dev, card, gen, half, dt, seg[half:],
                                  span[half:], off=-half, kseg=kseg,
-                                 kspan=span[:half], Sk=half, tag="hop"))
+                                 kspan=span[:half], Sk=half, tag="hop",
+                                 detail=dt == fp32))
+    # fp32 at head_dim 160: pixtral-12b's 32:8 heads on phase 27's row, one
+    # 4096-token segment with 256-token frames
+    seg, span = packed_layout(4096, [4096], 256)
+    rows.append(check_packed(dev, card, gen, 4096, fp32, seg, span,
+                             tag="d160", heads=PIXTRAL_HEADS, detail=True))
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -3305,15 +3317,32 @@ def phase_dense_kernels(dev, card):
     return k1, k2
 
 
+#: phase 28's runs: label -> (arch, the reduced config's widths changed,
+#: or None)
+DENSE_PARITY = {
+    "chatglm3-6b": ("chatglm3-6b", None),
+    "pixtral-12b at head_dim 160": ("pixtral-12b",
+                                    dict(head_dim=160, kv_heads=2)),
+    "internvl3-2b at head_dim 128": ("internvl3-2b",
+                                     dict(head_dim=128, kv_heads=2)),
+}
+
+
 def phase_dense_parity(dev):
-    """Phase 8 for reduced chatglm3-6b (its 2D RoPE) and for reduced
-    pixtral-12b at head_dim 160 over 4:2 heads (K1's fp32 kernels at
-    D = 160)."""
+    """Phase 8 for reduced chatglm3-6b (its 2D RoPE), and for reduced
+    pixtral-12b at head_dim 160 and internvl3-2b at head_dim 128, each
+    over 4:2 heads (K1's fp32 kernels at D = 160 and 128). Returns each
+    run's K1 launches by kernel, mode and shape, by label."""
     from repro_torch.configs import get_config
-    phase_train_parity(dev, "chatglm3-6b")
-    phase_train_parity(dev, "pixtral-12b at head_dim 160",
-                       cfg=get_config("pixtral-12b").reduced().with_(
-                           head_dim=160, kv_heads=2))
+    from repro_torch.kernels.flash_attention_packed import (
+        flash_attention_packed)
+    out = {}
+    for label, (arch, widths) in DENSE_PARITY.items():
+        flash_attention_packed.launches_by_shape = {}
+        phase_train_parity(dev, label, cfg=None if widths is None else
+                           get_config(arch).reduced().with_(**widths))
+        out[label] = dict(flash_attention_packed.launches_by_shape)
+    return out
 
 
 def phase_dense_training(dev, card):
@@ -4296,11 +4325,13 @@ def audio_train_phases(dev, card) -> dict:
 
 
 def _dq_ms(row):
-    """The device time per call of fp32's dQ kernel in a `check_packed`
-    row (None where the profiler traced none)."""
-    return next((ms for name, ms in row.get(
-        "bwd_device_ms_by_kernel", {}).items()
-        if "packed_bwd_f32_dq_kernel" in name), None)
+    """The device time per call of fp32's dQ kernel (the backward's
+    second) in a `check_packed` row (None where the profiler traced
+    none)."""
+    from repro_torch.kernels.flash_attention_packed import bwd_kernels
+    dq = bwd_kernels(torch.float32, row["D"])[1]
+    return next((ms for name, ms in (row.get(
+        "bwd_device_ms_by_kernel") or {}).items() if dq in name), None)
 
 
 def dq_entry(bwd, main_r, rows, launches):
@@ -5023,13 +5054,8 @@ def late_phases(dev, card) -> dict:
           "at D=160)")
     dense_k1, dense_k2 = phase_dense_kernels(dev, card)
     phase("[28/48] dense and VLM training parity at reduced size (fp32): "
-          "chatglm3-6b, pixtral-12b at head_dim 160")
-    from repro_torch.kernels.flash_attention_packed import (
-        flash_attention_packed)
-    flash_attention_packed.launches_by = {}
-    flash_attention_packed.launches_by_shape = {}
-    phase_dense_parity(dev)
-    parity_by = dict(flash_attention_packed.launches_by_shape)
+          + ", ".join(DENSE_PARITY))
+    parity_by = phase_dense_parity(dev)
     phase("[29-30/48] full-width DHP training (bf16), depth cut: "
           + ", ".join(f"{a} {n} layers" for a, n in DENSE_TRAIN))
     dense_train = phase_dense_training(dev, card)
@@ -5088,6 +5114,11 @@ def run_apart(flag: str) -> dict:
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  {flag}: this process holds "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} allocated); "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB free on the card")
     out = os.path.join(ROOT, "build", "chip_smoke_"
                        + flag.lstrip("-").replace("-", "_") + ".json")
     os.makedirs(os.path.dirname(out), exist_ok=True)
@@ -5095,8 +5126,15 @@ def run_apart(flag: str) -> dict:
         os.remove(out)
     sys.stdout.flush()
     sys.stderr.flush()
+    env = dict(os.environ)
+    if flag == FRONT_DOOR_FLAG:
+        # six ranks on the one card come within a few GiB of its memory,
+        # and a run's deepspeed step ran out with 12.4 GiB reserved but
+        # unallocated: expandable segments let a freed block serve an
+        # allocation of another size
+        env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     subprocess.run([sys.executable, os.path.abspath(__file__), flag, out],
-                   check=True, timeout=APART[flag][1])
+                   check=True, timeout=APART[flag][1], env=env)
     with open(out) as f:
         return json.load(f)
 
@@ -5653,28 +5691,39 @@ def main() -> int:
                 kernels.append(dq_entry(
                     entry, main_r, rows, audio["launches_by_shape"].get(
                         _k1_shape_keys(main_r, 1)[1], 0)))
-    # fp32's CUDA-core forward (head dims 128 and 160, where no
-    # full-width path runs fp32) beside the split-TF32 one above. Its
-    # launches are phase 28's, reduced pixtral-12b at head_dim 160, each
-    # shape apart; its errors and times phase 7's fp32 rows (12:2 heads
-    # of 128), the only ones timed
-    from repro_torch.kernels.flash_attention_packed import F32_FWD_CC_KERNEL
-    cc_rows = [r for r in packed_rows if r["dtype"] == "float32"]
+    # fp32 at head dims 128 and 160, where no full-width path runs fp32:
+    # its launches are phase 28's (reduced pixtral-12b at head_dim 160,
+    # reduced internvl3-2b at 128), each head dim and shape apart; its
+    # errors and times phase 7's fp32 rows (12:2 heads of 128 at 1024
+    # tokens, and 32:8 of 160 on a 4096-token row)
+    from repro_torch.kernels.flash_attention_packed import (
+        F32_FWD_CC_KERNEL, F32_MMA_KERNELS)
+    parity_d = {"160": late["dense_parity_launches_by_shape"][
+                    "pixtral-12b at head_dim 160"],
+                "128": late["dense_parity_launches_by_shape"][
+                    "internvl3-2b at head_dim 128"]}
+
+    def parity_launches(kernel):
+        """{head dim: {"mode SqxSk": launches}} of `kernel` in phase 28"""
+        return {d: {key.split(" ", 1)[1]: n for key, n in by.items()
+                    if key.split()[0] == kernel}
+                for d, by in parity_d.items()}
+    wide_rows = [r for r in packed_rows if r["dtype"] == "float32"]
+    cc_rows = [r for r in wide_rows if r["D"] == D]
     cc_r = max(cc_rows, key=lambda r: r["pairs"])
-    cc_launches = {key.split(" ", 1)[1]: n for key, n in late[
-        "dense_parity_launches_by_shape"].items()
-        if key.split()[0] == F32_FWD_CC_KERNEL}
+    cc_launches = parity_launches(F32_FWD_CC_KERNEL)
     kernels.append({
         "name": "flash_attention_packed_f32_cc",
         "kernel": F32_FWD_CC_KERNEL,
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_packed.cu",
         "replaces": "src/repro/kernels/flash_attention.py:208",
-        "launches": sum(cc_launches.values()),
-        "launches_at": "phase 28, reduced pixtral-12b's fp32 training "
-                       "parity at D=160, not the timed shape",
-        "launches_by_shape_d160": cc_launches,
-        "max_abs_err": max(r["max_abs_err_fwd"] for r in cc_rows),
+        "launches": sum(sum(by.values()) for by in cc_launches.values()),
+        "launches_at": "phase 28, reduced pixtral-12b's and internvl3-2b's "
+                       "fp32 training parity at D=160 and D=128, not the "
+                       "timed shapes",
+        "launches_by_head_dim": cc_launches,
+        "max_abs_err": max(r["max_abs_err_fwd"] for r in wide_rows),
         "ms": cc_r["fwd_ms"],
         "plain_ms": cc_r["plain_fwd_ms"],
         "bound_ms": cc_r["bound_fwd_ms"],
@@ -5684,51 +5733,67 @@ def main() -> int:
         "shape": f"B=1 S={cc_r['S']} H={H} Hkv={HKV} D={D} fp32 "
                  f"{cc_r['mode']} spans={cc_r['spans']} (phase 7)",
         "timed_shapes": [dict(
-            S=r["S"], mode=r["mode"], spans=r["spans"], err=r["err"]["o"],
-            ms=r["fwd_ms"], plain_ms=r["plain_fwd_ms"],
-            bound_ms=r["bound_fwd_ms"], library_ms=r["library_fwd_ms"])
-            for r in cc_rows],
+            S=r["S"], heads=f"{r['H']}:{r['Hkv']}", D=r["D"], mode=r["mode"],
+            spans=r["spans"], err=r["err"]["o"], ms=r["fwd_ms"],
+            plain_ms=r["plain_fwd_ms"], bound_ms=r["bound_fwd_ms"],
+            library_ms=r["library_fwd_ms"]) for r in wide_rows],
     })
-    # its backward, the same way: launches from phase 28, the rest from
-    # phase 7's fp32 rows; bound_ms at the CUDA cores' fp32 rate (its own
-    # arithmetic), the split-TF32 bound beside it
-
-    def split_tf32_bound(r):
-        return packed_bound(r["B"], r["S"], r["Sk"], r["H"], r["Hkv"],
-                            r["D"], torch.float32, r["pairs"], True,
-                            2 if r["spans"] else 1, SPLIT_TF32)[0]
-    from repro_torch.kernels.flash_attention_packed import F32_CC_KERNEL
-    cc_bwd_launches = {key.split(" ", 1)[1]: n for key, n in late[
-        "dense_parity_launches_by_shape"].items()
-        if key.split()[0] == F32_CC_KERNEL}
-    kernels.append({
-        "name": "flash_attention_packed_f32_cc_bwd",
-        "kernel": F32_CC_KERNEL,
+    # its backward, split TF32 by mma.sync (dK / dV, then dQ), the same
+    # way; bound_ms at split TF32 (the kernels' own arithmetic), the
+    # CUDA-core one beside it; the timed shape is phase 7's 1024-token
+    # full row at 12:2 heads of 128
+    mma_launches = parity_launches(F32_MMA_KERNELS[0])
+    dq_launches = parity_launches(F32_MMA_KERNELS[1])
+    if not all(sum(by.values()) for by in (*mma_launches.values(),
+                                           *dq_launches.values())):
+        raise AssertionError(f"phase 28 did not launch {F32_MMA_KERNELS} at "
+                             f"head_dim 128 and 160: {mma_launches}, "
+                             f"{dq_launches}")
+    mma_r = next(r for r in cc_rows if r["mode"] == "full")
+    bwd = {
+        "name": "flash_attention_packed_f32_mma_bwd",
+        "kernel": F32_MMA_KERNELS[0],
+        "kernels": list(F32_MMA_KERNELS),
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_packed.cu",
         "replaces": "src/repro/kernels/flash_attention.py:208",
-        "launches": sum(cc_bwd_launches.values()),
-        "launches_at": "phase 28, reduced pixtral-12b's fp32 training "
-                       "parity at D=160, not the timed shape",
-        "launches_by_shape_d160": cc_bwd_launches,
-        "max_abs_err": max(r["max_abs_err_bwd"] for r in cc_rows),
-        "ms": cc_r["bwd_ms"],
-        "plain_ms": cc_r["plain_bwd_ms"],
-        "bound_ms": cc_r["bound_bwd_ms"],
-        "bound_by": cc_r["bound_bwd_by"],
-        "bound_at": "fp32 on the CUDA cores, 67 TFLOP/s",
-        "bound_split_tf32_ms": split_tf32_bound(cc_r),
-        "library_ms": cc_r["library_bwd_ms"],
-        "shape": f"B=1 S={cc_r['S']} H={H} Hkv={HKV} D={D} fp32 "
-                 f"{cc_r['mode']} spans={cc_r['spans']} (phase 7)",
+        "launches": sum(sum(by.values()) for by in mma_launches.values()),
+        "launches_at": "phase 28, reduced pixtral-12b's and internvl3-2b's "
+                       "fp32 training parity at D=160 and D=128, not the "
+                       "timed shapes",
+        "launches_by_head_dim": mma_launches,
+        "max_abs_err": max(r["max_abs_err_bwd"] for r in wide_rows),
+        "ms": mma_r["bwd_ms"],
+        "device_ms": mma_r["bwd_device_ms"],
+        "device_ms_by_kernel": mma_r.get("bwd_device_ms_by_kernel"),
+        "plain_ms": mma_r["plain_bwd_ms"],
+        "bound_ms": mma_r["bound_bwd_ms"],
+        "bound_by": mma_r["bound_bwd_by"],
+        "bound_at": SPLIT_TF32_AT,
+        "bound_cuda_core_ms": mma_r["bound_bwd_cuda_core_ms"],
+        "library_ms": mma_r["library_bwd_ms"],
+        "library_device_ms": mma_r["library_bwd_device_ms"],
+        "launch": dict(**mma_r["launch"]["bwd"],
+                       sms=mma_r["launch"]["sms"]),
+        "shape": f"B=1 S={mma_r['S']} H={H} Hkv={HKV} D={D} fp32 "
+                 f"{mma_r['mode']} spans={mma_r['spans']} (phase 7)",
         "timed_shapes": [dict(
-            S=r["S"], mode=r["mode"], spans=r["spans"],
+            S=r["S"], Sk=r["Sk"], heads=f"{r['H']}:{r['Hkv']}", D=r["D"],
+            mode=r["mode"], spans=r["spans"], kv_offset=r["kv_offset"],
             err={n: r["err"][n] for n in ("dq", "dk", "dv")},
-            ms=r["bwd_ms"], plain_ms=r["plain_bwd_ms"],
-            bound_ms=r["bound_bwd_ms"],
-            bound_split_tf32_ms=split_tf32_bound(r),
-            library_ms=r["library_bwd_ms"]) for r in cc_rows],
-    })
+            ms=r["bwd_ms"], device_ms=r.get("bwd_device_ms"),
+            plain_ms=r["plain_bwd_ms"], bound_ms=r["bound_bwd_ms"],
+            bound_cuda_core_ms=r["bound_bwd_cuda_core_ms"],
+            library_ms=r["library_bwd_ms"],
+            library_device_ms=r.get("library_bwd_device_ms"))
+            for r in wide_rows],
+    }
+    kernels.append(bwd)
+    # its dQ kernel on its own clock, launched with every backward
+    kernels.append(dict(dq_entry(
+        bwd, mma_r, wide_rows,
+        sum(sum(by.values()) for by in dq_launches.values())),
+        kernel=F32_MMA_KERNELS[1], launches_by_head_dim=dq_launches))
     # the front door (phases 43-45): each run's own launches, counted
     # from 0 just before it, beside the entries of the kernels it ran
     front = run_apart(FRONT_DOOR_FLAG)

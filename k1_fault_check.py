@@ -1,17 +1,17 @@
 """K1's limits against planted faults (bf16, and fp32 at whisper-small's
-shapes), and K1's forward and backward timed against other source
-trees, on one card.
+shapes and at head_dim 128 and 160), and K1's forward and backward timed
+against other source trees, on one card.
 
-    python3 k1_fault_check.py [--shape internvl|rg|pixtral|whisper ...]
-                              [--out FILE]
+    python3 k1_fault_check.py [--shape internvl|rg|pixtral|whisper|
+                               internvl_f32|pixtral_f32 ...] [--out FILE]
     python3 k1_fault_check.py --time [--direction fwd|bwd|both]
-                              [--shape internvl|rg|pixtral|whisper ...]
+                              [--shape ... as above]
                               [--tree LABEL=DIR ...]
                               [--variant LABEL=TREE:EDIT[+EDIT...] ...]
                               [--rounds N] [--out FILE]
 
-Four shapes, the main path's attention of four models (`--shape`,
-given once or more; internvl by default):
+Six shapes, the attention of four models (`--shape`, given once or
+more; internvl by default):
   * internvl: internvl3-2b, 12 query heads over 2 KV heads of 128,
     causal with 256-token frames;
   * rg: recurrentgemma-2b, 10 query heads over one KV head of 256,
@@ -30,6 +30,15 @@ given once or more; internvl by default):
     and in cases that reach the same kernels through other tables:
     causal with spans, sliding, GQA at 12:2, and a ring hop with its
     own key tables and kv_offset.
+  * internvl_f32 and pixtral_f32: internvl3-2b's 12:2 heads of 128 and
+    pixtral-12b's 32:8 heads of 160 in fp32 (a reduced config's fp32
+    training runs them). Their faults (`f32_mma_*`, and the group sum's
+    `reduction_drops_a_head`) are planted in the split-TF32 backward by
+    mma.sync (packed_bwd_f32_mma_kernel for dK and dV,
+    packed_bwd_f32_mma_dq_kernel for dQ, bwd_kv_reduce_kernel), read at
+    fp32's elementwise 1e-4 over pixtral's cases (every mode, with and
+    without frames, at 1024 and 4096 tokens), a ring hop with its own
+    key tables and a kv_offset, and 300 queries over 1024 keys.
 
 Both modes build edited copies of `flash_attention_packed.cu` with nvcc
 in a temporary directory, one nvcc per copy, all at once, each with `-I`
@@ -42,9 +51,9 @@ port's K1 wrappers run on that copy's library, forward and backward,
 against the plain versions at the shape's heads over the packed layouts
 of `cases(shape)` (internvl: 1024 and 4096 tokens in several segments;
 rg: one 4096-token row with and without frames, and a two-row padded
-group of 2048; pixtral: 1024 and 4096 tokens in several segments, every
-mode; whisper: the cases of `cases`). For each of o, the LSE (on the
-rows with a valid key; rows that disagree on having one count as an
+group of 2048; pixtral (and both fp32 shapes): 1024 and 4096 tokens in
+several segments, every mode; whisper: the cases of `cases`). For each
+of o, the LSE (on the rows with a valid key; rows that disagree on having one count as an
 infinite error), dq, dk, dv it prints, per case, max|err| / max(1, |plain|) (`elementwise`, the form
 `chip_smoke.py` holds to 2e-2 for o and 4e-2 for the gradients in bf16,
 1e-4 in fp32) and max|err| / max|plain| (`whole`, held to 2e-2 in
@@ -64,7 +73,9 @@ row, one 4096-token openvid sequence with its 256-token frames in bf16
 (whisper: WHISPER_TIMES, 1 and 8 rows of the encoder's 1500 x 1500 and
 of the cross-attention's 448 over 1500, fp32, full, either direction;
 the forward also at LONG_ROW, the longest packed row in fp32 at head_dim
-64, 4096 tokens with frames at 12:2 causal), held to the plain
+64, 4096 tokens with frames at 12:2 causal; the fp32 shapes at F32_ROWS:
+internvl_f32 at chip_smoke.py phase 7's 1024-token full row, pixtral_f32
+at phase 27's 4096-token causal row with frames), held to the plain
 version (forward: max|err| / max|plain| of o, the LSE's largest error
 on rows with keys, and whether two calls give the same o and LSE bits;
 backward: max|err| / max|plain| of dq, dk, dv (fp32 also max|err| /
@@ -111,7 +122,17 @@ SHAPES = {
                     vocab=131072, dtype="bfloat16"),
     "whisper": dict(H=12, HKV=12, D=64, mode="full", window=None,
                     vocab=51865, dtype="float32"),
+    "internvl_f32": dict(H=12, HKV=2, D=128, mode="causal", window=None,
+                         vocab=151674, dtype="float32"),
+    "pixtral_f32": dict(H=32, HKV=8, D=160, mode="causal", window=None,
+                        vocab=131072, dtype="float32"),
 }
+#: the fp32 shapes at head_dim 128 and 160, and the row each is timed on:
+#: (tokens, segment lengths, frame, mode), chip_smoke.py phase 7's
+#: 1024-token full row (frames of 128) and phase 27's 4096-token causal
+#: row (one segment, frames of 256)
+F32_ROWS = {"internvl_f32": (1024, [400, 300, 250], 128, "full"),
+            "pixtral_f32": (4096, [4096], 256, "causal")}
 #: whisper's timed shapes: (rows, query rows) over its 1500 frames, the
 #: encoder's and the cross-attention's at 1 row and at the training
 #: batch's 8
@@ -254,8 +275,54 @@ F32_FWD_FAULTS = {
         "seg_w);",
         "      whole = __all_sync(FULL, one_seg && whole);")]),
 }
+#: faults of fp32's backward at head_dim 128 and 160 (split TF32 by
+#: mma.sync: packed_bwd_f32_mma_kernel for dK and dV,
+#: packed_bwd_f32_mma_dq_kernel for dQ, the group sum after them)
+F32_MMA_FAULTS = {
+    "sound": ((), None, []),
+    # dK += dS^T Q in plain TF32 (hi hi' alone); the CPU replay
+    # (tests/test_torch_k1_f32_split.py) reads 1.0e-3 in dk at a causal
+    # 1024 row of 4:2 heads of 128
+    "f32_mma_dk_lo_dropped": (("dk",), ("causal",), [(
+        "    second_product<D>(dka, ah, al, Qs, c0, g, t);",
+        "    for (int nd = 0; nd < ND; ++nd) {\n"
+        "      float f[4] = {0.f, 0.f, 0.f, 0.f};\n"
+        "      for (int kk = 0; kk < M_NQ; ++kk)\n"
+        "        mma_tf32(f, ah[kk],\n"
+        "                 tf32(Qs[fw<D>(8 * kk + 2 * t, c0 + 8 * nd + g)]),\n"
+        "                 tf32(Qs[fw<D>(8 * kk + 2 * t + 1, c0 + 8 * nd + g)]"
+        "));\n"
+        "      for (int e = 0; e < 4; ++e) dka[nd][e] += f[e];\n"
+        "    }")]),
+    # the dK / dV kernel never walks query tile 2 (rows 64-95)
+    "f32_mma_walked_tile_skipped": (("dk", "dv"), None, [(
+        "        const bool live_q = qt < Sq && tile_live<SPANS>(",
+        "        const bool live_q = qt < Sq && qt != 64 && "
+        "tile_live<SPANS>(")]),
+    # the group sum of dK and dV without the group's last head (shared
+    # with the bf16 backward's fault of that name)
+    "reduction_drops_a_head": _COMMON["reduction_drops_a_head"],
+    # the dQ kernel's last live key tile adds nothing to dQ
+    "f32_mma_dq_drops_key_tile": (("dq",), None, [(
+        "    second_product<D>(dqa, ah, al, Ks, c0, g, t);",
+        "    if (jn < jt_hi) second_product<D>(dqa, ah, al, Ks, c0, g, t);")]),
+    # the second products read the walked tile's rows in their own order
+    # (rows 8 kk + t and + 4), not in the accumulator's (2t, 2t + 1): a
+    # query's (key's) weight meets another row of dO, Q (K)
+    "f32_mma_rows_unpermuted": (("dq", "dk", "dv"), None, [
+        ("      split_word(W[fw<D>(8 * kk + 2 * t, c)], bh[0], bl[0]);",
+         "      split_word(W[fw<D>(8 * kk + t, c)], bh[0], bl[0]);"),
+        ("      split_word(W[fw<D>(8 * kk + 2 * t + 1, c)], bh[1], bl[1]);",
+         "      split_word(W[fw<D>(8 * kk + t + 4, c)], bh[1], bl[1]);")]),
+    # S over one half of D: the partner warp's partial scores never added
+    "f32_mma_halves_not_added": (("dq", "dk", "dv"), None, [(
+        "      s[n][e] += theirs[(4 * n + e) * 32 + lane];",
+        "      s[n][e] += 0.f;")]),
+}
 FAULTS = {
     "internvl": {**_COMMON, **_CAUSAL},
+    "internvl_f32": F32_MMA_FAULTS,
+    "pixtral_f32": F32_MMA_FAULTS,
     # D = 160 alone: the third, half-used 64-column block of the tiles
     "pixtral": {
         **_COMMON,
@@ -491,6 +558,21 @@ EDITS = {
          "SW_GROUP));\n", ""),
         ("    wgmma_tf32<T_D>(&acc[0][0], h[kk], wg_desc(bl + off, 16, "
          "SW_GROUP));\n", "")],
+    # fp32 at head_dim 128 / 160 (mma.sync): what the lo products cost,
+    # each product as hi hi' alone (both kernels; the results are off)
+    "f32_mma_hi_products_only": [(
+        "  mma_tf32(d, al, bh[0], bh[1]);\n  mma_tf32(d, ah, bl[0], bl[1]);\n",
+        "")],
+    # the first products' loop over D unrolled whole (it runs two steps
+    # at a time)
+    "f32_mma_unroll_all": [(
+        "#pragma unroll 2\n  for (int kk = 0; kk < D / 16; ++kk) {",
+        "#pragma unroll\n  for (int kk = 0; kk < D / 16; ++kk) {")],
+    # and what the split at each fragment load costs: each word as it is,
+    # its lo zero (the lo products still run; the results are off)
+    "f32_mma_no_split": [(
+        "  h = tf32(x);\n  l = lo_of(x, h);",
+        "  h = __float_as_uint(x);\n  l = 0u;")],
 }
 
 def plant(src: str, edits, what: str) -> str:
@@ -566,7 +648,9 @@ def cases(shape):
     "cross"), phase 7's 1024-token layout with spans causal, sliding at
     a window of 256 and causal at 12:2 heads ("gqa"), and its ring hop
     at 12:2 (the second half's queries over the first half's keys, their
-    own tables, kv_offset -512; "hop"). `extra`: what a case sets beside
+    own tables, kv_offset -512; "hop"); for the fp32 shapes at head_dim
+    128 and 160 pixtral's cases, that ring hop ("hop") and 300 queries
+    over 1024 keys in full mode ("cross"). `extra`: what a case sets beside
     the shape's heads (HKV; Sk, kseg, kspan, off: the key side's length
     and tables and kv_offset). The tags are the mode, those above and,
     where a row is longer than the window, "past_window"."""
@@ -589,7 +673,7 @@ def cases(shape):
             ("hop512_gqa", {"causal", "gqa", "hop"}, seg[512:], span[512:],
              "causal", None, dict(HKV=2, Sk=512, kseg=kseg,
                                   kspan=span[:512], off=-512))]
-    if shape == "pixtral":
+    if shape in ("pixtral", *F32_ROWS):
         for n, lens in ((1024, [400, 300, 250]),
                         (4096, [1500, 900, 1200, 400])):
             out.append((f"S{n}_spansTrue",
@@ -628,10 +712,21 @@ def cases(shape):
                     "causal", None))
         out.append(("S4096_one", *packed_layout(4096, [3900], 256, 64),
                     "causal", None))
-    return [(name, {mode} | ({"past_window"} if window and
-                              np.shape(seg)[-1] > window else set()),
-             seg, span, mode, window, {})
-            for name, seg, span, mode, window in out]
+    out = [(name, {mode} | ({"past_window"} if window and
+                             np.shape(seg)[-1] > window else set()),
+            seg, span, mode, window, {})
+           for name, seg, span, mode, window in out]
+    if shape in F32_ROWS:
+        seg, span = packed_layout(1024, [400, 300, 250], 128)
+        kseg = seg[:512].copy()
+        kseg[kseg < 0] = -2
+        z = lambda n: np.zeros((1, n), np.int32)  # noqa: E731
+        out += [("hop512", {"causal", "hop"}, seg[512:], span[512:],
+                 "causal", None, dict(Sk=512, kseg=kseg, kspan=span[:512],
+                                      off=-512)),
+                ("cross300x1024", {"full", "cross"}, z(300), None, "full",
+                 None, dict(Sk=1024, kseg=z(1024)))]
+    return out
 
 
 def readings(torch, shape):
@@ -870,7 +965,9 @@ def forward(torch, lib, x):
 
 def backward(torch, lib, x):
     """dq, dk, dv through `lib`'s k1_backward. Trees from before the
-    scratch pointer `work` (no k1_last_bwd_kv_launch) take none."""
+    scratch pointer `work` (no k1_last_bwd_kv_launch) take none; it holds
+    each query head's dK and dV in bf16, and in fp32 beside head_dim 64
+    (trees from before the mma.sync backward leave it unused there)."""
     q, k = x["q"], x["k"]
     tables, ints = _call_args(torch, x)
     B, Sq, Sk, H, D = ints[0], ints[1], ints[2], ints[3], ints[5]
@@ -879,7 +976,8 @@ def backward(torch, lib, x):
     delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     ptrs = [q, k, x["v"], x["o"], x["do"], x["lse"], delta, dq, dk, dv]
     if hasattr(lib, "k1_last_bwd_kv_launch"):
-        work = 2 * B * Sk * H * D if q.dtype == torch.bfloat16 else 1
+        grouped = q.dtype == torch.bfloat16 or D != 64
+        work = 2 * B * Sk * H * D if grouped else 1
         ptrs.append(torch.empty(work, dtype=torch.float32, device=q.device))
     _call(torch, lib.k1_backward, ptrs + tables, ints, "k1_backward")
     return dq.to(q.dtype), dk, dv
@@ -1033,27 +1131,71 @@ def time_mode(torch, libs, shape, rounds, directions):
     return out
 
 
-def time_whisper(torch, libs, rounds, directions):
-    """Each direction at WHISPER_TIMES: every library held to the plain
-    version and timed in turns (change, ..., ..., change), by events
-    and by torch.profiler (each kernel apart), beside the plain version,
-    SDPA in fp32 (TF32 off, full mode without a mask; events and
-    device time) and chip_smoke.py's bounds (split TF32, and the fp32
-    CUDA cores beside it). One row a shape and direction."""
+def f32_row_inputs(torch, shape):
+    """The fp32 shape's row of F32_ROWS: random fp32 q, k, v, dO (seed
+    0), o and LSE from K1, the tables' pair mask and valid pairs."""
+    from chip_smoke import packed_layout
+    from repro_torch.kernels.flash_attention_packed import (
+        _tables, flash_attention_packed, pair_mask)
+    cfg = SHAPES[shape]
+    H, HKV, D = cfg["H"], cfg["HKV"], cfg["D"]
+    n, lens, frame, mode = F32_ROWS[shape]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, do = (torch.randn(1, n, H, D, generator=gen, device=dev)
+             for _ in range(2))
+    k, v = (torch.randn(1, n, HKV, D, generator=gen, device=dev)
+            for _ in range(2))
+    seg, span = (torch.as_tensor(a, device=dev)
+                 for a in packed_layout(n, lens, frame))
+    kw = dict(mode=mode, window=None)
+    o, lse = flash_attention_packed(q, k, v, seg, span_ids=span,
+                                    return_lse=True, **kw)
+    mask = pair_mask(n, n, *_tables(q, k, seg, span, None, None), mode=mode)
+    return dict(q=q, k=k, v=v, o=o, lse=lse, do=do, seg=seg, span=span,
+                kseg=None, kw=kw, shape=shape, cfg=dict(cfg, mode=mode),
+                mask=mask,
+                pairs=int(mask.sum()), n_tables=2,
+                desc=f"B=1 S={n} H={H} Hkv={HKV} D={D} fp32 {mode} spans "
+                     f"(segments {lens}, frames of {frame})")
+
+
+def whisper_rows(torch):
+    """WHISPER_TIMES' rows, one at a time (each freed before the next)."""
+    cfg = SHAPES["whisper"]
+    for B, Sq in WHISPER_TIMES:
+        x = whisper_inputs(torch, B, Sq)
+        x.update(mask=None, pairs=B * Sq * WHISPER_FRAMES, n_tables=1,
+                 desc=f"B={B} Sq={Sq} Sk={WHISPER_FRAMES} H={cfg['H']} "
+                      f"Hkv={cfg['HKV']} D={cfg['D']} fp32 full")
+        yield x
+
+
+def time_f32(torch, libs, shape, rounds, directions):
+    """Each direction at an fp32 shape's timed rows (whisper:
+    WHISPER_TIMES; the fp32 shapes at head_dim 128 and 160: F32_ROWS):
+    every library held to the plain version and timed in turns (change,
+    ..., ..., change), by events and by torch.profiler (each kernel
+    apart), beside the plain version, SDPA in fp32 (TF32 off; with the
+    tables' boolean mask, none at whisper's full rows; events and device
+    time) and chip_smoke.py's bounds (split TF32, and the fp32 CUDA
+    cores beside it). One row a shape and direction."""
     import torch.nn.functional as F
     from chip_smoke import (PEAK_TF32, SPLIT_TF32, cuda_ms, device_ms,
                             device_ms_by_kernel, packed_bound)
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed_bwd_ref, flash_attention_packed_ref)
-    cfg = SHAPES["whisper"]
+    cfg = SHAPES[shape]
     H, HKV, D = cfg["H"], cfg["HKV"], cfg["D"]
     out = []
-    for B, Sq in WHISPER_TIMES:
-        x = whisper_inputs(torch, B, Sq)
-        kw = dict(kv_segment_ids=x["kseg"], **x["kw"])
+    rows_in = (whisper_rows(torch) if shape == "whisper"
+               else [f32_row_inputs(torch, shape)])
+    for x in rows_in:
+        kw = dict(kv_segment_ids=x["kseg"], span_ids=x["span"], **x["kw"])
+        B, Sq, Sk = x["q"].shape[0], x["q"].shape[1], x["k"].shape[1]
         qt, kt, vt = (x[n].transpose(1, 2).contiguous().requires_grad_(True)
                       for n in ("q", "k", "v"))
-        pairs = B * Sq * WHISPER_FRAMES
+        am = None if x["mask"] is None else x["mask"][:, None]
         for direction in directions:
             bwd = direction == "bwd"
             args = [x[n] for n in ("q", "k", "v")]
@@ -1086,7 +1228,8 @@ def time_whisper(torch, libs, rounds, directions):
                     rows[label]["by_kernel"].append(
                         device_ms_by_kernel(fn, iters=5, warmup=1))
             if bwd:
-                o = F.scaled_dot_product_attention(qt, kt, vt)
+                o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                                   enable_gqa=True)
                 dot = x["do"].transpose(1, 2)
 
                 def sdpa():
@@ -1094,37 +1237,41 @@ def time_whisper(torch, libs, rounds, directions):
                                                retain_graph=True)
             else:
                 def sdpa():
-                    return F.scaled_dot_product_attention(qt, kt, vt)
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=am, enable_gqa=True)
             sdpa_ms = cuda_ms(sdpa, iters=10, warmup=2)
             sdpa_device_ms = device_ms(sdpa, iters=5, warmup=1)[0]
-            shape = (B, Sq, WHISPER_FRAMES, H, HKV, D, torch.float32,
-                     pairs, bwd, 1)
-            bound, bound_by = packed_bound(*shape, SPLIT_TF32)
-            r = {"direction": direction,
-                 "shape": f"B={B} Sq={Sq} Sk={WHISPER_FRAMES} H={H} "
-                          f"Hkv={HKV} D={D} fp32 full",
-                 "bound_ms": bound, "bound_by": bound_by,
-                 "bound_cuda_core_ms": packed_bound(*shape)[0],
+            del sdpa
+            if bwd:
+                del o
+            bshape = (B, Sq, Sk, H, HKV, D, torch.float32, x["pairs"], bwd,
+                      x["n_tables"])
+            bound, bound_by = packed_bound(*bshape, SPLIT_TF32)
+            r = {"direction": direction, "shape": x["desc"],
+                 "pairs": x["pairs"], "bound_ms": bound,
+                 "bound_by": bound_by,
+                 "bound_cuda_core_ms": packed_bound(*bshape)[0],
                  "plain_ms": plain_ms, "sdpa_fp32_ms": sdpa_ms,
                  "sdpa_fp32_device_ms": sdpa_device_ms, "kernels": rows}
             if bwd:
                 # the two kernels' own products: S and dP in each, 21
                 # TF32 products a pair for the function's 15
                 r["bound_two_kernel_split_tf32_ms"] = (
-                    3 * 14.0 * D * pairs * H / PEAK_TF32 * 1e3)
+                    3 * 14.0 * D * x["pairs"] * H / PEAK_TF32 * 1e3)
+            tag = f"{shape} {direction} {B}x{Sq}"
             for label, row in rows.items():
-                print(f"whisper {direction} {B}x{Sq} {label:20s} ms "
-                      f"{row['ms']} device_ms {row['device_ms']} by_kernel "
-                      f"{row['by_kernel'][-1]} err {row['elementwise_err']} "
-                      f"same_bits {row['same_bits']}"
+                print(f"{tag} {label:20s} ms {row['ms']} device_ms "
+                      f"{row['device_ms']} by_kernel {row['by_kernel'][-1]} "
+                      f"err {row['elementwise_err']} same_bits "
+                      f"{row['same_bits']}"
                       + (f" dq {row['same_bits_dq']}" if bwd else
                          f" lse_err {row['lse_err']}"))
-            print(f"whisper {direction} {B}x{Sq} " + json.dumps(
+            print(f"{tag} " + json.dumps(
                 {k: v for k, v in r.items() if k != "kernels"}))
             out.append(r)
-        del x, args, qt, kt, vt
+        del x, args, qt, kt, vt, am
         torch.cuda.empty_cache()
-    if "fwd" in directions:
+    if "fwd" in directions and shape == "whisper":
         out.append(time_long_row(torch, libs, rounds))
     return out
 
@@ -1225,8 +1372,9 @@ def main() -> int:
             from repro_torch.kernels import build as kbuild
             kbuild._libs["flash_attention_packed"] = libs["change"]
             result = {"times": {
-                shape: (time_whisper(torch, libs, args.rounds, directions)
-                        if shape == "whisper" else
+                shape: (time_f32(torch, libs, shape, args.rounds,
+                                 directions)
+                        if SHAPES[shape]["dtype"] == "float32" else
                         time_mode(torch, libs, shape, args.rounds,
                                   directions))
                 for shape in shapes}}
@@ -1241,7 +1389,8 @@ def main() -> int:
     if "times" in result:
         summary = {"card": card, "times": {
             shape: ([{k: v for k, v in row.items() if k != "kernels"}
-                     for row in r] if shape == "whisper" else
+                     for row in r] if SHAPES[shape]["dtype"] == "float32"
+                    else
                     {d: ({k: v for k, v in r[d].items() if k != "kernels"}
                          if d in directions else r[d]) for d in r})
             for shape, r in result["times"].items()}}

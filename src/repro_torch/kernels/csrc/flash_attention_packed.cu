@@ -87,9 +87,13 @@
 //     wgmma, as two kernels that each write their gradients once
 //     (packed_bwd_f32_kernel: dK, dV; packed_bwd_f32_dq_kernel: dQ); its
 //     section says what bounds it and what the design does about it.
-//   * fp32 backward at D = 128 and 160 (packed_bwd_f32_cc_kernel): the
-//     CUDA cores, dQ by scalar atomics; no main path runs it, not
-//     redesigned.
+//   * fp32 backward at D = 128 and 160 (every fp32 run of a 128- or
+//     160-wide config: pixtral-12b's 32:8 at 160, internvl3-2b's 12:2 at
+//     128): split TF32 on the tensor cores by mma.sync, one template for
+//     both head dims, dK / dV a query head at a time
+//     (packed_bwd_f32_mma_kernel, the group's heads summed after it)
+//     and dQ from its own walk (packed_bwd_f32_mma_dq_kernel), each
+//     written once; its section says why not wgmma and what bounds it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -771,15 +775,15 @@ packed_bwd_kv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dk, dv [B, Sk, Hkv, D] bf16 = the sums over the G query heads of each
-// KV head of the fp32 partials [B, Sk, H, D], in head order; a thread
-// per 4 consecutive d of one (b, key, KV head) row
-template <int D>
+// dk, dv [B, Sk, Hkv, D] in T (bf16, or fp32 for the mma.sync
+// backward) = the sums over the G query heads of each KV head of the
+// fp32 partials [B, Sk, H, D], in head order; a thread per 4 consecutive
+// d of one (b, key, KV head) row
+template <int D, typename T>
 __global__ void bwd_kv_reduce_kernel(const float* __restrict__ dk_part,
                                      const float* __restrict__ dv_part,
-                                     bf16* __restrict__ dk,
-                                     bf16* __restrict__ dv, int64_t n4,
-                                     int G) {
+                                     T* __restrict__ dk, T* __restrict__ dv,
+                                     int64_t n4, int G) {
   constexpr int C4 = D / 4;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
@@ -796,10 +800,15 @@ __global__ void bwd_kv_reduce_kernel(const float* __restrict__ dk_part,
     sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
     sv.x += e.x; sv.y += e.y; sv.z += e.z; sv.w += e.w;
   }
-  reinterpret_cast<uint2*>(dk)[i] =
-      make_uint2(pack_bf16(sk.x, sk.y), pack_bf16(sk.z, sk.w));
-  reinterpret_cast<uint2*>(dv)[i] =
-      make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+  if constexpr (std::is_same<T, bf16>::value) {
+    reinterpret_cast<uint2*>(dk)[i] =
+        make_uint2(pack_bf16(sk.x, sk.y), pack_bf16(sk.z, sk.w));
+    reinterpret_cast<uint2*>(dv)[i] =
+        make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+  } else {
+    reinterpret_cast<float4*>(dk)[i] = sk;
+    reinterpret_cast<float4*>(dv)[i] = sv;
+  }
 }
 
 // ---------------------------------------------------------------------
@@ -1111,164 +1120,6 @@ packed_fwd_wg_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t == 0)
       lse[((int64_t)b * H + h) * Sq + qp] =
           l[i] > 0.f ? m[i] * 0.6931471805599453f + logf(l[i]) : -INFINITY;
-  }
-}
-
-// ---------------------------------------------------------------------
-// Backward, fp32, CUDA cores, D = 128 and 160 (no main path runs them;
-// not redesigned). Block = (32-key tile, KV head, batch); thread = (key,
-// quarter of D: d = part + 4*i). Per live 32-row query tile, each thread
-// forms its key's scores and dP over the tile (a 4-lane shuffle
-// reduction), accumulates dK/dV in registers, and writes dS to shared
-// memory; then thread (query, quarter) sums dQ over the tile's keys and
-// adds it to dq with atomicAdd.
-// ---------------------------------------------------------------------
-constexpr int BS_BK = 32, BS_BQ = 32, BS_THREADS = 128;
-
-template <int D>
-constexpr size_t bwd_f32_smem() {
-  return sizeof(float) * (2 * BS_BK * (D + 1) + 2 * BS_BQ * (D + 1) +
-                          BS_BQ * (BS_BK + 1) + 2 * BS_BQ) +
-         sizeof(int) * (2 * BS_BK + 2 * BS_BQ);
-}
-
-template <int D, bool SPANS>
-__global__ void __launch_bounds__(BS_THREADS)
-packed_bwd_f32_cc_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dq, float* __restrict__ dk,
-                         float* __restrict__ dv, Params p, float scale) {
-  constexpr int RS = D + 1, SS = BS_BK + 1, NI = D / 4;
-  extern __shared__ float smem[];
-  float* Ks = smem;                 // [BS_BK][RS]
-  float* Vs = Ks + BS_BK * RS;      // [BS_BK][RS]
-  float* Qs = Vs + BS_BK * RS;      // [BS_BQ][RS]
-  float* dOs = Qs + BS_BQ * RS;     // [BS_BQ][RS]
-  float* dSs = dOs + BS_BQ * RS;    // [BS_BQ][SS], dS[query][key]
-  float* lse_s = dSs + BS_BQ * SS;
-  float* delta_s = lse_s + BS_BQ;
-  int* segk_s = reinterpret_cast<int*>(delta_s + BS_BQ);
-  int* spank_s = segk_s + BS_BK;
-  int* segq_s = spank_s + BS_BK;
-  int* spanq_s = segq_s + BS_BQ;
-
-  const int tid = threadIdx.x, kl = tid >> 2, part = tid & 3;
-  const int k0 = blockIdx.x * BS_BK, hk = blockIdx.y, b = blockIdx.z;
-  const int H = p.H, Hkv = p.Hkv, Sq = p.Sq, Sk = p.Sk, G = H / Hkv;
-  const int k1 = min(k0 + BS_BK, Sk);
-  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
-  const float* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
-  const float* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
-
-  for (int i = tid; i < BS_BK * D; i += BS_THREADS) {
-    const int c = i / D, d = i % D, kp = k0 + c;
-    const bool in = kp < Sk;
-    Ks[c * RS + d] = in ? kb[(int64_t)kp * kv_stride + d] : 0.f;
-    Vs[c * RS + d] = in ? vb[(int64_t)kp * kv_stride + d] : 0.f;
-  }
-  if (tid < BS_BK) {
-    const int kp = k0 + tid;
-    segk_s[tid] = kp < Sk ? p.segk[(int64_t)b * Sk + kp] : -2;
-    spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
-  }
-  __syncthreads();
-  const int kpos = p.kv_offset + k0 + kl;
-  const int segk_r = segk_s[kl], spank_r = spank_s[kl];
-
-  float dka[NI], dva[NI];
-#pragma unroll
-  for (int i = 0; i < NI; ++i) dka[i] = dva[i] = 0.f;
-
-  int i_lo = 0;
-  if (!SPANS && p.mode != kFull) i_lo = max(0, p.kv_offset + k0);
-  i_lo = (i_lo / BS_BQ) * BS_BQ;
-
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = hk * G + hh;
-    const float* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-    const float* db = dout + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-    const float* lseb = lse + ((int64_t)b * H + h) * Sq;
-    const float* delb = delta + ((int64_t)b * H + h) * Sq;
-    float* dqb = dq + (int64_t)b * Sq * q_stride + (int64_t)h * D;
-    for (int q0 = i_lo; q0 < Sq; q0 += BS_BQ) {
-      const int q1 = min(q0 + BS_BQ, Sq);
-      if (!tile_live<SPANS>(p, b, q0, q1, k0, k1)) continue;
-      __syncthreads();
-      for (int i = tid; i < BS_BQ * D; i += BS_THREADS) {
-        const int c = i / D, d = i % D, qp = q0 + c;
-        const bool in = qp < Sq;
-        Qs[c * RS + d] = in ? qb[(int64_t)qp * q_stride + d] : 0.f;
-        dOs[c * RS + d] = in ? db[(int64_t)qp * q_stride + d] : 0.f;
-      }
-      if (tid < BS_BQ) {
-        const int qp = q0 + tid;
-        const bool in = qp < Sq;
-        lse_s[tid] = in ? lseb[qp] : 0.f;
-        delta_s[tid] = in ? delb[qp] : 0.f;
-        segq_s[tid] = in ? p.segq[(int64_t)b * Sq + qp] : -1;
-        spanq_s[tid] = (SPANS && in) ? p.spanq[(int64_t)b * Sq + qp] : -1;
-      }
-      __syncthreads();
-
-      const float* kr = Ks + kl * RS + part;
-      const float* vr = Vs + kl * RS + part;
-      for (int c = 0; c < BS_BQ; ++c) {
-        const float* qr = Qs + c * RS + part;
-        const float* dr = dOs + c * RS + part;
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          s = fmaf(kr[4 * i], qr[4 * i], s);
-          dp = fmaf(vr[4 * i], dr[4 * i], dp);
-        }
-        s += __shfl_xor_sync(FULL, s, 1);
-        s += __shfl_xor_sync(FULL, s, 2);
-        dp += __shfl_xor_sync(FULL, dp, 1);
-        dp += __shfl_xor_sync(FULL, dp, 2);
-        const bool ok = pair_ok<SPANS>(p.mode, p.window, q0 + c, kpos,
-                                       segq_s[c], segk_r, spanq_s[c],
-                                       spank_r);
-        const float pv = ok ? expf(s * scale - lse_s[c]) : 0.f;
-        const float ds = pv * (dp - delta_s[c]) * scale;
-#pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          dva[i] = fmaf(pv, dr[4 * i], dva[i]);
-          dka[i] = fmaf(ds, qr[4 * i], dka[i]);
-        }
-        if (part == 0) dSs[c * SS + kl] = ds;
-      }
-      __syncthreads();
-
-      const int c = tid >> 2;  // query row of the tile
-      if (q0 + c < Sq) {
-        const float* srow = dSs + c * SS;
-        float* dqr = dqb + (int64_t)(q0 + c) * q_stride + part;
-#pragma unroll 4
-        for (int i = 0; i < NI; ++i) {
-          float a = 0.f;
-          for (int j = 0; j < BS_BK; ++j)
-            a = fmaf(srow[j], Ks[j * RS + part + 4 * i], a);
-          atomicAdd(dqr + 4 * i, a);
-        }
-      }
-    }
-  }
-
-  const int key = k0 + kl;
-  if (key < Sk) {
-    float* dkr = dk + (int64_t)b * Sk * kv_stride + (int64_t)key * kv_stride +
-                 (int64_t)hk * D + part;
-    float* dvr = dv + (int64_t)b * Sk * kv_stride + (int64_t)key * kv_stride +
-                 (int64_t)hk * D + part;
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      dkr[4 * i] = dka[i];
-      dvr[4 * i] = dva[i];
-    }
   }
 }
 
@@ -1994,6 +1845,639 @@ packed_bwd_f32_dq_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------
+// Backward, fp32, D = 128 and 160: split TF32 on the tensor cores by
+// mma.sync, designed for the H100. The gradient of K1's function, as the
+// other backwards: dq, dk, dv from q, k, v, dO, the forward's LSE and
+// delta = rowsum(dO * O) (bwd_delta_kernel); every mode, span tables, the
+// ring hop's key tables and kv_offset, Sq != Sk, GQA; a row with no valid
+// key gives zeros, a masked pair weighs exactly 0.
+//
+// What bounds it: 10*D flops per valid (query, key) pair per query head
+// against q, k, v, o, dO in and dq, dk, dv out once: operations. At
+// phase 7's 1024-token full row (segments of 400, 300 and 250, 12:2 heads
+// of 128) that is 4.8 GFLOP, 0.072 ms at the fp32 CUDA-core peak; plain
+// TF32 misses the 1e-4 limit (tests/test_torch_k1_f32_split.py), so each
+// product is formed in split TF32 as at D = 64 (hi = tf32(x), lo =
+// tf32(x - hi), lo hi' + hi lo' + hi hi'): 0.029 ms at 495 TFLOP/s.
+//
+// Why not the D = 64 kernels widened: TF32 wgmma reads only K-major
+// operands from shared memory, so they keep hi / lo copies of every tile
+// and transposed copies of the walked ones there: 429,056 bytes at D =
+// 128 and 535,552 at 160 as built, and at 160 no layout of one warpgroup
+// fits 227 KB either. mma.sync takes both operands from registers: each
+// thread loads its fragment words from fp32 tiles held once in shared
+// memory, in whatever order the product needs, and splits them as it
+// loads them. No copies, and one template for both head dims.
+//
+// What the design does about it:
+//  1. Grid. dK / dV: a block per (query head, 64-key tile, batch), heads
+//     fastest, so key tile 0 (the heaviest under causal order) starts
+//     first; 192 blocks at 1024 tokens and 12 heads, where a block per KV
+//     head would give 32. Each block walks the live query tiles of its
+//     one head and writes that head's dK and dV for its keys once, in
+//     fp32, to scratch [B, Sk, H, D] (to dk and dv when H == Hkv);
+//     bwd_kv_reduce_kernel sums the group's heads in order. dQ: a block
+//     per (query head, 64 queries, batch), the last query rows first,
+//     walking the live key tiles and writing dQ once. No atomics: dq, dk
+//     and dv come out the same bits on every call.
+//  2. Warps. Eight warps; warp w owns 16 of the block's 64 rows (w % 4)
+//     and half of D's columns (w / 4), so its share of dK and dV is D / 4
+//     registers each (40 at D = 160; with all D columns a warp would hold
+//     160 for the two). The first products, S and dP over a walked tile
+//     of 32 rows (S^T and dP^T in the dK / dV kernel), each warp of a row
+//     group forms over its half of D; the two add their partials through
+//     shared memory (each adds the same two numbers, so both hold the
+//     same bits) behind a barrier of the pair's 64 threads.
+//  3. Operands. A tile is kept in rows of D fp32 words, word c of row r
+//     at c ^ 4 (r % 8) within its 32-word group: the fragment loads of
+//     the first products (rows g, word t) and of the second (rows 2t and
+//     2t + 1, word g) each hit 32 banks (D is a multiple of 32). Each
+//     word is split as it loads and each product formed as three
+//     mma.sync.m16n8k8 in TF32. The second products (dV += P^T dO, dK +=
+//     dS^T Q; dQ += dS K) take P^T and dS^T (dS) from the first
+//     products' accumulators as they lie: the A operand's k index t is
+//     the accumulator's column 2t and t + 4 its column 2t + 1, so the
+//     walked tile's rows are read in that order (the kap order of the D
+//     = 64 kernels, here as addresses).
+//  4. Sums. Each walked tile's second product is summed, 8 columns at a
+//     time, into a fresh accumulator and added to dK, dV or dQ in fp32
+//     registers: the tensor cores add into their accumulator less
+//     exactly than fp32 rounding (see the D = 64 section), and a walk
+//     here is up to 128 tiles long (4096 tokens).
+//  5. Loads and masks as the other K1 kernels: the fixed and walked
+//     tiles by 16-byte cp.async, the walked ones in two stages (the next
+//     live tile lands while this one is formed), live tiles found 32 at
+//     a time by one ballot over the tables' summaries (tile_live), the
+//     pair mask skipped for a tile wholly in the warp's one segment and
+//     position range.
+// Budget: shared memory 198,656 bytes at D = 160 (the fixed tiles 80 KB,
+// two stages of walked tiles 80 KB, the partials 32 KB, the rows' tables
+// 2 KB), 165,888 at D = 128: one block an SM, 256 threads at up to 255
+// registers (ptxas: dK / dV 223-226 at D = 128, 253 at 160; dQ 183-203;
+// no spill).
+// What still holds it back (H100 80GB HBM3 at 700 W, k1_fault_check.py
+// --time --shape internvl_f32 --shape pixtral_f32): at phase 7's 1024
+// full row 0.361 ms device (dK / dV 0.192, dQ 0.154), 12.4x the
+// split-TF32 bound and 8.9x the two kernels' own products (S and dP are
+// formed in both: 0.0407), under SDPA fp32's 0.467 and 10.5x under the
+// CUDA-core kernel it replaced (3.80); at pixtral-12b's 32:8 on a
+// 4096-token causal row 18.4 ms, 6.7x its bound, SDPA fp32 21.1. So the
+// tensor cores work about a tenth of the time. Edited copies timed in
+// one call (k1_fault_check.py's f32_mma_* edits): the lo products, two
+// thirds of the mma.sync, take 42-47% of it (hi hi' alone 0.211 ms and
+// 9.8); the split at each fragment load (three ALU operations a word,
+// every walked word loaded by each of the four row groups, the fixed
+// tiles' words again every tile) 30-33% (0.256 and 12.3); the first
+// products' loop unrolled whole gains nothing (0.369 and 18.05). Two
+// warps a scheduler (one block an SM) hide little of either; at 1024
+// tokens 192 blocks run in 1.45 waves of 132.
+// ---------------------------------------------------------------------
+constexpr int M_ROWS = 64;        // rows a block owns: keys or queries
+constexpr int M_STEP = 32;        // rows of a walked tile
+constexpr int M_THREADS = 256;    // 4 groups of 16 rows x 2 halves of D
+constexpr int M_NQ = M_STEP / 8;  // 8-row groups of a walked tile
+
+// Shared memory of the mma.sync backward, in words: TF of a fixed [64][D]
+// tile, TW of a walked [32][D] one, TX of a warp's S and dP partials
+template <int D>
+struct F32MmaTile {
+  static_assert(D % 32 == 0, "tiles are swizzled in 32-word groups");
+  static constexpr int TF = M_ROWS * D;
+  static constexpr int TW = M_STEP * D;
+  static constexpr int TX = 2 * 16 * M_STEP;
+  // the two fixed tiles, two stages of two walked tiles, the eight
+  // warps' partials, two stages of the walked rows' four tables and the
+  // fixed rows' four
+  static constexpr size_t smem =
+      sizeof(float) *
+      (2 * TF + 4 * TW + 8 * TX + 8 * M_STEP + 4 * M_ROWS);
+};
+
+// the word of (row r, column c) in a tile of rows of D words: columns
+// XORed with 4 (r % 8) within their 32-word group
+template <int D>
+__device__ __forceinline__ int fw(int r, int c) {
+  return r * D + (c ^ ((r & 7) << 2));
+}
+
+// rows [r0, r0 + ROWS) of one head (`src`, rows `stride` words apart)
+// into `tile`, 16 bytes a copy; rows past S read as zeros
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* tile, const float* src,
+                                          int64_t stride, int r0, int S,
+                                          int tid) {
+  constexpr int CH = D / 4;
+  for (int i = tid; i < ROWS * CH; i += M_THREADS) {
+    const int r = i / CH, c = i % CH, row = r0 + r;
+    cp_async16(tile + fw<D>(r, 4 * c),
+               src + (int64_t)(row < S ? row : r0) * stride + 4 * c,
+               row < S);
+  }
+}
+
+// x as hi = tf32(x) and lo = tf32(x - hi)
+__device__ __forceinline__ void split_word(float x, uint32_t& h,
+                                           uint32_t& l) {
+  h = tf32(x);
+  l = lo_of(x, h);
+}
+
+// d[16 x 8] += A[16 x 8] B[8 x 8] on the tensor cores in TF32, fp32
+// sums: lane 4 g + t holds A's (g, t), (g + 8, t), (g, t + 4), (g + 8, t
+// + 4), B's (t, g) and (t + 4, g), d's (g, 2t), (g, 2t + 1), (g + 8, 2t),
+// (g + 8, 2t + 1)
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A B in split TF32, the small products first
+__device__ __forceinline__ void mma_split(float (&d)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const uint32_t (&bh)[2],
+                                          const uint32_t (&bl)[2]) {
+  mma_tf32(d, al, bh[0], bh[1]);
+  mma_tf32(d, ah, bl[0], bl[1]);
+  mma_tf32(d, ah, bh[0], bh[1]);
+}
+
+// The warp's partials over its half of D, columns [c0, c0 + D / 2): S =
+// A B^T and P = C E^T, A and C the fixed tiles at rows r + g and r + g +
+// 8, B and E the walked tiles' 32 rows
+template <int D>
+__device__ __forceinline__ void first_products(
+    float (&s)[M_NQ][4], float (&dp)[M_NQ][4], const float* A,
+    const float* C, const float* B, const float* E, int r, int c0, int g,
+    int t) {
+#pragma unroll
+  for (int n = 0; n < M_NQ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+  const int ra = r + g;
+#pragma unroll 2
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int c = c0 + 8 * kk + t;
+    uint32_t ah[4], al[4], ch[4], cl[4];
+    split_word(A[fw<D>(ra, c)], ah[0], al[0]);
+    split_word(A[fw<D>(ra + 8, c)], ah[1], al[1]);
+    split_word(A[fw<D>(ra, c + 4)], ah[2], al[2]);
+    split_word(A[fw<D>(ra + 8, c + 4)], ah[3], al[3]);
+    split_word(C[fw<D>(ra, c)], ch[0], cl[0]);
+    split_word(C[fw<D>(ra + 8, c)], ch[1], cl[1]);
+    split_word(C[fw<D>(ra, c + 4)], ch[2], cl[2]);
+    split_word(C[fw<D>(ra + 8, c + 4)], ch[3], cl[3]);
+#pragma unroll
+    for (int n = 0; n < M_NQ; ++n) {
+      const int rb = 8 * n + g;
+      uint32_t bh[2], bl[2], eh[2], el[2];
+      split_word(B[fw<D>(rb, c)], bh[0], bl[0]);
+      split_word(B[fw<D>(rb, c + 4)], bh[1], bl[1]);
+      split_word(E[fw<D>(rb, c)], eh[0], el[0]);
+      split_word(E[fw<D>(rb, c + 4)], eh[1], el[1]);
+      mma_split(s[n], ah, al, bh, bl);
+      mma_split(dp[n], ch, cl, eh, el);
+    }
+  }
+}
+
+// S and dP whole: the warp's partials to its slot `mine`, its partner's
+// (the other half of D, same rows) added from `theirs` once both have
+// written, behind a barrier of the pair's 64 threads (id 1 + row group)
+__device__ __forceinline__ void add_halves(float (&s)[M_NQ][4],
+                                           float (&dp)[M_NQ][4],
+                                           float* mine, const float* theirs,
+                                           int pair, int lane) {
+#pragma unroll
+  for (int n = 0; n < M_NQ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      mine[(4 * n + e) * 32 + lane] = s[n][e];
+      mine[(4 * (M_NQ + n) + e) * 32 + lane] = dp[n][e];
+    }
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+#pragma unroll
+  for (int n = 0; n < M_NQ; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[n][e] += theirs[(4 * n + e) * 32 + lane];
+      dp[n][e] += theirs[(4 * (M_NQ + n) + e) * 32 + lane];
+    }
+}
+
+// acc += A W over the 32 rows of a walked tile W, the warp's half of D
+// (columns c0 + 8 nd + g): A from registers (split_acc of a first
+// product's accumulator; k-step kk's index t is walked row 8 kk + 2t,
+// t + 4 row 8 kk + 2t + 1), each 8 columns summed over the tile into a
+// fresh accumulator and added in fp32
+template <int D>
+__device__ __forceinline__ void second_product(float (&acc)[D / 16][4],
+                                               const uint32_t (&h)[M_NQ][4],
+                                               const uint32_t (&l)[M_NQ][4],
+                                               const float* W, int c0,
+                                               int g, int t) {
+#pragma unroll
+  for (int nd = 0; nd < D / 16; ++nd) {
+    const int c = c0 + 8 * nd + g;
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < M_NQ; ++kk) {
+      uint32_t bh[2], bl[2];
+      split_word(W[fw<D>(8 * kk + 2 * t, c)], bh[0], bl[0]);
+      split_word(W[fw<D>(8 * kk + 2 * t + 1, c)], bh[1], bl[1]);
+      mma_split(f, h[kk], l[kk], bh, bl);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] += f[e];
+  }
+}
+
+// dK, dV of one (query head, 64 keys, batch): S^T = K Q^T, dP^T = V dO^T,
+// P^T, dS^T, dV += P^T dO and dK += dS^T Q over every live query tile of
+// the head, written once to [B, Sk, H, D] (dk_h, dv_h)
+template <int D, bool SPANS>
+__global__ void __launch_bounds__(M_THREADS, 1)
+packed_bwd_f32_mma_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk_h, float* __restrict__ dv_h,
+                          Params p, float scale) {
+  using Tile = F32MmaTile<D>;
+  constexpr int ND = D / 16;
+  extern __shared__ float4 smem_v4[];
+  float* Ks = reinterpret_cast<float*>(smem_v4);  // [64][D] each
+  float* Vs = Ks + Tile::TF;
+  float* Ws = Vs + Tile::TF;          // stage st: Q, dO at Ws + 2 st TW
+  float* X = Ws + 4 * Tile::TW;       // the warps' partials
+  float* w_lse = X + 8 * Tile::TX;    // [2][32] each: the walked rows'
+  float* w_delta = w_lse + 2 * M_STEP;
+  int* w_segq = reinterpret_cast<int*>(w_delta + 2 * M_STEP);
+  int* w_spanq = w_segq + 2 * M_STEP;
+  int* segk_s = w_spanq + 2 * M_STEP;  // [64]: the keys'
+  int* spank_s = segk_s + M_ROWS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, rg = warp & 3;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int H = p.H, Sq = p.Sq, Sk = p.Sk, hk = h / (H / p.Hkv);
+  const int k0 = blockIdx.y * M_ROWS, k1 = min(k0 + M_ROWS, Sk);
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)p.Hkv * D;
+  const float* qb = q + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+  const float* db = dout + (int64_t)b * Sq * q_stride + (int64_t)h * D;
+  const float* lseb = lse + ((int64_t)b * H + h) * Sq;
+  const float* delb = delta + ((int64_t)b * H + h) * Sq;
+
+  // K and V; keys past Sk read as zeros
+  load_rows<D, M_ROWS>(Ks, k + (int64_t)b * Sk * kv_stride + hk * D,
+                       kv_stride, k0, Sk, tid);
+  load_rows<D, M_ROWS>(Vs, v + (int64_t)b * Sk * kv_stride + hk * D,
+                       kv_stride, k0, Sk, tid);
+  cp_async_commit();
+  if (tid < M_ROWS) {
+    const int kp = k0 + tid;
+    segk_s[tid] = kp < Sk ? p.segk[(int64_t)b * Sk + kp] : -2;
+    spank_s[tid] = (SPANS && kp < Sk) ? p.spank[(int64_t)b * Sk + kp] : -2;
+  }
+
+  // query tile q0 into stage st; rows past Sq read as zeros (their
+  // tables too: the mask tests the row itself)
+  auto load_q = [&](int q0, int st) {
+    load_rows<D, M_STEP>(Ws + 2 * st * Tile::TW, qb, q_stride, q0, Sq, tid);
+    load_rows<D, M_STEP>(Ws + (2 * st + 1) * Tile::TW, db, q_stride, q0,
+                         Sq, tid);
+    if (tid < 4 * M_STEP) {
+      const int which = tid / M_STEP, r = tid % M_STEP, qp = q0 + r;
+      const int qc = qp < Sq ? qp : q0, at = st * M_STEP + r;
+      if (which == 0) cp_async4(w_lse + at, lseb + qc, qp < Sq);
+      if (which == 1) cp_async4(w_delta + at, delb + qc, qp < Sq);
+      if (which == 2)
+        cp_async4(w_segq + at, p.segq + (int64_t)b * Sq + qc, qp < Sq);
+      if (which == 3 && SPANS)
+        cp_async4(w_spanq + at, p.spanq + (int64_t)b * Sq + qc, qp < Sq);
+    }
+    cp_async_commit();
+  };
+  // the first live query tile at or after q0 (Sq if none), uniform: each
+  // warp tests 32 tiles at once (lane j tile base + j) and keeps the
+  // ballot
+  const int n_qt = (Sq + M_STEP - 1) / M_STEP;
+  int live_base = -32;
+  uint32_t live_bits = 0;
+  auto next_live = [&](int q0) {
+    for (int j = q0 / M_STEP; j < n_qt;) {
+      if (j < live_base || j >= live_base + 32) {
+        live_base = j;
+        const int qt = (j + lane) * M_STEP;
+        const bool live_q = qt < Sq && tile_live<SPANS>(
+                                           p, b, qt, min(qt + M_STEP, Sq),
+                                           k0, k1);
+        live_bits = __ballot_sync(FULL, live_q);
+      }
+      const uint32_t ahead = live_bits >> (j - live_base);
+      if (ahead) return (j + __ffs(ahead) - 1) * M_STEP;
+      j = live_base + 32;
+    }
+    return Sq;
+  };
+
+  int i_lo = 0;
+  if (!SPANS && p.mode != kFull) i_lo = max(0, p.kv_offset + k0);
+  int q0 = next_live((i_lo / M_STEP) * M_STEP), st = 0;
+  if (q0 < Sq) load_q(q0, 0);
+  cp_async_wait<0>();  // K, V (and the first query tile) have landed
+  __syncthreads();
+
+  // the thread's keys: kl and kl + 8 of the block's 64
+  const int kl = 16 * rg + g;
+  int kpos[2], segk_r[2], spank_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    kpos[i] = p.kv_offset + k0 + kl + 8 * i;
+    segk_r[i] = segk_s[kl + 8 * i];
+    spank_r[i] = spank_s[kl + 8 * i];
+  }
+  // the warp's 16 keys lie in one segment (seg_w >= 0): a query tile all
+  // in that segment and after (and, sliding, within a window of) the
+  // keys then needs no mask
+  const int kw0 = 16 * rg, seg_w = segk_s[kw0];
+  const bool one_seg =
+      __all_sync(FULL, segk_s[kw0 + (lane & 15)] == seg_w) && seg_w >= 0;
+  const int kpos_w = p.kv_offset + k0 + kw0;
+  const float sl2 = scale * LOG2E;  // scores in log2 units
+  const int c0 = (warp >> 2) * (D / 2);
+  float* mine = X + warp * Tile::TX;
+  const float* theirs = X + (warp ^ 4) * Tile::TX;
+
+  float dka[ND][4], dva[ND][4];  // dK and dV of the thread's two keys
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  while (q0 < Sq) {
+    cp_async_wait<0>();  // this query tile has landed
+    __syncthreads();     // and the last one's products are done
+    const int qn = next_live(q0 + M_STEP);
+    if (qn < Sq) load_q(qn, st ^ 1);  // lands while this one is formed
+    const float* Qs = Ws + 2 * st * Tile::TW;
+    const float* dOs = Qs + Tile::TW;
+    const float* c_lse = w_lse + st * M_STEP;
+    const float* c_delta = w_delta + st * M_STEP;
+    const int* c_segq = w_segq + st * M_STEP;
+    const int* c_spanq = w_spanq + st * M_STEP;
+
+    float s[M_NQ][4], dp[M_NQ][4];  // S^T, dP^T: 16 keys x 32 queries
+    first_products<D>(s, dp, Ks, Vs, Qs, dOs, 16 * rg, c0, g, t);
+    add_halves(s, dp, mine, theirs, rg, lane);
+
+    bool all_ok = one_seg && q0 + M_STEP <= Sq &&
+                  (p.mode == kFull ||
+                   (kpos_w + 15 <= q0 &&
+                    (p.mode != kSliding ||
+                     kpos_w > q0 + M_STEP - 1 - p.window)));
+    all_ok = __all_sync(FULL, all_ok && c_segq[lane] == seg_w);
+#pragma unroll
+    for (int n = 0; n < M_NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
+        const float lse2 = c_lse[c] * LOG2E, del = c_delta[c];
+        const bool ok =
+            all_ok ||
+            (q0 + c < Sq && lse2 != -INFINITY &&
+             pair_ok<SPANS>(p.mode, p.window, q0 + c, kpos[i], c_segq[c],
+                            segk_r[i], SPANS ? c_spanq[c] : -1,
+                            spank_r[i]));
+        const float pv = ok ? ex2(s[n][e] * sl2 - lse2) : 0.f;
+        s[n][e] = pv;
+        dp[n][e] = pv * (dp[n][e] - del) * scale;
+      }
+    uint32_t ah[M_NQ][4], al[M_NQ][4];
+    split_acc(s, ah, al);
+    second_product<D>(dva, ah, al, dOs, c0, g, t);
+    split_acc(dp, ah, al);
+    second_product<D>(dka, ah, al, Qs, c0, g, t);
+    st ^= 1;
+    q0 = qn;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = k0 + kl + 8 * i;
+    if (key >= Sk) continue;
+    const int64_t row = (((int64_t)b * Sk + key) * H + h) * D + c0;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<float2*>(dk_h + row + n * 8 + t * 2) =
+          make_float2(dka[n][2 * i], dka[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(dv_h + row + n * 8 + t * 2) =
+          make_float2(dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+}
+
+// dQ of one (query head, 64 queries, batch): S = Q K^T, dP = dO V^T, P,
+// dS and dQ += dS K over every live key tile, written once
+template <int D, bool SPANS>
+__global__ void __launch_bounds__(M_THREADS, 1)
+packed_bwd_f32_mma_dq_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dq, Params p, float scale) {
+  using Tile = F32MmaTile<D>;
+  constexpr int ND = D / 16;
+  extern __shared__ float4 smem_v4[];
+  float* Qs = reinterpret_cast<float*>(smem_v4);  // [64][D] each
+  float* dOs = Qs + Tile::TF;
+  float* Ws = dOs + Tile::TF;         // stage st: K, V at Ws + 2 st TW
+  float* X = Ws + 4 * Tile::TW;       // the warps' partials
+  int* w_segk = reinterpret_cast<int*>(X + 8 * Tile::TX);  // [2][32]
+  int* w_spank = w_segk + 2 * M_STEP;
+  float* lse_s = reinterpret_cast<float*>(w_spank + 2 * M_STEP);  // [64]
+  float* delta_s = lse_s + M_ROWS;
+  int* segq_s = reinterpret_cast<int*>(delta_s + M_ROWS);
+  int* spanq_s = segq_s + M_ROWS;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, rg = warp & 3;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int H = p.H, Sq = p.Sq, Sk = p.Sk, hk = h / (H / p.Hkv);
+  // blocks are issued y by y: the last query rows, the heaviest under
+  // causal order, first
+  const int q0 = ((Sq + M_ROWS - 1) / M_ROWS - 1 - (int)blockIdx.y) *
+                 M_ROWS;
+  const int q1 = min(q0 + M_ROWS, Sq);
+  const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)p.Hkv * D;
+  const float* kb = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const float* vb = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+
+  // Q and dO, and the rows' LSE, delta and tables; rows past Sq read as
+  // zeros (and are masked)
+  load_rows<D, M_ROWS>(Qs, q + (int64_t)b * Sq * q_stride + h * D,
+                       q_stride, q0, Sq, tid);
+  load_rows<D, M_ROWS>(dOs, dout + (int64_t)b * Sq * q_stride + h * D,
+                       q_stride, q0, Sq, tid);
+  {
+    const int which = tid / M_ROWS, r = tid % M_ROWS, qp = q0 + r;
+    const int qc = qp < Sq ? qp : q0;
+    const int64_t row = ((int64_t)b * H + h) * Sq + qc;
+    if (which == 0) cp_async4(lse_s + r, lse + row, qp < Sq);
+    if (which == 1) cp_async4(delta_s + r, delta + row, qp < Sq);
+    if (which == 2)
+      cp_async4(segq_s + r, p.segq + (int64_t)b * Sq + qc, qp < Sq);
+    if (which == 3 && SPANS)
+      cp_async4(spanq_s + r, p.spanq + (int64_t)b * Sq + qc, qp < Sq);
+  }
+  cp_async_commit();
+
+  // key tile j into stage st; keys past Sk read as zeros, their segments
+  // as kv padding (-2)
+  auto load_k = [&](int j, int st) {
+    const int j0 = j * M_STEP;
+    load_rows<D, M_STEP>(Ws + 2 * st * Tile::TW, kb, kv_stride, j0, Sk,
+                         tid);
+    load_rows<D, M_STEP>(Ws + (2 * st + 1) * Tile::TW, vb, kv_stride, j0,
+                         Sk, tid);
+    if (tid < (SPANS ? 2 : 1) * M_STEP) {
+      const int r = tid % M_STEP, kp = j0 + r;
+      int* dst = (tid < M_STEP ? w_segk : w_spank) + st * M_STEP + r;
+      if (kp < Sk)
+        cp_async4(dst, (tid < M_STEP ? p.segk : p.spank) +
+                           (int64_t)b * Sk + kp, true);
+      else
+        *dst = -2;
+    }
+    cp_async_commit();
+  };
+  // the key tiles some row of the block can see by position: [j_lo /
+  // 32, jt_hi); of them the first live one at or after j (jt_hi if
+  // none), uniform, found 32 at a time by one ballot
+  int j_lo = 0, j_hi = Sk;
+  if (!SPANS && p.mode != kFull) {
+    j_hi = max(0, min(Sk, q1 - p.kv_offset));
+    if (p.mode == kSliding) j_lo = max(0, q0 - p.window - p.kv_offset + 1);
+  }
+  const int jt_hi = (j_hi + M_STEP - 1) / M_STEP;
+  int live_base = -32;
+  uint32_t live_bits = 0;
+  auto next_live = [&](int j) {
+    while (j < jt_hi) {
+      if (j >= live_base + 32) {
+        live_base = j;
+        const int kt = (j + lane) * M_STEP;
+        live_bits = __ballot_sync(
+            FULL, j + lane < jt_hi &&
+                      tile_live<SPANS>(p, b, q0, q1, kt,
+                                       min(kt + M_STEP, Sk)));
+      }
+      const uint32_t ahead = live_bits >> (j - live_base);
+      if (ahead) return j + __ffs(ahead) - 1;
+      j = live_base + 32;
+    }
+    return jt_hi;
+  };
+
+  int j = next_live(j_lo / M_STEP), st = 0;
+  if (j < jt_hi) load_k(j, 0);
+  cp_async_wait<0>();  // Q, dO, the rows' tables (and the first key tile)
+  __syncthreads();
+
+  // the thread's rows: ql and ql + 8 of the block's 64
+  const int ql = 16 * rg + g;
+  int segq_r[2], spanq_r[2];
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = q0 + ql + 8 * i < Sq;
+    segq_r[i] = in ? segq_s[ql + 8 * i] : -1;
+    spanq_r[i] = (SPANS && in) ? spanq_s[ql + 8 * i] : -1;
+    lse_r[i] = lse_s[ql + 8 * i] * LOG2E;
+    delta_r[i] = delta_s[ql + 8 * i];
+  }
+  // the warp's 16 rows lie in one segment (seg_w >= 0): a key tile all
+  // in that segment, at or before the first row (and, sliding, within
+  // the last row's window) then needs no mask
+  const int qw0 = 16 * rg, rw = q0 + qw0;
+  const int seg_w = rw < Sq ? segq_s[qw0] : -1;
+  const bool one_seg =
+      __all_sync(FULL, rw + 16 <= Sq && segq_s[qw0 + (lane & 15)] == seg_w) &&
+      seg_w >= 0;
+  const float sl2 = scale * LOG2E;  // scores in log2 units
+  const int c0 = (warp >> 2) * (D / 2);
+  float* mine = X + warp * Tile::TX;
+  const float* theirs = X + (warp ^ 4) * Tile::TX;
+
+  float dqa[ND][4];  // dQ of the thread's two rows
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+
+  while (j < jt_hi) {
+    cp_async_wait<0>();  // key tile j has landed
+    __syncthreads();     // and the last one's products are done
+    const int jn = next_live(j + 1);
+    if (jn < jt_hi) load_k(jn, st ^ 1);  // lands while tile j is formed
+    const float* Ks = Ws + 2 * st * Tile::TW;
+    const float* Vs = Ks + Tile::TW;
+    const int* c_segk = w_segk + st * M_STEP;
+    const int* c_spank = w_spank + st * M_STEP;
+
+    float s[M_NQ][4], dp[M_NQ][4];  // S, dP: 16 rows x 32 keys
+    first_products<D>(s, dp, Qs, dOs, Ks, Vs, 16 * rg, c0, g, t);
+    add_halves(s, dp, mine, theirs, rg, lane);
+
+    const int kpos0 = p.kv_offset + j * M_STEP;
+    bool all_ok = one_seg && (j + 1) * M_STEP <= Sk &&
+                  (p.mode == kFull ||
+                   (kpos0 + M_STEP - 1 <= rw &&
+                    (p.mode != kSliding || kpos0 > rw + 15 - p.window)));
+    all_ok = __all_sync(FULL, all_ok && c_segk[lane] == seg_w);
+#pragma unroll
+    for (int n = 0; n < M_NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, c = n * 8 + t * 2 + (e & 1);
+        const bool ok =
+            all_ok ||
+            (lse_r[i] != -INFINITY &&
+             pair_ok<SPANS>(p.mode, p.window, q0 + ql + 8 * i, kpos0 + c,
+                            segq_r[i], c_segk[c], spanq_r[i],
+                            SPANS ? c_spank[c] : -2));
+        const float pv = ok ? ex2(s[n][e] * sl2 - lse_r[i]) : 0.f;
+        dp[n][e] = pv * (dp[n][e] - delta_r[i]) * scale;
+      }
+    uint32_t ah[M_NQ][4], al[M_NQ][4];
+    split_acc(dp, ah, al);
+    second_product<D>(dqa, ah, al, Ks, c0, g, t);
+    st ^= 1;
+    j = jn;
+  }
+
+  float* dqb = dq + (int64_t)b * Sq * q_stride + (int64_t)h * D + c0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = q0 + ql + 8 * i;
+    if (qp >= Sq) continue;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(dqb + (int64_t)qp * q_stride + n * 8 +
+                                 t * 2) =
+          make_float2(dqa[n][2 * i], dqa[n][2 * i + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------
 // Forward, fp32, D = 64: split TF32 on the tensor cores, designed for
 // the H100 (whisper-small's encoder and cross-attention in training,
 // and every fp32 model at head_dim 64). K1's function as the CUDA-core
@@ -2435,9 +2919,10 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
 
 // grid x, y, z, threads, shared memory and scratch bytes of the last
 // backward launch, packed_bwd_kv_kernel (bf16), packed_bwd_f32_kernel
-// (fp32, D = 64: dK and dV) or packed_bwd_f32_cc_kernel (fp32, D = 128 /
-// 160) (k1_last_bwd_kv_launch reads them); grid, threads and shared
-// memory of the last packed_bwd_f32_dq_kernel (k1_last_bwd_dq_launch)
+// (fp32, D = 64: dK and dV) or packed_bwd_f32_mma_kernel (fp32, D = 128
+// / 160: dK and dV) (k1_last_bwd_kv_launch reads them); grid, threads
+// and shared memory of the last fp32 dQ kernel, packed_bwd_f32_dq_kernel
+// or packed_bwd_f32_mma_dq_kernel (k1_last_bwd_dq_launch)
 static long long g_bwd_kv_launch[6] = {0, 0, 0, 0, 0, 0};
 static long long g_bwd_dq_launch[5] = {0, 0, 0, 0, 0};
 
@@ -2477,7 +2962,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     err = cudaGetLastError();
     if (err != cudaSuccess || !grouped) return err;
     const int64_t n4 = (int64_t)p.B * p.Sk * p.Hkv * D / 4;
-    bwd_kv_reduce_kernel<D><<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+    bwd_kv_reduce_kernel<D, bf16>
+        <<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
         dk_part, dv_part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), n4,
         p.H / p.Hkv);
   } else if constexpr (D == T_D) {
@@ -2510,20 +2996,48 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
         <<<dq_grid, T_THREADS, dq_smem, stream>>>(qf, kf, vf, df, lse, delta,
                                                   dq_acc, p, scale);
   } else {
-    constexpr size_t smem = bwd_f32_smem<D>();
-    err = cudaFuncSetAttribute(packed_bwd_f32_cc_kernel<D, SPANS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    // split TF32 by mma.sync: each query head's dK and dV (summed over
+    // the group after), then dQ, each written once
+    const float* qf = static_cast<const float*>(q);
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    const float* df = static_cast<const float*>(dout);
+    static bool kv_set[MAX_DEVICES], dq_set[MAX_DEVICES];
+    constexpr size_t smem = F32MmaTile<D>::smem;
+    err = allow_smem(packed_bwd_f32_mma_kernel<D, SPANS>, smem, kv_set);
     if (err != cudaSuccess) return err;
-    const dim3 grid((p.Sk + BS_BK - 1) / BS_BK, p.Hkv, p.B);
-    const long long launch[6] = {grid.x, grid.y, grid.z, BS_THREADS,
-                                 (long long)smem, 0};
+    // the heads' dK and dV, [B, Sk, H, D] each, when H > Hkv
+    const bool grouped = p.H != p.Hkv;
+    const int64_t part = (int64_t)p.B * p.Sk * p.H * D;
+    float* dk_h = grouped ? work : static_cast<float*>(dk);
+    float* dv_h = grouped ? work + part : static_cast<float*>(dv);
+    const dim3 grid(p.H, (p.Sk + M_ROWS - 1) / M_ROWS, p.B);
+    const long long launch[6] = {
+        grid.x, grid.y, grid.z, M_THREADS, (long long)smem,
+        grouped ? 2LL * part * (long long)sizeof(float) : 0};
     for (int i = 0; i < 6; ++i) g_bwd_kv_launch[i] = launch[i];
-    packed_bwd_f32_cc_kernel<D, SPANS><<<grid, BS_THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, dq_acc, static_cast<float*>(dk), static_cast<float*>(dv), p,
-        scale);
+    packed_bwd_f32_mma_kernel<D, SPANS><<<grid, M_THREADS, smem, stream>>>(
+        qf, kf, vf, df, lse, delta, dk_h, dv_h, p, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    if (grouped) {
+      const int64_t n4 = (int64_t)p.B * p.Sk * p.Hkv * D / 4;
+      bwd_kv_reduce_kernel<D, float>
+          <<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+              dk_h, dv_h, static_cast<float*>(dk), static_cast<float*>(dv),
+              n4, p.H / p.Hkv);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+    }
+    err = allow_smem(packed_bwd_f32_mma_dq_kernel<D, SPANS>, smem, dq_set);
+    if (err != cudaSuccess) return err;
+    const dim3 dq_grid(p.H, (p.Sq + M_ROWS - 1) / M_ROWS, p.B);
+    const long long dq_launch[5] = {dq_grid.x, dq_grid.y, dq_grid.z,
+                                    M_THREADS, (long long)smem};
+    for (int i = 0; i < 5; ++i) g_bwd_dq_launch[i] = dq_launch[i];
+    packed_bwd_f32_mma_dq_kernel<D, SPANS>
+        <<<dq_grid, M_THREADS, smem, stream>>>(qf, kf, vf, df, lse, delta,
+                                               dq_acc, p, scale);
   }
   return cudaGetLastError();
 }
@@ -2608,12 +3122,12 @@ int k1_forward(const void* q, const void* k, const void* v, void* o,
   return (int)cudaErrorInvalidValue;
 }
 
-// dq_acc: fp32 [B, Sq, H, D], zeroed by the caller (for fp32 inputs it
-// is dq itself; at head_dim 64 the dQ kernel writes every row of it);
-// delta: fp32 scratch [B, H, Sq]; dk/dv in k's type
+// dq_acc: fp32 [B, Sq, H, D]: for bfloat16 zeroed by the caller (the
+// kernel adds to it); for float32 dq itself, every row of which the dQ
+// kernel writes. delta: fp32 scratch [B, H, Sq]; dk/dv in k's type
 // [B, Sk, Hkv, D], written in full. work: fp32 scratch [2, B, Sk, H, D]
-// (the per-query-head dK and dV) for bfloat16 when H > Hkv, else unused
-// and may be null.
+// (the per-query-head dK and dV) when H > Hkv, in bfloat16 and in
+// float32 at head_dim 128 and 160; else unused and may be null.
 int k1_backward(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const void* lse, void* delta, void* dq_acc,
                 void* dk, void* dv, void* work, const void* segq,
@@ -2623,7 +3137,7 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
                 int kv_offset, void* stream) {
   if (bad_args(B, Sq, Sk, H, Hkv, D, dtype, mode, window) ||
       (spanq == nullptr) != (spank == nullptr) ||
-      (work == nullptr && dtype == 1 && H != Hkv))
+      (work == nullptr && H != Hkv && (dtype == 1 || D != T_D)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Params p = make_params(B, Sq, Sk, H, Hkv, mode, window, kv_offset,
@@ -2658,16 +3172,18 @@ int k1_backward(const void* q, const void* k, const void* v, const void* o,
 
 // The last launch of the backward's key-side kernel (packed_bwd_kv_kernel
 // in bfloat16; in float32 packed_bwd_f32_kernel, dK and dV, at head_dim
-// 64, packed_bwd_f32_cc_kernel at 128 and 160), as launch_bwd made it:
+// 64, packed_bwd_f32_mma_kernel at 128 and 160), as launch_bwd made it:
 // out[0..2] its grid, out[3] its threads per block, out[4] its dynamic
 // shared memory in bytes, out[5] the bytes of `work` it addressed (0 when
-// H == Hkv, and in float32). All 0 before the first such launch.
+// H == Hkv, and in float32 at head_dim 64). All 0 before the first such
+// launch.
 void k1_last_bwd_kv_launch(long long* out) {
   for (int i = 0; i < 6; ++i) out[i] = g_bwd_kv_launch[i];
 }
 
-// The last launch of packed_bwd_f32_dq_kernel (float32, head_dim 64: dQ),
-// as launch_bwd made it: out[0..2] its grid, out[3] its threads per
+// The last launch of float32's dQ kernel (packed_bwd_f32_dq_kernel at
+// head_dim 64, packed_bwd_f32_mma_dq_kernel at 128 and 160), as
+// launch_bwd made it: out[0..2] its grid, out[3] its threads per
 // block, out[4] its dynamic shared memory in bytes. All 0 before the
 // first such launch.
 void k1_last_bwd_dq_launch(long long* out) {

@@ -36,9 +36,11 @@ tensors cross device memory at 160. fp32 at head_dim 64 (whisper-small's)
 runs in split TF32 by `wgmma` both ways: the forward as two warpgroups
 over 128 query rows sharing each split K/V tile, the backward as two
 kernels that each write their gradients once (dK and dV, then dQ: the
-same bits on every call); fp32 at 128 and 160 runs on the CUDA cores.
-Head dims 64, 128 and 160 run in both types, 256 (recurrentgemma-2b) in
-bf16 only.
+same bits on every call). fp32's backward at 128 and 160 runs in split
+TF32 by `mma.sync`, as two kernels that each write their gradients once
+(each query head's dK and dV, summed over its KV head's group after, then
+dQ); its forward at 128 and 160 runs on the CUDA cores. Head dims 64,
+128 and 160 run in both types, 256 (recurrentgemma-2b) in bf16 only.
 """
 from __future__ import annotations
 
@@ -57,11 +59,12 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: dV, with F32_DQ_KERNEL after it; see `fwd_kernel` and `bwd_kernels`)
 KERNELS = {torch.float32: ("packed_fwd_f32_kernel", "packed_bwd_f32_kernel"),
            torch.bfloat16: ("packed_fwd_wg_kernel", "packed_bwd_kv_kernel")}
-#: fp32's dQ kernel at head_dim 64, and its CUDA-core kernels at 128 /
-#: 160, forward and backward
+#: fp32's dQ kernel at head_dim 64; its CUDA-core forward at 128 / 160,
+#: and its split-TF32 backward there by mma.sync (dK and dV, then dQ)
 F32_DQ_KERNEL = "packed_bwd_f32_dq_kernel"
 F32_FWD_CC_KERNEL = "packed_fwd_f32_cc_kernel"
-F32_CC_KERNEL = "packed_bwd_f32_cc_kernel"
+F32_MMA_KERNELS = ("packed_bwd_f32_mma_kernel",
+                   "packed_bwd_f32_mma_dq_kernel")
 #: the head dim of fp32's split-TF32 kernels
 F32_TC_HEAD_DIM = 64
 _HEAD_DIMS = (64, 128, 160, 256)
@@ -312,17 +315,18 @@ def last_fwd_launch() -> dict:
 
 def last_bwd_kv_launch() -> dict:
     """The last launch of the backward's key-side kernel (either dtype,
-    any head_dim; fp32 at head_dim 64 its dK / dV kernel), as the
-    library recorded it: `grid` (x, y, z), `threads` a block,
-    `smem_bytes` of dynamic shared memory and `work_bytes` of the fp32
-    scratch (each query head's dK and dV; 0 in fp32) it addressed."""
+    any head_dim; in fp32 its dK / dV kernel), as the library recorded
+    it: `grid` (x, y, z), `threads` a block, `smem_bytes` of dynamic
+    shared memory and `work_bytes` of the fp32 scratch (each query
+    head's dK and dV; 0 when H == Hkv, and in fp32 at head_dim 64) it
+    addressed."""
     out = _last_launch("k1_last_bwd_kv_launch", 6)
     return dict(grid=tuple(out[:3]), threads=out[3], smem_bytes=out[4],
                 work_bytes=out[5])
 
 
 def last_bwd_dq_launch() -> dict:
-    """The last launch of fp32's dQ kernel (head_dim 64), as the library
+    """The last launch of fp32's dQ kernel (any head_dim), as the library
     recorded it: `grid` (x, y, z), `threads` a block and `smem_bytes` of
     dynamic shared memory."""
     out = _last_launch("k1_last_bwd_dq_launch", 5)
@@ -342,7 +346,7 @@ def bwd_kernels(dtype, D: int) -> tuple:
     launch order (the summaries and delta aside)."""
     if dtype == torch.float32:
         return ((KERNELS[dtype][1], F32_DQ_KERNEL) if D == F32_TC_HEAD_DIM
-                else (F32_CC_KERNEL,))
+                else F32_MMA_KERNELS)
     return (KERNELS[dtype][1],)
 
 
@@ -359,15 +363,18 @@ def _launch_bwd(q, k, v, o, lse, do, tables, mode, window, kv_offset):
     fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    # bf16 adds dQ with atomics; fp32's dQ kernels write every row
+    dq_acc = (torch.zeros if q.dtype == torch.bfloat16 else torch.empty)(
+        q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     sumq, sumk = _summaries(B, Sq, q.device), _summaries(B, Sk, q.device)
-    # bf16 with H > Hkv: each query head's dK and dV in fp32 before the
-    # group sum
+    # H > Hkv in bf16, and in fp32 beside head_dim 64: each query head's
+    # dK and dV in fp32 before the group sum
+    grouped = H != Hkv and (q.dtype == torch.bfloat16
+                            or D != F32_TC_HEAD_DIM)
     work = (torch.empty(2 * B * Sk * H * D, dtype=torch.float32,
-                        device=q.device)
-            if q.dtype == torch.bfloat16 and H != Hkv else None)
+                        device=q.device) if grouped else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -469,8 +476,7 @@ flash_attention_packed_bwd.launches = 0
 #: the launches of both directions by kernel and mode
 #: ("packed_fwd_f32_kernel full", "packed_bwd_kv_kernel causal", ...:
 #: the kernels that ran, `fwd_kernel` and `bwd_kernels`; fp32's backward
-#: at head_dim 64 counts both its kernels), since the dict was last set
-#: to {}
+#: counts both its kernels), since the dict was last set to {}
 flash_attention_packed.launches_by = {}
 #: the same by kernel, mode and shape (query rows x key rows a batch
 #: row: "packed_bwd_f32_kernel full 448x1500", ...)

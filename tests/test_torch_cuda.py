@@ -1822,6 +1822,53 @@ def test_k1_f32_forward_head_dims_128_160_run_the_cuda_core_kernel(card, D):
     assert launch["threads"] == 128, launch
 
 
+#: shared memory of the mma.sync backward's blocks (fp32, head_dim 128
+#: and 160; both kernels): the two fixed [64][D] tiles, two stages of two
+#: walked [32][D] tiles, the eight warps' S and dP partials (16 x 32 each),
+#: two stages of the walked rows' four tables and the fixed rows' four
+def _k1_f32_mma_smem(D):
+    return 4 * (2 * 64 * D + 4 * 32 * D + 8 * 2 * 16 * 32 + 8 * 32 + 4 * 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 160])
+def test_k1_f32_backward_head_dims_128_160_run_the_mma_kernels(card, D):
+    """fp32's backward at head_dim 128 (internvl3-2b's 12:2 heads) and
+    160 (pixtral-12b's 32:8) runs the split-TF32 kernels by mma.sync:
+    packed_bwd_f32_mma_kernel a block of 256 threads per (query head, 64
+    keys, row), its heads' dK / dV in fp32 scratch [2, B, Sk, H, D]
+    before the group sum, then packed_bwd_f32_mma_dq_kernel per (query
+    head, 64 queries, row), each with _k1_f32_mma_smem(D) bytes of shared
+    memory (165,888 at 128, 198,656 at 160), counted under both names;
+    within 1e-4 of the plain version."""
+    from repro_torch.kernels.flash_attention_packed import (
+        bwd_kernels, flash_attention_packed, last_bwd_dq_launch,
+        last_bwd_kv_launch)
+    rng = np.random.default_rng(46)
+    B, S = 2, 700
+    H, Hkv = K1_HEADS[D]
+    seg, span = _packed_tables(B, S, [300, 37, 250, 1], True, frame=40)
+    q, k, v, do = _k1_f32(card, rng, B, S, S, H, Hkv, D)
+    assert bwd_kernels(torch.float32, D) == (
+        "packed_bwd_f32_mma_kernel", "packed_bwd_f32_mma_dq_kernel")
+    flash_attention_packed.launches_by = {}
+    got, want, _ = _k1_grads(card, q, k, v, do, seg,
+                             span_ids=torch.from_numpy(span).to(card))
+    kv, dq = last_bwd_kv_launch(), last_bwd_dq_launch()
+    _k1_f32_close(f"mma D={D}", got, want)
+    print(f"K1 fp32 bwd D={D} launches: dK/dV {kv}, dQ {dq}")
+    assert flash_attention_packed.launches_by == {
+        "packed_fwd_f32_cc_kernel causal": 1,
+        "packed_bwd_f32_mma_kernel causal": 1,
+        "packed_bwd_f32_mma_dq_kernel causal": 1}
+    smem = _k1_f32_mma_smem(D)
+    assert smem == {128: 165888, 160: 198656}[D]
+    assert kv == dict(grid=(H, -(-S // 64), B), threads=256, smem_bytes=smem,
+                      work_bytes=2 * B * S * H * D * 4), kv
+    assert dq == dict(grid=(H, -(-S // 64), B), threads=256,
+                      smem_bytes=smem), dq
+
+
 def _k1_f32(card, rng, B, Sq, Sk, H, Hkv, D=64):
     q, do = (torch.from_numpy(rng.standard_normal((B, Sq, H, D)).astype(
         np.float32)).to(card) for _ in range(2))
@@ -1839,24 +1886,32 @@ def _k1_f32_close(tag, got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Hkv,spans", [(12, False), (2, True)])
-def test_k1_f32_backward_gives_the_same_bits_on_every_call(card, Hkv, spans):
-    """fp32's split-TF32 backward at head_dim 64 writes dK and dV once a
-    (key, KV head), summed over the group's heads in order, and dQ once
-    a (query, head) from its own kernel: two calls give the same bits
-    in all three, at whisper-small's 12:12 heads and at 12:2 with spans
-    and several segments."""
+@pytest.mark.parametrize("D,H,Hkv,spans", [
+    pytest.param(64, 12, 12, False, id="12-False"),
+    pytest.param(64, 12, 2, True, id="2-True"),
+    pytest.param(128, 12, 2, True, id="D128-2-True"),
+    pytest.param(128, 12, 12, False, id="D128-12-False"),
+    pytest.param(160, 32, 8, True, id="D160-8-True")])
+def test_k1_f32_backward_gives_the_same_bits_on_every_call(card, D, H, Hkv,
+                                                           spans):
+    """fp32's split-TF32 backward writes dK and dV once a (key, KV head),
+    summed over the group's heads in order (at head_dim 64 along one
+    walk, at 128 and 160 from each query head's own after it), and dQ
+    once a (query, head) from its own kernel: two calls give the same
+    bits in all three, at head_dim 64 at whisper-small's 12:12 heads and
+    at 12:2, at 128 at internvl3-2b's 12:2 and at 12:12, at 160 at
+    pixtral-12b's 32:8, with spans and several segments."""
     from repro_torch.kernels.flash_attention_packed import (
         flash_attention_packed_bwd)
     rng = np.random.default_rng(34)
     B, S = 2, 700
     seg, span = _packed_tables(B, S, [300, 37, 250, 1], spans, frame=40)
-    q, k, v, do = _k1_f32(card, rng, B, S, S, 12, Hkv)
+    q, k, v, do = _k1_f32(card, rng, B, S, S, H, Hkv, D)
     kw = dict(mode="causal")
     if spans:
         kw["span_ids"] = torch.from_numpy(span).to(card)
     got, want, (o, lse, segt) = _k1_grads(card, q, k, v, do, seg, **kw)
-    _k1_f32_close(f"determinism 12:{Hkv}", got, want)
+    _k1_f32_close(f"determinism D={D} {H}:{Hkv}", got, want)
     again = flash_attention_packed_bwd(q, k, v, o, lse, do, segt, **kw)
     torch.cuda.synchronize()
     for a, b in zip(got, again):
@@ -1864,23 +1919,26 @@ def test_k1_f32_backward_gives_the_same_bits_on_every_call(card, Hkv, spans):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Hkv", [12, 2])
-def test_k1_f32_backward_rows_without_keys_are_zero(card, Hkv):
-    """fp32 at head_dim 64: a ring hop whose keys hold no token of one
-    query segment (its rows have LSE -inf) and padding on both sides:
-    those rows of dq, and the rows of dk / dv no query sees, are exactly
-    0; the rest match the plain version."""
+@pytest.mark.parametrize("D,H,Hkv", [
+    pytest.param(64, 12, 12, id="12"), pytest.param(64, 12, 2, id="2"),
+    pytest.param(128, 12, 2, id="D128-2"),
+    pytest.param(160, 32, 8, id="D160-8")])
+def test_k1_f32_backward_rows_without_keys_are_zero(card, D, H, Hkv):
+    """fp32 at head_dim 64, 128 and 160: a ring hop whose keys hold no
+    token of one query segment (its rows have LSE -inf) and padding on
+    both sides: those rows of dq, and the rows of dk / dv no query sees,
+    are exactly 0; the rest match the plain version."""
     rng = np.random.default_rng(35)
     B, Sq, Sk = 1, 300, 200
     seg = np.full((B, Sq), -1, np.int32)
     seg[0, :120], seg[0, 120:250] = 0, 1          # segment 1: no keys
     kseg = np.full((B, Sk), -2, np.int32)
     kseg[0, :150] = 0                             # kv padding after 150
-    q, k, v, do = _k1_f32(card, rng, B, Sq, Sk, 12, Hkv)
+    q, k, v, do = _k1_f32(card, rng, B, Sq, Sk, H, Hkv, D)
     kw = dict(kv_segment_ids=torch.from_numpy(kseg).to(card),
               kv_offset=-Sk)
     got, want, (_, lse, _) = _k1_grads(card, q, k, v, do, seg, **kw)
-    _k1_f32_close(f"no keys 12:{Hkv}", got, want)
+    _k1_f32_close(f"no keys D={D} {H}:{Hkv}", got, want)
     assert torch.isinf(lse[0, :, 120:]).all()
     assert torch.isfinite(lse[0, :, :120]).all()
     assert (got[0][0, 120:] == 0).all()

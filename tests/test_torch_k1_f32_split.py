@@ -65,15 +65,30 @@ def _tiles(x, n):
     return x.reshape(*x.shape[:-2], -1, n, x.shape[-1])
 
 
+#: how fp32's backward kernels walk, by head dim: at 64 (wgmma) S and dP
+#: are formed over all of D and each KV head's dK / dV is summed along
+#: one walk over the group's heads; at 128 and 160 (mma.sync) S and dP
+#: are two halves of D added, and each query head's dK / dV is walked on
+#: its own and the group's heads summed after, in order
+WALKS = {64: dict(halves=1, per_head=False),
+         128: dict(halves=2, per_head=True),
+         160: dict(halves=2, per_head=True)}
+
+
 def split_tf32_backward(q, k, v, o, lse, do, segment_ids, *, mode="causal",
                         window=None, span_ids=None, kv_segment_ids=None,
-                        kv_span_ids=None, kv_offset=0, lo=PRODUCTS):
-    """(dq, dk, dv) as the two kernels form them, fp32: q, o, do [B, Sq,
-    H, D], k, v [B, Sk, Hkv, D], lse [B, H, Sq]. `lo`: the products that
-    keep their lo terms (the others run in plain TF32)."""
+                        kv_span_ids=None, kv_offset=0, lo=(PRODUCTS,),
+                        rows=ROWS, step=STEP):
+    """[(dq, dk, dv)] as the kernels at q's head dim (WALKS) form them,
+    fp32, one for each entry of `lo`: the products that keep their lo
+    terms (the others run in plain TF32). q, o, do [B, Sq, H, D], k, v
+    [B, Sk, Hkv, D], lse [B, H, Sq]; `rows` the rows a block owns (keys
+    for dK / dV, queries for dQ), `step` the rows of a walked tile. The
+    entries share every product they form alike."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
+    halves, per_head = WALKS[D]["halves"], WALKS[D]["per_head"]
     scale = 1.0 / math.sqrt(D)
     sl2 = scale * LOG2E
     tabs = _tables(q, k, segment_ids, span_ids, kv_segment_ids,
@@ -85,60 +100,101 @@ def split_tf32_backward(q, k, v, o, lse, do, segment_ids, *, mode="causal",
     live = valid[:, None] & torch.isfinite(lse2)[..., None]  # [B,H,Sq,Sk]
     qh, doh = (x.float().permute(0, 2, 1, 3) for x in (q, do))  # [B,H,S,D]
     kh, vh = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # [B,Hkv,S,D]
-    nq, nk = -(-Sq // STEP), -(-Sk // ROWS)
+    nq = -(-Sq // step)
+    flags = [{p: p in one for p in PRODUCTS} for one in lo]
+    cols = [slice(i * D // halves, (i + 1) * D // halves)
+            for i in range(halves)]
+
+    def first(a, w, use_lo):
+        """a w^T over D, the halves' products added"""
+        out = None
+        for c in cols:
+            part = split_product(a[..., c], w[..., c].transpose(-1, -2),
+                                 use_lo)
+            out = part if out is None else out + part
+        return out
 
     def weights(s, dp, rows_live, lse_t, delta_t):
         p = torch.where(rows_live, torch.exp2(s * sl2 - lse_t.nan_to_num(
             neginf=0.0)), 0.0)
         return p, p * (dp - delta_t) * scale
 
-    # dK / dV: each 64-key tile over the query tiles of 32 of every head
-    # of its group, in order
-    kt, vt = _tiles(kh, ROWS), _tiles(vh, ROWS)      # [B, Hkv, nk, 64, D]
-    live_t = _tiles(live.transpose(-1, -2).float(), ROWS).bool()
-    # live_t: [B, H, nk, 64 keys, Sq]
-    dk = torch.zeros_like(kt)
-    dv = torch.zeros_like(vt)
+    def once(memo, key, fn):
+        if key not in memo:
+            memo[key] = fn()
+        return memo[key]
+
+    # dK / dV: each `rows`-key tile over the query tiles of each head of
+    # its group, in order
+    kt, vt = _tiles(kh, rows), _tiles(vh, rows)      # [B, Hkv, nk, rows, D]
+    nk = kt.shape[2]
+    live_t = _tiles(live.transpose(-1, -2).float(), rows).bool()
+    # live_t: [B, H, nk, rows keys, Sq]
+    dk = [torch.zeros_like(kt) for _ in lo]
+    dv = [torch.zeros_like(vt) for _ in lo]
     for hh in range(G):
         heads = slice(hh, H, G)                       # head hk * G + hh
+        dkh = [torch.zeros_like(kt) for _ in lo] if per_head else dk
+        dvh = [torch.zeros_like(vt) for _ in lo] if per_head else dv
         for i in range(nq):
-            q0, q1 = i * STEP, min((i + 1) * STEP, Sq)
-            qs = _tiles(qh[:, heads, q0:q1], STEP)[:, :, None, 0]
-            ds = _tiles(doh[:, heads, q0:q1], STEP)[:, :, None, 0]
-            rows = torch.zeros(B, Hkv, nk, ROWS, STEP, dtype=torch.bool)
-            rows[..., :q1 - q0] = live_t[:, heads, :, :, q0:q1]
-            pad = STEP - (q1 - q0)
+            q0, q1 = i * step, min((i + 1) * step, Sq)
+            qs = _tiles(qh[:, heads, q0:q1], step)[:, :, None, 0]
+            ds = _tiles(doh[:, heads, q0:q1], step)[:, :, None, 0]
+            rows_live = torch.zeros(B, Hkv, nk, rows, step,
+                                    dtype=torch.bool)
+            rows_live[..., :q1 - q0] = live_t[:, heads, :, :, q0:q1]
+            pad = step - (q1 - q0)
             lse_t = torch.nn.functional.pad(lse2[:, heads, q0:q1], (0, pad))
             del_t = torch.nn.functional.pad(delta[:, heads, q0:q1], (0, pad))
-            s = split_product(kt, qs.transpose(-1, -2), "s" in lo)
-            dp = split_product(vt, ds.transpose(-1, -2), "dp" in lo)
-            p, dst = weights(s, dp, rows, lse_t[:, :, None, None],
-                             del_t[:, :, None, None])
-            dv = dv + split_product(p, ds, "dv" in lo)
-            dk = dk + split_product(dst, qs, "dk" in lo)
+            memo = {}
+            for n, f in enumerate(flags):
+                s = once(memo, ("s", f["s"]),
+                         lambda: first(kt, qs, f["s"]))
+                dp = once(memo, ("dp", f["dp"]),
+                          lambda: first(vt, ds, f["dp"]))
+                p, dst = once(memo, ("w", f["s"], f["dp"]), lambda: weights(
+                    s, dp, rows_live, lse_t[:, :, None, None],
+                    del_t[:, :, None, None]))
+                dvh[n] = dvh[n] + once(
+                    memo, ("dv", f["s"], f["dv"]),
+                    lambda: split_product(p, ds, f["dv"]))
+                dkh[n] = dkh[n] + once(
+                    memo, ("dk", f["s"], f["dp"], f["dk"]),
+                    lambda: split_product(dst, qs, f["dk"]))
+        if per_head:
+            # the group's heads summed in order after the walks
+            for n in range(len(lo)):
+                dk[n] = dkh[n] if hh == 0 else dk[n] + dkh[n]
+                dv[n] = dvh[n] if hh == 0 else dv[n] + dvh[n]
 
-    # dQ: each 64-query tile over the key tiles of 32, in order
-    qt, dot = _tiles(qh, ROWS), _tiles(doh, ROWS)    # [B, H, nqr, 64, D]
+    # dQ: each `rows`-query tile over the key tiles of `step`, in order
+    qt, dot = _tiles(qh, rows), _tiles(doh, rows)    # [B, H, nqr, rows, D]
     nqr = qt.shape[2]
-    live_q = _tiles(live.float(), ROWS).bool()       # [B, H, nqr, 64, Sk]
-    lse_q = _tiles(lse2[..., None], ROWS)[..., 0]    # [B, H, nqr, 64]
-    del_q = _tiles(delta[..., None], ROWS)[..., 0]
-    dq = torch.zeros_like(qt)
+    live_q = _tiles(live.float(), rows).bool()       # [B, H, nqr, rows, Sk]
+    lse_q = _tiles(lse2[..., None], rows)[..., 0]    # [B, H, nqr, rows]
+    del_q = _tiles(delta[..., None], rows)[..., 0]
+    dq = [torch.zeros_like(qt) for _ in lo]
     kg, vg = (x.repeat_interleave(G, 1) for x in (kh, vh))   # [B, H, Sk, D]
-    for j in range((Sk + STEP - 1) // STEP):
-        j0, j1 = j * STEP, min((j + 1) * STEP, Sk)
-        ks = _tiles(kg[:, :, j0:j1], STEP)[:, :, None, 0]
-        vs = _tiles(vg[:, :, j0:j1], STEP)[:, :, None, 0]
-        rows = torch.zeros(B, H, nqr, ROWS, STEP, dtype=torch.bool)
-        rows[..., :j1 - j0] = live_q[..., j0:j1]
-        s = split_product(qt, ks.transpose(-1, -2), "s" in lo)
-        dp = split_product(dot, vs.transpose(-1, -2), "dp" in lo)
-        _, dsq = weights(s, dp, rows, lse_q[..., None], del_q[..., None])
-        dq = dq + split_product(dsq, ks, "dq" in lo)
+    for j in range((Sk + step - 1) // step):
+        j0, j1 = j * step, min((j + 1) * step, Sk)
+        ks = _tiles(kg[:, :, j0:j1], step)[:, :, None, 0]
+        vs = _tiles(vg[:, :, j0:j1], step)[:, :, None, 0]
+        rows_live = torch.zeros(B, H, nqr, rows, step, dtype=torch.bool)
+        rows_live[..., :j1 - j0] = live_q[..., j0:j1]
+        memo = {}
+        for n, f in enumerate(flags):
+            s = once(memo, ("s", f["s"]), lambda: first(qt, ks, f["s"]))
+            dp = once(memo, ("dp", f["dp"]), lambda: first(dot, vs, f["dp"]))
+            _, dsq = once(memo, ("w", f["s"], f["dp"]), lambda: weights(
+                s, dp, rows_live, lse_q[..., None], del_q[..., None]))
+            dq[n] = dq[n] + once(
+                memo, ("dq", f["s"], f["dp"], f["dq"]),
+                lambda: split_product(dsq, ks, f["dq"]))
 
     def untile(x, S):
         return x.reshape(*x.shape[:2], -1, D)[:, :, :S].permute(0, 2, 1, 3)
-    return untile(dq, Sq), untile(dk, Sk), untile(dv, Sk)
+    return [(untile(a, Sq), untile(b, Sk), untile(c, Sk))
+            for a, b, c in zip(dq, dk, dv)]
 
 
 def _inputs(B, Sq, Sk, H, Hkv, D, seed):
@@ -166,10 +222,12 @@ CASES = {
     "ring_hop_gqa": (1, 160, 160, 4, 2, "causal", None, [70, 55, 30], 8,
                      True),
 }
-D = 64   # the head dim the kernels are built for
+#: the head dims the fp32 backward kernels are built for: 64 (wgmma), 128
+#: and 160 (mma.sync)
+HEAD_DIMS = (64, 128, 160)
 
 
-def _case(name):
+def _case(name, D):
     B, Sq, Sk, H, Hkv, mode, window, lens, frame, hop = CASES[name]
     q, k, v, do = _inputs(B, Sq, Sk, H, Hkv, D, 300 + len(name))
     kw = dict(mode=mode, window=window)
@@ -191,15 +249,17 @@ def _case(name):
     return q, k, v, do, _t(seg), kw
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
-def test_split_walk_matches_plain_and_jax_grad(name):
-    """The kernels' walks against the port's plain backward (every
-    case), and against jax.grad of `attn_reference` for the output
+@pytest.mark.parametrize("name,D", [
+    pytest.param(name, D, id=name if D == 64 else f"{name}-D{D}")
+    for D in HEAD_DIMS for name in sorted(CASES)])
+def test_split_walk_matches_plain_and_jax_grad(name, D):
+    """The kernels' walks at head_dim D against the port's plain backward
+    (every case), and against jax.grad of `attn_reference` for the output
     gradient dO (the cases without a ring hop's own key tables, which it
     does not take), 1e-5."""
-    q, k, v, do, seg, kw = _case(name)
+    q, k, v, do, seg, kw = _case(name, D)
     o, lse = flash_attention_packed_ref(q, k, v, seg, **kw)
-    got = split_tf32_backward(q, k, v, o, lse, do, seg, **kw)
+    got, = split_tf32_backward(q, k, v, o, lse, do, seg, **kw)
     want = flash_attention_packed_bwd_ref(q, k, v, o, lse, do, seg, **kw)
     for g, w in zip(got, want):
         assert _scaled(g, w) <= 1e-5
@@ -223,66 +283,152 @@ def test_split_walk_matches_plain_and_jax_grad(name):
         assert _scaled(g, w) <= 1e-5
 
 
-@pytest.fixture(scope="module")
-def whisper_encoder():
-    """whisper-small's encoder attention, 1 x 1500 frames, 12:12 heads of
-    64, full: inputs, the plain forward's o and LSE, the plain
-    backward."""
-    q, k, v, do = _inputs(1, 1500, 1500, 12, 12, D, 90)
-    seg = torch.zeros(1, 1500, dtype=torch.int32)
-    o, lse = flash_attention_packed_ref(q, k, v, seg, mode="full")
-    want = flash_attention_packed_bwd_ref(q, k, v, o, lse, do, seg,
-                                          mode="full")
-    return (q, k, v, o, lse, do, seg), want
+#: the limit shapes: (B, S, H, Hkv, D, mode, seed), one segment a row;
+#: whisper-small's encoder attention (1 x 1500 frames, 12:12 heads of 64,
+#: full) and a causal row of 1024 at 4:2 heads of 128
+LIMIT_SHAPES = {"whisper_encoder": (1, 1500, 12, 12, 64, "full", 90),
+                "causal1024_d128": (1, 1024, 4, 2, 128, "causal", 90)}
+#: what each limit shape's walk keeps its lo terms in: every product
+#: (split TF32), none (plain TF32), every product but dK's
+LIMIT_LO = (PRODUCTS, (), tuple(p for p in PRODUCTS if p != "dk"))
 
 
-def _err(args, want, lo):
-    got = split_tf32_backward(*args, mode="full", lo=lo)
-    return {n: _scaled(g, w) for n, g, w in zip(("dq", "dk", "dv"), got,
-                                                 want)}
+@pytest.fixture(scope="module", params=sorted(LIMIT_SHAPES))
+def limit_walks(request):
+    """A limit shape's inputs through the plain forward and backward and
+    through the kernels' walk with the lo terms of LIMIT_LO, one walk
+    forming what the three have in common once; torch on one thread
+    (restored after): the suite's workers share the machine's cores, and
+    a walk of many small products slows down most when every worker's
+    threads contend for them. -> (shape name, {lo: (dq, dk, dv) errors
+    against the plain backward})."""
+    B, S, H, Hkv, D, mode, seed = LIMIT_SHAPES[request.param]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        q, k, v, do = _inputs(B, S, S, H, Hkv, D, seed)
+        seg = torch.zeros(B, S, dtype=torch.int32)
+        o, lse = flash_attention_packed_ref(q, k, v, seg, mode=mode)
+        want = flash_attention_packed_bwd_ref(q, k, v, o, lse, do, seg,
+                                              mode=mode)
+        walks = split_tf32_backward(q, k, v, o, lse, do, seg, mode=mode,
+                                    lo=LIMIT_LO)
+    finally:
+        torch.set_num_threads(n)
+    return request.param, {
+        lo: {n: _scaled(g, w) for n, g, w in zip(("dq", "dk", "dv"), got,
+                                                   want)}
+        for lo, got in zip(LIMIT_LO, walks)}
 
 
-def test_split_walk_holds_the_limit_at_whisper_encoder(whisper_encoder):
-    """At whisper-small's encoder shape the split walk lies far within
-    1e-4 of the plain fp32 backward; the same walk in plain TF32 (every
-    lo term dropped) lies beyond it."""
-    args, want = whisper_encoder
-    split = _err(args, want, PRODUCTS)
-    plain = _err(args, want, ())
-    print(f"split TF32 {split}, plain TF32 {plain}")
+def test_split_walk_holds_the_limit_at_whisper_encoder(limit_walks):
+    """At whisper-small's encoder shape (D = 64) and at a causal 1024 row
+    of 4:2 heads of 128, the split walk lies far within 1e-4 of the
+    plain fp32 backward; the same walk in plain TF32 (every lo term
+    dropped) lies beyond it."""
+    name, err = limit_walks
+    split, plain = err[PRODUCTS], err[()]
+    print(f"{name}: split TF32 {split}, plain TF32 {plain}")
     assert max(split.values()) <= TOL_F32 / 10
     assert max(plain.values()) > TOL_F32
 
 
-def test_dk_product_alone_in_plain_tf32_misses_the_limit(whisper_encoder):
+def test_dk_product_alone_in_plain_tf32_misses_the_limit(limit_walks):
     """dK += dS^T Q with its lo terms dropped and every other product
-    split (the fault k1_fault_check.py plants as f32_lo_dropped) misses
-    1e-4 in dk at whisper-small's encoder shape, and moves nothing
-    else."""
-    args, want = whisper_encoder
-    err = _err(args, want, tuple(p for p in PRODUCTS if p != "dk"))
-    print(f"dK's product in plain TF32: {err}")
+    split (the fault k1_fault_check.py plants as f32_lo_dropped at D =
+    64 and f32_mma_dk_lo_dropped at 128 / 160) misses 1e-4 in dk at both
+    limit shapes, and moves nothing else."""
+    name, err = limit_walks
+    err = err[LIMIT_LO[2]]
+    print(f"{name}: dK's product in plain TF32: {err}")
     assert err["dk"] > TOL_F32
     assert err["dq"] <= TOL_F32 / 10 and err["dv"] <= TOL_F32 / 10
 
 
-#: the rows of a walked tile: the backward's (32), the forward's (64 keys)
+#: the rows of a walked tile at D = 64 (wgmma): the backward's (32), the
+#: forward's (64 keys)
 TILE_ROWS = (STEP, 64)
+#: the layouts each fp32 design relies on: (route, walked rows, head dim)
+LAYOUTS = [pytest.param("wgmma", rows, 64, id=str(rows))
+           for rows in TILE_ROWS] + [
+    pytest.param("mma", STEP, D, id=f"mma-{D}") for D in (128, 160)]
 
 
-@pytest.mark.parametrize("rows", TILE_ROWS)
-def test_accumulator_operand_meets_transposed_rows_in_kap_order(rows):
+def _fw(D, r, c):
+    """`fw<D>(r, c)`: the word of (row r, column c) in a tile of rows of
+    D words, columns XORed with 4 (r % 8) within their 32-word group."""
+    return r * D + (c ^ ((r & 7) << 2))
+
+
+def _mma(a, b):
+    """One warp's mma.sync.m16n8k8 from its fragments: lane 4 g + t holds
+    a[l] = A's (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) and b[l] =
+    B's (t, g), (t + 4, g); returns each lane's (g, 2t), (g, 2t + 1),
+    (g + 8, 2t), (g + 8, 2t + 1) of A B (float64)."""
+    A, Bm = np.zeros((16, 8)), np.zeros((8, 8))
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a[lane]
+        Bm[t, g], Bm[t + 4, g] = b[lane]
+    C = A @ Bm
+    return np.array([[C[lane >> 2, 2 * (lane & 3)],
+                      C[lane >> 2, 2 * (lane & 3) + 1],
+                      C[(lane >> 2) + 8, 2 * (lane & 3)],
+                      C[(lane >> 2) + 8, 2 * (lane & 3) + 1]]
+                     for lane in range(32)])
+
+
+def _accumulator_product_mma(P, W, D):
+    """acc += P W over a walked tile as second_product forms it: P [16 x
+    rows] a warp's accumulator (lane g, t: rows g, g + 8, columns 8 n + 2t
+    (+1)), its A operand of k-step kk {s[kk][0], s[kk][2], s[kk][1],
+    s[kk][3]}, B read from the walked tile W ([rows][D], swizzled) at
+    rows 8 kk + 2t and 8 kk + 2t + 1, column 8 nd + g."""
+    rows = P.shape[1]
+    flat = np.zeros(rows * D)
+    for r in range(rows):
+        for c in range(D):
+            flat[_fw(D, r, c)] = W[r, c]
+    out = np.zeros((16, D))
+    for nd in range(D // 8):
+        f = np.zeros((32, 4))
+        for kk in range(rows // 8):
+            a, b = [], []
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                s = [P[g + 8 * (e >> 1), 8 * kk + 2 * t + (e & 1)]
+                     for e in range(4)]
+                a.append((s[0], s[2], s[1], s[3]))
+                b.append((flat[_fw(D, 8 * kk + 2 * t, 8 * nd + g)],
+                          flat[_fw(D, 8 * kk + 2 * t + 1, 8 * nd + g)]))
+            f += _mma(a, b)
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for e in range(4):
+                out[g + 8 * (e >> 1), 8 * nd + 2 * t + (e & 1)] = f[lane, e]
+    return out
+
+
+@pytest.mark.parametrize("route,rows,D", LAYOUTS)
+def test_accumulator_operand_meets_transposed_rows_in_kap_order(route, rows,
+                                                                D):
     """One warp's 16 rows of an accumulator over a walked tile of `rows`
-    (P^T over 32 queries in the backward, P over 64 keys in the
-    forward), as the kernels lay them out. The accumulator gives lane l
-    = 4 g + t the values at rows g, g + 8 and columns 8 n + 2 t (+1); its
-    A operand of k-step kk (split_acc) is {s[kk][0], s[kk][2], s[kk][1],
-    s[kk][3]} at (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4);
-    the transposed tile holds walked row r at column kap(r). The
+    (P^T over 32 queries in the backward, P over 64 keys in the forward),
+    as the kernels lay them out. The accumulator gives lane l = 4 g + t
+    the values at rows g, g + 8 and columns 8 n + 2 t (+1); its A operand
+    of k-step kk (split_acc) is {s[kk][0], s[kk][2], s[kk][1], s[kk][3]}
+    at (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4). wgmma (D =
+    64): the transposed tile holds walked row r at column kap(r). mma.sync
+    (D = 128, 160): B's (t, g) and (t + 4, g) are read from the walked
+    tile's rows 8 kk + 2t and 8 kk + 2t + 1 as it lies (swizzled). The
     products over those operands are P^T dO (P V), to the bit."""
     rng = np.random.default_rng(6)
     P = rng.integers(-8, 8, (16, rows)).astype(np.float64)
     dO = rng.integers(-8, 8, (rows, D)).astype(np.float64)
+    if route == "mma":
+        np.testing.assert_array_equal(_accumulator_product_mma(P, dO, D),
+                                      P @ dO)
+        return
     assert sorted(kap(r) for r in range(rows)) == list(range(rows))
     dOt = np.zeros((D, rows))
     for r in range(rows):
@@ -301,13 +447,43 @@ def test_accumulator_operand_meets_transposed_rows_in_kap_order(rows):
     np.testing.assert_array_equal(out, P @ dO)
 
 
-@pytest.mark.parametrize("rows", TILE_ROWS)
-def test_transposed_stores_cover_the_tile_without_bank_conflicts(rows):
-    """split_step's transposed stores: element (walked row r, column d) of
-    a [rows][64] tile goes to sw128<64>(d, kap(r) / 4) + (kap(r) % 4) * 4
-    of the [64][rows] tile: every word once; a warp (32 consecutive rows,
-    one 16-byte column c, one of its 4 elements) in 32 banks. Its loads,
-    16 bytes of 32 rows of the landed tile, cover 32 distinct chunks."""
+@pytest.mark.parametrize("route,rows,D", LAYOUTS)
+def test_transposed_stores_cover_the_tile_without_bank_conflicts(route, rows,
+                                                                 D):
+    """wgmma (D = 64): split_step's transposed stores: element (walked row
+    r, column d) of a [rows][64] tile goes to sw128<64>(d, kap(r) / 4) +
+    (kap(r) % 4) * 4 of the [64][rows] tile: every word once; a warp (32
+    consecutive rows, one 16-byte column c, one of its 4 elements) in 32
+    banks. Its loads, 16 bytes of 32 rows of the landed tile, cover 32
+    distinct chunks. mma.sync (D = 128, 160): the tiles are stored once,
+    as they land, word c of row r at fw(r, c): every word once, each
+    16-byte copy to 16 contiguous bytes; the fragment loads of the first
+    products (rows 8 n + g, words 8 kk + t (+4) from either half's first
+    column) and of the second (rows 8 kk + 2t (+1), word 8 nd + g) each
+    in 32 banks."""
+    if route == "mma":
+        words = {(r, c): _fw(D, r, c) for r in range(rows) for c in range(D)}
+        assert sorted(words.values()) == list(range(rows * D))
+        for r in range(rows):
+            for c4 in range(D // 4):
+                at = [words[r, 4 * c4 + e] for e in range(4)]
+                assert at[0] % 4 == 0 and at == list(range(at[0], at[0] + 4))
+        for c0 in (0, D // 2):
+            for kk in range(D // 16):
+                for n in range(rows // 8):
+                    for plus in (0, 4):
+                        banks = {words[8 * n + (lane >> 2),
+                                       c0 + 8 * kk + (lane & 3) + plus] % 32
+                                 for lane in range(32)}
+                        assert len(banks) == 32, (c0, kk, n, plus)
+            for nd in range(D // 16):
+                for kk in range(rows // 8):
+                    for e in (0, 1):
+                        banks = {words[8 * kk + 2 * (lane & 3) + e,
+                                       c0 + 8 * nd + (lane >> 2)] % 32
+                                 for lane in range(32)}
+                        assert len(banks) == 32, (c0, nd, kk, e)
+        return
     addr = {}
     for r in range(rows):
         for d in range(D):
@@ -321,3 +497,67 @@ def test_transposed_stores_cover_the_tile_without_bank_conflicts(rows):
             for e in range(4):
                 banks = {addr[r, 4 * c + e] // 4 % 32 for r in warp}
                 assert len(banks) == 32
+
+
+@pytest.mark.parametrize("D", (128, 160))
+def test_mma_first_products_split_at_load_match_split_product(D):
+    """One warp's first products as first_products and add_halves form
+    them at head_dim D: A's rows g, g + 8 and B's rows 8 n + g read from
+    the swizzled tiles at words 8 kk + t (+4) of each half of D, every
+    word split as it loads (hi = tf32(x), lo = tf32(x - hi)), lo hi' + hi
+    lo' + hi hi' per k-step, the halves' partials added: equal to
+    split_product over the two halves (float64 sums of the same TF32
+    products), and within 2^-21 relative of the exact product."""
+    rng = np.random.default_rng(7)
+    F = rng.standard_normal((16, D)).astype(np.float32)
+    W = rng.standard_normal((STEP, D)).astype(np.float32)
+    hi = {n: tf32(torch.from_numpy(x)).numpy() for n, x in (("F", F),
+                                                            ("W", W))}
+    lo = {n: tf32(torch.from_numpy(x - hi[n])).numpy() for n, x in (
+        ("F", F), ("W", W))}
+    fl = {}
+    for n, x in (("F", F), ("W", W)):
+        for part, y in (("hi", hi[n]), ("lo", lo[n])):
+            flat = np.zeros(x.shape[0] * D)
+            for r in range(x.shape[0]):
+                for c in range(D):
+                    flat[_fw(D, r, c)] = y[r, c]
+            fl[n, part] = flat
+    out = np.zeros((16, STEP))
+    for c0 in (0, D // 2):
+        part = np.zeros((32, STEP // 8, 4))
+        for kk in range(D // 16):
+            def frag_a(which, lane):
+                g, t = lane >> 2, lane & 3
+                c = c0 + 8 * kk + t
+                return tuple(fl["F", which][_fw(D, r, cc)] for r, cc in (
+                    (g, c), (g + 8, c), (g, c + 4), (g + 8, c + 4)))
+            for n in range(STEP // 8):
+                def frag_b(which, lane):
+                    g, t = lane >> 2, lane & 3
+                    c = c0 + 8 * kk + t
+                    return (fl["W", which][_fw(D, 8 * n + g, c)],
+                            fl["W", which][_fw(D, 8 * n + g, c + 4)])
+                for wa, wb in (("lo", "hi"), ("hi", "lo"), ("hi", "hi")):
+                    part[:, n] += _mma([frag_a(wa, ln) for ln in range(32)],
+                                       [frag_b(wb, ln) for ln in range(32)])
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for n in range(STEP // 8):
+                for e in range(4):
+                    out[g + 8 * (e >> 1), 8 * n + 2 * t + (e & 1)] += \
+                        part[lane, n, e]
+    h64 = {n: x.astype(np.float64) for n, x in hi.items()}
+    l64 = {n: x.astype(np.float64) for n, x in lo.items()}
+    want = sum(l64["F"][:, c] @ h64["W"][:, c].T + h64["F"][:, c]
+               @ l64["W"][:, c].T + h64["F"][:, c] @ h64["W"][:, c].T
+               for c in (slice(0, D // 2), slice(D // 2, D)))
+    np.testing.assert_allclose(out, want, rtol=0, atol=1e-12)
+    # the replay's split_product (fp32 sums) agrees to fp32 rounding
+    size = (np.abs(F).astype(np.float64) @ np.abs(W.T)).max()
+    got = sum(split_product(torch.from_numpy(F[:, c]),
+                            torch.from_numpy(W[:, c].T.copy()))
+              for c in (slice(0, D // 2), slice(D // 2, D))).numpy()
+    assert np.abs(got - want).max() <= 2.0 ** -20 * size
+    exact = F.astype(np.float64) @ W.T.astype(np.float64)
+    assert np.abs(out - exact).max() <= 2.0 ** -21 * size

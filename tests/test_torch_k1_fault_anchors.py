@@ -10,6 +10,7 @@ catch that here, without a card, for every shape the script checks.
 import importlib.util
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -112,8 +113,8 @@ def test_fp32_cases_run_at_whisper_heads_and_gqa():
     cross-attention's 448 over 1500 frames, causal with spans, sliding,
     GQA at 12:2 and a ring hop at 12:2 with its own key tables and a
     kv_offset; every fault planted there is an `f32_*` fault, held to
-    fp32's elementwise 1e-4, and the other shapes' to bf16's whole-tensor
-    2e-2."""
+    fp32's elementwise 1e-4, as are the fp32 shapes' at head_dim 128 and
+    160; the bf16 shapes' to bf16's whole-tensor 2e-2."""
     from repro_torch.configs import get_config
     cfg = get_config("whisper-small")
     shape = K1.SHAPES["whisper"]
@@ -137,28 +138,99 @@ def test_fp32_cases_run_at_whisper_heads_and_gqa():
     fwd = [f for f in faults if f.startswith("f32_fwd_")]
     assert (len(faults) - len(fwd), len(fwd)) == (7, 6)
     assert K1.limit("whisper") == ("elementwise", 1e-4)
-    assert {K1.limit(s) for s in K1.SHAPES if s != "whisper"} == {
+    f32 = {s for s in K1.SHAPES if K1.SHAPES[s]["dtype"] == "float32"}
+    assert f32 == {"whisper", "internvl_f32", "pixtral_f32"}
+    assert {K1.limit(s) for s in f32} == {("elementwise", 1e-4)}
+    assert {K1.limit(s) for s in K1.SHAPES if s not in f32} == {
         ("whole", 2e-2)}
 
 
-def test_fp32_faults_sit_in_the_split_tf32_backward():
-    """Every backward `f32_*` fault's text lies in the split-TF32
-    backward: its section of the source (the two kernels and their
-    helpers) or its launch, never in the CUDA-core kernel that head dims
-    128 and 160 still run."""
-    start = SOURCE.index("// Backward, fp32, D = 64: split TF32")
+def _mma_section():
+    """[start, end) of the mma.sync backward's section (head dims 128 and
+    160) in SOURCE, and of its launch."""
+    start = SOURCE.index("// Backward, fp32, D = 128 and 160: split TF32")
     end = SOURCE.index("// Forward, fp32, D = 64: split TF32")
+    launch = SOURCE.index("    // split TF32 by mma.sync: each query head's")
+    launch_end = SOURCE.index("Params make_params(")
+    return (start, end), (launch, launch_end)
+
+
+def test_fp32_faults_sit_in_the_split_tf32_backward():
+    """Every backward `f32_*` fault of the whisper shape lies in the
+    split-TF32 backward at head_dim 64: its section of the source (the two
+    kernels and their helpers) or its launch, never in the mma.sync
+    backward that head dims 128 and 160 run; the CUDA-core backward is
+    gone from the source."""
+    start = SOURCE.index("// Backward, fp32, D = 64: split TF32")
+    (end, _), (mma_launch, _) = _mma_section()
     launch = SOURCE.index("  } else if constexpr (D == T_D) {\n"
                           "    // split TF32: dK and dV")
-    launch_end = SOURCE.index("    constexpr size_t smem = bwd_f32_smem<D>();")
-    cc = SOURCE.index("packed_bwd_f32_cc_kernel(const float*")
-    assert cc < start < end
+    launch_end = mma_launch
+    assert "packed_bwd_f32_cc_kernel" not in SOURCE
+    assert "bwd_f32_smem" not in SOURCE
+    assert start < end and launch < launch_end
     for fault, (_, _, edits) in K1.FAULTS["whisper"].items():
         if fault.startswith("f32_fwd_"):
             continue
         for text, _ in edits:
             at = SOURCE.index(text)
             assert start < at < end or launch < at < launch_end, fault
+
+
+def test_fp32_mma_faults_sit_in_the_mma_backward():
+    """The fp32 shapes at head_dim 128 and 160 plant F32_MMA_FAULTS: each
+    `f32_mma_*` fault's text lies in the mma.sync backward's section; the
+    group sum's fault in bwd_kv_reduce_kernel, the sum both the bf16 and
+    this backward launch. The four the design must catch are there: dK's
+    product with its lo terms dropped, a walked tile skipped, the group
+    sum missing a head, dQ dropping a key tile; each shows in a gradient
+    (the forward is not this design's)."""
+    (start, end), _ = _mma_section()
+    assert K1.FAULTS["internvl_f32"] == K1.FAULTS["pixtral_f32"] == \
+        K1.F32_MMA_FAULTS
+    faults = K1.F32_MMA_FAULTS
+    assert {"f32_mma_dk_lo_dropped", "f32_mma_walked_tile_skipped",
+            "reduction_drops_a_head", "f32_mma_dq_drops_key_tile"} <= set(
+                faults)
+    reduce = SOURCE.index("__global__ void bwd_kv_reduce_kernel(")
+    for fault, (shows, _, edits) in faults.items():
+        if fault == "sound":
+            continue
+        assert shows and set(shows) <= {"dq", "dk", "dv"}, fault
+        for text, _ in edits:
+            at = SOURCE.index(text)
+            if fault.startswith("f32_mma_"):
+                assert start < at < end, fault
+            else:
+                assert fault == "reduction_drops_a_head"
+                assert reduce < at < SOURCE.index("// Forward, bf16", reduce)
+
+
+def test_fp32_mma_shapes_are_the_configs_heads():
+    """internvl_f32 and pixtral_f32 are internvl3-2b's and pixtral-12b's
+    attention heads (12:2 of 128, 32:8 of 160) in fp32; every case runs
+    the shape's grouped heads (the group sum shows in each), the ring hop
+    its own key tables at a kv_offset, the cross case Sq != Sk; each is
+    timed on the row chip_smoke.py checks (phase 7's 1024-token full row,
+    phase 27's 4096-token causal row with frames)."""
+    from repro_torch.configs import get_config
+    for shape, arch in (("internvl_f32", "internvl3-2b"),
+                        ("pixtral_f32", "pixtral-12b")):
+        cfg, s = get_config(arch), K1.SHAPES[shape]
+        assert (s["H"], s["HKV"], s["D"]) == (
+            cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim), shape
+        assert s["dtype"] == "float32" and s["vocab"] == cfg.vocab
+        cases = {c[0]: c for c in K1.cases(shape)}
+        assert all(c[6].get("HKV", s["HKV"]) < s["H"]
+                   for c in cases.values())
+        hop, cross = cases["hop512"], cases["cross300x1024"]
+        assert hop[6]["off"] == -512 and hop[6]["kseg"].shape == (512,)
+        assert np.shape(cross[2])[-1] != cross[6]["Sk"]
+        assert {"full", "causal", "sliding"} <= {c[4] for c in
+                                                 cases.values()}
+    assert K1.F32_ROWS == {
+        "internvl_f32": (1024, [400, 300, 250], 128, "full"),
+        "pixtral_f32": (4096, [4096], 256, "causal")}
 
 
 def _forward_body():
